@@ -1,0 +1,342 @@
+"""Parallel ABC rejection sampling (paper §3), host wave loop (port).
+
+Counterpart of `repro.core.abc` for the "pallas" backend, whose port is the
+"cuda" backend here. Each wave:
+
+    theta  ~ prior                      [B, p]   counter-hash draws
+    dist   = fused kernel(theta)        [B]      simulate + summary distance
+    accept = dist <= tolerance
+    return samples to the host under a fixed-shape strategy:
+      - "outfeed": split the batch into chunks; only chunks holding an
+        accepted sample are copied to the host;
+      - "topk": the k lowest-distance samples per wave; the host filters.
+
+Wave i draws its prior seed and its simulation seed from (seed, i) as two
+distinct streams of the port's hash (`wave_seeds`), so any wave can be
+recomputed from the base seed and its index, and a run resumed from an
+`ABCState` gives the same accepted set as one left uninterrupted.
+
+The device-resident wave loop of `repro` waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import zipfile
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.posterior import Posterior
+from repro_torch.core.priors import UniformBoxPrior
+from repro_torch.core.summaries import SummarySpec, get_distance_kind, get_summary
+from repro_torch.device import resolve_device
+from repro_torch.epi.data import CountryData
+from repro_torch.epi.models import get_model
+from repro_torch.epi.spec import require_flat
+from repro_torch.ioutils import atomic_write
+from repro_torch.kernels import abc_sim, ops
+from repro_torch.kernels.rng import stream_seed
+
+#: hash streams of (seed, index): the waves' prior and simulation seeds,
+#: and the pilot waves' of `calibrate_tolerance`
+PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM = range(4)
+
+
+@dataclasses.dataclass(frozen=True)
+class ABCConfig:
+    """Configuration of a parallel ABC inference run."""
+
+    batch_size: int = 100_000  # simulations per wave
+    tolerance: float = 2e5
+    target_accepted: int = 100
+    strategy: str = "outfeed"  # "outfeed" | "topk"
+    chunk_size: int = 10_000  # outfeed chunk granularity (paper default)
+    top_k: int = 5  # samples returned per wave under "topk"
+    max_runs: int = 100_000
+    distance: str = "euclidean"
+    #: the one backend of this slice: the fused CUDA kernel on a CUDA
+    #: device, its plain PyTorch version on the CPU
+    backend: str = "cuda"
+    num_days: int = 49
+    #: registry name of the model to infer (repro_torch.epi.models)
+    model: str = "siard"
+    #: summary statistic compared by `distance`: a name, a SummarySpec or
+    #: None for the paper's raw daily series
+    summary: Optional[object] = None
+    #: CUDA block size in threads; distances do not depend on it
+    block: int = abc_sim.DEFAULT_BLOCK
+    #: intervention schedules arrive in a later slice; setting one raises
+    schedule: Optional[object] = None
+
+    def __post_init__(self):
+        if self.strategy not in ("outfeed", "topk"):
+            raise ValueError(f"unknown strategy {self.strategy!r}")
+        if self.strategy == "outfeed" and self.batch_size % self.chunk_size:
+            raise ValueError("batch_size must be a multiple of chunk_size")
+        if self.strategy == "topk" and not 0 < self.top_k <= self.batch_size:
+            raise ValueError(f"top_k must be in [1, batch_size], got {self.top_k}")
+        if self.backend != "cuda":
+            raise ValueError(
+                f"unknown backend {self.backend!r}; this slice of the port has "
+                "the 'cuda' backend only"
+            )
+        get_distance_kind(self.distance)
+        get_summary(self.summary)
+        abc_sim.check_block(self.block)
+        require_flat(get_model(self.model).n_regions, self.schedule)
+
+    @property
+    def num_chunks(self) -> int:
+        return self.batch_size // self.chunk_size
+
+    @property
+    def summary_spec(self) -> SummarySpec:
+        return get_summary(self.summary)
+
+
+class RunOutput(NamedTuple):
+    """Fixed-shape per-wave device outputs."""
+
+    theta: torch.Tensor  # outfeed: [n_chunks, chunk, p]; topk: [k, p]
+    dist: torch.Tensor  # outfeed: [n_chunks, chunk];    topk: [k]
+    chunk_flags: torch.Tensor  # outfeed: [n_chunks] bool;  topk: [0]
+
+
+SimulatorFn = Callable[[torch.Tensor, int], torch.Tensor]  # (theta, seed) -> dist
+
+
+def wave_seeds(seed: int, index: int) -> Tuple[int, int]:
+    """(prior seed, simulation seed) of wave `index` under base `seed`."""
+    return (stream_seed(seed, index, PRIOR_STREAM),
+            stream_seed(seed, index, SIM_STREAM))
+
+
+def make_simulator(dataset: CountryData, cfg: ABCConfig,
+                   device="cuda") -> SimulatorFn:
+    """The batched theta -> distance function on `device`."""
+    device = resolve_device(device)
+    spec = get_model(cfg.model)
+    if not dataset.compatible_with(spec):
+        raise ValueError(
+            f"dataset {dataset.name!r} holds {dataset.model!r} series; model "
+            f"{spec.name!r} observes different channels"
+        )
+    if dataset.num_days < cfg.num_days:
+        raise ValueError(
+            f"dataset {dataset.name!r} has {dataset.num_days} days; "
+            f"cfg.num_days is {cfg.num_days}"
+        )
+    observed = torch.as_tensor(
+        np.ascontiguousarray(dataset.observed[:, : cfg.num_days], np.float32),
+        device=device,
+    )
+    return ops.make_abc_sim(
+        observed, population=dataset.population, a0=dataset.a0,
+        r0=dataset.r0, d0=dataset.d0, model=spec, summary=cfg.summary_spec,
+        distance=cfg.distance, block=cfg.block,
+    )
+
+
+def abc_run_batch(
+    prior: UniformBoxPrior, simulator: SimulatorFn, cfg: ABCConfig, device="cuda"
+) -> Callable[[int, int], RunOutput]:
+    """One wave as a function of its (prior seed, simulation seed)."""
+    device = resolve_device(device)
+    p = prior.dim
+
+    def run(prior_seed: int, sim_seed: int) -> RunOutput:
+        theta = prior.sample(prior_seed, cfg.batch_size, device)  # [B, p]
+        dist = simulator(theta, sim_seed)
+        # failed (NaN) simulations never count as accepted
+        dist = torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
+        if cfg.strategy == "outfeed":
+            nc, cs = cfg.num_chunks, cfg.chunk_size
+            flags = (dist <= cfg.tolerance).reshape(nc, cs).any(dim=1)
+            return RunOutput(theta.reshape(nc, cs, p), dist.reshape(nc, cs), flags)
+        vals, idx = torch.topk(dist, cfg.top_k, largest=False, sorted=True)
+        return RunOutput(theta[idx], vals,
+                         torch.zeros((0,), dtype=torch.bool, device=device))
+
+    return run
+
+
+@dataclasses.dataclass
+class ABCState:
+    """Resumable sampler state: the same `.npz` fields as `repro`'s, so a
+    checkpoint written by either package resumes in the other."""
+
+    run_idx: int = 0
+    simulations: int = 0
+    accepted_theta: list = dataclasses.field(default_factory=list)
+    accepted_dist: list = dataclasses.field(default_factory=list)
+    #: parameter dimension; gives the empty-case arrays a concrete shape
+    n_params: Optional[int] = None
+
+    @property
+    def n_accepted(self) -> int:
+        return sum(int(t.shape[0]) for t in self.accepted_theta)
+
+    def to_arrays(self):
+        if not self.accepted_theta:
+            return (
+                np.zeros((0, self.n_params or 0), np.float32),
+                np.zeros((0,), np.float32),
+            )
+        return (
+            np.concatenate(self.accepted_theta, axis=0),
+            np.concatenate(self.accepted_dist, axis=0),
+        )
+
+    def save(self, path: str) -> None:
+        """Atomic save: an interrupted save never leaves a truncated file."""
+        th, d = self.to_arrays()
+        with atomic_write(path, "wb") as f:
+            np.savez(
+                f, run_idx=self.run_idx, simulations=self.simulations,
+                theta=th, dist=d,
+            )
+
+    _REQUIRED_KEYS = ("run_idx", "simulations", "theta", "dist")
+
+    @staticmethod
+    def load(path: str) -> "ABCState":
+        """Load a checkpoint; corrupt or partial files raise ValueError, a
+        missing file raises FileNotFoundError."""
+        try:
+            z = np.load(path, allow_pickle=False)
+            missing = [k for k in ABCState._REQUIRED_KEYS if k not in z.files]
+            if missing:
+                raise ValueError(f"missing arrays {missing}")
+            theta = np.asarray(z["theta"], np.float32)
+            dist = np.asarray(z["dist"], np.float32)
+            if theta.ndim != 2 or dist.shape != (theta.shape[0],):
+                raise ValueError(
+                    f"inconsistent shapes theta={theta.shape} dist={dist.shape}"
+                )
+            st = ABCState(
+                run_idx=int(z["run_idx"]),
+                simulations=int(z["simulations"]),
+                n_params=int(theta.shape[1]),
+            )
+        except FileNotFoundError:
+            raise
+        except (zipfile.BadZipFile, OSError, KeyError, ValueError) as e:
+            raise ValueError(
+                f"corrupt or incomplete ABC checkpoint {path!r} ({e}); it was "
+                "probably truncated by an interrupted save — delete it to "
+                "restart from scratch"
+            ) from e
+        if theta.shape[0]:
+            st.accepted_theta = [theta]
+            st.accepted_dist = [dist]
+        return st
+
+
+def _harvest(out: RunOutput, cfg: ABCConfig, state: ABCState) -> int:
+    """Copy what the strategy marked to the host, keep dist <= tolerance and
+    append it to the state. Returns the number harvested."""
+    n_new = 0
+    if cfg.strategy == "outfeed":
+        flags = out.chunk_flags.cpu().numpy()  # [n_chunks], a tiny copy
+        for ci in np.nonzero(flags)[0]:
+            d = out.dist[ci].cpu().numpy()  # one chunk's copy, as the outfeed
+            th = out.theta[ci].cpu().numpy()
+            m = d <= cfg.tolerance
+            if m.any():
+                state.accepted_theta.append(th[m])
+                state.accepted_dist.append(d[m])
+                n_new += int(m.sum())
+    else:
+        d = out.dist.cpu().numpy()
+        th = out.theta.cpu().numpy()
+        m = d <= cfg.tolerance
+        if m.any():
+            state.accepted_theta.append(th[m])
+            state.accepted_dist.append(d[m])
+            n_new += int(m.sum())
+        # as in the paper, samples beyond the k per wave are lost
+    return n_new
+
+
+def run_abc(
+    dataset: CountryData,
+    cfg: ABCConfig,
+    seed: int = 0,
+    prior: Optional[UniformBoxPrior] = None,
+    state: Optional[ABCState] = None,
+    checkpoint_every: int = 0,
+    checkpoint_path: Optional[str] = None,
+    verbose: bool = False,
+    device="cuda",
+) -> Posterior:
+    """Host wave loop: run waves until `target_accepted` posterior samples or
+    `max_runs` waves."""
+    device = resolve_device(device)
+    spec = get_model(cfg.model)
+    prior = prior or spec.prior()
+    state = state or ABCState()
+    if state.n_params is None:
+        state.n_params = prior.dim
+    elif state.n_params != prior.dim:
+        raise ValueError(
+            f"resumed state holds {state.n_params}-parameter samples but model "
+            f"{spec.name!r} has {prior.dim} parameters — wrong checkpoint?"
+        )
+    run = abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg, device)
+
+    t0 = time.time()
+    postproc_s = 0.0
+    while state.n_accepted < cfg.target_accepted and state.run_idx < cfg.max_runs:
+        out = run(*wave_seeds(seed, state.run_idx))
+        tp = time.time()
+        _harvest(out, cfg, state)  # its first copy waits for the wave
+        postproc_s += time.time() - tp
+        state.run_idx += 1
+        state.simulations += cfg.batch_size
+        if verbose and state.run_idx % 50 == 0:
+            print(
+                f"[abc] run {state.run_idx}: accepted {state.n_accepted}/"
+                f"{cfg.target_accepted}"
+            )
+        if checkpoint_every and checkpoint_path and state.run_idx % checkpoint_every == 0:
+            state.save(checkpoint_path)
+
+    theta, dist = state.to_arrays()
+    post = Posterior(
+        theta=theta,
+        distances=dist,
+        tolerance=cfg.tolerance,
+        param_names=spec.param_names,
+        runs=state.run_idx,
+        simulations=state.simulations,
+        wall_time_s=time.time() - t0,
+    )
+    post.postproc_time_s = postproc_s  # type: ignore[attr-defined]
+    return post
+
+
+def calibrate_tolerance(
+    dataset: CountryData,
+    cfg: ABCConfig,
+    seed: int = 0,
+    quantile: float = 1e-3,
+    n_pilot: int = 65_536,
+    prior: Optional[UniformBoxPrior] = None,
+    device="cuda",
+) -> float:
+    """A tolerance at the `quantile` of a pilot of prior-predictive
+    distances, so that the expected acceptance rate is set beforehand:
+    expected waves ~= target_accepted / (quantile * batch_size)."""
+    device = resolve_device(device)
+    prior = prior or get_model(cfg.model).prior()
+    simulator = make_simulator(dataset, cfg, device)
+    per_wave = min(n_pilot, cfg.batch_size)
+    dists = []
+    for w in range(max(1, n_pilot // per_wave)):
+        theta = prior.sample(stream_seed(seed, w, PILOT_PRIOR_STREAM), per_wave, device)
+        d = simulator(theta, stream_seed(seed, w, PILOT_SIM_STREAM)).cpu().numpy()
+        dists.append(d[np.isfinite(d)])
+    return float(np.quantile(np.concatenate(dists), quantile))

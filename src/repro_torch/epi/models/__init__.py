@@ -1,0 +1,46 @@
+"""Registry of the port's compartmental models.
+
+This slice registers the paper's SIARD model only; sir, seir and seiard
+arrive in a later slice, each with its own C++ struct for the CUDA kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple, Union
+
+from repro_torch.epi.spec import CompartmentalModel
+
+_REGISTRY: Dict[str, CompartmentalModel] = {}
+
+
+def register(model: CompartmentalModel) -> CompartmentalModel:
+    """Add a model spec to the registry; a different spec under a taken
+    name raises."""
+    existing = _REGISTRY.get(model.name)
+    if existing is not None and existing != model:
+        raise ValueError(f"model {model.name!r} already registered with a different spec")
+    _REGISTRY[model.name] = model
+    return model
+
+
+def get_model(model: Union[str, CompartmentalModel]) -> CompartmentalModel:
+    """Resolve a registry name (or pass a spec through)."""
+    if isinstance(model, CompartmentalModel):
+        return model
+    try:
+        return _REGISTRY[model]
+    except KeyError:
+        raise KeyError(
+            f"unknown model {model!r}; registered: {list_models()}"
+        ) from None
+
+
+def list_models() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+from repro_torch.epi.models import siard as _siard  # noqa: E402
+
+DEFAULT_MODEL = _siard.MODEL
+
+__all__ = ["CompartmentalModel", "DEFAULT_MODEL", "get_model", "list_models", "register"]

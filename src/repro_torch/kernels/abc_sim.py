@@ -1,0 +1,268 @@
+"""ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cu`).
+
+Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
+launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
+global sample index, and takes:
+
+    theta_soa  [P, B] f32, contiguous: parameters as structure of arrays
+    obs        [n_chan, T] f32, contiguous: the lowered observed summary
+    fconst     host f32 [N_FCONST]: population, a0, r0, d0, mean scale,
+               then MAX_CHAN channel weights
+    iconst     host i32 [N_ICONST]: seed, then the summary flags
+               (cumulative, log1p, power, root, bin_days)
+
+and writes one distance per sample. The constants travel in the kernel's
+parameters, not in device memory. The TPU rules of 128 lanes and 8
+sublanes do not carry over: a block size in threads replaces the tile, and
+distances are bitwise the same for every block size.
+
+`LAUNCHES` counts the launches of the fused kernel and `RNG_LAUNCHES` those
+of `rng_normals`, a test entry point of the same source that writes the
+kernel's hash bits or normals for (seed, sample, counter).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.summaries import (
+    FLAG_BIN_DAYS,
+    FLAG_CUMULATIVE,
+    FLAG_LOG1P,
+    FLAG_ROOT,
+    LoweredSummary,
+    num_bins,
+)
+from repro_torch.epi.spec import CompartmentalModel
+from repro_torch.kernels import build
+
+#: host constant layout (checked against the library at load)
+MAX_CHAN = 8
+N_FCONST = 5 + MAX_CHAN
+N_ICONST = 6
+DEFAULT_BLOCK = 128
+
+#: launches of the fused kernel, and of the rng_normals test kernel
+LAUNCHES = 0
+RNG_LAUNCHES = 0
+
+_VP = ctypes.c_void_p
+_typed: set = set()
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("abc_sim")
+    if "abc_sim" not in _typed:
+        for name in ("abc_sim_n_fconst", "abc_sim_n_iconst", "abc_sim_max_chan"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        layout = (lib.abc_sim_n_fconst(), lib.abc_sim_n_iconst(), lib.abc_sim_max_chan())
+        if layout != (N_FCONST, N_ICONST, MAX_CHAN):
+            raise RuntimeError(
+                f"abc_sim library constant layout {layout} does not match the "
+                f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN)}"
+            )
+        lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, _VP, ctypes.c_int, _VP]
+        lib.rng_normals.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        _typed.add("abc_sim")
+    return lib
+
+
+def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel):
+    name = f"abc_sim_distance_{model.name}"
+    try:
+        fn = getattr(lib, name)
+    except AttributeError:
+        raise NotImplementedError(
+            f"no CUDA kernel for model {model.name!r} (missing C symbol {name}); "
+            "this slice of the port builds siard only"
+        ) from None
+    fn.argtypes = [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _VP]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
+
+
+def check_block(block: int) -> int:
+    """A block size in threads: a positive multiple of 32, at most 1024."""
+    block = int(block)
+    if block < 32 or block > 1024 or block % 32:
+        raise ValueError(
+            f"block={block} must be a multiple of 32 threads in [32, 1024]"
+        )
+    return block
+
+
+def theta_to_soa(theta) -> torch.Tensor:
+    """[B, P] tensor or array -> contiguous float32 [P, B] (structure of
+    arrays), on the tensor's device."""
+    theta = torch.as_tensor(theta, dtype=torch.float32)
+    if theta.ndim != 2:
+        raise ValueError(f"theta must be [B, P], got shape {tuple(theta.shape)}")
+    return theta.t().contiguous()
+
+
+def pack_consts(
+    *,
+    population: float,
+    a0: float,
+    r0: float,
+    d0: float,
+    mean_scale: float,
+    weights,
+    flags,
+    seed: int,
+):
+    """Host constant arrays (fconst f32 [N_FCONST], iconst i32 [N_ICONST])."""
+    w = np.asarray(weights, np.float32).reshape(-1)
+    if w.size > MAX_CHAN:
+        raise ValueError(f"{w.size} summary channels exceed the kernel's {MAX_CHAN}")
+    if len(flags) != N_ICONST - 1:
+        raise ValueError(f"expected {N_ICONST - 1} summary flags, got {len(flags)}")
+    fconst = np.zeros((N_FCONST,), np.float32)
+    fconst[:5] = (population, a0, r0, d0, mean_scale)
+    fconst[5:5 + w.size] = w
+    iconst = np.zeros((N_ICONST,), np.int32)
+    iconst[1:] = np.asarray(flags, np.int32)
+    return fconst, with_seed(iconst, seed)
+
+
+def with_seed(iconst: np.ndarray, seed: int) -> np.ndarray:
+    """A copy of `iconst` whose seed word is the uint32 `seed`."""
+    iconst = iconst.copy()
+    iconst[0] = np.uint32(int(seed) & 0xFFFFFFFF).view(np.int32)
+    return iconst
+
+
+def _stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def abc_sim_distance_kernel(
+    theta_soa: torch.Tensor,  # [P, B] f32 CUDA, contiguous
+    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
+    fconst: np.ndarray,  # [N_FCONST] f32 host
+    iconst: np.ndarray,  # [N_ICONST] i32 host
+    *,
+    model: CompartmentalModel,
+    block: int = DEFAULT_BLOCK,
+) -> torch.Tensor:
+    """Launch the fused kernel on the current stream; returns distances [B]."""
+    global LAUNCHES
+    block = check_block(block)
+    if theta_soa.device.type != "cuda":
+        raise ValueError(f"theta_soa must be a CUDA tensor, got {theta_soa.device}")
+    if obs.device != theta_soa.device:
+        raise ValueError(f"obs is on {obs.device}, theta_soa on {theta_soa.device}")
+    for name, t in (("theta_soa", theta_soa), ("obs", obs)):
+        if t.dtype != torch.float32 or t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous 2-D float32 tensor, got "
+                f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+            )
+    n_params, batch = theta_soa.shape
+    if n_params != model.n_params:
+        raise ValueError(f"theta_soa has {n_params} rows; {model.name} has {model.n_params}")
+    if obs.shape[0] != model.n_observed or obs.shape[1] < 1:
+        raise ValueError(
+            f"obs must be [{model.n_observed}, T>=1], got {tuple(obs.shape)}"
+        )
+    if batch < 1:
+        raise ValueError("theta_soa holds no samples")
+    if fconst.dtype != np.float32 or fconst.shape != (N_FCONST,):
+        raise ValueError(f"fconst must be float32 [{N_FCONST}]")
+    if iconst.dtype != np.int32 or iconst.shape != (N_ICONST,):
+        raise ValueError(f"iconst must be int32 [{N_ICONST}]")
+    fconst = np.ascontiguousarray(fconst)
+    iconst = np.ascontiguousarray(iconst)
+    lib = _lib()
+    fn = _kernel_fn(lib, model)
+    out = torch.empty((batch,), dtype=torch.float32, device=theta_soa.device)
+    with torch.cuda.device(theta_soa.device):
+        rc = fn(theta_soa.data_ptr(), obs.data_ptr(), out.data_ptr(),
+                fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1],
+                block, _stream_handle(theta_soa.device))
+    _check_rc(lib, rc, f"abc_sim_distance_{model.name}")
+    LAUNCHES += 1
+    return out
+
+
+def rng_normals(
+    seed: int,
+    batch: int,
+    n_ctr: int,
+    *,
+    bits: bool = False,
+    device="cuda",
+    block: int = 256,
+) -> torch.Tensor:
+    """[batch, n_ctr] from the kernel's own RNG: `normal(seed, b, c)` as
+    float32, or with `bits` the uint32 `hash_u32(seed, b, c)` as int64."""
+    global RNG_LAUNCHES
+    block = check_block(block)
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"rng_normals runs on a CUDA device, got {device}")
+    if batch < 1 or n_ctr < 1:
+        raise ValueError("batch and n_ctr must be positive")
+    lib = _lib()
+    dtype = torch.int32 if bits else torch.float32
+    out = torch.empty((batch, n_ctr), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        rc = lib.rng_normals(int(seed) & 0xFFFFFFFF, batch, n_ctr, int(bits),
+                             out.data_ptr(), block, _stream_handle(device))
+    _check_rc(lib, rc, "rng_normals")
+    RNG_LAUNCHES += 1
+    return out.to(torch.int64) & 0xFFFFFFFF if bits else out
+
+
+#: operations per transition and sample-day: two hashes of 18 (the counter
+#: product as one add to a per-day base, the xor with the per-sample base,
+#: two fmix32 of 8), two uniforms of 4 (shift, add, convert, scale),
+#: Box-Muller 6 (log, 2 muls, sqrt, cos, mul), hazard clamp and tau-leap 5
+#: (max, sqrt, mul, add, floor), drain 3 (max, min, sub), stoichiometry 2
+TRANSITION_OPS = 2 * 18 + 2 * 4 + 6 + 5 + 3 + 2
+
+
+def ops_per_sample_day(model: CompartmentalModel, lowered: LoweredSummary) -> float:
+    """Operations the fused function needs per sample-day, for the bound.
+
+    Work that depends on neither the day nor the transition is counted once
+    per sample: the hash's `seed ^ idx * P1 ^ X1` (3) and the final sqrt.
+    Per day: `TRANSITION_OPS` per transition, the model's `hazard_ops`, and
+    the counter base (1). Per channel: the running carry each day (1 when
+    cumulative or binned), and on each flush day the residual, its square
+    or absolute value, the weight and the sum (4), plus clamp and log1p (2).
+    The kernel's runtime selectors are its own overhead and are not counted;
+    the model's per-sample work (initial state, parameter products) is left
+    out. A transcendental counts as one operation.
+    """
+    flags = lowered.flags
+    num_days = lowered.obs_summary.shape[1]
+    bin_days = int(flags[FLAG_BIN_DAYS])
+    n_flush = num_bins(num_days, bin_days)
+    carry = 1 if int(flags[FLAG_CUMULATIVE]) == 1 or bin_days > 1 else 0
+    flush_ops = 4 + 2 * (int(flags[FLAG_LOG1P]) == 1)
+    per_sample = 3 + (int(flags[FLAG_ROOT]) == 1) + (lowered.mean_scale != 1.0)
+    total = (num_days * (TRANSITION_OPS * model.n_transitions + model.hazard_ops + 1
+                         + model.n_observed * carry)
+             + model.n_observed * n_flush * flush_ops + per_sample)
+    return total / num_days
+
+
+def bytes_moved(model: CompartmentalModel, batch: int, num_days: int) -> int:
+    """Device-memory bytes of one launch: theta and the observed summary
+    read once, one distance written."""
+    return 4 * (model.n_params * batch + model.n_observed * num_days + batch)

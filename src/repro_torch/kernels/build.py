@@ -1,0 +1,155 @@
+"""Build the port's CUDA kernels with nvcc at first use.
+
+Each `csrc/*.cu` becomes a shared library with a plain C interface, loaded
+with `ctypes`; no PyTorch header is compiled. The libraries go to
+`build/kernels/` at the root of the checkout (listed in `.gitignore`),
+named by a hash of every source and header in `csrc/` and of the flags, so
+an unchanged tree reuses its build and a changed one rebuilds.
+
+`nvcc -Xptxas -v` reports each kernel's registers, shared memory and
+spills; the report is kept beside the library and parsed into `BuildInfo`.
+
+    from repro_torch.kernels import build
+    lib = build.load("abc_sim")          # builds on first use
+    build.build_all()["abc_sim"].kernels  # {mangled kernel name: {...}}
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+from repro_torch.ioutils import atomic_write_text
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    """One built source: its library, how long nvcc took and what ptxas said."""
+
+    name: str
+    path: Path
+    seconds: float  # nvcc wall time in this process; 0.0 when reused
+    cached: bool
+    #: per kernel: registers, smem_bytes, stack_bytes, spill_stores, spill_loads
+    kernels: Dict[str, Dict[str, int]]
+
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_INFO: Dict[str, BuildInfo] = {}
+
+
+def nvcc_path() -> str:
+    """The nvcc binary: $CUDA_HOME/bin/nvcc, then PATH, then /usr/local/cuda."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and /usr/local/cuda/bin); "
+        "the port's CUDA kernels are built with it at first use"
+    )
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(src: Path) -> str:
+    """Hash of this source, every header in csrc/ and the flags."""
+    h = hashlib.sha256()
+    for p in [src] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, shared memory, stack and spills of each kernel in a
+    `-Xptxas -v` report, under the kernel's name as the report gives it."""
+    out: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            current = m.group(1)
+            out.setdefault(current, {"registers": 0, "smem_bytes": 0,
+                                     "stack_bytes": 0, "spill_stores": 0,
+                                     "spill_loads": 0})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[current]["stack_bytes"] = int(m.group(1))
+            out[current]["spill_stores"] = int(m.group(2))
+            out[current]["spill_loads"] = int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[current]["smem_bytes"] = int(m.group(1))
+    return out
+
+
+def build_all() -> Dict[str, BuildInfo]:
+    """Build (or reuse) every csrc/*.cu, one after the other."""
+    for src in sources():
+        name = src.stem
+        if name in _INFO:
+            continue
+        lib = BUILD_DIR / f"{name}-{_digest(src)}.so"
+        log = lib.with_suffix(".ptxas.txt")
+        if lib.exists() and log.exists():
+            _INFO[name] = BuildInfo(name, lib, 0.0, True, parse_ptxas(log.read_text()))
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stdout}"
+            )
+        os.replace(tmp, lib)
+        atomic_write_text(log, proc.stdout)
+        _INFO[name] = BuildInfo(name, lib, seconds, False, parse_ptxas(proc.stdout))
+    return dict(_INFO)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library built from `csrc/<name>.cu` (built on first use)."""
+    if name not in _LIBS:
+        info = build_all().get(name)
+        if info is None:
+            raise KeyError(f"no CUDA source csrc/{name}.cu")
+        _LIBS[name] = ctypes.CDLL(str(info.path))
+    return _LIBS[name]

@@ -1,0 +1,86 @@
+"""User-facing fused simulate-and-distance, dispatched by device.
+
+Counterpart of `repro.kernels.ops.abc_sim_distance`: it lowers the
+(summary, distance) pair against the observed series, lays theta out as
+structure of arrays, packs the constants and launches the CUDA kernel.
+`make_abc_sim` does the lowering and packing once for a fixed series, so
+that each later call only lays out theta and sets the seed.
+
+Dispatch is by device: a CPU tensor goes to the plain PyTorch version
+(`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
+Nothing falls back from the card to the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.summaries import get_summary, lower_summary
+from repro_torch.epi.spec import CompartmentalModel, require_flat
+from repro_torch.kernels import abc_sim, ref
+
+
+def make_abc_sim(
+    observed: torch.Tensor,  # [n_observed, T] f32
+    *,
+    population: float,
+    a0: float,
+    r0: float = 0.0,
+    d0: float = 0.0,
+    model: CompartmentalModel | None = None,
+    summary=None,  # SummarySpec / registry name / None (identity)
+    distance: str = "euclidean",
+    schedule=None,
+    block: int = abc_sim.DEFAULT_BLOCK,
+) -> Callable[[torch.Tensor, int], torch.Tensor]:
+    """`(theta [B, n_params], seed) -> distances [B]` against `observed`, on
+    `observed`'s device; theta must lie on the same device."""
+    if model is None:
+        from repro_torch.epi.models import DEFAULT_MODEL as model  # noqa: N811
+    require_flat(model.n_regions, schedule)
+    spec = get_summary(summary)
+    device = observed.device
+    observed = observed.to(torch.float32)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"observed must be on the CPU or a CUDA device, got {device}")
+    if device.type == "cuda":
+        lowered = lower_summary(spec, distance, observed)
+        obs_summary = lowered.obs_summary.contiguous()
+        fconst, iconst = abc_sim.pack_consts(
+            population=population, a0=a0, r0=r0, d0=d0,
+            mean_scale=lowered.mean_scale, weights=lowered.weights.cpu().numpy(),
+            flags=lowered.flags, seed=0,
+        )
+
+    def run(theta: torch.Tensor, seed: int) -> torch.Tensor:
+        if theta.ndim != 2 or theta.shape[1] != model.n_params:
+            raise ValueError(
+                f"theta must be [B, {model.n_params}] for {model.name}, got "
+                f"{tuple(theta.shape)}"
+            )
+        if theta.device != device:
+            raise ValueError(f"theta is on {theta.device}, the observed series on {device}")
+        if device.type == "cpu":
+            return ref.abc_sim_distance_ref(
+                theta, seed, observed, population=population, a0=a0, r0=r0,
+                d0=d0, model=model, summary=spec, distance=distance,
+            )
+        return abc_sim.abc_sim_distance_kernel(
+            abc_sim.theta_to_soa(theta), obs_summary, fconst,
+            abc_sim.with_seed(iconst, seed), model=model, block=block,
+        )
+
+    return run
+
+
+def abc_sim_distance(
+    theta: torch.Tensor,  # [B, n_params] f32
+    seed: int,  # uint32
+    observed: torch.Tensor,  # [n_observed, T] f32
+    **kwargs,
+) -> torch.Tensor:
+    """Fused simulate + summary distance for a batch of samples. Returns [B]
+    on theta's device; `kwargs` are those of `make_abc_sim`."""
+    return make_abc_sim(observed.to(theta.device), **kwargs)(theta, seed)

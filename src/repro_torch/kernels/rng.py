@@ -1,0 +1,114 @@
+"""Counter-based RNG, plain PyTorch twin of `repro.kernels.rng`.
+
+A murmur3-finalizer double mix of (seed, sample index, counter) gives one
+uint32; its top 24 bits give a uniform on (0, 1]; Box-Muller (cos branch)
+turns the uniforms of counters 2c and 2c+1 into one standard normal. The
+CUDA kernel inlines the same functions (`csrc/rng.cuh`), so the integer bits
+agree exactly between the JAX package, this twin and the card; the floats
+agree to the last few ulps of `log` and `cos`.
+
+PyTorch has no dependable uint32 multiply, so the words ride in int64
+tensors holding values in [0, 2**32). A product with a 32-bit constant
+splits the word into 16-bit halves, so no partial product leaves int64 and
+the low 32 bits come out exact (`_mul32`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+M1 = 0x85EBCA6B
+M2 = 0xC2B2AE35
+P1 = 0x9E3779B1  # golden-ratio prime: sample index stream
+P2 = 0x85EBCA77  # counter stream
+X1 = 0x1B873593  # second-round decorrelation constant
+
+TWO_PI = float(np.float32(2.0 * np.pi))
+INV_2_24 = float(np.float32(1.0 / (1 << 24)))
+
+
+def as_u32(x, device=None) -> torch.Tensor:
+    """An int, array or tensor as an int64 tensor of uint32 values."""
+    if isinstance(x, torch.Tensor):
+        t = x.to(device=device or x.device, dtype=torch.int64)
+    else:
+        t = torch.as_tensor(np.asarray(x, np.int64), device=device)
+    return t & MASK32
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2**32 for x in [0, 2**32) and a 32-bit constant m."""
+    lo = x & 0xFFFF
+    hi = x >> 16
+    return (lo * m + ((hi * (m & 0xFFFF)) << 16)) & MASK32
+
+
+def fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 32-bit finalizer (bijective mix)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, M1)
+    x = x ^ (x >> 13)
+    x = _mul32(x, M2)
+    x = x ^ (x >> 16)
+    return x
+
+
+def _device_of(*xs):
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return None
+
+
+def hash_u32(seed, idx, ctr) -> torch.Tensor:
+    """Counter-based uint32 stream h(seed, sample index, counter), as int64."""
+    dev = _device_of(seed, idx, ctr)
+    seed, idx, ctr = as_u32(seed, dev), as_u32(idx, dev), as_u32(ctr, dev)
+    h = seed ^ _mul32(idx, P1) ^ _mul32(ctr, P2)
+    return fmix32(fmix32(h ^ X1))
+
+
+def uniform_open(seed, idx, ctr) -> torch.Tensor:
+    """U in (0, 1]: ((h >> 8) + 1) * 2^-24, float32 (log-safe)."""
+    h = hash_u32(seed, idx, ctr)
+    return ((h >> 8) + 1).to(torch.float32) * INV_2_24
+
+
+def normal(seed, idx, ctr) -> torch.Tensor:
+    """Standard normal via Box-Muller (cos branch), float32.
+
+    Consumes counters (2*ctr, 2*ctr + 1) of the (seed, idx) stream.
+    """
+    dev = _device_of(seed, idx, ctr)
+    ctr = as_u32(ctr, dev)
+    u1 = uniform_open(seed, idx, (ctr * 2) & MASK32)
+    u2 = uniform_open(seed, idx, (ctr * 2 + 1) & MASK32)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return r * torch.cos(TWO_PI * u2)
+
+
+def day_transition_ctr(day, k, slots: int = 8) -> torch.Tensor:
+    """Counter of transition slot `k` on `day`: day * slots + k (uint32)."""
+    dev = _device_of(day, k)
+    return (as_u32(day, dev) * slots + as_u32(k, dev)) & MASK32
+
+
+def hash_normals(seed, idx: torch.Tensor, day: int, n_transitions: int,
+                 slots: int = 8) -> torch.Tensor:
+    """Noise block [B, n_transitions] for one day, from the counter stream."""
+    ctr = day_transition_ctr(
+        day, torch.arange(n_transitions, device=idx.device), slots
+    )
+    return normal(seed, idx[:, None], ctr[None, :])
+
+
+def stream_seed(seed: int, index: int, stream: int) -> int:
+    """A uint32 seed for `stream` of run `index` under a base `seed`.
+
+    The ABC wave loop draws wave i's prior seed and simulation seed as two
+    distinct streams of (seed, i), so any wave can be recomputed from the
+    base seed and its index alone, which is what makes resume exact.
+    """
+    return int(hash_u32(seed, index, stream))
