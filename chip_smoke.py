@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and hold its hand-written
-kernel against the plain PyTorch version.
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,21 @@ printing one JSON line:
              device busy time and the operations that take it
   timing     the kernel at 100,000 and 1,000,000 x 49 days beside its bound
              and the plain version
-  kernels    one line for each kernel of the main path
+  flash      the flash-attention kernel against its plain version, float32
+             and bf16, on the causal GQA shapes of tests/test_kernel_flash.py,
+             window + softcap, non-causal cross-length, ragged 2047, rows
+             with no allowed key, and gemma-2b's prefill shape
+  lm_prefill full-width gemma-2b (bf16, weights from a generator seeded 0)
+             prefills 4 x 2048 tokens through `ModelDef.prefill` with
+             attn_impl="flash", the launch counter set to 0 just before;
+             its logits against the same model with attn_impl="dense"
+  lm_profile one flash prefill under torch.profiler: the flash kernel's
+             device ms against the matrix products, and the idle share
+  lm_serve   `repro_torch.launch.serve` LM mode at full width, its defaults
+  lm_timing  the flash kernel at (4, 2048) and (1, 8192) x 8 heads, 1 kv
+             head, D 256, bf16, causal, beside its bound, the plain version
+             and torch's scaled_dot_product_attention
+  kernels    one line for each kernel of the main paths
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -41,13 +55,45 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PINS = os.path.join(ROOT, "tests", "data", "r1_pins.npz")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cu"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
 #: H100 SXM published peaks (NVIDIA's data sheet): float32 outside
-#: the tensor cores, and HBM bandwidth
+#: the tensor cores, bf16 on the tensor cores (dense), and HBM bandwidth
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 #: kernel-vs-plain bars (tests/test_kernel_abc_sim.py:58 and :118)
 BAR = dict(rtol=2e-6, atol=1e-3)
 COUNTRY_BAR = dict(rtol=1e-5, atol=1.0)
+#: flash kernel-vs-plain bars. float32: tests/test_kernel_flash.py:31. bf16:
+#: kernel and plain version both compute in float32 from the same bf16
+#: inputs and round only the output to bf16, so they may land one bf16 step
+#: apart, and a step is at most 2^-7 |want|; atol is the float32 bar's, for
+#: the float32 arithmetic under that rounding. (The 0.05 of
+#: tests/test_kernel_flash.py:64-65 is for dense_attention, which also
+#: rounds p to bf16; it stays in the CPU tests against repro.)
+FLASH_BARS = {"float32": dict(rtol=3e-4, atol=3e-5), "bfloat16": dict(rtol=2**-7, atol=3e-5)}
+#: (b, sq, h, kh, d, skv, causal, window, softcap) of the flash phase; the
+#: first three are tests/test_kernel_flash.py:21-25
+FLASH_CASES = [
+    (1, 64, 2, 2, 16, 64, True, None, None),
+    (2, 64, 4, 2, 16, 64, True, None, None),
+    (1, 128, 4, 1, 32, 128, True, None, None),
+    (1, 64, 2, 2, 16, 64, True, 16, 30.0),  # window and softcap
+    (1, 24, 2, 2, 16, 40, False, None, None),  # non-causal, Skv != Sq
+    (1, 2047, 8, 1, 256, 2047, True, None, None),  # ragged
+    (1, 64, 2, 1, 32, 8, False, 16, None),  # rows 23.. have no allowed key
+    (4, 2048, 8, 1, 256, 2048, True, None, None),  # gemma-2b prefill
+]
+#: gemma-2b prefill through the flash route against the dense route: both
+#: round the unembedding product to bf16, so a logit in [2^e, 2^(e+1)) moves
+#: in steps of 2^(e-7). The routes differ only in where attention rounds to
+#: bf16 (dense rounds p before p @ v, flash only its output), about one
+#: bf16 rounding of each layer's attention output; through 18 layers that
+#: is expected to move the logits by a few steps. The bar is 16 steps at
+#: the largest |logit| (1/8 of its binade), and the argmax must agree on
+#: every row whose top-2 gap exceeds twice the bar.
+PREFILL_BAR_STEPS = 16
 
 
 def emit(phase: str, **fields) -> None:
@@ -97,6 +143,171 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def flash_phase(dev) -> float:
+    """The flash kernel against its plain version on every FLASH_CASES case,
+    float32 and bf16; returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_CASES:
+            b, sq, h, kh, d, skv, causal, window, cap = case
+            rng = np.random.default_rng(sq + h)
+            q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+                       .to(device=dev, dtype=dtype)
+                       for shape in ((b, sq, h, d), (b, skv, kh, d), (b, skv, kh, d)))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            launches, calls = fa.LAUNCHES, ref.FLASH_CALLS
+            got = ops.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if (fa.LAUNCHES, ref.FLASH_CALLS) != (launches + 1, calls):
+                raise AssertionError(f"flash {case}: the card did not go through the kernel")
+            want = ref.flash_attention_ref(q, k, v, **kw)
+            name = str(dtype).split(".")[1]
+            r = compare(f"flash {name} {case}", got.float(), want.float(), **FLASH_BARS[name])
+            if window is not None and not causal:
+                dead = torch.arange(sq, device=dev) - (skv - 1) >= window
+                if not bool((got[:, dead] == 0).all()):
+                    raise AssertionError(f"flash {case}: rows with no allowed key are not 0")
+                r["rows_with_no_key"] = int(dead.sum())
+            results.append(r)
+    emit("flash", comparisons=results)
+    return max(r["max_abs_err"] for r in results)
+
+
+def profile_device_ms(fn):
+    """(wall ms, device busy ms, [(name, count, device ms)] by device time) of
+    one call of `fn` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    # device-side events only (kernels and copies); the host ops that
+    # launched them carry the same time again
+    by_op = sorted(((e.key, e.count, device_us(e) / 1e3) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[2])
+    return wall * 1e3, sum(r[2] for r in by_op), by_op
+
+
+def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
+    """lm_prefill, lm_profile, lm_serve and lm_timing; returns the flash
+    kernel's line of the kernels record."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_model
+
+    model = get_model("gemma-2b")
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init_params(device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(4, 2048)), device=dev)
+    flash_model = model.with_cfg(attn_impl="flash")
+
+    # ---- lm_prefill: the main path through the kernel, counters around it
+    fa.LAUNCHES = 0
+    ref.FLASH_CALLS = 0
+    t0 = time.perf_counter()
+    logits = flash_model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = fa.LAUNCHES, ref.FLASH_CALLS
+    if launches != cfg.n_layers or plain_calls != 0:
+        raise AssertionError(f"lm_prefill: {launches} flash launches (want {cfg.n_layers}), "
+                             f"{plain_calls} plain-version calls")
+    dense = model.with_cfg(attn_impl="dense").prefill(params, {"tokens": tokens})
+    if logits.shape != (4, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"lm_prefill: logits {tuple(logits.shape)}, finite="
+                             f"{bool(torch.isfinite(logits).all())}")
+    diff = float((logits - dense).abs().max())
+    top = float(dense.abs().max())
+    bar = PREFILL_BAR_STEPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    top2 = torch.topk(dense[:, 0], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+    agree = logits[:, 0].argmax(-1) == dense[:, 0].argmax(-1)
+    if not diff <= bar or not bool(agree[decided].all()):
+        raise AssertionError(f"lm_prefill: flash vs dense max |diff| {diff} (bar {bar}), "
+                             f"argmax agreement {agree.tolist()} on rows {decided.tolist()}")
+    emit("lm_prefill", arch=cfg.name, batch=4, prompt_len=2048, params=model.param_count(),
+         init_s=init_s, wall_s=wall, flash_launches=launches, plain_calls=plain_calls,
+         max_abs_diff_vs_dense=diff, max_abs_logit=top, bar=bar,
+         argmax_agree=agree.tolist(), argmax_decided_rows=decided.tolist(),
+         kind=name, nvidia_smi=smi)
+
+    # ---- lm_profile: one flash prefill, device time by kernel
+    wall_ms, busy_ms, by_op = profile_device_ms(
+        lambda: flash_model.prefill(params, {"tokens": tokens}))
+    flash_ms = sum(ms for k, _, ms in by_op if "flash_fwd" in k)
+    gemm_ms = sum(ms for k, _, ms in by_op
+                  if any(t in k.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")))
+    emit("lm_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / wall_ms, flash_device_ms=flash_ms,
+         matmul_device_ms=gemm_ms, other_device_ms=busy_ms - flash_ms - gemm_ms,
+         kind=name, nvidia_smi=smi,
+         top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
+                         for k, c, ms in by_op[:10]])
+    del params, logits, dense
+    torch.cuda.empty_cache()
+
+    # ---- lm_serve: the serving CLI at full width with its defaults
+    stats = serve.main(["--arch", "gemma-2b", "--device", "cuda"])
+    if stats["requests"] != 8 or any(len(o) != 8 for o in stats["outputs"]):
+        raise AssertionError(f"lm_serve: {stats['requests']} requests answered")
+    emit("lm_serve", requests=stats["requests"], decode_steps=stats["steps"],
+         seconds=stats["seconds"], tok_per_s=stats["tok_per_s"], kind=name, nvidia_smi=smi)
+    torch.cuda.empty_cache()
+
+    # ---- lm_timing: the kernel alone beside its bound, plain version, SDPA
+    cells = []
+    for b, s, iters in ((4, 2048, 20), (1, 8192, 10)):
+        rng = np.random.default_rng(s)
+        q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+                   .to(device=dev, dtype=torch.bfloat16)
+                   for shape in ((b, s, 8, 256), (b, s, 1, 256), (b, s, 1, 256)))
+        ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, causal=True), iters)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+        flops = fa.attention_flops(b, s, s, 8, 256, causal=True)
+        n_bytes = fa.attention_bytes(q, k, v)
+        ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        cells.append({"batch": b, "seq": s, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "flops": flops, "bytes": n_bytes,
+                      "bound_ms": max(ops_ms, bytes_ms),
+                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                      "bound_ms_f32_cuda_cores": max(flops / F32_OPS_PER_S * 1e3, bytes_ms),
+                      "share_of_bound": max(ops_ms, bytes_ms) / ms,
+                      "tflops": flops / (ms * 1e-3) / 1e12, "iters": iters})
+    emit("lm_timing", kind=name, nvidia_smi=smi, peak_bf16_ops_per_s=BF16_OPS_PER_S,
+         peak_f32_ops_per_s=F32_OPS_PER_S, peak_bytes_per_s=HBM_BYTES_PER_S, cells=cells)
+    main_cell = cells[0]
+    return {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_TPU_KERNEL, "launches": launches, "max_abs_err": flash_err,
+            "ms": main_cell["ms"], "plain_ms": main_cell["plain_ms"],
+            "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
+            "library_ms": main_cell["library_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -113,8 +324,12 @@ def main() -> int:
     from repro_torch.kernels import rng as krng
     from repro_torch.launch import abc_run
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # float32 references run in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     emit("device", kind=name, count=torch.cuda.device_count(),
@@ -124,8 +339,9 @@ def main() -> int:
     # ---- build
     t0 = time.perf_counter()
     info = build.build_all()
-    emit("build", wall_s=time.perf_counter() - t0, nvcc_flags=list(build.NVCC_FLAGS),
-         libraries={k: {"nvcc_s": v.seconds, "cached": v.cached, "kernels": v.kernels}
+    emit("build", wall_s=time.perf_counter() - t0,
+         libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
+                        "nvcc_flags": list(build.flags(k)), "kernels": v.kernels}
                     for k, v in info.items()})
 
     # ---- rng: the kernel's hash bits and normals against the plain twin
@@ -227,33 +443,19 @@ def main() -> int:
          prior_mean_normalized_error=prior_err.mean().item())
 
     # ---- profile: where the main path's waves spend their time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.core.abc import ABCConfig, run_abc
 
     cfg = ABCConfig(batch_size=100_000, chunk_size=10_000, num_days=49,
                     tolerance=post.tolerance, target_accepted=100)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        again = run_abc(italy, cfg, seed=0, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels and copies); the host ops that
-    # launched them carry the same time again
-    by_op = sorted(((e.key, e.count, device_us(e)) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA), key=lambda r: -r[2])
-    busy_ms = sum(r[2] for r in by_op) / 1e3
-    emit("profile", wall_ms=wall * 1e3, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / (wall * 1e3), waves=again.runs,
+    runs = []
+    wall_ms, busy_ms, by_op = profile_device_ms(
+        lambda: runs.append(run_abc(italy, cfg, seed=0, device=dev)))
+    again = runs[0]
+    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / wall_ms, waves=again.runs,
          accepted=len(again), kind=name, nvidia_smi=smi,
-         top_device_ops=[{"name": k[:80], "count": c, "device_ms": us / 1e3}
-                         for k, c, us in by_op[:8]])
+         top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
+                         for k, c, ms in by_op[:8]])
 
     # ---- timing: the kernel alone, beside its bound and the plain version
     lowered = lower_summary(get_summary(None), "euclidean", ob_it)
@@ -284,13 +486,20 @@ def main() -> int:
          peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, cells=timing)
 
     main_cell = timing[0]
-    print(json.dumps({"kernels": [{
+    abc_line = {
         "name": "abc_sim_distance", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": max_abs_err,
         "ms": main_cell["ms"], "plain_ms": main_cell["plain_ms"],
         "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }
+
+    # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
+    flash_err = flash_phase(dev)
+    flash_line = lm_phases(dev, name, smi, flash_err)
+
+    emit("total", wall_s=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": [abc_line, flash_line]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -9,22 +9,28 @@ The port imports nothing of `repro`; what crosses is plain data:
     by `repro` (or by the port; the `.npz` fields are the same) into the
     port's type, so a fit started in `repro` resumes in the port;
   * `theta_to_soa` lays a [B, P] parameter batch out as the kernel's
-    structure of arrays [P, B].
+    structure of arrays [P, B];
+  * `decoder_params_from_arrays` turns `repro`'s decoder parameter tree
+    (numpy arrays) into the port's parameters.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Any, Dict, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch.core.abc import ABCState
 from repro_torch.core.posterior import Posterior
 from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
 from repro_torch.kernels.abc_sim import theta_to_soa
+from repro_torch.models import common as cm
+from repro_torch.models.decoder import DecoderConfig, check_supported
 
-__all__ = ["country_data_from_arrays", "load_npz", "theta_to_soa"]
+__all__ = ["country_data_from_arrays", "decoder_params_from_arrays", "load_npz",
+           "theta_to_soa"]
 
 
 def country_data_from_arrays(
@@ -74,3 +80,39 @@ def load_npz(path: str) -> Union[ABCState, Posterior]:
         f"{path!r} holds neither an ABCState checkpoint nor a Posterior "
         f"(fields {sorted(fields)})"
     )
+
+
+#: parameters kept in float32 (norm scales); every other leaf is bf16
+_F32_LEAVES = ("ln1", "ln2", "post_attn", "post_ffn", "final_norm")
+
+
+def decoder_params_from_arrays(cfg: DecoderConfig, tree: Dict[str, Any],
+                               device="cpu") -> Dict[str, Any]:
+    """The port's decoder parameters from `repro`'s parameter tree of numpy
+    arrays (float32, or bf16 values in any float type: bf16 -> float32 ->
+    bf16 is exact).
+
+    `repro` stacks layers per attention-pattern position: layer
+    g * len(attn_pattern) + p is `tree["layers"][p][g]`. Its embedding is
+    [V, d] and serves as the unembedding when `tie_embed`.
+    """
+    check_supported(cfg)
+
+    def leaf(name, a):
+        dtype = torch.float32 if name in _F32_LEAVES else cm.DEFAULT_DTYPE
+        t = torch.from_numpy(np.array(a, np.float32))
+        return t.to(device=device, dtype=dtype)
+
+    npos = len(cfg.attn_pattern)
+    if len(tree["layers"]) != npos:
+        raise ValueError(f"expected {npos} pattern positions, got {len(tree['layers'])}")
+    layers = []
+    for i in range(cfg.n_layers):
+        stack = tree["layers"][i % npos]
+        layers.append({name: leaf(name, a[i // npos]) for name, a in stack.items()})
+    params = {"embed": leaf("embed", tree["embed"]),
+              "final_norm": leaf("final_norm", tree["final_norm"]),
+              "layers": layers}
+    if not cfg.tie_embed:
+        params["unembed"] = leaf("unembed", tree["unembed"])
+    return params

@@ -3,11 +3,17 @@
 Each `csrc/*.cu` becomes a shared library with a plain C interface, loaded
 with `ctypes`; no PyTorch header is compiled. The libraries go to
 `build/kernels/` at the root of the checkout (listed in `.gitignore`),
-named by a hash of every source and header in `csrc/` and of the flags, so
-an unchanged tree reuses its build and a changed one rebuilds.
+named by a hash of the source, the `csrc/` headers it includes and its
+flags, so an unchanged source reuses its build and a changed one rebuilds.
 
-`nvcc -Xptxas -v` reports each kernel's registers, shared memory and
-spills; the report is kept beside the library and parsed into `BuildInfo`.
+Every source is built with `NVCC_FLAGS`; `SOURCE_FLAGS` adds flags of one
+source: `abc_sim` keeps `--fmad=false`, on which its bitwise agreement with
+the plain version rests, while `flash_attention` lets nvcc fuse multiply-adds.
+
+Each source that needs building is compiled by one nvcc, one after the
+other. `nvcc -Xptxas -v` reports each kernel's registers, shared memory
+and spills; the report is kept beside the library and parsed into
+`BuildInfo`.
 
     from repro_torch.kernels import build
     lib = build.load("abc_sim")          # builds on first use
@@ -33,8 +39,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+SOURCE_FLAGS: Dict[str, tuple] = {"abc_sim": ("--fmad=false",)}
 
 
 @dataclasses.dataclass
@@ -43,7 +50,7 @@ class BuildInfo:
 
     name: str
     path: Path
-    seconds: float  # nvcc wall time in this process; 0.0 when reused
+    seconds: float  # this source's nvcc wall time; 0.0 when reused
     cached: bool
     #: per kernel: registers, smem_bytes, stack_bytes, spill_stores, spill_loads
     kernels: Dict[str, Dict[str, int]]
@@ -75,13 +82,32 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def flags(name: str) -> tuple:
+    """nvcc flags of `csrc/<name>.cu`."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
+def local_headers(src: Path) -> List[Path]:
+    """The csrc/ headers that `src` includes, directly or through another."""
+    seen: Dict[str, Path] = {}
+    todo = [src]
+    while todo:
+        text = todo.pop().read_text()
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            p = CSRC / name
+            if name not in seen and p.is_file():
+                seen[name] = p
+                todo.append(p)
+    return [seen[n] for n in sorted(seen)]
+
+
 def _digest(src: Path) -> str:
-    """Hash of this source, every header in csrc/ and the flags."""
+    """Hash of this source, the csrc/ headers it includes and its flags."""
     h = hashlib.sha256()
-    for p in [src] + sorted(CSRC.glob("*.cuh")):
+    for p in [src] + local_headers(src):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(src.stem)).encode())
     return h.hexdigest()[:16]
 
 
@@ -115,8 +141,26 @@ def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
     return out
 
 
+def _nvcc(name: str, src: Path, lib: Path) -> BuildInfo:
+    """Compile one source into `lib`; raises with nvcc's output on failure."""
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc_path(), *flags(name), "-I", str(CSRC), "-o", str(tmp), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)
+    atomic_write_text(lib.with_suffix(".ptxas.txt"), proc.stdout)
+    return BuildInfo(name, lib, seconds, False, parse_ptxas(proc.stdout))
+
+
 def build_all() -> Dict[str, BuildInfo]:
-    """Build (or reuse) every csrc/*.cu, one after the other."""
+    """Build (or reuse) every csrc/*.cu: one nvcc for each source that needs
+    building, one after the other."""
     for src in sources():
         name = src.stem
         if name in _INFO:
@@ -125,23 +169,9 @@ def build_all() -> Dict[str, BuildInfo]:
         log = lib.with_suffix(".ptxas.txt")
         if lib.exists() and log.exists():
             _INFO[name] = BuildInfo(name, lib, 0.0, True, parse_ptxas(log.read_text()))
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stdout}"
-            )
-        os.replace(tmp, lib)
-        atomic_write_text(log, proc.stdout)
-        _INFO[name] = BuildInfo(name, lib, seconds, False, parse_ptxas(proc.stdout))
+        else:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _INFO[name] = _nvcc(name, src, lib)
     return dict(_INFO)
 
 

@@ -1,4 +1,5 @@
-"""User-facing fused simulate-and-distance, dispatched by device.
+"""User-facing kernels, dispatched by device: the fused simulate-and-distance
+and flash attention.
 
 Counterpart of `repro.kernels.ops.abc_sim_distance`: it lowers the
 (summary, distance) pair against the observed series, lays theta out as
@@ -13,13 +14,14 @@ Nothing falls back from the card to the plain version.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.summaries import get_summary, lower_summary
 from repro_torch.epi.spec import CompartmentalModel, require_flat
 from repro_torch.kernels import abc_sim, ref
+from repro_torch.kernels import flash_attention as fa
 
 
 def make_abc_sim(
@@ -84,3 +86,31 @@ def abc_sim_distance(
     """Fused simulate + summary distance for a batch of samples. Returns [B]
     on theta's device; `kwargs` are those of `make_abc_sim`."""
     return make_abc_sim(observed.to(theta.device), **kwargs)(theta, seed)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, S, H, D] (model layout)
+    k: torch.Tensor,  # [B, T, KH, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Forward flash attention in the model layout; returns [B, S, H, D] in
+    q's dtype. Counterpart of `repro.kernels.ops.flash_attention`: the CUDA
+    kernel reads the model layout through its strides and masks ragged
+    lengths itself, so nothing is transposed or padded here. A CPU q goes to
+    `ref.flash_attention_ref`, a CUDA q to the kernel, which raises on
+    tensors it does not take."""
+    if q.device.type == "cpu":
+        for name, t in (("k", k), ("v", v)):
+            if t.device != q.device:
+                raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be on the CPU or a CUDA device, got {q.device}")
+    return fa.flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)

@@ -1,4 +1,7 @@
-"""Plain PyTorch version of the fused ABC simulation kernel.
+"""Plain PyTorch versions of the port's kernels.
+
+`abc_sim_distance_ref` is the plain version of the fused ABC simulation
+kernel; `flash_attention_ref` that of the flash-attention kernel (below).
 
 Counterpart of `repro.kernels.ref.abc_sim_distance_ref`: simulate T days
 with the counter-hash RNG and the running summary accumulator, and return
@@ -14,6 +17,9 @@ never came here.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.core.summaries import (
@@ -29,6 +35,9 @@ from repro_torch.kernels import rng as krng
 
 #: number of calls to `abc_sim_distance_ref`
 CALLS = 0
+#: number of calls to `flash_attention_ref`
+FLASH_CALLS = 0
+NEG_INF = -1e30
 
 
 def abc_sim_distance_ref(
@@ -72,3 +81,62 @@ def abc_sim_distance_ref(
             lowered.obs_summary[:, day], lowered.flush[day], cum, binv, acc,
         )
     return running_finalize(kind, lowered.mean_scale, acc)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Skv, KH, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    scale: Optional[float] = None,
+    kv_block: int = 128,
+) -> torch.Tensor:
+    """Plain version of the flash kernel: o [B, Sq, H, D] in q's dtype.
+
+    Mirrors `repro/kernels/flash_attention.py::_kernel` (and
+    `csrc/flash_attention.cu`): q is cast to float32 and scaled, scores are
+    float32 and soft-capped, then masked with NEG_INF by padding (key <
+    Skv), causality (key <= query, query i aligned with key i) and the
+    window (query - key < window); an online softmax runs over KV blocks of
+    `kv_block` keys with float32 (m, l, acc), masked probabilities set to 0;
+    the output is acc / max(l, 1e-30), rounded once to q's dtype, so a row
+    with no allowed key is 0. GQA reads kv head h // (H // KH).
+
+    The TPU kernel also tiles queries and stops each tile's sweep at its
+    causal bound; a skipped block is fully masked and changes neither m, l
+    nor acc, so sweeping every block for all queries at once is the same.
+    """
+    global FLASH_CALLS
+    FLASH_CALLS += 1
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(d) if scale is None else scale
+    qf = q.to(torch.float32).transpose(1, 2) * float(scale)  # [B, H, Sq, D]
+    kf = k.to(torch.float32).repeat_interleave(h // kh, dim=2).transpose(1, 2)
+    vf = v.to(torch.float32).repeat_interleave(h // kh, dim=2).transpose(1, 2)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, skv, kv_block):
+        s = qf @ kf[:, :, k0:k0 + kv_block].transpose(-1, -2)  # [B, H, Sq, kb]
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, min(k0 + kv_block, skv), device=q.device)[None, :]
+        ok = torch.ones((sq, k_pos.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= k_pos <= q_pos
+        if window is not None:
+            ok &= q_pos - k_pos < window
+        s = torch.where(ok, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vf[:, :, k0:k0 + kv_block]
+        m = m_new
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)

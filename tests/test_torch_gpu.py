@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (marker `gpu`; skips without one).
+"""The port's CUDA kernels on the card (marker `gpu`; skips without one).
 
 Run on a machine with an H100 and nvcc:
 
@@ -20,6 +20,7 @@ from repro_torch.core.priors import paper_prior
 from repro_torch.core.summaries import summary_pairs
 from repro_torch.epi import data
 from repro_torch.kernels import abc_sim, ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rng as krng
 
 pytestmark = pytest.mark.gpu
@@ -120,3 +121,100 @@ def test_make_abc_sim_on_the_card_matches_per_call_lowering(cuda):
         assert torch.equal(got, ops.abc_sim_distance(
             theta, seed, obs, summary="weekly", distance="normalized_euclidean",
             **_small_kw()))
+
+
+# ---------------------------------------------------------------- flash attention
+#: (b, sq, h, kh, d, skv, causal, window, softcap): the cases of chip_smoke.py's
+#: flash phase. The first three are tests/test_kernel_flash.py:21-25.
+FLASH_CASES = [
+    (1, 64, 2, 2, 16, 64, True, None, None),
+    (2, 64, 4, 2, 16, 64, True, None, None),
+    (1, 128, 4, 1, 32, 128, True, None, None),
+    (1, 64, 2, 2, 16, 64, True, 16, 30.0),  # window and softcap
+    (1, 24, 2, 2, 16, 40, False, None, None),  # non-causal, Skv != Sq
+    (1, 2047, 8, 1, 256, 2047, True, None, None),  # ragged
+    (1, 64, 2, 1, 32, 8, False, 16, None),  # rows 23.. have no allowed key
+    (4, 2048, 8, 1, 256, 2048, True, None, None),  # gemma-2b prefill
+]
+#: float32: the bar of tests/test_kernel_flash.py:31. bf16: kernel and plain
+#: version compute in float32 and round only the output, so they may differ by
+#: one bf16 step (at most 2^-7 |want|) over the float32 atol; the bars of
+#: chip_smoke.py's flash phase.
+FLASH_BARS = {torch.float32: dict(rtol=3e-4, atol=3e-5),
+              torch.bfloat16: dict(rtol=2**-7, atol=3e-5)}
+
+
+def _flash_qkv(b, sq, h, kh, d, skv, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(shape, dtype=np.float32)).to(device=device, dtype=dtype)
+    return mk(b, sq, h, d), mk(b, skv, kh, d), mk(b, skv, kh, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, sq, h, kh, d, skv, causal, window, softcap = case
+    q, k, v = _flash_qkv(b, sq, h, kh, d, skv, dtype, cuda, seed=sq + h)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    launches, calls = fa.LAUNCHES, ref.FLASH_CALLS
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, ref.FLASH_CALLS) == (launches + 1, calls)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[dtype])
+    if window is not None and not causal:
+        dead = torch.arange(sq, device=cuda) - (skv - 1) >= window
+        assert dead.any() and (got[:, dead] == 0).all()
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """A [B, H, S, D] tensor seen as [B, S, H, D] goes in without a copy."""
+    q, k, v = _flash_qkv(2, 96, 4, 2, 64, 96, torch.bfloat16, cuda, seed=3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not qt.is_contiguous()
+    got = fa.flash_attention_kernel(qt, kt, vt, causal=True, window=40, softcap=20.0)
+    want = fa.flash_attention_kernel(q, k, v, causal=True, window=40, softcap=20.0)
+    assert torch.equal(got, want)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_qkv(1, 16, 2, 1, 32, 16, torch.float32, cuda)
+    launches = fa.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA|on"):
+        fa.flash_attention_kernel(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="is on"):
+        ops.flash_attention(q.cpu(), k, v)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention_kernel(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fa.flash_attention_kernel(q, k.bfloat16(), v)
+    big = _flash_qkv(1, 16, 2, 1, 288, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim 288"):
+        fa.flash_attention_kernel(*big)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_kernel(*_flash_qkv(1, 16, 3, 2, 32, 16, torch.float32, cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_kernel(q[..., ::2], k[..., ::2], v[..., ::2])
+    assert fa.LAUNCHES == launches
+
+
+def test_gemma_2b_prefill_goes_through_the_kernel(cuda):
+    """Full-width gemma-2b, 2 x 1024 prompt tokens: one launch a layer and no
+    plain-version call; logits within 16 bf16 steps at the largest |logit|
+    of the dense route (the bar of chip_smoke.py's lm_prefill phase)."""
+    from repro_torch.models.registry import get_model
+
+    model = get_model("gemma-2b")
+    params = model.init_params(device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, size=(2, 1024)), device=cuda)
+    launches, calls = fa.LAUNCHES, ref.FLASH_CALLS
+    got = model.with_cfg(attn_impl="flash").prefill(params, {"tokens": tokens})
+    assert (fa.LAUNCHES - launches, ref.FLASH_CALLS - calls) == (model.cfg.n_layers, 0)
+    want = model.with_cfg(attn_impl="dense").prefill(params, {"tokens": tokens})
+    assert got.shape == (2, 1, model.cfg.vocab) and bool(torch.isfinite(got).all())
+    top = float(want.abs().max())
+    bar = 16 * 2.0 ** (np.floor(np.log2(top)) - 7)
+    assert float((got - want).abs().max()) <= bar

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port that hold on any machine.
 
-* No module under src/repro_torch/, and not chip_smoke.py, imports `jax` or
-  anything of `repro`: the port keeps its own copies.
+* No module under src/repro_torch/, and not chip_smoke.py, imports `jax`,
+  `ml_dtypes` or anything of `repro`: the port keeps its own copies.
 * Asking for device="cuda" without a card raises; nothing falls back to the
   CPU on its own.
 """
@@ -15,7 +15,7 @@ import torch
 from repro_torch import device as tdevice
 from repro_torch.core import abc as tabc
 from repro_torch.epi.data import get_dataset
-from repro_torch.kernels import abc_sim
+from repro_torch.kernels import abc_sim, build
 from repro_torch.launch import abc_run
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -34,7 +34,7 @@ def _imported_modules(path: pathlib.Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -45,6 +45,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_import_rule_catches_what_it_must():
     assert _forbidden("jax.numpy") and _forbidden("repro.core.abc")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core.abc") and not _forbidden("torch")
 
 
@@ -80,3 +81,42 @@ def test_config_refuses_what_this_slice_lacks():
         tabc.ABCConfig(batch_size=300, chunk_size=256)
     with pytest.raises(ValueError, match="multiple of 32"):
         tabc.ABCConfig(batch_size=256, chunk_size=256, block=100)
+
+
+def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
+    """A change to flash_attention.cu does not rebuild abc_sim, and abc_sim
+    alone keeps --fmad=false (its bitwise agreement rests on it)."""
+    by_name = {src.stem: src for src in build.sources()}
+    assert set(by_name) == {"abc_sim", "flash_attention"}
+    assert [p.name for p in build.local_headers(by_name["abc_sim"])] == ["rng.cuh", "siard.cuh"]
+    assert build.local_headers(by_name["flash_attention"]) == []
+    assert "--fmad=false" in build.flags("abc_sim")
+    assert "--fmad=false" not in build.flags("flash_attention")
+    assert all("arch=compute_90a,code=sm_90a" in build.flags(n) for n in by_name)
+    digests = {n: build._digest(src) for n, src in by_name.items()}
+    assert len(set(digests.values())) == 2
+
+
+def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(tmp_path, monkeypatch):
+    """With a stand-in nvcc (a shell script that writes its -o file and a
+    ptxas line), every source is built once and then reused."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then out=$2; fi; shift; done\n"
+        "echo built > \"$out\"\n"
+        "echo \"ptxas info    : Compiling entry function 'k' for 'sm_90a'\"\n"
+        "echo 'ptxas info    : Used 40 registers'\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_INFO", {})
+    first = build.build_all()
+    assert set(first) == {"abc_sim", "flash_attention"}
+    for info in first.values():
+        assert not info.cached and info.path.read_text() == "built\n"
+        assert info.kernels == {"k": dict(registers=40, smem_bytes=0, stack_bytes=0,
+                                          spill_stores=0, spill_loads=0)}
+    monkeypatch.setattr(build, "_INFO", {})
+    again = build.build_all()
+    assert all(info.cached and info.seconds == 0.0 for info in again.values())
