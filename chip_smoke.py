@@ -9,7 +9,10 @@ It puts `src/` on the import path, builds the CUDA kernels from
 printing one JSON line:
 
   device     the card's name and the nvidia-smi name and power limit
-  build      nvcc seconds and each kernel's registers, shared memory, spills
+  build      nvcc seconds (one nvcc a source, all started together), each
+             kernel's registers, shared memory and spills, ptxas's wgmma
+             warnings, and the HGMMA instructions in each kernel's SASS
+             (cuobjdump -sass)
   rng        the kernel's hash bits and normals against the plain twin
   abc_sim    the fused kernel against its plain version: the r1 pins, a
              synthetic series, Italy at 100,000 x 49 days, block sizes
@@ -20,20 +23,24 @@ printing one JSON line:
              device busy time and the operations that take it
   timing     the kernel at 100,000 and 1,000,000 x 49 days beside its bound
              and the plain version
-  flash      the flash-attention kernel against its plain version, float32
-             and bf16, on the causal GQA shapes of tests/test_kernel_flash.py,
-             window + softcap, non-causal cross-length, ragged 2047, rows
-             with no allowed key, and gemma-2b's prefill shape
+  flash      the flash-attention kernels against their plain version: bf16
+             through the tensor-core kernel, float32 through the CUDA-core
+             one (route counters), on the causal GQA shapes of
+             tests/test_kernel_flash.py, window + softcap, non-causal
+             cross-length, ragged 2047, rows with no allowed key, gemma-2b's
+             prefill shape, D 72 and 20, and a ragged Skv != Sq
   lm_prefill full-width gemma-2b (bf16, weights from a generator seeded 0)
              prefills 4 x 2048 tokens through `ModelDef.prefill` with
-             attn_impl="flash", the launch counter set to 0 just before;
-             its logits against the same model with attn_impl="dense"
+             attn_impl="flash", the launch counters set to 0 just before
+             (18 tensor-core launches); its logits against the same model
+             with attn_impl="dense"
   lm_profile one flash prefill under torch.profiler: the flash kernel's
              device ms against the matrix products, and the idle share
   lm_serve   `repro_torch.launch.serve` LM mode at full width, its defaults
-  lm_timing  the flash kernel at (4, 2048) and (1, 8192) x 8 heads, 1 kv
-             head, D 256, bf16, causal, beside its bound, the plain version
-             and torch's scaled_dot_product_attention
+  lm_timing  the bf16 tensor-core kernel at (4, 2048) and (1, 8192) x 8
+             heads, 1 kv head, D 256, causal, beside its bound, the plain
+             version and torch's scaled_dot_product_attention; the float32
+             CUDA-core kernel at the same shapes in float32
   kernels    one line for each kernel of the main paths
 
 then the card's name and power limit as nvidia-smi gives them, and the last
@@ -55,7 +62,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PINS = os.path.join(ROOT, "tests", "data", "r1_pins.npz")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cu"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
-FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
 #: H100 SXM published peaks (NVIDIA's data sheet): float32 outside
 #: the tensor cores, bf16 on the tensor cores (dense), and HBM bandwidth
@@ -67,9 +74,10 @@ BAR = dict(rtol=2e-6, atol=1e-3)
 COUNTRY_BAR = dict(rtol=1e-5, atol=1.0)
 #: flash kernel-vs-plain bars. float32: tests/test_kernel_flash.py:31. bf16:
 #: kernel and plain version both compute in float32 from the same bf16
-#: inputs and round only the output to bf16, so they may land one bf16 step
-#: apart, and a step is at most 2^-7 |want|; atol is the float32 bar's, for
-#: the float32 arithmetic under that rounding. (The 0.05 of
+#: inputs (the kernel keeps p to about 16 bits as bf16 hi + lo) and round
+#: only the output to bf16, so they may land one bf16 step apart, and a step
+#: is at most 2^-7 |want|; atol is the float32 bar's, for the float32
+#: arithmetic under that rounding. (The 0.05 of
 #: tests/test_kernel_flash.py:64-65 is for dense_attention, which also
 #: rounds p to bf16; it stays in the CPU tests against repro.)
 FLASH_BARS = {"float32": dict(rtol=3e-4, atol=3e-5), "bfloat16": dict(rtol=2**-7, atol=3e-5)}
@@ -84,6 +92,9 @@ FLASH_CASES = [
     (1, 2047, 8, 1, 256, 2047, True, None, None),  # ragged
     (1, 64, 2, 1, 32, 8, False, 16, None),  # rows 23.. have no allowed key
     (4, 2048, 8, 1, 256, 2048, True, None, None),  # gemma-2b prefill
+    (1, 100, 4, 2, 72, 100, True, None, None),  # D a multiple of 8, not of 16
+    (2, 50, 2, 1, 20, 50, True, None, None),  # D off the 8 grid: staged by element
+    (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
 ]
 #: gemma-2b prefill through the flash route against the dense route: both
 #: round the unembedding product to bf16, so a logit in [2^e, 2^(e+1)) moves
@@ -144,8 +155,9 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def flash_phase(dev) -> float:
-    """The flash kernel against its plain version on every FLASH_CASES case,
-    float32 and bf16; returns the largest absolute error."""
+    """The flash kernels against their plain version on every FLASH_CASES
+    case, float32 and bf16; returns the bf16 tensor-core kernel's largest
+    absolute error."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -160,14 +172,20 @@ def flash_phase(dev) -> float:
                        .to(device=dev, dtype=dtype)
                        for shape in ((b, sq, h, d), (b, skv, kh, d), (b, skv, kh, d)))
             kw = dict(causal=causal, window=window, softcap=cap)
-            launches, calls = fa.LAUNCHES, ref.FLASH_CALLS
+            before = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE,
+                      ref.FLASH_CALLS)
             got = ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            if (fa.LAUNCHES, ref.FLASH_CALLS) != (launches + 1, calls):
-                raise AssertionError(f"flash {case}: the card did not go through the kernel")
+            tc = int(dtype == torch.bfloat16)
+            if (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE,
+                    ref.FLASH_CALLS) != (before[0] + 1, before[1] + tc, before[2] + 1 - tc,
+                                         before[3]):
+                raise AssertionError(f"flash {case} {dtype}: the card did not go through "
+                                     f"the {'tensor' if tc else 'CUDA'}-core kernel")
             want = ref.flash_attention_ref(q, k, v, **kw)
             name = str(dtype).split(".")[1]
             r = compare(f"flash {name} {case}", got.float(), want.float(), **FLASH_BARS[name])
+            r["route"] = fa.TENSOR_CORE if tc else fa.CUDA_CORE
             if window is not None and not causal:
                 dead = torch.arange(sq, device=dev) - (skv - 1) >= window
                 if not bool((got[:, dead] == 0).all()):
@@ -175,7 +193,7 @@ def flash_phase(dev) -> float:
                 r["rows_with_no_key"] = int(dead.sum())
             results.append(r)
     emit("flash", comparisons=results)
-    return max(r["max_abs_err"] for r in results)
+    return max(r["max_abs_err"] for r in results if r["route"] == fa.TENSOR_CORE)
 
 
 def profile_device_ms(fn):
@@ -203,8 +221,8 @@ def profile_device_ms(fn):
 
 
 def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
-    """lm_prefill, lm_profile, lm_serve and lm_timing; returns the flash
-    kernel's line of the kernels record."""
+    """lm_prefill, lm_profile, lm_serve and lm_timing; returns the bf16
+    flash kernel's line of the kernels record."""
     import torch
     import torch.nn.functional as F
 
@@ -224,16 +242,19 @@ def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
     flash_model = model.with_cfg(attn_impl="flash")
 
     # ---- lm_prefill: the main path through the kernel, counters around it
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_CUDA_CORE = 0
     ref.FLASH_CALLS = 0
     t0 = time.perf_counter()
     logits = flash_model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = fa.LAUNCHES, ref.FLASH_CALLS
-    if launches != cfg.n_layers or plain_calls != 0:
-        raise AssertionError(f"lm_prefill: {launches} flash launches (want {cfg.n_layers}), "
-                             f"{plain_calls} plain-version calls")
+    tc_launches, cc_launches = fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE
+    if (launches, tc_launches, cc_launches, plain_calls) != (cfg.n_layers, cfg.n_layers, 0, 0):
+        raise AssertionError(f"lm_prefill: {launches} flash launches, {tc_launches} on the "
+                             f"tensor cores (want {cfg.n_layers} and {cfg.n_layers}), "
+                             f"{cc_launches} on the CUDA cores, {plain_calls} plain-version "
+                             f"calls")
     dense = model.with_cfg(attn_impl="dense").prefill(params, {"tokens": tokens})
     if logits.shape != (4, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"lm_prefill: logits {tuple(logits.shape)}, finite="
@@ -248,7 +269,9 @@ def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
         raise AssertionError(f"lm_prefill: flash vs dense max |diff| {diff} (bar {bar}), "
                              f"argmax agreement {agree.tolist()} on rows {decided.tolist()}")
     emit("lm_prefill", arch=cfg.name, batch=4, prompt_len=2048, params=model.param_count(),
-         init_s=init_s, wall_s=wall, flash_launches=launches, plain_calls=plain_calls,
+         init_s=init_s, wall_s=wall, flash_launches=launches,
+         tensor_core_launches=tc_launches, cuda_core_launches=cc_launches,
+         plain_calls=plain_calls,
          max_abs_diff_vs_dense=diff, max_abs_logit=top, bar=bar,
          argmax_agree=agree.tolist(), argmax_decided_rows=decided.tolist(),
          kind=name, nvidia_smi=smi)
@@ -276,33 +299,42 @@ def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
          seconds=stats["seconds"], tok_per_s=stats["tok_per_s"], kind=name, nvidia_smi=smi)
     torch.cuda.empty_cache()
 
-    # ---- lm_timing: the kernel alone beside its bound, plain version, SDPA
+    # ---- lm_timing: each route's kernel alone beside its bound, plain version, SDPA
     cells = []
-    for b, s, iters in ((4, 2048, 20), (1, 8192, 10)):
-        rng = np.random.default_rng(s)
-        q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
-                   .to(device=dev, dtype=torch.bfloat16)
-                   for shape in ((b, s, 8, 256), (b, s, 1, 256), (b, s, 1, 256)))
-        ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, causal=True), iters)
-        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2, warmup=1)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
-        flops = fa.attention_flops(b, s, s, 8, 256, causal=True)
-        n_bytes = fa.attention_bytes(q, k, v)
-        ops_ms, bytes_ms = flops / BF16_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-        cells.append({"batch": b, "seq": s, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "flops": flops, "bytes": n_bytes,
-                      "bound_ms": max(ops_ms, bytes_ms),
-                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                      "bound_ms_f32_cuda_cores": max(flops / F32_OPS_PER_S * 1e3, bytes_ms),
-                      "share_of_bound": max(ops_ms, bytes_ms) / ms,
-                      "tflops": flops / (ms * 1e-3) / 1e12, "iters": iters})
+    for dtype, peak in ((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)):
+        for b, s, iters in ((4, 2048, 20), (1, 8192, 10)):
+            rng = np.random.default_rng(s)
+            q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+                       .to(device=dev, dtype=dtype)
+                       for shape in ((b, s, 8, 256), (b, s, 1, 256), (b, s, 1, 256)))
+            iters = iters if dtype == torch.bfloat16 else max(2, iters // 4)
+            tc = fa.LAUNCHES_TENSOR_CORE
+            ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, causal=True), iters)
+            route = fa.TENSOR_CORE if fa.LAUNCHES_TENSOR_CORE > tc else fa.CUDA_CORE
+            plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2,
+                               warmup=1)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+            flops = fa.attention_flops(b, s, s, 8, 256, causal=True)
+            n_bytes = fa.attention_bytes(q, k, v)
+            ops_ms, bytes_ms = flops / peak * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+            cells.append({"dtype": str(dtype).split(".")[1], "route": route, "batch": b,
+                          "seq": s, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                          "flops": flops, "bytes": n_bytes, "peak_ops_per_s": peak,
+                          "bound_ms": max(ops_ms, bytes_ms),
+                          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                          "share_of_bound": max(ops_ms, bytes_ms) / ms,
+                          "tflops": flops / (ms * 1e-3) / 1e12, "iters": iters})
+            del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     emit("lm_timing", kind=name, nvidia_smi=smi, peak_bf16_ops_per_s=BF16_OPS_PER_S,
          peak_f32_ops_per_s=F32_OPS_PER_S, peak_bytes_per_s=HBM_BYTES_PER_S, cells=cells)
     main_cell = cells[0]
-    return {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_TPU_KERNEL, "launches": launches, "max_abs_err": flash_err,
+    if main_cell["route"] != fa.TENSOR_CORE:
+        raise AssertionError("lm_timing: bf16 did not go through the tensor-core kernel")
+    return {"name": "flash_fwd_bf16", "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_TPU_KERNEL, "launches": tc_launches, "max_abs_err": flash_err,
             "ms": main_cell["ms"], "plain_ms": main_cell["plain_ms"],
             "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
             "library_ms": main_cell["library_ms"]}
@@ -339,10 +371,21 @@ def main() -> int:
     # ---- build
     t0 = time.perf_counter()
     info = build.build_all()
-    emit("build", wall_s=time.perf_counter() - t0,
+    build_wall = time.perf_counter() - t0
+    hgmma = build.sass_counts("flash_attention_wgmma", "HGMMA")
+    if hgmma is not None and not all(hgmma.values()):
+        raise AssertionError(f"build: a tensor-core flash kernel issues no HGMMA: {hgmma}")
+    # ptxas warns (C7515, "Potential Performance Loss") where it serialises wgmma
+    ptxas_notes = {k: [line.strip() for line in v.path.with_suffix(".ptxas.txt").read_text()
+                       .splitlines() if "Performance Loss" in line]
+                   for k, v in info.items()}
+    emit("build", wall_s=build_wall,
          libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
-                        "nvcc_flags": list(build.flags(k)), "kernels": v.kernels}
-                    for k, v in info.items()})
+                        "nvcc_flags": list(build.flags(k)), "kernels": v.kernels,
+                        "ptxas_wgmma_notes": ptxas_notes[k]}
+                    for k, v in info.items()},
+         hgmma_in_sass=hgmma if hgmma is not None else
+         "not measured: the toolkit has no cuobjdump")
 
     # ---- rng: the kernel's hash bits and normals against the plain twin
     B, C, seed = 1_000_000, 10, 0x5EED1234

@@ -9,7 +9,9 @@ copy.
 Each kernel that `repro` wrote in Pallas is a CUDA C++ kernel for Hopper,
 built with `nvcc` at first use: the fused tau-leap simulation with its
 running summary distance (`kernels/csrc/abc_sim.cu`) and forward flash
-attention (`kernels/csrc/flash_attention.cu`). Beside each sits a plain
+attention, in bf16 on the tensor cores (`kernels/csrc/flash_attention_wgmma.cu`)
+and in float32 on the CUDA cores (`kernels/csrc/flash_attention.cu`). Beside
+each sits a plain
 PyTorch version of the same function (`kernels/ref.py`), which is what a
 CPU tensor goes through.
 

@@ -8,12 +8,15 @@ flags, so an unchanged source reuses its build and a changed one rebuilds.
 
 Every source is built with `NVCC_FLAGS`; `SOURCE_FLAGS` adds flags of one
 source: `abc_sim` keeps `--fmad=false`, on which its bitwise agreement with
-the plain version rests, while `flash_attention` lets nvcc fuse multiply-adds.
+the plain version rests, while the two flash-attention sources let nvcc fuse
+multiply-adds.
 
-Each source that needs building is compiled by one nvcc, one after the
-other. `nvcc -Xptxas -v` reports each kernel's registers, shared memory
-and spills; the report is kept beside the library and parsed into
-`BuildInfo`.
+Each source that needs building is compiled by its own nvcc, all of them
+started together, so a build takes as long as its slowest source.
+`nvcc -Xptxas -v` reports each kernel's registers, shared memory and
+spills; the report is kept beside the library and parsed into `BuildInfo`.
+`sass_counts` counts an opcode (e.g. HGMMA) in each kernel of a built
+library from `cuobjdump -sass`.
 
     from repro_torch.kernels import build
     lib = build.load("abc_sim")          # builds on first use
@@ -30,8 +33,9 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from repro_torch.ioutils import atomic_write_text
 
@@ -160,7 +164,8 @@ def _nvcc(name: str, src: Path, lib: Path) -> BuildInfo:
 
 def build_all() -> Dict[str, BuildInfo]:
     """Build (or reuse) every csrc/*.cu: one nvcc for each source that needs
-    building, one after the other."""
+    building, all started together."""
+    todo = []
     for src in sources():
         name = src.stem
         if name in _INFO:
@@ -170,9 +175,53 @@ def build_all() -> Dict[str, BuildInfo]:
         if lib.exists() and log.exists():
             _INFO[name] = BuildInfo(name, lib, 0.0, True, parse_ptxas(log.read_text()))
         else:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _INFO[name] = _nvcc(name, src, lib)
+            todo.append((name, src, lib))
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            futures = [pool.submit(_nvcc, *job) for job in todo]
+            for (name, _, _), fut in zip(todo, futures):
+                _INFO[name] = fut.result()
     return dict(_INFO)
+
+
+def cuobjdump_path() -> Optional[str]:
+    """cuobjdump beside nvcc, on PATH, or None where the toolkit lacks it."""
+    try:
+        beside = Path(nvcc_path()).with_name("cuobjdump")
+    except RuntimeError:
+        beside = None
+    if beside is not None and os.access(beside, os.X_OK):
+        return str(beside)
+    return shutil.which("cuobjdump")
+
+
+def parse_sass_counts(sass: str, opcode: str) -> Dict[str, int]:
+    """Lines whose instruction is `opcode` (e.g. HGMMA, with any suffix) in
+    each function of a `cuobjdump -sass` listing, under its mangled name."""
+    out: Dict[str, int] = {}
+    current = None
+    pattern = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?" + re.escape(opcode) + r"\b")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            out.setdefault(current, 0)
+        elif current is not None and pattern.search(line):
+            out[current] += 1
+    return out
+
+
+def sass_counts(name: str, opcode: str) -> Optional[Dict[str, int]]:
+    """`parse_sass_counts` of the built `csrc/<name>.cu`, or None without
+    cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    proc = subprocess.run([tool, "-sass", str(build_all()[name].path)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                          check=True)
+    return parse_sass_counts(proc.stdout, opcode)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,13 +1,15 @@
-// Forward flash attention for Hopper (sm_90a), CUDA cores in float32.
+// Forward flash attention for Hopper (sm_90a), CUDA cores in float32: the
+// float32 route. bf16 inputs go to the tensor-core kernel of
+// flash_attention_wgmma.cu; the wrapper chooses by dtype.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:38 (_kernel,
-// launched by flash_attention_kernel at :89, wrapped by kernels/ops.py:240).
-// It computes what that kernel computes: for each (batch, head, query row),
-// softmax(softcap(scale * q . k)) @ v over the keys that the causal mask, the
-// sliding window and the true key length allow, with an online softmax whose
-// running max m, sum l and accumulator acc are float32, and the output
-// acc / max(l, 1e-30) rounded once to the input type. A row with no allowed
-// key writes 0. Query position i is aligned with key position i (no offset).
+// launched by flash_attention_kernel at :89, wrapped by kernels/ops.py:240)
+// for float32 inputs. It computes what that kernel computes: for each
+// (batch, head, query row), softmax(softcap(scale * q . k)) @ v over the keys
+// that the causal mask, the sliding window and the true key length allow,
+// with an online softmax whose running max m, sum l and accumulator acc are
+// float32, and the output acc / max(l, 1e-30). A row with no allowed key
+// writes 0. Query position i is aligned with key position i (no offset).
 // GQA reads kv head h / (H / KH).
 //
 // Layout: q and o are [B, Sq, H, D], k and v [B, Skv, KH, D] (the model's
@@ -20,28 +22,26 @@
 // and its (m, l) and its 8 x D accumulator stay in registers (D/32 columns a
 // lane, strided by 32 so that stores are coalesced). The scaled query tile
 // is staged in shared memory once; K and V tiles of BK = 64 keys are staged
-// one after the other, converted to float32. For each K/V tile a lane
-// computes the scores of its 8 rows against keys lane and lane + 32 from
-// float4 reads (the query reads are warp broadcasts), the warp reduces max
-// and sum with shuffles, and writes p to its own rows of a shared tile that
-// the same warp then multiplies into V. The KV loop starts at the window's
-// first tile and stops at the causal bound. The heaviest (last) query tiles
-// are scheduled first.
+// one after the other. For each K/V tile a lane computes the scores of its
+// 8 rows against keys lane and lane + 32 from float4 reads (the query reads
+// are warp broadcasts), the warp reduces max and sum with shuffles, and
+// writes p to its own rows of a shared tile that the same warp then
+// multiplies into V. The KV loop starts at the window's first tile and stops
+// at the causal bound. The heaviest (last) query tiles are scheduled first.
 //
 // What bounds it: under the causal mask the work is 4 * D operations a
-// (query, key) pair against q + k + v + o read or written once, about 900
-// operations a byte at 4 x 2048 x 8 heads, D = 256; so it is bound by
-// arithmetic. This kernel does that arithmetic on the CUDA cores in float32
-// (67 TFLOP/s on the H100 SXM), not on the tensor cores (989 TFLOP/s bf16):
-// it is a first, simple port. Shared memory is 215,040 bytes at D = 256,
-// so one block runs on an SM at a time and global loads are not overlapped
-// with compute. Making it fast (mma / wgmma, double-buffered tiles) is later
-// work. Built without --fmad=false: a fused multiply-add only rounds less,
-// and the plain version is held at a tolerance, not bitwise.
+// (query, key) pair against q + k + v + o read or written once, about 450
+// operations a byte at 4 x 2048 x 8 heads, D = 256 in float32; so it is bound
+// by arithmetic. This kernel does that arithmetic on the CUDA cores in
+// float32 (67 TFLOP/s on the H100 SXM): float32 products on the tensor cores
+// would be TF32, which keeps 10 bits of mantissa and would not meet the
+// float32 bar. Shared memory is 215,040 bytes at D = 256, so one block runs
+// on an SM at a time and global loads are not overlapped with compute.
+// Built without --fmad=false: a fused multiply-add only rounds less, and the
+// plain version is held at a tolerance, not bitwise.
 
 #include <atomic>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,12 +70,8 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <class T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 template <int DMAX>
 constexpr size_t smem_bytes() {
@@ -269,13 +265,13 @@ cudaError_t dispatch_d(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype 0: float32, 1: bfloat16. q, k, v, o are device pointers; strides
-// points to 12 host int64 element strides: (batch, seq, head) of q, k, v, o.
-// window <= 0 and softcap <= 0 mean none. Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for arguments the kernel does not take).
-int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o, int B,
-                        int H, int KH, int Sq, int Skv, int D, const long long* strides,
-                        int causal, int window, float softcap, float scale, void* stream) {
+// float32 q, k, v, o device pointers; strides points to 12 host int64
+// element strides: (batch, seq, head) of q, k, v, o. window <= 0 and
+// softcap <= 0 mean none. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).
+int flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int KH,
+                  int Sq, int Skv, int D, const long long* strides, int causal, int window,
+                  float softcap, float scale, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Skv < 1 || D < 1 || D > 256 ||
       B > 65535 || H > 65535)
     return cudaErrorInvalidValue;
@@ -290,13 +286,10 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, 
   p.window = window > 0 ? window : 0;
   p.softcap = softcap > 0.0f ? softcap : 0.0f;
   p.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(p, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(p, s);
-  return cudaErrorInvalidValue;
+  return dispatch_d<float>(p, static_cast<cudaStream_t>(stream));
 }
 
-const char* flash_error_string(int code) {
+const char* flash_f32_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

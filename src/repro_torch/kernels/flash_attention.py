@@ -1,4 +1,4 @@
-"""ctypes wrapper of the forward flash-attention kernel (`csrc/flash_attention.cu`).
+"""ctypes wrapper of the forward flash-attention kernels.
 
 Counterpart of `repro.kernels.flash_attention.flash_attention_kernel`, which
 launched the TPU kernel. It takes the model layout that `repro`'s
@@ -8,13 +8,26 @@ batch, sequence and head strides: nothing is transposed, padded or copied,
 as long as the last dimension is contiguous. The output [B, Sq, H, D] in
 q's dtype is allocated here with `torch.empty`.
 
-`LAUNCHES` counts the kernel's launches.
+Two kernels, chosen by dtype (`route`):
+
+- bf16 goes to the tensor-core kernel (`csrc/flash_attention_wgmma.cu`,
+  wgmma, scores and accumulator in float32, p split into bf16 hi + lo). With
+  D a multiple of 8 it reads rows in 16-byte pieces, so the bases must be
+  16-byte aligned and the strides multiples of 8; otherwise it stages
+  element by element.
+- float32 goes to the CUDA-core kernel (`csrc/flash_attention.cu`): the
+  tensor cores would take float32 as TF32, 10 bits of mantissa.
+
+Nothing falls back from one to the other: what a kernel cannot read raises.
+
+`LAUNCHES` counts the launches of both; `LAUNCHES_TENSOR_CORE` and
+`LAUNCHES_CUDA_CORE` those of each route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,33 +35,69 @@ import torch
 from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORE = "tensor_core"
+CUDA_CORE = "cuda_core"
+#: route -> (source in csrc/, exported function, its error-string function)
+ROUTES = {
+    TENSOR_CORE: ("flash_attention_wgmma", "flash_fwd_bf16", "flash_bf16_error_string"),
+    CUDA_CORE: ("flash_attention", "flash_fwd_f32", "flash_f32_error_string"),
+}
 
-#: launches of the flash kernel
+#: launches of either flash kernel
 LAUNCHES = 0
+#: launches of the bf16 tensor-core kernel
+LAUNCHES_TENSOR_CORE = 0
+#: launches of the float32 CUDA-core kernel
+LAUNCHES_CUDA_CORE = 0
 
 _VP = ctypes.c_void_p
-_typed: set = set()
+_fns: dict = {}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_attention")
-    if "flash_attention" not in _typed:
-        lib.flash_attention_fwd.argtypes = [
-            ctypes.c_int, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, _VP,
+def _fn(route_name: str):
+    """(kernel entry, error-string function) of a route, built on first use."""
+    if route_name not in _fns:
+        source, entry, errstr = ROUTES[route_name]
+        lib = build.load(source)
+        fn = getattr(lib, entry)
+        fn.argtypes = [
+            _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, _VP,
         ]
-        lib.flash_attention_fwd.restype = ctypes.c_int
-        lib.flash_error_string.argtypes = [ctypes.c_int]
-        lib.flash_error_string.restype = ctypes.c_char_p
-        _typed.add("flash_attention")
-    return lib
+        fn.restype = ctypes.c_int
+        err = getattr(lib, errstr)
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _fns[route_name] = (fn, err)
+    return _fns[route_name]
+
+
+def route(dtype: torch.dtype, d: int, strides: Sequence[int], data_ptrs: Sequence[int]) -> str:
+    """The kernel that takes a call: `TENSOR_CORE` for bf16, `CUDA_CORE` for
+    float32. `strides` are the element strides (batch, seq, head) of q, k, v
+    and o, `data_ptrs` their base addresses. Raises ValueError on a dtype
+    neither kernel takes, and on a bf16 call with D a multiple of 8 whose
+    rows are not 16-byte pieces (a base not 16-byte aligned or a stride not
+    a multiple of 8)."""
+    if dtype == torch.float32:
+        return CUDA_CORE
+    if dtype != torch.bfloat16:
+        raise ValueError(f"q, k, v must all be float32 or all bfloat16, got {dtype}")
+    if d % 8 == 0:
+        bad_ptr = [hex(p) for p in data_ptrs if p % 16]
+        bad_stride = [s for s in strides if s % 8]
+        if bad_ptr or bad_stride:
+            raise ValueError(
+                f"the bf16 kernel reads rows of D={d} in 16-byte pieces: bases must be "
+                f"16-byte aligned and strides multiples of 8, got bases {bad_ptr} and "
+                f"strides {bad_stride} that are not")
+    return TENSOR_CORE
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                window: Optional[int], softcap: Optional[float]) -> None:
-    """Raise ValueError on anything the kernel does not take."""
+    """Raise ValueError on anything the kernels do not take."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q, k, v must be 4-D [B, S, H, D], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -63,7 +112,8 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {d} is outside the kernel's 1..{MAX_HEAD_DIM}")
     if min(sq, k.shape[1]) < 1:
         raise ValueError("empty query or key sequence")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
     if window is not None and int(window) < 1:
@@ -90,25 +140,30 @@ def flash_attention_kernel(
     softcap: Optional[float] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Launch the kernel on the current stream; returns o [B, Sq, H, D]."""
-    global LAUNCHES
+    """Launch the route's kernel on the current stream; returns o [B, Sq, H, D]."""
+    global LAUNCHES, LAUNCHES_TENSOR_CORE, LAUNCHES_CUDA_CORE
     check_args(q, k, v, window=window, softcap=softcap)
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
     scale = float(1.0 / np.sqrt(d)) if scale is None else float(scale)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = np.asarray([t.stride(i) for t in (q, k, v, out) for i in range(3)], np.int64)
-    lib = _lib()
+    tensors = (q, k, v, out)
+    strides = np.asarray([t.stride(i) for t in tensors for i in range(3)], np.int64)
+    which = route(q.dtype, d, strides.tolist(), [t.data_ptr() for t in tensors])
+    fn, err = _fn(which)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
-            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, kh, sq, skv, d, strides.ctypes.data, int(bool(causal)),
-            0 if window is None else int(window), 0.0 if softcap is None else float(softcap),
-            scale, torch.cuda.current_stream(q.device).cuda_stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh, sq, skv, d,
+                strides.ctypes.data, int(bool(causal)), 0 if window is None else int(window),
+                0.0 if softcap is None else float(softcap), scale,
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: "
-                           f"{lib.flash_error_string(rc).decode()} (cudaError {rc})")
+        raise RuntimeError(f"{ROUTES[which][1]} launch failed: {err(rc).decode()} "
+                           f"(cudaError {rc})")
     LAUNCHES += 1
+    if which == TENSOR_CORE:
+        LAUNCHES_TENSOR_CORE += 1
+    else:
+        LAUNCHES_CUDA_CORE += 1
     return out
 
 

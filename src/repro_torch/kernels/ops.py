@@ -100,10 +100,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Forward flash attention in the model layout; returns [B, S, H, D] in
     q's dtype. Counterpart of `repro.kernels.ops.flash_attention`: the CUDA
-    kernel reads the model layout through its strides and masks ragged
-    lengths itself, so nothing is transposed or padded here. A CPU q goes to
-    `ref.flash_attention_ref`, a CUDA q to the kernel, which raises on
-    tensors it does not take."""
+    kernels read the model layout through its strides and mask ragged
+    lengths themselves, so nothing is transposed or padded here. A CPU q
+    goes to `ref.flash_attention_ref`, a CUDA q to the kernel of its dtype
+    (`flash_attention.route`: bf16 on the tensor cores, float32 on the CUDA
+    cores), which raises on tensors it does not take."""
     if q.device.type == "cpu":
         for name, t in (("k", k), ("v", v)):
             if t.device != q.device:

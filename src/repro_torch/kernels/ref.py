@@ -96,14 +96,15 @@ def flash_attention_ref(
 ) -> torch.Tensor:
     """Plain version of the flash kernel: o [B, Sq, H, D] in q's dtype.
 
-    Mirrors `repro/kernels/flash_attention.py::_kernel` (and
-    `csrc/flash_attention.cu`): q is cast to float32 and scaled, scores are
-    float32 and soft-capped, then masked with NEG_INF by padding (key <
-    Skv), causality (key <= query, query i aligned with key i) and the
-    window (query - key < window); an online softmax runs over KV blocks of
-    `kv_block` keys with float32 (m, l, acc), masked probabilities set to 0;
-    the output is acc / max(l, 1e-30), rounded once to q's dtype, so a row
-    with no allowed key is 0. GQA reads kv head h // (H // KH).
+    Mirrors `repro/kernels/flash_attention.py::_kernel` (and the CUDA
+    kernels, `csrc/flash_attention.cu` for float32 and
+    `csrc/flash_attention_wgmma.cu` for bf16): q is cast to float32 and
+    scaled, scores are float32 and soft-capped, then masked with NEG_INF by
+    padding (key < Skv), causality (key <= query, query i aligned with key
+    i) and the window (query - key < window); an online softmax runs over KV
+    blocks of `kv_block` keys with float32 (m, l, acc), masked probabilities
+    set to 0; the output is acc / max(l, 1e-30), rounded once to q's dtype,
+    so a row with no allowed key is 0. GQA reads kv head h // (H // KH).
 
     The TPU kernel also tiles queries and stops each tile's sweep at its
     causal bound; a skipped block is fully masked and changes neither m, l

@@ -171,3 +171,127 @@ def test_attention_flops_counts_allowed_pairs(s, t, causal):
         ok &= kpos <= qpos
     assert fa.attention_flops(2, s, t, 3, 16, causal=causal) == \
         4 * 16 * int(ok.sum()) * 2 * 3
+
+
+# ------------------------------------------------- the tensor-core route's numerics
+#: the bars of the bf16 kernel against its plain version on the card
+#: (chip_smoke.py FLASH_BARS, tests/test_torch_gpu.py FLASH_BARS)
+BF16_KERNEL_BAR = dict(rtol=2**-7, atol=3e-5)
+LOG2E = 1.4426950408889634
+BK = 64  # keys a tile of csrc/flash_attention_wgmma.cu
+
+
+def _tensor_core_emulation(q, k, v, *, causal, window, softcap):
+    """What csrc/flash_attention_wgmma.cu rounds, in torch on the CPU: bf16 q,
+    k, v with the head dimension padded with zeros to 64, 128 or 256; per
+    tile of 64 keys, q . k in float32 (the bf16 products are exact) times
+    scale * log2(e) after the product (soft-capped in natural units first);
+    the online softmax in the log2 domain in float32; p split into bf16 hi
+    and lo = bf16(p - hi), both multiplied into the same bf16 V and summed
+    in float32; the output rounded once to bf16. Returns (o, padded o)."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    scale = torch.tensor(1.0 / np.sqrt(d), dtype=torch.float32)
+    c2 = scale * torch.tensor(LOG2E, dtype=torch.float32)
+
+    def padded(t, rep=1):
+        t = torch.nn.functional.pad(t.float(), (0, dp - d))
+        return t.repeat_interleave(rep, dim=2).transpose(1, 2)
+
+    qf, kf, vf = padded(q), padded(k, h // kh), padded(v, h // kh)
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), -1e30)
+    l_sum = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, dp))
+    for k0 in range(0, skv, BK):
+        s = qf @ kf[:, :, k0:k0 + BK].transpose(-1, -2)
+        if softcap is not None:
+            x = softcap * torch.tanh(s * scale / softcap) * LOG2E
+        else:
+            x = s * c2
+        kpos = torch.arange(k0, min(k0 + BK, skv))[None, :]
+        ok = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= qpos - kpos < window
+        x = torch.where(ok, x, -1e30)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        p = torch.where(ok, torch.exp2(x - m_new[..., None]), 0.0)
+        corr = torch.exp2(m - m_new)
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        vt = vf[:, :, k0:k0 + BK]
+        acc = acc * corr[..., None] + hi @ vt + lo @ vt
+        m = m_new
+    out = (acc / torch.clamp(l_sum, min=1e-30)[..., None]).transpose(1, 2)
+    return out[..., :d].to(torch.bfloat16), out
+
+
+def _emulation_cases():
+    """tests/test_torch_gpu.py's FLASH_CASES but gemma-2b's full prefill
+    (4 x 2048), whose rows are those of the ragged 2047 case four times over."""
+    from test_torch_gpu import FLASH_CASES
+
+    return [c for c in FLASH_CASES if c[:2] != (4, 2048)]
+
+
+@pytest.mark.parametrize("case", _emulation_cases(), ids=lambda c: "-".join(map(str, c)))
+def test_tensor_core_roundings_meet_the_bars(case):
+    """The bf16 tensor-core route's roundings (bf16 products, hi + lo p)
+    within the card's bf16 kernel bar of the plain version, within the 0.05
+    bar of repro's dense attention, with zero padded head columns and rows
+    with no allowed key at 0."""
+    b, sq, h, kh, d, skv, causal, window, cap = case
+    arrays = _qkv(b, sq, h, kh, d, t=skv, seed=sq + h)
+    q, k, v = _torch(arrays, torch.bfloat16)
+    got, padded = _tensor_core_emulation(q, k, v, causal=causal, window=window, softcap=cap)
+    assert bool((padded[..., d:] == 0).all())
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    np.testing.assert_allclose(_np(got), _np(plain), **BF16_KERNEL_BAR)
+    qpos, kpos = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= qpos - kpos < window
+    alive = ok.any(axis=1)
+    assert (_np(got)[:, ~alive] == 0).all()
+    want = jcm.dense_attention(*_jax(arrays, jnp.bfloat16), causal=causal, window=window,
+                               attn_softcap=cap)
+    np.testing.assert_allclose(_np(got)[:, alive], _np(want)[:, alive], **BF16)
+
+
+# ------------------------------------------------------------- route by dtype
+_ALIGNED = dict(strides=[8 * i for i in range(12)], data_ptrs=[4096, 8192, 12288, 16384])
+
+
+@pytest.mark.parametrize("d", [16, 72, 256])
+def test_route_sends_bf16_to_the_tensor_cores_and_float32_to_the_cuda_cores(d):
+    assert fa.route(torch.bfloat16, d, **_ALIGNED) == fa.TENSOR_CORE
+    assert fa.route(torch.float32, d, **_ALIGNED) == fa.CUDA_CORE
+
+
+@pytest.mark.parametrize("d", [1, 20, 250])
+def test_route_stages_a_head_dim_off_the_8_grid_element_by_element(d):
+    """D not a multiple of 8: no 16-byte pieces, so any stride and base do."""
+    assert fa.route(torch.bfloat16, d, strides=[d, 3 * d, 5] * 4,
+                    data_ptrs=[4098, 8194, 2, 6]) == fa.TENSOR_CORE
+
+
+@pytest.mark.parametrize("strides,ptrs,match", [
+    ([8] * 11 + [68], [16] * 4, "strides \\[68\\]"),
+    ([8] * 12, [16, 18, 32, 48], "bases \\['0x12'\\]"),
+])
+def test_route_refuses_bf16_rows_that_are_not_16_byte_pieces(strides, ptrs, match):
+    with pytest.raises(ValueError, match=match):
+        fa.route(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
+    assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == fa.CUDA_CORE
+
+
+def test_route_refuses_other_dtypes():
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            fa.route(dtype, 64, **_ALIGNED)

@@ -135,10 +135,14 @@ FLASH_CASES = [
     (1, 2047, 8, 1, 256, 2047, True, None, None),  # ragged
     (1, 64, 2, 1, 32, 8, False, 16, None),  # rows 23.. have no allowed key
     (4, 2048, 8, 1, 256, 2048, True, None, None),  # gemma-2b prefill
+    (1, 100, 4, 2, 72, 100, True, None, None),  # D a multiple of 8, not of 16
+    (2, 50, 2, 1, 20, 50, True, None, None),  # D off the 8 grid: staged by element
+    (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
 ]
 #: float32: the bar of tests/test_kernel_flash.py:31. bf16: kernel and plain
-#: version compute in float32 and round only the output, so they may differ by
-#: one bf16 step (at most 2^-7 |want|) over the float32 atol; the bars of
+#: version compute in float32 (the bf16 kernel keeps p to about 16 bits as
+#: bf16 hi + lo) and round only the output, so they may differ by one bf16
+#: step (at most 2^-7 |want|) over the float32 atol; the bars of
 #: chip_smoke.py's flash phase.
 FLASH_BARS = {torch.float32: dict(rtol=3e-4, atol=3e-5),
               torch.bfloat16: dict(rtol=2**-7, atol=3e-5)}
@@ -157,10 +161,12 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     b, sq, h, kh, d, skv, causal, window, softcap = case
     q, k, v = _flash_qkv(b, sq, h, kh, d, skv, dtype, cuda, seed=sq + h)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    launches, calls = fa.LAUNCHES, ref.FLASH_CALLS
+    before = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE, ref.FLASH_CALLS)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert (fa.LAUNCHES, ref.FLASH_CALLS) == (launches + 1, calls)
+    tc = int(dtype == torch.bfloat16)
+    after = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE, ref.FLASH_CALLS)
+    assert after == (before[0] + 1, before[1] + tc, before[2] + 1 - tc, before[3])
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[dtype])
@@ -169,13 +175,37 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         assert dead.any() and (got[:, dead] == 0).all()
 
 
+@pytest.mark.parametrize("case", [
+    (1, 70, 2, 1, 1, 70, True, None, None),  # D 1, padded to 64
+    (1, 150, 2, 2, 100, 150, True, None, None),  # D 100 by element, padded to 128
+    (1, 90, 2, 1, 250, 120, False, 40, 50.0),  # D 250 by element, padded to 256
+    (1, 300, 4, 1, 128, 300, True, 100, 50.0),  # window edge inside later tiles
+], ids=lambda c: "-".join(map(str, c)))
+def test_flash_bf16_kernel_on_every_padded_width(cuda, case):
+    """The tensor-core kernel's other instantiations: head dims staged element
+    by element at each padded width, and a window that cuts tiles past the
+    first, at the bf16 bar of the plain version."""
+    b, sq, h, kh, d, skv, causal, window, softcap = case
+    q, k, v = _flash_qkv(b, sq, h, kh, d, skv, torch.bfloat16, cuda, seed=d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    tc = fa.LAUNCHES_TENSOR_CORE
+    got = fa.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_TENSOR_CORE == tc + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[torch.bfloat16])
+
+
 def test_flash_kernel_reads_strided_views(cuda):
-    """A [B, H, S, D] tensor seen as [B, S, H, D] goes in without a copy."""
+    """A [B, H, S, D] tensor seen as [B, S, H, D] goes in without a copy, to
+    the same bits, through the tensor-core kernel."""
     q, k, v = _flash_qkv(2, 96, 4, 2, 64, 96, torch.bfloat16, cuda, seed=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     assert not qt.is_contiguous()
+    tc = fa.LAUNCHES_TENSOR_CORE
     got = fa.flash_attention_kernel(qt, kt, vt, causal=True, window=40, softcap=20.0)
     want = fa.flash_attention_kernel(q, k, v, causal=True, window=40, softcap=20.0)
+    assert fa.LAUNCHES_TENSOR_CORE == tc + 2
     assert torch.equal(got, want)
 
 
@@ -197,6 +227,17 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_kernel(*_flash_qkv(1, 16, 3, 2, 32, 16, torch.float32, cuda))
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_kernel(q[..., ::2], k[..., ::2], v[..., ::2])
+    # bf16 rows of D=32 that are not 16-byte pieces: a sequence stride of 68
+    # elements, and a base 2 bytes past an aligned one
+    qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+    wide = torch.zeros(1, 16, 68, dtype=torch.bfloat16, device=cuda)
+    q68 = wide[..., :64].unflatten(-1, (2, 32))
+    assert q68.stride()[:3] == (16 * 68, 68, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_kernel(q68, kb, vb)
+    shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_kernel(shifted, kb, vb)
     assert fa.LAUNCHES == launches
 
 
@@ -211,8 +252,10 @@ def test_gemma_2b_prefill_goes_through_the_kernel(cuda):
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, model.cfg.vocab, size=(2, 1024)), device=cuda)
     launches, calls = fa.LAUNCHES, ref.FLASH_CALLS
+    tc = fa.LAUNCHES_TENSOR_CORE
     got = model.with_cfg(attn_impl="flash").prefill(params, {"tokens": tokens})
     assert (fa.LAUNCHES - launches, ref.FLASH_CALLS - calls) == (model.cfg.n_layers, 0)
+    assert fa.LAUNCHES_TENSOR_CORE - tc == model.cfg.n_layers
     want = model.with_cfg(attn_impl="dense").prefill(params, {"tokens": tokens})
     assert got.shape == (2, 1, model.cfg.vocab) and bool(torch.isfinite(got).all())
     top = float(want.abs().max())

@@ -83,18 +83,24 @@ def test_config_refuses_what_this_slice_lacks():
         tabc.ABCConfig(batch_size=256, chunk_size=256, block=100)
 
 
+SOURCES = {"abc_sim", "flash_attention", "flash_attention_wgmma"}
+
+
 def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
-    """A change to flash_attention.cu does not rebuild abc_sim, and abc_sim
-    alone keeps --fmad=false (its bitwise agreement rests on it)."""
+    """A change to a flash-attention source does not rebuild abc_sim, and
+    abc_sim alone keeps --fmad=false (its bitwise agreement rests on it)."""
     by_name = {src.stem: src for src in build.sources()}
-    assert set(by_name) == {"abc_sim", "flash_attention"}
+    assert set(by_name) == SOURCES
     assert [p.name for p in build.local_headers(by_name["abc_sim"])] == ["rng.cuh", "siard.cuh"]
     assert build.local_headers(by_name["flash_attention"]) == []
+    assert [p.name for p in build.local_headers(by_name["flash_attention_wgmma"])] == \
+        ["wgmma.cuh"]
     assert "--fmad=false" in build.flags("abc_sim")
     assert "--fmad=false" not in build.flags("flash_attention")
+    assert "--fmad=false" not in build.flags("flash_attention_wgmma")
     assert all("arch=compute_90a,code=sm_90a" in build.flags(n) for n in by_name)
     digests = {n: build._digest(src) for n, src in by_name.items()}
-    assert len(set(digests.values())) == 2
+    assert len(set(digests.values())) == 3
 
 
 def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(tmp_path, monkeypatch):
@@ -112,7 +118,7 @@ def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(tmp_path, monkeypa
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(build, "_INFO", {})
     first = build.build_all()
-    assert set(first) == {"abc_sim", "flash_attention"}
+    assert set(first) == SOURCES
     for info in first.values():
         assert not info.cached and info.path.read_text() == "built\n"
         assert info.kernels == {"k": dict(registers=40, smem_bytes=0, stack_bytes=0,
@@ -120,3 +126,54 @@ def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(tmp_path, monkeypa
     monkeypatch.setattr(build, "_INFO", {})
     again = build.build_all()
     assert all(info.cached and info.seconds == 0.0 for info in again.values())
+
+
+def test_build_all_starts_every_nvcc_together(tmp_path, monkeypatch):
+    """Each stand-in nvcc waits until all of them have started: built one
+    after the other, the first would give up after 20 s and write 1."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then out=$2; fi; shift; done\n"
+        f"d={tmp_path}/started; mkdir -p $d; touch $d/$$\n"
+        "i=0; while [ $(ls $d | wc -l) -lt 3 ] && [ $i -lt 200 ]; do sleep 0.1; i=$((i+1)); done\n"
+        "ls $d | wc -l | tr -d ' ' > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(build, "_INFO", {})
+    built = build.build_all()
+    assert set(built) == SOURCES
+    assert all(info.path.read_text() == "3\n" for info in built.values())
+
+
+SASS = """
+        code for sm_90a
+                Function : _Z6kernelILi256EEvv
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0a10*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0a20*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        /*0b30*/              @P0  HGMMA.64x256x16.F32.BF16 R88, R20, gdesc[UR12], R88, gsb0 ;
+        /*0b40*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+                Function : _Z6kernelILi64EEvv
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def test_sass_counts_count_an_opcode_in_each_function():
+    assert build.parse_sass_counts(SASS, "HGMMA") == {
+        "_Z6kernelILi256EEvv": 3, "_Z6kernelILi64EEvv": 0}
+    assert build.parse_sass_counts(SASS, "HMMA") == {
+        "_Z6kernelILi256EEvv": 0, "_Z6kernelILi64EEvv": 1}
+
+
+def test_chip_smoke_and_the_gpu_tests_hold_the_same_flash_cases():
+    """chip_smoke.py and tests/test_torch_gpu.py drive one list of cases."""
+    from test_torch_gpu import FLASH_CASES
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    found = [ast.literal_eval(node.value) for node in tree.body
+             if isinstance(node, ast.Assign) and
+             any(getattr(t, "id", None) == "FLASH_CASES" for t in node.targets)]
+    assert found == [FLASH_CASES]
