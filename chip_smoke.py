@@ -10,19 +10,32 @@ printing one JSON line:
 
   device     the card's name and the nvidia-smi name and power limit
   build      nvcc seconds (one nvcc a source, all started together), each
-             kernel's registers, shared memory and spills, ptxas's wgmma
-             warnings, and the HGMMA instructions in each kernel's SASS
-             (cuobjdump -sass)
-  rng        the kernel's hash bits and normals against the plain twin
-  abc_sim    the fused kernel against its plain version: the r1 pins, a
-             synthetic series, Italy at 100,000 x 49 days, block sizes
-             64/128/256 (bitwise), and every flat (summary, distance) pair
+             kernel's registers, shared memory, stack and spills (every
+             variant of abc_sim), ptxas's wgmma warnings, the HGMMA
+             instructions in each kernel's SASS (cuobjdump -sass), and the
+             instruction census of abc_sim's day loop (kernels/sass.py) for
+             the main path's variants of both entries
+  rng        the kernel's hash bits and normals against the plain twin, and
+             its branch-free Box-Muller pieces against logf, sqrtf and cosf
+             on every one of the 2^24 uniforms the hash can give (bitwise)
+  abc_sim    both entries of the fused kernel against the plain version,
+             bitwise: the theta-in entry on the r1 pins (and siard/pallas),
+             a synthetic series, Italy at 100,000 x 49 days and every flat
+             (summary, distance) pair; the wave entry, which draws theta
+             itself, against prior.sample + the plain version on the same
+             inputs (theta and distances); block sizes 64/128/256
   main_path  `repro_torch.launch.abc_run.main` on Italy at the paper's batch
-             and horizon, with the launch counters set to 0 just before
+             and horizon, with the launch counters set to 0 just before:
+             1 + waves launches of the wave entry, no theta-in launch, no
+             host prior draw on the card, no plain-version call
   profile    the main path's waves once more under torch.profiler: wall time,
-             device busy time and the operations that take it
-  timing     the kernel at 100,000 and 1,000,000 x 49 days beside its bound
-             and the plain version
+             device busy time, device operations a wave (and the int64
+             elementwise ones a host prior draw would add) and the
+             operations that take the time
+  timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
+             wave entry at blocks 64/128/256 in turns, beside the operation
+             bound, the issue floor from the census at the SM clock that
+             nvidia-smi reads under load, and the plain version
   flash      the flash-attention kernels against their plain version: bf16
              through the tensor-core kernel, float32 through the CUDA-core
              one (route counters), on the causal GQA shapes of
@@ -41,7 +54,8 @@ printing one JSON line:
              heads, 1 kv head, D 256, causal, beside its bound, the plain
              version and torch's scaled_dot_product_attention; the float32
              CUDA-core kernel at the same shapes in float32
-  kernels    one line for each kernel of the main paths
+  kernels    one line for each kernel: abc_sim (its wave and theta-in
+             entries), the bf16 flash route and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -63,15 +77,17 @@ PINS = os.path.join(ROOT, "tests", "data", "r1_pins.npz")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cu"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
+FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
 #: H100 SXM published peaks (NVIDIA's data sheet): float32 outside
 #: the tensor cores, bf16 on the tensor cores (dense), and HBM bandwidth
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
-#: kernel-vs-plain bars (tests/test_kernel_abc_sim.py:58 and :118)
+#: kernel-vs-oracle bar (tests/test_kernel_abc_sim.py:58): repro's pinned
+#: oracle distances differ from its pinned Pallas ones, which the kernel
+#: equals bitwise, by up to 1.2e-7 relative
 BAR = dict(rtol=2e-6, atol=1e-3)
-COUNTRY_BAR = dict(rtol=1e-5, atol=1.0)
 #: flash kernel-vs-plain bars. float32: tests/test_kernel_flash.py:31. bf16:
 #: kernel and plain version both compute in float32 from the same bf16
 #: inputs (the kernel keeps p to about 16 bits as bf16 hi + lo) and round
@@ -138,6 +154,92 @@ def compare(case: str, got, want, *, rtol: float, atol: float) -> dict:
             "max_abs_err": float(err.max()), "rtol": rtol, "atol": atol}
 
 
+def bitwise(case: str, got, want) -> dict:
+    """Raise unless `got` and `want` are the same float32 values bit for bit
+    (+inf allowed: the wave entry turns NaN into it)."""
+    got = np.asarray(got.cpu() if hasattr(got, "cpu") else got, np.float32)
+    want = np.asarray(want.cpu() if hasattr(want, "cpu") else want, np.float32)
+    if got.shape != want.shape or np.isnan(got).any():
+        raise AssertionError(f"{case}: shape {got.shape} vs {want.shape}, "
+                             f"NaN={bool(np.isnan(got).any())}")
+    differ = got.view(np.uint32) != want.view(np.uint32)
+    if differ.any():
+        i = int(np.argmax(differ))
+        raise AssertionError(f"{case}: {int(differ.sum())}/{differ.size} differ in their bits; "
+                             f"first at {i}: got {got.flat[i]!r} want {want.flat[i]!r}")
+    return {"case": case, "n": int(got.size), "max_abs_err": 0.0, "bitwise_equal": True,
+            "n_inf": int(np.isinf(got).sum())}
+
+
+def abc_census(build, model, flags):
+    """The instruction census (kernels/sass.py) of the abc_sim kernel's two
+    main-path variants, the wave entry and the theta-in entry, at `flags`;
+    None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import abc_sim, sass
+
+    text = build.sass_text("abc_sim")
+    if text is None:
+        return None
+    funcs = sass.parse_functions(text)
+    out = {}
+    for entry, wave in (("wave", True), ("theta_in", False)):
+        symbol = abc_sim.kernel_symbol(model, flags, wave)
+        names = [k for k in funcs if symbol in k]
+        if len(names) != 1:
+            raise AssertionError(f"build: {len(names)} kernels match {symbol} in the SASS")
+        out[entry] = {"function": names[0], **sass.census(funcs[names[0]])}
+    return out
+
+
+class SmClock:
+    """The SM clock as `nvidia-smi --query-gpu=clocks.sm` reads it every 50 ms
+    while the block runs; readings count from `start_counting()`."""
+
+    def __enter__(self):
+        import threading
+
+        self.readings, self.counting = [], False
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+             "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+        def read():
+            for line in self.proc.stdout:
+                if self.counting and line.strip().isdigit():
+                    self.readings.append(float(line))
+
+        self.reader = threading.Thread(target=read, daemon=True)
+        self.reader.start()
+        return self
+
+    def start_counting(self, load=None, seconds: float = 1.0) -> None:
+        """Count readings from now on; with `load`, call it in a loop for
+        `seconds` first and count only the readings of the second half, so
+        that every reading counted is taken under load."""
+        import torch
+
+        t0 = time.perf_counter()
+        while load is not None and time.perf_counter() < t0 + seconds:
+            load()
+            torch.cuda.synchronize()
+            self.counting = time.perf_counter() >= t0 + seconds / 2
+        self.counting = True
+
+    def median(self):
+        return float(np.median(self.readings)) if self.readings else None
+
+    def summary(self) -> dict:
+        r = self.readings
+        return {"median": self.median(), "min": min(r, default=None),
+                "max": max(r, default=None), "readings": len(r)}
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.reader.join(timeout=30)
+        return False
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds per call from CUDA events over `iters` calls."""
     import torch
@@ -154,10 +256,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_phase(dev) -> float:
+def flash_phase(dev):
     """The flash kernels against their plain version on every FLASH_CASES
-    case, float32 and bf16; returns the bf16 tensor-core kernel's largest
-    absolute error."""
+    case, float32 and bf16; returns the largest absolute error of the bf16
+    tensor-core kernel and of the float32 CUDA-core kernel."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -193,7 +295,8 @@ def flash_phase(dev) -> float:
                 r["rows_with_no_key"] = int(dead.sum())
             results.append(r)
     emit("flash", comparisons=results)
-    return max(r["max_abs_err"] for r in results if r["route"] == fa.TENSOR_CORE)
+    return tuple(max(r["max_abs_err"] for r in results if r["route"] == route)
+                 for route in (fa.TENSOR_CORE, fa.CUDA_CORE))
 
 
 def profile_device_ms(fn):
@@ -220,9 +323,9 @@ def profile_device_ms(fn):
     return wall * 1e3, sum(r[2] for r in by_op), by_op
 
 
-def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
-    """lm_prefill, lm_profile, lm_serve and lm_timing; returns the bf16
-    flash kernel's line of the kernels record."""
+def lm_phases(dev, name: str, smi: str, flash_errs) -> list:
+    """lm_prefill, lm_profile, lm_serve and lm_timing; returns the flash
+    kernels' lines of the kernels record, bf16 then float32."""
     import torch
     import torch.nn.functional as F
 
@@ -330,14 +433,16 @@ def lm_phases(dev, name: str, smi: str, flash_err: float) -> dict:
     torch.cuda.empty_cache()
     emit("lm_timing", kind=name, nvidia_smi=smi, peak_bf16_ops_per_s=BF16_OPS_PER_S,
          peak_f32_ops_per_s=F32_OPS_PER_S, peak_bytes_per_s=HBM_BYTES_PER_S, cells=cells)
-    main_cell = cells[0]
-    if main_cell["route"] != fa.TENSOR_CORE:
-        raise AssertionError("lm_timing: bf16 did not go through the tensor-core kernel")
-    return {"name": "flash_fwd_bf16", "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": FLASH_TPU_KERNEL, "launches": tc_launches, "max_abs_err": flash_err,
-            "ms": main_cell["ms"], "plain_ms": main_cell["plain_ms"],
-            "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
-            "library_ms": main_cell["library_ms"]}
+    main_cell, f32_cell = cells[0], cells[2]
+    if main_cell["route"] != fa.TENSOR_CORE or f32_cell["route"] != fa.CUDA_CORE:
+        raise AssertionError("lm_timing: a dtype did not go through its route's kernel")
+    return [{"name": f"flash_fwd_{tag}", "route": "cuda", "source": source,
+             "replaces": FLASH_TPU_KERNEL, "launches": n, "max_abs_err": err,
+             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
+             "bound_by": cell["bound_by"], "library_ms": cell["library_ms"]}
+            for tag, source, n, err, cell in (
+                ("bf16", FLASH_SOURCE, tc_launches, flash_errs[0], main_cell),
+                ("f32", FLASH_F32_SOURCE, cc_launches, flash_errs[1], f32_cell))]
 
 
 def main() -> int:
@@ -348,11 +453,12 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import priors
     from repro_torch.core.priors import paper_prior
     from repro_torch.core.summaries import lower_summary, get_summary, summary_pairs
     from repro_torch.epi import data
     from repro_torch.epi.models import get_model
-    from repro_torch.kernels import abc_sim, build, ops, ref
+    from repro_torch.kernels import abc_sim, build, ops, ref, sass
     from repro_torch.kernels import rng as krng
     from repro_torch.launch import abc_run
 
@@ -379,13 +485,20 @@ def main() -> int:
     ptxas_notes = {k: [line.strip() for line in v.path.with_suffix(".ptxas.txt").read_text()
                        .splitlines() if "Performance Loss" in line]
                    for k, v in info.items()}
+    siard = get_model("siard")
+    main_flags = lower_summary(get_summary(None), "euclidean", torch.ones(3, 49)).flags
+    census = abc_census(build, siard, main_flags)
     emit("build", wall_s=build_wall,
          libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
                         "nvcc_flags": list(build.flags(k)), "kernels": v.kernels,
                         "ptxas_wgmma_notes": ptxas_notes[k]}
                     for k, v in info.items()},
+         abc_sim_variants={str(v): info["abc_sim"].kernels[k] for v in range(16)
+                           for k in info["abc_sim"].kernels
+                           if f"abc_sim_kernelI5SiardLi{v}EE" in k},
          hgmma_in_sass=hgmma if hgmma is not None else
-         "not measured: the toolkit has no cuobjdump")
+         "not measured: the toolkit has no cuobjdump",
+         abc_sim_census=census or "not measured: the toolkit has no cuobjdump")
 
     # ---- rng: the kernel's hash bits and normals against the plain twin
     B, C, seed = 1_000_000, 10, 0x5EED1234
@@ -400,11 +513,18 @@ def main() -> int:
     z_err = float((z_k - z_p).abs().max())
     if not z_err <= 1e-6:
         raise AssertionError(f"rng: normals differ by {z_err} > 1e-6")
+    # the kernel's branch-free Box-Muller pieces against logf, sqrtf and cosf
+    # on all 2^24 uniforms the hash can give
+    unit_math = abc_sim.unit_math_mismatches(dev)
+    if unit_math != (0, 0):
+        raise AssertionError(f"rng: the branch-free log/sqrt and cos differ from logf/sqrtf "
+                             f"and cosf on {unit_math} of the 2^24 uniforms")
     emit("rng", shape=[B, C], hash_bits_equal=True, normals_max_abs_err=z_err,
-         normals_atol=1e-6, normals_bitwise_equal_share=float((z_k == z_p).double().mean()))
+         normals_atol=1e-6, normals_bitwise_equal_share=float((z_k == z_p).double().mean()),
+         unit_math_mismatches_of_2_24=list(unit_math))
 
-    # ---- abc_sim: kernel against its plain version on the card
-    siard = get_model("siard")
+    # ---- abc_sim: both entries against the plain version on the card, bitwise
+    prior = paper_prior()
     results = []
 
     def on_card(x):
@@ -412,58 +532,84 @@ def main() -> int:
             return x.to(device=dev, dtype=torch.float32)
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    def both(theta, seed, observed, kw, **extra):
+    def theta_in(case, theta, seed, observed, kw, **extra):
+        """The theta-in entry against the plain version, bitwise."""
         th, ob = on_card(theta), on_card(observed)
         d_k = ops.abc_sim_distance(th, seed, ob, model=siard, **kw, **extra)
         d_p = ref.abc_sim_distance_ref(th, seed, ob, model=siard, **kw, **extra)
-        return d_k, d_p
+        results.append(bitwise(f"{case} theta-in entry vs plain", d_k, d_p))
+        return d_k
+
+    def wave(case, batch, prior_seed, sim_seed, observed, kw, **extra):
+        """The wave entry against prior.sample + the plain version, bitwise."""
+        sim = ops.make_abc_sim(on_card(observed), model=siard, **kw, **extra)
+        before = (abc_sim.WAVE_LAUNCHES, priors.DEVICE_DRAWS, ref.CALLS)
+        th_k, d_k = sim.wave(prior, prior_seed, sim_seed, batch)
+        if (abc_sim.WAVE_LAUNCHES, priors.DEVICE_DRAWS, ref.CALLS) != (
+                before[0] + 1, before[1], before[2]):
+            raise AssertionError(f"{case}: the wave did not go through the wave entry alone")
+        th_p = prior.sample(prior_seed, batch, dev)
+        d_p = ref.abc_sim_distance_ref(th_p, sim_seed, on_card(observed), model=siard,
+                                       **kw, **extra)
+        d_p = torch.where(torch.isnan(d_p), torch.full_like(d_p, float("inf")), d_p)
+        if not torch.equal(th_k, th_p):
+            raise AssertionError(f"{case}: the wave entry's theta differs from prior.sample "
+                                 f"in {int((th_k != th_p).sum())} elements")
+        results.append(bitwise(f"{case} wave entry vs plain", d_k, d_p))
+        return th_k, d_k
 
     pins = np.load(PINS)
     pop, a0, r0, d0, _ = data.SYNTH_SMALL_META
     small_kw = dict(population=pop, a0=a0, r0=r0, d0=d0)
-    d_k, d_p = both(pins["siard/theta"], 123, pins["siard/observed"], small_kw)
-    results.append(compare("pins 16x14 kernel vs plain", d_k, d_p, **BAR))
-    for key in ("oracle", "pallas"):
-        results.append(compare(f"pins 16x14 kernel vs siard/{key}", d_k,
-                               pins[f"siard/{key}"], **BAR))
+    d_k = theta_in("pins 16x14", pins["siard/theta"], 123, pins["siard/observed"], small_kw)
+    results.append(bitwise("pins 16x14 theta-in entry vs siard/pallas", d_k,
+                           pins["siard/pallas"]))
+    results.append(compare("pins 16x14 theta-in entry vs siard/oracle", d_k,
+                           pins["siard/oracle"], **BAR))
+    wave("pins 16x14", 16, 123, 123, pins["siard/observed"], small_kw)
 
     small = data.get_dataset("synthetic_small", num_days=49)
-    th_small = paper_prior().sample(11, 1024, dev)
-    d_k, d_p = both(th_small, 77, small.observed, small_kw)
-    results.append(compare("synthetic_small 1024x49 kernel vs plain", d_k, d_p, **BAR))
+    th_small = prior.sample(11, 1024, dev)
+    theta_in("synthetic_small 1024x49", th_small, 77, small.observed, small_kw)
+    wave("synthetic_small 1024x49", 1024, 11, 77, small.observed, small_kw)
 
     italy = data.get_dataset("italy", num_days=49)
     it_kw = dict(population=italy.population, a0=italy.a0, r0=italy.r0, d0=italy.d0)
-    th_it = paper_prior().sample(12, 100_000, dev)
-    d_it, d_p = both(th_it, 99, italy.observed, it_kw)
-    results.append(compare("italy 100000x49 kernel vs plain", d_it, d_p, **COUNTRY_BAR))
+    th_it = prior.sample(12, 100_000, dev)
+    d_it = theta_in("italy 100000x49", th_it, 99, italy.observed, it_kw)
+    _, w_it = wave("italy 100000x49", 100_000, 12, 99, italy.observed, it_kw)
     ob_it = torch.as_tensor(italy.observed, device=dev)
     for block in (64, 128, 256):
         d_b = ops.abc_sim_distance(th_it, 99, ob_it, model=siard, block=block, **it_kw)
-        if not torch.equal(d_b, d_it):
+        _, w_b = ops.make_abc_sim(ob_it, model=siard, block=block, **it_kw).wave(
+            prior, 12, 99, 100_000)
+        if not (torch.equal(d_b, d_it) and torch.equal(w_b, w_it)):
             raise AssertionError(f"block {block}: distances differ from block 128")
     for s, dist in summary_pairs():
-        d_k, d_p = both(th_small, 77, small.observed, small_kw, summary=s, distance=dist)
-        results.append(compare(f"{s}/{dist} 1024x49 kernel vs plain", d_k, d_p, **BAR))
+        theta_in(f"{s}/{dist} 1024x49", th_small, 77, small.observed, small_kw,
+                 summary=s, distance=dist)
+        wave(f"{s}/{dist} 1024x49", 1024, 11, 77, small.observed, small_kw,
+             summary=s, distance=dist)
     emit("abc_sim", comparisons=results, block_sizes_bitwise_equal=[64, 128, 256])
-    max_abs_err = max(r["max_abs_err"] for r in results
-                      if r["case"].endswith("kernel vs plain"))
+    max_abs_err = max(r["max_abs_err"] for r in results if r["case"].endswith("vs plain"))
 
     # ---- main_path: the port's CLI on the card, counters read around it
     argv = ["--dataset", "italy", "--days", "49", "--batch", "100000",
             "--chunk", "10000", "--auto-tolerance", "1e-4", "--accept", "100",
             "--device", "cuda"]
-    abc_sim.LAUNCHES = 0
+    abc_sim.LAUNCHES = abc_sim.WAVE_LAUNCHES = 0
+    priors.DEVICE_DRAWS = 0
     ref.CALLS = 0
     t0 = time.perf_counter()
     post = abc_run.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, plain_calls = abc_sim.LAUNCHES, ref.CALLS
-    if launches == 0 or plain_calls != 0:
-        raise AssertionError(f"main path: {launches} kernel launches, "
-                             f"{plain_calls} plain-version calls")
-    prior = siard.prior()
+    launches, wave_launches = abc_sim.LAUNCHES, abc_sim.WAVE_LAUNCHES
+    draws, plain_calls = priors.DEVICE_DRAWS, ref.CALLS
+    if (wave_launches, launches, draws, plain_calls) != (1 + post.runs, 0, 0, 0):
+        raise AssertionError(f"main path: {wave_launches} wave launches (want 1 + "
+                             f"{post.runs} waves), {launches} theta-in launches, "
+                             f"{draws} host prior draws, {plain_calls} plain-version calls")
     lo, hi = np.asarray(prior.lows), np.asarray(prior.highs)
     theta = post.theta
     if (len(post) < 100 or theta.shape[1] != 8 or not np.isfinite(theta).all()
@@ -477,7 +623,8 @@ def main() -> int:
     if not err.mean() < prior_err.mean():
         raise AssertionError(f"main path: posterior mean error {err.mean()} is not "
                              f"below the prior mean's {prior_err.mean()}")
-    emit("main_path", argv=argv, kernel_launches=launches, plain_calls=plain_calls,
+    emit("main_path", argv=argv, wave_launches=wave_launches, theta_in_launches=launches,
+         host_prior_draws=draws, plain_calls=plain_calls,
          accepted=len(post), waves=post.runs, simulations=post.simulations,
          tolerance=post.tolerance, wall_s=wall, kind=name, nvidia_smi=smi,
          posterior_mean=dict(zip(siard.param_names, theta.mean(axis=0).tolist())),
@@ -494,55 +641,103 @@ def main() -> int:
     wall_ms, busy_ms, by_op = profile_device_ms(
         lambda: runs.append(run_abc(italy, cfg, seed=0, device=dev)))
     again = runs[0]
+    int64_rows = [(k, c, ms) for k, c, ms in by_op if "long" in k]
     emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_idle_share=1.0 - busy_ms / wall_ms, waves=again.runs,
          accepted=len(again), kind=name, nvidia_smi=smi,
+         device_ops=sum(c for _, c, _ in by_op),
+         device_ops_per_wave=sum(c for _, c, _ in by_op) / again.runs,
+         abc_sim_device_ms=sum(ms for k, _, ms in by_op if "abc_sim_kernel" in k),
+         int64_elementwise_launches=sum(c for _, c, _ in int64_rows),
+         int64_elementwise_device_ms=sum(ms for _, _, ms in int64_rows),
          top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
                          for k, c, ms in by_op[:8]])
 
-    # ---- timing: the kernel alone, beside its bound and the plain version
+    # ---- timing: both entries alone, in turns, beside the operation bound,
+    # the issue floor at the SM clock read under load, and the plain version
     lowered = lower_summary(get_summary(None), "euclidean", ob_it)
     fconst, iconst = abc_sim.pack_consts(
         mean_scale=lowered.mean_scale, weights=lowered.weights.cpu().numpy(),
         flags=lowered.flags, seed=99, **it_kw)
+    obs = lowered.obs_summary.contiguous()
     ops_sd = abc_sim.ops_per_sample_day(siard, lowered)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     timing = []
-    for batch, kernel_iters, plain_iters in ((100_000, 50, 2), (1_000_000, 20, 1)):
-        th = th_it if batch == 100_000 else paper_prior().sample(13, batch, dev)
-        soa = abc_sim.theta_to_soa(th)
-        obs = lowered.obs_summary.contiguous()
-        ms = cuda_ms(lambda: abc_sim.abc_sim_distance_kernel(
-            soa, obs, fconst, iconst, model=siard), kernel_iters)
-        plain_ms = cuda_ms(lambda: ref.abc_sim_distance_ref(
-            th, 99, ob_it, model=siard, **it_kw), plain_iters, warmup=1)
-        n_ops = ops_sd * batch * 49
-        n_bytes = abc_sim.bytes_moved(siard, batch, 49)
-        ops_ms, bytes_ms = n_ops / F32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-        timing.append({"batch": batch, "days": 49, "ms": ms, "plain_ms": plain_ms,
-                       "ops": n_ops, "bytes": n_bytes, "ops_per_sample_day": ops_sd,
-                       "bound_ms": max(ops_ms, bytes_ms),
-                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                       "share_of_bound": max(ops_ms, bytes_ms) / ms,
-                       "sample_days_per_s": batch * 49 / (ms * 1e-3),
-                       "iters": kernel_iters, "plain_iters": plain_iters})
+    with SmClock() as clock:
+        clock.start_counting(lambda: abc_sim.abc_sim_wave_kernel(
+            13, prior.lows, prior.highs, obs, fconst, iconst, model=siard, batch=1_000_000))
+        for batch, kernel_iters, plain_iters in ((100_000, 50, 2), (1_000_000, 20, 1)):
+            th = th_it if batch == 100_000 else prior.sample(13, batch, dev)
+            soa = abc_sim.theta_to_soa(th)
+
+            def run_theta_in(block=abc_sim.DEFAULT_BLOCK):
+                return abc_sim.abc_sim_distance_kernel(soa, obs, fconst, iconst,
+                                                       model=siard, block=block)
+
+            def run_wave(block=abc_sim.DEFAULT_BLOCK):
+                return abc_sim.abc_sim_wave_kernel(12, prior.lows, prior.highs, obs, fconst,
+                                                   iconst, model=siard, batch=batch,
+                                                   block=block)
+
+            turns = {"theta_in": [], "wave": []}
+            for entry in ("theta_in", "wave", "wave", "theta_in"):
+                fn = run_theta_in if entry == "theta_in" else run_wave
+                turns[entry].append(cuda_ms(fn, kernel_iters))
+            blocks = {b: [] for b in (64, 128, 256)}
+            for b in (64, 128, 256, 256, 128, 64):
+                blocks[b].append(cuda_ms(lambda: run_wave(b), kernel_iters))
+            plain_ms = cuda_ms(lambda: ref.abc_sim_distance_ref(
+                prior.sample(12, batch, dev), 99, ob_it, model=siard, **it_kw),
+                plain_iters, warmup=1)
+            ms_in, ms_wave = (float(np.mean(turns[e])) for e in ("theta_in", "wave"))
+            n_ops = ops_sd * batch * 49
+            wave_ops = abc_sim.wave_ops(siard, lowered, batch)
+            n_bytes = abc_sim.bytes_moved(siard, batch, 49)
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms, wave_ops_ms = n_ops / F32_OPS_PER_S * 1e3, wave_ops / F32_OPS_PER_S * 1e3
+            mhz = clock.median()
+            floors = {e: sass.issue_floor_ms(census[e], batch, 49, n_sm, mhz)
+                      if census and mhz else None for e in ("wave", "theta_in")}
+            timing.append({
+                "batch": batch, "days": 49, "ms_wave": ms_wave, "ms_theta_in": ms_in,
+                "turns_ms": turns, "block_ms": {str(b): float(np.mean(v))
+                                                for b, v in blocks.items()},
+                "plain_ms": plain_ms, "ops": n_ops, "wave_ops": wave_ops, "bytes": n_bytes,
+                "ops_per_sample_day": ops_sd,
+                "bound_ms": max(ops_ms, bytes_ms), "wave_bound_ms": max(wave_ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound_theta_in": max(ops_ms, bytes_ms) / ms_in,
+                "share_of_bound_wave": max(wave_ops_ms, bytes_ms) / ms_wave,
+                "issue_floor": floors,
+                "share_of_issue_floor": {
+                    e: floors[e]["floor_ms"] / m if floors[e] else None
+                    for e, m in (("wave", ms_wave), ("theta_in", ms_in))},
+                "sample_days_per_s_wave": batch * 49 / (ms_wave * 1e-3),
+                "iters": kernel_iters, "plain_iters": plain_iters})
     emit("timing", kind=name, nvidia_smi=smi, peak_ops_per_s=F32_OPS_PER_S,
-         peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, cells=timing)
+         peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, sms=n_sm,
+         sm_clock_mhz=clock.summary(), default_block=abc_sim.DEFAULT_BLOCK, cells=timing)
 
     main_cell = timing[0]
     abc_line = {
         "name": "abc_sim_distance", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": max_abs_err,
-        "ms": main_cell["ms"], "plain_ms": main_cell["plain_ms"],
-        "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
+        "replaces": TPU_KERNEL, "launches": launches + wave_launches,
+        "entries": [{"entry": "abc_sim_wave_siard", "launches": wave_launches,
+                     "ms": main_cell["ms_wave"]},
+                    {"entry": "abc_sim_distance_siard", "launches": launches,
+                     "ms": main_cell["ms_theta_in"]}],
+        "max_abs_err": max_abs_err,
+        "ms": main_cell["ms_wave"], "plain_ms": main_cell["plain_ms"],
+        "bound_ms": main_cell["wave_bound_ms"], "bound_by": main_cell["bound_by"],
+        "issue_floor_ms": (main_cell["issue_floor"]["wave"] or {}).get("floor_ms"),
         "library_ms": None,
     }
 
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
-    flash_err = flash_phase(dev)
-    flash_line = lm_phases(dev, name, smi, flash_err)
+    flash_lines = lm_phases(dev, name, smi, flash_phase(dev))
 
     emit("total", wall_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [abc_line, flash_line]}), flush=True)
+    print(json.dumps({"kernels": [abc_line, *flash_lines]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -21,5 +21,6 @@ for `cuda` on a machine without a card raises (`repro_torch.device`).
 Slice 1 covers the paper's main path: rejection ABC of the flat SIARD
 model, without intervention schedules. Slice 2 covers serving the dense
 decoder LM (gemma-2b, gemma2-27b): prefill through the flash kernel and
-continuous-batching decode.
+continuous-batching decode. On the card the ABC waves draw theta inside the
+fused kernel (its wave entry), one launch a wave.
 """

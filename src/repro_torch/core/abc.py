@@ -11,6 +11,10 @@ Counterpart of `repro.core.abc` for the "pallas" backend, whose port is the
         accepted sample are copied to the host;
       - "topk": the k lowest-distance samples per wave; the host filters.
 
+On a CUDA device the first two lines are one launch of the kernel's wave
+entry, which draws theta inside the kernel (`ops.AbcSim.wave`); on the CPU
+they are `prior.sample` and the plain version, to the same bits.
+
 Wave i draws its prior seed and its simulation seed from (seed, i) as two
 distinct streams of the port's hash (`wave_seeds`), so any wave can be
 recomputed from the base seed and its index, and a run resumed from an
@@ -105,7 +109,8 @@ class RunOutput(NamedTuple):
     chunk_flags: torch.Tensor  # outfeed: [n_chunks] bool;  topk: [0]
 
 
-SimulatorFn = Callable[[torch.Tensor, int], torch.Tensor]  # (theta, seed) -> dist
+#: (theta, seed) -> dist, and .wave(prior, prior_seed, sim_seed, batch)
+SimulatorFn = ops.AbcSim
 
 
 def wave_seeds(seed: int, index: int) -> Tuple[int, int]:
@@ -148,10 +153,9 @@ def abc_run_batch(
     p = prior.dim
 
     def run(prior_seed: int, sim_seed: int) -> RunOutput:
-        theta = prior.sample(prior_seed, cfg.batch_size, device)  # [B, p]
-        dist = simulator(theta, sim_seed)
-        # failed (NaN) simulations never count as accepted
-        dist = torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
+        # theta [B, p] row-major; failed (NaN) simulations come back as +inf,
+        # so they never count as accepted
+        theta, dist = simulator.wave(prior, prior_seed, sim_seed, cfg.batch_size)
         if cfg.strategy == "outfeed":
             nc, cs = cfg.num_chunks, cfg.chunk_size
             flags = (dist <= cfg.tolerance).reshape(nc, cs).any(dim=1)
@@ -336,7 +340,8 @@ def calibrate_tolerance(
     per_wave = min(n_pilot, cfg.batch_size)
     dists = []
     for w in range(max(1, n_pilot // per_wave)):
-        theta = prior.sample(stream_seed(seed, w, PILOT_PRIOR_STREAM), per_wave, device)
-        d = simulator(theta, stream_seed(seed, w, PILOT_SIM_STREAM)).cpu().numpy()
+        _, d = simulator.wave(prior, stream_seed(seed, w, PILOT_PRIOR_STREAM),
+                              stream_seed(seed, w, PILOT_SIM_STREAM), per_wave)
+        d = d.cpu().numpy()
         dists.append(d[np.isfinite(d)])
     return float(np.quantile(np.concatenate(dists), quantile))

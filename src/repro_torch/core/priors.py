@@ -14,6 +14,9 @@ import torch
 
 from repro_torch.kernels import rng as krng
 
+#: calls of `UniformBoxPrior.sample` on a CUDA device
+DEVICE_DRAWS = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class UniformBoxPrior:
@@ -41,7 +44,10 @@ class UniformBoxPrior:
 
     def sample(self, seed: int, batch: int, device="cpu") -> torch.Tensor:
         """[batch, dim] float32 draws for uint32 `seed`, on `device`."""
+        global DEVICE_DRAWS
         device = torch.device(device)
+        if device.type == "cuda":
+            DEVICE_DRAWS += 1
         lo, hi = self._bounds(device)
         idx = torch.arange(batch, device=device)[:, None]
         ctr = torch.arange(self.dim, device=device)[None, :]

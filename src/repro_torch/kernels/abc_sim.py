@@ -2,7 +2,9 @@
 
 Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
 launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
-global sample index, and takes:
+global sample index. Two entries share its body:
+
+* `abc_sim_distance_kernel` (theta in) takes
 
     theta_soa  [P, B] f32, contiguous: parameters as structure of arrays
     obs        [n_chan, T] f32, contiguous: the lowered observed summary
@@ -11,14 +13,25 @@ global sample index, and takes:
     iconst     host i32 [N_ICONST]: seed, then the summary flags
                (cumulative, log1p, power, root, bin_days)
 
-and writes one distance per sample. The constants travel in the kernel's
-parameters, not in device memory. The TPU rules of 128 lanes and 8
-sublanes do not carry over: a block size in threads replaces the tile, and
-distances are bitwise the same for every block size.
+  and writes one distance per sample;
+* `abc_sim_wave_kernel` (the ABC wave) takes the uniform box (lows, highs)
+  and a prior seed in place of theta, draws theta inside the kernel as
+  `UniformBoxPrior.sample` does, and returns theta [B, P] row-major and the
+  distances with NaN turned to +inf.
 
-`LAUNCHES` counts the launches of the fused kernel and `RNG_LAUNCHES` those
-of `rng_normals`, a test entry point of the same source that writes the
-kernel's hash bits or normals for (seed, sample, counter).
+The constants, the box and the seeds travel in the kernel's parameters,
+not in device memory. The summary flags pick one of the kernel's compiled
+variants on the host, so one build serves every flat (summary, distance)
+pair. The TPU rules of 128 lanes and 8 sublanes do not carry over: a block
+size in threads replaces the tile, and distances are bitwise the same for
+every block size.
+
+`LAUNCHES` counts the launches of the theta-in entry, `WAVE_LAUNCHES`
+those of the wave entry and `RNG_LAUNCHES` those of the source's two test
+entries: `rng_normals`, which writes the kernel's hash bits or normals for
+(seed, sample, counter), and `unit_math_mismatches`, which holds the
+kernel's branch-free Box-Muller pieces to logf, sqrtf and cosf on every
+uniform the hash can give.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from repro_torch.core.summaries import (
     FLAG_BIN_DAYS,
     FLAG_CUMULATIVE,
     FLAG_LOG1P,
+    FLAG_POWER,
     FLAG_ROOT,
     LoweredSummary,
     num_bins,
@@ -43,10 +57,14 @@ from repro_torch.kernels import build
 MAX_CHAN = 8
 N_FCONST = 5 + MAX_CHAN
 N_ICONST = 6
-DEFAULT_BLOCK = 128
+#: the kernel's __launch_bounds__
+MAX_BLOCK = 256
+DEFAULT_BLOCK = 256
 
-#: launches of the fused kernel, and of the rng_normals test kernel
+#: launches of the theta-in entry, of the wave entry and of the rng_normals
+#: test kernel
 LAUNCHES = 0
+WAVE_LAUNCHES = 0
 RNG_LAUNCHES = 0
 
 _VP = ctypes.c_void_p
@@ -56,26 +74,37 @@ _typed: set = set()
 def _lib() -> ctypes.CDLL:
     lib = build.load("abc_sim")
     if "abc_sim" not in _typed:
-        for name in ("abc_sim_n_fconst", "abc_sim_n_iconst", "abc_sim_max_chan"):
+        names = ("abc_sim_n_fconst", "abc_sim_n_iconst", "abc_sim_max_chan",
+                 "abc_sim_max_block")
+        for name in names:
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
-        layout = (lib.abc_sim_n_fconst(), lib.abc_sim_n_iconst(), lib.abc_sim_max_chan())
-        if layout != (N_FCONST, N_ICONST, MAX_CHAN):
+        layout = tuple(getattr(lib, name)() for name in names)
+        if layout != (N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK):
             raise RuntimeError(
                 f"abc_sim library constant layout {layout} does not match the "
-                f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN)}"
+                f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK)}"
             )
         lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, _VP, ctypes.c_int, _VP]
         lib.rng_normals.restype = ctypes.c_int
+        lib.unit_math_mismatches.argtypes = [_VP, _VP]
+        lib.unit_math_mismatches.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
         _typed.add("abc_sim")
     return lib
 
 
-def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel):
-    name = f"abc_sim_distance_{model.name}"
+_ARGTYPES = {
+    "distance": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
+    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, _VP],
+}
+
+
+def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distance"):
+    name = f"abc_sim_{entry}_{model.name}"
     try:
         fn = getattr(lib, name)
     except AttributeError:
@@ -83,10 +112,24 @@ def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel):
             f"no CUDA kernel for model {model.name!r} (missing C symbol {name}); "
             "this slice of the port builds siard only"
         ) from None
-    fn.argtypes = [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, _VP]
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
+
+
+def variant(flags, wave: bool) -> int:
+    """The kernel variant (`csrc/abc_sim.cu`) that the summary flags and the
+    entry select: bits CUM 1, LOG1P 2, L1 4, WAVE 8."""
+    return (int(flags[FLAG_CUMULATIVE]) == 1) | 2 * (int(flags[FLAG_LOG1P]) == 1) \
+        | 4 * (int(flags[FLAG_POWER]) == 1) | 8 * bool(wave)
+
+
+def kernel_symbol(model: CompartmentalModel, flags, wave: bool) -> str:
+    """The part of the mangled name that picks that variant's kernel out of
+    the library's SASS: `abc_sim_kernel<Siard, 8>` is
+    `abc_sim_kernelI5SiardLi8EE`."""
+    struct = model.name.capitalize()
+    return f"abc_sim_kernelI{len(struct)}{struct}Li{variant(flags, wave)}EE"
 
 
 def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -95,12 +138,13 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
 
 
-def check_block(block: int) -> int:
-    """A block size in threads: a positive multiple of 32, at most 1024."""
+def check_block(block: int, limit: int = MAX_BLOCK) -> int:
+    """A block size in threads: a positive multiple of 32, at most `limit`
+    (the fused kernel's launch bound)."""
     block = int(block)
-    if block < 32 or block > 1024 or block % 32:
+    if block < 32 or block > limit or block % 32:
         raise ValueError(
-            f"block={block} must be a multiple of 32 threads in [32, 1024]"
+            f"block={block} must be a multiple of 32 threads in [32, {limit}]"
         )
     return block
 
@@ -131,6 +175,11 @@ def pack_consts(
         raise ValueError(f"{w.size} summary channels exceed the kernel's {MAX_CHAN}")
     if len(flags) != N_ICONST - 1:
         raise ValueError(f"expected {N_ICONST - 1} summary flags, got {len(flags)}")
+    if (flags[FLAG_POWER], flags[FLAG_ROOT]) not in ((2, 1), (1, 0)):
+        raise ValueError(
+            f"summary flags {tuple(flags)}: the kernel is compiled for (power, root) "
+            "(2, 1) and (1, 0), the two distance families"
+        )
     fconst = np.zeros((N_FCONST,), np.float32)
     fconst[:5] = (population, a0, r0, d0, mean_scale)
     fconst[5:5 + w.size] = w
@@ -150,6 +199,29 @@ def _stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_2d_f32(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32 or t.ndim != 2 or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous 2-D float32 tensor, got "
+            f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+        )
+
+
+def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
+                          model: CompartmentalModel) -> None:
+    if obs.device.type != "cuda":
+        raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
+    _check_2d_f32("obs", obs)
+    if obs.shape[0] != model.n_observed or obs.shape[1] < 1:
+        raise ValueError(
+            f"obs must be [{model.n_observed}, T>=1], got {tuple(obs.shape)}"
+        )
+    if fconst.dtype != np.float32 or fconst.shape != (N_FCONST,):
+        raise ValueError(f"fconst must be float32 [{N_FCONST}]")
+    if iconst.dtype != np.int32 or iconst.shape != (N_ICONST,):
+        raise ValueError(f"iconst must be int32 [{N_ICONST}]")
+
+
 def abc_sim_distance_kernel(
     theta_soa: torch.Tensor,  # [P, B] f32 CUDA, contiguous
     obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
@@ -166,25 +238,13 @@ def abc_sim_distance_kernel(
         raise ValueError(f"theta_soa must be a CUDA tensor, got {theta_soa.device}")
     if obs.device != theta_soa.device:
         raise ValueError(f"obs is on {obs.device}, theta_soa on {theta_soa.device}")
-    for name, t in (("theta_soa", theta_soa), ("obs", obs)):
-        if t.dtype != torch.float32 or t.ndim != 2 or not t.is_contiguous():
-            raise ValueError(
-                f"{name} must be a contiguous 2-D float32 tensor, got "
-                f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
-            )
+    _check_2d_f32("theta_soa", theta_soa)
+    _check_obs_and_consts(obs, fconst, iconst, model)
     n_params, batch = theta_soa.shape
     if n_params != model.n_params:
         raise ValueError(f"theta_soa has {n_params} rows; {model.name} has {model.n_params}")
-    if obs.shape[0] != model.n_observed or obs.shape[1] < 1:
-        raise ValueError(
-            f"obs must be [{model.n_observed}, T>=1], got {tuple(obs.shape)}"
-        )
     if batch < 1:
         raise ValueError("theta_soa holds no samples")
-    if fconst.dtype != np.float32 or fconst.shape != (N_FCONST,):
-        raise ValueError(f"fconst must be float32 [{N_FCONST}]")
-    if iconst.dtype != np.int32 or iconst.shape != (N_ICONST,):
-        raise ValueError(f"iconst must be int32 [{N_ICONST}]")
     fconst = np.ascontiguousarray(fconst)
     iconst = np.ascontiguousarray(iconst)
     lib = _lib()
@@ -199,6 +259,51 @@ def abc_sim_distance_kernel(
     return out
 
 
+def abc_sim_wave_kernel(
+    prior_seed: int,  # uint32
+    lows,  # [P] host, float32 after rounding
+    highs,  # [P]
+    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
+    fconst: np.ndarray,  # [N_FCONST] f32 host
+    iconst: np.ndarray,  # [N_ICONST] i32 host; its seed word is the simulation seed
+    *,
+    model: CompartmentalModel,
+    batch: int,
+    block: int = DEFAULT_BLOCK,
+):
+    """Launch the wave entry on the current stream: theta [batch, P] drawn
+    from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch)` does,
+    and its distances [batch] with NaN turned to +inf."""
+    global WAVE_LAUNCHES
+    block = check_block(block)
+    _check_obs_and_consts(obs, fconst, iconst, model)
+    lo = np.ascontiguousarray(np.asarray(lows, np.float32).reshape(-1))
+    hi = np.ascontiguousarray(np.asarray(highs, np.float32).reshape(-1))
+    if lo.shape != (model.n_params,) or hi.shape != (model.n_params,):
+        raise ValueError(
+            f"the box has {lo.size} lows and {hi.size} highs; {model.name} has "
+            f"{model.n_params} parameters"
+        )
+    batch = int(batch)
+    if batch < 1:
+        raise ValueError("a wave needs at least one sample")
+    lib = _lib()
+    fn = _kernel_fn(lib, model, "wave")
+    theta = torch.empty((batch, model.n_params), dtype=torch.float32, device=obs.device)
+    dist = torch.empty((batch,), dtype=torch.float32, device=obs.device)
+    if theta.data_ptr() % 16:
+        raise RuntimeError("theta's storage is not 16-byte aligned")
+    fconst = np.ascontiguousarray(fconst)
+    iconst = np.ascontiguousarray(iconst)
+    with torch.cuda.device(obs.device):
+        rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
+                theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data, iconst.ctypes.data,
+                batch, obs.shape[1], block, _stream_handle(obs.device))
+    _check_rc(lib, rc, f"abc_sim_wave_{model.name}")
+    WAVE_LAUNCHES += 1
+    return theta, dist
+
+
 def rng_normals(
     seed: int,
     batch: int,
@@ -211,7 +316,7 @@ def rng_normals(
     """[batch, n_ctr] from the kernel's own RNG: `normal(seed, b, c)` as
     float32, or with `bits` the uint32 `hash_u32(seed, b, c)` as int64."""
     global RNG_LAUNCHES
-    block = check_block(block)
+    block = check_block(block, 1024)
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"rng_normals runs on a CUDA device, got {device}")
@@ -226,6 +331,24 @@ def rng_normals(
     _check_rc(lib, rc, "rng_normals")
     RNG_LAUNCHES += 1
     return out.to(torch.int64) & 0xFFFFFFFF if bits else out
+
+
+def unit_math_mismatches(device="cuda") -> tuple:
+    """(u whose sqrt(-2 log u) differ, u whose cos(2 pi u) differ) between
+    the kernel's branch-free Box-Muller pieces and the precise logf, sqrtf
+    and cosf, over all 2^24 uniforms u = k * 2^-24 the hash can give: (0, 0)
+    means the kernel's normals are those of the precise functions."""
+    global RNG_LAUNCHES
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"unit_math_mismatches runs on a CUDA device, got {device}")
+    lib = _lib()
+    counts = torch.zeros((2,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = lib.unit_math_mismatches(counts.data_ptr(), _stream_handle(device))
+    _check_rc(lib, rc, "unit_math_mismatches")
+    RNG_LAUNCHES += 1
+    return tuple(int(c) for c in counts.cpu())
 
 
 #: operations per transition and sample-day: two hashes of 18 (the counter
@@ -262,7 +385,23 @@ def ops_per_sample_day(model: CompartmentalModel, lowered: LoweredSummary) -> fl
     return total / num_days
 
 
+#: operations of the wave entry's prior draw, per parameter and sample: a
+#: hash of 18 (counted as above, its per-sample base once a sample), the
+#: uniform of 4, and the box's width, product and sum (3)
+PRIOR_OPS_PER_PARAM = 18 + 4 + 3
+
+
+def wave_ops(model: CompartmentalModel, lowered: LoweredSummary, batch: int) -> float:
+    """Operations of one launch of the wave entry: those of the theta-in
+    entry (`ops_per_sample_day`) and the prior draw, with the prior hash's
+    per-sample base (3) and the NaN test of the distance (1)."""
+    num_days = lowered.obs_summary.shape[1]
+    return (ops_per_sample_day(model, lowered) * num_days
+            + PRIOR_OPS_PER_PARAM * model.n_params + 3 + 1) * batch
+
+
 def bytes_moved(model: CompartmentalModel, batch: int, num_days: int) -> int:
-    """Device-memory bytes of one launch: theta and the observed summary
-    read once, one distance written."""
+    """Device-memory bytes of one launch of either entry: theta read (by the
+    wave entry, written) once, the observed summary read once, one distance
+    written."""
     return 4 * (model.n_params * batch + model.n_observed * num_days + batch)

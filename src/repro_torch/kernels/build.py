@@ -16,7 +16,8 @@ started together, so a build takes as long as its slowest source.
 `nvcc -Xptxas -v` reports each kernel's registers, shared memory and
 spills; the report is kept beside the library and parsed into `BuildInfo`.
 `sass_counts` counts an opcode (e.g. HGMMA) in each kernel of a built
-library from `cuobjdump -sass`.
+library from `cuobjdump -sass` (`sass_text`); `kernels/sass.py` reads the
+same listing for its instruction census.
 
     from repro_torch.kernels import build
     lib = build.load("abc_sim")          # builds on first use
@@ -212,8 +213,8 @@ def parse_sass_counts(sass: str, opcode: str) -> Dict[str, int]:
     return out
 
 
-def sass_counts(name: str, opcode: str) -> Optional[Dict[str, int]]:
-    """`parse_sass_counts` of the built `csrc/<name>.cu`, or None without
+def sass_text(name: str) -> Optional[str]:
+    """`cuobjdump -sass` of the built `csrc/<name>.cu`, or None without
     cuobjdump."""
     tool = cuobjdump_path()
     if tool is None:
@@ -221,7 +222,14 @@ def sass_counts(name: str, opcode: str) -> Optional[Dict[str, int]]:
     proc = subprocess.run([tool, "-sass", str(build_all()[name].path)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                           check=True)
-    return parse_sass_counts(proc.stdout, opcode)
+    return proc.stdout
+
+
+def sass_counts(name: str, opcode: str) -> Optional[Dict[str, int]]:
+    """`parse_sass_counts` of the built `csrc/<name>.cu`, or None without
+    cuobjdump."""
+    text = sass_text(name)
+    return None if text is None else parse_sass_counts(text, opcode)
 
 
 def load(name: str) -> ctypes.CDLL:

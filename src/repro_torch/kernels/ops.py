@@ -5,7 +5,9 @@ Counterpart of `repro.kernels.ops.abc_sim_distance`: it lowers the
 (summary, distance) pair against the observed series, lays theta out as
 structure of arrays, packs the constants and launches the CUDA kernel.
 `make_abc_sim` does the lowering and packing once for a fixed series, so
-that each later call only lays out theta and sets the seed.
+that each later call only lays out theta and sets the seed. Its `wave`
+draws theta from a uniform box prior and simulates it in one launch of the
+kernel's wave entry: the ABC main path.
 
 Dispatch is by device: a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
@@ -14,14 +16,83 @@ Nothing falls back from the card to the plain version.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.priors import UniformBoxPrior
 from repro_torch.core.summaries import get_summary, lower_summary
 from repro_torch.epi.spec import CompartmentalModel, require_flat
 from repro_torch.kernels import abc_sim, ref
 from repro_torch.kernels import flash_attention as fa
+
+
+class AbcSim:
+    """The fused simulate-and-distance against one observed series, on that
+    series' device. Made by `make_abc_sim`.
+
+    `sim(theta [B, n_params], seed) -> distances [B]`; theta must lie on the
+    series' device. `sim.wave(prior, prior_seed, sim_seed, batch)` is one ABC
+    wave: theta drawn by `prior.sample(prior_seed, batch)` and its distances
+    with NaN turned to +inf. On a CUDA device with a `UniformBoxPrior` that
+    is one launch of the kernel's wave entry, which draws theta itself (no
+    host-side prior draw); on the CPU it is `prior.sample` followed by the
+    plain version.
+    """
+
+    def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
+                 r0: float, d0: float, model: CompartmentalModel, spec, distance: str,
+                 block: int):
+        self.observed, self.model, self.spec, self.distance = observed, model, spec, distance
+        self.scalars = dict(population=population, a0=a0, r0=r0, d0=d0)
+        self.block = block
+        self.device = observed.device
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"observed must be on the CPU or a CUDA device, got {self.device}")
+        if self.device.type == "cuda":
+            lowered = lower_summary(spec, distance, observed)
+            self.obs_summary = lowered.obs_summary.contiguous()
+            self.fconst, self.iconst = abc_sim.pack_consts(
+                mean_scale=lowered.mean_scale, weights=lowered.weights.cpu().numpy(),
+                flags=lowered.flags, seed=0, **self.scalars,
+            )
+
+    def __call__(self, theta: torch.Tensor, seed: int) -> torch.Tensor:
+        model = self.model
+        if theta.ndim != 2 or theta.shape[1] != model.n_params:
+            raise ValueError(
+                f"theta must be [B, {model.n_params}] for {model.name}, got "
+                f"{tuple(theta.shape)}"
+            )
+        if theta.device != self.device:
+            raise ValueError(f"theta is on {theta.device}, the observed series on "
+                             f"{self.device}")
+        if self.device.type == "cpu":
+            return ref.abc_sim_distance_ref(
+                theta, seed, self.observed, model=model, summary=self.spec,
+                distance=self.distance, **self.scalars,
+            )
+        return abc_sim.abc_sim_distance_kernel(
+            abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst,
+            abc_sim.with_seed(self.iconst, seed), model=model, block=self.block,
+        )
+
+    def wave(self, prior, prior_seed: int, sim_seed: int,
+             batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(theta [batch, n_params], distances [batch] with NaN as +inf)."""
+        if prior.dim != self.model.n_params:
+            raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
+                             f"{self.model.n_params} parameters")
+        if self.device.type == "cuda" and isinstance(prior, UniformBoxPrior):
+            return abc_sim.abc_sim_wave_kernel(
+                prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
+                abc_sim.with_seed(self.iconst, sim_seed), model=self.model, batch=batch,
+                block=self.block,
+            )
+        theta = prior.sample(prior_seed, batch, self.device)
+        dist = self(theta, sim_seed)
+        # failed (NaN) simulations never count as accepted
+        return theta, torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
 
 
 def make_abc_sim(
@@ -36,45 +107,14 @@ def make_abc_sim(
     distance: str = "euclidean",
     schedule=None,
     block: int = abc_sim.DEFAULT_BLOCK,
-) -> Callable[[torch.Tensor, int], torch.Tensor]:
-    """`(theta [B, n_params], seed) -> distances [B]` against `observed`, on
-    `observed`'s device; theta must lie on the same device."""
+) -> AbcSim:
+    """The fused simulate-and-distance against `observed`, on `observed`'s
+    device (`AbcSim`)."""
     if model is None:
         from repro_torch.epi.models import DEFAULT_MODEL as model  # noqa: N811
     require_flat(model.n_regions, schedule)
-    spec = get_summary(summary)
-    device = observed.device
-    observed = observed.to(torch.float32)
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"observed must be on the CPU or a CUDA device, got {device}")
-    if device.type == "cuda":
-        lowered = lower_summary(spec, distance, observed)
-        obs_summary = lowered.obs_summary.contiguous()
-        fconst, iconst = abc_sim.pack_consts(
-            population=population, a0=a0, r0=r0, d0=d0,
-            mean_scale=lowered.mean_scale, weights=lowered.weights.cpu().numpy(),
-            flags=lowered.flags, seed=0,
-        )
-
-    def run(theta: torch.Tensor, seed: int) -> torch.Tensor:
-        if theta.ndim != 2 or theta.shape[1] != model.n_params:
-            raise ValueError(
-                f"theta must be [B, {model.n_params}] for {model.name}, got "
-                f"{tuple(theta.shape)}"
-            )
-        if theta.device != device:
-            raise ValueError(f"theta is on {theta.device}, the observed series on {device}")
-        if device.type == "cpu":
-            return ref.abc_sim_distance_ref(
-                theta, seed, observed, population=population, a0=a0, r0=r0,
-                d0=d0, model=model, summary=spec, distance=distance,
-            )
-        return abc_sim.abc_sim_distance_kernel(
-            abc_sim.theta_to_soa(theta), obs_summary, fconst,
-            abc_sim.with_seed(iconst, seed), model=model, block=block,
-        )
-
-    return run
+    return AbcSim(observed.to(torch.float32), population=population, a0=a0, r0=r0, d0=d0,
+                  model=model, spec=get_summary(summary), distance=distance, block=block)
 
 
 def abc_sim_distance(

@@ -1,0 +1,283 @@
+"""Instruction census of a kernel's day loop from `cuobjdump -sass`.
+
+What bounds the fused ABC kernel (`csrc/abc_sim.cu`) is how many
+instructions the card must issue for one sample-day, not bytes. This module
+reads a `cuobjdump -sass` listing and counts the instructions of the path
+one day takes through the body of the day loop, by class:
+
+    fp32     FADD, FMUL, FFMA, FSETP, FMNMX, FSEL, ... (128 a clock an SM)
+    int_mul  IMAD in all its forms, IMUL           (64)
+    int_alu  IADD3, LOP3, SHF, ISETP, LEA, SEL, ... (64)
+    quarter  MUFU.*, I2F, I2FP, F2I, FRND, F2F      (16)
+    branch   BRA, BSSY, BSYNC, CALL, EXIT, ...      (issue slots only)
+    memory   LDS, LDG, STG, LDC, ULDC, LDL, ...     (issue slots only)
+    other    S2R, CS2R, uniform ops, NOP, ...       (issue slots only)
+
+The day loop is the backward branch of the function that spans the most
+instructions. The path through its body starts at the branch's target and
+ends at the branch. At each conditional forward branch it takes the side
+that a day at these arguments takes, by these rules, in order:
+
+1. the code the branch skips holds a cold block (a CALL to an out-of-line
+   slow path, local memory: LDL/STL, float64, or an inner loop): the
+   branch is taken. These are the Payne-Hanek reduction of cosf behind its
+   32-byte stack and the out-of-line denormal fix-ups of IEEE division and
+   sqrtf;
+2. the code at the target, up to its first branch or join (BSYNC), holds
+   a cold block: the branch falls through;
+3. the skipped code ends in an unconditional branch (an if/else whose
+   first arm falls through, as powf lays out its special cases around the
+   general case): the branch falls through;
+4. otherwise (an `if (rare) fix-up` with no else, such as log1pf's
+   treatment of infinity): the branch is taken.
+
+Every conditional branch is reported with its rule and the instructions it
+skips, so a reader can check each decision. Predicated instructions count
+whatever their predicate: they take an issue slot either way.
+
+The issue floor of a launch is the larger of the issue limit (4
+warp-instructions a clock an SM) and each class's own pipe limit:
+
+    cycles per sample-day = max(total / 128, fp32 / 128, int_mul / 64,
+                                int_alu / 64, quarter / 16)
+    floor ms = cycles * (samples * days) / (SMs * clock)
+
+with per-sample work outside the loop added once per sample.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
+
+#: thread-instructions a clock an SM, per class, for compute capability 9.0
+RATES = {"issue": 128, "fp32": 128, "int_mul": 64, "int_alu": 64, "quarter": 16}
+CLASSES = ("fp32", "int_mul", "int_alu", "quarter", "branch", "memory", "other")
+
+_FP32 = {"FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FSET", "FCHK", "FSWZADD",
+         "FADD32I", "FMUL32I", "FFMA32I", "HFMA2", "HADD2", "HMUL2", "FCMP"}
+_INT_MUL = {"IMAD", "IMUL", "IMAD32I", "IMUL32I", "IDP", "IMADSP"}
+_INT_ALU = {"IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR",
+            "ISETP", "ISET", "IMNMX", "VIMNMX", "IABS", "LEA", "VIADD", "VIADDMNMX", "SEL",
+            "PRMT", "POPC", "FLO", "BREV", "BMSK", "MOV", "MOV32I", "P2R", "R2P", "PLOP3",
+            "ICMP", "IMNMX3", "SGXT"}
+_QUARTER = {"MUFU", "I2F", "I2FP", "F2I", "F2IP", "FRND", "F2F"}
+_BRANCH = {"BRA", "BRX", "JMP", "JMX", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC",
+           "BAR", "BPT", "KILL", "YIELD", "BMOV", "BREAK", "NANOSLEEP"}
+_MEMORY = {"LD", "ST", "LDG", "STG", "LDS", "STS", "LDL", "STL", "LDC", "ULDC", "LDSM",
+           "ATOM", "ATOMS", "ATOMG", "RED", "LDGSTS", "LDGDEPBAR", "CCTL", "MEMBAR",
+           "SYNCS", "UBLKCP", "UTMALDG", "UTMASTG"}
+#: opcodes whose presence makes a block cold: slow paths never taken here
+_COLD = {"CALL", "LDL", "STL", "DMUL", "DADD", "DFMA", "DSETP"}
+
+
+def opcode_class(opcode: str) -> str:
+    """The class of one SASS opcode, with or without its modifiers."""
+    base = opcode.split(".")[0]
+    if base in _FP32:
+        return "fp32"
+    if base in _INT_MUL:
+        return "int_mul"
+    if base in _INT_ALU:
+        return "int_alu"
+    if base in _QUARTER:
+        return "quarter"
+    if base in _BRANCH:
+        return "branch"
+    if base in _MEMORY:
+        return "memory"
+    return "other"
+
+
+@dataclasses.dataclass(frozen=True)
+class Instr:
+    addr: int
+    pred: str  # "" or e.g. "@!P0"
+    opcode: str  # with modifiers, e.g. "FSETP.GEU.AND"
+    operands: str
+
+    @property
+    def base(self) -> str:
+        return self.opcode.split(".")[0]
+
+    @property
+    def target(self) -> Optional[int]:
+        """The address a branch or call goes to, where it names one."""
+        m = re.search(r"0x([0-9a-f]+)", self.operands)
+        return int(m.group(1), 16) if m and self.base in ("BRA", "CALL", "BSSY") else None
+
+    def __str__(self) -> str:
+        return f"/*{self.addr:04x}*/ {self.pred + ' ' if self.pred else ''}{self.opcode} " \
+               f"{self.operands}".rstrip()
+
+
+_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def parse_functions(sass: str) -> Dict[str, List[Instr]]:
+    """The instructions of each function of a `cuobjdump -sass` (or
+    `nvdisasm`) listing, under the function's mangled name. Branch targets
+    written as labels (`(.L_x_3)`) become addresses."""
+    funcs: Dict[str, List[Instr]] = {}
+    labels: Dict[str, Dict[str, int]] = {}
+    pending: List[str] = []
+    current = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line) or re.match(r"^\s*\.text\.(\S+):", line)
+        if m:
+            current = m.group(1)
+            funcs[current], labels[current], pending = [], {}, []
+            continue
+        if current is None:
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _LINE.search(line)
+        if m:
+            ins = Instr(int(m.group(1), 16), (m.group(2) or "").strip(), m.group(3),
+                        m.group(4).strip())
+            for name in pending:
+                labels[current][name] = ins.addr
+            pending = []
+            funcs[current].append(ins)
+    for name, body in funcs.items():
+        table = labels[name]
+        if table:
+            funcs[name] = [dataclasses.replace(i, operands=re.sub(
+                r"`?\((\.L_x_\d+)\)", lambda m: hex(table[m.group(1)]), i.operands))
+                for i in body]
+    return funcs
+
+
+def _is_uncond_branch(i: Instr) -> bool:
+    return i.base == "BRA" and not i.pred
+
+
+def _cold(code: Sequence[Instr]) -> bool:
+    """A slow path: a call, local memory, float64, or a loop inside `code`."""
+    start = code[0].addr if code else 0
+    return any(i.base in _COLD or (i.base == "BRA" and i.target is not None
+                                   and start <= i.target < i.addr) for i in code)
+
+
+def day_loop(body: List[Instr]) -> Tuple[int, int]:
+    """(index of the loop head, index of its backward branch): the backward
+    branch that spans the most instructions."""
+    index = {i.addr: n for n, i in enumerate(body)}
+    best = None
+    for n, i in enumerate(body):
+        t = i.target
+        if i.base == "BRA" and t is not None and t < i.addr and t in index:
+            span = n - index[t]
+            if best is None or span > best[1] - best[0]:
+                best = (index[t], n)
+    if best is None:
+        raise ValueError("no loop (backward branch) in this function")
+    return best
+
+
+def _block_at(body: List[Instr], start: int) -> List[Instr]:
+    """The code from `start` up to its first branch, join (BSYNC) or exit."""
+    out = []
+    for i in body[start:]:
+        out.append(i)
+        if i.base in ("BRA", "BSYNC", "EXIT"):
+            break
+    return out
+
+
+def decide(body: List[Instr], index: Dict[int, int], n: int) -> Tuple[bool, int, int]:
+    """(taken, rule, instructions skipped when taken) of the conditional
+    forward branch body[n], by the rules of the module docstring."""
+    br = body[n]
+    t = index[br.target]
+    skipped = body[n + 1:t]
+    if _cold(skipped):
+        return True, 1, len(skipped)
+    if _cold(_block_at(body, t)):
+        return False, 2, len(skipped)
+    if any(_is_uncond_branch(i) for i in skipped):
+        return False, 3, len(skipped)
+    return True, 4, len(skipped)
+
+
+def walk(body: List[Instr], start: int, stop: int,
+         branches: Optional[list] = None) -> List[Instr]:
+    """The instructions from body[start] to body[stop] along the path the
+    rules choose. A backward branch other than `stop` is left (its loop
+    runs once); a conditional exit falls through."""
+    index = {i.addr: n for n, i in enumerate(body)}
+    path, n, seen = [], start, set()
+    while True:
+        if n in seen:
+            raise ValueError(f"the walk came back to {body[n]}")
+        seen.add(n)
+        ins = body[n]
+        path.append(ins)
+        if n == stop:
+            return path
+        if ins.base == "EXIT" and not ins.pred:
+            return path
+        t = ins.target
+        if ins.base == "BRA" and t is not None and t > ins.addr:
+            if not ins.pred:
+                n = index[t]
+                continue
+            taken, rule, skipped = decide(body, index, n)
+            if branches is not None:
+                branches.append({"at": f"{ins.addr:04x}", "branch": str(ins).split("*/ ")[1],
+                                 "taken": taken, "rule": rule, "skips": skipped})
+            n = index[t] if taken else n + 1
+            continue
+        n += 1
+
+
+def count(path: Sequence[Instr]) -> Dict[str, int]:
+    out = {c: 0 for c in CLASSES}
+    for i in path:
+        out[opcode_class(i.opcode)] += 1
+    out["total"] = len(path)
+    return out
+
+
+def census(body: List[Instr]) -> dict:
+    """Per-day instruction counts of the day loop of one function, and the
+    per-sample ones of the code around it."""
+    head, back = day_loop(body)
+    branches: list = []
+    loop = walk(body, head, back, branches)
+    whole = walk(body, 0, len(body) - 1)
+    outside = [i for i in whole if not body[head].addr <= i.addr <= body[back].addr]
+    quarter = {}
+    for i in loop:
+        if opcode_class(i.opcode) == "quarter":
+            quarter[i.opcode] = quarter.get(i.opcode, 0) + 1
+    return {"per_day": count(loop), "per_sample_outside_loop": count(outside),
+            "loop_span": [f"{body[head].addr:04x}", f"{body[back].addr:04x}"],
+            "loop_span_instructions": back - head + 1,
+            "quarter_rate_opcodes": dict(sorted(quarter.items())),
+            "conditional_branches": branches}
+
+
+def cycles_per_sample_day(per_day: Dict[str, int]) -> Tuple[float, str]:
+    """(SM cycles a sample-day at full rate, the limit that sets it)."""
+    limits = {"issue": per_day["total"] / RATES["issue"]}
+    for c in ("fp32", "int_mul", "int_alu", "quarter"):
+        limits[c] = per_day[c] / RATES[c]
+    which = max(limits, key=limits.get)
+    return limits[which], which
+
+
+def issue_floor_ms(result: dict, batch: int, days: int, n_sm: int, clock_mhz: float) -> dict:
+    """The least time the card needs to issue one launch's instructions."""
+    day_cycles, by = cycles_per_sample_day(result["per_day"])
+    sample_cycles, _ = cycles_per_sample_day(result["per_sample_outside_loop"])
+    cycles = batch * (days * day_cycles + sample_cycles) / n_sm
+    return {"floor_ms": cycles / (clock_mhz * 1e6) * 1e3, "bound_by": by,
+            "cycles_per_sample_day": day_cycles, "sm_clock_mhz": clock_mhz, "sms": n_sm,
+            "instructions_per_sample_day": result["per_day"]["total"]
+            + result["per_sample_outside_loop"]["total"] / days}

@@ -20,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch import convert
 from repro_torch.core import abc as tabc
 from repro_torch.core.posterior import Posterior
+from repro_torch.epi.models import get_model
 from repro_torch.launch import abc_run
 
 BAR = dict(rtol=2e-6, atol=1e-3)
@@ -179,3 +180,44 @@ def test_cli_on_cpu_prints_the_posterior_table(capsys, tmp_path):
     assert "auto-calibrated tolerance" in text
     assert "param |" in text and "kappa |" in text and "N=" in text
     assert len(post) >= 10 and Posterior.load(str(out)).theta.shape == post.theta.shape
+
+
+@pytest.mark.parametrize("strategy", ["outfeed", "topk"])
+def test_run_abc_equals_a_hand_written_loop_over_wave_seeds(small, strategy):
+    """run_abc on the CPU is prior.sample + make_simulator over wave_seeds,
+    NaN never accepted, bit for bit, harvested in sample order (outfeed) or
+    the k lowest per wave (top-k)."""
+    cfg = _small_cfg(strategy=strategy, top_k=3,
+                     tolerance=2500.0 if strategy == "outfeed" else 1e9)
+    post = tabc.run_abc(small, cfg, seed=4, device="cpu")
+    prior = get_model(cfg.model).prior()
+    sim = tabc.make_simulator(small, cfg, device="cpu")
+    thetas, dists = [], []
+    for i in range(cfg.max_runs):
+        prior_seed, sim_seed = tabc.wave_seeds(4, i)
+        theta = prior.sample(prior_seed, cfg.batch_size)
+        dist = sim(theta, sim_seed)
+        dist = torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
+        if strategy == "topk":
+            dist, idx = torch.topk(dist, cfg.top_k, largest=False, sorted=True)
+            theta = theta[idx]
+        keep = dist <= cfg.tolerance
+        thetas.append(theta[keep].numpy())
+        dists.append(dist[keep].numpy())
+    assert post.runs == cfg.max_runs and len(post) > 0
+    np.testing.assert_array_equal(post.theta, np.concatenate(thetas))
+    np.testing.assert_array_equal(post.distances, np.concatenate(dists))
+
+
+def test_calibrate_tolerance_on_the_cpu_is_the_pilot_quantile(small):
+    cfg = _small_cfg()
+    got = tabc.calibrate_tolerance(small, cfg, seed=2, quantile=0.1, n_pilot=2048,
+                                   device="cpu")
+    prior = get_model(cfg.model).prior()
+    sim = tabc.make_simulator(small, cfg, device="cpu")
+    dists = []
+    for w in range(2048 // cfg.batch_size):
+        theta = prior.sample(tabc.stream_seed(2, w, tabc.PILOT_PRIOR_STREAM), cfg.batch_size)
+        d = sim(theta, tabc.stream_seed(2, w, tabc.PILOT_SIM_STREAM)).numpy()
+        dists.append(d[np.isfinite(d)])
+    assert got == float(np.quantile(np.concatenate(dists), 0.1))

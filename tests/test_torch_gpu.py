@@ -8,6 +8,7 @@ Whether a card is there is decided inside the `cuda` fixture, never at
 import, so every worker collects the same tests.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core import abc as tabc
-from repro_torch.core.priors import paper_prior
+from repro_torch.core import priors
+from repro_torch.core.priors import UniformBoxPrior, paper_prior
 from repro_torch.core.summaries import summary_pairs
 from repro_torch.epi import data
 from repro_torch.kernels import abc_sim, ops, ref
@@ -92,20 +94,98 @@ def test_rng_kernel_bits_exact(cuda):
     torch.testing.assert_close(z, krng.normal(9, idx, ctr), rtol=0, atol=1e-6)
 
 
+def test_branch_free_box_muller_equals_the_precise_functions_on_every_uniform(cuda):
+    """sqrt(-2 log u) and cos(2 pi u) of the kernel, without the precise
+    functions' branches, equal sqrtf/logf and cosf bit for bit on all 2^24
+    uniforms u = k * 2^-24 the hash can give."""
+    launches = abc_sim.RNG_LAUNCHES
+    assert abc_sim.unit_math_mismatches(cuda) == (0, 0)
+    assert abc_sim.RNG_LAUNCHES == launches + 1
+
+
 def test_prior_draws_equal_on_cpu_and_card(cuda):
     prior = paper_prior()
     assert torch.equal(prior.sample(17, 100_000, cuda).cpu(), prior.sample(17, 100_000))
 
 
 def test_run_abc_on_the_card_goes_through_the_kernel(cuda):
+    """One launch of the wave entry a wave, and nothing else of the kernel's
+    or the plain version's."""
     ds = data.get_dataset("synthetic_small", num_days=20)
     cfg = tabc.ABCConfig(batch_size=8192, chunk_size=1024, num_days=20,
                          tolerance=2e4, target_accepted=50, max_runs=20)
-    launches, calls = abc_sim.LAUNCHES, ref.CALLS
+    launches, waves, calls = abc_sim.LAUNCHES, abc_sim.WAVE_LAUNCHES, ref.CALLS
     post = tabc.run_abc(ds, cfg, seed=0, device=cuda)
-    assert abc_sim.LAUNCHES - launches == post.runs and ref.CALLS == calls
+    assert abc_sim.WAVE_LAUNCHES - waves == post.runs
+    assert (abc_sim.LAUNCHES, ref.CALLS) == (launches, calls)
     again = tabc.run_abc(ds, cfg, seed=0, device=cuda)
     np.testing.assert_array_equal(post.theta, again.theta)
+
+
+def test_run_abc_on_the_card_makes_no_host_prior_draw(cuda):
+    """The pilot and every wave draw theta inside the kernel: no
+    UniformBoxPrior.sample on the card, 1 + waves launches of the wave entry."""
+    ds = data.get_dataset("synthetic_small", num_days=20)
+    cfg = tabc.ABCConfig(batch_size=8192, chunk_size=1024, num_days=20, tolerance=1.0,
+                         target_accepted=50, max_runs=20)
+    draws, waves = priors.DEVICE_DRAWS, abc_sim.WAVE_LAUNCHES
+    eps = tabc.calibrate_tolerance(ds, cfg, seed=1, quantile=0.01, n_pilot=8192, device=cuda)
+    post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=1, device=cuda)
+    assert priors.DEVICE_DRAWS == draws
+    assert abc_sim.WAVE_LAUNCHES - waves == 1 + post.runs
+    assert len(post) >= 50 and (post.distances <= eps).all()
+
+
+def test_wave_entry_draws_the_prior_bitwise_on_the_card(cuda):
+    """theta from the kernel equals UniformBoxPrior.sample on the card and on
+    the CPU, for a box with non-zero lows, at a batch no block size divides."""
+    prior = UniformBoxPrior(highs=(0.9, 80.0, 2.0, 0.5, 1.0, 0.2, 1.0, 2.0),
+                            lows=(0.1, 0.0, 0.5, 0.0, 0.0, 0.0, 0.2, 0.5))
+    ds = data.get_dataset("italy", num_days=49)
+    kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), **kw)
+    theta, dist = sim.wave(prior, 0xFFFFFFFF, 5, 100_003)
+    want = prior.sample(0xFFFFFFFF, 100_003, cuda)
+    assert theta.shape == (100_003, 8) and theta.is_contiguous()
+    assert torch.equal(theta, want) and torch.equal(theta.cpu(), prior.sample(0xFFFFFFFF, 100_003))
+    assert torch.equal(dist, sim(want, 5))
+
+
+@pytest.mark.parametrize("summary,distance", summary_pairs())
+def test_wave_entry_equals_theta_in_and_plain_every_flat_pair(cuda, summary, distance):
+    """Distances of the wave entry equal the theta-in entry's and the plain
+    version's bitwise, at block 64, 128 and 256."""
+    ds = data.get_dataset("synthetic_small", num_days=49)
+    obs = torch.as_tensor(ds.observed, device=cuda)
+    prior = paper_prior()
+    theta = prior.sample(4, 1024, cuda)
+    want = ref.abc_sim_distance_ref(theta, 7, obs, summary=summary, distance=distance,
+                                    **_small_kw())
+    want = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
+    for block in (64, 128, 256):
+        sim = ops.make_abc_sim(obs, summary=summary, distance=distance, block=block,
+                               **_small_kw())
+        waves, calls = abc_sim.WAVE_LAUNCHES, ref.CALLS
+        got_theta, got = sim.wave(prior, 4, 7, 1024)
+        assert (abc_sim.WAVE_LAUNCHES, ref.CALLS) == (waves + 1, calls)
+        assert torch.equal(got_theta, theta) and torch.equal(got, want)
+        d_in = sim(theta, 7)
+        assert torch.equal(torch.where(torch.isnan(d_in), torch.full_like(d_in, float("inf")),
+                                       d_in), got)
+
+
+def test_wave_entry_turns_a_failed_simulation_into_inf(cuda):
+    """A NaN bound makes theta and the simulation NaN: the wave entry writes
+    +inf, the theta-in entry NaN, as on the CPU."""
+    highs = list(paper_prior().highs)
+    highs[2] = float("nan")
+    prior = UniformBoxPrior(highs=tuple(highs))
+    ds = data.get_dataset("synthetic_small", num_days=20)
+    sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), **_small_kw())
+    theta, dist = sim.wave(prior, 3, 4, 4096)
+    assert torch.isnan(theta[:, 2]).all()
+    assert torch.isinf(dist).all() and (dist > 0).all()
+    assert torch.isnan(sim(theta, 4)).all()
 
 
 def test_make_abc_sim_on_the_card_matches_per_call_lowering(cuda):

@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that hold on any machine.
 
-* No module under src/repro_torch/, and not chip_smoke.py, imports `jax`,
-  `ml_dtypes` or anything of `repro`: the port keeps its own copies.
+* No module under src/repro_torch/, no experiment script under
+  experiments/, and not chip_smoke.py, imports `jax`, `ml_dtypes` or
+  anything of `repro`: the port keeps its own copies.
 * Asking for device="cuda" without a card raises; nothing falls back to the
   CPU on its own.
 """
@@ -19,7 +20,8 @@ from repro_torch.kernels import abc_sim, build
 from repro_torch.launch import abc_run
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "experiments").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path: pathlib.Path):
