@@ -9,12 +9,14 @@ It puts `src/` on the import path, builds the CUDA kernels from
 printing one JSON line:
 
   device     the card's name and the nvidia-smi name and power limit
-  build      nvcc seconds (one nvcc a source, all started together), each
+  build      nvcc seconds (one nvcc a source, all started together, and
+             the CUDA-core float32 kernel of experiments/ beside them), each
              kernel's registers, shared memory, stack and spills (every
              variant of abc_sim), ptxas's wgmma warnings, the HGMMA
-             instructions in each kernel's SASS (cuobjdump -sass), and the
-             instruction census of abc_sim's day loop (kernels/sass.py) for
-             the main path's variants of both entries
+             instructions in each kernel's SASS (cuobjdump -sass), the TF32
+             ones of the float32 kernel, and the instruction census of
+             abc_sim's day loop (kernels/sass.py) for the main path's
+             variants of both entries
   rng        the kernel's hash bits and normals against the plain twin, and
              its branch-free Box-Muller pieces against logf, sqrtf and cosf
              on every one of the 2^24 uniforms the hash can give (bitwise)
@@ -37,7 +39,7 @@ printing one JSON line:
              bound, the issue floor from the census at the SM clock that
              nvidia-smi reads under load, and the plain version
   flash      the flash-attention kernels against their plain version: bf16
-             through the tensor-core kernel, float32 through the CUDA-core
+             through the bf16 tensor-core kernel, float32 through the 3xTF32
              one (route counters), on the causal GQA shapes of
              tests/test_kernel_flash.py, window + softcap, non-causal
              cross-length, ragged 2047, rows with no allowed key, gemma-2b's
@@ -52,8 +54,12 @@ printing one JSON line:
   lm_serve   `repro_torch.launch.serve` LM mode at full width, its defaults
   lm_timing  the bf16 tensor-core kernel at (4, 2048) and (1, 8192) x 8
              heads, 1 kv head, D 256, causal, beside its bound, the plain
-             version and torch's scaled_dot_product_attention; the float32
-             CUDA-core kernel at the same shapes in float32
+             version and torch's scaled_dot_product_attention; at the same
+             shapes in float32 the 3xTF32 kernel in turns with the CUDA-core
+             one it replaced (experiments/flash_f32_cuda_core.py), beside
+             the 3xTF32 bound (and the 67 TFLOP/s one), the plain version
+             and SDPA in float32; the kernels SDPA's float32 call launches,
+             from one profiled call
   kernels    one line for each kernel: abc_sim (its wave and theta-in
              entries), the bf16 flash route and the float32 one
 
@@ -66,6 +72,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,12 +84,17 @@ PINS = os.path.join(ROOT, "tests", "data", "r1_pins.npz")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cu"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
-FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
 #: H100 SXM published peaks (NVIDIA's data sheet): float32 outside
-#: the tensor cores, bf16 on the tensor cores (dense), and HBM bandwidth
+#: the tensor cores, bf16 and TF32 on the tensor cores (dense), and HBM
+#: bandwidth
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 494.7e12
+#: TF32 products for each float32 one in the float32 flash kernel (3xTF32:
+#: a_hi b_hi + a_lo b_hi + a_hi b_lo); its bound counts all three
+TF32_PASSES = 3
 HBM_BYTES_PER_S = 3.35e12
 #: kernel-vs-oracle bar (tests/test_kernel_abc_sim.py:58): repro's pinned
 #: oracle distances differ from its pinned Pallas ones, which the kernel
@@ -259,7 +271,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def flash_phase(dev):
     """The flash kernels against their plain version on every FLASH_CASES
     case, float32 and bf16; returns the largest absolute error of the bf16
-    tensor-core kernel and of the float32 CUDA-core kernel."""
+    tensor-core kernel and of the float32 (3xTF32) one."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -274,20 +286,20 @@ def flash_phase(dev):
                        .to(device=dev, dtype=dtype)
                        for shape in ((b, sq, h, d), (b, skv, kh, d), (b, skv, kh, d)))
             kw = dict(causal=causal, window=window, softcap=cap)
-            before = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE,
+            before = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
                       ref.FLASH_CALLS)
             got = ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            tc = int(dtype == torch.bfloat16)
-            if (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE,
-                    ref.FLASH_CALLS) != (before[0] + 1, before[1] + tc, before[2] + 1 - tc,
+            bf = int(dtype == torch.bfloat16)
+            if (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+                    ref.FLASH_CALLS) != (before[0] + 1, before[1] + bf, before[2] + 1 - bf,
                                          before[3]):
                 raise AssertionError(f"flash {case} {dtype}: the card did not go through "
-                                     f"the {'tensor' if tc else 'CUDA'}-core kernel")
+                                     f"the {'bf16' if bf else '3xTF32'} tensor-core kernel")
             want = ref.flash_attention_ref(q, k, v, **kw)
             name = str(dtype).split(".")[1]
             r = compare(f"flash {name} {case}", got.float(), want.float(), **FLASH_BARS[name])
-            r["route"] = fa.TENSOR_CORE if tc else fa.CUDA_CORE
+            r["route"] = fa.TENSOR_CORE if bf else fa.TENSOR_CORE_F32
             if window is not None and not causal:
                 dead = torch.arange(sq, device=dev) - (skv - 1) >= window
                 if not bool((got[:, dead] == 0).all()):
@@ -296,7 +308,22 @@ def flash_phase(dev):
             results.append(r)
     emit("flash", comparisons=results)
     return tuple(max(r["max_abs_err"] for r in results if r["route"] == route)
-                 for route in (fa.TENSOR_CORE, fa.CUDA_CORE))
+                 for route in (fa.TENSOR_CORE, fa.TENSOR_CORE_F32))
+
+
+def tf32_hgmma_counts(sass: str) -> dict:
+    """{function: {"all": HGMMA lines, "tf32": those of a .TF32 type}} of a
+    `cuobjdump -sass` listing."""
+    out, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            out[current] = {"all": 0, "tf32": 0}
+        elif current is not None and re.search(r"\bHGMMA\.", line):
+            out[current]["all"] += 1
+            out[current]["tf32"] += bool(re.search(r"\bHGMMA\.\S*TF32", line))
+    return out
 
 
 def profile_device_ms(fn):
@@ -323,12 +350,15 @@ def profile_device_ms(fn):
     return wall * 1e3, sum(r[2] for r in by_op), by_op
 
 
-def lm_phases(dev, name: str, smi: str, flash_errs) -> list:
+def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
     """lm_prefill, lm_profile, lm_serve and lm_timing; returns the flash
-    kernels' lines of the kernels record, bf16 then float32."""
+    kernels' lines of the kernels record, bf16 then float32. `cuda_core_fn`
+    is the CUDA-core float32 kernel of experiments/flash_f32_cuda_core.py,
+    timed in turns with the 3xTF32 one."""
     import torch
     import torch.nn.functional as F
 
+    from flash_f32_cuda_core import run as run_cuda_core
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.launch import serve
@@ -345,18 +375,18 @@ def lm_phases(dev, name: str, smi: str, flash_errs) -> list:
     flash_model = model.with_cfg(attn_impl="flash")
 
     # ---- lm_prefill: the main path through the kernel, counters around it
-    fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_CUDA_CORE = 0
+    fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_TENSOR_CORE_F32 = 0
     ref.FLASH_CALLS = 0
     t0 = time.perf_counter()
     logits = flash_model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = fa.LAUNCHES, ref.FLASH_CALLS
-    tc_launches, cc_launches = fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE
-    if (launches, tc_launches, cc_launches, plain_calls) != (cfg.n_layers, cfg.n_layers, 0, 0):
-        raise AssertionError(f"lm_prefill: {launches} flash launches, {tc_launches} on the "
-                             f"tensor cores (want {cfg.n_layers} and {cfg.n_layers}), "
-                             f"{cc_launches} on the CUDA cores, {plain_calls} plain-version "
+    tc_launches, f32_launches = fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32
+    if (launches, tc_launches, f32_launches, plain_calls) != (cfg.n_layers, cfg.n_layers, 0, 0):
+        raise AssertionError(f"lm_prefill: {launches} flash launches, {tc_launches} of the "
+                             f"bf16 kernel (want {cfg.n_layers} and {cfg.n_layers}), "
+                             f"{f32_launches} of the float32 one, {plain_calls} plain-version "
                              f"calls")
     dense = model.with_cfg(attn_impl="dense").prefill(params, {"tokens": tokens})
     if logits.shape != (4, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
@@ -373,7 +403,7 @@ def lm_phases(dev, name: str, smi: str, flash_errs) -> list:
                              f"argmax agreement {agree.tolist()} on rows {decided.tolist()}")
     emit("lm_prefill", arch=cfg.name, batch=4, prompt_len=2048, params=model.param_count(),
          init_s=init_s, wall_s=wall, flash_launches=launches,
-         tensor_core_launches=tc_launches, cuda_core_launches=cc_launches,
+         tensor_core_launches=tc_launches, tensor_core_f32_launches=f32_launches,
          plain_calls=plain_calls,
          max_abs_diff_vs_dense=diff, max_abs_logit=top, bar=bar,
          argmax_agree=agree.tolist(), argmax_decided_rows=decided.tolist(),
@@ -402,47 +432,87 @@ def lm_phases(dev, name: str, smi: str, flash_errs) -> list:
          seconds=stats["seconds"], tok_per_s=stats["tok_per_s"], kind=name, nvidia_smi=smi)
     torch.cuda.empty_cache()
 
-    # ---- lm_timing: each route's kernel alone beside its bound, plain version, SDPA
+    # ---- lm_timing: each route's kernel alone beside its bound, plain version, SDPA;
+    # in float32 the CUDA-core kernel it replaced in turns with it
     cells = []
-    for dtype, peak in ((torch.bfloat16, BF16_OPS_PER_S), (torch.float32, F32_OPS_PER_S)):
+    sdpa_f32_ops = None
+    for dtype in (torch.bfloat16, torch.float32):
         for b, s, iters in ((4, 2048, 20), (1, 8192, 10)):
             rng = np.random.default_rng(s)
             q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
                        .to(device=dev, dtype=dtype)
                        for shape in ((b, s, 8, 256), (b, s, 1, 256), (b, s, 1, 256)))
-            iters = iters if dtype == torch.bfloat16 else max(2, iters // 4)
-            tc = fa.LAUNCHES_TENSOR_CORE
-            ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, causal=True), iters)
-            route = fa.TENSOR_CORE if fa.LAUNCHES_TENSOR_CORE > tc else fa.CUDA_CORE
+            before = (fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32)
+
+            def kernel():
+                return fa.flash_attention_kernel(q, k, v, causal=True)
+
+            flops = fa.attention_flops(b, s, s, 8, 256, causal=True)
+            n_bytes = fa.attention_bytes(q, k, v)
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            cell = {"dtype": str(dtype).split(".")[1], "batch": b, "seq": s}
+            if dtype == torch.bfloat16:
+                ms = cuda_ms(kernel, iters)
+                ops_ms = flops / BF16_OPS_PER_S * 1e3
+                cell.update(peak_ops_per_s=BF16_OPS_PER_S, iters=iters)
+            else:
+                iters = max(2, iters // 2)
+                turns = {"tf32": [], "cuda_core": []}
+                for which in ("tf32", "cuda_core", "cuda_core", "tf32"):
+                    fn = kernel if which == "tf32" else (
+                        lambda: run_cuda_core(cuda_core_fn, q, k, v, causal=True))
+                    turns[which].append(cuda_ms(fn, iters))
+                ms = float(np.mean(turns["tf32"]))
+                cuda_core_ms = float(np.mean(turns["cuda_core"]))
+                ops_ms = TF32_PASSES * flops / TF32_OPS_PER_S * 1e3
+                cc_bound = max(flops / F32_OPS_PER_S * 1e3, bytes_ms)
+                cell.update(peak_ops_per_s=TF32_OPS_PER_S, tf32_passes=TF32_PASSES,
+                            turns_ms=turns, cuda_core_ms=cuda_core_ms,
+                            bound_ms_cuda_core=cc_bound,
+                            cuda_core_share_of_its_bound=cc_bound / cuda_core_ms,
+                            speedup_over_cuda_core=cuda_core_ms / ms, iters=iters)
+            after = (fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32)
+            route = fa.TENSOR_CORE if after[0] > before[0] else fa.TENSOR_CORE_F32
+            if after[0] > before[0] and after[1] > before[1]:
+                raise AssertionError("lm_timing: one dtype launched both kernels")
             plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2,
                                warmup=1)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), iters)
-            flops = fa.attention_flops(b, s, s, 8, 256, causal=True)
-            n_bytes = fa.attention_bytes(q, k, v)
-            ops_ms, bytes_ms = flops / peak * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-            cells.append({"dtype": str(dtype).split(".")[1], "route": route, "batch": b,
-                          "seq": s, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                          "flops": flops, "bytes": n_bytes, "peak_ops_per_s": peak,
-                          "bound_ms": max(ops_ms, bytes_ms),
-                          "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                          "share_of_bound": max(ops_ms, bytes_ms) / ms,
-                          "tflops": flops / (ms * 1e-3) / 1e12, "iters": iters})
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+
+            library_ms = cuda_ms(sdpa, iters)
+            if dtype == torch.float32 and sdpa_f32_ops is None:
+                # the kernels SDPA launches in float32, from one profiled call
+                _, _, by_op = profile_device_ms(sdpa)
+                sdpa_f32_ops = [{"name": k_[:160], "count": c, "device_ms": t_}
+                                for k_, c, t_ in by_op[:6]]
+            bound = max(ops_ms, bytes_ms)
+            cell.update(route=route, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        flops=flops, bytes=n_bytes, bound_ms=bound,
+                        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                        share_of_bound=bound / ms, tflops=flops / (ms * 1e-3) / 1e12)
+            cells.append(cell)
             del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     emit("lm_timing", kind=name, nvidia_smi=smi, peak_bf16_ops_per_s=BF16_OPS_PER_S,
-         peak_f32_ops_per_s=F32_OPS_PER_S, peak_bytes_per_s=HBM_BYTES_PER_S, cells=cells)
+         peak_tf32_ops_per_s=TF32_OPS_PER_S, peak_f32_ops_per_s=F32_OPS_PER_S,
+         peak_bytes_per_s=HBM_BYTES_PER_S, sdpa_f32_device_ops=sdpa_f32_ops, cells=cells)
     main_cell, f32_cell = cells[0], cells[2]
-    if main_cell["route"] != fa.TENSOR_CORE or f32_cell["route"] != fa.CUDA_CORE:
+    if main_cell["route"] != fa.TENSOR_CORE or f32_cell["route"] != fa.TENSOR_CORE_F32:
         raise AssertionError("lm_timing: a dtype did not go through its route's kernel")
-    return [{"name": f"flash_fwd_{tag}", "route": "cuda", "source": source,
-             "replaces": FLASH_TPU_KERNEL, "launches": n, "max_abs_err": err,
-             "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
-             "bound_by": cell["bound_by"], "library_ms": cell["library_ms"]}
-            for tag, source, n, err, cell in (
-                ("bf16", FLASH_SOURCE, tc_launches, flash_errs[0], main_cell),
-                ("f32", FLASH_F32_SOURCE, cc_launches, flash_errs[1], f32_cell))]
+    lines = [{"name": f"flash_fwd_{tag}", "route": "cuda", "source": source,
+              "replaces": FLASH_TPU_KERNEL, "launches": n, "max_abs_err": err,
+              "ms": cell["ms"], "plain_ms": cell["plain_ms"], "bound_ms": cell["bound_ms"],
+              "bound_by": cell["bound_by"], "library_ms": cell["library_ms"]}
+             for tag, source, n, err, cell in (
+                 ("bf16", FLASH_SOURCE, tc_launches, flash_errs[0], main_cell),
+                 ("f32", FLASH_F32_SOURCE, f32_launches, flash_errs[1], f32_cell))]
+    lines[1].update(bound_ms_cuda_core=f32_cell["bound_ms_cuda_core"],
+                    cuda_core_ms=f32_cell["cuda_core_ms"])
+    return lines
 
 
 def main() -> int:
@@ -453,6 +523,8 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, os.path.join(ROOT, "experiments"))
+    import flash_f32_cuda_core
     from repro_torch.core import priors
     from repro_torch.core.priors import paper_prior
     from repro_torch.core.summaries import lower_summary, get_summary, summary_pairs
@@ -476,11 +548,20 @@ def main() -> int:
 
     # ---- build
     t0 = time.perf_counter()
+    cuda_core_build = flash_f32_cuda_core.start_build()
     info = build.build_all()
+    cuda_core_fn, cuda_core_ptxas = flash_f32_cuda_core.finish_build(cuda_core_build)
     build_wall = time.perf_counter() - t0
     hgmma = build.sass_counts("flash_attention_wgmma", "HGMMA")
     if hgmma is not None and not all(hgmma.values()):
         raise AssertionError(f"build: a tensor-core flash kernel issues no HGMMA: {hgmma}")
+    tf32_text = build.sass_text("flash_attention_tf32")
+    hgmma_tf32 = None if tf32_text is None else tf32_hgmma_counts(tf32_text)
+    attention = {k: n for k, n in (hgmma_tf32 or {}).items() if "flash_fwd_tf32_kernel" in k}
+    if hgmma_tf32 is not None and not (attention and all(
+            n["tf32"] > 0 and n["tf32"] == n["all"] for n in attention.values())):
+        raise AssertionError(f"build: a float32 flash kernel issues no TF32 HGMMA, or "
+                             f"another kind: {hgmma_tf32}")
     # ptxas warns (C7515, "Potential Performance Loss") where it serialises wgmma
     ptxas_notes = {k: [line.strip() for line in v.path.with_suffix(".ptxas.txt").read_text()
                        .splitlines() if "Performance Loss" in line]
@@ -496,7 +577,11 @@ def main() -> int:
          abc_sim_variants={str(v): info["abc_sim"].kernels[k] for v in range(16)
                            for k in info["abc_sim"].kernels
                            if f"abc_sim_kernelI5SiardLi{v}EE" in k},
+         cuda_core_f32_experiment={"source": "experiments/flash_f32_cuda_core.cu",
+                                   "kernels": cuda_core_ptxas},
          hgmma_in_sass=hgmma if hgmma is not None else
+         "not measured: the toolkit has no cuobjdump",
+         tf32_hgmma_in_sass=hgmma_tf32 if hgmma_tf32 is not None else
          "not measured: the toolkit has no cuobjdump",
          abc_sim_census=census or "not measured: the toolkit has no cuobjdump")
 
@@ -734,7 +819,7 @@ def main() -> int:
     }
 
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
-    flash_lines = lm_phases(dev, name, smi, flash_phase(dev))
+    flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
 
     emit("total", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [abc_line, *flash_lines]}), flush=True)

@@ -1,6 +1,8 @@
 // Forward flash attention for Hopper (sm_90a), CUDA cores in float32: the
-// float32 route. bf16 inputs go to the tensor-core kernel of
-// flash_attention_wgmma.cu; the wrapper chooses by dtype.
+// float32 route until the 3xTF32 tensor-core kernel
+// (src/repro_torch/kernels/csrc/flash_attention_tf32.cu) replaced it. Kept
+// here so that experiments/flash_f32_cuda_core.py and chip_smoke.py can time
+// it in turns with that kernel; the port does not call it.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:38 (_kernel,
 // launched by flash_attention_kernel at :89, wrapped by kernels/ops.py:240)

@@ -9,10 +9,9 @@ copy.
 Each kernel that `repro` wrote in Pallas is a CUDA C++ kernel for Hopper,
 built with `nvcc` at first use: the fused tau-leap simulation with its
 running summary distance (`kernels/csrc/abc_sim.cu`) and forward flash
-attention, in bf16 on the tensor cores (`kernels/csrc/flash_attention_wgmma.cu`)
-and in float32 on the CUDA cores (`kernels/csrc/flash_attention.cu`). Beside
-each sits a plain
-PyTorch version of the same function (`kernels/ref.py`), which is what a
+attention on the tensor cores, in bf16 (`kernels/csrc/flash_attention_wgmma.cu`)
+and in float32 as 3xTF32 (`kernels/csrc/flash_attention_tf32.cu`). Beside
+each sits a plain PyTorch version of the same function (`kernels/ref.py`), which is what a
 CPU tensor goes through.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; asking

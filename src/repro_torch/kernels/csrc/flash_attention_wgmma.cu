@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:38 (_kernel,
 // launched by flash_attention_kernel at :89, wrapped by kernels/ops.py:240)
-// for bf16 inputs; float32 inputs go to the CUDA-core kernel of
-// flash_attention.cu. It computes what that kernel computes: for each
+// for bf16 inputs; float32 inputs go to the 3xTF32 kernel of
+// flash_attention_tf32.cu. It computes what that kernel computes: for each
 // (batch, head, query row), softmax(softcap(scale * q . k)) @ v over the keys
 // that the causal mask, the sliding window and the true key length allow,
 // with an online softmax whose scores, p, running max m, sum l and

@@ -1,19 +1,38 @@
-// Hopper (sm_90a) warpgroup primitives of the bf16 flash-attention kernel
-// (flash_attention_wgmma.cu): wgmma products, shared-memory descriptors,
-// cp.async copies and the fences between them, as inline PTX.
+// Hopper (sm_90a) warpgroup primitives of the flash-attention kernels:
+// wgmma products, shared-memory descriptors, cp.async copies and the fences
+// between them, as inline PTX.
 //
 // A wgmma's accumulator is a list of registers in the instruction, so each
-// shape has its own wrapper with its operands written out. Shapes: the
-// scores, m64n64k16 with both operands in shared memory (Q and K, K-major),
-// and p . V, m64nNk16 for N = 64, 128, 256 with p in registers and V in
-// shared memory, MN-major (the transpose that bf16 allows).
+// shape has its own wrapper with its operands written out.
+//
+// bf16 (flash_attention_wgmma.cu): the scores, m64n64k16 with both operands
+// in shared memory (Q and K, K-major), and p . V, m64nNk16 for N = 64, 128,
+// 256 with p in registers and V in shared memory, MN-major (the transpose
+// that bf16 allows).
+//
+// tf32 (flash_attention_tf32.cu): m64nNk8 for N = 32, 64, 128, 256 with a in
+// registers and b in shared memory, K-major. tf32 wgmma takes no transpose
+// flag: both shared-memory operands must be K-major. A K-major tf32 tile in
+// the 128-byte swizzle has the bf16 tile's geometry in bytes: rows of 128
+// bytes (32 floats), 8-row groups 1024 bytes apart, a k8 step 32 bytes
+// along the row.
 //
 // Accumulator layout (f32, 128 threads of a warpgroup): thread t of warp
 // w = t / 32 holds rows 16 w + (t % 32) / 4 and that + 8; register 4 j + e
 // holds column 8 j + 2 (t % 4) + (e & 1) of the first row (e < 2) or of the
-// second (e >= 2). The register operand a of an m64k16 product has the
+// second (e >= 2). The register operand a of a bf16 m64k16 product has the
 // same layout for 16 columns as bf16 pairs, so a score tile turns into p
 // fragments without moving data between threads.
+//
+// Register operand a of a tf32 m64k8 product: with g = (t % 32) / 4 and
+// c = t % 4, thread t of warp w holds a[0] = (row 16 w + g, column c),
+// a[1] = (row 16 w + g + 8, column c), a[2] = (row 16 w + g, column c + 4),
+// a[3] = (row 16 w + g + 8, column c + 4), each a b32 tf32 word (the layout
+// of mma.m16n8k8.tf32 for each warp's 16 rows). An accumulator's 8 columns
+// 8 j .. 8 j + 7 sit at columns 2 c and 2 c + 1 instead of c and c + 4: a
+// product that takes an accumulator tile as a reads it with its k order
+// permuted, k position c <- column 2 c, c + 4 <- 2 c + 1, and permutes the
+// rows of b the same way (tf32_kpos).
 
 #pragma once
 
@@ -177,5 +196,122 @@ __device__ __forceinline__ void wgmma_m64k16_rs(float (&d)[128], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// a finite float rounded to tf32 (10 mantissa bits, to nearest, ties away
+// from zero), as the b32 word that a tf32 wgmma reads; the low 13 bits are 0.
+// For finite x this is cvt.rna.tf32.f32, in two integer operations: the PTX
+// instruction also tests for inf and NaN, four SASS instructions a value.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x as hi + lo in tf32 words, CUTLASS's 3xTF32 split: hi = tf32(x), lo =
+// tf32(x - hi) (x - hi is exact in float32), so hi + lo keeps about 21 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// k position, within its group of 8, of the accumulator column `col` when
+// the accumulator is read as the register operand a of a tf32 m64k8 product
+__host__ __device__ __forceinline__ int tf32_kpos(int col) {
+  return (col & ~7) | ((col >> 1) & 3) | ((col & 1) << 2);
+}
+
+// d[64 x 32] += a[64 x 8] . b[8 x 32] in tf32 (d = a . b when !scale_d), a in registers
+// (four tf32 words a thread, the m64k8 layout above), b in shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_m64k8_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 64] += a[64 x 8] . b[8 x 64] in tf32 (d = a . b when !scale_d), a in registers
+// (four tf32 words a thread, the m64k8 layout above), b in shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_m64k8_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 128] += a[64 x 8] . b[8 x 128] in tf32 (d = a . b when !scale_d), a in registers
+// (four tf32 words a thread, the m64k8 layout above), b in shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_m64k8_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 256] += a[64 x 8] . b[8 x 256] in tf32 (d = a . b when !scale_d), a in registers
+// (four tf32 words a thread, the m64k8 layout above), b in shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_m64k8_rs(float (&d)[128], const uint32_t (&a)[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
 
 }  // namespace wg

@@ -8,20 +8,24 @@ batch, sequence and head strides: nothing is transposed, padded or copied,
 as long as the last dimension is contiguous. The output [B, Sq, H, D] in
 q's dtype is allocated here with `torch.empty`.
 
-Two kernels, chosen by dtype (`route`):
+Two kernels on the tensor cores, chosen by dtype (`route`):
 
-- bf16 goes to the tensor-core kernel (`csrc/flash_attention_wgmma.cu`,
-  wgmma, scores and accumulator in float32, p split into bf16 hi + lo). With
-  D a multiple of 8 it reads rows in 16-byte pieces, so the bases must be
-  16-byte aligned and the strides multiples of 8; otherwise it stages
-  element by element.
-- float32 goes to the CUDA-core kernel (`csrc/flash_attention.cu`): the
-  tensor cores would take float32 as TF32, 10 bits of mantissa.
+- bf16 goes to `csrc/flash_attention_wgmma.cu` (wgmma, scores and
+  accumulator in float32, p split into bf16 hi + lo). With D a multiple of
+  8 it reads rows in 16-byte pieces, so the bases must be 16-byte aligned
+  and the strides multiples of 8; otherwise it stages element by element.
+- float32 goes to `csrc/flash_attention_tf32.cu` (3xTF32 wgmma: q, k, p
+  and v each split into TF32 hi + lo, three products for each, which keeps
+  the float32 bar). It takes one more argument, a scratch of
+  `flash_f32_tc_scratch_bytes` bytes allocated here, into which it splits
+  K and V once a call. With D a multiple of 4 it reads K and V rows in
+  16-byte pieces, so the bases must be 16-byte aligned and the strides
+  multiples of 4; otherwise it reads them element by element.
 
 Nothing falls back from one to the other: what a kernel cannot read raises.
 
-`LAUNCHES` counts the launches of both; `LAUNCHES_TENSOR_CORE` and
-`LAUNCHES_CUDA_CORE` those of each route.
+`LAUNCHES` counts the launches of both; `LAUNCHES_TENSOR_CORE` (bf16) and
+`LAUNCHES_TENSOR_CORE_F32` (float32) those of each route.
 """
 
 from __future__ import annotations
@@ -36,63 +40,75 @@ from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
 TENSOR_CORE = "tensor_core"
-CUDA_CORE = "cuda_core"
+TENSOR_CORE_F32 = "tensor_core_f32"
 #: route -> (source in csrc/, exported function, its error-string function)
 ROUTES = {
     TENSOR_CORE: ("flash_attention_wgmma", "flash_fwd_bf16", "flash_bf16_error_string"),
-    CUDA_CORE: ("flash_attention", "flash_fwd_f32", "flash_f32_error_string"),
+    TENSOR_CORE_F32: ("flash_attention_tf32", "flash_fwd_f32_tc", "flash_f32_tc_error_string"),
 }
 
 #: launches of either flash kernel
 LAUNCHES = 0
 #: launches of the bf16 tensor-core kernel
 LAUNCHES_TENSOR_CORE = 0
-#: launches of the float32 CUDA-core kernel
-LAUNCHES_CUDA_CORE = 0
+#: launches of the float32 (3xTF32) tensor-core kernel
+LAUNCHES_TENSOR_CORE_F32 = 0
 
 _VP = ctypes.c_void_p
 _fns: dict = {}
 
 
 def _fn(route_name: str):
-    """(kernel entry, error-string function) of a route, built on first use."""
+    """(kernel entry, error-string function, scratch-bytes function or None)
+    of a route, built on first use. The float32 entry takes a scratch
+    pointer after o."""
     if route_name not in _fns:
         source, entry, errstr = ROUTES[route_name]
         lib = build.load(source)
         fn = getattr(lib, entry)
+        scratch = route_name == TENSOR_CORE_F32
         fn.argtypes = [
-            _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, _VP,
+            _VP, _VP, _VP, _VP, *([_VP] if scratch else []), ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, _VP,
         ]
         fn.restype = ctypes.c_int
         err = getattr(lib, errstr)
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        _fns[route_name] = (fn, err)
+        nbytes = None
+        if scratch:
+            nbytes = lib.flash_f32_tc_scratch_bytes
+            nbytes.argtypes = [ctypes.c_int] * 4
+            nbytes.restype = ctypes.c_longlong
+        _fns[route_name] = (fn, err, nbytes)
     return _fns[route_name]
 
 
 def route(dtype: torch.dtype, d: int, strides: Sequence[int], data_ptrs: Sequence[int]) -> str:
-    """The kernel that takes a call: `TENSOR_CORE` for bf16, `CUDA_CORE` for
-    float32. `strides` are the element strides (batch, seq, head) of q, k, v
-    and o, `data_ptrs` their base addresses. Raises ValueError on a dtype
-    neither kernel takes, and on a bf16 call with D a multiple of 8 whose
-    rows are not 16-byte pieces (a base not 16-byte aligned or a stride not
-    a multiple of 8)."""
+    """The kernel that takes a call: `TENSOR_CORE` for bf16, `TENSOR_CORE_F32`
+    for float32. `strides` are the element strides (batch, seq, head) of q, k,
+    v and o, `data_ptrs` their base addresses. Raises ValueError on a dtype
+    neither kernel takes, and on a call whose rows the kernel would copy in
+    16-byte pieces (bf16 with D a multiple of 8, float32 with D a multiple of
+    4) but are not such pieces: a base not 16-byte aligned or a stride not a
+    multiple of 8 bf16 or 4 float32 elements."""
     if dtype == torch.float32:
-        return CUDA_CORE
-    if dtype != torch.bfloat16:
+        which, grid = TENSOR_CORE_F32, 4
+    elif dtype == torch.bfloat16:
+        which, grid = TENSOR_CORE, 8
+    else:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16, got {dtype}")
-    if d % 8 == 0:
+    if d % grid == 0:
         bad_ptr = [hex(p) for p in data_ptrs if p % 16]
-        bad_stride = [s for s in strides if s % 8]
+        bad_stride = [s for s in strides if s % grid]
         if bad_ptr or bad_stride:
+            name = "float32" if dtype == torch.float32 else "bf16"
             raise ValueError(
-                f"the bf16 kernel reads rows of D={d} in 16-byte pieces: bases must be "
-                f"16-byte aligned and strides multiples of 8, got bases {bad_ptr} and "
+                f"the {name} kernel reads rows of D={d} in 16-byte pieces: bases must be "
+                f"16-byte aligned and strides multiples of {grid}, got bases {bad_ptr} and "
                 f"strides {bad_stride} that are not")
-    return TENSOR_CORE
+    return which
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -141,7 +157,7 @@ def flash_attention_kernel(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Launch the route's kernel on the current stream; returns o [B, Sq, H, D]."""
-    global LAUNCHES, LAUNCHES_TENSOR_CORE, LAUNCHES_CUDA_CORE
+    global LAUNCHES, LAUNCHES_TENSOR_CORE, LAUNCHES_TENSOR_CORE_F32
     check_args(q, k, v, window=window, softcap=softcap)
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -150,9 +166,12 @@ def flash_attention_kernel(
     tensors = (q, k, v, out)
     strides = np.asarray([t.stride(i) for t in tensors for i in range(3)], np.int64)
     which = route(q.dtype, d, strides.tolist(), [t.data_ptr() for t in tensors])
-    fn, err = _fn(which)
+    fn, err, scratch_bytes = _fn(which)
+    scratch = [] if scratch_bytes is None else [torch.empty(
+        scratch_bytes(b, kh, skv, d), dtype=torch.uint8, device=q.device)]
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh, sq, skv, d,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *[t.data_ptr() for t in scratch], b, h, kh, sq, skv, d,
                 strides.ctypes.data, int(bool(causal)), 0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap), scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
@@ -163,7 +182,7 @@ def flash_attention_kernel(
     if which == TENSOR_CORE:
         LAUNCHES_TENSOR_CORE += 1
     else:
-        LAUNCHES_CUDA_CORE += 1
+        LAUNCHES_TENSOR_CORE_F32 += 1
     return out
 
 

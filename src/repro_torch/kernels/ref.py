@@ -97,7 +97,7 @@ def flash_attention_ref(
     """Plain version of the flash kernel: o [B, Sq, H, D] in q's dtype.
 
     Mirrors `repro/kernels/flash_attention.py::_kernel` (and the CUDA
-    kernels, `csrc/flash_attention.cu` for float32 and
+    kernels, `csrc/flash_attention_tf32.cu` for float32 and
     `csrc/flash_attention_wgmma.cu` for bf16): q is cast to float32 and
     scaled, scores are float32 and soft-capped, then masked with NEG_INF by
     padding (key < Skv), causality (key <= query, query i aligned with key

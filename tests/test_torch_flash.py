@@ -7,7 +7,10 @@ tests/test_kernel_flash.py holds the kernel to), is the yardstick here, with
 `blockwise_attention` beside it. On the CPU, `repro_torch.kernels.ops.
 flash_attention` runs the kernel's plain version, `flash_attention_ref`; the
 CUDA kernel itself is held to that plain version on the card
-(tests/test_torch_gpu.py, chip_smoke.py).
+(tests/test_torch_gpu.py, chip_smoke.py). What the CPU can say about the
+kernels' own roundings, it says through torch emulations of them: bf16
+products with p as bf16 hi + lo for the bf16 kernel, 3xTF32 products for the
+float32 one (with the cheaper TF32 splits shown to miss the float32 bar).
 
 Inputs come from numpy seeds and reach both packages as the same arrays.
 Bars are those of tests/test_kernel_flash.py: float32 rtol 3e-4 / atol 3e-5
@@ -264,14 +267,155 @@ def test_tensor_core_roundings_meet_the_bars(case):
     np.testing.assert_allclose(_np(got)[:, alive], _np(want)[:, alive], **BF16)
 
 
+# ------------------------------------------- the float32 (3xTF32) route's numerics
+F32_BK = 32  # keys a tile of csrc/flash_attention_tf32.cu
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away from
+    zero, on the 10-bit mantissa; the low 13 bits of the float32 word are 0."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+
+def _split(x):
+    """x as TF32 hi + lo, the kernel's split: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_product(a, b, terms, a_lo_bf16=False):
+    """a @ b in float32 from TF32 pieces: "1" one pass (a_hi b_hi), "a" or "b"
+    two terms with the lo of that factor, "3" 3xTF32 (a_hi b_hi + a_lo b_hi
+    + a_hi b_lo). With `a_lo_bf16`, a's lo is a - a_hi rounded to bf16 (the
+    kernel keeps q's lo so). Products of TF32 values are exact in float32."""
+    ah, al = _split(a)
+    if a_lo_bf16:
+        al = (a - ah).to(torch.bfloat16).float()
+    bh, bl = _split(b)
+    out = ah @ bh
+    if terms in ("a", "3"):
+        out = out + al @ bh
+    if terms in ("b", "3"):
+        out = out + ah @ bl
+    return out
+
+
+def _tf32_emulation(q, k, v, *, causal, window, softcap, qk="3", pv="3"):
+    """What csrc/flash_attention_tf32.cu rounds, in torch on the CPU: q scaled
+    in float32 and split into a TF32 hi and a bf16 lo, the head dimension
+    padded with zeros to 64, 128 or 256; per tile of 32 keys, s = q . k from
+    the TF32 pieces (`qk` terms, `_tf32_product`), soft-capped in natural
+    units, then to log2 units; the online softmax in the log2 domain in float32; p . v
+    from the TF32 pieces of p and v (`pv` terms) summed in float32 into the
+    accumulator; the output acc / max(l, 1e-30). The kernel's own terms are
+    "3" for both. Returns (o, padded o)."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    scale = float(1.0 / np.sqrt(d))
+
+    def padded(t, rep=1):
+        t = torch.nn.functional.pad(t.float(), (0, dp - d))
+        return t.repeat_interleave(rep, dim=2).transpose(1, 2)
+
+    qf, kf, vf = padded(q) * scale, padded(k, h // kh), padded(v, h // kh)
+    qpos = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), -1e30)
+    l_sum = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, dp))
+    for k0 in range(0, skv, F32_BK):
+        s = _tf32_product(qf, kf[:, :, k0:k0 + F32_BK].transpose(-1, -2), qk, a_lo_bf16=True)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        x = s * LOG2E
+        kpos = torch.arange(k0, min(k0 + F32_BK, skv))[None, :]
+        ok = torch.ones((sq, kpos.shape[1]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= qpos - kpos < window
+        x = torch.where(ok, x, -1e30)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        p = torch.where(ok, torch.exp2(x - m_new[..., None]), 0.0)
+        corr = torch.exp2(m - m_new)
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _tf32_product(p, vf[:, :, k0:k0 + F32_BK], pv)
+        m = m_new
+    out = (acc / torch.clamp(l_sum, min=1e-30)[..., None]).transpose(1, 2)
+    return out[..., :d], out
+
+
+def _bar_excess(got, want, rtol, atol):
+    """The largest |got - want| / (atol + rtol |want|): above 1 fails the bar."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """Nearest, ties away from zero, carried into the exponent; hi and lo are
+    TF32 words whose sum is within 2^-23 of x."""
+    x = torch.tensor([1.0, 1.0 + 2**-11, 1.0 + 3 * 2**-11, -(1.0 + 2**-11),
+                      1.0 + 2**-11 - 2**-23, 2.0 - 2**-12], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2**-10, 1.0 + 2**-9, -(1.0 + 2**-10), 1.0, 2.0],
+                        dtype=torch.float64)
+    assert torch.equal(_tf32(x).double(), want)
+    hi, lo = _split(torch.tensor([1.0 / 3.0]))
+    assert (hi.view(torch.int32) & 0x1FFF).item() == 0
+    assert (lo.view(torch.int32) & 0x1FFF).item() == 0
+    assert abs((hi.double() + lo.double()).item() - float(np.float32(1.0 / 3.0))) <= 2.0**-23
+
+
+@pytest.mark.parametrize("case", _emulation_cases(), ids=lambda c: "-".join(map(str, c)))
+def test_tf32_roundings_meet_the_float32_bar(case):
+    """The float32 tensor-core route's roundings (3xTF32 on both products,
+    tiles of 32 keys, hi rounded to nearest, q's lo in bf16) within the
+    float32 bar of the plain version and of repro's dense attention, with
+    zero padded head columns and rows with no allowed key at 0."""
+    b, sq, h, kh, d, skv, causal, window, cap = case
+    arrays = _qkv(b, sq, h, kh, d, t=skv, seed=sq + h)
+    q, k, v = _torch(arrays)
+    got, padded = _tf32_emulation(q, k, v, causal=causal, window=window, softcap=cap)
+    assert bool((padded[..., d:] == 0).all())
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    np.testing.assert_allclose(_np(got), _np(plain), **F32)
+    qpos, kpos = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= qpos - kpos < window
+    alive = ok.any(axis=1)
+    assert (_np(got)[:, ~alive] == 0).all()
+    want = jcm.dense_attention(*_jax(arrays), causal=causal, window=window, attn_softcap=cap)
+    np.testing.assert_allclose(_np(got)[:, alive], _np(want)[:, alive], **F32)
+
+
+@pytest.mark.parametrize("qk,pv", [("1", "1"), ("3", "1"), ("3", "a"), ("3", "b"),
+                                   ("a", "3"), ("b", "3")],
+                         ids=["one-pass", "3x-qk-one-pass-pv", "3x-qk-p-split",
+                              "3x-qk-v-split", "q-split-3x-pv", "k-split-3x-pv"])
+def test_cheaper_tf32_splits_fail_the_float32_bar(qk, pv):
+    """Why the kernel pays for three products on both: a single TF32 pass, and
+    each split that drops one lo term of a product, lands outside the float32
+    bar of the plain version on every case of the emulation."""
+    for case in _emulation_cases():
+        b, sq, h, kh, d, skv, causal, window, cap = case
+        q, k, v = _torch(_qkv(b, sq, h, kh, d, t=skv, seed=sq + h))
+        got, _ = _tf32_emulation(q, k, v, causal=causal, window=window, softcap=cap,
+                                 qk=qk, pv=pv)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+        assert _bar_excess(got, plain, **F32) > 1, case
+
+
 # ------------------------------------------------------------- route by dtype
 _ALIGNED = dict(strides=[8 * i for i in range(12)], data_ptrs=[4096, 8192, 12288, 16384])
 
 
 @pytest.mark.parametrize("d", [16, 72, 256])
-def test_route_sends_bf16_to_the_tensor_cores_and_float32_to_the_cuda_cores(d):
+def test_route_sends_bf16_and_float32_to_their_tensor_core_kernels(d):
     assert fa.route(torch.bfloat16, d, **_ALIGNED) == fa.TENSOR_CORE
-    assert fa.route(torch.float32, d, **_ALIGNED) == fa.CUDA_CORE
+    assert fa.route(torch.float32, d, **_ALIGNED) == fa.TENSOR_CORE_F32
 
 
 @pytest.mark.parametrize("d", [1, 20, 250])
@@ -281,6 +425,14 @@ def test_route_stages_a_head_dim_off_the_8_grid_element_by_element(d):
                     data_ptrs=[4098, 8194, 2, 6]) == fa.TENSOR_CORE
 
 
+@pytest.mark.parametrize("d", [1, 10, 250])
+def test_route_stages_a_float32_head_dim_off_the_4_grid_element_by_element(d):
+    """float32 with D not a multiple of 4: no 16-byte pieces, any stride and
+    (4-byte aligned) base do."""
+    assert fa.route(torch.float32, d, strides=[d, 3 * d, 5] * 4,
+                    data_ptrs=[4100, 8196, 4, 8]) == fa.TENSOR_CORE_F32
+
+
 @pytest.mark.parametrize("strides,ptrs,match", [
     ([8] * 11 + [68], [16] * 4, "strides \\[68\\]"),
     ([8] * 12, [16, 18, 32, 48], "bases \\['0x12'\\]"),
@@ -288,7 +440,24 @@ def test_route_stages_a_head_dim_off_the_8_grid_element_by_element(d):
 def test_route_refuses_bf16_rows_that_are_not_16_byte_pieces(strides, ptrs, match):
     with pytest.raises(ValueError, match=match):
         fa.route(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
-    assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == fa.CUDA_CORE
+    # the same strides are 16-byte pieces of float32 rows; the bases are not
+    if all(p % 16 == 0 for p in ptrs):
+        assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == \
+            fa.TENSOR_CORE_F32
+    else:
+        with pytest.raises(ValueError, match="float32 kernel"):
+            fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs)
+
+
+@pytest.mark.parametrize("strides,ptrs,match", [
+    ([4] * 11 + [66], [16] * 4, "strides \\[66\\]"),
+    ([4] * 12, [16, 20, 32, 48], "bases \\['0x14'\\]"),
+])
+def test_route_refuses_float32_rows_that_are_not_16_byte_pieces(strides, ptrs, match):
+    with pytest.raises(ValueError, match=match):
+        fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs)
 
 
 def test_route_refuses_other_dtypes():

@@ -219,7 +219,8 @@ FLASH_CASES = [
     (2, 50, 2, 1, 20, 50, True, None, None),  # D off the 8 grid: staged by element
     (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
 ]
-#: float32: the bar of tests/test_kernel_flash.py:31. bf16: kernel and plain
+#: float32: the bar of tests/test_kernel_flash.py:31 (the float32 kernel's
+#: 3xTF32 products keep about 21 bits of each factor). bf16: kernel and plain
 #: version compute in float32 (the bf16 kernel keeps p to about 16 bits as
 #: bf16 hi + lo) and round only the output, so they may differ by one bf16
 #: step (at most 2^-7 |want|) over the float32 atol; the bars of
@@ -241,12 +242,14 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     b, sq, h, kh, d, skv, causal, window, softcap = case
     q, k, v = _flash_qkv(b, sq, h, kh, d, skv, dtype, cuda, seed=sq + h)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE, ref.FLASH_CALLS)
+    before = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+              ref.FLASH_CALLS)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    tc = int(dtype == torch.bfloat16)
-    after = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_CUDA_CORE, ref.FLASH_CALLS)
-    assert after == (before[0] + 1, before[1] + tc, before[2] + 1 - tc, before[3])
+    bf = int(dtype == torch.bfloat16)
+    after = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+             ref.FLASH_CALLS)
+    assert after == (before[0] + 1, before[1] + bf, before[2] + 1 - bf, before[3])
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[dtype])
@@ -255,37 +258,44 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
         assert dead.any() and (got[:, dead] == 0).all()
 
 
+def _route_launches(dtype):
+    return fa.LAUNCHES_TENSOR_CORE if dtype == torch.bfloat16 else fa.LAUNCHES_TENSOR_CORE_F32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [
     (1, 70, 2, 1, 1, 70, True, None, None),  # D 1, padded to 64
-    (1, 150, 2, 2, 100, 150, True, None, None),  # D 100 by element, padded to 128
+    (1, 150, 2, 2, 100, 150, True, None, None),  # D 100 (by element in bf16), padded to 128
     (1, 90, 2, 1, 250, 120, False, 40, 50.0),  # D 250 by element, padded to 256
     (1, 300, 4, 1, 128, 300, True, 100, 50.0),  # window edge inside later tiles
 ], ids=lambda c: "-".join(map(str, c)))
-def test_flash_bf16_kernel_on_every_padded_width(cuda, case):
-    """The tensor-core kernel's other instantiations: head dims staged element
-    by element at each padded width, and a window that cuts tiles past the
-    first, at the bf16 bar of the plain version."""
+def test_flash_bf16_kernel_on_every_padded_width(cuda, case, dtype):
+    """Each tensor-core kernel's other instantiations (the bf16 one and, since
+    the float32 route moved to the tensor cores, the 3xTF32 one): head dims
+    staged element by element at each padded width, and a window that cuts
+    tiles past the first, at its dtype's bar of the plain version."""
     b, sq, h, kh, d, skv, causal, window, softcap = case
-    q, k, v = _flash_qkv(b, sq, h, kh, d, skv, torch.bfloat16, cuda, seed=d)
+    q, k, v = _flash_qkv(b, sq, h, kh, d, skv, dtype, cuda, seed=d)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    tc = fa.LAUNCHES_TENSOR_CORE
+    before = _route_launches(dtype)
     got = fa.flash_attention_kernel(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES_TENSOR_CORE == tc + 1
+    assert _route_launches(dtype) == before + 1
     want = ref.flash_attention_ref(q, k, v, **kw)
-    torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[dtype])
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
     """A [B, H, S, D] tensor seen as [B, S, H, D] goes in without a copy, to
-    the same bits, through the tensor-core kernel."""
-    q, k, v = _flash_qkv(2, 96, 4, 2, 64, 96, torch.bfloat16, cuda, seed=3)
+    the same bits, through each tensor-core kernel."""
+    q, k, v = _flash_qkv(2, 96, 4, 2, 64, 96, dtype, cuda, seed=3)
     qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
     assert not qt.is_contiguous()
-    tc = fa.LAUNCHES_TENSOR_CORE
+    before = _route_launches(dtype)
     got = fa.flash_attention_kernel(qt, kt, vt, causal=True, window=40, softcap=20.0)
     want = fa.flash_attention_kernel(q, k, v, causal=True, window=40, softcap=20.0)
-    assert fa.LAUNCHES_TENSOR_CORE == tc + 2
+    assert _route_launches(dtype) == before + 2
     assert torch.equal(got, want)
 
 
@@ -318,6 +328,16 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention_kernel(shifted, kb, vb)
+    # float32 rows of D=32 that are not 16-byte pieces: a sequence stride of 66
+    # elements, and a base 4 bytes past an aligned one
+    wide = torch.zeros(1, 16, 66, dtype=torch.float32, device=cuda)
+    q66 = wide[..., :64].unflatten(-1, (2, 32))
+    assert q66.stride()[:3] == (16 * 66, 66, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_kernel(q66, k, v)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.float32, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_kernel(shifted, k, v)
     assert fa.LAUNCHES == launches
 
 

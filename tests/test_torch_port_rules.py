@@ -85,7 +85,7 @@ def test_config_refuses_what_this_slice_lacks():
         tabc.ABCConfig(batch_size=256, chunk_size=256, block=100)
 
 
-SOURCES = {"abc_sim", "flash_attention", "flash_attention_wgmma"}
+SOURCES = {"abc_sim", "flash_attention_tf32", "flash_attention_wgmma"}
 
 
 def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
@@ -94,11 +94,10 @@ def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     by_name = {src.stem: src for src in build.sources()}
     assert set(by_name) == SOURCES
     assert [p.name for p in build.local_headers(by_name["abc_sim"])] == ["rng.cuh", "siard.cuh"]
-    assert build.local_headers(by_name["flash_attention"]) == []
-    assert [p.name for p in build.local_headers(by_name["flash_attention_wgmma"])] == \
-        ["wgmma.cuh"]
+    for flash in ("flash_attention_tf32", "flash_attention_wgmma"):
+        assert [p.name for p in build.local_headers(by_name[flash])] == ["wgmma.cuh"]
     assert "--fmad=false" in build.flags("abc_sim")
-    assert "--fmad=false" not in build.flags("flash_attention")
+    assert "--fmad=false" not in build.flags("flash_attention_tf32")
     assert "--fmad=false" not in build.flags("flash_attention_wgmma")
     assert all("arch=compute_90a,code=sm_90a" in build.flags(n) for n in by_name)
     digests = {n: build._digest(src) for n, src in by_name.items()}
