@@ -9,14 +9,16 @@ It puts `src/` on the import path, builds the CUDA kernels from
 printing one JSON line:
 
   device     the card's name and the nvidia-smi name and power limit
-  build      nvcc seconds (one nvcc a source, all started together, and
-             the CUDA-core float32 kernel of experiments/ beside them), each
-             kernel's registers, shared memory, stack and spills (every
-             variant of abc_sim), ptxas's wgmma warnings, the HGMMA
+  build      nvcc seconds (one nvcc a source, all started together: abc_sim
+             has one source a model; and the CUDA-core float32 kernel of
+             experiments/ beside them) and the build's wall, each kernel's
+             registers, shared memory, stack and spills (every variant of
+             abc_sim for each model), ptxas's wgmma warnings, the HGMMA
              instructions in each kernel's SASS (cuobjdump -sass), the TF32
              ones of the float32 kernel, and the instruction census of
-             abc_sim's day loop (kernels/sass.py) for the main path's
-             variants of both entries
+             abc_sim's day loop (kernels/sass.py): the main path's variant
+             of both entries for SIARD and of the wave entry for sir, seir
+             and seiard (SIARD under a schedule runs the same function)
   rng        the kernel's hash bits and normals against the plain twin, and
              its branch-free Box-Muller pieces against logf, sqrtf and cosf
              on every one of the 2^24 uniforms the hash can give (bitwise)
@@ -25,11 +27,23 @@ printing one JSON line:
              a synthetic series, Italy at 100,000 x 49 days and every flat
              (summary, distance) pair; the wave entry, which draws theta
              itself, against prior.sample + the plain version on the same
-             inputs (theta and distances); block sizes 64/128/256
+             inputs (theta and distances); block sizes 64/128/256. Then sir,
+             seir and seiard, both entries bitwise the plain version on the
+             pins (and the theta-in entry `{model}/pallas`), at 1024 x 49
+             and 100,000 x 49 (sir and seir on synthetic_small drawn for the
+             model, seiard on Italy); each model under two intervention
+             schedules at 1024 x 49; and a lockdown-day sweep of three
+             breakpoint days through the loaded libraries, with no rebuild
   main_path  `repro_torch.launch.abc_run.main` on Italy at the paper's batch
              and horizon, with the launch counters set to 0 just before:
              1 + waves launches of the wave entry, no theta-in launch, no
              host prior draw on the card, no plain-version call
+  models_path  the same CLI with --model seiard: 1 + waves launches of
+             abc_sim_wave_seiard and nothing else; a posterior in the box
+             whose mean is nearer SIARD's generating parameters than the
+             prior mean
+  schedule_path  the main path's run with --intervention "alpha0@25=0:2":
+             the same counters, 9 posterior columns, the last alpha0_w1
   profile    the main path's waves once more under torch.profiler: wall time,
              device busy time, device operations a wave (and the int64
              elementwise ones a host prior draw would add) and the
@@ -37,13 +51,17 @@ printing one JSON line:
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
-             nvidia-smi reads under load, and the plain version
+             nvidia-smi reads under load, and the plain version; then both
+             entries of sir, seir, seiard and of SIARD under a one-window
+             inferred schedule at the same sizes, in turns with SIARD's
   flash      the flash-attention kernels against their plain version: bf16
              through the bf16 tensor-core kernel, float32 through the 3xTF32
              one (route counters), on the causal GQA shapes of
              tests/test_kernel_flash.py, window + softcap, non-causal
              cross-length, ragged 2047, rows with no allowed key, gemma-2b's
-             prefill shape, D 72 and 20, and a ragged Skv != Sq
+             prefill shape, D 72 and 20, and a ragged Skv != Sq; then a q
+             sliced at an odd offset in each dtype, staged element by
+             element (LAUNCHES_STAGED)
   lm_prefill full-width gemma-2b (bf16, weights from a generator seeded 0)
              prefills 4 x 2048 tokens through `ModelDef.prefill` with
              attn_impl="flash", the launch counters set to 0 just before
@@ -60,8 +78,9 @@ printing one JSON line:
              the 3xTF32 bound (and the 67 TFLOP/s one), the plain version
              and SDPA in float32; the kernels SDPA's float32 call launches,
              from one profiled call
-  kernels    one line for each kernel: abc_sim (its wave and theta-in
-             entries), the bf16 flash route and the float32 one
+  kernels    one line for each kernel: abc_sim (each of its eight entries,
+             with its launches on the three ABC paths and its ms), the bf16
+             flash route and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -81,8 +100,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PINS = os.path.join(ROOT, "tests", "data", "r1_pins.npz")
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cu"
+KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cuh"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
+#: the flat models of the abc_sim kernel, in repro's registry order
+ABC_MODELS = ("siard", "sir", "seir", "seiard")
+#: the scaled parameter of each model in the schedule cases
+#: (tests/test_interventions.py:142-170, extended to seir and seiard)
+SCHEDULE_TV = {"siard": "alpha", "sir": "beta", "seir": "beta", "seiard": "alpha0"}
+#: the intervention of the schedule_path phase and of the timed scheduled SIARD
+INTERVENTION = "alpha0@25=0:2"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
@@ -183,18 +209,19 @@ def bitwise(case: str, got, want) -> dict:
             "n_inf": int(np.isinf(got).sum())}
 
 
-def abc_census(build, model, flags):
-    """The instruction census (kernels/sass.py) of the abc_sim kernel's two
-    main-path variants, the wave entry and the theta-in entry, at `flags`;
-    None where the toolkit has no cuobjdump."""
+def abc_census(build, model, flags, entries=(("wave", True), ("theta_in", False))):
+    """The instruction census (kernels/sass.py) of `model`'s abc_sim kernel
+    at `flags`, for each (name, wave) of `entries` (by default both, the wave
+    entry and the theta-in entry), from the model's own library; None where
+    the toolkit has no cuobjdump."""
     from repro_torch.kernels import abc_sim, sass
 
-    text = build.sass_text("abc_sim")
+    text = build.sass_text(abc_sim.library(model))
     if text is None:
         return None
     funcs = sass.parse_functions(text)
     out = {}
-    for entry, wave in (("wave", True), ("theta_in", False)):
+    for entry, wave in entries:
         symbol = abc_sim.kernel_symbol(model, flags, wave)
         names = [k for k in funcs if symbol in k]
         if len(names) != 1:
@@ -306,6 +333,30 @@ def flash_phase(dev):
                     raise AssertionError(f"flash {case}: rows with no allowed key are not 0")
                 r["rows_with_no_key"] = int(dead.sum())
             results.append(r)
+    # a q sliced one element past an aligned base, in each dtype: its rows
+    # are not 16-byte pieces, so the route's kernel stages them by element
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(5)
+        q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+                   .to(device=dev, dtype=dtype)
+                   for shape in ((2, 96, 4, 64), (2, 96, 2, 64), (2, 96, 2, 64)))
+        q_odd = torch.empty(q.numel() + 1, dtype=dtype, device=dev)[1:].view(q.shape)
+        q_odd.copy_(q)
+        bf = int(dtype == torch.bfloat16)
+        before = (fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32, fa.LAUNCHES_STAGED,
+                  ref.FLASH_CALLS)
+        got = ops.flash_attention(q_odd, k, v, causal=True)
+        torch.cuda.synchronize()
+        if (fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32, fa.LAUNCHES_STAGED,
+                ref.FLASH_CALLS) != (before[0] + bf, before[1] + 1 - bf, before[2] + 1,
+                                     before[3]):
+            raise AssertionError(f"flash odd offset {dtype}: not staged by its route's kernel")
+        want = ref.flash_attention_ref(q_odd, k, v, causal=True)
+        name = str(dtype).split(".")[1]
+        r = compare(f"flash {name} q at an odd offset (2, 96, 4, 2, 64)", got.float(),
+                    want.float(), **FLASH_BARS[name])
+        r.update(route=fa.TENSOR_CORE if bf else fa.TENSOR_CORE_F32, staged=True)
+        results.append(r)
     emit("flash", comparisons=results)
     return tuple(max(r["max_abs_err"] for r in results if r["route"] == route)
                  for route in (fa.TENSOR_CORE, fa.TENSOR_CORE_F32))
@@ -526,10 +577,11 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "experiments"))
     import flash_f32_cuda_core
     from repro_torch.core import priors
-    from repro_torch.core.priors import paper_prior
+    from repro_torch.core.priors import paper_prior, schedule_prior
     from repro_torch.core.summaries import lower_summary, get_summary, summary_pairs
     from repro_torch.epi import data
     from repro_torch.epi.models import get_model
+    from repro_torch.epi.spec import InterventionSchedule
     from repro_torch.kernels import abc_sim, build, ops, ref, sass
     from repro_torch.kernels import rng as krng
     from repro_torch.launch import abc_run
@@ -567,16 +619,34 @@ def main() -> int:
                        .splitlines() if "Performance Loss" in line]
                    for k, v in info.items()}
     siard = get_model("siard")
+    models = {m: get_model(m) for m in ABC_MODELS}
     main_flags = lower_summary(get_summary(None), "euclidean", torch.ones(3, 49)).flags
     census = abc_census(build, siard, main_flags)
+    model_census = {m: (census["wave"] if m == "siard" else
+                        abc_census(build, spec, main_flags, (("wave", True),))["wave"])
+                    if census else None for m, spec in models.items()}
+    variants = {}
+    for m, spec in models.items():
+        lib = info[abc_sim.library(spec)]
+        struct = spec.name.capitalize()
+        variants[m] = {str(v): lib.kernels[k] for v in range(16) for k in lib.kernels
+                       if f"abc_sim_kernelI{len(struct)}{struct}Li{v}EE" in k}
+        if len(variants[m]) != 16:
+            raise AssertionError(f"build: {len(variants[m])} abc_sim variants of {m} in "
+                                 f"ptxas's report, want 16")
     emit("build", wall_s=build_wall,
+         nvcc_s={k: v.seconds for k, v in info.items()},
          libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
                         "nvcc_flags": list(build.flags(k)), "kernels": v.kernels,
                         "ptxas_wgmma_notes": ptxas_notes[k]}
                     for k, v in info.items()},
-         abc_sim_variants={str(v): info["abc_sim"].kernels[k] for v in range(16)
-                           for k in info["abc_sim"].kernels
-                           if f"abc_sim_kernelI5SiardLi{v}EE" in k},
+         abc_sim_variants=variants,
+         abc_sim_wave_census_per_model={
+             m: {k: c[k] for k in ("function", "per_day", "per_sample_outside_loop")}
+             if c else "not measured: the toolkit has no cuobjdump"
+             for m, c in model_census.items()},
+         abc_sim_scheduled_siard_census="the same function as siard's wave entry: the "
+         "schedule's breakpoints, scaled parameters and scales are run-time values",
          cuda_core_f32_experiment={"source": "experiments/flash_f32_cuda_core.cu",
                                    "kernels": cuda_core_ptxas},
          hgmma_in_sass=hgmma if hgmma is not None else
@@ -617,24 +687,26 @@ def main() -> int:
             return x.to(device=dev, dtype=torch.float32)
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)
 
-    def theta_in(case, theta, seed, observed, kw, **extra):
+    def theta_in(case, theta, seed, observed, kw, model=siard, **extra):
         """The theta-in entry against the plain version, bitwise."""
         th, ob = on_card(theta), on_card(observed)
-        d_k = ops.abc_sim_distance(th, seed, ob, model=siard, **kw, **extra)
-        d_p = ref.abc_sim_distance_ref(th, seed, ob, model=siard, **kw, **extra)
+        d_k = ops.abc_sim_distance(th, seed, ob, model=model, **kw, **extra)
+        d_p = ref.abc_sim_distance_ref(th, seed, ob, model=model, **kw, **extra)
         results.append(bitwise(f"{case} theta-in entry vs plain", d_k, d_p))
         return d_k
 
-    def wave(case, batch, prior_seed, sim_seed, observed, kw, **extra):
+    def wave(case, batch, prior_seed, sim_seed, observed, kw, model=siard, **extra):
         """The wave entry against prior.sample + the plain version, bitwise."""
-        sim = ops.make_abc_sim(on_card(observed), model=siard, **kw, **extra)
-        before = (abc_sim.WAVE_LAUNCHES, priors.DEVICE_DRAWS, ref.CALLS)
-        th_k, d_k = sim.wave(prior, prior_seed, sim_seed, batch)
-        if (abc_sim.WAVE_LAUNCHES, priors.DEVICE_DRAWS, ref.CALLS) != (
+        wave_prior = schedule_prior(model, extra.get("schedule"))
+        sim = ops.make_abc_sim(on_card(observed), model=model, **kw, **extra)
+        entry = f"abc_sim_wave_{model.name}"
+        before = (abc_sim.ENTRY_LAUNCHES.get(entry, 0), priors.DEVICE_DRAWS, ref.CALLS)
+        th_k, d_k = sim.wave(wave_prior, prior_seed, sim_seed, batch)
+        if (abc_sim.ENTRY_LAUNCHES.get(entry, 0), priors.DEVICE_DRAWS, ref.CALLS) != (
                 before[0] + 1, before[1], before[2]):
-            raise AssertionError(f"{case}: the wave did not go through the wave entry alone")
-        th_p = prior.sample(prior_seed, batch, dev)
-        d_p = ref.abc_sim_distance_ref(th_p, sim_seed, on_card(observed), model=siard,
+            raise AssertionError(f"{case}: the wave did not go through {entry} alone")
+        th_p = wave_prior.sample(prior_seed, batch, dev)
+        d_p = ref.abc_sim_distance_ref(th_p, sim_seed, on_card(observed), model=model,
                                        **kw, **extra)
         d_p = torch.where(torch.isnan(d_p), torch.full_like(d_p, float("inf")), d_p)
         if not torch.equal(th_k, th_p):
@@ -675,47 +747,144 @@ def main() -> int:
                  summary=s, distance=dist)
         wave(f"{s}/{dist} 1024x49", 1024, 11, 77, small.observed, small_kw,
              summary=s, distance=dist)
-    emit("abc_sim", comparisons=results, block_sizes_bitwise_equal=[64, 128, 256])
+
+    # the other flat models: pins, then 1024 and 100,000 x 49 on their series
+    series = {}
+    for m in ABC_MODELS[1:]:
+        spec = models[m]
+        d_k = theta_in(f"{m} pins 16x14", pins[f"{m}/theta"], 123, pins[f"{m}/observed"],
+                       small_kw, model=spec)
+        results.append(bitwise(f"{m} pins 16x14 theta-in entry vs {m}/pallas", d_k,
+                               pins[f"{m}/pallas"]))
+        wave(f"{m} pins 16x14", 16, 123, 123, pins[f"{m}/observed"], small_kw, model=spec)
+        ds = data.get_dataset("italy" if m == "seiard" else "synthetic_small", num_days=49,
+                              model=m)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+        series[m] = (ds, kw)
+        for batch in (1024, 100_000):
+            th = spec.prior().sample(batch + 1, batch, dev)
+            theta_in(f"{m} {ds.name} {batch}x49", th, 77, ds.observed, kw, model=spec)
+            wave(f"{m} {ds.name} {batch}x49", batch, batch + 1, 77, ds.observed, kw, model=spec)
+    series["siard"] = (italy, it_kw)
+
+    # every model under the two schedules of tests/test_interventions.py:142-170
+    for m in ABC_MODELS:
+        spec, tv = models[m], SCHEDULE_TV[m]
+        obs_m = data.get_dataset("synthetic_small", num_days=49, model=m).observed
+        for tag, sched in (("one fixed window", InterventionSchedule.fixed((tv,), (4,), (0.3,))),
+                           ("two inferred windows",
+                            InterventionSchedule.inferred((tv,), (3, 8), 0.2, 1.5))):
+            th = schedule_prior(spec, sched).sample(21, 1024, dev)
+            theta_in(f"{m} {tag} 1024x49", th, 7, obs_m, small_kw, model=spec, schedule=sched)
+            wave(f"{m} {tag} 1024x49", 1024, 21, 7, obs_m, small_kw, model=spec,
+                 schedule=sched)
+
+    # a lockdown-day sweep: the breakpoint is a run-time value, so the loaded
+    # libraries serve every day and nothing is built again
+    libs, built = dict(build._LIBS), dict(build._INFO)
+    for day in (10, 20, 30):
+        sched = InterventionSchedule.fixed(("alpha0",), (day,), (0.3,))
+        th = schedule_prior(siard, sched).sample(day, 1024, dev)
+        theta_in(f"sweep day {day} 1024x49", th, 5, small.observed, small_kw, schedule=sched)
+        wave(f"sweep day {day} 1024x49", 1024, day, 5, small.observed, small_kw,
+             schedule=sched)
+    if build._LIBS != libs or build._INFO != built:
+        raise AssertionError("abc_sim: the lockdown-day sweep built or loaded a library")
+    emit("abc_sim", comparisons=results, block_sizes_bitwise_equal=[64, 128, 256],
+         lockdown_sweep_rebuilds=0)
     max_abs_err = max(r["max_abs_err"] for r in results if r["case"].endswith("vs plain"))
 
+    def abc_path(phase, argv, model, intervention=""):
+        """`abc_run.main(argv)` with the counters set to 0 just before; raises
+        unless 1 + waves launches of the model's wave entry were all the
+        kernel's, with no host prior draw and no plain-version call."""
+        abc_sim.LAUNCHES = abc_sim.WAVE_LAUNCHES = 0
+        abc_sim.ENTRY_LAUNCHES.clear()
+        priors.DEVICE_DRAWS = 0
+        ref.CALLS = 0
+        t0 = time.perf_counter()
+        post = abc_run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        entries = dict(abc_sim.ENTRY_LAUNCHES)
+        counts = dict(wave_launches=abc_sim.WAVE_LAUNCHES, theta_in_launches=abc_sim.LAUNCHES,
+                      host_prior_draws=priors.DEVICE_DRAWS, plain_calls=ref.CALLS)
+        entry = f"abc_sim_wave_{model.name}"
+        if entries != {entry: 1 + post.runs} or tuple(counts.values()) != (
+                1 + post.runs, 0, 0, 0):
+            raise AssertionError(f"{phase}: launches {entries} (want {entry}: 1 + "
+                                 f"{post.runs} waves), {counts}")
+        box = schedule_prior(model, abc_run.parse_intervention(intervention))
+        lo, hi = np.asarray(box.lows), np.asarray(box.highs)
+        theta = post.theta
+        if (len(post) < 100 or theta.shape[1] != box.dim or not np.isfinite(theta).all()
+                or not np.isfinite(post.distances).all()
+                or (post.distances > post.tolerance).any()
+                or (theta < lo).any() or (theta > hi).any()):
+            raise AssertionError(f"{phase}: bad posterior ({len(post)} samples, "
+                                 f"{theta.shape[1]} columns)")
+        return post, wall, entries, counts, lo, hi
+
+    def against_truth(theta, lo, hi):
+        """Normalized error of the posterior mean and of the prior mean
+        against Italy's generating parameters (SIARD's 8, which seiard
+        shares), over those 8 columns."""
+        truth = np.asarray(data.TABLE8_THETA["italy"])
+        lo, hi = lo[:8], hi[:8]
+        err = np.abs(theta[:, :8].mean(axis=0) - truth) / (hi - lo)
+        prior_err = np.abs((hi + lo) / 2 - truth) / (hi - lo)
+        return err.mean().item(), prior_err.mean().item()
+
+    path_launches = {}
+    italy_argv = ["--dataset", "italy", "--days", "49", "--batch", "100000",
+                  "--chunk", "10000", "--auto-tolerance", "1e-4", "--accept", "100",
+                  "--device", "cuda"]
+
     # ---- main_path: the port's CLI on the card, counters read around it
-    argv = ["--dataset", "italy", "--days", "49", "--batch", "100000",
-            "--chunk", "10000", "--auto-tolerance", "1e-4", "--accept", "100",
-            "--device", "cuda"]
-    abc_sim.LAUNCHES = abc_sim.WAVE_LAUNCHES = 0
-    priors.DEVICE_DRAWS = 0
-    ref.CALLS = 0
-    t0 = time.perf_counter()
-    post = abc_run.main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, wave_launches = abc_sim.LAUNCHES, abc_sim.WAVE_LAUNCHES
-    draws, plain_calls = priors.DEVICE_DRAWS, ref.CALLS
-    if (wave_launches, launches, draws, plain_calls) != (1 + post.runs, 0, 0, 0):
-        raise AssertionError(f"main path: {wave_launches} wave launches (want 1 + "
-                             f"{post.runs} waves), {launches} theta-in launches, "
-                             f"{draws} host prior draws, {plain_calls} plain-version calls")
-    lo, hi = np.asarray(prior.lows), np.asarray(prior.highs)
+    argv = italy_argv
+    post, wall, entries, counts, lo, hi = abc_path("main_path", argv, siard)
+    launches, wave_launches = counts["theta_in_launches"], counts["wave_launches"]
+    path_launches["main_path"] = entries
     theta = post.theta
-    if (len(post) < 100 or theta.shape[1] != 8 or not np.isfinite(theta).all()
-            or not np.isfinite(post.distances).all()
-            or (post.distances > post.tolerance).any()
-            or (theta < lo).any() or (theta > hi).any()):
-        raise AssertionError(f"main path: bad posterior ({len(post)} samples)")
+    err, prior_err = against_truth(theta, lo, hi)
+    if not err < prior_err:
+        raise AssertionError(f"main path: posterior mean error {err} is not "
+                             f"below the prior mean's {prior_err}")
     truth = np.asarray(data.TABLE8_THETA["italy"])
-    err = np.abs(theta.mean(axis=0) - truth) / (hi - lo)
-    prior_err = np.abs((hi + lo) / 2 - truth) / (hi - lo)
-    if not err.mean() < prior_err.mean():
-        raise AssertionError(f"main path: posterior mean error {err.mean()} is not "
-                             f"below the prior mean's {prior_err.mean()}")
-    emit("main_path", argv=argv, wave_launches=wave_launches, theta_in_launches=launches,
-         host_prior_draws=draws, plain_calls=plain_calls,
+    emit("main_path", argv=argv, **counts,
          accepted=len(post), waves=post.runs, simulations=post.simulations,
          tolerance=post.tolerance, wall_s=wall, kind=name, nvidia_smi=smi,
          posterior_mean=dict(zip(siard.param_names, theta.mean(axis=0).tolist())),
          generating_theta=dict(zip(siard.param_names, truth.tolist())),
-         normalized_mean_error=err.mean().item(),
-         prior_mean_normalized_error=prior_err.mean().item())
+         normalized_mean_error=err, prior_mean_normalized_error=prior_err)
+
+    # ---- models_path: seiard on the same series through the same CLI
+    seiard = models["seiard"]
+    argv = italy_argv + ["--model", "seiard"]
+    post_m, wall, entries, counts, lo, hi = abc_path("models_path", argv, seiard)
+    path_launches["models_path"] = entries
+    err, prior_err = against_truth(post_m.theta, lo, hi)
+    if not err < prior_err:
+        raise AssertionError(f"models_path: posterior mean error {err} over SIARD's "
+                             f"parameters is not below the prior mean's {prior_err}")
+    emit("models_path", argv=argv, **counts, accepted=len(post_m), waves=post_m.runs,
+         simulations=post_m.simulations, tolerance=post_m.tolerance, wall_s=wall, kind=name,
+         nvidia_smi=smi,
+         posterior_mean=dict(zip(post_m.param_names, post_m.theta.mean(axis=0).tolist())),
+         normalized_mean_error_siard_params=err, prior_mean_normalized_error=prior_err)
+
+    # ---- schedule_path: the main path's run with an inferred contact-rate window
+    argv = italy_argv + ["--intervention", INTERVENTION]
+    post_s, wall, entries, counts, lo, hi = abc_path("schedule_path", argv, siard, INTERVENTION)
+    path_launches["schedule_path"] = entries
+    if post_s.theta.shape[1] != 9 or post_s.param_names[-1] != "alpha0_w1":
+        raise AssertionError(f"schedule_path: columns {post_s.param_names}")
+    err, prior_err = against_truth(post_s.theta, lo, hi)
+    emit("schedule_path", argv=argv, **counts, accepted=len(post_s), waves=post_s.runs,
+         simulations=post_s.simulations, tolerance=post_s.tolerance, wall_s=wall, kind=name,
+         nvidia_smi=smi,
+         posterior_mean=dict(zip(post_s.param_names, post_s.theta.mean(axis=0).tolist())),
+         normalized_mean_error_siard_params=err, prior_mean_normalized_error=prior_err)
 
     # ---- profile: where the main path's waves spend their time
     from repro_torch.core.abc import ABCConfig, run_abc
@@ -799,18 +968,89 @@ def main() -> int:
                     for e, m in (("wave", ms_wave), ("theta_in", ms_in))},
                 "sample_days_per_s_wave": batch * 49 / (ms_wave * 1e-3),
                 "iters": kernel_iters, "plain_iters": plain_iters})
+
+        # every model's entries, and SIARD under a one-window inferred
+        # schedule, in turns with SIARD's (forward, then backward)
+        cases = {}
+        for case in ABC_MODELS + ("siard_scheduled",):
+            m = case.split("_")[0]
+            spec = models[m]
+            sched = abc_run.parse_intervention(INTERVENTION) if case != m else None
+            ds, kw = series[m]
+            low = lower_summary(get_summary(None), "euclidean",
+                                torch.as_tensor(ds.observed, device=dev))
+            fc, ic = abc_sim.pack_consts(
+                mean_scale=low.mean_scale, weights=low.weights.cpu().numpy(),
+                flags=low.flags, seed=99, model=spec, schedule=sched, **kw)
+            cases[case] = dict(spec=spec, sched=sched, box=schedule_prior(spec, sched),
+                               lowered=low, fconst=fc, iconst=ic,
+                               obs=low.obs_summary.contiguous())
+        model_cells = []
+        for batch, kernel_iters in ((100_000, 50), (1_000_000, 20)):
+            turns = {c: {"wave": [], "theta_in": []} for c in cases}
+            soas = {c: abc_sim.theta_to_soa(x["box"].sample(14, batch, dev))
+                    for c, x in cases.items()}
+            order = list(cases) + list(cases)[::-1]
+            for c in order:
+                x = cases[c]
+
+                def run_wave(x=x):
+                    return abc_sim.abc_sim_wave_kernel(
+                        12, x["box"].lows, x["box"].highs, x["obs"], x["fconst"],
+                        x["iconst"], model=x["spec"], batch=batch)
+
+                def run_theta_in(x=x, soa=soas[c]):
+                    return abc_sim.abc_sim_distance_kernel(soa, x["obs"], x["fconst"],
+                                                           x["iconst"], model=x["spec"])
+
+                turns[c]["wave"].append(cuda_ms(run_wave, kernel_iters))
+                turns[c]["theta_in"].append(cuda_ms(run_theta_in, kernel_iters))
+            mhz = clock.median()
+            for c, x in cases.items():
+                spec, low = x["spec"], x["lowered"]
+                ms_w, ms_i = (float(np.mean(turns[c][e])) for e in ("wave", "theta_in"))
+                w_ops = abc_sim.wave_ops(spec, low, batch, x["sched"])
+                n_bytes = abc_sim.bytes_moved(spec, batch, 49, x["box"].dim)
+                bound = max(w_ops / F32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+                cen = model_census[spec.name]
+                floor = sass.issue_floor_ms(cen, batch, 49, n_sm, mhz) if cen and mhz else None
+                model_cells.append({
+                    "case": c, "batch": batch, "days": 49, "ms_wave": ms_w,
+                    "ms_theta_in": ms_i, "turns_ms": turns[c],
+                    "ratio_to_siard_wave": ms_w / float(np.mean(turns["siard"]["wave"])),
+                    "wave_ops": w_ops, "bytes": n_bytes, "wave_bound_ms": bound,
+                    "bound_by": "operations" if w_ops / F32_OPS_PER_S >=
+                    n_bytes / HBM_BYTES_PER_S else "bytes",
+                    "census_per_day": cen["per_day"]["total"] if cen else None,
+                    "issue_floor_ms": floor["floor_ms"] if floor else None,
+                    "share_of_issue_floor": floor["floor_ms"] / ms_w if floor else None,
+                    "iters": kernel_iters})
     emit("timing", kind=name, nvidia_smi=smi, peak_ops_per_s=F32_OPS_PER_S,
          peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, sms=n_sm,
-         sm_clock_mhz=clock.summary(), default_block=abc_sim.DEFAULT_BLOCK, cells=timing)
+         sm_clock_mhz=clock.summary(), default_block=abc_sim.DEFAULT_BLOCK, cells=timing,
+         model_cells=model_cells, intervention=INTERVENTION)
 
     main_cell = timing[0]
+    # launches of each entry on the three ABC paths, and its time at 100k x 49
+    launched = {}
+    for counts in path_launches.values():
+        for entry, n in counts.items():
+            launched[entry] = launched.get(entry, 0) + n
+    at_100k = {c["case"]: c for c in model_cells if c["batch"] == 100_000}
+    entries = []
+    for m in ABC_MODELS:
+        for entry, key in (("wave", "ms_wave"), ("distance", "ms_theta_in")):
+            symbol = f"abc_sim_{entry}_{m}"
+            entries.append({"entry": symbol, "source": "src/repro_torch/kernels/csrc/"
+                            f"{abc_sim.library(m)}.cu", "launches": launched.get(symbol, 0),
+                            "ms": main_cell[key] if m == "siard" else at_100k[m][key]})
+    if not (launched.get("abc_sim_wave_siard") and launched.get("abc_sim_wave_seiard")):
+        raise AssertionError(f"kernels: a path's wave entry was not launched: {launched}")
     abc_line = {
         "name": "abc_sim_distance", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches + wave_launches,
-        "entries": [{"entry": "abc_sim_wave_siard", "launches": wave_launches,
-                     "ms": main_cell["ms_wave"]},
-                    {"entry": "abc_sim_distance_siard", "launches": launches,
-                     "ms": main_cell["ms_theta_in"]}],
+        "replaces": TPU_KERNEL, "launches": sum(launched.values()),
+        "entries": entries,
+        "scheduled_siard_wave_ms": at_100k["siard_scheduled"]["ms_wave"],
         "max_abs_err": max_abs_err,
         "ms": main_cell["ms_wave"], "plain_ms": main_cell["plain_ms"],
         "bound_ms": main_cell["wave_bound_ms"], "bound_by": main_cell["bound_by"],

@@ -56,8 +56,10 @@ def main(argv) -> int:
     x = italy_inputs(dev, 16)
     census = {"this_tree": abc_census(build, siard, x["lowered"].flags)}
     if other_sass is not None:
+        # the variant the other tree's theta-in entry runs at these flags
         funcs = sass.parse_functions(other_sass)
-        names = [k for k in funcs if "abc_sim" in k and "Siard" in k]
+        symbol = abc_sim.kernel_symbol(siard, x["lowered"].flags, False)
+        names = [k for k in funcs if symbol in k]
         census["other"] = {"function": names[0], **sass.census(funcs[names[0]])}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     cells = []

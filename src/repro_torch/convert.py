@@ -3,8 +3,12 @@
 The port imports nothing of `repro`; what crosses is plain data:
 
   * `country_data_from_arrays` builds the port's `CountryData` from a
-    dataset's arrays, so both packages can fit one series (`repro`'s series
-    come from threefry, the port's own from the counter hash);
+    dataset's arrays, for any registered model, so both packages can fit one
+    series (`repro`'s series come from threefry, the port's own from the
+    counter hash);
+  * `schedule_from_fields` builds the port's `InterventionSchedule` from the
+    plain tuples of `repro`'s (tv_params, breakpoints, scale_lows,
+    scale_highs);
   * `load_npz` reads an `ABCState` checkpoint or a `Posterior` file written
     by `repro` (or by the port; the `.npz` fields are the same) into the
     port's type, so a fit started in `repro` resumes in the port;
@@ -25,12 +29,13 @@ from repro_torch.core.abc import ABCState
 from repro_torch.core.posterior import Posterior
 from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
+from repro_torch.epi.spec import InterventionSchedule
 from repro_torch.kernels.abc_sim import theta_to_soa
 from repro_torch.models import common as cm
 from repro_torch.models.decoder import DecoderConfig, check_supported
 
 __all__ = ["country_data_from_arrays", "decoder_params_from_arrays", "load_npz",
-           "theta_to_soa"]
+           "schedule_from_fields", "theta_to_soa"]
 
 
 def country_data_from_arrays(
@@ -65,6 +70,18 @@ def country_data_from_arrays(
         synthetic=synthetic,
         model=spec.name,
         observed_channels=spec.observed_labels,
+    )
+
+
+def schedule_from_fields(tv_params, breakpoints, scale_lows,
+                         scale_highs) -> InterventionSchedule:
+    """The port's `InterventionSchedule` from a schedule's plain fields (as
+    `repro`'s carries them: names, days and per-window bound rows)."""
+    return InterventionSchedule(
+        tv_params=tuple(str(p) for p in tv_params),
+        breakpoints=tuple(int(b) for b in breakpoints),
+        scale_lows=tuple(tuple(float(x) for x in row) for row in scale_lows),
+        scale_highs=tuple(tuple(float(x) for x in row) for row in scale_highs),
     )
 
 

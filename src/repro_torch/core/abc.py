@@ -15,6 +15,11 @@ On a CUDA device the first two lines are one launch of the kernel's wave
 entry, which draws theta inside the kernel (`ops.AbcSim.wave`); on the CPU
 they are `prior.sample` and the plain version, to the same bits.
 
+Under an intervention schedule (`ABCConfig.schedule`) the prior is the box
+widened by the schedule's scale bounds (`priors.schedule_prior`) and the
+posterior's columns are the model's parameters followed by the scales
+(`alpha0_w1`, ...); an empty schedule is exactly None.
+
 Wave i draws its prior seed and its simulation seed from (seed, i) as two
 distinct streams of the port's hash (`wave_seeds`), so any wave can be
 recomputed from the base seed and its index, and a run resumed from an
@@ -34,12 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.posterior import Posterior
-from repro_torch.core.priors import UniformBoxPrior
+from repro_torch.core.priors import UniformBoxPrior, schedule_prior
 from repro_torch.core.summaries import SummarySpec, get_distance_kind, get_summary
 from repro_torch.device import resolve_device
 from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
-from repro_torch.epi.spec import require_flat
+from repro_torch.epi.spec import active_schedule, require_flat
 from repro_torch.ioutils import atomic_write
 from repro_torch.kernels import abc_sim, ops
 from repro_torch.kernels.rng import stream_seed
@@ -72,7 +77,8 @@ class ABCConfig:
     summary: Optional[object] = None
     #: CUDA block size in threads; distances do not depend on it
     block: int = abc_sim.DEFAULT_BLOCK
-    #: intervention schedules arrive in a later slice; setting one raises
+    #: intervention schedule (`epi.spec.InterventionSchedule`); None or an
+    #: empty one: the model's own parameters only
     schedule: Optional[object] = None
 
     def __post_init__(self):
@@ -90,7 +96,11 @@ class ABCConfig:
         get_distance_kind(self.distance)
         get_summary(self.summary)
         abc_sim.check_block(self.block)
-        require_flat(get_model(self.model).n_regions, self.schedule)
+        spec = get_model(self.model)
+        require_flat(spec.n_regions)
+        schedule = active_schedule(self.schedule)
+        if schedule is not None:
+            schedule.shape(spec)  # its parameters are the model's
 
     @property
     def num_chunks(self) -> int:
@@ -99,6 +109,12 @@ class ABCConfig:
     @property
     def summary_spec(self) -> SummarySpec:
         return get_summary(self.summary)
+
+
+def run_param_names(cfg: ABCConfig, spec) -> Tuple[str, ...]:
+    """Posterior column names: the model's params plus any window scales."""
+    schedule = active_schedule(cfg.schedule)
+    return spec.param_names if schedule is None else schedule.param_names(spec)
 
 
 class RunOutput(NamedTuple):
@@ -141,7 +157,7 @@ def make_simulator(dataset: CountryData, cfg: ABCConfig,
     return ops.make_abc_sim(
         observed, population=dataset.population, a0=dataset.a0,
         r0=dataset.r0, d0=dataset.d0, model=spec, summary=cfg.summary_spec,
-        distance=cfg.distance, block=cfg.block,
+        distance=cfg.distance, block=cfg.block, schedule=cfg.schedule,
     )
 
 
@@ -280,14 +296,14 @@ def run_abc(
     `max_runs` waves."""
     device = resolve_device(device)
     spec = get_model(cfg.model)
-    prior = prior or spec.prior()
+    prior = prior or schedule_prior(spec, cfg.schedule)
     state = state or ABCState()
     if state.n_params is None:
         state.n_params = prior.dim
     elif state.n_params != prior.dim:
         raise ValueError(
             f"resumed state holds {state.n_params}-parameter samples but model "
-            f"{spec.name!r} has {prior.dim} parameters — wrong checkpoint?"
+            f"{spec.name!r} (with its schedule) has {prior.dim} — wrong checkpoint?"
         )
     run = abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg, device)
 
@@ -313,7 +329,7 @@ def run_abc(
         theta=theta,
         distances=dist,
         tolerance=cfg.tolerance,
-        param_names=spec.param_names,
+        param_names=run_param_names(cfg, spec),
         runs=state.run_idx,
         simulations=state.simulations,
         wall_time_s=time.time() - t0,
@@ -335,7 +351,7 @@ def calibrate_tolerance(
     distances, so that the expected acceptance rate is set beforehand:
     expected waves ~= target_accepted / (quantile * batch_size)."""
     device = resolve_device(device)
-    prior = prior or get_model(cfg.model).prior()
+    prior = prior or schedule_prior(get_model(cfg.model), cfg.schedule)
     simulator = make_simulator(dataset, cfg, device)
     per_wave = min(n_pilot, cfg.batch_size)
     dists = []

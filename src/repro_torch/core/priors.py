@@ -71,6 +71,19 @@ class UniformBoxPrior:
         return torch.clamp(theta, lo, hi)
 
 
+def schedule_prior(model, schedule=None) -> UniformBoxPrior:
+    """The model's box widened by a schedule's window-major scale bounds; a
+    pinned scale is a zero-width dimension. With no schedule (or an empty
+    one) it is `model.prior()`."""
+    base = model.prior()
+    if schedule is None or schedule.is_empty:
+        return base
+    return UniformBoxPrior(
+        highs=base.highs + tuple(h for row in schedule.scale_highs for h in row),
+        lows=base.lows + tuple(lo for row in schedule.scale_lows for lo in row),
+    )
+
+
 def paper_prior() -> UniformBoxPrior:
     """The prior of eq. (2): U(0, [1, 100, 2, 1, 1, 1, 1, 2])."""
     return UniformBoxPrior(highs=(1.0, 100.0, 2.0, 1.0, 1.0, 1.0, 1.0, 2.0))

@@ -13,7 +13,8 @@ from the same seeds. To feed both packages one series, build the port's
 `repro_torch.convert.country_data_from_arrays`.
 
 Series are always simulated on the CPU, so a dataset is the same whichever
-device later fits it.
+device later fits it. The country series are SIARD's; any model that
+observes the same (A, R, D) channels (seiard) fits them, as in `repro`.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.epi import engine
 from repro_torch.epi.models import get_model
-from repro_torch.epi.spec import CompartmentalModel, EpiModelConfig
+from repro_torch.epi.spec import CompartmentalModel, EpiModelConfig, active_schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,19 +76,33 @@ def synthetic_dataset(
     name: str = "synthetic",
     paper_tolerance: float | None = None,
     model: Union[str, CompartmentalModel] = "siard",
+    schedule=None,
 ) -> CountryData:
-    """Simulate a ground-truth dataset from known parameters (hash RNG, CPU)."""
+    """Simulate a ground-truth dataset from known parameters (hash RNG, CPU).
+
+    `schedule` (an InterventionSchedule with fixed scales) simulates the
+    series under a known intervention; `theta` is the base parameters and
+    the schedule's pinned scales are appended (or pass the widened theta).
+    """
     spec = get_model(model)
-    if len(theta) != spec.n_params:
+    th = np.asarray([theta], np.float32)
+    width = spec.n_params
+    schedule = active_schedule(schedule)
+    if schedule is not None:
+        width = schedule.param_width(spec)
+        if th.shape[1] == spec.n_params:
+            scales = np.asarray([x for row in schedule.fixed_scales() for x in row],
+                                np.float32)
+            th = np.concatenate([th, scales[None, :]], axis=1)
+    if th.shape[1] != width:
         raise ValueError(
-            f"theta has {len(theta)} entries; model {spec.name!r} "
-            f"expects {spec.n_params}"
+            f"theta has {th.shape[1]} entries; model {spec.name!r} "
+            f"expects {width}"
         )
     cfg = EpiModelConfig(
         population=population, num_days=num_days, a0=a0, r0=r0, d0=d0
     )
-    th = torch.tensor([theta], dtype=torch.float32)
-    obs = engine.simulate_observed(spec, th, seed, cfg)[0]
+    obs = engine.simulate_observed(spec, torch.from_numpy(th), seed, cfg, schedule)[0]
     return CountryData(
         name=name,
         population=population,
@@ -148,10 +163,17 @@ def get_dataset(
         )
     elif name in COUNTRY_META:
         if spec.name != "siard":
-            raise ValueError(
-                f"dataset {name!r} holds SIARD (A, R, D) series; model "
-                f"{spec.name!r} is not carried by this slice of the port"
-            )
+            # the series stays SIARD's; a model that observes the same
+            # channels fits it, re-tagged (no new simulation)
+            base = get_dataset(name, num_days=num_days, model="siard")
+            if not base.compatible_with(spec):
+                raise ValueError(
+                    f"dataset {name!r} holds (A, R, D) series; model "
+                    f"{spec.name!r} observes {spec.observed_labels}"
+                )
+            ds = dataclasses.replace(base, model=spec.name, true_theta=None)
+            _CACHE[key] = ds
+            return ds
         population, a0, r0, d0, tol, seed = COUNTRY_META[name]
         ds = synthetic_dataset(
             theta=TABLE8_THETA[name], population=population,

@@ -1,10 +1,10 @@
 """Generic tau-leap engine over a `CompartmentalModel` spec (port, flat).
 
-The port's counterpart of `repro.epi.engine` for flat (R=1) models without
-an intervention schedule. Functions take tensors on any device and keep
-them there; every scalar that meets a tensor becomes a float32 tensor on
-that tensor's device first (`_f32`), so that a division by the population
-rounds the same way on the CPU and on the card.
+The port's counterpart of `repro.epi.engine` for flat (R=1) models, with
+intervention schedules (`effective_param_rows`). Functions take tensors on
+any device and keep them there; every scalar that meets a tensor becomes a
+float32 tensor on that tensor's device first (`_f32`), so that a division
+by the population rounds the same way on the CPU and on the card.
 
 `drain_and_apply` stays row-level: it is the mass-conservation contract.
 Transitions are clamped in declaration order with sequential source
@@ -17,9 +17,18 @@ package's threefry streams have no PyTorch twin.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
-from repro_torch.epi.spec import CTR_SLOTS, CompartmentalModel, EpiModelConfig
+from repro_torch.epi.spec import (
+    CTR_SLOTS,
+    CompartmentalModel,
+    EpiModelConfig,
+    InterventionSchedule,
+    ScheduleShape,
+    active_schedule,
+)
 from repro_torch.kernels import rng as krng
 
 
@@ -42,6 +51,58 @@ def initial_state(
         _f32(cfg.d0, theta),
     )
     return torch.stack(list(rows), dim=-1).to(torch.float32)
+
+
+def effective_param_rows(
+    model: CompartmentalModel,
+    shape: Optional[ScheduleShape],
+    pc: Sequence,
+    day: int,
+    breakpoints: Sequence[int],
+):
+    """The n_params day-effective rows from the widened rows `pc` (n_params
+    base rows, then window-major scale rows). Window 0 is the base rows
+    untouched; window w >= 1 multiplies each scaled parameter by its scale
+    row, one rounding, as `repro.epi.engine.effective_param_rows` and the
+    CUDA kernel do. `day` is a Python int: the port runs its days in a
+    Python loop (the plain version) or in the kernel."""
+    base = tuple(pc[: model.n_params])
+    if shape is None or shape.n_windows == 0:
+        return base
+    w = sum(day >= b for b in breakpoints)  # #{breakpoints <= day}
+    if w == 0:
+        return base
+    out = list(base)
+    first = model.n_params + (w - 1) * shape.n_tv
+    for j, pi in enumerate(shape.tv_indices):
+        out[pi] = out[pi] * pc[first + j]
+    return tuple(out)
+
+
+def effective_theta(
+    model: CompartmentalModel,
+    schedule: Optional[InterventionSchedule],
+    theta: torch.Tensor,
+    day: int,
+) -> torch.Tensor:
+    """Widened theta [..., n_params + n_scales] -> day-effective theta
+    [..., n_params]."""
+    schedule = active_schedule(schedule)
+    if schedule is None:
+        return theta[..., : model.n_params]
+    pc = tuple(theta[..., k] for k in range(schedule.param_width(model)))
+    rows = effective_param_rows(model, schedule.shape(model), pc, day, schedule.breakpoints)
+    return torch.stack(list(rows), dim=-1)
+
+
+def check_theta_width(model: CompartmentalModel, schedule, theta: torch.Tensor) -> None:
+    """Raise unless theta is [B, n_params + n_scales] for the schedule."""
+    schedule = active_schedule(schedule)
+    width = model.n_params if schedule is None else schedule.param_width(model)
+    if theta.ndim != 2 or theta.shape[1] != width:
+        what = "" if schedule is None else f" under a schedule of {schedule.n_scales} scales"
+        raise ValueError(f"theta must be [B, {width}] for {model.name}{what}, got "
+                         f"{tuple(theta.shape)}")
 
 
 def hazards(
@@ -108,20 +169,24 @@ def simulate_observed(
     theta: torch.Tensor,
     seed: int,
     cfg: EpiModelConfig,
+    schedule: Optional[InterventionSchedule] = None,
 ) -> torch.Tensor:
     """Observed channels [B, n_observed, T] under the counter-hash RNG.
 
     Sample b's noise on day d, transition k is `normal(seed, b, d*8 + k)`,
     the fused kernel's stream, so the kernel run at the generating theta and
-    seed replays this trajectory.
+    seed replays this trajectory. Under a schedule theta carries the scale
+    columns; the seeding uses the base parameters only.
     """
     theta = theta.to(torch.float32)
+    check_theta_width(model, schedule, theta)
     idx = torch.arange(theta.shape[0], device=theta.device)
     state = initial_state(model, theta, cfg)
     pop = _f32(cfg.population, theta)
     obs = []
     for day in range(cfg.num_days):
         z = krng.hash_normals(seed, idx, day, model.n_transitions, CTR_SLOTS)
-        state = tau_leap_step(model, state, theta, z, pop)
+        th_d = effective_theta(model, schedule, theta, day)
+        state = tau_leap_step(model, state, th_d, z, pop)
         obs.append(state[:, list(model.observed_idx)])
     return torch.stack(obs, dim=-1)

@@ -1,7 +1,9 @@
 """Registry of the port's compartmental models.
 
-This slice registers the paper's SIARD model only; sir, seir and seiard
-arrive in a later slice, each with its own C++ struct for the CUDA kernel.
+The flat models of `repro.epi.models`, registered in its order: siard (the
+paper's default), sir, seir and seiard. Each has a C++ struct beside it for
+the CUDA kernel (`kernels/csrc/<model>.cuh`). The metapopulation model
+`metapop_seir` waits for the region axis.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def list_models() -> Tuple[str, ...]:
 
 
 from repro_torch.epi.models import siard as _siard  # noqa: E402
+from repro_torch.epi.models import sir as _sir  # noqa: E402, F401
+from repro_torch.epi.models import seir as _seir  # noqa: E402, F401
+from repro_torch.epi.models import seiard as _seiard  # noqa: E402, F401
 
 DEFAULT_MODEL = _siard.MODEL
 

@@ -1,33 +1,41 @@
-"""ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cu`).
+"""ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cuh`).
 
 Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
 launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
-global sample index. Two entries share its body:
+global sample index. Each flat model has its own library (`library`):
+`csrc/abc_sim.cu` for SIARD (with the RNG test entries) and
+`csrc/abc_sim_<model>.cu` for sir, seir and seiard, built side by side. Two
+entries share the kernel's body:
 
 * `abc_sim_distance_kernel` (theta in) takes
 
-    theta_soa  [P, B] f32, contiguous: parameters as structure of arrays
+    theta_soa  [W, B] f32, contiguous: parameters as structure of arrays
     obs        [n_chan, T] f32, contiguous: the lowered observed summary
     fconst     host f32 [N_FCONST]: population, a0, r0, d0, mean scale,
                then MAX_CHAN channel weights
-    iconst     host i32 [N_ICONST]: seed, then the summary flags
-               (cumulative, log1p, power, root, bin_days)
+    iconst     host i32 [N_ICONST]: seed, the summary flags (cumulative,
+               log1p, power, root, bin_days), then the intervention
+               schedule (windows, scaled parameters, MAX_WINDOWS breakpoint
+               days, each parameter's place among the scaled ones or -1)
 
   and writes one distance per sample;
 * `abc_sim_wave_kernel` (the ABC wave) takes the uniform box (lows, highs)
   and a prior seed in place of theta, draws theta inside the kernel as
-  `UniformBoxPrior.sample` does, and returns theta [B, P] row-major and the
+  `UniformBoxPrior.sample` does, and returns theta [B, W] row-major and the
   distances with NaN turned to +inf.
 
-The constants, the box and the seeds travel in the kernel's parameters,
-not in device memory. The summary flags pick one of the kernel's compiled
-variants on the host, so one build serves every flat (summary, distance)
-pair. The TPU rules of 128 lanes and 8 sublanes do not carry over: a block
+W is the model's P parameters plus a schedule's scale columns
+(`spec.InterventionSchedule`), P without one. The constants, the schedule,
+the box and the seeds travel in the kernel's parameters, not in device
+memory, so a new breakpoint day or schedule needs no new build. The summary
+flags pick one of the kernel's compiled variants on the host, so one build
+serves every flat (summary, distance) pair. The TPU rules of 128 lanes and 8 sublanes do not carry over: a block
 size in threads replaces the tile, and distances are bitwise the same for
 every block size.
 
 `LAUNCHES` counts the launches of the theta-in entry, `WAVE_LAUNCHES`
-those of the wave entry and `RNG_LAUNCHES` those of the source's two test
+those of the wave entry, `ENTRY_LAUNCHES` those of each exported entry by
+its C name (`abc_sim_wave_seiard`, ...), and `RNG_LAUNCHES` those of the two test
 entries: `rng_normals`, which writes the kernel's hash bits or normals for
 (seed, sample, counter), and `unit_math_mismatches`, which holds the
 kernel's branch-free Box-Muller pieces to logf, sqrtf and cosf on every
@@ -50,13 +58,17 @@ from repro_torch.core.summaries import (
     LoweredSummary,
     num_bins,
 )
-from repro_torch.epi.spec import CompartmentalModel
+from repro_torch.epi.spec import MAX_WINDOWS, CompartmentalModel, active_schedule
 from repro_torch.kernels import build
 
 #: host constant layout (checked against the library at load)
 MAX_CHAN = 8
+MAX_PARAMS = 16
 N_FCONST = 5 + MAX_CHAN
-N_ICONST = 6
+#: iconst lanes: seed, 5 summary flags, then the schedule
+I_N_WINDOWS, I_N_TV, I_BREAKPOINTS = 6, 7, 8
+I_TV_SLOT = I_BREAKPOINTS + MAX_WINDOWS
+N_ICONST = I_TV_SLOT + MAX_PARAMS
 #: the kernel's __launch_bounds__
 MAX_BLOCK = 256
 DEFAULT_BLOCK = 256
@@ -66,33 +78,44 @@ DEFAULT_BLOCK = 256
 LAUNCHES = 0
 WAVE_LAUNCHES = 0
 RNG_LAUNCHES = 0
+#: launches of each exported entry, by C name (abc_sim_wave_siard, ...)
+ENTRY_LAUNCHES: dict = {}
 
 _VP = ctypes.c_void_p
 _typed: set = set()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("abc_sim")
-    if "abc_sim" not in _typed:
+def library(model) -> str:
+    """The csrc/ source (and library) that holds `model`'s kernel:
+    `abc_sim` for SIARD, `abc_sim_<model>` for each other flat model."""
+    name = model if isinstance(model, str) else model.name
+    return "abc_sim" if name == "siard" else f"abc_sim_{name}"
+
+
+def _lib(name: str = "abc_sim") -> ctypes.CDLL:
+    """The library `name`, its constant layout checked at first load."""
+    lib = build.load(name)
+    if name not in _typed:
         names = ("abc_sim_n_fconst", "abc_sim_n_iconst", "abc_sim_max_chan",
                  "abc_sim_max_block")
-        for name in names:
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
-        layout = tuple(getattr(lib, name)() for name in names)
+        for fn in names:
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = ctypes.c_int
+        layout = tuple(getattr(lib, fn)() for fn in names)
         if layout != (N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK):
             raise RuntimeError(
-                f"abc_sim library constant layout {layout} does not match the "
+                f"{name} library constant layout {layout} does not match the "
                 f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK)}"
             )
-        lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_int, _VP, ctypes.c_int, _VP]
-        lib.rng_normals.restype = ctypes.c_int
-        lib.unit_math_mismatches.argtypes = [_VP, _VP]
-        lib.unit_math_mismatches.restype = ctypes.c_int
+        if name == "abc_sim":
+            lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, _VP, ctypes.c_int, _VP]
+            lib.rng_normals.restype = ctypes.c_int
+            lib.unit_math_mismatches.argtypes = [_VP, _VP]
+            lib.unit_math_mismatches.restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        _typed.add("abc_sim")
+        _typed.add(name)
     return lib
 
 
@@ -109,8 +132,9 @@ def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distan
         fn = getattr(lib, name)
     except AttributeError:
         raise NotImplementedError(
-            f"no CUDA kernel for model {model.name!r} (missing C symbol {name}); "
-            "this slice of the port builds siard only"
+            f"no CUDA kernel for model {model.name!r} (missing C symbol {name} in "
+            f"csrc/{library(model)}.cu); the kernel carries the registered flat "
+            "models siard, sir, seir and seiard"
         ) from None
     fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
@@ -126,8 +150,9 @@ def variant(flags, wave: bool) -> int:
 
 def kernel_symbol(model: CompartmentalModel, flags, wave: bool) -> str:
     """The part of the mangled name that picks that variant's kernel out of
-    the library's SASS: `abc_sim_kernel<Siard, 8>` is
-    `abc_sim_kernelI5SiardLi8EE`."""
+    its library's SASS: `abc_sim_kernel<Siard, 8>` is
+    `abc_sim_kernelI5SiardLi8EE`, `abc_sim_kernel<Seiard, 8>`
+    `abc_sim_kernelI6SeiardLi8EE`."""
     struct = model.name.capitalize()
     return f"abc_sim_kernelI{len(struct)}{struct}Li{variant(flags, wave)}EE"
 
@@ -168,13 +193,16 @@ def pack_consts(
     weights,
     flags,
     seed: int,
+    model: CompartmentalModel | None = None,
+    schedule=None,
 ):
-    """Host constant arrays (fconst f32 [N_FCONST], iconst i32 [N_ICONST])."""
+    """Host constant arrays (fconst f32 [N_FCONST], iconst i32 [N_ICONST]);
+    with a `schedule` (which needs its `model`) its lanes are filled."""
     w = np.asarray(weights, np.float32).reshape(-1)
     if w.size > MAX_CHAN:
         raise ValueError(f"{w.size} summary channels exceed the kernel's {MAX_CHAN}")
-    if len(flags) != N_ICONST - 1:
-        raise ValueError(f"expected {N_ICONST - 1} summary flags, got {len(flags)}")
+    if len(flags) != I_N_WINDOWS - 1:
+        raise ValueError(f"expected {I_N_WINDOWS - 1} summary flags, got {len(flags)}")
     if (flags[FLAG_POWER], flags[FLAG_ROOT]) not in ((2, 1), (1, 0)):
         raise ValueError(
             f"summary flags {tuple(flags)}: the kernel is compiled for (power, root) "
@@ -184,8 +212,24 @@ def pack_consts(
     fconst[:5] = (population, a0, r0, d0, mean_scale)
     fconst[5:5 + w.size] = w
     iconst = np.zeros((N_ICONST,), np.int32)
-    iconst[1:] = np.asarray(flags, np.int32)
+    iconst[1:I_N_WINDOWS] = np.asarray(flags, np.int32)
+    iconst[I_TV_SLOT:] = -1
+    schedule = active_schedule(schedule)
+    if schedule is not None:
+        if model is None:
+            raise ValueError("packing a schedule needs its model")
+        shape = schedule.shape(model)
+        iconst[I_N_WINDOWS], iconst[I_N_TV] = shape.n_windows, shape.n_tv
+        iconst[I_BREAKPOINTS:I_BREAKPOINTS + shape.n_windows] = schedule.breakpoints
+        for slot, j in enumerate(shape.tv_indices):
+            iconst[I_TV_SLOT + j] = slot
     return fconst, with_seed(iconst, seed)
+
+
+def theta_width(model: CompartmentalModel, iconst: np.ndarray) -> int:
+    """W: the model's parameters plus the scale columns of the schedule
+    packed into `iconst`."""
+    return model.n_params + int(iconst[I_N_WINDOWS]) * int(iconst[I_N_TV])
 
 
 def with_seed(iconst: np.ndarray, seed: int) -> np.ndarray:
@@ -207,6 +251,17 @@ def _check_2d_f32(name: str, t: torch.Tensor) -> None:
         )
 
 
+def _launched(model: CompartmentalModel, entry: str) -> None:
+    """Count one launch of `abc_sim_<entry>_<model>`."""
+    global LAUNCHES, WAVE_LAUNCHES
+    if entry == "wave":
+        WAVE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    name = f"abc_sim_{entry}_{model.name}"
+    ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
+
+
 def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
                           model: CompartmentalModel) -> None:
     if obs.device.type != "cuda":
@@ -220,10 +275,13 @@ def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
         raise ValueError(f"fconst must be float32 [{N_FCONST}]")
     if iconst.dtype != np.int32 or iconst.shape != (N_ICONST,):
         raise ValueError(f"iconst must be int32 [{N_ICONST}]")
+    if model.n_params > MAX_PARAMS:
+        raise ValueError(f"{model.name} has {model.n_params} parameters; the kernel "
+                         f"takes at most {MAX_PARAMS}")
 
 
 def abc_sim_distance_kernel(
-    theta_soa: torch.Tensor,  # [P, B] f32 CUDA, contiguous
+    theta_soa: torch.Tensor,  # [W, B] f32 CUDA, contiguous
     obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
     fconst: np.ndarray,  # [N_FCONST] f32 host
     iconst: np.ndarray,  # [N_ICONST] i32 host
@@ -232,7 +290,6 @@ def abc_sim_distance_kernel(
     block: int = DEFAULT_BLOCK,
 ) -> torch.Tensor:
     """Launch the fused kernel on the current stream; returns distances [B]."""
-    global LAUNCHES
     block = check_block(block)
     if theta_soa.device.type != "cuda":
         raise ValueError(f"theta_soa must be a CUDA tensor, got {theta_soa.device}")
@@ -240,14 +297,16 @@ def abc_sim_distance_kernel(
         raise ValueError(f"obs is on {obs.device}, theta_soa on {theta_soa.device}")
     _check_2d_f32("theta_soa", theta_soa)
     _check_obs_and_consts(obs, fconst, iconst, model)
-    n_params, batch = theta_soa.shape
-    if n_params != model.n_params:
-        raise ValueError(f"theta_soa has {n_params} rows; {model.name} has {model.n_params}")
+    n_rows, batch = theta_soa.shape
+    width = theta_width(model, iconst)
+    if n_rows != width:
+        raise ValueError(f"theta_soa has {n_rows} rows; {model.name} with the packed "
+                         f"schedule has {width}")
     if batch < 1:
         raise ValueError("theta_soa holds no samples")
     fconst = np.ascontiguousarray(fconst)
     iconst = np.ascontiguousarray(iconst)
-    lib = _lib()
+    lib = _lib(library(model))
     fn = _kernel_fn(lib, model)
     out = torch.empty((batch,), dtype=torch.float32, device=theta_soa.device)
     with torch.cuda.device(theta_soa.device):
@@ -255,14 +314,14 @@ def abc_sim_distance_kernel(
                 fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1],
                 block, _stream_handle(theta_soa.device))
     _check_rc(lib, rc, f"abc_sim_distance_{model.name}")
-    LAUNCHES += 1
+    _launched(model, "distance")
     return out
 
 
 def abc_sim_wave_kernel(
     prior_seed: int,  # uint32
-    lows,  # [P] host, float32 after rounding
-    highs,  # [P]
+    lows,  # [W] host, float32 after rounding
+    highs,  # [W]
     obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
     fconst: np.ndarray,  # [N_FCONST] f32 host
     iconst: np.ndarray,  # [N_ICONST] i32 host; its seed word is the simulation seed
@@ -271,25 +330,25 @@ def abc_sim_wave_kernel(
     batch: int,
     block: int = DEFAULT_BLOCK,
 ):
-    """Launch the wave entry on the current stream: theta [batch, P] drawn
+    """Launch the wave entry on the current stream: theta [batch, W] drawn
     from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch)` does,
     and its distances [batch] with NaN turned to +inf."""
-    global WAVE_LAUNCHES
     block = check_block(block)
     _check_obs_and_consts(obs, fconst, iconst, model)
+    width = theta_width(model, iconst)
     lo = np.ascontiguousarray(np.asarray(lows, np.float32).reshape(-1))
     hi = np.ascontiguousarray(np.asarray(highs, np.float32).reshape(-1))
-    if lo.shape != (model.n_params,) or hi.shape != (model.n_params,):
+    if lo.shape != (width,) or hi.shape != (width,):
         raise ValueError(
-            f"the box has {lo.size} lows and {hi.size} highs; {model.name} has "
-            f"{model.n_params} parameters"
+            f"the box has {lo.size} lows and {hi.size} highs; {model.name} with the "
+            f"packed schedule has {width} columns"
         )
     batch = int(batch)
     if batch < 1:
         raise ValueError("a wave needs at least one sample")
-    lib = _lib()
+    lib = _lib(library(model))
     fn = _kernel_fn(lib, model, "wave")
-    theta = torch.empty((batch, model.n_params), dtype=torch.float32, device=obs.device)
+    theta = torch.empty((batch, width), dtype=torch.float32, device=obs.device)
     dist = torch.empty((batch,), dtype=torch.float32, device=obs.device)
     if theta.data_ptr() % 16:
         raise RuntimeError("theta's storage is not 16-byte aligned")
@@ -300,7 +359,7 @@ def abc_sim_wave_kernel(
                 theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data, iconst.ctypes.data,
                 batch, obs.shape[1], block, _stream_handle(obs.device))
     _check_rc(lib, rc, f"abc_sim_wave_{model.name}")
-    WAVE_LAUNCHES += 1
+    _launched(model, "wave")
     return theta, dist
 
 
@@ -391,17 +450,25 @@ def ops_per_sample_day(model: CompartmentalModel, lowered: LoweredSummary) -> fl
 PRIOR_OPS_PER_PARAM = 18 + 4 + 3
 
 
-def wave_ops(model: CompartmentalModel, lowered: LoweredSummary, batch: int) -> float:
+def wave_ops(model: CompartmentalModel, lowered: LoweredSummary, batch: int,
+             schedule=None) -> float:
     """Operations of one launch of the wave entry: those of the theta-in
-    entry (`ops_per_sample_day`) and the prior draw, with the prior hash's
-    per-sample base (3) and the NaN test of the distance (1)."""
+    entry (`ops_per_sample_day`) and the prior draw of every theta column,
+    with the prior hash's per-sample base (3) and the NaN test of the
+    distance (1); under a schedule also one product a scaled parameter and
+    window (base * scale)."""
     num_days = lowered.obs_summary.shape[1]
+    schedule = active_schedule(schedule)
+    width = model.n_params if schedule is None else schedule.param_width(model)
+    window_ops = 0 if schedule is None else schedule.n_scales
     return (ops_per_sample_day(model, lowered) * num_days
-            + PRIOR_OPS_PER_PARAM * model.n_params + 3 + 1) * batch
+            + PRIOR_OPS_PER_PARAM * width + window_ops + 3 + 1) * batch
 
 
-def bytes_moved(model: CompartmentalModel, batch: int, num_days: int) -> int:
-    """Device-memory bytes of one launch of either entry: theta read (by the
-    wave entry, written) once, the observed summary read once, one distance
-    written."""
-    return 4 * (model.n_params * batch + model.n_observed * num_days + batch)
+def bytes_moved(model: CompartmentalModel, batch: int, num_days: int,
+                width: int | None = None) -> int:
+    """Device-memory bytes of one launch of either entry: theta's `width`
+    columns (the model's parameters by default) read (by the wave entry,
+    written) once, the observed summary read once, one distance written."""
+    width = model.n_params if width is None else width
+    return 4 * (width * batch + model.n_observed * num_days + batch)

@@ -7,9 +7,10 @@ named by a hash of the source, the `csrc/` headers it includes and its
 flags, so an unchanged source reuses its build and a changed one rebuilds.
 
 Every source is built with `NVCC_FLAGS`; `SOURCE_FLAGS` adds flags of one
-source: `abc_sim` keeps `--fmad=false`, on which its bitwise agreement with
-the plain version rests, while the two flash-attention sources let nvcc fuse
-multiply-adds.
+source: the `abc_sim` sources (one a model: `abc_sim` for SIARD and
+`abc_sim_<model>` for the others) keep `--fmad=false`, on which their
+bitwise agreement with the plain version rests, while the two
+flash-attention sources let nvcc fuse multiply-adds.
 
 Each source that needs building is compiled by its own nvcc, all of them
 started together, so a build takes as long as its slowest source.
@@ -46,7 +47,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCE_FLAGS: Dict[str, tuple] = {"abc_sim": ("--fmad=false",)}
+SOURCE_FLAGS: Dict[str, tuple] = {
+    name: ("--fmad=false",)
+    for name in ("abc_sim", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard")}
 
 
 @dataclasses.dataclass

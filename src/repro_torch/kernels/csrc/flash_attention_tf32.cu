@@ -538,8 +538,9 @@ long long flash_f32_tc_scratch_bytes(int B, int KH, int Skv, int D) {
 // float32 q, k, v, o device pointers and a device scratch of
 // flash_f32_tc_scratch_bytes(B, KH, Skv, D) bytes, 16-byte aligned; strides
 // points to 12 host int64 element strides: (batch, seq, head) of q, k, v, o.
-// window <= 0 and softcap <= 0 mean none. With D a multiple of 4, the
-// pointers must be 16-byte aligned and the strides multiples of 4. Launches
+// window <= 0 and softcap <= 0 mean none. K and V rows are read in 16-byte
+// pieces when D and every stride are multiples of 4 and every pointer is
+// 16-byte aligned, else element by element (any layout runs). Launches
 // the split of K and V, then attention, on `stream`. Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for
 // arguments the kernels do not take).
@@ -549,13 +550,10 @@ int flash_fwd_f32_tc(const void* q, const void* k, const void* v, void* o, void*
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Skv < 1 || D < 1 || D > 256 ||
       B > 65535 || KH > 65535 || (Sq + BQ - 1) / BQ > 65535 || !aligned16(scratch))
     return cudaErrorInvalidValue;
-  const bool vec = D % 4 == 0;
-  if (vec) {
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
-      return cudaErrorInvalidValue;
-    for (int i = 0; i < 12; ++i)
-      if (strides[i] % 4 != 0) return cudaErrorInvalidValue;
-  }
+  // rows in 16-byte pieces where they are such pieces, else element by
+  // element (kernels/flash_attention.py::staged applies the same rule)
+  bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);

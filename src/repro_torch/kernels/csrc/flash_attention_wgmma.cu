@@ -354,8 +354,9 @@ extern "C" {
 
 // bf16 q, k, v, o device pointers; strides points to 12 host int64 element
 // strides: (batch, seq, head) of q, k, v, o. window <= 0 and softcap <= 0
-// mean none. With D a multiple of 8, the pointers must be 16-byte aligned and
-// the strides multiples of 8. Returns cudaGetLastError() after the launch
+// mean none. Rows are read in 16-byte pieces when D and every stride are
+// multiples of 8 and every pointer is 16-byte aligned, else element by
+// element (any layout runs). Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take).
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int KH,
                    int Sq, int Skv, int D, const long long* strides, int causal, int window,
@@ -363,13 +364,10 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, 
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Skv < 1 || D < 1 || D > 256 ||
       B > 65535 || (Sq + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
-  const bool vec = D % 8 == 0;
-  if (vec) {
-    if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
-      return cudaErrorInvalidValue;
-    for (int i = 0; i < 12; ++i)
-      if (strides[i] % 8 != 0) return cudaErrorInvalidValue;
-  }
+  // rows in 16-byte pieces where they are such pieces, else element by
+  // element (kernels/flash_attention.py::staged applies the same rule)
+  bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);

@@ -5,8 +5,8 @@
 // order of the Python rows, so the float32 roundings agree with the plain
 // version (src/repro_torch/epi/models/siard.py).
 //
-// A later model (sir, seir, seiard) is one more struct with the same
-// members; the kernel does not change.
+// Each other flat model (sir.cuh, seir.cuh, seiard.cuh) is one more struct
+// with the same members; the kernel template (abc_sim.cuh) does not change.
 #pragma once
 
 struct Siard {

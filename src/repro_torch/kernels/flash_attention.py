@@ -11,21 +11,27 @@ q's dtype is allocated here with `torch.empty`.
 Two kernels on the tensor cores, chosen by dtype (`route`):
 
 - bf16 goes to `csrc/flash_attention_wgmma.cu` (wgmma, scores and
-  accumulator in float32, p split into bf16 hi + lo). With D a multiple of
-  8 it reads rows in 16-byte pieces, so the bases must be 16-byte aligned
-  and the strides multiples of 8; otherwise it stages element by element.
+  accumulator in float32, p split into bf16 hi + lo). It reads rows in
+  16-byte pieces where they are such pieces: D a multiple of 8, every base
+  16-byte aligned and every stride a multiple of 8; any other layout it
+  stages element by element.
 - float32 goes to `csrc/flash_attention_tf32.cu` (3xTF32 wgmma: q, k, p
   and v each split into TF32 hi + lo, three products for each, which keeps
   the float32 bar). It takes one more argument, a scratch of
   `flash_f32_tc_scratch_bytes` bytes allocated here, into which it splits
-  K and V once a call. With D a multiple of 4 it reads K and V rows in
-  16-byte pieces, so the bases must be 16-byte aligned and the strides
-  multiples of 4; otherwise it reads them element by element.
+  K and V once a call. It reads K and V rows in 16-byte pieces where D is a
+  multiple of 4, every base 16-byte aligned and every stride a multiple of
+  4; any other layout element by element.
 
-Nothing falls back from one to the other: what a kernel cannot read raises.
+So every layout `repro`'s `ops.flash_attention` takes runs, as it did there.
+The kernel and its loads are chosen here before the launch (`route`,
+`staged`), by the rule the C side applies, and counted: nothing falls back
+from one kernel to the other.
 
 `LAUNCHES` counts the launches of both; `LAUNCHES_TENSOR_CORE` (bf16) and
-`LAUNCHES_TENSOR_CORE_F32` (float32) those of each route.
+`LAUNCHES_TENSOR_CORE_F32` (float32) those of each route, and
+`LAUNCHES_STAGED` those, of either, that staged their rows element by
+element.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ LAUNCHES = 0
 LAUNCHES_TENSOR_CORE = 0
 #: launches of the float32 (3xTF32) tensor-core kernel
 LAUNCHES_TENSOR_CORE_F32 = 0
+#: launches, of either kernel, that staged rows element by element
+LAUNCHES_STAGED = 0
 
 _VP = ctypes.c_void_p
 _fns: dict = {}
@@ -85,30 +93,33 @@ def _fn(route_name: str):
     return _fns[route_name]
 
 
+def _grid(dtype: torch.dtype) -> int:
+    """Elements of `dtype` in a 16-byte piece; raises on a dtype neither
+    kernel takes."""
+    if dtype == torch.float32:
+        return 4
+    if dtype == torch.bfloat16:
+        return 8
+    raise ValueError(f"q, k, v must all be float32 or all bfloat16, got {dtype}")
+
+
 def route(dtype: torch.dtype, d: int, strides: Sequence[int], data_ptrs: Sequence[int]) -> str:
     """The kernel that takes a call: `TENSOR_CORE` for bf16, `TENSOR_CORE_F32`
-    for float32. `strides` are the element strides (batch, seq, head) of q, k,
-    v and o, `data_ptrs` their base addresses. Raises ValueError on a dtype
-    neither kernel takes, and on a call whose rows the kernel would copy in
-    16-byte pieces (bf16 with D a multiple of 8, float32 with D a multiple of
-    4) but are not such pieces: a base not 16-byte aligned or a stride not a
-    multiple of 8 bf16 or 4 float32 elements."""
-    if dtype == torch.float32:
-        which, grid = TENSOR_CORE_F32, 4
-    elif dtype == torch.bfloat16:
-        which, grid = TENSOR_CORE, 8
-    else:
-        raise ValueError(f"q, k, v must all be float32 or all bfloat16, got {dtype}")
-    if d % grid == 0:
-        bad_ptr = [hex(p) for p in data_ptrs if p % 16]
-        bad_stride = [s for s in strides if s % grid]
-        if bad_ptr or bad_stride:
-            name = "float32" if dtype == torch.float32 else "bf16"
-            raise ValueError(
-                f"the {name} kernel reads rows of D={d} in 16-byte pieces: bases must be "
-                f"16-byte aligned and strides multiples of {grid}, got bases {bad_ptr} and "
-                f"strides {bad_stride} that are not")
-    return which
+    for float32, whatever the layout (`staged` says how it reads the rows).
+    Raises ValueError on a dtype neither kernel takes."""
+    _grid(dtype)
+    return TENSOR_CORE_F32 if dtype == torch.float32 else TENSOR_CORE
+
+
+def staged(dtype: torch.dtype, d: int, strides: Sequence[int],
+           data_ptrs: Sequence[int]) -> bool:
+    """Whether the kernel stages the rows element by element: unless they are
+    16-byte pieces, i.e. D a multiple of 8 bf16 or 4 float32 elements, every
+    base (`data_ptrs` of q, k, v, o) 16-byte aligned and every element
+    stride (batch, seq, head of each) a multiple of that grid. The C side
+    (`flash_fwd_bf16`, `flash_fwd_f32_tc`) applies the same rule."""
+    grid = _grid(dtype)
+    return bool(d % grid or any(p % 16 for p in data_ptrs) or any(s % grid for s in strides))
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -157,7 +168,7 @@ def flash_attention_kernel(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Launch the route's kernel on the current stream; returns o [B, Sq, H, D]."""
-    global LAUNCHES, LAUNCHES_TENSOR_CORE, LAUNCHES_TENSOR_CORE_F32
+    global LAUNCHES, LAUNCHES_TENSOR_CORE, LAUNCHES_TENSOR_CORE_F32, LAUNCHES_STAGED
     check_args(q, k, v, window=window, softcap=softcap)
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
@@ -165,7 +176,9 @@ def flash_attention_kernel(
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     tensors = (q, k, v, out)
     strides = np.asarray([t.stride(i) for t in tensors for i in range(3)], np.int64)
-    which = route(q.dtype, d, strides.tolist(), [t.data_ptr() for t in tensors])
+    ptrs = [t.data_ptr() for t in tensors]
+    which = route(q.dtype, d, strides.tolist(), ptrs)
+    by_element = staged(q.dtype, d, strides.tolist(), ptrs)
     fn, err, scratch_bytes = _fn(which)
     scratch = [] if scratch_bytes is None else [torch.empty(
         scratch_bytes(b, kh, skv, d), dtype=torch.uint8, device=q.device)]
@@ -179,6 +192,7 @@ def flash_attention_kernel(
         raise RuntimeError(f"{ROUTES[which][1]} launch failed: {err(rc).decode()} "
                            f"(cudaError {rc})")
     LAUNCHES += 1
+    LAUNCHES_STAGED += by_element
     if which == TENSOR_CORE:
         LAUNCHES_TENSOR_CORE += 1
     else:

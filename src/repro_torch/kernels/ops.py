@@ -7,7 +7,9 @@ structure of arrays, packs the constants and launches the CUDA kernel.
 `make_abc_sim` does the lowering and packing once for a fixed series, so
 that each later call only lays out theta and sets the seed. Its `wave`
 draws theta from a uniform box prior and simulates it in one launch of the
-kernel's wave entry: the ABC main path.
+kernel's wave entry: the ABC main path. Under an intervention schedule theta
+carries the schedule's scale columns, and its breakpoints and scaled
+parameters are packed beside the summary flags.
 
 Dispatch is by device: a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
@@ -22,7 +24,8 @@ import torch
 
 from repro_torch.core.priors import UniformBoxPrior
 from repro_torch.core.summaries import get_summary, lower_summary
-from repro_torch.epi.spec import CompartmentalModel, require_flat
+from repro_torch.epi.engine import check_theta_width
+from repro_torch.epi.spec import CompartmentalModel, active_schedule, require_flat
 from repro_torch.kernels import abc_sim, ref
 from repro_torch.kernels import flash_attention as fa
 
@@ -31,21 +34,25 @@ class AbcSim:
     """The fused simulate-and-distance against one observed series, on that
     series' device. Made by `make_abc_sim`.
 
-    `sim(theta [B, n_params], seed) -> distances [B]`; theta must lie on the
-    series' device. `sim.wave(prior, prior_seed, sim_seed, batch)` is one ABC
-    wave: theta drawn by `prior.sample(prior_seed, batch)` and its distances
-    with NaN turned to +inf. On a CUDA device with a `UniformBoxPrior` that
-    is one launch of the kernel's wave entry, which draws theta itself (no
+    `sim(theta [B, W], seed) -> distances [B]`, W the model's parameters plus
+    the schedule's scale columns; theta must lie on the series' device.
+    `sim.wave(prior, prior_seed, sim_seed, batch)` is one ABC wave: theta
+    drawn by `prior.sample(prior_seed, batch)` and its distances with NaN
+    turned to +inf. On a CUDA device with a `UniformBoxPrior` that is one
+    launch of the kernel's wave entry, which draws theta itself (no
     host-side prior draw); on the CPU it is `prior.sample` followed by the
     plain version.
     """
 
     def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
                  r0: float, d0: float, model: CompartmentalModel, spec, distance: str,
-                 block: int):
+                 block: int, schedule=None):
         self.observed, self.model, self.spec, self.distance = observed, model, spec, distance
         self.scalars = dict(population=population, a0=a0, r0=r0, d0=d0)
         self.block = block
+        self.schedule = active_schedule(schedule)
+        self.width = (model.n_params if self.schedule is None
+                      else self.schedule.param_width(model))
         self.device = observed.device
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"observed must be on the CPU or a CUDA device, got {self.device}")
@@ -54,23 +61,20 @@ class AbcSim:
             self.obs_summary = lowered.obs_summary.contiguous()
             self.fconst, self.iconst = abc_sim.pack_consts(
                 mean_scale=lowered.mean_scale, weights=lowered.weights.cpu().numpy(),
-                flags=lowered.flags, seed=0, **self.scalars,
+                flags=lowered.flags, seed=0, model=model, schedule=self.schedule,
+                **self.scalars,
             )
 
     def __call__(self, theta: torch.Tensor, seed: int) -> torch.Tensor:
         model = self.model
-        if theta.ndim != 2 or theta.shape[1] != model.n_params:
-            raise ValueError(
-                f"theta must be [B, {model.n_params}] for {model.name}, got "
-                f"{tuple(theta.shape)}"
-            )
+        check_theta_width(model, self.schedule, theta)
         if theta.device != self.device:
             raise ValueError(f"theta is on {theta.device}, the observed series on "
                              f"{self.device}")
         if self.device.type == "cpu":
             return ref.abc_sim_distance_ref(
                 theta, seed, self.observed, model=model, summary=self.spec,
-                distance=self.distance, **self.scalars,
+                distance=self.distance, schedule=self.schedule, **self.scalars,
             )
         return abc_sim.abc_sim_distance_kernel(
             abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst,
@@ -79,10 +83,11 @@ class AbcSim:
 
     def wave(self, prior, prior_seed: int, sim_seed: int,
              batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(theta [batch, n_params], distances [batch] with NaN as +inf)."""
-        if prior.dim != self.model.n_params:
+        """(theta [batch, W], distances [batch] with NaN as +inf)."""
+        if prior.dim != self.width:
+            what = "" if self.schedule is None else " and scale columns"
             raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
-                             f"{self.model.n_params} parameters")
+                             f"{self.width} parameters{what}")
         if self.device.type == "cuda" and isinstance(prior, UniformBoxPrior):
             return abc_sim.abc_sim_wave_kernel(
                 prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
@@ -109,16 +114,21 @@ def make_abc_sim(
     block: int = abc_sim.DEFAULT_BLOCK,
 ) -> AbcSim:
     """The fused simulate-and-distance against `observed`, on `observed`'s
-    device (`AbcSim`)."""
+    device (`AbcSim`), under an intervention `schedule` if one is given (an
+    empty schedule is None)."""
     if model is None:
         from repro_torch.epi.models import DEFAULT_MODEL as model  # noqa: N811
-    require_flat(model.n_regions, schedule)
+    require_flat(model.n_regions)
+    schedule = active_schedule(schedule)
+    if schedule is not None:
+        schedule.shape(model)  # its parameters are the model's
     return AbcSim(observed.to(torch.float32), population=population, a0=a0, r0=r0, d0=d0,
-                  model=model, spec=get_summary(summary), distance=distance, block=block)
+                  model=model, spec=get_summary(summary), distance=distance, block=block,
+                  schedule=schedule)
 
 
 def abc_sim_distance(
-    theta: torch.Tensor,  # [B, n_params] f32
+    theta: torch.Tensor,  # [B, n_params (+ n_scales)] f32
     seed: int,  # uint32
     observed: torch.Tensor,  # [n_observed, T] f32
     **kwargs,

@@ -52,8 +52,11 @@ def abc_sim_distance_ref(
     model: CompartmentalModel | None = None,
     summary=None,
     distance: str = "euclidean",
+    schedule=None,
 ) -> torch.Tensor:
-    """Distances [B] on theta's device."""
+    """Distances [B] on theta's device. Under an intervention `schedule`
+    theta is [B, n_params + n_scales] and each day runs on the day-effective
+    parameters (`engine.effective_theta`), as `repro.kernels.ref` does."""
     global CALLS
     CALLS += 1
     if model is None:
@@ -61,6 +64,7 @@ def abc_sim_distance_ref(
     spec = get_summary(summary)
     kind = get_distance_kind(distance)
     theta = theta.to(torch.float32)
+    engine.check_theta_width(model, schedule, theta)
     observed = observed.to(device=theta.device, dtype=torch.float32)
     lowered = lower_summary(spec, distance, observed)
     num_days = observed.shape[1]
@@ -75,7 +79,8 @@ def abc_sim_distance_ref(
     acc = torch.zeros_like(state[:, 0])
     for day in range(num_days):
         z = krng.hash_normals(seed, idx, day, model.n_transitions, CTR_SLOTS)
-        state = engine.tau_leap_step(model, state, theta, z, pop)
+        th_d = engine.effective_theta(model, schedule, theta, day)
+        state = engine.tau_leap_step(model, state, th_d, z, pop)
         cum, binv, acc = running_day(
             spec, kind, lowered.weights, state[:, obs_idx],
             lowered.obs_summary[:, day], lowered.flush[day], cum, binv, acc,

@@ -1,6 +1,6 @@
 """Instruction census of a kernel's day loop from `cuobjdump -sass`.
 
-What bounds the fused ABC kernel (`csrc/abc_sim.cu`) is how many
+What bounds the fused ABC kernel (`csrc/abc_sim.cuh`) is how many
 instructions the card must issue for one sample-day, not bytes. This module
 reads a `cuobjdump -sass` listing and counts the instructions of the path
 one day takes through the body of the day loop, by class:
@@ -14,7 +14,11 @@ one day takes through the body of the day loop, by class:
     other    S2R, CS2R, uniform ops, NOP, ...       (issue slots only)
 
 The day loop is the backward branch of the function that spans the most
-instructions. The path through its body starts at the branch's target and
+instructions; where that loop holds another backward branch that spans at
+least half as many, the inner one, and so on down (the kernel runs its days
+as segments between an intervention schedule's breakpoints: the segment
+loop holds the day loop and little else). The path through its body starts
+at the branch's target and
 ends at the branch. At each conditional forward branch it takes the side
 that a day at these arguments takes, by these rules, in order:
 
@@ -166,18 +170,25 @@ def _cold(code: Sequence[Instr]) -> bool:
 
 def day_loop(body: List[Instr]) -> Tuple[int, int]:
     """(index of the loop head, index of its backward branch): the backward
-    branch that spans the most instructions."""
+    branch that spans the most instructions, or the largest loop inside it
+    that spans at least half of it, repeated."""
     index = {i.addr: n for n, i in enumerate(body)}
-    best = None
-    for n, i in enumerate(body):
-        t = i.target
-        if i.base == "BRA" and t is not None and t < i.addr and t in index:
-            span = n - index[t]
-            if best is None or span > best[1] - best[0]:
-                best = (index[t], n)
-    if best is None:
+    loops = [(index[i.target], n) for n, i in enumerate(body)
+             if i.base == "BRA" and i.target is not None and i.target < i.addr
+             and i.target in index]
+    if not loops:
         raise ValueError("no loop (backward branch) in this function")
-    return best
+
+    def span(loop):
+        return loop[1] - loop[0]
+
+    best = max(loops, key=span)
+    while True:
+        inner = [lp for lp in loops if lp != best and best[0] <= lp[0] and lp[1] <= best[1]]
+        big = max(inner, key=span, default=None)
+        if big is None or 2 * span(big) < span(best):
+            return best
+        best = big
 
 
 def _block_at(body: List[Instr], start: int) -> List[Instr]:

@@ -11,6 +11,14 @@ Single-run mode of `repro.launch.abc_run`, with the same flag names, plus
     PYTHONPATH=src python -m repro_torch.launch.abc_run --device cpu \\
         --dataset synthetic_small --days 10 --batch 1024 --chunk 256 \\
         --auto-tolerance 0.05 --accept 10 --max-runs 5
+
+    # another registered model (seiard fits the country series), and an
+    # inferred contact-rate scale from day 25 on
+    PYTHONPATH=src python -m repro_torch.launch.abc_run --model seiard \\
+        --dataset italy --days 49 --batch 100000 --chunk 10000 \\
+        --auto-tolerance 1e-4 --accept 100 --intervention "alpha0@25=0:2"
+
+`--forecast` waits for the port of serving.
 """
 
 from __future__ import annotations
@@ -22,7 +30,65 @@ from repro_torch.core.abc import ABCConfig, ABCState, calibrate_tolerance, run_a
 from repro_torch.core.summaries import DISTANCE_KINDS, list_summaries
 from repro_torch.epi.data import get_dataset, list_datasets
 from repro_torch.epi.models import list_models
+from repro_torch.epi.spec import InterventionSchedule
 from repro_torch.kernels.abc_sim import DEFAULT_BLOCK
+
+
+def parse_intervention(spec: str) -> InterventionSchedule | None:
+    """Parse an intervention schedule from its CLI string form (the grammar
+    of `repro.launch.abc_run.parse_intervention`).
+
+        PARAMS@WINDOW[,WINDOW...]
+        PARAMS := name[+name...]            scaled (time-varying) parameters
+        WINDOW := day[=SCALES]              new window starting at `day`
+        SCALES := entry[+entry...]          one entry, or one per tv param
+        entry  := x (pinned scale) | lo:hi (inferred under U(lo, hi))
+
+    A bare `day` infers that window's scales under the default U(0, 2).
+    Examples: "alpha@25=0.3" (contact rate pinned to 0.3x from day 25),
+    "alpha@25=0.1:1,40" (inferred lockdown window, then a second inferred
+    reopening window), "alpha+gamma@30=0.5+0.8".
+    """
+    spec = (spec or "").strip()
+    if not spec or spec.lower() == "none":
+        return None
+    if "@" not in spec:
+        raise ValueError(
+            f"intervention {spec!r}: expected PARAMS@day[=scale][,day...]"
+        )
+    params_s, windows_s = spec.split("@", 1)
+    tv_params = tuple(p.strip() for p in params_s.split("+") if p.strip())
+    if not tv_params:
+        raise ValueError(f"intervention {spec!r}: no parameter names before '@'")
+    breakpoints, lows, highs = [], [], []
+    for win in windows_s.split(","):
+        win = win.strip()
+        day_s, _, scales_s = win.partition("=")
+        breakpoints.append(int(day_s))
+        if not scales_s:
+            entries = ["0:2"] * len(tv_params)
+        else:
+            entries = scales_s.split("+")
+            if len(entries) == 1:
+                entries = entries * len(tv_params)
+        if len(entries) != len(tv_params):
+            raise ValueError(
+                f"intervention {spec!r}: window {win!r} has {len(entries)} "
+                f"scales for {len(tv_params)} parameters"
+            )
+        lo_row, hi_row = [], []
+        for e in entries:
+            lo_s, _, hi_s = e.partition(":")
+            lo_row.append(float(lo_s))
+            hi_row.append(float(hi_s) if hi_s else float(lo_s))
+        lows.append(tuple(lo_row))
+        highs.append(tuple(hi_row))
+    return InterventionSchedule(
+        tv_params=tv_params,
+        breakpoints=tuple(breakpoints),
+        scale_lows=tuple(lows),
+        scale_highs=tuple(highs),
+    )
 
 
 def main(argv=None):
@@ -42,6 +108,10 @@ def main(argv=None):
     ap.add_argument("--strategy", default="outfeed", choices=["outfeed", "topk"])
     ap.add_argument("--summary", default="identity", choices=list(list_summaries()))
     ap.add_argument("--distance", default="euclidean", choices=sorted(DISTANCE_KINDS))
+    ap.add_argument("--intervention", default="",
+                    help="piecewise-constant intervention schedule, e.g. "
+                         "'alpha0@25=0.1:1' (scale alpha0 from day 25 on, inferred "
+                         "under U(0.1, 1)); see parse_intervention for the grammar")
     ap.add_argument("--max-runs", type=int, default=10_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--state", default="", help="checkpoint path (resume if exists)")
@@ -53,12 +123,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     ds = get_dataset(args.dataset, num_days=args.days, model=args.model)
+    schedule = parse_intervention(args.intervention)
     tolerance = args.tolerance
     if args.auto_tolerance:
         pilot_cfg = ABCConfig(batch_size=args.batch, tolerance=1.0,
                               num_days=args.days, strategy="topk", top_k=1,
                               model=args.model, summary=args.summary,
-                              distance=args.distance, block=args.block)
+                              distance=args.distance, block=args.block,
+                              schedule=schedule)
         tolerance = calibrate_tolerance(ds, pilot_cfg, seed=args.seed,
                                         quantile=args.auto_tolerance,
                                         device=args.device)
@@ -76,6 +148,7 @@ def main(argv=None):
         summary=args.summary,
         distance=args.distance,
         block=args.block,
+        schedule=schedule,
     )
     state = None
     if args.state and os.path.exists(args.state):

@@ -438,15 +438,16 @@ def test_route_stages_a_float32_head_dim_off_the_4_grid_element_by_element(d):
     ([8] * 12, [16, 18, 32, 48], "bases \\['0x12'\\]"),
 ])
 def test_route_refuses_bf16_rows_that_are_not_16_byte_pieces(strides, ptrs, match):
-    with pytest.raises(ValueError, match=match):
-        fa.route(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
-    # the same strides are 16-byte pieces of float32 rows; the bases are not
-    if all(p % 16 == 0 for p in ptrs):
-        assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == \
-            fa.TENSOR_CORE_F32
-    else:
-        with pytest.raises(ValueError, match="float32 kernel"):
-            fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs)
+    """bf16 rows that are not 16-byte pieces (a stride off the 8 grid, a base
+    2 bytes past an aligned one) no longer raise: the bf16 kernel takes them
+    and stages them element by element, as repro's ops.flash_attention takes
+    any layout. The same strides are 16-byte pieces of float32 rows; the
+    bases are not."""
+    assert fa.route(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs) == fa.TENSOR_CORE
+    assert fa.staged(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
+    assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == fa.TENSOR_CORE_F32
+    assert fa.staged(torch.float32, 64, strides=strides, data_ptrs=ptrs) == \
+        any(p % 16 for p in ptrs), match
 
 
 @pytest.mark.parametrize("strides,ptrs,match", [
@@ -454,10 +455,27 @@ def test_route_refuses_bf16_rows_that_are_not_16_byte_pieces(strides, ptrs, matc
     ([4] * 12, [16, 20, 32, 48], "bases \\['0x14'\\]"),
 ])
 def test_route_refuses_float32_rows_that_are_not_16_byte_pieces(strides, ptrs, match):
-    with pytest.raises(ValueError, match=match):
-        fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs)
+    """float32 rows that are not 16-byte pieces go to the 3xTF32 kernel,
+    staged element by element (and so do they in bf16)."""
+    assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == fa.TENSOR_CORE_F32
+    assert fa.staged(torch.float32, 64, strides=strides, data_ptrs=ptrs), match
+    assert fa.staged(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.bfloat16, 20),
+                                     (torch.float32, 64), (torch.float32, 10)])
+def test_route_stages_rows_of_a_q_sliced_at_an_odd_offset(dtype, d):
+    """A q sliced one element past an aligned base: every base but q's is
+    aligned and every stride on the grid, and the call is staged all the
+    same; the aligned call is staged only when D is off the grid."""
+    grid = 16 // torch.empty((), dtype=dtype).element_size()
+    strides = [4 * 8 * d, 8 * d, d] * 4
+    ptrs = [4096, 8192, 12288, 16384]
+    assert fa.staged(dtype, d, strides, ptrs) == bool(d % grid)
+    odd = [4096 + torch.empty((), dtype=dtype).element_size()] + ptrs[1:]
+    assert fa.staged(dtype, d, strides, odd)
+    assert fa.route(dtype, d, strides, odd) == (
+        fa.TENSOR_CORE if dtype == torch.bfloat16 else fa.TENSOR_CORE_F32)
 
 
 def test_route_refuses_other_dtypes():

@@ -20,8 +20,11 @@ from repro_torch.core import abc as tabc
 from repro_torch.core import priors
 from repro_torch.core.priors import UniformBoxPrior, paper_prior
 from repro_torch.core.summaries import summary_pairs
+from repro_torch.core.priors import schedule_prior
 from repro_torch.epi import data
-from repro_torch.kernels import abc_sim, ops, ref
+from repro_torch.epi.models import get_model
+from repro_torch.epi.spec import InterventionSchedule
+from repro_torch.kernels import abc_sim, build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rng as krng
 
@@ -203,6 +206,97 @@ def test_make_abc_sim_on_the_card_matches_per_call_lowering(cuda):
             **_small_kw()))
 
 
+# ------------------------------------------------------- the other flat models
+def _bits_equal(a, b):
+    a = a.detach().cpu().numpy().astype(np.float32)
+    b = np.asarray(b.detach().cpu() if hasattr(b, "detach") else b, np.float32)
+    return a.shape == b.shape and bool((a.view(np.uint32) == b.view(np.uint32)).all())
+
+
+def _entries_and_plain(cuda, model, observed, kw, batch, prior_seed, sim_seed, schedule=None):
+    """Both entries of the model's kernel and the plain version on one input:
+    the wave's theta against prior.sample, its distances and the theta-in
+    entry's against the plain version, bitwise."""
+    obs = torch.as_tensor(np.asarray(observed, np.float32), device=cuda)
+    prior = schedule_prior(model, schedule)
+    sim = ops.make_abc_sim(obs, model=model, schedule=schedule, **kw)
+    name = f"abc_sim_wave_{model.name}"
+    counts = (abc_sim.ENTRY_LAUNCHES.get(name, 0), ref.CALLS, priors.DEVICE_DRAWS)
+    theta, dist = sim.wave(prior, prior_seed, sim_seed, batch)
+    assert (abc_sim.ENTRY_LAUNCHES[name], ref.CALLS, priors.DEVICE_DRAWS) == (
+        counts[0] + 1, counts[1], counts[2])
+    want_theta = prior.sample(prior_seed, batch, cuda)
+    assert theta.shape == (batch, prior.dim) and torch.equal(theta, want_theta)
+    want = ref.abc_sim_distance_ref(want_theta, sim_seed, obs, model=model,
+                                    schedule=schedule, **kw)
+    d_in = sim(want_theta, sim_seed)
+    assert _bits_equal(d_in, want)
+    assert _bits_equal(dist, torch.where(torch.isnan(want), torch.full_like(want, float("inf")),
+                                         want))
+
+
+@pytest.mark.parametrize("name", ["sir", "seir", "seiard"])
+def test_each_model_matches_plain_and_pins(cuda, name):
+    """The theta-in entry equals `{model}/pallas` and the plain version bitwise
+    on the pins; both entries equal the plain version at 1024 x 49."""
+    model = get_model(name)
+    pins = np.load(PINS)
+    d_k, d_p = _kernel_and_plain(cuda, pins[f"{name}/theta"], 123, pins[f"{name}/observed"],
+                                 model=model, **_small_kw())
+    assert _bits_equal(torch.from_numpy(d_k), d_p)
+    assert _bits_equal(torch.from_numpy(d_k), pins[f"{name}/pallas"])
+    if name == "seiard":
+        ds = data.get_dataset("italy", num_days=49, model=name)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    else:
+        ds, kw = data.get_dataset("synthetic_small", num_days=49, model=name), _small_kw()
+    _entries_and_plain(cuda, model, ds.observed, kw, 1024, 11, 77)
+
+
+@pytest.mark.parametrize("name,tv", [("siard", "alpha"), ("sir", "beta"), ("seir", "beta"),
+                                     ("seiard", "alpha0")])
+@pytest.mark.parametrize("windows", ["one_fixed", "two_inferred"])
+def test_each_model_under_a_schedule_matches_plain(cuda, name, tv, windows):
+    """Both entries under the schedules of tests/test_interventions.py:142-170,
+    bitwise the plain version at 1024 x 49."""
+    model = get_model(name)
+    schedule = (InterventionSchedule.fixed((tv,), (4,), (0.3,)) if windows == "one_fixed"
+                else InterventionSchedule.inferred((tv,), (3, 8), 0.2, 1.5))
+    obs = data.get_dataset("synthetic_small", num_days=49, model=name).observed
+    _entries_and_plain(cuda, model, obs, _small_kw(), 1024, 12, 7, schedule)
+
+
+def test_breakpoint_sweep_reuses_the_build(cuda):
+    """Three lockdown days through one loaded library: no new build, each
+    bitwise the plain version."""
+    model = get_model("siard")
+    obs = data.get_dataset("synthetic_small", num_days=49).observed
+    ops.abc_sim_distance(paper_prior().sample(0, 32, cuda), 1,
+                         torch.as_tensor(obs, device=cuda), **_small_kw())
+    libs, infos = dict(build._LIBS), dict(build._INFO)
+    for day in (10, 20, 30):
+        _entries_and_plain(cuda, model, obs, _small_kw(), 1024, day, 5,
+                           InterventionSchedule.fixed(("alpha0",), (day,), (0.3,)))
+    assert build._LIBS == libs and build._INFO == infos
+
+
+def test_each_model_kernel_is_in_its_library_sass(cuda):
+    """kernel_symbol finds each model's 16 variants in its own library's
+    cuobjdump listing, one function each."""
+    from repro_torch.kernels import sass
+
+    for name in ("siard", "sir", "seir", "seiard"):
+        model = get_model(name)
+        text = build.sass_text(abc_sim.library(model))
+        if text is None:
+            pytest.skip("the toolkit has no cuobjdump")
+        funcs = sass.parse_functions(text)
+        for v in range(16):
+            flags = (v & 1, (v >> 1) & 1, 1 if v & 4 else 2, 0 if v & 4 else 1, 1)
+            symbol = abc_sim.kernel_symbol(model, flags, bool(v & 8))
+            assert sum(symbol in f for f in funcs) == 1, (name, symbol)
+
+
 # ---------------------------------------------------------------- flash attention
 #: (b, sq, h, kh, d, skv, causal, window, softcap): the cases of chip_smoke.py's
 #: flash phase. The first three are tests/test_kernel_flash.py:21-25.
@@ -317,28 +411,48 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_kernel(*_flash_qkv(1, 16, 3, 2, 32, 16, torch.float32, cuda))
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_kernel(q[..., ::2], k[..., ::2], v[..., ::2])
-    # bf16 rows of D=32 that are not 16-byte pieces: a sequence stride of 68
-    # elements, and a base 2 bytes past an aligned one
+    assert fa.LAUNCHES == launches
+    # rows that are not 16-byte pieces are no longer refused: they are staged
+    # element by element (a sequence stride of 68 bf16 or 66 float32
+    # elements, a base 2 or 4 bytes past an aligned one)
     qb, kb, vb = (t.bfloat16() for t in (q, k, v))
     wide = torch.zeros(1, 16, 68, dtype=torch.bfloat16, device=cuda)
     q68 = wide[..., :64].unflatten(-1, (2, 32))
+    q68.copy_(qb)
     assert q68.stride()[:3] == (16 * 68, 68, 32)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention_kernel(q68, kb, vb)
     shifted = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=cuda)[1:].view(qb.shape)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention_kernel(shifted, kb, vb)
-    # float32 rows of D=32 that are not 16-byte pieces: a sequence stride of 66
-    # elements, and a base 4 bytes past an aligned one
+    shifted.copy_(qb)
     wide = torch.zeros(1, 16, 66, dtype=torch.float32, device=cuda)
     q66 = wide[..., :64].unflatten(-1, (2, 32))
+    q66.copy_(q)
     assert q66.stride()[:3] == (16 * 66, 66, 32)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention_kernel(q66, k, v)
-    shifted = torch.zeros(q.numel() + 1, dtype=torch.float32, device=cuda)[1:].view(q.shape)
-    with pytest.raises(ValueError, match="16-byte"):
-        fa.flash_attention_kernel(shifted, k, v)
-    assert fa.LAUNCHES == launches
+    shifted32 = torch.zeros(q.numel() + 1, dtype=torch.float32, device=cuda)[1:].view(q.shape)
+    shifted32.copy_(q)
+    for qq, kk, vv in ((q68, kb, vb), (shifted, kb, vb), (q66, k, v), (shifted32, k, v)):
+        staged = fa.LAUNCHES_STAGED
+        got = fa.flash_attention_kernel(qq, kk, vv)
+        assert fa.LAUNCHES_STAGED == staged + 1
+        want = ref.flash_attention_ref(qq, kk, vv)
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[qq.dtype])
+    assert fa.LAUNCHES == launches + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_kernel_stages_a_q_sliced_at_an_odd_offset(cuda, dtype):
+    """q a view one element past an aligned base (chip_smoke.py's flash
+    phase case): staged element by element by its route's kernel, within
+    the dtype's bar of the plain version, and counted."""
+    q, k, v = _flash_qkv(2, 96, 4, 2, 64, 96, dtype, cuda, seed=5)
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)
+    q_odd = buf[1:].view(q.shape)
+    q_odd.copy_(q)
+    assert q_odd.data_ptr() % 16
+    before = (_route_launches(dtype), fa.LAUNCHES_STAGED, ref.FLASH_CALLS)
+    got = ops.flash_attention(q_odd, k, v, causal=True)
+    assert (_route_launches(dtype), fa.LAUNCHES_STAGED, ref.FLASH_CALLS) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = ref.flash_attention_ref(q_odd, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[dtype])
 
 
 def test_gemma_2b_prefill_goes_through_the_kernel(cuda):

@@ -75,8 +75,13 @@ def test_cuda_device_raises_without_a_card(no_card):
 
 
 def test_config_refuses_what_this_slice_lacks():
-    with pytest.raises(NotImplementedError, match="later slice"):
+    from repro_torch.epi.spec import InterventionSchedule
+
+    with pytest.raises(TypeError, match="InterventionSchedule"):
         tabc.ABCConfig(batch_size=256, chunk_size=256, schedule=object())
+    with pytest.raises(ValueError, match="not a parameter"):
+        tabc.ABCConfig(batch_size=256, chunk_size=256, model="sir",
+                       schedule=InterventionSchedule.inferred(("alpha0",), (5,)))
     with pytest.raises(ValueError, match="backend"):
         tabc.ABCConfig(batch_size=256, chunk_size=256, backend="pallas")
     with pytest.raises(ValueError, match="multiple of chunk_size"):
@@ -85,23 +90,31 @@ def test_config_refuses_what_this_slice_lacks():
         tabc.ABCConfig(batch_size=256, chunk_size=256, block=100)
 
 
-SOURCES = {"abc_sim", "flash_attention_tf32", "flash_attention_wgmma"}
+ABC_SOURCES = {"abc_sim", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"}
+SOURCES = ABC_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma"}
 
 
 def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
-    """A change to a flash-attention source does not rebuild abc_sim, and
-    abc_sim alone keeps --fmad=false (its bitwise agreement rests on it)."""
+    """A change to a flash-attention source does not rebuild abc_sim, nor a
+    change to one model's struct another model's library; the abc_sim
+    sources alone keep --fmad=false (their bitwise agreement rests on it)."""
     by_name = {src.stem: src for src in build.sources()}
     assert set(by_name) == SOURCES
-    assert [p.name for p in build.local_headers(by_name["abc_sim"])] == ["rng.cuh", "siard.cuh"]
+    assert [p.name for p in build.local_headers(by_name["abc_sim"])] == [
+        "abc_sim.cuh", "rng.cuh", "siard.cuh"]
+    for model in ("sir", "seir", "seiard"):
+        assert [p.name for p in build.local_headers(by_name[f"abc_sim_{model}"])] == [
+            "abc_sim.cuh", "rng.cuh", f"{model}.cuh"]
+        assert abc_sim.library(model) == f"abc_sim_{model}"
+    assert abc_sim.library("siard") == "abc_sim"
     for flash in ("flash_attention_tf32", "flash_attention_wgmma"):
         assert [p.name for p in build.local_headers(by_name[flash])] == ["wgmma.cuh"]
-    assert "--fmad=false" in build.flags("abc_sim")
+    assert all("--fmad=false" in build.flags(n) for n in ABC_SOURCES)
     assert "--fmad=false" not in build.flags("flash_attention_tf32")
     assert "--fmad=false" not in build.flags("flash_attention_wgmma")
     assert all("arch=compute_90a,code=sm_90a" in build.flags(n) for n in by_name)
     digests = {n: build._digest(src) for n, src in by_name.items()}
-    assert len(set(digests.values())) == 3
+    assert len(set(digests.values())) == len(SOURCES)
 
 
 def test_build_all_runs_one_nvcc_per_source_and_reuses_builds(tmp_path, monkeypatch):
@@ -137,7 +150,8 @@ def test_build_all_starts_every_nvcc_together(tmp_path, monkeypatch):
         "#!/bin/sh\n"
         "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then out=$2; fi; shift; done\n"
         f"d={tmp_path}/started; mkdir -p $d; touch $d/$$\n"
-        "i=0; while [ $(ls $d | wc -l) -lt 3 ] && [ $i -lt 200 ]; do sleep 0.1; i=$((i+1)); done\n"
+        f"i=0; while [ $(ls $d | wc -l) -lt {len(SOURCES)} ] && [ $i -lt 200 ]; "
+        "do sleep 0.1; i=$((i+1)); done\n"
         "ls $d | wc -l | tr -d ' ' > \"$out\"\n")
     fake.chmod(0o755)
     monkeypatch.setattr(build, "nvcc_path", lambda: str(fake))
@@ -145,7 +159,7 @@ def test_build_all_starts_every_nvcc_together(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_INFO", {})
     built = build.build_all()
     assert set(built) == SOURCES
-    assert all(info.path.read_text() == "3\n" for info in built.values())
+    assert all(info.path.read_text() == f"{len(SOURCES)}\n" for info in built.values())
 
 
 SASS = """
