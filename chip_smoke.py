@@ -32,8 +32,10 @@ printing one JSON line:
              pins (and the theta-in entry `{model}/pallas`), at 1024 x 49
              and 100,000 x 49 (sir and seir on synthetic_small drawn for the
              model, seiard on Italy); each model under two intervention
-             schedules at 1024 x 49; and a lockdown-day sweep of three
-             breakpoint days through the loaded libraries, with no rebuild
+             schedules at 1024 x 49; a lockdown-day sweep of three
+             breakpoint days through the loaded libraries, with no rebuild;
+             and SIARD and seiard on Italy at 100,000 x 49 under the
+             schedule_path phase's intervention
   main_path  `repro_torch.launch.abc_run.main` on Italy at the paper's batch
              and horizon, with the launch counters set to 0 just before:
              1 + waves launches of the wave entry, no theta-in launch, no
@@ -628,9 +630,8 @@ def main() -> int:
     variants = {}
     for m, spec in models.items():
         lib = info[abc_sim.library(spec)]
-        struct = spec.name.capitalize()
         variants[m] = {str(v): lib.kernels[k] for v in range(16) for k in lib.kernels
-                       if f"abc_sim_kernelI{len(struct)}{struct}Li{v}EE" in k}
+                       if abc_sim.variant_symbol(spec, v) in k}
         if len(variants[m]) != 16:
             raise AssertionError(f"build: {len(variants[m])} abc_sim variants of {m} in "
                                  f"ptxas's report, want 16")
@@ -790,6 +791,18 @@ def main() -> int:
              schedule=sched)
     if build._LIBS != libs or build._INFO != built:
         raise AssertionError("abc_sim: the lockdown-day sweep built or loaded a library")
+
+    # the schedule_path phase's shapes: Italy at 100,000 x 49 under its
+    # intervention, for SIARD (the phase's model) and seiard
+    sched_it = abc_run.parse_intervention(INTERVENTION)
+    for m in ("siard", "seiard"):
+        spec = models[m]
+        ds, kw = (italy, it_kw) if m == "siard" else series[m]
+        th = schedule_prior(spec, sched_it).sample(31, 100_000, dev)
+        theta_in(f"{m} italy {INTERVENTION} 100000x49", th, 99, ds.observed, kw, model=spec,
+                 schedule=sched_it)
+        wave(f"{m} italy {INTERVENTION} 100000x49", 100_000, 31, 99, ds.observed, kw,
+             model=spec, schedule=sched_it)
     emit("abc_sim", comparisons=results, block_sizes_bitwise_equal=[64, 128, 256],
          lockdown_sweep_rebuilds=0)
     max_abs_err = max(r["max_abs_err"] for r in results if r["case"].endswith("vs plain"))
@@ -798,7 +811,6 @@ def main() -> int:
         """`abc_run.main(argv)` with the counters set to 0 just before; raises
         unless 1 + waves launches of the model's wave entry were all the
         kernel's, with no host prior draw and no plain-version call."""
-        abc_sim.LAUNCHES = abc_sim.WAVE_LAUNCHES = 0
         abc_sim.ENTRY_LAUNCHES.clear()
         priors.DEVICE_DRAWS = 0
         ref.CALLS = 0
@@ -807,7 +819,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         entries = dict(abc_sim.ENTRY_LAUNCHES)
-        counts = dict(wave_launches=abc_sim.WAVE_LAUNCHES, theta_in_launches=abc_sim.LAUNCHES,
+        counts = dict(wave_launches=abc_sim.launches("wave"),
+                      theta_in_launches=abc_sim.launches("distance"),
                       host_prior_draws=priors.DEVICE_DRAWS, plain_calls=ref.CALLS)
         entry = f"abc_sim_wave_{model.name}"
         if entries != {entry: 1 + post.runs} or tuple(counts.values()) != (
@@ -843,7 +856,6 @@ def main() -> int:
     # ---- main_path: the port's CLI on the card, counters read around it
     argv = italy_argv
     post, wall, entries, counts, lo, hi = abc_path("main_path", argv, siard)
-    launches, wave_launches = counts["theta_in_launches"], counts["wave_launches"]
     path_launches["main_path"] = entries
     theta = post.theta
     err, prior_err = against_truth(theta, lo, hi)

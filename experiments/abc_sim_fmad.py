@@ -3,7 +3,7 @@
 
     python3 experiments/abc_sim_fmad.py
 
-`csrc/abc_sim.cu` is built with `--fmad=false`, so that no multiply and add
+`csrc/abc_sim_siard.cu` is built with `--fmad=false`, so that no multiply and add
 of the kernel's own code are contracted into one rounding: h + sqrt(h) * z,
 the accumulator update and low + u * width round as the plain PyTorch
 version does, and the distances are bitwise equal to it. This builds a copy
@@ -55,8 +55,8 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     siard = get_model("siard")
-    flags = [f if f != "--fmad=false" else "--fmad=true" for f in build.flags("abc_sim")]
-    src = (build.CSRC / "abc_sim.cu").read_text()
+    flags = [f if f != "--fmad=false" else "--fmad=true" for f in build.flags("abc_sim_siard")]
+    src = (build.CSRC / "abc_sim_siard.cu").read_text()
     built = build_copies([("abc_sim_fmad", src, flags, [build.CSRC])])
     lib, fmad_sass, ptxas = built["abc_sim_fmad"]
     fn = entry(lib, "abc_sim_wave_siard", abc_sim._ARGTYPES["wave"])
@@ -64,7 +64,7 @@ def main() -> int:
     main_flags = lower_summary(get_summary(None), "euclidean", torch.ones(3, 49)).flags
     symbol = abc_sim.kernel_symbol(siard, main_flags, True)
     census = {}
-    for tag, text in (("shipped", build.sass_text("abc_sim")), ("fmad", fmad_sass)):
+    for tag, text in (("shipped", build.sass_text("abc_sim_siard")), ("fmad", fmad_sass)):
         if text is None:
             continue
         funcs = sass.parse_functions(text)

@@ -4,8 +4,9 @@
     git archive <commit> | tar -x -C build/parent    # any directory .gitignore lists
     python3 experiments/abc_sim_parent.py build/parent
 
-Builds `<checkout>/src/repro_torch/kernels/csrc/abc_sim.cu` (with this
-tree's nvcc flags for the source, which keep `--fmad=false`) into
+Builds the other checkout's SIARD source (`csrc/abc_sim_siard.cu`, or
+`csrc/abc_sim.cu` in a checkout from before each model had its own) with
+this tree's nvcc flags for it, which keep `--fmad=false`, into
 `build/experiments/`, then at 100,000 and 1,000,000 x 49 days on Italy:
 
 * checks that its theta-in entry (`abc_sim_distance_siard`, the same C
@@ -13,15 +14,18 @@ tree's nvcc flags for the source, which keep `--fmad=false`) into
   tree's theta-in and wave entries;
 * times them in turns: other, this tree's theta-in, wave, wave, theta-in,
   other, each at its own tree's `DEFAULT_BLOCK`;
-* counts both kernels' instructions a sample-day (`kernels/sass.py`) at the
-  identity summary and gives each one's issue floor at the SM clock read
-  under load.
+* counts the instructions a sample-day of both kernels' theta-in and wave
+  variants at the identity summary, each by this tree's `kernels/sass.py`
+  and by the other checkout's own, so that a change to the census rule
+  shows apart from a change to the kernel; and gives each kernel's issue
+  floor at the SM clock read under load (by this tree's rule).
 
 Prints one JSON line, then the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
@@ -33,7 +37,7 @@ from abc_sim_common import build_copies, call_distance, entry, italy_inputs, tur
 def main(argv) -> int:
     import torch
 
-    from chip_smoke import SmClock, abc_census, nvidia_smi_line
+    from chip_smoke import SmClock, nvidia_smi_line
     from repro_torch.epi.models import get_model
     from repro_torch.kernels import abc_sim, build, sass
 
@@ -46,21 +50,36 @@ def main(argv) -> int:
     other_csrc = os.path.join(argv[0], "src", "repro_torch", "kernels", "csrc")
     dev = torch.device("cuda", 0)
     siard = get_model("siard")
-    text = open(os.path.join(other_csrc, "abc_sim.cu")).read()
+    siard_cu = next(p for p in (os.path.join(other_csrc, f) for f in (
+        "abc_sim_siard.cu", "abc_sim.cu")) if os.path.isfile(p))
     lib, other_sass, ptxas = build_copies(
-        [("abc_sim_other", text, build.flags("abc_sim"), [other_csrc])])["abc_sim_other"]
+        [("abc_sim_other", open(siard_cu).read(), build.flags("abc_sim_siard"),
+          [other_csrc])])["abc_sim_other"]
     fn = entry(lib, "abc_sim_distance_siard", abc_sim._ARGTYPES["distance"])
     wrapper = open(os.path.join(other_csrc, "..", "abc_sim.py")).read()
     other_block = int(re.search(r"^DEFAULT_BLOCK = (\d+)", wrapper, re.M).group(1))
 
     x = italy_inputs(dev, 16)
-    census = {"this_tree": abc_census(build, siard, x["lowered"].flags)}
-    if other_sass is not None:
-        # the variant the other tree's theta-in entry runs at these flags
-        funcs = sass.parse_functions(other_sass)
-        symbol = abc_sim.kernel_symbol(siard, x["lowered"].flags, False)
-        names = [k for k in funcs if symbol in k]
-        census["other"] = {"function": names[0], **sass.census(funcs[names[0]])}
+    # census[kernel][entry][rule]: each tree's kernel counted by each tree's
+    # census module
+    rules = {"this_tree": sass}
+    other_rule = os.path.join(other_csrc, "..", "sass.py")
+    if os.path.isfile(other_rule):
+        spec = importlib.util.spec_from_file_location("sass_of_other", other_rule)
+        rules["other"] = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(rules["other"])
+    census = {}
+    for kernel, text in (("this_tree", build.sass_text(abc_sim.library(siard))),
+                         ("other", other_sass)):
+        if text is None:
+            continue
+        for rule_name, rule in rules.items():
+            funcs = rule.parse_functions(text)
+            for entry_name, wave in (("theta_in", False), ("wave", True)):
+                symbol = abc_sim.kernel_symbol(siard, x["lowered"].flags, wave)
+                names = [k for k in funcs if symbol in k]
+                census.setdefault(kernel, {}).setdefault(entry_name, {})[rule_name] = {
+                    "function": names[0], **rule.census(funcs[names[0]])}
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     cells = []
     with SmClock() as clock:
@@ -90,20 +109,18 @@ def main(argv) -> int:
             timed = turns({"other": other, "theta_in": theta_in, "wave": wave},
                           ["other", "theta_in", "wave", "wave", "theta_in", "other"], iters)
             mhz = clock.median()
-            floors = {k: sass.issue_floor_ms(c, batch, 49, n_sm, mhz)["floor_ms"]
-                      for k, c in (("other", census.get("other")),
-                                   ("this_tree", (census["this_tree"] or {}).get("wave")))
-                      if c and mhz}
+            # the other tree's theta-in entry and this tree's wave entry, as timed
+            floors = {k: sass.issue_floor_ms(census[k][e]["this_tree"], batch, 49, n_sm,
+                                             mhz)["floor_ms"]
+                      for k, e in (("other", "theta_in"), ("this_tree", "wave"))
+                      if k in census and mhz}
             cells.append({"batch": batch, "days": 49, "bitwise_equal": equal, "turns": timed,
                           "issue_floor_ms": floors})
     smi = nvidia_smi_line()
-    brief = {k: ({"per_day": v["per_day"],
-                  "per_sample_outside_loop": v["per_sample_outside_loop"]["total"]}
-                 if "per_day" in v else
-                 {e: {"per_day": c["per_day"],
-                      "per_sample_outside_loop": c["per_sample_outside_loop"]["total"]}
-                  for e, c in v.items()})
-             for k, v in census.items() if v}
+    brief = {kernel: {e: {f"rule_of_{r}": {
+        "per_day": c["per_day"], "per_sample_outside_loop": c["per_sample_outside_loop"]["total"]}
+        for r, c in by_rule.items()} for e, by_rule in by_entry.items()}
+        for kernel, by_entry in census.items()}
     print(json.dumps({"experiment": "abc_sim_parent", "other": argv[0], "ptxas_other": ptxas,
                       "blocks": {"other": other_block, "this_tree": abc_sim.DEFAULT_BLOCK},
                       "census": brief, "sm_clock_mhz": clock.summary(), "sms": n_sm,

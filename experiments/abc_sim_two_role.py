@@ -13,7 +13,7 @@ stage handed over with mbarrier arrive/wait (Hopper's asynchronous
 barrier); consumer threads, one a sample, run the recurrence and the
 summary from the ring. The bits do not change: the same `rng::normal` is
 only computed by another thread, and the consumers run the shipped
-kernel's `Sample::day`. The copy includes `csrc/abc_sim.cu` itself, so the
+kernel's `Sample::day`. The copy includes `csrc/abc_sim_siard.cu` itself, so the
 body is the shipped one.
 
 Builds the copy (identity summary, Euclidean distance, the wave entry) into
@@ -38,7 +38,7 @@ from abc_sim_common import build_copies, call_wave, entry, italy_inputs, turns
 CONFIGS = [(64, 6, 2, 8), (128, 12, 2, 8), (128, 12, 3, 8), (64, 6, 3, 4)]
 
 SOURCE = r'''
-#include "abc_sim.cu"
+#include "abc_sim_siard.cu"
 
 namespace {
 
@@ -194,7 +194,7 @@ def main() -> int:
         print("needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    built = build_copies([("abc_sim_two_role", source(), build.flags("abc_sim"),
+    built = build_copies([("abc_sim_two_role", source(), build.flags("abc_sim_siard"),
                            [build.CSRC])])
     lib, _, ptxas = built["abc_sim_two_role"]
     vp, ci = ctypes.c_void_p, ctypes.c_int

@@ -54,7 +54,7 @@ def build_variants():
     for name, path in libs.items():
         fn = ctypes.CDLL(path).flash_fwd_bf16
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci, ci, ctypes.c_float,
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci, ci, ci, ctypes.c_float,
                        ctypes.c_float, vp]
         fn.restype = ci
         fns[name] = fn
@@ -64,12 +64,15 @@ def build_variants():
 def run(fn, q, k, v, causal, window, softcap):
     import torch
 
+    from repro_torch.kernels.flash_attention import staged
+
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     strides = np.asarray([t.stride(i) for t in (q, k, v, out) for i in range(3)], np.int64)
+    by_element = staged(q.dtype, d, strides.tolist(), [t.data_ptr() for t in (q, k, v, out)])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[2], sq,
-            k.shape[1], d, strides.ctypes.data, int(causal), window or 0, softcap or 0.0,
-            float(1.0 / np.sqrt(d)), torch.cuda.current_stream().cuda_stream)
+            k.shape[1], d, strides.ctypes.data, int(by_element), int(causal), window or 0,
+            softcap or 0.0, float(1.0 / np.sqrt(d)), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
     return out

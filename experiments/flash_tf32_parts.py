@@ -83,8 +83,8 @@ def build_variants(src_path):
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         fn = ctypes.CDLL(lib).flash_fwd_f32_tc
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci, ci, ctypes.c_float,
-                       ctypes.c_float, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, ci, ci, ci,
+                       ctypes.c_float, ctypes.c_float, vp]
         fn.restype = ci
         fns[name] = fn
         ptxas[name] = {k.split("kernel")[-1][:12]: v for k, v in build.parse_ptxas(log).items()
@@ -99,7 +99,7 @@ def run(fn, q, k, v, scratch):
     out = torch.empty_like(q)
     strides = np.asarray([t.stride(i) for t in (q, k, v, out) for i in range(3)], np.int64)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, h,
-            k.shape[2], sq, k.shape[1], d, strides.ctypes.data, 1, 0, 0.0,
+            k.shape[2], sq, k.shape[1], d, strides.ctypes.data, 0, 1, 0, 0.0,
             float(1.0 / np.sqrt(d)), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")

@@ -8,7 +8,7 @@ copy.
 
 Each kernel that `repro` wrote in Pallas is a CUDA C++ kernel for Hopper,
 built with `nvcc` at first use: the fused tau-leap simulation with its
-running summary distance (`kernels/csrc/abc_sim.cu`) and forward flash
+running summary distance (`kernels/csrc/abc_sim.cuh`) and forward flash
 attention on the tensor cores, in bf16 (`kernels/csrc/flash_attention_wgmma.cu`)
 and in float32 as 3xTF32 (`kernels/csrc/flash_attention_tf32.cu`). Beside
 each sits a plain PyTorch version of the same function (`kernels/ref.py`), which is what a

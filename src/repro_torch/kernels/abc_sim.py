@@ -2,10 +2,9 @@
 
 Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
 launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
-global sample index. Each flat model has its own library (`library`):
-`csrc/abc_sim.cu` for SIARD (with the RNG test entries) and
-`csrc/abc_sim_<model>.cu` for sir, seir and seiard, built side by side. Two
-entries share the kernel's body:
+global sample index. Each flat model has its own library, built side by
+side: `csrc/abc_sim_<model>.cu` (`library`); SIARD's also holds the RNG
+test entries. Two entries share the kernel's body:
 
 * `abc_sim_distance_kernel` (theta in) takes
 
@@ -33,13 +32,13 @@ serves every flat (summary, distance) pair. The TPU rules of 128 lanes and 8 sub
 size in threads replaces the tile, and distances are bitwise the same for
 every block size.
 
-`LAUNCHES` counts the launches of the theta-in entry, `WAVE_LAUNCHES`
-those of the wave entry, `ENTRY_LAUNCHES` those of each exported entry by
-its C name (`abc_sim_wave_seiard`, ...), and `RNG_LAUNCHES` those of the two test
-entries: `rng_normals`, which writes the kernel's hash bits or normals for
-(seed, sample, counter), and `unit_math_mismatches`, which holds the
-kernel's branch-free Box-Muller pieces to logf, sqrtf and cosf on every
-uniform the hash can give.
+`ENTRY_LAUNCHES` counts the launches of each exported entry by its C name
+(`abc_sim_wave_seiard`, ...), `launches(entry)` those of one entry summed
+over the models, and `RNG_LAUNCHES` those of the two test entries:
+`rng_normals`, which writes the kernel's hash bits or normals for (seed,
+sample, counter), and `unit_math_mismatches`, which holds the kernel's
+branch-free Box-Muller pieces to logf, sqrtf and cosf on every uniform the
+hash can give.
 """
 
 from __future__ import annotations
@@ -73,26 +72,26 @@ N_ICONST = I_TV_SLOT + MAX_PARAMS
 MAX_BLOCK = 256
 DEFAULT_BLOCK = 256
 
-#: launches of the theta-in entry, of the wave entry and of the rng_normals
-#: test kernel
-LAUNCHES = 0
-WAVE_LAUNCHES = 0
-RNG_LAUNCHES = 0
 #: launches of each exported entry, by C name (abc_sim_wave_siard, ...)
 ENTRY_LAUNCHES: dict = {}
+#: launches of the two RNG test entries
+RNG_LAUNCHES = 0
 
 _VP = ctypes.c_void_p
 _typed: set = set()
 
 
 def library(model) -> str:
-    """The csrc/ source (and library) that holds `model`'s kernel:
-    `abc_sim` for SIARD, `abc_sim_<model>` for each other flat model."""
-    name = model if isinstance(model, str) else model.name
-    return "abc_sim" if name == "siard" else f"abc_sim_{name}"
+    """The csrc/ source (and library) that holds `model`'s kernel,
+    `abc_sim_<model>`."""
+    return f"abc_sim_{model if isinstance(model, str) else model.name}"
 
 
-def _lib(name: str = "abc_sim") -> ctypes.CDLL:
+#: the library that also holds the RNG test entries
+RNG_LIBRARY = library("siard")
+
+
+def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
     """The library `name`, its constant layout checked at first load."""
     lib = build.load(name)
     if name not in _typed:
@@ -107,7 +106,7 @@ def _lib(name: str = "abc_sim") -> ctypes.CDLL:
                 f"{name} library constant layout {layout} does not match the "
                 f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK)}"
             )
-        if name == "abc_sim":
+        if name == RNG_LIBRARY:
             lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, _VP, ctypes.c_int, _VP]
             lib.rng_normals.restype = ctypes.c_int
@@ -142,19 +141,25 @@ def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distan
 
 
 def variant(flags, wave: bool) -> int:
-    """The kernel variant (`csrc/abc_sim.cu`) that the summary flags and the
+    """The kernel variant (`csrc/abc_sim.cuh`) that the summary flags and the
     entry select: bits CUM 1, LOG1P 2, L1 4, WAVE 8."""
     return (int(flags[FLAG_CUMULATIVE]) == 1) | 2 * (int(flags[FLAG_LOG1P]) == 1) \
         | 4 * (int(flags[FLAG_POWER]) == 1) | 8 * bool(wave)
 
 
-def kernel_symbol(model: CompartmentalModel, flags, wave: bool) -> str:
-    """The part of the mangled name that picks that variant's kernel out of
-    its library's SASS: `abc_sim_kernel<Siard, 8>` is
-    `abc_sim_kernelI5SiardLi8EE`, `abc_sim_kernel<Seiard, 8>`
+def variant_symbol(model: CompartmentalModel, v: int) -> str:
+    """The part of the mangled name that picks variant `v` of `model`'s
+    kernel out of its library's SASS or ptxas report: `abc_sim_kernel<Siard,
+    8>` is `abc_sim_kernelI5SiardLi8EE`, `abc_sim_kernel<Seiard, 8>`
     `abc_sim_kernelI6SeiardLi8EE`."""
     struct = model.name.capitalize()
-    return f"abc_sim_kernelI{len(struct)}{struct}Li{variant(flags, wave)}EE"
+    return f"abc_sim_kernelI{len(struct)}{struct}Li{int(v)}EE"
+
+
+def kernel_symbol(model: CompartmentalModel, flags, wave: bool) -> str:
+    """`variant_symbol` of the variant that the summary flags and the entry
+    select."""
+    return variant_symbol(model, variant(flags, wave))
 
 
 def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -253,13 +258,15 @@ def _check_2d_f32(name: str, t: torch.Tensor) -> None:
 
 def _launched(model: CompartmentalModel, entry: str) -> None:
     """Count one launch of `abc_sim_<entry>_<model>`."""
-    global LAUNCHES, WAVE_LAUNCHES
-    if entry == "wave":
-        WAVE_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
     name = f"abc_sim_{entry}_{model.name}"
     ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
+
+
+def launches(entry: str) -> int:
+    """Launches of `entry` ("distance", the theta-in entry, or "wave") of
+    every model, from `ENTRY_LAUNCHES`."""
+    return sum(n for name, n in ENTRY_LAUNCHES.items()
+               if name.startswith(f"abc_sim_{entry}_"))
 
 
 def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,

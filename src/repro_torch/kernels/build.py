@@ -6,10 +6,9 @@ with `ctypes`; no PyTorch header is compiled. The libraries go to
 named by a hash of the source, the `csrc/` headers it includes and its
 flags, so an unchanged source reuses its build and a changed one rebuilds.
 
-Every source is built with `NVCC_FLAGS`; `SOURCE_FLAGS` adds flags of one
-source: the `abc_sim` sources (one a model: `abc_sim` for SIARD and
-`abc_sim_<model>` for the others) keep `--fmad=false`, on which their
-bitwise agreement with the plain version rests, while the two
+Every source is built with `NVCC_FLAGS`; every `abc_sim*` source (one a
+model, `abc_sim_<model>`) adds `ABC_SIM_FLAGS`, `--fmad=false`, on which
+its bitwise agreement with the plain version rests, while the two
 flash-attention sources let nvcc fuse multiply-adds.
 
 Each source that needs building is compiled by its own nvcc, all of them
@@ -21,8 +20,8 @@ library from `cuobjdump -sass` (`sass_text`); `kernels/sass.py` reads the
 same listing for its instruction census.
 
     from repro_torch.kernels import build
-    lib = build.load("abc_sim")          # builds on first use
-    build.build_all()["abc_sim"].kernels  # {mangled kernel name: {...}}
+    lib = build.load("abc_sim_siard")          # builds on first use
+    build.build_all()["abc_sim_siard"].kernels  # {mangled kernel name: {...}}
 """
 
 from __future__ import annotations
@@ -47,9 +46,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCE_FLAGS: Dict[str, tuple] = {
-    name: ("--fmad=false",)
-    for name in ("abc_sim", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard")}
+ABC_SIM_FLAGS = ("--fmad=false",)
 
 
 @dataclasses.dataclass
@@ -91,8 +88,8 @@ def sources() -> List[Path]:
 
 
 def flags(name: str) -> tuple:
-    """nvcc flags of `csrc/<name>.cu`."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+    """nvcc flags of `csrc/<name>.cu` (or of a copy of it named so)."""
+    return NVCC_FLAGS + (ABC_SIM_FLAGS if name.startswith("abc_sim") else ())
 
 
 def local_headers(src: Path) -> List[Path]:

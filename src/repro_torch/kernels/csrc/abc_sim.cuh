@@ -1,6 +1,6 @@
 // Fused ABC simulation kernel for Hopper (sm_90a): the template every
-// model's translation unit instantiates (abc_sim.cu for SIARD and the RNG
-// test entries, abc_sim_<model>.cu for each other flat model).
+// model's translation unit instantiates (abc_sim_<model>.cu; SIARD's also
+// holds the RNG test entries).
 //
 // Replaces the TPU kernel src/repro/kernels/abc_sim.py:138 (_kernel, launched
 // by abc_sim_distance_kernel at :322, packed by kernels/ops.py:142): its flat

@@ -1,8 +1,8 @@
-// The fused ABC simulation kernel for the paper's SIARD model, and the test
-// entries of the kernel's RNG. The kernel itself is the template in
-// abc_sim.cuh (its design and what bounds it are described there); each
-// other flat model has its own translation unit, abc_sim_<model>.cu, so
-// that nvcc builds them side by side.
+// The fused ABC simulation kernel (abc_sim.cuh, where its design and what
+// bounds it are described) for the paper's SIARD model (siard.cuh): the
+// exports abc_sim_distance_siard and abc_sim_wave_siard, and the test
+// entries of the kernel's RNG. One translation unit a model,
+// abc_sim_<model>.cu, so that nvcc builds the models side by side.
 //
 // Replaces the TPU kernel src/repro/kernels/abc_sim.py:138 (_kernel) for
 // SIARD, with the counter-hash RNG of src/repro/kernels/rng.py:32-79.

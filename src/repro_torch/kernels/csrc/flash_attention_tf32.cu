@@ -538,22 +538,24 @@ long long flash_f32_tc_scratch_bytes(int B, int KH, int Skv, int D) {
 // float32 q, k, v, o device pointers and a device scratch of
 // flash_f32_tc_scratch_bytes(B, KH, Skv, D) bytes, 16-byte aligned; strides
 // points to 12 host int64 element strides: (batch, seq, head) of q, k, v, o.
-// window <= 0 and softcap <= 0 mean none. K and V rows are read in 16-byte
-// pieces when D and every stride are multiples of 4 and every pointer is
-// 16-byte aligned, else element by element (any layout runs). Launches
-// the split of K and V, then attention, on `stream`. Returns
+// window <= 0 and softcap <= 0 mean none. staged != 0 reads rows element
+// by element (any layout runs); staged == 0 reads them in 16-byte pieces,
+// which needs D and every stride multiples of 4 and every pointer 16-byte
+// aligned (the caller decides: kernels/flash_attention.py::staged).
+// Launches the split of K and V, then attention, on `stream`. Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for
-// arguments the kernels do not take).
+// arguments the kernels do not take, among them staged == 0 on a layout
+// that is not 16-byte pieces).
 int flash_fwd_f32_tc(const void* q, const void* k, const void* v, void* o, void* scratch, int B,
-                     int H, int KH, int Sq, int Skv, int D, const long long* strides, int causal,
-                     int window, float softcap, float scale, void* stream) {
+                     int H, int KH, int Sq, int Skv, int D, const long long* strides,
+                     int staged, int causal, int window, float softcap, float scale,
+                     void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Skv < 1 || D < 1 || D > 256 ||
       B > 65535 || KH > 65535 || (Sq + BQ - 1) / BQ > 65535 || !aligned16(scratch))
     return cudaErrorInvalidValue;
-  // rows in 16-byte pieces where they are such pieces, else element by
-  // element (kernels/flash_attention.py::staged applies the same rule)
-  bool vec = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
-  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
+  bool pieces = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) pieces = pieces && strides[i] % 4 == 0;
+  if (!staged && !pieces) return cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -571,7 +573,7 @@ int flash_fwd_f32_tc(const void* q, const void* k, const void* v, void* o, void*
   p.tiles = static_cast<uint8_t*>(scratch);
   p.T = (Skv + BK - 1) / BK;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? dispatch_d<true>(p, s) : dispatch_d<false>(p, s);
+  return staged ? dispatch_d<false>(p, s) : dispatch_d<true>(p, s);
 }
 
 const char* flash_f32_tc_error_string(int code) {

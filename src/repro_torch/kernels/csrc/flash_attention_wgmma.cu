@@ -354,20 +354,21 @@ extern "C" {
 
 // bf16 q, k, v, o device pointers; strides points to 12 host int64 element
 // strides: (batch, seq, head) of q, k, v, o. window <= 0 and softcap <= 0
-// mean none. Rows are read in 16-byte pieces when D and every stride are
-// multiples of 8 and every pointer is 16-byte aligned, else element by
-// element (any layout runs). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).
+// mean none. staged != 0 reads rows element by element (any layout runs);
+// staged == 0 reads them in 16-byte pieces, which needs D and every stride
+// multiples of 8 and every pointer 16-byte aligned (the caller decides:
+// kernels/flash_attention.py::staged). Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for arguments the kernel does not take,
+// among them staged == 0 on a layout that is not 16-byte pieces).
 int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int KH,
-                   int Sq, int Skv, int D, const long long* strides, int causal, int window,
-                   float softcap, float scale, void* stream) {
+                   int Sq, int Skv, int D, const long long* strides, int staged, int causal,
+                   int window, float softcap, float scale, void* stream) {
   if (B < 1 || H < 1 || KH < 1 || H % KH != 0 || Sq < 1 || Skv < 1 || D < 1 || D > 256 ||
       B > 65535 || (Sq + BQ - 1) / BQ > 65535)
     return cudaErrorInvalidValue;
-  // rows in 16-byte pieces where they are such pieces, else element by
-  // element (kernels/flash_attention.py::staged applies the same rule)
-  bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
-  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
+  bool pieces = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) pieces = pieces && strides[i] % 8 == 0;
+  if (!staged && !pieces) return cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -383,7 +384,7 @@ int flash_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B, 
   p.softcap = softcap > 0.0f ? softcap : 0.0f;
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? dispatch_d<true>(p, s) : dispatch_d<false>(p, s);
+  return staged ? dispatch_d<false>(p, s) : dispatch_d<true>(p, s);
 }
 
 const char* flash_bf16_error_string(int code) {

@@ -24,9 +24,10 @@ Two kernels on the tensor cores, chosen by dtype (`route`):
   4; any other layout element by element.
 
 So every layout `repro`'s `ops.flash_attention` takes runs, as it did there.
-The kernel and its loads are chosen here before the launch (`route`,
-`staged`), by the rule the C side applies, and counted: nothing falls back
-from one kernel to the other.
+The kernel (`route`) and its loads (`staged`) are chosen here, before the
+launch, and passed to it: the C entry reads rows in 16-byte pieces only when
+told to, and refuses that for a layout that is not such pieces. Nothing
+falls back from one kernel or one way of reading to the other.
 
 `LAUNCHES` counts the launches of both; `LAUNCHES_TENSOR_CORE` (bf16) and
 `LAUNCHES_TENSOR_CORE_F32` (float32) those of each route, and
@@ -78,7 +79,7 @@ def _fn(route_name: str):
         fn.argtypes = [
             _VP, _VP, _VP, _VP, *([_VP] if scratch else []), ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, _VP,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, _VP,
         ]
         fn.restype = ctypes.c_int
         err = getattr(lib, errstr)
@@ -103,7 +104,7 @@ def _grid(dtype: torch.dtype) -> int:
     raise ValueError(f"q, k, v must all be float32 or all bfloat16, got {dtype}")
 
 
-def route(dtype: torch.dtype, d: int, strides: Sequence[int], data_ptrs: Sequence[int]) -> str:
+def route(dtype: torch.dtype) -> str:
     """The kernel that takes a call: `TENSOR_CORE` for bf16, `TENSOR_CORE_F32`
     for float32, whatever the layout (`staged` says how it reads the rows).
     Raises ValueError on a dtype neither kernel takes."""
@@ -116,8 +117,9 @@ def staged(dtype: torch.dtype, d: int, strides: Sequence[int],
     """Whether the kernel stages the rows element by element: unless they are
     16-byte pieces, i.e. D a multiple of 8 bf16 or 4 float32 elements, every
     base (`data_ptrs` of q, k, v, o) 16-byte aligned and every element
-    stride (batch, seq, head of each) a multiple of that grid. The C side
-    (`flash_fwd_bf16`, `flash_fwd_f32_tc`) applies the same rule."""
+    stride (batch, seq, head of each) a multiple of that grid. The answer is
+    passed to the C entry (`flash_fwd_bf16`, `flash_fwd_f32_tc`), which
+    refuses 16-byte pieces for a layout that is not such pieces."""
     grid = _grid(dtype)
     return bool(d % grid or any(p % 16 for p in data_ptrs) or any(s % grid for s in strides))
 
@@ -177,7 +179,7 @@ def flash_attention_kernel(
     tensors = (q, k, v, out)
     strides = np.asarray([t.stride(i) for t in tensors for i in range(3)], np.int64)
     ptrs = [t.data_ptr() for t in tensors]
-    which = route(q.dtype, d, strides.tolist(), ptrs)
+    which = route(q.dtype)
     by_element = staged(q.dtype, d, strides.tolist(), ptrs)
     fn, err, scratch_bytes = _fn(which)
     scratch = [] if scratch_bytes is None else [torch.empty(
@@ -185,7 +187,8 @@ def flash_attention_kernel(
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *[t.data_ptr() for t in scratch], b, h, kh, sq, skv, d,
-                strides.ctypes.data, int(bool(causal)), 0 if window is None else int(window),
+                strides.ctypes.data, int(by_element), int(bool(causal)),
+                0 if window is None else int(window),
                 0.0 if softcap is None else float(softcap), scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -7,7 +7,7 @@ Counterpart of `repro.kernels.ref.abc_sim_distance_ref`: simulate T days
 with the counter-hash RNG and the running summary accumulator, and return
 one distance per sample. The channel terms are added one channel at a time,
 in channel order, as in the TPU kernel body (`repro/kernels/abc_sim.py`,
-lines 302-314) and in the CUDA kernel (`csrc/abc_sim.cu`).
+lines 302-314) and in the CUDA kernel (`csrc/abc_sim.cuh`).
 
 `repro_torch.kernels.ops.abc_sim_distance` sends a CPU tensor here; the card
 runs the CUDA kernel, and `chip_smoke.py` holds the two against each other

@@ -414,23 +414,30 @@ _ALIGNED = dict(strides=[8 * i for i in range(12)], data_ptrs=[4096, 8192, 12288
 
 @pytest.mark.parametrize("d", [16, 72, 256])
 def test_route_sends_bf16_and_float32_to_their_tensor_core_kernels(d):
-    assert fa.route(torch.bfloat16, d, **_ALIGNED) == fa.TENSOR_CORE
-    assert fa.route(torch.float32, d, **_ALIGNED) == fa.TENSOR_CORE_F32
+    """The dtype alone picks the kernel; rows of an aligned layout on the
+    grid are read in 16-byte pieces."""
+    assert fa.route(torch.bfloat16) == fa.TENSOR_CORE
+    assert fa.route(torch.float32) == fa.TENSOR_CORE_F32
+    assert not fa.staged(torch.bfloat16, d, **_ALIGNED)
+    assert not fa.staged(torch.float32, d, **_ALIGNED)
 
 
 @pytest.mark.parametrize("d", [1, 20, 250])
 def test_route_stages_a_head_dim_off_the_8_grid_element_by_element(d):
-    """D not a multiple of 8: no 16-byte pieces, so any stride and base do."""
-    assert fa.route(torch.bfloat16, d, strides=[d, 3 * d, 5] * 4,
-                    data_ptrs=[4098, 8194, 2, 6]) == fa.TENSOR_CORE
+    """D not a multiple of 8: no 16-byte pieces of bf16, whatever the
+    strides and bases."""
+    assert fa.staged(torch.bfloat16, d, strides=[d, 3 * d, 5] * 4,
+                     data_ptrs=[4098, 8194, 2, 6])
+    assert fa.staged(torch.bfloat16, d, **_ALIGNED)
 
 
 @pytest.mark.parametrize("d", [1, 10, 250])
 def test_route_stages_a_float32_head_dim_off_the_4_grid_element_by_element(d):
-    """float32 with D not a multiple of 4: no 16-byte pieces, any stride and
-    (4-byte aligned) base do."""
-    assert fa.route(torch.float32, d, strides=[d, 3 * d, 5] * 4,
-                    data_ptrs=[4100, 8196, 4, 8]) == fa.TENSOR_CORE_F32
+    """float32 with D not a multiple of 4: no 16-byte pieces, whatever the
+    strides and (4-byte aligned) bases."""
+    assert fa.staged(torch.float32, d, strides=[d, 3 * d, 5] * 4,
+                     data_ptrs=[4100, 8196, 4, 8])
+    assert fa.staged(torch.float32, d, **_ALIGNED)
 
 
 @pytest.mark.parametrize("strides,ptrs,match", [
@@ -443,9 +450,7 @@ def test_route_refuses_bf16_rows_that_are_not_16_byte_pieces(strides, ptrs, matc
     and stages them element by element, as repro's ops.flash_attention takes
     any layout. The same strides are 16-byte pieces of float32 rows; the
     bases are not."""
-    assert fa.route(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs) == fa.TENSOR_CORE
     assert fa.staged(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
-    assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == fa.TENSOR_CORE_F32
     assert fa.staged(torch.float32, 64, strides=strides, data_ptrs=ptrs) == \
         any(p % 16 for p in ptrs), match
 
@@ -455,9 +460,8 @@ def test_route_refuses_bf16_rows_that_are_not_16_byte_pieces(strides, ptrs, matc
     ([4] * 12, [16, 20, 32, 48], "bases \\['0x14'\\]"),
 ])
 def test_route_refuses_float32_rows_that_are_not_16_byte_pieces(strides, ptrs, match):
-    """float32 rows that are not 16-byte pieces go to the 3xTF32 kernel,
-    staged element by element (and so do they in bf16)."""
-    assert fa.route(torch.float32, 64, strides=strides, data_ptrs=ptrs) == fa.TENSOR_CORE_F32
+    """float32 rows that are not 16-byte pieces are staged element by
+    element (and so are they in bf16)."""
     assert fa.staged(torch.float32, 64, strides=strides, data_ptrs=ptrs), match
     assert fa.staged(torch.bfloat16, 64, strides=strides, data_ptrs=ptrs)
 
@@ -474,11 +478,11 @@ def test_route_stages_rows_of_a_q_sliced_at_an_odd_offset(dtype, d):
     assert fa.staged(dtype, d, strides, ptrs) == bool(d % grid)
     odd = [4096 + torch.empty((), dtype=dtype).element_size()] + ptrs[1:]
     assert fa.staged(dtype, d, strides, odd)
-    assert fa.route(dtype, d, strides, odd) == (
-        fa.TENSOR_CORE if dtype == torch.bfloat16 else fa.TENSOR_CORE_F32)
 
 
 def test_route_refuses_other_dtypes():
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="float32 or all bfloat16"):
-            fa.route(dtype, 64, **_ALIGNED)
+            fa.route(dtype)
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            fa.staged(dtype, 64, **_ALIGNED)

@@ -51,9 +51,9 @@ def _small_kw():
 def _kernel_and_plain(cuda, theta, seed, obs, **kw):
     th = torch.as_tensor(np.asarray(theta, np.float32), device=cuda)
     ob = torch.as_tensor(np.asarray(obs, np.float32), device=cuda)
-    launches, calls = abc_sim.LAUNCHES, ref.CALLS
+    launches, calls = abc_sim.launches("distance"), ref.CALLS
     d_k = ops.abc_sim_distance(th, seed, ob, **kw)
-    assert (abc_sim.LAUNCHES, ref.CALLS) == (launches + 1, calls)
+    assert (abc_sim.launches("distance"), ref.CALLS) == (launches + 1, calls)
     d_p = ref.abc_sim_distance_ref(th, seed, ob, **kw)
     return d_k.cpu().numpy(), d_p.cpu().numpy()
 
@@ -81,9 +81,9 @@ def test_kernel_is_bitwise_block_invariant_and_counts_launches(cuda):
     kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
     theta = paper_prior().sample(5, 10_000, cuda)
     obs = torch.as_tensor(ds.observed, device=cuda)
-    before = abc_sim.LAUNCHES
+    before = abc_sim.launches("distance")
     outs = [ops.abc_sim_distance(theta, 3, obs, block=b, **kw) for b in (64, 128, 256)]
-    assert abc_sim.LAUNCHES == before + 3
+    assert abc_sim.launches("distance") == before + 3
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
 
@@ -117,10 +117,11 @@ def test_run_abc_on_the_card_goes_through_the_kernel(cuda):
     ds = data.get_dataset("synthetic_small", num_days=20)
     cfg = tabc.ABCConfig(batch_size=8192, chunk_size=1024, num_days=20,
                          tolerance=2e4, target_accepted=50, max_runs=20)
-    launches, waves, calls = abc_sim.LAUNCHES, abc_sim.WAVE_LAUNCHES, ref.CALLS
+    launches, waves = abc_sim.launches("distance"), abc_sim.launches("wave")
+    calls = ref.CALLS
     post = tabc.run_abc(ds, cfg, seed=0, device=cuda)
-    assert abc_sim.WAVE_LAUNCHES - waves == post.runs
-    assert (abc_sim.LAUNCHES, ref.CALLS) == (launches, calls)
+    assert abc_sim.launches("wave") - waves == post.runs
+    assert (abc_sim.launches("distance"), ref.CALLS) == (launches, calls)
     again = tabc.run_abc(ds, cfg, seed=0, device=cuda)
     np.testing.assert_array_equal(post.theta, again.theta)
 
@@ -131,11 +132,11 @@ def test_run_abc_on_the_card_makes_no_host_prior_draw(cuda):
     ds = data.get_dataset("synthetic_small", num_days=20)
     cfg = tabc.ABCConfig(batch_size=8192, chunk_size=1024, num_days=20, tolerance=1.0,
                          target_accepted=50, max_runs=20)
-    draws, waves = priors.DEVICE_DRAWS, abc_sim.WAVE_LAUNCHES
+    draws, waves = priors.DEVICE_DRAWS, abc_sim.launches("wave")
     eps = tabc.calibrate_tolerance(ds, cfg, seed=1, quantile=0.01, n_pilot=8192, device=cuda)
     post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=1, device=cuda)
     assert priors.DEVICE_DRAWS == draws
-    assert abc_sim.WAVE_LAUNCHES - waves == 1 + post.runs
+    assert abc_sim.launches("wave") - waves == 1 + post.runs
     assert len(post) >= 50 and (post.distances <= eps).all()
 
 
@@ -168,9 +169,9 @@ def test_wave_entry_equals_theta_in_and_plain_every_flat_pair(cuda, summary, dis
     for block in (64, 128, 256):
         sim = ops.make_abc_sim(obs, summary=summary, distance=distance, block=block,
                                **_small_kw())
-        waves, calls = abc_sim.WAVE_LAUNCHES, ref.CALLS
+        waves, calls = abc_sim.launches("wave"), ref.CALLS
         got_theta, got = sim.wave(prior, 4, 7, 1024)
-        assert (abc_sim.WAVE_LAUNCHES, ref.CALLS) == (waves + 1, calls)
+        assert (abc_sim.launches("wave"), ref.CALLS) == (waves + 1, calls)
         assert torch.equal(got_theta, theta) and torch.equal(got, want)
         d_in = sim(theta, 7)
         assert torch.equal(torch.where(torch.isnan(d_in), torch.full_like(d_in, float("inf")),
@@ -198,9 +199,9 @@ def test_make_abc_sim_on_the_card_matches_per_call_lowering(cuda):
     sim = ops.make_abc_sim(obs, summary="weekly", distance="normalized_euclidean",
                            **_small_kw())
     for seed in (0, 11, 0xFFFFFFFF):
-        launches = abc_sim.LAUNCHES
+        launches = abc_sim.launches("distance")
         got = sim(theta, seed)
-        assert abc_sim.LAUNCHES == launches + 1
+        assert abc_sim.launches("distance") == launches + 1
         assert torch.equal(got, ops.abc_sim_distance(
             theta, seed, obs, summary="weekly", distance="normalized_euclidean",
             **_small_kw()))
@@ -453,6 +454,35 @@ def test_flash_kernel_stages_a_q_sliced_at_an_odd_offset(cuda, dtype):
         before[0] + 1, before[1] + 1, before[2])
     want = ref.flash_attention_ref(q_odd, k, v, causal=True)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_BARS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_entry_reads_16_byte_pieces_only_of_a_layout_made_of_them(cuda, dtype):
+    """The wrapper decides how the rows are read and the C entry obeys: told
+    to read a q at an odd offset in 16-byte pieces it refuses with
+    cudaErrorInvalidValue (1) before any launch; told to stage it, it runs
+    within the dtype's bar of the plain version."""
+    q, k, v = _flash_qkv(2, 96, 4, 2, 64, 96, dtype, cuda, seed=5)
+    q_odd = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)[1:].view(q.shape)
+    q_odd.copy_(q)
+    out = torch.zeros_like(q)
+    strides = np.asarray([t.stride(i) for t in (q_odd, k, v, out) for i in range(3)], np.int64)
+    assert fa.staged(dtype, 64, strides.tolist(), [t.data_ptr() for t in (q_odd, k, v, out)])
+    fn, _, scratch_bytes = fa._fn(fa.route(dtype))
+    scratch = [] if scratch_bytes is None else [
+        torch.empty(scratch_bytes(2, 2, 96, 64), dtype=torch.uint8, device=cuda)]
+
+    def call(staged):
+        return fn(q_odd.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  *[t.data_ptr() for t in scratch], 2, 4, 2, 96, 96, 64, strides.ctypes.data,
+                  staged, 1, 0, 0.0, 0.125, torch.cuda.current_stream(cuda).cuda_stream)
+
+    assert call(0) == 1
+    torch.cuda.synchronize()
+    assert not bool(out.any())
+    assert call(1) == 0
+    want = ref.flash_attention_ref(q_odd, k, v, causal=True)
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_BARS[dtype])
 
 
 def test_gemma_2b_prefill_goes_through_the_kernel(cuda):

@@ -88,7 +88,9 @@ def test_kernel_symbols_of_every_model():
     assert abc_sim.kernel_symbol(get_model("seiard"), (1, 1, 1, 0, 7), False) == \
         "abc_sim_kernelI6SeiardLi7EE"
     assert [abc_sim.library(n) for n in FLAT] == [
-        "abc_sim", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"]
+        "abc_sim_siard", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"]
+    assert [abc_sim.variant_symbol(get_model(n), 8) for n in FLAT] == [
+        abc_sim.kernel_symbol(get_model(n), flags, True) for n in FLAT]
 
 
 # -------------------------------------------------------------------- pins

@@ -16,6 +16,7 @@ import torch
 from repro_torch import device as tdevice
 from repro_torch.core import abc as tabc
 from repro_torch.epi.data import get_dataset
+from repro_torch.epi.models import list_models
 from repro_torch.kernels import abc_sim, build
 from repro_torch.launch import abc_run
 
@@ -57,7 +58,7 @@ def no_card(monkeypatch):
 
 
 def test_cuda_device_raises_without_a_card(no_card):
-    launches = (abc_sim.LAUNCHES, abc_sim.RNG_LAUNCHES)
+    launches = (dict(abc_sim.ENTRY_LAUNCHES), abc_sim.RNG_LAUNCHES)
     with pytest.raises(RuntimeError, match="cuda"):
         tdevice.resolve_device("cuda")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
@@ -71,7 +72,7 @@ def test_cuda_device_raises_without_a_card(no_card):
         abc_run.main(["--days", "5", "--batch", "256", "--chunk", "256"])
     with pytest.raises(ValueError, match="CUDA"):
         abc_sim.rng_normals(1, 4, 4, device="cpu")
-    assert (abc_sim.LAUNCHES, abc_sim.RNG_LAUNCHES) == launches
+    assert (abc_sim.ENTRY_LAUNCHES, abc_sim.RNG_LAUNCHES) == launches
 
 
 def test_config_refuses_what_this_slice_lacks():
@@ -90,7 +91,8 @@ def test_config_refuses_what_this_slice_lacks():
         tabc.ABCConfig(batch_size=256, chunk_size=256, block=100)
 
 
-ABC_SOURCES = {"abc_sim", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"}
+#: one abc_sim source a registered model, named by `abc_sim.library`
+ABC_SOURCES = {abc_sim.library(m) for m in list_models()}
 SOURCES = ABC_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma"}
 
 
@@ -100,13 +102,11 @@ def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     sources alone keep --fmad=false (their bitwise agreement rests on it)."""
     by_name = {src.stem: src for src in build.sources()}
     assert set(by_name) == SOURCES
-    assert [p.name for p in build.local_headers(by_name["abc_sim"])] == [
-        "abc_sim.cuh", "rng.cuh", "siard.cuh"]
-    for model in ("sir", "seir", "seiard"):
-        assert [p.name for p in build.local_headers(by_name[f"abc_sim_{model}"])] == [
+    assert ABC_SOURCES == {"abc_sim_siard", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"}
+    for model in list_models():
+        assert [p.name for p in build.local_headers(by_name[abc_sim.library(model)])] == [
             "abc_sim.cuh", "rng.cuh", f"{model}.cuh"]
-        assert abc_sim.library(model) == f"abc_sim_{model}"
-    assert abc_sim.library("siard") == "abc_sim"
+    assert abc_sim.RNG_LIBRARY == "abc_sim_siard"
     for flash in ("flash_attention_tf32", "flash_attention_wgmma"):
         assert [p.name for p in build.local_headers(by_name[flash])] == ["wgmma.cuh"]
     assert all("--fmad=false" in build.flags(n) for n in ABC_SOURCES)
