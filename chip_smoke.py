@@ -13,12 +13,14 @@ printing one JSON line:
              has one source a model; and the CUDA-core float32 kernel of
              experiments/ beside them) and the build's wall, each kernel's
              registers, shared memory, stack and spills (every variant of
-             abc_sim for each model), ptxas's wgmma warnings, the HGMMA
-             instructions in each kernel's SASS (cuobjdump -sass), the TF32
-             ones of the float32 kernel, and the instruction census of
+             abc_sim for each model, flat and regional: the local memory of
+             a regional sample is its stack), ptxas's wgmma warnings, the
+             HGMMA instructions in each kernel's SASS (cuobjdump -sass), the
+             TF32 ones of the float32 kernel, and the instruction census of
              abc_sim's day loop (kernels/sass.py): the main path's variant
              of both entries for SIARD and of the wave entry for sir, seir
-             and seiard (SIARD under a schedule runs the same function)
+             and seiard (SIARD under a schedule runs the same function), and
+             each step of the regional wave entry of metapop_seir
   rng        the kernel's hash bits and normals against the plain twin, and
              its branch-free Box-Muller pieces against logf, sqrtf and cosf
              on every one of the 2^24 uniforms the hash can give (bitwise)
@@ -35,7 +37,14 @@ printing one JSON line:
              schedules at 1024 x 49; a lockdown-day sweep of three
              breakpoint days through the loaded libraries, with no rebuild;
              and SIARD and seiard on Italy at 100,000 x 49 under the
-             schedule_path phase's intervention
+             schedule_path phase's intervention. Then the region axis
+             (csrc/abc_sim_regional.cuh), both entries bitwise the plain
+             version: metapop_seir (R=4, ring:0.1) at 1024 and 100,000 x 49
+             for (identity, euclidean), (region_pooled, euclidean) and
+             (log_weekly, mae); under a one-window schedule; seir and siard
+             regionalized to R=3 (uncoupled); R=10 and R=100 at 1024 x 49;
+             and a sweep of three mobility matrices through the loaded
+             library, with no rebuild
   main_path  `repro_torch.launch.abc_run.main` on Italy at the paper's batch
              and horizon, with the launch counters set to 0 just before:
              1 + waves launches of the wave entry, no theta-in launch, no
@@ -46,6 +55,13 @@ printing one JSON line:
              prior mean
   schedule_path  the main path's run with --intervention "alpha0@25=0:2":
              the same counters, 9 posterior columns, the last alpha0_w1
+  metapop_path  the CLI with --model metapop_seir on its synthetic_small
+             series at the paper's batch: 1 + waves launches of
+             abc_sim_regional_wave_metapop_seir and nothing else, a posterior
+             in the box
+  regions_path  the same run with --regions 100 --mobility ring:0.1 (the
+             README's 100-region case, 200 observed channels), the same
+             counters
   profile    the main path's waves once more under torch.profiler: wall time,
              device busy time, device operations a wave (and the int64
              elementwise ones a host prior draw would add) and the
@@ -55,7 +71,11 @@ printing one JSON line:
              bound, the issue floor from the census at the SM clock that
              nvidia-smi reads under load, and the plain version; then both
              entries of sir, seir, seiard and of SIARD under a one-window
-             inferred schedule at the same sizes, in turns with SIARD's
+             inferred schedule at the same sizes, in turns with SIARD's; then
+             the regional wave entry of metapop_seir at R=4 (100,000 x 49)
+             and R=100 (20,000 x 49) in turns with SIARD's flat one, beside
+             its operation bound, its issue floor (`sass.regional_census`)
+             and the plain version
   flash      the flash-attention kernels against their plain version: bf16
              through the bf16 tensor-core kernel, float32 through the 3xTF32
              one (route counters), on the causal GQA shapes of
@@ -80,9 +100,11 @@ printing one JSON line:
              the 3xTF32 bound (and the 67 TFLOP/s one), the plain version
              and SDPA in float32; the kernels SDPA's float32 call launches,
              from one profiled call
-  kernels    one line for each kernel: abc_sim (each of its eight entries,
-             with its launches on the three ABC paths and its ms), the bf16
-             flash route and the float32 one
+  kernels    one line for each kernel: abc_sim (each of its eight flat
+             entries, with its launches on the three flat ABC paths and its
+             ms), its region axis (the regional entries, with their launches
+             on metapop_path and regions_path), the bf16 flash route and the
+             float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -106,6 +128,17 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cuh"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
 #: the flat models of the abc_sim kernel, in repro's registry order
 ABC_MODELS = ("siard", "sir", "seir", "seiard")
+#: the region axis: its template, the TPU kernel body's region geometry it
+#: replaces (mobility lanes :95-119, coupled rows :254-260, pooling
+#: :287-294), and the structs with a regional library
+REGIONAL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional.cuh"
+REGIONAL_TPU_KERNEL = "src/repro/kernels/abc_sim.py:195"
+REGIONAL_STRUCTS = ABC_MODELS + ("metapop_seir",)
+#: the (summary, distance) pairs of tests/test_metapop.py:235-239
+METAPOP_PAIRS = (("identity", "euclidean"), ("region_pooled", "euclidean"),
+                 ("log_weekly", "mae"))
+#: the one-window schedule of the regional cases: metapop_seir's contact rate
+METAPOP_INTERVENTION = "beta@20=0:2"
 #: the scaled parameter of each model in the schedule cases
 #: (tests/test_interventions.py:142-170, extended to seir and seiard)
 SCHEDULE_TV = {"siard": "alpha", "sir": "beta", "seir": "beta", "seiard": "alpha0"}
@@ -230,6 +263,23 @@ def abc_census(build, model, flags, entries=(("wave", True), ("theta_in", False)
             raise AssertionError(f"build: {len(names)} kernels match {symbol} in the SASS")
         out[entry] = {"function": names[0], **sass.census(funcs[names[0]])}
     return out
+
+
+def regional_census(build, model, flags, pooled=False):
+    """`sass.regional_census` of the regional wave entry of `model`'s struct
+    at `flags`; None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import abc_sim, sass
+
+    text = build.sass_text(abc_sim.library(model))
+    if text is None:
+        return None
+    funcs = sass.parse_functions(text)
+    symbol = abc_sim.kernel_symbol(model, flags, True)
+    names = [k for k in funcs if symbol in k]
+    if len(names) != 1:
+        raise AssertionError(f"build: {len(names)} kernels match {symbol} in the SASS")
+    return {"function": names[0],
+            **sass.regional_census(funcs[names[0]], bool(model.coupled), pooled)}
 
 
 class SmClock:
@@ -583,7 +633,7 @@ def main() -> int:
     from repro_torch.core.summaries import lower_summary, get_summary, summary_pairs
     from repro_torch.epi import data
     from repro_torch.epi.models import get_model
-    from repro_torch.epi.spec import InterventionSchedule
+    from repro_torch.epi.spec import InterventionSchedule, make_mobility, regionalize
     from repro_torch.kernels import abc_sim, build, ops, ref, sass
     from repro_torch.kernels import rng as krng
     from repro_torch.launch import abc_run
@@ -627,14 +677,22 @@ def main() -> int:
     model_census = {m: (census["wave"] if m == "siard" else
                         abc_census(build, spec, main_flags, (("wave", True),))["wave"])
                     if census else None for m, spec in models.items()}
-    variants = {}
-    for m, spec in models.items():
-        lib = info[abc_sim.library(spec)]
-        variants[m] = {str(v): lib.kernels[k] for v in range(16) for k in lib.kernels
-                       if abc_sim.variant_symbol(spec, v) in k}
-        if len(variants[m]) != 16:
-            raise AssertionError(f"build: {len(variants[m])} abc_sim variants of {m} in "
-                                 f"ptxas's report, want 16")
+    metapop = get_model("metapop_seir")
+    regional_specs = {m: get_model(m) if m == "metapop_seir" else regionalize(models[m], 2)
+                      for m in REGIONAL_STRUCTS}
+    variants, regional_variants = {}, {}
+    for table, specs in ((variants, models), (regional_variants, regional_specs)):
+        for m, spec in specs.items():
+            lib = info[abc_sim.library(spec)]
+            table[m] = {str(v): lib.kernels[k] for v in range(16) for k in lib.kernels
+                        if abc_sim.variant_symbol(spec, v) in k}
+            if len(table[m]) != 16:
+                raise AssertionError(f"build: {len(table[m])} variants of {m} in "
+                                     f"{abc_sim.library(spec)}'s ptxas report, want 16")
+    mp_census = regional_census(build, metapop, main_flags)
+    if mp_census is not None and not mp_census["shape_ok"]:
+        raise AssertionError(f"build: the regional census found no day of its shape: "
+                             f"{mp_census}")
     emit("build", wall_s=build_wall,
          nvcc_s={k: v.seconds for k, v in info.items()},
          libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
@@ -642,6 +700,12 @@ def main() -> int:
                         "ptxas_wgmma_notes": ptxas_notes[k]}
                     for k, v in info.items()},
          abc_sim_variants=variants,
+         abc_sim_regional_variants=regional_variants,
+         abc_sim_regional_local_bytes={
+             m: sorted({k["stack_bytes"] for k in v.values()})
+             for m, v in regional_variants.items()},
+         abc_sim_regional_wave_census_metapop_seir=mp_census
+         or "not measured: the toolkit has no cuobjdump",
          abc_sim_wave_census_per_model={
              m: {k: c[k] for k in ("function", "per_day", "per_sample_outside_loop")}
              if c else "not measured: the toolkit has no cuobjdump"
@@ -700,7 +764,7 @@ def main() -> int:
         """The wave entry against prior.sample + the plain version, bitwise."""
         wave_prior = schedule_prior(model, extra.get("schedule"))
         sim = ops.make_abc_sim(on_card(observed), model=model, **kw, **extra)
-        entry = f"abc_sim_wave_{model.name}"
+        entry = abc_sim.entry_name(model, "wave")
         before = (abc_sim.ENTRY_LAUNCHES.get(entry, 0), priors.DEVICE_DRAWS, ref.CALLS)
         th_k, d_k = sim.wave(wave_prior, prior_seed, sim_seed, batch)
         if (abc_sim.ENTRY_LAUNCHES.get(entry, 0), priors.DEVICE_DRAWS, ref.CALLS) != (
@@ -803,14 +867,65 @@ def main() -> int:
                  schedule=sched_it)
         wave(f"{m} italy {INTERVENTION} 100000x49", 100_000, 31, 99, ds.observed, kw,
              model=spec, schedule=sched_it)
+    # the region axis: metapop_seir (R=4, ring:0.1) at both sizes for the
+    # three pairs of tests/test_metapop.py, under a one-window schedule
+    n_flat = len(results)
+    mp_ds = data.get_dataset("synthetic_small", num_days=49, model=metapop)
+    mp_kw = dict(population=mp_ds.population, a0=mp_ds.a0, r0=mp_ds.r0, d0=mp_ds.d0)
+    for batch in (1024, 100_000):
+        th = metapop.prior().sample(batch + 3, batch, dev)
+        for s_, dist in METAPOP_PAIRS:
+            tag = f"metapop_seir R=4 {s_}/{dist} {batch}x49"
+            theta_in(tag, th, 77, mp_ds.observed, mp_kw, model=metapop, summary=s_,
+                     distance=dist)
+            wave(tag, batch, batch + 3, 77, mp_ds.observed, mp_kw, model=metapop, summary=s_,
+                 distance=dist)
+    sched_mp = abc_run.parse_intervention(METAPOP_INTERVENTION)
+    th = schedule_prior(metapop, sched_mp).sample(23, 1024, dev)
+    theta_in(f"metapop_seir R=4 {METAPOP_INTERVENTION} 1024x49", th, 7, mp_ds.observed,
+             mp_kw, model=metapop, schedule=sched_mp)
+    wave(f"metapop_seir R=4 {METAPOP_INTERVENTION} 1024x49", 1024, 23, 7, mp_ds.observed,
+         mp_kw, model=metapop, schedule=sched_mp)
+    # seir and siard regionalized without coupling (3 independent copies),
+    # metapop_seir at R=10 and R=100
+    for spec in (regionalize(models["seir"], 3), regionalize(siard, 3),
+                 regionalize(metapop, 10, "ring:0.1"), regionalize(metapop, 100, "ring:0.1")):
+        ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+        th = spec.prior().sample(spec.n_regions, 1024, dev)
+        for s_, dist in (("identity", "euclidean"), ("region_pooled", "euclidean")):
+            tag = f"{spec.name} {s_}/{dist} 1024x49"
+            theta_in(tag, th, 11, ds.observed, kw, model=spec, summary=s_, distance=dist)
+            wave(tag, 1024, spec.n_regions, 11, ds.observed, kw, model=spec, summary=s_,
+                 distance=dist)
+    # a mobility sweep: the matrix is a run-time value in a device buffer, so
+    # the loaded library serves every matrix and nothing is built again
+    libs, built = dict(build._LIBS), dict(build._INFO)
+    th = metapop.prior().sample(31, 1024, dev)
+    sweep = {}
+    for grammar in ("identity", "ring:0.1", "uniform:0.2"):
+        mob = make_mobility(grammar, metapop.n_regions)
+        sweep[grammar] = theta_in(f"metapop_seir mobility {grammar} 1024x49", th, 5,
+                                  mp_ds.observed, mp_kw, model=metapop, mobility=mob)
+        wave(f"metapop_seir mobility {grammar} 1024x49", 1024, 31, 5, mp_ds.observed, mp_kw,
+             model=metapop, mobility=mob)
+    if build._LIBS != libs or build._INFO != built:
+        raise AssertionError("abc_sim: the mobility sweep built or loaded a library")
+    if torch.equal(sweep["identity"], sweep["ring:0.1"]) or torch.equal(
+            sweep["ring:0.1"], sweep["uniform:0.2"]):
+        raise AssertionError("abc_sim: two mobility matrices gave the same distances")
+    regional_err = max(r["max_abs_err"] for r in results[n_flat:])
     emit("abc_sim", comparisons=results, block_sizes_bitwise_equal=[64, 128, 256],
-         lockdown_sweep_rebuilds=0)
-    max_abs_err = max(r["max_abs_err"] for r in results if r["case"].endswith("vs plain"))
+         lockdown_sweep_rebuilds=0, mobility_sweep_rebuilds=0,
+         regional_comparisons=len(results) - n_flat)
+    max_abs_err = max(r["max_abs_err"] for r in results[:n_flat]
+                      if r["case"].endswith("vs plain"))
 
-    def abc_path(phase, argv, model, intervention=""):
+    def abc_path(phase, argv, model, intervention="", min_accepted=100):
         """`abc_run.main(argv)` with the counters set to 0 just before; raises
         unless 1 + waves launches of the model's wave entry were all the
-        kernel's, with no host prior draw and no plain-version call."""
+        kernel's, with no host prior draw and no plain-version call, and the
+        posterior holds `min_accepted` samples inside the box."""
         abc_sim.ENTRY_LAUNCHES.clear()
         priors.DEVICE_DRAWS = 0
         ref.CALLS = 0
@@ -822,7 +937,7 @@ def main() -> int:
         counts = dict(wave_launches=abc_sim.launches("wave"),
                       theta_in_launches=abc_sim.launches("distance"),
                       host_prior_draws=priors.DEVICE_DRAWS, plain_calls=ref.CALLS)
-        entry = f"abc_sim_wave_{model.name}"
+        entry = abc_sim.entry_name(model, "wave")
         if entries != {entry: 1 + post.runs} or tuple(counts.values()) != (
                 1 + post.runs, 0, 0, 0):
             raise AssertionError(f"{phase}: launches {entries} (want {entry}: 1 + "
@@ -830,7 +945,7 @@ def main() -> int:
         box = schedule_prior(model, abc_run.parse_intervention(intervention))
         lo, hi = np.asarray(box.lows), np.asarray(box.highs)
         theta = post.theta
-        if (len(post) < 100 or theta.shape[1] != box.dim or not np.isfinite(theta).all()
+        if (len(post) < min_accepted or theta.shape[1] != box.dim or not np.isfinite(theta).all()
                 or not np.isfinite(post.distances).all()
                 or (post.distances > post.tolerance).any()
                 or (theta < lo).any() or (theta > hi).any()):
@@ -897,6 +1012,31 @@ def main() -> int:
          nvidia_smi=smi,
          posterior_mean=dict(zip(post_s.param_names, post_s.theta.mean(axis=0).tolist())),
          normalized_mean_error_siard_params=err, prior_mean_normalized_error=prior_err)
+
+    # ---- metapop_path: the 4-region metapopulation SEIR through the same CLI
+    mp_argv = ["--model", "metapop_seir", "--dataset", "synthetic_small", "--days", "49",
+               "--batch", "100000", "--chunk", "10000", "--auto-tolerance", "1e-4",
+               "--accept", "100", "--device", "cuda"]
+
+    def mean_error(post, model, truth):
+        lo, hi = np.asarray(model.prior().lows), np.asarray(model.prior().highs)
+        err = np.abs(post.theta.mean(axis=0) - np.asarray(truth)) / (hi - lo)
+        return err.mean().item(), (np.abs((hi + lo) / 2 - np.asarray(truth)) / (hi - lo)).mean().item()
+
+    for phase, argv, spec in (
+            ("metapop_path", mp_argv, metapop),
+            ("regions_path", mp_argv + ["--regions", "100", "--mobility", "ring:0.1"],
+             regionalize(metapop, 100, "ring:0.1"))):
+        post_r, wall, entries, counts, lo, hi = abc_path(phase, argv, spec)
+        path_launches[phase] = entries
+        err, prior_err = mean_error(post_r, spec, spec.default_theta)
+        emit(phase, argv=argv, **counts, accepted=len(post_r), waves=post_r.runs,
+             simulations=post_r.simulations, tolerance=post_r.tolerance, wall_s=wall,
+             regions=spec.n_regions, observed_channels=spec.total_observed, kind=name,
+             nvidia_smi=smi,
+             posterior_mean=dict(zip(post_r.param_names, post_r.theta.mean(axis=0).tolist())),
+             generating_theta=dict(zip(spec.param_names, spec.default_theta)),
+             normalized_mean_error=err, prior_mean_normalized_error=prior_err)
 
     # ---- profile: where the main path's waves spend their time
     from repro_torch.core.abc import ABCConfig, run_abc
@@ -1037,13 +1177,65 @@ def main() -> int:
                     "issue_floor_ms": floor["floor_ms"] if floor else None,
                     "share_of_issue_floor": floor["floor_ms"] / ms_w if floor else None,
                     "iters": kernel_iters})
+
+        # the region axis: metapop_seir's regional wave entry at R=4 and
+        # R=100 in turns with SIARD's flat wave entry (forward, then back)
+        regional_cells = []
+        siard_x = cases["siard"]
+        for R, batch, iters in ((4, 100_000, 50), (100, 20_000, 3)):
+            spec = metapop if R == 4 else regionalize(metapop, R, "ring:0.1")
+            ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+            kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+            ob = torch.as_tensor(ds.observed, device=dev)
+            sim = ops.make_abc_sim(ob, model=spec, **kw)
+            box = spec.prior()
+            ic = abc_sim.with_seed(sim.iconst, 99)
+            low = lower_summary(get_summary(None), "euclidean", ob, n_regions=R)
+
+            def run_regional(sim=sim, box=box, ic=ic, spec=spec, batch=batch):
+                return abc_sim.abc_sim_regional_wave_kernel(
+                    12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
+                    ic, model=spec, batch=batch)
+
+            def run_siard(batch=batch):
+                x = siard_x
+                return abc_sim.abc_sim_wave_kernel(
+                    12, x["box"].lows, x["box"].highs, x["obs"], x["fconst"], x["iconst"],
+                    model=siard, batch=batch)
+
+            turns = {"regional": [], "siard": []}
+            for which in ("siard", "regional", "regional", "siard"):
+                turns[which].append(cuda_ms(run_regional if which == "regional" else run_siard,
+                                            iters, warmup=1))
+            plain_ms = cuda_ms(lambda: ref.abc_sim_distance_ref(
+                box.sample(12, batch, dev), 99, ob, model=spec, **kw), 1, warmup=0)
+            ms = float(np.mean(turns["regional"]))
+            w_ops = abc_sim.wave_ops(spec, low, batch)
+            n_bytes = abc_sim.bytes_moved(spec, batch, 49)
+            ops_ms, bytes_ms = w_ops / F32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+            mhz = clock.median()
+            floor = (sass.regional_issue_floor_ms(mp_census, R, R, batch, 49, n_sm, mhz)
+                     if mp_census and mhz else None)
+            regional_cells.append({
+                "model": spec.name, "regions": R, "batch": batch, "days": 49, "ms_wave": ms,
+                "turns_ms": turns, "siard_wave_ms": float(np.mean(turns["siard"])),
+                "ratio_to_siard_wave": ms / float(np.mean(turns["siard"])),
+                "plain_ms": plain_ms, "ops_per_sample_day": abc_sim.ops_per_sample_day(spec, low),
+                "wave_ops": w_ops, "bytes": n_bytes, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "share_of_bound": max(ops_ms, bytes_ms) / ms,
+                "census_per_day": sass.regional_per_day(mp_census, R, R)["total"]
+                if mp_census else None,
+                "issue_floor": floor,
+                "share_of_issue_floor": floor["floor_ms"] / ms if floor else None,
+                "sample_days_per_s": batch * 49 / (ms * 1e-3), "iters": iters})
     emit("timing", kind=name, nvidia_smi=smi, peak_ops_per_s=F32_OPS_PER_S,
          peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, sms=n_sm,
          sm_clock_mhz=clock.summary(), default_block=abc_sim.DEFAULT_BLOCK, cells=timing,
-         model_cells=model_cells, intervention=INTERVENTION)
+         model_cells=model_cells, intervention=INTERVENTION, regional_cells=regional_cells)
 
     main_cell = timing[0]
-    # launches of each entry on the three ABC paths, and its time at 100k x 49
+    # launches of each entry on the ABC paths, and its time at 100k x 49
     launched = {}
     for counts in path_launches.values():
         for entry, n in counts.items():
@@ -1056,11 +1248,14 @@ def main() -> int:
             entries.append({"entry": symbol, "source": "src/repro_torch/kernels/csrc/"
                             f"{abc_sim.library(m)}.cu", "launches": launched.get(symbol, 0),
                             "ms": main_cell[key] if m == "siard" else at_100k[m][key]})
-    if not (launched.get("abc_sim_wave_siard") and launched.get("abc_sim_wave_seiard")):
+    regional_entry = abc_sim.entry_name(metapop, "wave")
+    if not (launched.get("abc_sim_wave_siard") and launched.get("abc_sim_wave_seiard")
+            and launched.get(regional_entry)):
         raise AssertionError(f"kernels: a path's wave entry was not launched: {launched}")
     abc_line = {
         "name": "abc_sim_distance", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": sum(launched.values()),
+        "replaces": TPU_KERNEL,
+        "launches": sum(n for e, n in launched.items() if not e.startswith("abc_sim_regional_")),
         "entries": entries,
         "scheduled_siard_wave_ms": at_100k["siard_scheduled"]["ms_wave"],
         "max_abs_err": max_abs_err,
@@ -1069,12 +1264,29 @@ def main() -> int:
         "issue_floor_ms": (main_cell["issue_floor"]["wave"] or {}).get("floor_ms"),
         "library_ms": None,
     }
+    r4, r100 = regional_cells
+    regional_line = {
+        "name": "abc_sim_regional", "route": "cuda", "source": REGIONAL_SOURCE,
+        "replaces": REGIONAL_TPU_KERNEL,
+        "launches": sum(n for e, n in launched.items() if e.startswith("abc_sim_regional_")),
+        "entries": [{"entry": abc_sim.entry_name(metapop, e), "source":
+                     f"src/repro_torch/kernels/csrc/{abc_sim.library(metapop)}.cu",
+                     "launches": launched.get(abc_sim.entry_name(metapop, e), 0)}
+                    for e in ("wave", "distance")],
+        "max_abs_err": regional_err,
+        "ms": r4["ms_wave"], "plain_ms": r4["plain_ms"], "bound_ms": r4["bound_ms"],
+        "bound_by": r4["bound_by"],
+        "issue_floor_ms": (r4["issue_floor"] or {}).get("floor_ms"),
+        "library_ms": None,
+        "r100": {k: r100[k] for k in ("batch", "ms_wave", "plain_ms", "bound_ms", "bound_by")}
+        | {"issue_floor_ms": (r100["issue_floor"] or {}).get("floor_ms")},
+    }
 
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
     flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
 
     emit("total", wall_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [abc_line, *flash_lines]}), flush=True)
+    print(json.dumps({"kernels": [abc_line, regional_line, *flash_lines]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

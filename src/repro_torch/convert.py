@@ -3,9 +3,10 @@
 The port imports nothing of `repro`; what crosses is plain data:
 
   * `country_data_from_arrays` builds the port's `CountryData` from a
-    dataset's arrays, for any registered model, so both packages can fit one
-    series (`repro`'s series come from threefry, the port's own from the
-    counter hash);
+    dataset's arrays, for any model (a registered name or a spec, regional
+    ones with their [R * n_obs, T] region-major rows and, if given, their
+    labels checked), so both packages can fit one series (`repro`'s series
+    come from threefry, the port's own from the counter hash);
   * `schedule_from_fields` builds the port's `InterventionSchedule` from the
     plain tuples of `repro`'s (tv_params, breakpoints, scale_lows,
     scale_highs);
@@ -48,15 +49,23 @@ def country_data_from_arrays(
     *,
     true_theta: Sequence[float] | None = None,
     paper_tolerance: float | None = None,
-    model: str = "siard",
+    model="siard",
     synthetic: bool = True,
+    observed_channels: Sequence[str] | None = None,
 ) -> CountryData:
-    """A port `CountryData` from a dataset's scalars and [n_obs, T] series."""
+    """A port `CountryData` from a dataset's scalars and [total_observed, T]
+    series; `observed_channels` (e.g. `repro`'s labels) must be the
+    model's."""
     spec = get_model(model)
     obs = np.array(observed, np.float32, copy=True)
-    if obs.ndim != 2 or obs.shape[0] != spec.n_observed:
+    if obs.ndim != 2 or obs.shape[0] != spec.total_observed:
         raise ValueError(
-            f"observed must be [{spec.n_observed}, T] for {spec.name}, got {obs.shape}"
+            f"observed must be [{spec.total_observed}, T] for {spec.name}, got {obs.shape}"
+        )
+    if observed_channels is not None and tuple(observed_channels) != spec.observed_labels:
+        raise ValueError(
+            f"observed channels {tuple(observed_channels)} are not {spec.name}'s "
+            f"{spec.observed_labels}"
         )
     return CountryData(
         name=name,

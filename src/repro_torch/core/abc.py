@@ -15,6 +15,11 @@ On a CUDA device the first two lines are one launch of the kernel's wave
 entry, which draws theta inside the kernel (`ops.AbcSim.wave`); on the CPU
 they are `prior.sample` and the plain version, to the same bits.
 
+A regional model (a spec from `epi.spec.regionalize`, or the registered
+metapop_seir) runs the same loop through the kernel's region axis;
+`ABCConfig.mobility` overrides its coupling matrix, checked here and sent
+to the device once a simulator.
+
 Under an intervention schedule (`ABCConfig.schedule`) the prior is the box
 widened by the schedule's scale bounds (`priors.schedule_prior`) and the
 posterior's columns are the model's parameters followed by the scales
@@ -44,7 +49,7 @@ from repro_torch.core.summaries import SummarySpec, get_distance_kind, get_summa
 from repro_torch.device import resolve_device
 from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
-from repro_torch.epi.spec import active_schedule, require_flat
+from repro_torch.epi.spec import active_schedule, validate_mobility
 from repro_torch.ioutils import atomic_write
 from repro_torch.kernels import abc_sim, ops
 from repro_torch.kernels.rng import stream_seed
@@ -70,8 +75,9 @@ class ABCConfig:
     #: device, its plain PyTorch version on the CPU
     backend: str = "cuda"
     num_days: int = 49
-    #: registry name of the model to infer (repro_torch.epi.models)
-    model: str = "siard"
+    #: the model to infer: a registry name (repro_torch.epi.models) or a
+    #: spec, such as a regionalized one (`epi.spec.regionalize`)
+    model: object = "siard"
     #: summary statistic compared by `distance`: a name, a SummarySpec or
     #: None for the paper's raw daily series
     summary: Optional[object] = None
@@ -80,6 +86,11 @@ class ABCConfig:
     #: intervention schedule (`epi.spec.InterventionSchedule`); None or an
     #: empty one: the model's own parameters only
     schedule: Optional[object] = None
+    #: regional models only: a row-stochastic [R][R] mobility matrix (nested
+    #: tuples) in place of the spec's, checked here (rows must sum to 1); its
+    #: region count is checked against the model's when a simulator is made
+    #: (`resolved_mobility`). None keeps the model's own matrix.
+    mobility: Optional[Tuple[Tuple[float, ...], ...]] = None
 
     def __post_init__(self):
         if self.strategy not in ("outfeed", "topk"):
@@ -97,10 +108,13 @@ class ABCConfig:
         get_summary(self.summary)
         abc_sim.check_block(self.block)
         spec = get_model(self.model)
-        require_flat(spec.n_regions)
         schedule = active_schedule(self.schedule)
         if schedule is not None:
             schedule.shape(spec)  # its parameters are the model's
+        if self.mobility is not None:
+            # nested float tuples keep the frozen config hashable
+            object.__setattr__(self, "mobility",
+                               validate_mobility(self.mobility, len(self.mobility)))
 
     @property
     def num_chunks(self) -> int:
@@ -109,6 +123,21 @@ class ABCConfig:
     @property
     def summary_spec(self) -> SummarySpec:
         return get_summary(self.summary)
+
+
+def resolved_mobility(cfg: ABCConfig, spec) -> Optional[Tuple[Tuple[float, ...], ...]]:
+    """cfg.mobility, checked against the spec's region count; None leaves
+    the spec's own matrix."""
+    if cfg.mobility is None:
+        return None
+    if not spec.is_regional:
+        raise ValueError(f"cfg.mobility set but model {spec.name!r} has no region axis")
+    if len(cfg.mobility) != spec.n_regions:
+        raise ValueError(
+            f"cfg.mobility is {len(cfg.mobility)}x{len(cfg.mobility)} but "
+            f"model {spec.name!r} has {spec.n_regions} regions"
+        )
+    return cfg.mobility
 
 
 def run_param_names(cfg: ABCConfig, spec) -> Tuple[str, ...]:
@@ -158,6 +187,7 @@ def make_simulator(dataset: CountryData, cfg: ABCConfig,
         observed, population=dataset.population, a0=dataset.a0,
         r0=dataset.r0, d0=dataset.d0, model=spec, summary=cfg.summary_spec,
         distance=cfg.distance, block=cfg.block, schedule=cfg.schedule,
+        mobility=resolved_mobility(cfg, spec),
     )
 
 

@@ -1,7 +1,7 @@
-"""Summary statistics and distance kinds (port, flat part).
+"""Summary statistics and distance kinds (port).
 
-The port's copy of `repro.core.summaries` without region pooling. Every
-(summary, distance) pair reduces to one running accumulator. Per day t, with
+The port's copy of `repro.core.summaries`. Every (summary, distance) pair
+reduces to one running accumulator. Per day t, with
 per-channel carries `cum` and `bin`:
 
     cum  += x_t
@@ -15,7 +15,13 @@ per-channel carries `cum` and `bin`:
 
 The observed side is lowered once (`lower_summary`) into the same running
 layout. The CUDA kernel reads the lowered selectors, weights and mean scale
-as runtime values, so one build serves every flat pair.
+as runtime values, so one build serves every pair.
+
+A regional series has its channels region-major ([R * n_obs, T]); its
+per-region channel weights tile across the regions. `region_pooled` sums
+each observed compartment over the regions before the transform
+(`pool_channels`), x_r0 + x_r1 + ... left to right as the TPU kernel body
+sums it, and compares national aggregates; at R=1 it is the identity.
 """
 
 from __future__ import annotations
@@ -36,8 +42,13 @@ class SummarySpec:
     log1p: bool = False
     #: bin length in days; 1 = daily. The final bin may be partial.
     bin_days: int = 1
-    #: optional per-channel weights (length n_observed); None = all 1.0
+    #: optional per-channel weights (length n_observed); None = all 1.0.
+    #: For a regional model either the region-major total or one weight a
+    #: compartment, tiled over the regions.
     channel_weights: Optional[Tuple[float, ...]] = None
+    #: regional models only: sum each observed compartment over the regions
+    #: before the transform; a no-op at R=1
+    region_pool: bool = False
 
     def __post_init__(self):
         if self.bin_days < 1:
@@ -51,13 +62,15 @@ class SummarySpec:
                 raise ValueError("channel weights must be non-negative")
 
 
-#: named summaries; `region_pooled` waits for the metapopulation slice
+#: named summaries
 SUMMARIES = {
     "identity": SummarySpec(),
     "weekly": SummarySpec("weekly", bin_days=7),
     "cumulative": SummarySpec("cumulative", cumulative=True),
     "log_daily": SummarySpec("log_daily", log1p=True),
     "log_weekly": SummarySpec("log_weekly", bin_days=7, log1p=True),
+    # national aggregates of a regional model; the identity at R=1
+    "region_pooled": SummarySpec("region_pooled", region_pool=True),
 }
 
 
@@ -109,7 +122,7 @@ def get_distance_kind(name: str) -> DistanceKind:
 
 
 def summary_pairs() -> Tuple[Tuple[str, str], ...]:
-    """Every flat (summary, distance) combination."""
+    """Every registered (summary, distance) combination."""
     return tuple((s, d) for s in list_summaries() for d in sorted(DISTANCE_KINDS))
 
 
@@ -139,6 +152,29 @@ def flush_mask(num_days: int, bin_days: int, device=None) -> torch.Tensor:
     return torch.as_tensor(m.astype(np.float32), device=device)
 
 
+def pool_factor(spec: SummarySpec, n_regions: int) -> int:
+    """The region-pooling factor: `n_regions` when `spec` pools the regions
+    of a regional series, else 1."""
+    return n_regions if (spec.region_pool and n_regions > 1) else 1
+
+
+def pool_channels(x: torch.Tensor, pool: int, axis: int = -1) -> torch.Tensor:
+    """Sum a region-major channel axis (length pool * n) over the regions:
+    x_r0 + x_r1 + ..., left to right, one operation a region. `pool` <= 1
+    returns `x` as it is."""
+    if pool <= 1:
+        return x
+    axis = axis % x.ndim
+    n_chan = x.shape[axis]
+    if n_chan % pool:
+        raise ValueError(f"cannot pool axis of length {n_chan} by region factor {pool}")
+    parts = x.unflatten(axis, (pool, n_chan // pool)).unbind(axis)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
 def apply_summary(spec: SummarySpec, series: torch.Tensor) -> torch.Tensor:
     """Summary transform in the running-bin layout, [..., n_obs, T]."""
     x = series.to(torch.float32)
@@ -158,23 +194,28 @@ def apply_summary(spec: SummarySpec, series: torch.Tensor) -> torch.Tensor:
 
 
 def lower_summary(
-    spec: SummarySpec, distance: str, observed: torch.Tensor
+    spec: SummarySpec, distance: str, observed: torch.Tensor, n_regions: int = 1
 ) -> LoweredSummary:
     """Lower the observed side and the weights of one pair, on `observed`'s
-    device."""
+    device. A regional series ([R * n_obs, T], region-major) passes its
+    `n_regions`: a pooling spec sums it over the regions here, and
+    per-region channel weights tile region-major."""
     kind = get_distance_kind(distance)
-    obs = observed.to(torch.float32)
+    obs = pool_channels(observed.to(torch.float32), pool_factor(spec, n_regions), axis=-2)
     n_obs, num_days = obs.shape
     s = apply_summary(spec, obs)
     fl = flush_mask(num_days, spec.bin_days, device=obs.device)
     nb = num_bins(num_days, spec.bin_days)
     if spec.channel_weights is not None:
-        if len(spec.channel_weights) != n_obs:
+        cw = spec.channel_weights
+        if len(cw) != n_obs and n_regions > 1 and len(cw) * n_regions == n_obs:
+            cw = cw * n_regions  # per-region weights, tiled region-major
+        if len(cw) != n_obs:
             raise ValueError(
                 f"summary {spec.name!r} has {len(spec.channel_weights)} channel "
                 f"weights for {n_obs} observed channels"
             )
-        w = torch.tensor(spec.channel_weights, dtype=torch.float32, device=obs.device)
+        w = torch.tensor(cw, dtype=torch.float32, device=obs.device)
     else:
         w = torch.ones((n_obs,), dtype=torch.float32, device=obs.device)
     if kind.normalize:
@@ -186,6 +227,24 @@ def lower_summary(
     flags = (int(spec.cumulative), int(spec.log1p), kind.power, int(kind.root),
              spec.bin_days)
     return LoweredSummary(s, fl, w, mean_scale, flags)
+
+
+def flush_columns(num_days: int, bin_days: int) -> np.ndarray:
+    """Day indices of the flush (bin-closing) columns, [n_bins]."""
+    t = np.arange(num_days)
+    return t[((t + 1) % bin_days == 0) | (t == num_days - 1)]
+
+
+def summary_features(spec: SummarySpec, series: torch.Tensor,
+                     n_regions: int = 1) -> torch.Tensor:
+    """A series' summary feature vector, [..., n_obs, T] -> [..., n_chan *
+    n_bins]: pooled over the regions, transformed, and its flush-day columns,
+    the values the running accumulator compares."""
+    x = pool_channels(series.to(torch.float32), pool_factor(spec, n_regions), axis=-2)
+    s = apply_summary(spec, x)
+    feats = s[..., torch.as_tensor(flush_columns(x.shape[-1], spec.bin_days),
+                                   device=x.device)]
+    return feats.reshape(feats.shape[:-2] + (-1,))
 
 
 def running_day(

@@ -15,6 +15,9 @@ from the same seeds. To feed both packages one series, build the port's
 Series are always simulated on the CPU, so a dataset is the same whichever
 device later fits it. The country series are SIARD's; any model that
 observes the same (A, R, D) channels (seiard) fits them, as in `repro`.
+`synthetic_small` drawn for a regional model holds [R * n_observed, T]
+region-major rows, labelled `I@r0`, `R@r0`, `I@r1`, ... (the spec's
+`observed_labels`).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ class CountryData:
     a0: float
     r0: float
     d0: float
-    observed: np.ndarray  # [n_observed, T] float32
+    observed: np.ndarray  # [total_observed, T] float32, region-major
     #: tolerance the paper used for this dataset (Table 8), where applicable
     paper_tolerance: float | None = None
     #: generating parameters if synthetic, else None
@@ -151,7 +154,8 @@ def get_dataset(
     """Fetch a dataset by name ('italy' | 'new_zealand' | 'usa' |
     'synthetic_small')."""
     spec = get_model(model)
-    key = (name, num_days, spec.name)
+    # keyed by the spec itself: two regionalized specs of one name differ
+    key = (name, num_days, spec)
     if key in _CACHE:
         return _CACHE[key]
     if name == "synthetic_small":

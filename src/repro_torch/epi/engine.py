@@ -1,7 +1,8 @@
-"""Generic tau-leap engine over a `CompartmentalModel` spec (port, flat).
+"""Generic tau-leap engine over a `CompartmentalModel` spec (port).
 
-The port's counterpart of `repro.epi.engine` for flat (R=1) models, with
-intervention schedules (`effective_param_rows`). Functions take tensors on
+The port's counterpart of `repro.epi.engine`, with intervention schedules
+(`effective_param_rows`) and the region axis of metapopulation models.
+Functions take tensors on
 any device and keep them there; every scalar that meets a tensor becomes a
 float32 tensor on that tensor's device first (`_f32`), so that a division
 by the population rounds the same way on the CPU and on the card.
@@ -10,9 +11,19 @@ by the population rounds the same way on the CPU and on the card.
 Transitions are clamped in declaration order with sequential source
 draining, so no compartment goes negative and the total is conserved.
 
+A regional spec (`model.is_regional`) keeps its state region-major,
+[..., R * n_state], and works on rows [..., R] with the parameters as rows
+[..., 1]. Each region holds population / R, divided in float32 as the TPU
+kernel divides it (`repro`'s engine divides the Python float). A coupled
+row is `mob[r][0] * x_0 + mob[r][1] * x_1 + ...`, summed left to right from
+the first product as the TPU kernel body sums it, one [..., R] operation a
+source region q (`coupled_rows`); `repro`'s engine uses an einsum, whose
+order is not the kernel's.
+
 `simulate_observed` draws its noise from the counter-hash RNG
-(`repro_torch.kernels.rng`), the same stream as the fused kernel; the JAX
-package's threefry streams have no PyTorch twin.
+(`repro_torch.kernels.rng`), the same stream as the fused kernel: region r's
+transition k on day d is slot r * n_transitions + k of the day's
+`model.ctr_slots`. The JAX package's threefry streams have no PyTorch twin.
 """
 
 from __future__ import annotations
@@ -22,12 +33,12 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.epi.spec import (
-    CTR_SLOTS,
     CompartmentalModel,
     EpiModelConfig,
     InterventionSchedule,
     ScheduleShape,
     active_schedule,
+    identity_mobility,
 )
 from repro_torch.kernels import rng as krng
 
@@ -37,20 +48,61 @@ def _f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
+def mobility_matrix(model: CompartmentalModel, mobility=None,
+                    device=None) -> torch.Tensor:
+    """The [R, R] float32 coupling: an override, the spec's matrix, or the
+    identity."""
+    mob = model.mobility if mobility is None else mobility
+    if mob is None:
+        mob = identity_mobility(model.n_regions)
+    return torch.as_tensor(mob, dtype=torch.float32, device=device)
+
+
+def region_population(model: CompartmentalModel, population, like: torch.Tensor):
+    """A region's population as a float32 tensor: population / R in float32
+    for R > 1, the population itself at R=1."""
+    pop = _f32(population, like)
+    return pop / model.n_regions if model.n_regions > 1 else pop
+
+
+def seed_vector(model: CompartmentalModel, value, like: torch.Tensor) -> torch.Tensor:
+    """[R] day-0 counts: `value` * 1 in `seed_region`, `value` * 0 in every
+    other region, each product in float32 as the kernels form it."""
+    z = torch.zeros((model.n_regions,), dtype=torch.float32, device=like.device)
+    z[model.seed_region] = 1.0
+    return _f32(value, like) * z
+
+
 def initial_state(
     model: CompartmentalModel, theta: torch.Tensor, cfg: EpiModelConfig
 ) -> torch.Tensor:
-    """Spec step 1: theta [..., n_params] -> state [..., n_state]."""
+    """Spec step 1: theta [..., n_params] -> state [..., total_state].
+
+    A regional spec seeds `seed_region` with (a0, r0, d0); every other
+    region starts fully susceptible at population / R."""
     theta = theta.to(torch.float32)
-    pc = tuple(theta[..., k] for k in range(model.n_params))
+    if not model.is_regional:
+        pc = tuple(theta[..., k] for k in range(model.n_params))
+        rows = model.initial_rows(
+            pc,
+            _f32(cfg.population, theta),
+            _f32(cfg.a0, theta),
+            _f32(cfg.r0, theta),
+            _f32(cfg.d0, theta),
+        )
+        return torch.stack(list(rows), dim=-1).to(torch.float32)
+    batch = theta.shape[:-1]
+    pc = tuple(theta[..., k:k + 1] for k in range(model.n_params))
     rows = model.initial_rows(
         pc,
-        _f32(cfg.population, theta),
-        _f32(cfg.a0, theta),
-        _f32(cfg.r0, theta),
-        _f32(cfg.d0, theta),
+        region_population(model, cfg.population, theta),
+        seed_vector(model, cfg.a0, theta),
+        seed_vector(model, cfg.r0, theta),
+        seed_vector(model, cfg.d0, theta),
     )
-    return torch.stack(list(rows), dim=-1).to(torch.float32)
+    rows = [torch.broadcast_to(r, batch + (model.n_regions,)) for r in rows]
+    # [..., R, C] -> region-major [..., R*C]
+    return torch.stack(rows, dim=-1).reshape(batch + (model.total_state,)).to(torch.float32)
 
 
 def effective_param_rows(
@@ -105,18 +157,45 @@ def check_theta_width(model: CompartmentalModel, schedule, theta: torch.Tensor) 
                          f"{tuple(theta.shape)}")
 
 
+def coupled_rows(model: CompartmentalModel, st: torch.Tensor, mob: torch.Tensor):
+    """The coupled rows of region-major state rows `st` [..., R, C]: for
+    each coupled compartment j, [..., R] with row r = mob[r][0] * x_0[j] +
+    mob[r][1] * x_1[j] + ..., left to right from the first product."""
+    out = []
+    for j in model.coupled_idx:
+        row = mob[:, 0] * st[..., 0:1, j]
+        for q in range(1, model.n_regions):
+            row = row + mob[:, q] * st[..., q:q + 1, j]
+        out.append(row)
+    return tuple(out)
+
+
 def hazards(
     model: CompartmentalModel,
     state: torch.Tensor,
     theta: torch.Tensor,
     population,
+    mobility=None,
 ) -> torch.Tensor:
-    """Transition rates: state [..., n_state] -> h [..., n_transitions] >= 0."""
-    sc = tuple(state[..., k] for k in range(model.n_state))
-    pc = tuple(theta[..., k] for k in range(model.n_params))
-    rows = model.hazard_rows(sc, pc, _f32(population, state))
-    # hazards are rates of counting processes; they cannot be negative
-    return torch.clamp_min(torch.stack(list(rows), dim=-1), 0.0)
+    """Transition rates: state [..., total_state] -> h [..., total_transitions]
+    >= 0, region-major (slot r * n_transitions + k). `mobility` overrides the
+    spec's matrix."""
+    if not model.is_regional:
+        sc = tuple(state[..., k] for k in range(model.n_state))
+        pc = tuple(theta[..., k] for k in range(model.n_params))
+        rows = model.hazard_rows(sc, pc, _f32(population, state))
+        # hazards are rates of counting processes; they cannot be negative
+        return torch.clamp_min(torch.stack(list(rows), dim=-1), 0.0)
+    R, C = model.n_regions, model.n_state
+    batch = state.shape[:-1]
+    st = state.reshape(batch + (R, C))
+    sc = tuple(st[..., k] for k in range(C))  # each [..., R]
+    pc = tuple(theta[..., k:k + 1] for k in range(model.n_params))
+    mob = mobility_matrix(model, mobility, state.device)
+    rows = model.hazard_rows(sc + coupled_rows(model, st, mob), pc,
+                             region_population(model, population, state))
+    h = torch.stack([torch.broadcast_to(r, batch + (R,)) for r in rows], dim=-1)
+    return torch.clamp_min(h, 0.0).reshape(batch + (model.total_transitions,))
 
 
 def drain_and_apply(model: CompartmentalModel, sc, raw_counts):
@@ -145,10 +224,19 @@ def drain_and_apply(model: CompartmentalModel, sc, raw_counts):
 def apply_transitions(
     model: CompartmentalModel, state: torch.Tensor, n_raw: torch.Tensor
 ) -> torch.Tensor:
-    """Tensor-layout wrapper around `drain_and_apply`."""
-    sc = [state[..., k] for k in range(model.n_state)]
-    raw = [n_raw[..., k] for k in range(model.n_transitions)]
-    return torch.stack(drain_and_apply(model, sc, raw), dim=-1)
+    """Tensor-layout wrapper around `drain_and_apply`; a regional spec
+    drains each region on rows [..., R]."""
+    if not model.is_regional:
+        sc = [state[..., k] for k in range(model.n_state)]
+        raw = [n_raw[..., k] for k in range(model.n_transitions)]
+        return torch.stack(drain_and_apply(model, sc, raw), dim=-1)
+    R, C, T = model.n_regions, model.n_state, model.n_transitions
+    batch = state.shape[:-1]
+    st = state.reshape(batch + (R, C))
+    nr = n_raw.reshape(batch + (R, T))
+    out = drain_and_apply(model, [st[..., k] for k in range(C)],
+                          [nr[..., k] for k in range(T)])
+    return torch.stack(out, dim=-1).reshape(batch + (model.total_state,))
 
 
 def tau_leap_step(
@@ -157,9 +245,11 @@ def tau_leap_step(
     theta: torch.Tensor,
     noise: torch.Tensor,
     population,
+    mobility=None,
 ) -> torch.Tensor:
-    """One day: n_k = floor(h_k + sqrt(h_k) * z_k), clamped to sources."""
-    h = hazards(model, state, theta, population)
+    """One day: n_k = floor(h_k + sqrt(h_k) * z_k), clamped to sources;
+    noise is [..., total_transitions], region-major."""
+    h = hazards(model, state, theta, population, mobility)
     n_raw = torch.floor(h + torch.sqrt(h) * noise)
     return apply_transitions(model, state, n_raw)
 
@@ -170,23 +260,33 @@ def simulate_observed(
     seed: int,
     cfg: EpiModelConfig,
     schedule: Optional[InterventionSchedule] = None,
+    mobility=None,
 ) -> torch.Tensor:
-    """Observed channels [B, n_observed, T] under the counter-hash RNG.
+    """Observed channels [B, total_observed, T] under the counter-hash RNG,
+    region-major for a regional spec (channel r * n_observed + m).
 
-    Sample b's noise on day d, transition k is `normal(seed, b, d*8 + k)`,
-    the fused kernel's stream, so the kernel run at the generating theta and
-    seed replays this trajectory. Under a schedule theta carries the scale
-    columns; the seeding uses the base parameters only.
+    Sample b's noise on day d, slot s is `normal(seed, b, d * ctr_slots +
+    s)`, the fused kernel's stream, so the kernel run at the generating
+    theta and seed replays this trajectory. Under a schedule theta carries
+    the scale columns; the seeding uses the base parameters only.
     """
     theta = theta.to(torch.float32)
     check_theta_width(model, schedule, theta)
     idx = torch.arange(theta.shape[0], device=theta.device)
     state = initial_state(model, theta, cfg)
     pop = _f32(cfg.population, theta)
+    mob = mobility_matrix(model, mobility, theta.device) if model.is_regional else None
     obs = []
     for day in range(cfg.num_days):
-        z = krng.hash_normals(seed, idx, day, model.n_transitions, CTR_SLOTS)
+        z = krng.hash_normals(seed, idx, day, model.total_transitions, model.ctr_slots)
         th_d = effective_theta(model, schedule, theta, day)
-        state = tau_leap_step(model, state, th_d, z, pop)
-        obs.append(state[:, list(model.observed_idx)])
+        state = tau_leap_step(model, state, th_d, z, pop, mob)
+        obs.append(state[:, list(model.total_observed_idx)])
     return torch.stack(obs, dim=-1)
+
+
+def regional_view(series: torch.Tensor, model: CompartmentalModel) -> torch.Tensor:
+    """Unflatten the region-major channel axis: [..., R*n, T] -> [..., R, n, T]."""
+    R = model.n_regions
+    n = series.shape[-2] // R
+    return series.reshape(series.shape[:-2] + (R, n) + series.shape[-1:])

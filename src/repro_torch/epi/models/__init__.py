@@ -1,9 +1,9 @@
 """Registry of the port's compartmental models.
 
-The flat models of `repro.epi.models`, registered in its order: siard (the
-paper's default), sir, seir and seiard. Each has a C++ struct beside it for
-the CUDA kernel (`kernels/csrc/<model>.cuh`). The metapopulation model
-`metapop_seir` waits for the region axis.
+The models of `repro.epi.models`, registered in its order: siard (the
+paper's default), sir, seir, seiard and the 4-region metapopulation
+metapop_seir. Each has a C++ struct beside it for the CUDA kernel
+(`kernels/csrc/<model>.cuh`).
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from repro_torch.epi.models import siard as _siard  # noqa: E402
 from repro_torch.epi.models import sir as _sir  # noqa: E402, F401
 from repro_torch.epi.models import seir as _seir  # noqa: E402, F401
 from repro_torch.epi.models import seiard as _seiard  # noqa: E402, F401
+from repro_torch.epi.models import metapop_seir as _metapop_seir  # noqa: E402, F401
 
 DEFAULT_MODEL = _siard.MODEL
 

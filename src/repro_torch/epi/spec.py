@@ -1,8 +1,8 @@
 """Declarative specification of a stochastic compartmental model (port).
 
-The port's copy of the flat part of `repro.epi.spec`. A `CompartmentalModel`
-names its compartments and parameters, lists its transitions as a
-stoichiometry matrix and gives two row-level functions:
+The port's copy of `repro.epi.spec`. A `CompartmentalModel` names its
+compartments and parameters, lists its transitions as a stoichiometry
+matrix and gives two row-level functions:
 
     h   = hazard_rows(state_rows, param_rows, population)   one rate per transition
     n_k = floor(h_k + sqrt(h_k) * z_k)                       Gaussian tau-leap counts
@@ -12,11 +12,21 @@ stoichiometry matrix and gives two row-level functions:
 Rows are sequences of same-shape tensors, one per compartment or parameter,
 so the same function body serves the engine (`repro_torch.epi.engine`) and
 the plain version of the fused kernel (`repro_torch.kernels.ref`). The CUDA
-kernel carries each model as a C++ struct (`kernels/csrc/<model>.cuh`).
+kernel carries each model's rows as a C++ struct (`kernels/csrc/<kernel>.cuh`,
+`CompartmentalModel.kernel`).
+
+Spatial metapopulation models declare `n_regions` (R) copies of their
+compartments coupled through a row-stochastic `mobility` matrix. State,
+transitions and observed channels flatten region-major: channel
+`r * n_state + c` is compartment c of region r. For each compartment named
+in `coupled`, a hazard sees one extra row after its local ones, the
+mobility-weighted mass `sum_q mobility[r][q] * x_q`. Each region holds
+population / R people; the dataset's (a0, r0, d0) seed `seed_region` only.
+At R=1 with nothing coupled every total equals its per-region count, so a
+flat model is the R=1 case (`is_regional` is False).
 
 An `InterventionSchedule` scales chosen parameters by a factor per window of
-days; the scales are extra columns of theta. Metapopulation regions raise
-`NotImplementedError`: the region axis is queue 1, item 4 of ROADMAP.md.
+days; the scales are extra columns of theta, shared by every region.
 """
 
 from __future__ import annotations
@@ -28,24 +38,96 @@ Rows = Sequence
 HazardFn = Callable[[Rows, Rows, object], Tuple]
 InitialFn = Callable[[Rows, object, object, object, object], Tuple]
 
-#: hash-RNG counter slots per simulated day (5 used by SIARD)
+#: hash-RNG counter slots per simulated day of a flat model (5 used by
+#: SIARD); a regional model's stride is `CompartmentalModel.ctr_slots`
 CTR_SLOTS = 8
+#: most transitions a model may have, per region
+MAX_TRANSITIONS = 8
 #: most windows a schedule may have (the kernel's breakpoint lanes)
 MAX_WINDOWS = 16
+#: tolerance of the row sums of a mobility matrix (float32 inputs)
+_ROW_SUM_TOL = 1e-5
 
 
-def require_flat(n_regions: int = 1) -> None:
-    """Raise for a metapopulation model: the port has no region axis yet."""
-    if n_regions != 1:
-        raise NotImplementedError(
-            "metapopulation models (n_regions > 1) wait for the region axis "
-            "(queue 1, item 4 of ROADMAP.md)"
+def identity_mobility(n_regions: int) -> Tuple[Tuple[float, ...], ...]:
+    """The zero-coupling matrix: every region keeps all of its own mass."""
+    return tuple(
+        tuple(1.0 if q == r else 0.0 for q in range(n_regions))
+        for r in range(n_regions)
+    )
+
+
+def validate_mobility(mobility, n_regions: int) -> Tuple[Tuple[float, ...], ...]:
+    """A mobility matrix as nested float tuples, checked: [R][R], rows of
+    non-negative entries that sum to 1 (row-stochastic). Raises ValueError
+    otherwise."""
+    rows = tuple(tuple(float(x) for x in row) for row in mobility)
+    if len(rows) != n_regions or any(len(r) != n_regions for r in rows):
+        raise ValueError(
+            f"mobility must be a [{n_regions}][{n_regions}] matrix, got "
+            f"shape ({len(rows)}, {tuple(len(r) for r in rows)})"
         )
+    for r, row in enumerate(rows):
+        if any(x < 0.0 for x in row):
+            raise ValueError(
+                f"mobility row {r} has negative entries: {row} — rows must "
+                "be non-negative probabilities"
+            )
+        s = sum(row)
+        if abs(s - 1.0) > _ROW_SUM_TOL:
+            raise ValueError(
+                f"mobility row {r} sums to {s!r}, not 1: mobility must be "
+                "row-stochastic (each region's mass weights sum to 1)"
+            )
+    return rows
+
+
+def make_mobility(spec: str, n_regions: int) -> Tuple[Tuple[float, ...], ...]:
+    """A mobility matrix from the CLI grammar (--mobility):
+
+      * "identity"     no coupling between regions
+      * "uniform:EPS"  each region keeps 1-EPS and spreads EPS evenly over
+                       the other R-1 regions
+      * "ring:EPS"     each region keeps 1-EPS and sends EPS/2 to each of
+                       its two ring neighbours (EPS to the other of two)
+    """
+    kind, _, arg = spec.partition(":")
+    if kind == "identity":
+        if arg:
+            raise ValueError(f"identity mobility takes no argument: {spec!r}")
+        return identity_mobility(n_regions)
+    if kind not in ("uniform", "ring"):
+        raise ValueError(
+            f"unknown mobility kind {spec!r}; grammar: identity | "
+            "uniform:EPS | ring:EPS"
+        )
+    if not arg:
+        raise ValueError(f"mobility {kind!r} needs a coupling strength: {spec!r}")
+    eps = float(arg)
+    if not 0.0 <= eps <= 1.0:
+        raise ValueError(f"mobility coupling must be in [0, 1], got {eps}")
+    if n_regions == 1:
+        return identity_mobility(1)
+    rows = []
+    for r in range(n_regions):
+        row = [0.0] * n_regions
+        row[r] = 1.0 - eps
+        if kind == "uniform":
+            for q in range(n_regions):
+                if q != r:
+                    row[q] = eps / (n_regions - 1)
+        elif n_regions == 2:
+            row[(r + 1) % 2] = eps
+        else:
+            row[(r - 1) % n_regions] += eps / 2.0
+            row[(r + 1) % n_regions] += eps / 2.0
+        rows.append(tuple(row))
+    return validate_mobility(rows, n_regions)
 
 
 @dataclasses.dataclass(frozen=True)
 class CompartmentalModel:
-    """Declarative spec of a flat stochastic compartmental epidemic model."""
+    """Declarative spec of a stochastic compartmental epidemic model."""
 
     name: str
     compartments: Tuple[str, ...]
@@ -59,20 +141,33 @@ class CompartmentalModel:
     observed: Tuple[str, ...]
     hazard_rows: HazardFn
     initial_rows: InitialFn
-    #: operations of one `hazard_rows` evaluation per sample-day, before the
-    #: clamp at zero, with products of parameters alone counted once per
-    #: sample and left out (the kernel's bound, `kernels.abc_sim`)
+    #: operations of one `hazard_rows` evaluation per sample-day (per region),
+    #: before the clamp at zero, with products of parameters alone counted
+    #: once per sample and left out (the kernel's bound, `kernels.abc_sim`)
     hazard_ops: int
     #: plausible generating parameters
     default_theta: Tuple[float, ...]
     prior_lows: Tuple[float, ...] | None = None
     doc: str = ""
-    #: metapopulation regions; the port carries 1
+    #: metapopulation regions; R=1 is the flat single-population layout
     n_regions: int = 1
+    #: row-stochastic [R][R] coupling: mobility[r][q] weights region q's mass
+    #: in region r's coupled rows. None becomes the identity (no coupling)
+    #: whenever regions or coupled compartments are declared.
+    mobility: Tuple[Tuple[float, ...], ...] | None = None
+    #: compartments whose mobility-weighted mass rows are appended, in this
+    #: order, to the state rows `hazard_rows` sees
+    coupled: Tuple[str, ...] = ()
+    #: the region seeded with the dataset's (a0, r0, d0); every other region
+    #: starts fully susceptible at population / n_regions
+    seed_region: int = 0
+    #: the C++ struct (`kernels/csrc/<kernel>.cuh`) that carries these rows
+    #: in the CUDA kernel; "" is `name`. `regionalize` keeps it, so a spec
+    #: renamed `seir_r3` still runs on seir's struct.
+    kernel: str = ""
 
     def __post_init__(self):
-        require_flat(self.n_regions)
-        ns, np_ = len(self.compartments), len(self.param_names)
+        ns, np_, nt = len(self.compartments), len(self.param_names), len(self.stoichiometry)
         if len(self.prior_highs) != np_:
             raise ValueError(f"{self.name}: prior_highs must have {np_} entries")
         if self.prior_lows is not None and len(self.prior_lows) != np_:
@@ -88,10 +183,35 @@ class CompartmentalModel:
         for name in self.observed:
             if name not in self.compartments:
                 raise ValueError(f"{self.name}: observed {name!r} is not a compartment")
-        if len(self.stoichiometry) > CTR_SLOTS:
+        if nt > MAX_TRANSITIONS:
+            # per region: a regional model widens the day's counter stride
+            # (`ctr_slots`), not the transitions a region may have
             raise ValueError(
-                f"{self.name}: at most {CTR_SLOTS} transitions supported, "
-                f"got {len(self.stoichiometry)}"
+                f"{self.name}: at most {MAX_TRANSITIONS} transitions supported, got {nt}"
+            )
+        if not self.kernel:
+            object.__setattr__(self, "kernel", self.name)
+        # ---- the region axis
+        if not isinstance(self.n_regions, int) or self.n_regions < 1:
+            raise ValueError(
+                f"{self.name}: n_regions must be a positive int, got "
+                f"{self.n_regions!r}"
+            )
+        object.__setattr__(self, "coupled", tuple(self.coupled))
+        for name in self.coupled:
+            if name not in self.compartments:
+                raise ValueError(f"{self.name}: coupled {name!r} is not a compartment")
+        if not 0 <= self.seed_region < self.n_regions:
+            raise ValueError(
+                f"{self.name}: seed_region {self.seed_region} out of range "
+                f"for {self.n_regions} regions"
+            )
+        if self.mobility is None:
+            if self.coupled or self.n_regions > 1:
+                object.__setattr__(self, "mobility", identity_mobility(self.n_regions))
+        else:
+            object.__setattr__(
+                self, "mobility", validate_mobility(self.mobility, self.n_regions)
             )
 
     @property
@@ -119,16 +239,80 @@ class CompartmentalModel:
         """Source compartment index of each transition (the -1 entry)."""
         return tuple(row.index(-1) for row in self.stoichiometry)
 
+    # region-major totals: at R=1 each equals its per-region count
+    @property
+    def total_state(self) -> int:
+        return self.n_regions * self.n_state
+
+    @property
+    def total_transitions(self) -> int:
+        return self.n_regions * self.n_transitions
+
+    @property
+    def total_observed(self) -> int:
+        return self.n_regions * self.n_observed
+
+    @property
+    def total_observed_idx(self) -> Tuple[int, ...]:
+        """Observed channel indices into the region-major state."""
+        return tuple(r * self.n_state + c for r in range(self.n_regions)
+                     for c in self.observed_idx)
+
     @property
     def observed_labels(self) -> Tuple[str, ...]:
-        """Per-channel labels of the observed rows of a dataset."""
-        return self.observed
+        """Labels of the observed rows of a dataset: the compartment names
+        at R=1, `C@rN` region-major else."""
+        if self.n_regions == 1:
+            return self.observed
+        return tuple(f"{c}@r{r}" for r in range(self.n_regions) for c in self.observed)
+
+    @property
+    def coupled_idx(self) -> Tuple[int, ...]:
+        return tuple(self.compartments.index(c) for c in self.coupled)
+
+    @property
+    def is_regional(self) -> bool:
+        """True unless the spec is flat (R=1, nothing coupled): a regional
+        spec runs the region path of the engine and of the kernel."""
+        return self.n_regions > 1 or bool(self.coupled)
+
+    @property
+    def ctr_slots(self) -> int:
+        """Hash-RNG counter slots a day: 8 at R=1 (the flat stream), the
+        total transitions rounded up to a multiple of 8 above it. Region
+        r's transition k draws slot r * n_transitions + k."""
+        return max(CTR_SLOTS, -(-self.total_transitions // 8) * 8)
 
     def prior(self):
         """The model's uniform box prior U(lows, highs)."""
         from repro_torch.core.priors import UniformBoxPrior
 
         return UniformBoxPrior(highs=self.prior_highs, lows=self.prior_lows)
+
+
+def regionalize(
+    model: CompartmentalModel,
+    n_regions: int,
+    mobility=None,
+    name: str | None = None,
+    seed_region: int = 0,
+) -> CompartmentalModel:
+    """A spatial variant of `model` with R regions coupled by `mobility`: a
+    matrix, a `make_mobility` string ("ring:0.1") or None (identity). The
+    rows are unchanged; only a model with coupled compartments exchanges
+    mass, any other becomes R independent copies. The spec checks the
+    matrix. The name becomes `<name>_r<R>` when R changes; the struct of
+    the CUDA kernel (`kernel`) stays."""
+    if isinstance(mobility, str):
+        mobility = make_mobility(mobility, n_regions)
+    return dataclasses.replace(
+        model,
+        name=name or (model.name if n_regions == model.n_regions
+                      else f"{model.name}_r{n_regions}"),
+        n_regions=n_regions,
+        mobility=mobility,
+        seed_region=seed_region,
+    )
 
 
 class ScheduleShape(NamedTuple):

@@ -1,10 +1,14 @@
-"""ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cuh`).
+"""ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cuh`)
+and of its region axis (`csrc/abc_sim_regional.cuh`).
 
 Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
 launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
 global sample index. Each flat model has its own library, built side by
 side: `csrc/abc_sim_<model>.cu` (`library`); SIARD's also holds the RNG
-test entries. Two entries share the kernel's body:
+test entries. A regional model (`model.is_regional`) runs the region axis
+from the library of its struct, `csrc/abc_sim_regional_<kernel>.cu`, chosen
+by `model.kernel` and not by its name (`regionalize` renames a spec
+`seir_r3`). Two entries share each kernel's body:
 
 * `abc_sim_distance_kernel` (theta in) takes
 
@@ -23,6 +27,14 @@ test entries. Two entries share the kernel's body:
   `UniformBoxPrior.sample` does, and returns theta [B, W] row-major and the
   distances with NaN turned to +inf.
 
+The regional entries (`abc_sim_regional_distance_kernel`,
+`abc_sim_regional_wave_kernel`) take the same theta, box and host constants
+(fconst's weight lanes unused) and, in device buffers made once per
+simulator, the mobility matrix [R, R] (coupled models) and the channel
+weights [n_chan]; R, the seeded region and the pooling are run-time
+arguments. obs is [n_chan, T] with n_chan = R * n_observed, region-major,
+or n_observed when pooled. R past `MAX_REGIONS` raises.
+
 W is the model's P parameters plus a schedule's scale columns
 (`spec.InterventionSchedule`), P without one. The constants, the schedule,
 the box and the seeds travel in the kernel's parameters, not in device
@@ -33,8 +45,9 @@ size in threads replaces the tile, and distances are bitwise the same for
 every block size.
 
 `ENTRY_LAUNCHES` counts the launches of each exported entry by its C name
-(`abc_sim_wave_seiard`, ...), `launches(entry)` those of one entry summed
-over the models, and `RNG_LAUNCHES` those of the two test entries:
+(`abc_sim_wave_seiard`, `abc_sim_regional_wave_metapop_seir`, ...),
+`launches(entry)` those of one entry summed over the models, flat and
+regional, and `RNG_LAUNCHES` those of the two test entries:
 `rng_normals`, which writes the kernel's hash bits or normals for (seed,
 sample, counter), and `unit_math_mismatches`, which holds the kernel's
 branch-free Box-Muller pieces to logf, sqrtf and cosf on every uniform the
@@ -44,6 +57,7 @@ hash can give.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,6 +85,10 @@ N_ICONST = I_TV_SLOT + MAX_PARAMS
 #: the kernel's __launch_bounds__
 MAX_BLOCK = 256
 DEFAULT_BLOCK = 256
+#: the most regions the regional kernel takes (its local arrays' size)
+MAX_REGIONS = 128
+#: shared memory a block may opt in to on compute capability 9.0
+SMEM_OPTIN_BYTES = 232_448
 
 #: launches of each exported entry, by C name (abc_sim_wave_siard, ...)
 ENTRY_LAUNCHES: dict = {}
@@ -81,14 +99,37 @@ _VP = ctypes.c_void_p
 _typed: set = set()
 
 
+def _spec(model) -> CompartmentalModel:
+    if isinstance(model, str):
+        from repro_torch.epi.models import get_model
+
+        return get_model(model)
+    return model
+
+
 def library(model) -> str:
-    """The csrc/ source (and library) that holds `model`'s kernel,
-    `abc_sim_<model>`."""
-    return f"abc_sim_{model if isinstance(model, str) else model.name}"
+    """The csrc/ source (and library) that holds the kernel of `model` (a
+    spec or a registered name): `abc_sim_<kernel>` for a flat model,
+    `abc_sim_regional_<kernel>` for a regional one, `kernel` being the
+    spec's struct."""
+    spec = _spec(model)
+    return f"abc_sim_{'regional_' if spec.is_regional else ''}{spec.kernel}"
+
+
+def struct_name(model) -> str:
+    """The C++ struct of `model`'s rows: `metapop_seir` -> `MetapopSeir`."""
+    return "".join(part.capitalize() for part in _spec(model).kernel.split("_"))
+
+
+def entry_name(model, entry: str) -> str:
+    """The C name of `model`'s `entry` ("distance" or "wave"):
+    `abc_sim_wave_siard`, `abc_sim_regional_wave_metapop_seir`."""
+    spec = _spec(model)
+    return f"abc_sim_{'regional_' if spec.is_regional else ''}{entry}_{spec.kernel}"
 
 
 #: the library that also holds the RNG test entries
-RNG_LIBRARY = library("siard")
+RNG_LIBRARY = "abc_sim_siard"
 
 
 def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
@@ -106,6 +147,12 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
                 f"{name} library constant layout {layout} does not match the "
                 f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK)}"
             )
+        if name.startswith("abc_sim_regional_"):
+            lib.abc_sim_max_regions.argtypes = []
+            lib.abc_sim_max_regions.restype = ctypes.c_int
+            if lib.abc_sim_max_regions() != MAX_REGIONS:
+                raise RuntimeError(f"{name} takes {lib.abc_sim_max_regions()} regions, the "
+                                   f"wrapper {MAX_REGIONS}")
         if name == RNG_LIBRARY:
             lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, _VP, ctypes.c_int, _VP]
@@ -118,26 +165,49 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
     return lib
 
 
+_INT = ctypes.c_int
 _ARGTYPES = {
-    "distance": [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
-    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _VP],
+    "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "regional_distance": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                          _INT, _VP],
+    "regional_wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                      _INT, _INT, _INT, _INT, _VP],
 }
 
 
 def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distance"):
-    name = f"abc_sim_{entry}_{model.name}"
+    name = entry_name(model, entry)
     try:
         fn = getattr(lib, name)
     except AttributeError:
         raise NotImplementedError(
             f"no CUDA kernel for model {model.name!r} (missing C symbol {name} in "
-            f"csrc/{library(model)}.cu); the kernel carries the registered flat "
-            "models siard, sir, seir and seiard"
+            f"csrc/{library(model)}.cu); the kernel carries the structs of siard, sir, "
+            "seir, seiard and metapop_seir"
         ) from None
-    fn.argtypes = _ARGTYPES[entry]
+    fn.argtypes = _ARGTYPES[("regional_" if model.is_regional else "") + entry]
     fn.restype = ctypes.c_int
+    if model.is_regional:
+        _check_struct(lib, model)
     return fn
+
+
+def _check_struct(lib: ctypes.CDLL, model: CompartmentalModel) -> None:
+    """Raise unless the struct in `lib` has the spec's sizes and coupled
+    compartments."""
+    shape_fn = getattr(lib, f"abc_sim_regional_shape_{model.kernel}")
+    shape_fn.argtypes = [_VP]
+    shape_fn.restype = _INT
+    out = np.zeros((16,), np.int32)
+    shape_fn(out.ctypes.data)
+    n_coupled = int(out[4])
+    got = (tuple(int(v) for v in out[:4]), tuple(int(v) for v in out[5:5 + n_coupled]))
+    want = ((model.n_state, model.n_transitions, model.n_params, model.n_observed),
+            model.coupled_idx)
+    if got != want:
+        raise ValueError(f"the struct of {library(model)} has (state, transitions, params, "
+                         f"observed), coupled {got}; {model.name} declares {want}")
 
 
 def variant(flags, wave: bool) -> int:
@@ -151,9 +221,12 @@ def variant_symbol(model: CompartmentalModel, v: int) -> str:
     """The part of the mangled name that picks variant `v` of `model`'s
     kernel out of its library's SASS or ptxas report: `abc_sim_kernel<Siard,
     8>` is `abc_sim_kernelI5SiardLi8EE`, `abc_sim_kernel<Seiard, 8>`
-    `abc_sim_kernelI6SeiardLi8EE`."""
-    struct = model.name.capitalize()
-    return f"abc_sim_kernelI{len(struct)}{struct}Li{int(v)}EE"
+    `abc_sim_kernelI6SeiardLi8EE`, and for a regional model
+    `abc_sim_regional_kernel<MetapopSeir, 8>`
+    `abc_sim_regional_kernelI11MetapopSeirLi8EE`."""
+    struct = struct_name(model)
+    kernel = "abc_sim_regional_kernel" if model.is_regional else "abc_sim_kernel"
+    return f"{kernel}I{len(struct)}{struct}Li{int(v)}EE"
 
 
 def kernel_symbol(model: CompartmentalModel, flags, wave: bool) -> str:
@@ -257,16 +330,16 @@ def _check_2d_f32(name: str, t: torch.Tensor) -> None:
 
 
 def _launched(model: CompartmentalModel, entry: str) -> None:
-    """Count one launch of `abc_sim_<entry>_<model>`."""
-    name = f"abc_sim_{entry}_{model.name}"
+    """Count one launch of `model`'s `entry` under its C name."""
+    name = entry_name(model, entry)
     ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
 
 
 def launches(entry: str) -> int:
     """Launches of `entry` ("distance", the theta-in entry, or "wave") of
-    every model, from `ENTRY_LAUNCHES`."""
+    every model, flat and regional, from `ENTRY_LAUNCHES`."""
     return sum(n for name, n in ENTRY_LAUNCHES.items()
-               if name.startswith(f"abc_sim_{entry}_"))
+               if name.startswith((f"abc_sim_{entry}_", f"abc_sim_regional_{entry}_")))
 
 
 def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
@@ -274,10 +347,17 @@ def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
     if obs.device.type != "cuda":
         raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
     _check_2d_f32("obs", obs)
+    if model.is_regional:
+        raise ValueError(f"{model.name} is regional: its entries are "
+                         "abc_sim_regional_distance_kernel and abc_sim_regional_wave_kernel")
     if obs.shape[0] != model.n_observed or obs.shape[1] < 1:
         raise ValueError(
             f"obs must be [{model.n_observed}, T>=1], got {tuple(obs.shape)}"
         )
+    _check_consts(fconst, iconst, model)
+
+
+def _check_consts(fconst, iconst, model: CompartmentalModel) -> None:
     if fconst.dtype != np.float32 or fconst.shape != (N_FCONST,):
         raise ValueError(f"fconst must be float32 [{N_FCONST}]")
     if iconst.dtype != np.int32 or iconst.shape != (N_ICONST,):
@@ -285,6 +365,18 @@ def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
     if model.n_params > MAX_PARAMS:
         raise ValueError(f"{model.name} has {model.n_params} parameters; the kernel "
                          f"takes at most {MAX_PARAMS}")
+
+
+def _box(lows, highs, width: int, model: CompartmentalModel):
+    """The box's bounds as contiguous float32 host arrays of `width`."""
+    lo = np.ascontiguousarray(np.asarray(lows, np.float32).reshape(-1))
+    hi = np.ascontiguousarray(np.asarray(highs, np.float32).reshape(-1))
+    if lo.shape != (width,) or hi.shape != (width,):
+        raise ValueError(
+            f"the box has {lo.size} lows and {hi.size} highs; {model.name} with the "
+            f"packed schedule has {width} columns"
+        )
+    return lo, hi
 
 
 def abc_sim_distance_kernel(
@@ -320,7 +412,7 @@ def abc_sim_distance_kernel(
         rc = fn(theta_soa.data_ptr(), obs.data_ptr(), out.data_ptr(),
                 fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1],
                 block, _stream_handle(theta_soa.device))
-    _check_rc(lib, rc, f"abc_sim_distance_{model.name}")
+    _check_rc(lib, rc, entry_name(model, "distance"))
     _launched(model, "distance")
     return out
 
@@ -343,13 +435,7 @@ def abc_sim_wave_kernel(
     block = check_block(block)
     _check_obs_and_consts(obs, fconst, iconst, model)
     width = theta_width(model, iconst)
-    lo = np.ascontiguousarray(np.asarray(lows, np.float32).reshape(-1))
-    hi = np.ascontiguousarray(np.asarray(highs, np.float32).reshape(-1))
-    if lo.shape != (width,) or hi.shape != (width,):
-        raise ValueError(
-            f"the box has {lo.size} lows and {hi.size} highs; {model.name} with the "
-            f"packed schedule has {width} columns"
-        )
+    lo, hi = _box(lows, highs, width, model)
     batch = int(batch)
     if batch < 1:
         raise ValueError("a wave needs at least one sample")
@@ -365,7 +451,147 @@ def abc_sim_wave_kernel(
         rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
                 theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data, iconst.ctypes.data,
                 batch, obs.shape[1], block, _stream_handle(obs.device))
-    _check_rc(lib, rc, f"abc_sim_wave_{model.name}")
+    _check_rc(lib, rc, entry_name(model, "wave"))
+    _launched(model, "wave")
+    return theta, dist
+
+
+def regional_channels(model: CompartmentalModel, pool: int) -> int:
+    """Summary channels of a regional launch: n_observed pooled over the
+    regions (`pool` > 1), else R * n_observed."""
+    return model.n_observed if pool > 1 else model.total_observed
+
+
+def regional_smem_bytes(model: CompartmentalModel, pool: int, num_days: int) -> int:
+    """Shared memory of a regional block: the observed summary, the weights
+    and, for a coupled model, the mobility matrix."""
+    n_chan = regional_channels(model, pool)
+    mob = model.n_regions ** 2 if model.coupled else 0
+    return 4 * (n_chan * (num_days + 1) + mob)
+
+
+def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weights,
+                   pool: int) -> None:
+    """Raise unless the region axis of `model` fits the kernel and the
+    device buffers are what it reads: R at most MAX_REGIONS, obs [n_chan,
+    T], weights [n_chan], mobility [R, R] (coupled models), the block's
+    shared memory within the opt-in limit."""
+    R = model.n_regions
+    if not model.is_regional:
+        raise ValueError(f"{model.name} is flat; it has no region axis")
+    if R > MAX_REGIONS:
+        raise ValueError(f"{model.name} has {R} regions; the regional kernel takes at most "
+                         f"MAX_REGIONS = {MAX_REGIONS}")
+    n_chan = regional_channels(model, pool)
+    if obs.shape[0] != n_chan or obs.shape[1] < 1:
+        raise ValueError(f"obs must be [{n_chan}, T>=1] for {model.name} (pool {pool}), "
+                         f"got {tuple(obs.shape)}")
+    for name, t, shape in (("weights", weights, (n_chan,)), ("mobility", mobility, (R, R))):
+        if name == "mobility" and not model.coupled:
+            continue
+        if (not isinstance(t, torch.Tensor) or t.device != obs.device
+                or t.dtype != torch.float32 or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on "
+                             f"{obs.device}")
+    smem = regional_smem_bytes(model, pool, obs.shape[1])
+    if smem > SMEM_OPTIN_BYTES:
+        raise ValueError(f"{model.name} at {obs.shape[1]} days needs {smem} bytes of shared "
+                         f"memory a block; the card gives at most {SMEM_OPTIN_BYTES}")
+
+
+def _regional_args(model: CompartmentalModel, mobility, pool: int):
+    mob = mobility.data_ptr() if model.coupled else None
+    return mob, model.n_regions, model.seed_region, int(pool > 1)
+
+
+def abc_sim_regional_distance_kernel(
+    theta_soa: torch.Tensor,  # [W, B] f32 CUDA, contiguous
+    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
+    mobility: Optional[torch.Tensor],  # [R, R] f32 CUDA (coupled models)
+    weights: torch.Tensor,  # [n_chan] f32 CUDA
+    fconst: np.ndarray,  # [N_FCONST] f32 host
+    iconst: np.ndarray,  # [N_ICONST] i32 host
+    *,
+    model: CompartmentalModel,
+    pool: int = 1,
+    block: int = DEFAULT_BLOCK,
+) -> torch.Tensor:
+    """Launch the theta-in entry of the region axis on the current stream;
+    returns distances [B]. `pool` is the region-pooling factor
+    (`summaries.pool_factor`)."""
+    block = check_block(block)
+    if theta_soa.device.type != "cuda" or obs.device != theta_soa.device:
+        raise ValueError(f"theta_soa ({theta_soa.device}) and obs ({obs.device}) must be "
+                         "on one CUDA device")
+    _check_2d_f32("theta_soa", theta_soa)
+    _check_2d_f32("obs", obs)
+    _check_consts(fconst, iconst, model)
+    check_regional(model, obs, mobility, weights, pool)
+    n_rows, batch = theta_soa.shape
+    width = theta_width(model, iconst)
+    if n_rows != width or batch < 1:
+        raise ValueError(f"theta_soa is {tuple(theta_soa.shape)}; {model.name} with the "
+                         f"packed schedule has {width} rows and needs a sample")
+    fconst = np.ascontiguousarray(fconst)
+    iconst = np.ascontiguousarray(iconst)
+    lib = _lib(library(model))
+    fn = _kernel_fn(lib, model)
+    out = torch.empty((batch,), dtype=torch.float32, device=theta_soa.device)
+    mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
+    with torch.cuda.device(theta_soa.device):
+        rc = fn(theta_soa.data_ptr(), obs.data_ptr(), mob, weights.data_ptr(), out.data_ptr(),
+                fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1], R, seed_region,
+                pooled, block, _stream_handle(theta_soa.device))
+    _check_rc(lib, rc, entry_name(model, "distance"))
+    _launched(model, "distance")
+    return out
+
+
+def abc_sim_regional_wave_kernel(
+    prior_seed: int,  # uint32
+    lows,  # [W] host
+    highs,  # [W]
+    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
+    mobility: Optional[torch.Tensor],  # [R, R] f32 CUDA (coupled models)
+    weights: torch.Tensor,  # [n_chan] f32 CUDA
+    fconst: np.ndarray,  # [N_FCONST] f32 host
+    iconst: np.ndarray,  # [N_ICONST] i32 host; its seed word is the simulation seed
+    *,
+    model: CompartmentalModel,
+    batch: int,
+    pool: int = 1,
+    block: int = DEFAULT_BLOCK,
+):
+    """Launch the wave entry of the region axis: theta [batch, W] drawn as
+    `UniformBoxPrior.sample(prior_seed, batch)` does, and its distances
+    [batch] with NaN turned to +inf."""
+    block = check_block(block)
+    if obs.device.type != "cuda":
+        raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
+    _check_2d_f32("obs", obs)
+    _check_consts(fconst, iconst, model)
+    check_regional(model, obs, mobility, weights, pool)
+    width = theta_width(model, iconst)
+    lo, hi = _box(lows, highs, width, model)
+    batch = int(batch)
+    if batch < 1:
+        raise ValueError("a wave needs at least one sample")
+    lib = _lib(library(model))
+    fn = _kernel_fn(lib, model, "wave")
+    theta = torch.empty((batch, width), dtype=torch.float32, device=obs.device)
+    dist = torch.empty((batch,), dtype=torch.float32, device=obs.device)
+    if theta.data_ptr() % 16:
+        raise RuntimeError("theta's storage is not 16-byte aligned")
+    fconst = np.ascontiguousarray(fconst)
+    iconst = np.ascontiguousarray(iconst)
+    mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
+    with torch.cuda.device(obs.device):
+        rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
+                mob, weights.data_ptr(), theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data,
+                iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled, block,
+                _stream_handle(obs.device))
+    _check_rc(lib, rc, entry_name(model, "wave"))
     _launched(model, "wave")
     return theta, dist
 
@@ -430,24 +656,32 @@ def ops_per_sample_day(model: CompartmentalModel, lowered: LoweredSummary) -> fl
 
     Work that depends on neither the day nor the transition is counted once
     per sample: the hash's `seed ^ idx * P1 ^ X1` (3) and the final sqrt.
-    Per day: `TRANSITION_OPS` per transition, the model's `hazard_ops`, and
-    the counter base (1). Per channel: the running carry each day (1 when
-    cumulative or binned), and on each flush day the residual, its square
-    or absolute value, the weight and the sum (4), plus clamp and log1p (2).
-    The kernel's runtime selectors are its own overhead and are not counted;
-    the model's per-sample work (initial state, parameter products) is left
-    out. A transcendental counts as one operation.
+    Per day and region: `TRANSITION_OPS` per transition, the model's
+    `hazard_ops`, and the counter base (1). Per day, a coupled compartment's
+    rows (a product and an add a source region, less the first add: R * (2R
+    - 1)) and, pooled, the adds that sum each observed compartment over the
+    regions (n_observed * (R - 1)). Per summary channel (R * n_observed, or
+    n_observed pooled, as `lowered` holds them): the running carry each day
+    (1 when cumulative or binned), and on each flush day the residual, its
+    square or absolute value, the weight and the sum (4), plus clamp and
+    log1p (2). The kernel's runtime selectors are its own overhead and are
+    not counted; the model's per-sample work (initial state, parameter
+    products) is left out. A transcendental counts as one operation. At
+    R=1 the region terms vanish: the flat count.
     """
     flags = lowered.flags
-    num_days = lowered.obs_summary.shape[1]
+    n_chan, num_days = lowered.obs_summary.shape
+    R = model.n_regions
     bin_days = int(flags[FLAG_BIN_DAYS])
     n_flush = num_bins(num_days, bin_days)
     carry = 1 if int(flags[FLAG_CUMULATIVE]) == 1 or bin_days > 1 else 0
     flush_ops = 4 + 2 * (int(flags[FLAG_LOG1P]) == 1)
     per_sample = 3 + (int(flags[FLAG_ROOT]) == 1) + (lowered.mean_scale != 1.0)
-    total = (num_days * (TRANSITION_OPS * model.n_transitions + model.hazard_ops + 1
-                         + model.n_observed * carry)
-             + model.n_observed * n_flush * flush_ops + per_sample)
+    coupling = len(model.coupled) * R * (2 * R - 1) if model.is_regional else 0
+    pooling = model.n_observed * (R - 1) if R > 1 and n_chan == model.n_observed else 0
+    total = (num_days * (R * (TRANSITION_OPS * model.n_transitions + model.hazard_ops + 1)
+                         + coupling + pooling + n_chan * carry)
+             + n_chan * n_flush * flush_ops + per_sample)
     return total / num_days
 
 
@@ -473,9 +707,17 @@ def wave_ops(model: CompartmentalModel, lowered: LoweredSummary, batch: int,
 
 
 def bytes_moved(model: CompartmentalModel, batch: int, num_days: int,
-                width: int | None = None) -> int:
-    """Device-memory bytes of one launch of either entry: theta's `width`
-    columns (the model's parameters by default) read (by the wave entry,
-    written) once, the observed summary read once, one distance written."""
+                width: int | None = None, pool: int = 1) -> int:
+    """Device-memory bytes of one launch of either entry, each input read
+    once and each output written once: theta's `width` columns (the model's
+    parameters by default) read (by the wave entry, written), the observed
+    summary [n_chan, T], one distance written; for a regional model also
+    the channel weights [n_chan] and, coupled, the mobility matrix [R, R]
+    (which the kernel reads again for each block, as the flat one reads the
+    observed summary; those re-reads stay in L2 and are not counted)."""
     width = model.n_params if width is None else width
-    return 4 * (width * batch + model.n_observed * num_days + batch)
+    if not model.is_regional:
+        return 4 * (width * batch + model.n_observed * num_days + batch)
+    n_chan = regional_channels(model, pool)
+    mob = model.n_regions ** 2 if model.coupled else 0
+    return 4 * (width * batch + n_chan * (num_days + 1) + mob + batch)

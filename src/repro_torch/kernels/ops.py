@@ -11,6 +11,13 @@ kernel's wave entry: the ABC main path. Under an intervention schedule theta
 carries the schedule's scale columns, and its breakpoints and scaled
 parameters are packed beside the summary flags.
 
+A regional model (`model.is_regional`) runs the kernel's region axis. Its
+mobility matrix (the spec's, or a `mobility=` override, checked as the spec
+checks its own) and its channel weights go to device buffers once, when
+`make_abc_sim` makes the simulator, and no wave copies them again; the
+matrix is a run-time value of the kernel, so a mobility sweep reuses one
+build. `region_pooled` pools the regions' channels (`pool`).
+
 Dispatch is by device: a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
 Nothing falls back from the card to the plain version.
@@ -23,9 +30,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.priors import UniformBoxPrior
-from repro_torch.core.summaries import get_summary, lower_summary
-from repro_torch.epi.engine import check_theta_width
-from repro_torch.epi.spec import CompartmentalModel, active_schedule, require_flat
+from repro_torch.core.summaries import get_summary, lower_summary, pool_factor
+from repro_torch.epi.engine import check_theta_width, mobility_matrix
+from repro_torch.epi.spec import CompartmentalModel, active_schedule, validate_mobility
 from repro_torch.kernels import abc_sim, ref
 from repro_torch.kernels import flash_attention as fa
 
@@ -46,21 +53,35 @@ class AbcSim:
 
     def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
                  r0: float, d0: float, model: CompartmentalModel, spec, distance: str,
-                 block: int, schedule=None):
+                 block: int, schedule=None, mobility=None):
         self.observed, self.model, self.spec, self.distance = observed, model, spec, distance
         self.scalars = dict(population=population, a0=a0, r0=r0, d0=d0)
         self.block = block
         self.schedule = active_schedule(schedule)
         self.width = (model.n_params if self.schedule is None
                       else self.schedule.param_width(model))
+        self.mobility = mobility
+        self.pool = pool_factor(spec, model.n_regions)
         self.device = observed.device
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"observed must be on the CPU or a CUDA device, got {self.device}")
+        if observed.ndim != 2 or observed.shape[0] != model.total_observed:
+            raise ValueError(f"observed must be [{model.total_observed}, T] for {model.name}, "
+                             f"got {tuple(observed.shape)}")
         if self.device.type == "cuda":
-            lowered = lower_summary(spec, distance, observed)
+            lowered = lower_summary(spec, distance, observed, n_regions=model.n_regions)
             self.obs_summary = lowered.obs_summary.contiguous()
+            weights = lowered.weights
+            if model.is_regional:
+                # device buffers of the region axis, made once a simulator
+                self.weights = weights.contiguous()
+                self.mob = (mobility_matrix(model, mobility, self.device).contiguous()
+                            if model.coupled else None)
+                abc_sim.check_regional(model, self.obs_summary, self.mob, self.weights,
+                                       self.pool)
+                weights = torch.zeros((0,))
             self.fconst, self.iconst = abc_sim.pack_consts(
-                mean_scale=lowered.mean_scale, weights=lowered.weights.cpu().numpy(),
+                mean_scale=lowered.mean_scale, weights=weights.cpu().numpy(),
                 flags=lowered.flags, seed=0, model=model, schedule=self.schedule,
                 **self.scalars,
             )
@@ -74,11 +95,18 @@ class AbcSim:
         if self.device.type == "cpu":
             return ref.abc_sim_distance_ref(
                 theta, seed, self.observed, model=model, summary=self.spec,
-                distance=self.distance, schedule=self.schedule, **self.scalars,
+                distance=self.distance, schedule=self.schedule, mobility=self.mobility,
+                **self.scalars,
+            )
+        iconst = abc_sim.with_seed(self.iconst, seed)
+        if model.is_regional:
+            return abc_sim.abc_sim_regional_distance_kernel(
+                abc_sim.theta_to_soa(theta), self.obs_summary, self.mob, self.weights,
+                self.fconst, iconst, model=model, pool=self.pool, block=self.block,
             )
         return abc_sim.abc_sim_distance_kernel(
-            abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst,
-            abc_sim.with_seed(self.iconst, seed), model=model, block=self.block,
+            abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst, iconst,
+            model=model, block=self.block,
         )
 
     def wave(self, prior, prior_seed: int, sim_seed: int,
@@ -89,10 +117,16 @@ class AbcSim:
             raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
                              f"{self.width} parameters{what}")
         if self.device.type == "cuda" and isinstance(prior, UniformBoxPrior):
+            iconst = abc_sim.with_seed(self.iconst, sim_seed)
+            if self.model.is_regional:
+                return abc_sim.abc_sim_regional_wave_kernel(
+                    prior_seed, prior.lows, prior.highs, self.obs_summary, self.mob,
+                    self.weights, self.fconst, iconst, model=self.model, batch=batch,
+                    pool=self.pool, block=self.block,
+                )
             return abc_sim.abc_sim_wave_kernel(
                 prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
-                abc_sim.with_seed(self.iconst, sim_seed), model=self.model, batch=batch,
-                block=self.block,
+                iconst, model=self.model, batch=batch, block=self.block,
             )
         theta = prior.sample(prior_seed, batch, self.device)
         dist = self(theta, sim_seed)
@@ -100,8 +134,19 @@ class AbcSim:
         return theta, torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
 
 
+def check_mobility(model: CompartmentalModel, mobility):
+    """A mobility override as nested float tuples, checked against the
+    model: only a regional model takes one, [R][R] and row-stochastic. None
+    passes through (the spec's own matrix)."""
+    if mobility is None:
+        return None
+    if not model.is_regional:
+        raise ValueError(f"mobility set but model {model.name!r} has no region axis")
+    return validate_mobility(mobility, model.n_regions)
+
+
 def make_abc_sim(
-    observed: torch.Tensor,  # [n_observed, T] f32
+    observed: torch.Tensor,  # [total_observed, T] f32
     *,
     population: float,
     a0: float,
@@ -112,19 +157,20 @@ def make_abc_sim(
     distance: str = "euclidean",
     schedule=None,
     block: int = abc_sim.DEFAULT_BLOCK,
+    mobility=None,  # [R][R] override of a regional model's matrix
 ) -> AbcSim:
     """The fused simulate-and-distance against `observed`, on `observed`'s
     device (`AbcSim`), under an intervention `schedule` if one is given (an
-    empty schedule is None)."""
+    empty schedule is None) and, for a regional model, a `mobility`
+    override if one is given."""
     if model is None:
         from repro_torch.epi.models import DEFAULT_MODEL as model  # noqa: N811
-    require_flat(model.n_regions)
     schedule = active_schedule(schedule)
     if schedule is not None:
         schedule.shape(model)  # its parameters are the model's
     return AbcSim(observed.to(torch.float32), population=population, a0=a0, r0=r0, d0=d0,
                   model=model, spec=get_summary(summary), distance=distance, block=block,
-                  schedule=schedule)
+                  schedule=schedule, mobility=check_mobility(model, mobility))
 
 
 def abc_sim_distance(

@@ -7,7 +7,16 @@ Counterpart of `repro.kernels.ref.abc_sim_distance_ref`: simulate T days
 with the counter-hash RNG and the running summary accumulator, and return
 one distance per sample. The channel terms are added one channel at a time,
 in channel order, as in the TPU kernel body (`repro/kernels/abc_sim.py`,
-lines 302-314) and in the CUDA kernel (`csrc/abc_sim.cuh`).
+lines 302-314) and in the CUDA kernels (`csrc/abc_sim.cuh`,
+`csrc/abc_sim_regional.cuh`).
+
+A regional model follows the TPU kernel body's order, not that of
+`repro`'s engine: the coupled rows sum mob[r][q] * x_q over q left to
+right from the first product (`engine.coupled_rows`, abc_sim.py:256-259),
+a pooled channel sums the regions left to right (`summaries.pool_channels`,
+:289-294), the channels run region-major, and a region holds population /
+R divided in float32 (:200). Region r's transition k draws slot r *
+n_transitions + k of the day's `model.ctr_slots`.
 
 `repro_torch.kernels.ops.abc_sim_distance` sends a CPU tensor here; the card
 runs the CUDA kernel, and `chip_smoke.py` holds the two against each other
@@ -26,11 +35,13 @@ from repro_torch.core.summaries import (
     get_distance_kind,
     get_summary,
     lower_summary,
+    pool_channels,
+    pool_factor,
     running_day,
     running_finalize,
 )
 from repro_torch.epi import engine
-from repro_torch.epi.spec import CTR_SLOTS, CompartmentalModel, EpiModelConfig
+from repro_torch.epi.spec import CompartmentalModel, EpiModelConfig
 from repro_torch.kernels import rng as krng
 
 #: number of calls to `abc_sim_distance_ref`
@@ -53,10 +64,13 @@ def abc_sim_distance_ref(
     summary=None,
     distance: str = "euclidean",
     schedule=None,
+    mobility=None,
 ) -> torch.Tensor:
     """Distances [B] on theta's device. Under an intervention `schedule`
     theta is [B, n_params + n_scales] and each day runs on the day-effective
-    parameters (`engine.effective_theta`), as `repro.kernels.ref` does."""
+    parameters (`engine.effective_theta`), as `repro.kernels.ref` does. A
+    regional model's `observed` is [R * n_observed, T], region-major;
+    `mobility` overrides its matrix."""
     global CALLS
     CALLS += 1
     if model is None:
@@ -66,23 +80,25 @@ def abc_sim_distance_ref(
     theta = theta.to(torch.float32)
     engine.check_theta_width(model, schedule, theta)
     observed = observed.to(device=theta.device, dtype=torch.float32)
-    lowered = lower_summary(spec, distance, observed)
+    lowered = lower_summary(spec, distance, observed, n_regions=model.n_regions)
+    pool = pool_factor(spec, model.n_regions)
+    mob = engine.mobility_matrix(model, mobility, theta.device) if model.is_regional else None
     num_days = observed.shape[1]
     cfg = EpiModelConfig(population=population, num_days=num_days,
                          a0=a0, r0=r0, d0=d0)
     idx = torch.arange(theta.shape[0], device=theta.device)
     pop = torch.tensor(population, dtype=torch.float32, device=theta.device)
     state = engine.initial_state(model, theta, cfg)
-    obs_idx = list(model.observed_idx)
-    cum = torch.zeros_like(state[:, obs_idx])
+    obs_idx = list(model.total_observed_idx)
+    cum = torch.zeros_like(pool_channels(state[:, obs_idx], pool))
     binv = torch.zeros_like(cum)
     acc = torch.zeros_like(state[:, 0])
     for day in range(num_days):
-        z = krng.hash_normals(seed, idx, day, model.n_transitions, CTR_SLOTS)
+        z = krng.hash_normals(seed, idx, day, model.total_transitions, model.ctr_slots)
         th_d = engine.effective_theta(model, schedule, theta, day)
-        state = engine.tau_leap_step(model, state, th_d, z, pop)
+        state = engine.tau_leap_step(model, state, th_d, z, pop, mob)
         cum, binv, acc = running_day(
-            spec, kind, lowered.weights, state[:, obs_idx],
+            spec, kind, lowered.weights, pool_channels(state[:, obs_idx], pool),
             lowered.obs_summary[:, day], lowered.flush[day], cum, binv, acc,
         )
     return running_finalize(kind, lowered.mean_scale, acc)

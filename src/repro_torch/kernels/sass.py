@@ -47,6 +47,21 @@ warp-instructions a clock an SM) and each class's own pipe limit:
     floor ms = cycles * (samples * days) / (SMs * clock)
 
 with per-sample work outside the loop added once per sample.
+
+The regional kernel (`csrc/abc_sim_regional.cuh`) runs loops over the
+regions inside its day loop, none of them unrolled. `regional_census`
+counts each loop's own instructions (its path, less the loops inside it)
+and gives each its trips a sample-day: the day loop's own code once, the
+coupled rows' loop R times and its inner sum R * (R - 1) times (coupled
+models), the region loop R times and the summary loop once a row of
+channels (R rows, or one pooled). The day loop is the segment loop's
+largest inner loop; among the loops inside it, the region loop is the one
+with the most quarter-rate instructions (the normals' MUFU), the coupled rows' loop
+the one before it that holds a loop (nvcc also keeps a copy without the
+inner sum for R = 1, not counted), and the summary loop one after it: nvcc
+keeps a copy for pooled channels, which reads fewer words of local memory
+than the unpooled copy. A function of another shape is reported, with no
+floor.
 """
 
 from __future__ import annotations
@@ -292,3 +307,97 @@ def issue_floor_ms(result: dict, batch: int, days: int, n_sm: int, clock_mhz: fl
             "cycles_per_sample_day": day_cycles, "sm_clock_mhz": clock_mhz, "sms": n_sm,
             "instructions_per_sample_day": result["per_day"]["total"]
             + result["per_sample_outside_loop"]["total"] / days}
+
+
+def _loops(body: List[Instr]) -> List[Tuple[int, int]]:
+    index = {i.addr: n for n, i in enumerate(body)}
+    return [(index[i.target], n) for n, i in enumerate(body)
+            if i.base == "BRA" and i.target is not None and i.target < i.addr
+            and i.target in index]
+
+
+def _children(loop: Tuple[int, int], loops: Sequence[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """The loops directly inside `loop`, in address order."""
+    inner = [lp for lp in loops if lp != loop and loop[0] <= lp[0] and lp[1] <= loop[1]]
+    return sorted(lp for lp in inner
+                  if not any(o != lp and o[0] <= lp[0] and lp[1] <= o[1] for o in inner))
+
+
+def _own(body: List[Instr], loop: Tuple[int, int], inner: Sequence[Tuple[int, int]]) -> dict:
+    """Counts of one pass of `loop`'s path, less the loops inside it."""
+    path = walk(body, loop[0], loop[1])
+    spans = [(body[a].addr, body[b].addr) for a, b in inner]
+    return count([i for i in path if not any(lo <= i.addr <= hi for lo, hi in spans)])
+
+
+def _local_loads(body: List[Instr], loop: Tuple[int, int]) -> int:
+    return sum(i.base == "LDL" for i in body[loop[0]:loop[1] + 1])
+
+
+def regional_census(body: List[Instr], coupled: bool, pooled: bool = False) -> dict:
+    """Per-loop instruction counts of a regional kernel's day, by step:
+    `day` (the day loop's own code), `coupled_rows` and `coupled_sum`
+    (coupled models), `regions` and `channels` (the pooled copy when
+    `pooled`); `shape_ok` is False, with the loop spans listed, where the
+    function's loops are not that shape."""
+    loops = _loops(body)
+    if not loops:
+        raise ValueError("no loop (backward branch) in this function")
+    top = max(loops, key=lambda lp: lp[1] - lp[0])
+    day = max(_children(top, loops), key=lambda lp: lp[1] - lp[0], default=top)
+    if 2 * (day[1] - day[0]) < top[1] - top[0]:
+        day = top
+    steps = _children(day, loops)
+    out = {"day_loop_span": [f"{body[day[0]].addr:04x}", f"{body[day[1]].addr:04x}"],
+           "steps_spans": [[f"{body[a].addr:04x}", f"{body[b].addr:04x}"] for a, b in steps],
+           "shape_ok": False, "day": _own(body, day, steps)}
+    whole = walk(body, 0, len(body) - 1)
+    out["per_sample_outside_loop"] = count(
+        [i for i in whole if not body[top[0]].addr <= i.addr <= body[top[1]].addr])
+    quarter = {lp: sum(opcode_class(i.opcode) == "quarter" for i in body[lp[0]:lp[1] + 1])
+               for lp in steps}
+    regions = [lp for lp in steps if quarter[lp] and quarter[lp] == max(quarter.values())]
+    if len(regions) != 1:
+        return out
+    before = [lp for lp in steps if lp[1] < regions[0][0]]
+    after = [lp for lp in steps if lp[0] > regions[0][1]]
+    if not after or any(_children(lp, loops) for lp in after + regions):
+        return out
+    found = {"regions": regions[0],
+             "channels": (min if pooled else max)(after, key=lambda lp: _local_loads(body, lp))}
+    if coupled:
+        rows = [lp for lp in before if _children(lp, loops)]
+        if len(rows) != 1 or len(_children(rows[0], loops)) != 1:
+            return out
+        found["coupled_rows"] = rows[0]
+        found["coupled_sum"] = _children(rows[0], loops)[0]
+    for role, lp in found.items():
+        out[role] = _own(body, lp, _children(lp, loops))
+        out[f"{role}_span"] = [f"{body[lp[0]].addr:04x}", f"{body[lp[1]].addr:04x}"]
+    out["shape_ok"] = True
+    return out
+
+
+def regional_per_day(result: dict, n_regions: int, rows: int) -> Dict[str, float]:
+    """Instructions a sample-day by class from `regional_census`, each step
+    times its trips: R regions, `rows` rows of summary channels (R, or 1
+    pooled) and, coupled, R rows of R - 1 products after the first."""
+    trips = {"day": 1, "regions": n_regions, "channels": rows, "coupled_rows": n_regions,
+             "coupled_sum": n_regions * (n_regions - 1)}
+    out = {c: 0.0 for c in CLASSES + ("total",)}
+    for step, n in trips.items():
+        for c, v in result.get(step, {}).items():
+            out[c] += n * v
+    return out
+
+
+def regional_issue_floor_ms(result: dict, n_regions: int, rows: int, batch: int, days: int,
+                            n_sm: int, clock_mhz: float) -> Optional[dict]:
+    """`issue_floor_ms` of a regional kernel, or None where the census did
+    not find its shape."""
+    if not result["shape_ok"]:
+        return None
+    per_day = regional_per_day(result, n_regions, rows)
+    return issue_floor_ms({"per_day": per_day,
+                           "per_sample_outside_loop": result["per_sample_outside_loop"]},
+                          batch, days, n_sm, clock_mhz)

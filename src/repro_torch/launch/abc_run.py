@@ -18,7 +18,15 @@ Single-run mode of `repro.launch.abc_run`, with the same flag names, plus
         --dataset italy --days 49 --batch 100000 --chunk 10000 \\
         --auto-tolerance 1e-4 --accept 100 --intervention "alpha0@25=0:2"
 
-`--forecast` waits for the port of serving.
+    # the 4-region metapopulation SEIR, and the README's 100-region case
+    PYTHONPATH=src python -m repro_torch.launch.abc_run --model metapop_seir \
+        --dataset synthetic_small --days 49 --batch 100000 --chunk 10000 \
+        --auto-tolerance 1e-4 --accept 100
+    PYTHONPATH=src python -m repro_torch.launch.abc_run --model metapop_seir \
+        --regions 100 --mobility ring:0.1 --dataset synthetic_small --days 49 \
+        --batch 20000 --chunk 2000 --auto-tolerance 1e-3 --accept 20
+
+`--forecast`, `--scaling` and `--campaign` wait for later slices.
 """
 
 from __future__ import annotations
@@ -29,8 +37,8 @@ import os
 from repro_torch.core.abc import ABCConfig, ABCState, calibrate_tolerance, run_abc
 from repro_torch.core.summaries import DISTANCE_KINDS, list_summaries
 from repro_torch.epi.data import get_dataset, list_datasets
-from repro_torch.epi.models import list_models
-from repro_torch.epi.spec import InterventionSchedule
+from repro_torch.epi.models import get_model, list_models
+from repro_torch.epi.spec import InterventionSchedule, regionalize
 from repro_torch.kernels.abc_sim import DEFAULT_BLOCK
 
 
@@ -97,6 +105,16 @@ def main(argv=None):
     )
     ap.add_argument("--dataset", default="synthetic_small", choices=list_datasets())
     ap.add_argument("--model", default="siard", choices=list_models())
+    ap.add_argument("--regions", type=int, default=1,
+                    help="regionalize --model into an N-region metapopulation "
+                         "(epi.spec.regionalize); only a model with coupled "
+                         "compartments (metapop_seir) exchanges mass between regions, "
+                         "any other becomes N independent copies. 1 = the model as "
+                         "registered")
+    ap.add_argument("--mobility", default="",
+                    help="mobility matrix for --regions > 1: 'identity' (uncoupled), "
+                         "'uniform:EPS' or 'ring:EPS' (epi.spec.make_mobility); "
+                         "default identity")
     ap.add_argument("--tolerance", type=float, default=1.6e4,
                     help="absolute epsilon; use --auto-tolerance to calibrate")
     ap.add_argument("--auto-tolerance", type=float, default=0.0, metavar="Q",
@@ -121,14 +139,21 @@ def main(argv=None):
     ap.add_argument("--block", type=int, default=DEFAULT_BLOCK,
                     help="CUDA block size in threads (distances do not depend on it)")
     args = ap.parse_args(argv)
+    if args.regions < 1:
+        ap.error("--regions must be >= 1")
+    if args.mobility and args.regions == 1:
+        ap.error("--mobility has no effect without --regions > 1")
 
-    ds = get_dataset(args.dataset, num_days=args.days, model=args.model)
+    model = args.model
+    if args.regions > 1:
+        model = regionalize(get_model(args.model), args.regions, args.mobility or "identity")
+    ds = get_dataset(args.dataset, num_days=args.days, model=model)
     schedule = parse_intervention(args.intervention)
     tolerance = args.tolerance
     if args.auto_tolerance:
         pilot_cfg = ABCConfig(batch_size=args.batch, tolerance=1.0,
                               num_days=args.days, strategy="topk", top_k=1,
-                              model=args.model, summary=args.summary,
+                              model=model, summary=args.summary,
                               distance=args.distance, block=args.block,
                               schedule=schedule)
         tolerance = calibrate_tolerance(ds, pilot_cfg, seed=args.seed,
@@ -144,7 +169,7 @@ def main(argv=None):
         chunk_size=args.chunk,
         num_days=args.days,
         max_runs=args.max_runs,
-        model=args.model,
+        model=model,
         summary=args.summary,
         distance=args.distance,
         block=args.block,

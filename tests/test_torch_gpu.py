@@ -505,3 +505,106 @@ def test_gemma_2b_prefill_goes_through_the_kernel(cuda):
     top = float(want.abs().max())
     bar = 16 * 2.0 ** (np.floor(np.log2(top)) - 7)
     assert float((got - want).abs().max()) <= bar
+
+
+# ------------------------------------------------------------ the region axis
+METAPOP_PAIRS = [("identity", "euclidean"), ("region_pooled", "euclidean"),
+                 ("log_weekly", "mae")]
+
+
+def _regional(name, regions=None, mobility=None):
+    from repro_torch.epi.spec import regionalize
+
+    spec = get_model(name)
+    return spec if regions is None else regionalize(spec, regions, mobility)
+
+
+@pytest.mark.parametrize("case", [("metapop_seir", None, None), ("metapop_seir", 10, "ring:0.1"),
+                                  ("metapop_seir", 100, "ring:0.1"), ("seir", 3, None),
+                                  ("siard", 3, None), ("seiard", 2, "uniform:0.2")],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("summary,distance", METAPOP_PAIRS)
+def test_regional_entries_equal_the_plain_version(cuda, case, summary, distance):
+    """Both regional entries against the plain version, bitwise (theta and
+    distances), one launch of the struct's entry each."""
+    spec = _regional(*case)
+    ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+    kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0, model=spec,
+              summary=summary, distance=distance)
+    obs = torch.as_tensor(ds.observed, device=cuda)
+    prior = spec.prior()
+    theta = prior.sample(8, 1024, cuda)
+    want = ref.abc_sim_distance_ref(theta, 3, obs, **kw)
+    entry = abc_sim.entry_name(spec, "distance")
+    before = abc_sim.ENTRY_LAUNCHES.get(entry, 0)
+    assert torch.equal(ops.abc_sim_distance(theta, 3, obs, **kw), want)
+    assert abc_sim.ENTRY_LAUNCHES[entry] == before + 1
+    sim = ops.make_abc_sim(obs, **kw)
+    got_theta, got = sim.wave(prior, 8, 3, 1024)
+    assert torch.equal(got_theta, theta)
+    assert torch.equal(got, torch.where(torch.isnan(want), torch.full_like(want, float("inf")),
+                                        want))
+
+
+def test_regional_schedule_and_mobility_sweep_reuse_one_build(cuda):
+    """A one-window schedule on metapop_seir, and three mobility matrices
+    through the loaded library: bitwise the plain version, no rebuild."""
+    from repro_torch.epi.spec import make_mobility
+
+    spec = get_model("metapop_seir")
+    ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+    kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0, model=spec)
+    obs = torch.as_tensor(ds.observed, device=cuda)
+    sched = InterventionSchedule.inferred(("beta",), (20,), 0.0, 2.0)
+    theta = schedule_prior(spec, sched).sample(2, 2048, cuda)
+    assert torch.equal(ops.abc_sim_distance(theta, 4, obs, schedule=sched, **kw),
+                       ref.abc_sim_distance_ref(theta, 4, obs, schedule=sched, **kw))
+    libs, built = dict(build._LIBS), dict(build._INFO)
+    theta = spec.prior().sample(3, 2048, cuda)
+    seen = []
+    for grammar in ("identity", "ring:0.1", "uniform:0.2"):
+        mob = make_mobility(grammar, 4)
+        got = ops.abc_sim_distance(theta, 4, obs, mobility=mob, **kw)
+        assert torch.equal(got, ref.abc_sim_distance_ref(theta, 4, obs, mobility=mob, **kw))
+        assert not any(torch.equal(got, s) for s in seen)
+        seen.append(got)
+    assert (build._LIBS, build._INFO) == (libs, built)
+
+
+def test_regional_kernel_refuses_past_max_regions(cuda, monkeypatch):
+    """R past MAX_REGIONS: the wrapper raises a ValueError naming the limit;
+    past the wrapper, the C entry refuses to launch."""
+    spec = _regional("metapop_seir", abc_sim.MAX_REGIONS + 1, "ring:0.1")
+    obs = torch.zeros((spec.total_observed, 5), device=cuda)
+    with pytest.raises(ValueError, match=f"MAX_REGIONS = {abc_sim.MAX_REGIONS}"):
+        ops.make_abc_sim(obs, model=spec, population=1e6, a0=10.0)
+    monkeypatch.setattr(abc_sim, "check_regional", lambda *a: None)
+    fconst, iconst = abc_sim.pack_consts(population=1e6, a0=10.0, r0=0.0, d0=0.0,
+                                         mean_scale=1.0, weights=[], flags=(0, 0, 2, 1, 1),
+                                         seed=1)
+    mob = torch.full((spec.n_regions, spec.n_regions), 1.0 / spec.n_regions, device=cuda)
+    weights = torch.ones((spec.total_observed,), device=cuda)
+    theta = abc_sim.theta_to_soa(spec.prior().sample(1, 64, cuda))
+    before = dict(abc_sim.ENTRY_LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        abc_sim.abc_sim_regional_distance_kernel(theta, obs, mob, weights, fconst, iconst,
+                                                 model=spec)
+    assert abc_sim.ENTRY_LAUNCHES == before
+
+
+def test_run_abc_on_the_card_goes_through_the_regional_kernel(cuda):
+    """metapop_seir through run_abc: 1 + waves launches of the regional wave
+    entry, no host prior draw, no plain-version call, the posterior in the
+    box."""
+    spec = get_model("metapop_seir")
+    ds = data.get_dataset("synthetic_small", num_days=30, model=spec)
+    cfg = tabc.ABCConfig(batch_size=16384, chunk_size=2048, num_days=30, tolerance=1.0,
+                         target_accepted=40, max_runs=30, model=spec)
+    abc_sim.ENTRY_LAUNCHES.clear()
+    draws, calls = priors.DEVICE_DRAWS, ref.CALLS
+    eps = tabc.calibrate_tolerance(ds, cfg, seed=2, quantile=0.01, n_pilot=16384, device=cuda)
+    post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=2, device=cuda)
+    assert abc_sim.ENTRY_LAUNCHES == {"abc_sim_regional_wave_metapop_seir": 1 + post.runs}
+    assert (priors.DEVICE_DRAWS, ref.CALLS) == (draws, calls)
+    lo, hi = np.asarray(spec.prior().lows), np.asarray(spec.prior().highs)
+    assert len(post) >= 40 and ((post.theta >= lo) & (post.theta <= hi)).all()

@@ -52,18 +52,24 @@ def _theta(name, batch, seed=0):
 
 # ------------------------------------------------------------------ registry
 def test_every_flat_repro_model_has_a_twin():
-    """Every flat entry of repro's registry has a port twin with the same
-    declaration (metapop_seir waits for the region axis)."""
+    """Every entry of repro's registry, the flat models and metapop_seir, has
+    a port twin with the same declaration, its region axis included."""
     flat = tuple(n for n in jax_list_models() if not jax_get_model(n).is_regional)
-    assert set(flat) == set(FLAT) and "metapop_seir" in jax_list_models()
-    assert set(list_models()) == set(flat)
-    for name in flat:
+    assert set(flat) == set(FLAT)
+    assert list_models() == tuple(jax_list_models())
+    for name in jax_list_models():
         t, j = _pair(name)
         for field in ("compartments", "param_names", "prior_highs", "stoichiometry",
-                      "observed", "default_theta"):
-            assert getattr(t, field) == tuple(getattr(j, field)), (name, field)
+                      "observed", "default_theta", "n_regions", "mobility", "coupled",
+                      "seed_region"):
+            want = getattr(j, field)
+            assert getattr(t, field) == (tuple(want) if isinstance(want, list) else want), (
+                name, field)
         assert t.prior().lows == tuple(j.prior().lows)
         assert t.transition_sources == tuple(j.transition_sources)
+        for prop in ("is_regional", "ctr_slots", "total_observed_idx", "observed_labels",
+                     "coupled_idx"):
+            assert getattr(t, prop) == getattr(j, prop), (name, prop)
 
 
 @pytest.mark.parametrize("name,ops", [("siard", 14), ("sir", 4), ("seir", 5), ("seiard", 15)])

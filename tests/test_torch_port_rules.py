@@ -16,7 +16,8 @@ import torch
 from repro_torch import device as tdevice
 from repro_torch.core import abc as tabc
 from repro_torch.epi.data import get_dataset
-from repro_torch.epi.models import list_models
+from repro_torch.epi.models import get_model, list_models
+from repro_torch.epi.spec import regionalize
 from repro_torch.kernels import abc_sim, build
 from repro_torch.launch import abc_run
 
@@ -91,25 +92,38 @@ def test_config_refuses_what_this_slice_lacks():
         tabc.ABCConfig(batch_size=256, chunk_size=256, block=100)
 
 
-#: one abc_sim source a registered model, named by `abc_sim.library`
-ABC_SOURCES = {abc_sim.library(m) for m in list_models()}
-SOURCES = ABC_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma"}
+#: one flat abc_sim source a flat model and one regional source a struct
+#: (metapop_seir's and the flat models' regionalized), named by
+#: `abc_sim.library`
+FLAT = ("siard", "sir", "seir", "seiard")
+ABC_SOURCES = {abc_sim.library(m) for m in FLAT}
+REGIONAL_SOURCES = ({abc_sim.library(regionalize(get_model(m), 2)) for m in FLAT}
+                    | {abc_sim.library("metapop_seir")})
+SOURCES = ABC_SOURCES | REGIONAL_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma"}
 
 
 def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     """A change to a flash-attention source does not rebuild abc_sim, nor a
-    change to one model's struct another model's library; the abc_sim
-    sources alone keep --fmad=false (their bitwise agreement rests on it)."""
+    change to one model's struct another model's library, nor a change to
+    the region axis a flat library; the abc_sim sources alone keep
+    --fmad=false (their bitwise agreement rests on it)."""
     by_name = {src.stem: src for src in build.sources()}
     assert set(by_name) == SOURCES
     assert ABC_SOURCES == {"abc_sim_siard", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"}
-    for model in list_models():
+    assert REGIONAL_SOURCES == {f"abc_sim_regional_{m}" for m in FLAT + ("metapop_seir",)}
+    assert {abc_sim.library(m) for m in list_models()} == ABC_SOURCES | {
+        "abc_sim_regional_metapop_seir"}
+    for model in FLAT:
         assert [p.name for p in build.local_headers(by_name[abc_sim.library(model)])] == [
             "abc_sim.cuh", "rng.cuh", f"{model}.cuh"]
+    for model in FLAT + ("metapop_seir",):
+        lib = f"abc_sim_regional_{model}"
+        assert sorted(p.name for p in build.local_headers(by_name[lib])) == sorted([
+            "abc_sim.cuh", "abc_sim_regional.cuh", "rng.cuh", f"{model}.cuh"])
     assert abc_sim.RNG_LIBRARY == "abc_sim_siard"
     for flash in ("flash_attention_tf32", "flash_attention_wgmma"):
         assert [p.name for p in build.local_headers(by_name[flash])] == ["wgmma.cuh"]
-    assert all("--fmad=false" in build.flags(n) for n in ABC_SOURCES)
+    assert all("--fmad=false" in build.flags(n) for n in ABC_SOURCES | REGIONAL_SOURCES)
     assert "--fmad=false" not in build.flags("flash_attention_tf32")
     assert "--fmad=false" not in build.flags("flash_attention_wgmma")
     assert all("arch=compute_90a,code=sm_90a" in build.flags(n) for n in by_name)
