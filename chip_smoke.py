@@ -20,7 +20,10 @@ printing one JSON line:
              abc_sim's day loop (kernels/sass.py): the main path's variant
              of both entries for SIARD and of the wave entry for sir, seir
              and seiard (SIARD under a schedule runs the same function), and
-             each step of the regional wave entry of metapop_seir
+             each step of the regional wave entry of metapop_seir on both
+             routes (`sass.regional_census`, `sass.regional_warp_census`);
+             the warp route's kernels (csrc/abc_sim_regional_warp.cuh) must
+             show 0 bytes of stack and no spills
   rng        the kernel's hash bits and normals against the plain twin, and
              its branch-free Box-Muller pieces against logf, sqrtf and cosf
              on every one of the 2^24 uniforms the hash can give (bitwise)
@@ -44,7 +47,10 @@ printing one JSON line:
              (log_weekly, mae); under a one-window schedule; seir and siard
              regionalized to R=3 (uncoupled); R=10 and R=100 at 1024 x 49;
              and a sweep of three mobility matrices through the loaded
-             library, with no rebuild
+             library, with no rebuild (each through the route that
+             `abc_sim.regional_route` picks); then both routes, each entry,
+             at R = 4, 10, 100 and 128 (1024 x 49), R=100 pooled, and R=100
+             at regions_path's 100,000 x 49
   main_path  `repro_torch.launch.abc_run.main` on Italy at the paper's batch
              and horizon, with the launch counters set to 0 just before:
              1 + waves launches of the wave entry, no theta-in launch, no
@@ -61,7 +67,8 @@ printing one JSON line:
              in the box
   regions_path  the same run with --regions 100 --mobility ring:0.1 (the
              README's 100-region case, 200 observed channels), the same
-             counters
+             counters, of abc_sim_regional_wave_warp_metapop_seir: the warp
+             route carries it (metapop_path, R=4, the thread route)
   profile    the main path's waves once more under torch.profiler: wall time,
              device busy time, device operations a wave (and the int64
              elementwise ones a host prior draw would add) and the
@@ -72,10 +79,11 @@ printing one JSON line:
              nvidia-smi reads under load, and the plain version; then both
              entries of sir, seir, seiard and of SIARD under a one-window
              inferred schedule at the same sizes, in turns with SIARD's; then
-             the regional wave entry of metapop_seir at R=4 (100,000 x 49)
-             and R=100 (20,000 x 49) in turns with SIARD's flat one, beside
-             its operation bound, its issue floor (`sass.regional_census`)
-             and the plain version
+             the regional wave entry of metapop_seir on both routes in turns
+             (SIARD's flat one, thread, warp, then back) at R = 4, 10, 32 and
+             100 (20,000 x 49) and R = 4 and 100 (100,000 x 49), beside its
+             operation bound, each route's issue floor and the plain version
+             (R=100 at both batches, R=4 at 100,000)
   flash      the flash-attention kernels against their plain version: bf16
              through the bf16 tensor-core kernel, float32 through the 3xTF32
              one (route counters), on the causal GQA shapes of
@@ -102,9 +110,11 @@ printing one JSON line:
              from one profiled call
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches on the three flat ABC paths and its
-             ms), its region axis (the regional entries, with their launches
-             on metapop_path and regions_path), the bf16 flash route and the
-             float32 one
+             ms), its region axis on the thread route (all four regional
+             entries of both routes, with their launches on metapop_path and
+             regions_path, the R=100 times at both batches and the route
+             chosen at each R and batch) and on the warp route, the bf16
+             flash route and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -132,6 +142,7 @@ ABC_MODELS = ("siard", "sir", "seir", "seiard")
 #: replaces (mobility lanes :95-119, coupled rows :254-260, pooling
 #: :287-294), and the structs with a regional library
 REGIONAL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional.cuh"
+REGIONAL_WARP_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional_warp.cuh"
 REGIONAL_TPU_KERNEL = "src/repro/kernels/abc_sim.py:195"
 REGIONAL_STRUCTS = ABC_MODELS + ("metapop_seir",)
 #: the (summary, distance) pairs of tests/test_metapop.py:235-239
@@ -265,21 +276,22 @@ def abc_census(build, model, flags, entries=(("wave", True), ("theta_in", False)
     return out
 
 
-def regional_census(build, model, flags, pooled=False):
-    """`sass.regional_census` of the regional wave entry of `model`'s struct
-    at `flags`; None where the toolkit has no cuobjdump."""
+def regional_census(build, model, flags, pooled=False, route="thread"):
+    """The census of the regional wave entry of `model`'s struct at `flags`
+    on `route` (`sass.regional_census`, or `sass.regional_warp_census` for
+    "warp"); None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import abc_sim, sass
 
     text = build.sass_text(abc_sim.library(model))
     if text is None:
         return None
     funcs = sass.parse_functions(text)
-    symbol = abc_sim.kernel_symbol(model, flags, True)
+    symbol = abc_sim.kernel_symbol(model, flags, True, route)
     names = [k for k in funcs if symbol in k]
     if len(names) != 1:
         raise AssertionError(f"build: {len(names)} kernels match {symbol} in the SASS")
-    return {"function": names[0],
-            **sass.regional_census(funcs[names[0]], bool(model.coupled), pooled)}
+    census = sass.regional_warp_census if route == "warp" else sass.regional_census
+    return {"function": names[0], **census(funcs[names[0]], bool(model.coupled), pooled)}
 
 
 class SmClock:
@@ -680,19 +692,26 @@ def main() -> int:
     metapop = get_model("metapop_seir")
     regional_specs = {m: get_model(m) if m == "metapop_seir" else regionalize(models[m], 2)
                       for m in REGIONAL_STRUCTS}
-    variants, regional_variants = {}, {}
-    for table, specs in ((variants, models), (regional_variants, regional_specs)):
+    variants, regional_variants, warp_variants = {}, {}, {}
+    for table, specs, route in ((variants, models, None),
+                                (regional_variants, regional_specs, "thread"),
+                                (warp_variants, regional_specs, "warp")):
         for m, spec in specs.items():
             lib = info[abc_sim.library(spec)]
             table[m] = {str(v): lib.kernels[k] for v in range(16) for k in lib.kernels
-                        if abc_sim.variant_symbol(spec, v) in k}
+                        if abc_sim.variant_symbol(spec, v, route) in k}
             if len(table[m]) != 16:
                 raise AssertionError(f"build: {len(table[m])} variants of {m} in "
                                      f"{abc_sim.library(spec)}'s ptxas report, want 16")
+    local = {m: [v for v, k in t.items() if k["stack_bytes"] or k["spill_stores"]
+                 or k["spill_loads"]] for m, t in warp_variants.items()}
+    if any(local.values()):
+        raise AssertionError(f"build: warp-route variants with stack or spills: {local}")
     mp_census = regional_census(build, metapop, main_flags)
-    if mp_census is not None and not mp_census["shape_ok"]:
-        raise AssertionError(f"build: the regional census found no day of its shape: "
-                             f"{mp_census}")
+    mp_warp_census = regional_census(build, metapop, main_flags, route="warp")
+    for c in (mp_census, mp_warp_census):
+        if c is not None and not c["shape_ok"]:
+            raise AssertionError(f"build: the regional census found no day of its shape: {c}")
     emit("build", wall_s=build_wall,
          nvcc_s={k: v.seconds for k, v in info.items()},
          libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
@@ -705,6 +724,12 @@ def main() -> int:
              m: sorted({k["stack_bytes"] for k in v.values()})
              for m, v in regional_variants.items()},
          abc_sim_regional_wave_census_metapop_seir=mp_census
+         or "not measured: the toolkit has no cuobjdump",
+         abc_sim_regional_warp_variants={
+             m: {key: sorted({k[key] for k in v.values()})
+                 for key in ("registers", "stack_bytes", "spill_stores", "spill_loads")}
+             for m, v in warp_variants.items()},
+         abc_sim_regional_warp_wave_census_metapop_seir=mp_warp_census
          or "not measured: the toolkit has no cuobjdump",
          abc_sim_wave_census_per_model={
              m: {k: c[k] for k in ("function", "per_day", "per_sample_outside_loop")}
@@ -914,10 +939,45 @@ def main() -> int:
     if torch.equal(sweep["identity"], sweep["ring:0.1"]) or torch.equal(
             sweep["ring:0.1"], sweep["uniform:0.2"]):
         raise AssertionError("abc_sim: two mobility matrices gave the same distances")
+
+    # both routes of the region axis, each entry, whatever route R picks
+    def both_routes(spec, summary="identity", batch=1024, seed=11, prior_seed=7):
+        ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+        ob = torch.as_tensor(ds.observed, device=dev)
+        sim = ops.make_abc_sim(ob, model=spec, summary=summary, **kw)
+        box = spec.prior()
+        th = box.sample(prior_seed, batch, dev)
+        want = ref.abc_sim_distance_ref(th, seed, ob, model=spec, summary=summary, **kw)
+        want_w = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
+        ic = abc_sim.with_seed(sim.iconst, seed)
+        for route in abc_sim.ROUTES:
+            tag = f"{spec.name} {summary} {batch}x49 {route} route"
+            d = abc_sim.abc_sim_regional_distance_kernel(
+                abc_sim.theta_to_soa(th), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
+                model=spec, pool=sim.pool, route=route)
+            th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
+                prior_seed, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
+                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route)
+            if not torch.equal(th_w, th):
+                raise AssertionError(f"{tag}: the wave entry's theta differs from prior.sample")
+            results.append(bitwise(f"{tag} theta-in entry vs plain", d, want))
+            results.append(bitwise(f"{tag} wave entry vs plain", d_w, want_w))
+
+    n_routes = len(results)
+    for R in (4, 10, 100, 128):
+        both_routes(metapop if R == 4 else regionalize(metapop, R, "ring:0.1"))
+    both_routes(regionalize(metapop, 100, "ring:0.1"), "region_pooled")
+    # regions_path's own shape: R=100 on a ring, 100,000 a wave
+    both_routes(regionalize(metapop, 100, "ring:0.1"), batch=100_000)
     regional_err = max(r["max_abs_err"] for r in results[n_flat:])
+    warp_err = max(r["max_abs_err"] for r in results[n_routes:] if " warp route " in r["case"])
     emit("abc_sim", comparisons=results, block_sizes_bitwise_equal=[64, 128, 256],
          lockdown_sweep_rebuilds=0, mobility_sweep_rebuilds=0,
-         regional_comparisons=len(results) - n_flat)
+         regional_comparisons=len(results) - n_flat,
+         regional_route_comparisons=len(results) - n_routes,
+         regional_routes={R: {b: abc_sim.regional_route(regionalize(metapop, R, "ring:0.1"), b)
+                              for b in (20_000, 100_000)} for R in (2, 4, 10, 12, 32, 100, 128)})
     max_abs_err = max(r["max_abs_err"] for r in results[:n_flat]
                       if r["case"].endswith("vs plain"))
 
@@ -1027,12 +1087,16 @@ def main() -> int:
             ("metapop_path", mp_argv, metapop),
             ("regions_path", mp_argv + ["--regions", "100", "--mobility", "ring:0.1"],
              regionalize(metapop, 100, "ring:0.1"))):
+        route = abc_sim.regional_route(spec, 100_000)
+        if route != ("thread" if phase == "metapop_path" else "warp"):
+            raise AssertionError(f"{phase}: R={spec.n_regions} takes the {route} route")
         post_r, wall, entries, counts, lo, hi = abc_path(phase, argv, spec)
         path_launches[phase] = entries
         err, prior_err = mean_error(post_r, spec, spec.default_theta)
         emit(phase, argv=argv, **counts, accepted=len(post_r), waves=post_r.runs,
              simulations=post_r.simulations, tolerance=post_r.tolerance, wall_s=wall,
-             regions=spec.n_regions, observed_channels=spec.total_observed, kind=name,
+             regions=spec.n_regions, observed_channels=spec.total_observed, route=route,
+             entry=abc_sim.entry_name(spec, "wave"), kind=name,
              nvidia_smi=smi,
              posterior_mean=dict(zip(post_r.param_names, post_r.theta.mean(axis=0).tolist())),
              generating_theta=dict(zip(spec.param_names, spec.default_theta)),
@@ -1178,11 +1242,12 @@ def main() -> int:
                     "share_of_issue_floor": floor["floor_ms"] / ms_w if floor else None,
                     "iters": kernel_iters})
 
-        # the region axis: metapop_seir's regional wave entry at R=4 and
-        # R=100 in turns with SIARD's flat wave entry (forward, then back)
+        # the region axis: metapop_seir's regional wave entry on both routes
+        # in turns with SIARD's flat wave entry (forward, then back)
         regional_cells = []
         siard_x = cases["siard"]
-        for R, batch, iters in ((4, 100_000, 50), (100, 20_000, 3)):
+        for R, batch, plain in ((4, 20_000, False), (10, 20_000, False), (32, 20_000, False),
+                                (100, 20_000, True), (4, 100_000, True), (100, 100_000, True)):
             spec = metapop if R == 4 else regionalize(metapop, R, "ring:0.1")
             ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
             kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
@@ -1192,43 +1257,58 @@ def main() -> int:
             ic = abc_sim.with_seed(sim.iconst, 99)
             low = lower_summary(get_summary(None), "euclidean", ob, n_regions=R)
 
-            def run_regional(sim=sim, box=box, ic=ic, spec=spec, batch=batch):
+            def run(which, sim=sim, box=box, ic=ic, spec=spec, batch=batch):
+                if which == "siard":
+                    x = siard_x
+                    return abc_sim.abc_sim_wave_kernel(
+                        12, x["box"].lows, x["box"].highs, x["obs"], x["fconst"],
+                        x["iconst"], model=siard, batch=batch)
                 return abc_sim.abc_sim_regional_wave_kernel(
                     12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-                    ic, model=spec, batch=batch)
+                    ic, model=spec, batch=batch, route=which)
 
-            def run_siard(batch=batch):
-                x = siard_x
-                return abc_sim.abc_sim_wave_kernel(
-                    12, x["box"].lows, x["box"].highs, x["obs"], x["fconst"], x["iconst"],
-                    model=siard, batch=batch)
-
-            turns = {"regional": [], "siard": []}
-            for which in ("siard", "regional", "regional", "siard"):
-                turns[which].append(cuda_ms(run_regional if which == "regional" else run_siard,
-                                            iters, warmup=1))
+            turns = {"siard": [], "thread": [], "warp": []}
+            for which in ("siard", "thread", "warp", "warp", "thread", "siard"):
+                once = cuda_ms(lambda: run(which), 1, warmup=1)
+                iters = max(1, min(50, int(250 / max(once, 1e-3))))
+                turns[which].append(cuda_ms(lambda: run(which), iters, warmup=0))
             plain_ms = cuda_ms(lambda: ref.abc_sim_distance_ref(
-                box.sample(12, batch, dev), 99, ob, model=spec, **kw), 1, warmup=0)
-            ms = float(np.mean(turns["regional"]))
+                box.sample(12, batch, dev), 99, ob, model=spec, **kw), 1, warmup=0) \
+                if plain else None
+            ms = {r: float(np.mean(turns[r])) for r in turns}
+            route = abc_sim.regional_route(spec, batch)
             w_ops = abc_sim.wave_ops(spec, low, batch)
             n_bytes = abc_sim.bytes_moved(spec, batch, 49)
             ops_ms, bytes_ms = w_ops / F32_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
             mhz = clock.median()
-            floor = (sass.regional_issue_floor_ms(mp_census, R, R, batch, 49, n_sm, mhz)
-                     if mp_census and mhz else None)
+            floors = {
+                "thread": sass.regional_issue_floor_ms(mp_census, R, R, batch, 49, n_sm, mhz)
+                if mp_census and mhz else None,
+                "warp": sass.regional_warp_issue_floor_ms(
+                    mp_warp_census, R, spec.total_observed, batch, 49, n_sm, mhz)
+                if mp_warp_census and mhz else None}
             regional_cells.append({
-                "model": spec.name, "regions": R, "batch": batch, "days": 49, "ms_wave": ms,
-                "turns_ms": turns, "siard_wave_ms": float(np.mean(turns["siard"])),
-                "ratio_to_siard_wave": ms / float(np.mean(turns["siard"])),
-                "plain_ms": plain_ms, "ops_per_sample_day": abc_sim.ops_per_sample_day(spec, low),
-                "wave_ops": w_ops, "bytes": n_bytes, "bound_ms": max(ops_ms, bytes_ms),
+                "model": spec.name, "regions": R, "batch": batch, "days": 49,
+                "route_chosen": route, "ms_wave": ms[route],
+                "ms": {r: ms[r] for r in abc_sim.ROUTES}, "turns_ms": turns,
+                "siard_wave_ms": ms["siard"], "ratio_to_siard_wave": ms[route] / ms["siard"],
+                "plain_ms": plain_ms,
+                "ops_per_sample_day": abc_sim.ops_per_sample_day(spec, low),
+                "wave_ops": w_ops, "bytes": n_bytes, "bound_ms": bound,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "share_of_bound": max(ops_ms, bytes_ms) / ms,
-                "census_per_day": sass.regional_per_day(mp_census, R, R)["total"]
-                if mp_census else None,
-                "issue_floor": floor,
-                "share_of_issue_floor": floor["floor_ms"] / ms if floor else None,
-                "sample_days_per_s": batch * 49 / (ms * 1e-3), "iters": iters})
+                "share_of_bound": {r: bound / ms[r] for r in abc_sim.ROUTES},
+                "issue_floor_ms": {r: f["floor_ms"] if f else None for r, f in floors.items()},
+                "share_of_issue_floor": {r: f["floor_ms"] / ms[r] if f else None
+                                         for r, f in floors.items()},
+                "census_per_day": {
+                    "thread": sass.regional_per_day(mp_census, R, R)["total"]
+                    if mp_census else None,
+                    "warp": sass.regional_warp_per_day(mp_warp_census, R,
+                                                       spec.total_observed)["total"]
+                    if mp_warp_census else None},
+                "issue_floor": floors,
+                "sample_days_per_s": batch * 49 / (ms[route] * 1e-3)})
     emit("timing", kind=name, nvidia_smi=smi, peak_ops_per_s=F32_OPS_PER_S,
          peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, sms=n_sm,
          sm_clock_mhz=clock.summary(), default_block=abc_sim.DEFAULT_BLOCK, cells=timing,
@@ -1248,9 +1328,9 @@ def main() -> int:
             entries.append({"entry": symbol, "source": "src/repro_torch/kernels/csrc/"
                             f"{abc_sim.library(m)}.cu", "launches": launched.get(symbol, 0),
                             "ms": main_cell[key] if m == "siard" else at_100k[m][key]})
-    regional_entry = abc_sim.entry_name(metapop, "wave")
     if not (launched.get("abc_sim_wave_siard") and launched.get("abc_sim_wave_seiard")
-            and launched.get(regional_entry)):
+            and launched.get(abc_sim.entry_name(metapop, "wave", "thread"))
+            and launched.get(abc_sim.entry_name(metapop, "wave", "warp"))):
         raise AssertionError(f"kernels: a path's wave entry was not launched: {launched}")
     abc_line = {
         "name": "abc_sim_distance", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1264,29 +1344,49 @@ def main() -> int:
         "issue_floor_ms": (main_cell["issue_floor"]["wave"] or {}).get("floor_ms"),
         "library_ms": None,
     }
-    r4, r100 = regional_cells
+    cell = {(c["regions"], c["batch"]): c for c in regional_cells}
+    r4, r100 = cell[(4, 100_000)], cell[(100, 100_000)]
+    regional_entries = [
+        {"entry": abc_sim.entry_name(metapop, e, r),
+         "source": f"src/repro_torch/kernels/csrc/{abc_sim.library(metapop)}.cu",
+         "kernel": REGIONAL_SOURCE if r == "thread" else REGIONAL_WARP_SOURCE,
+         "launches": launched.get(abc_sim.entry_name(metapop, e, r), 0)}
+        for r in abc_sim.ROUTES for e in ("wave", "distance")]
+
+    def route_launches(route):
+        return sum(x["launches"] for x in regional_entries if x["kernel"] == (
+            REGIONAL_SOURCE if route == "thread" else REGIONAL_WARP_SOURCE))
+
+    r100_times = {str(b): {
+        "ms": cell[(100, b)]["ms"], "plain_ms": cell[(100, b)]["plain_ms"],
+        "bound_ms": cell[(100, b)]["bound_ms"], "bound_by": cell[(100, b)]["bound_by"],
+        "issue_floor_ms": cell[(100, b)]["issue_floor_ms"]} for b in (20_000, 100_000)}
     regional_line = {
         "name": "abc_sim_regional", "route": "cuda", "source": REGIONAL_SOURCE,
-        "replaces": REGIONAL_TPU_KERNEL,
-        "launches": sum(n for e, n in launched.items() if e.startswith("abc_sim_regional_")),
-        "entries": [{"entry": abc_sim.entry_name(metapop, e), "source":
-                     f"src/repro_torch/kernels/csrc/{abc_sim.library(metapop)}.cu",
-                     "launches": launched.get(abc_sim.entry_name(metapop, e), 0)}
-                    for e in ("wave", "distance")],
-        "max_abs_err": regional_err,
-        "ms": r4["ms_wave"], "plain_ms": r4["plain_ms"], "bound_ms": r4["bound_ms"],
-        "bound_by": r4["bound_by"],
-        "issue_floor_ms": (r4["issue_floor"] or {}).get("floor_ms"),
-        "library_ms": None,
-        "r100": {k: r100[k] for k in ("batch", "ms_wave", "plain_ms", "bound_ms", "bound_by")}
-        | {"issue_floor_ms": (r100["issue_floor"] or {}).get("floor_ms")},
+        "replaces": REGIONAL_TPU_KERNEL, "launches": route_launches("thread"),
+        "entries": regional_entries, "max_abs_err": regional_err,
+        "ms": r4["ms"]["thread"], "plain_ms": r4["plain_ms"], "bound_ms": r4["bound_ms"],
+        "bound_by": r4["bound_by"], "issue_floor_ms": r4["issue_floor_ms"]["thread"],
+        "library_ms": None, "r100": r100_times,
+        "route_by_regions": {b: {R: abc_sim.regional_route(regionalize(metapop, R, "ring:0.1"), b)
+                                 for R in (4, 10, 12, 16, 24, 32, 100, 128)}
+                             for b in (20_000, 50_000, 100_000)},
+    }
+    warp_line = {
+        "name": "abc_sim_regional_warp", "route": "cuda", "source": REGIONAL_WARP_SOURCE,
+        "replaces": REGIONAL_TPU_KERNEL, "launches": route_launches("warp"),
+        "max_abs_err": warp_err, "ms": r100["ms"]["warp"], "plain_ms": r100["plain_ms"],
+        "bound_ms": r100["bound_ms"], "bound_by": r100["bound_by"],
+        "issue_floor_ms": r100["issue_floor_ms"]["warp"], "library_ms": None,
+        "shape": {"regions": 100, "batch": 100_000, "days": 49},
     }
 
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
     flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
 
     emit("total", wall_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [abc_line, regional_line, *flash_lines]}), flush=True)
+    print(json.dumps({"kernels": [abc_line, regional_line, warp_line, *flash_lines]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

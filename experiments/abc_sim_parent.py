@@ -20,6 +20,14 @@ this tree's nvcc flags for it, which keep `--fmad=false`, into
   shows apart from a change to the kernel; and gives each kernel's issue
   floor at the SM clock read under load (by this tree's rule).
 
+Then, for sir, seir and seiard and for metapop_seir's region axis at R=4
+on its thread route (`csrc/abc_sim_regional.cuh`), each where the other
+checkout has its source: builds it the same way, compares the SASS of each
+kernel with this tree's, function by function, checks that both wave
+entries give the same theta and distances bit for bit at 100,000 x 49
+(`synthetic_small` for the models that observe no country series), and
+times them in turns (other, this tree, this tree, other).
+
 Prints one JSON line, then the card's nvidia-smi name and power limit.
 """
 
@@ -31,7 +39,10 @@ import os
 import re
 import sys
 
-from abc_sim_common import build_copies, call_distance, entry, italy_inputs, turns
+import numpy as np
+
+from abc_sim_common import build_copies, call_distance, call_wave, entry, italy_inputs, \
+    stream, turns
 
 
 def main(argv) -> int:
@@ -116,6 +127,7 @@ def main(argv) -> int:
                       if k in census and mhz}
             cells.append({"batch": batch, "days": 49, "bitwise_equal": equal, "turns": timed,
                           "issue_floor_ms": floors})
+    models = other_models(dev, other_csrc)
     smi = nvidia_smi_line()
     brief = {kernel: {e: {f"rule_of_{r}": {
         "per_day": c["per_day"], "per_sample_outside_loop": c["per_sample_outside_loop"]["total"]}
@@ -124,10 +136,89 @@ def main(argv) -> int:
     print(json.dumps({"experiment": "abc_sim_parent", "other": argv[0], "ptxas_other": ptxas,
                       "blocks": {"other": other_block, "this_tree": abc_sim.DEFAULT_BLOCK},
                       "census": brief, "sm_clock_mhz": clock.summary(), "sms": n_sm,
-                      "cells": cells, "kind": torch.cuda.get_device_name(0),
+                      "cells": cells, "models": models, "kind": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}))
     print(smi)
     return 0
+
+
+def other_models(dev, other_csrc: str) -> dict:
+    """sir, seir, seiard and metapop_seir's thread route at R=4 against the
+    other checkout's build of the same sources (module docstring)."""
+    import torch
+
+    from repro_torch.epi import data
+    from repro_torch.epi.models import get_model
+    from repro_torch.kernels import abc_sim, build, ops, sass
+
+    models = [m for m in ("sir", "seir", "seiard", "metapop_seir")
+              if os.path.isfile(os.path.join(other_csrc, abc_sim.library(m) + ".cu"))]
+    libs = {m: abc_sim.library(m) for m in models}
+    built = build_copies([(f"other_{lib}", open(os.path.join(other_csrc, lib + ".cu")).read(),
+                           build.flags(lib), [other_csrc]) for lib in libs.values()])
+
+    def kernels(text, regional):
+        pick = "abc_sim_regional_kernelI" if regional else "abc_sim_kernelI"
+        return {re.search(r"(abc_sim_\w*kernelI.*)", k).group(1):
+                [(i.pred, i.opcode, i.operands) for i in body]
+                for k, body in sass.parse_functions(text).items() if pick in k}
+
+    out = {}
+    batch = 100_000
+    for m in models:
+        spec, lib = get_model(m), libs[m]
+        other_lib, other_sass, _ = built[f"other_{lib}"]
+        mine = kernels(build.sass_text(lib), spec.is_regional)
+        theirs = kernels(other_sass, spec.is_regional) if other_sass else {}
+        same = sum(mine.get(k) == v for k, v in theirs.items())
+        ds = data.get_dataset("italy" if m == "seiard" else "synthetic_small", num_days=49,
+                              model=m)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+        ob = torch.as_tensor(ds.observed, device=dev)
+        sim = ops.make_abc_sim(ob, model=spec, **kw)
+        box = spec.prior()
+        ic = abc_sim.with_seed(sim.iconst, 99)
+        if spec.is_regional:
+            fn = entry(other_lib, abc_sim.entry_name(spec, "wave", "thread"),
+                       abc_sim._ARGTYPES["regional_wave"])
+            lo = np.ascontiguousarray(box.lows, np.float32)
+            hi = np.ascontiguousarray(box.highs, np.float32)
+
+            def theirs_fn():
+                theta = torch.empty((batch, box.dim), dtype=torch.float32, device=dev)
+                dist = torch.empty((batch,), dtype=torch.float32, device=dev)
+                rc = fn(12, lo.ctypes.data, hi.ctypes.data, sim.obs_summary.data_ptr(),
+                        sim.mob.data_ptr(), sim.weights.data_ptr(), theta.data_ptr(),
+                        dist.data_ptr(), sim.fconst.ctypes.data, ic.ctypes.data, batch,
+                        ob.shape[1], spec.n_regions, spec.seed_region, 0,
+                        abc_sim.DEFAULT_BLOCK, stream())
+                if rc != 0:
+                    raise RuntimeError(f"launch failed: cudaError {rc}")
+                return theta, dist
+
+            def mine_fn():
+                return abc_sim.abc_sim_regional_wave_kernel(
+                    12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
+                    ic, model=spec, batch=batch, route="thread")
+        else:
+            fn = entry(other_lib, abc_sim.entry_name(spec, "wave"), abc_sim._ARGTYPES["wave"])
+
+            def theirs_fn():
+                return call_wave(fn, box, 12, sim.obs_summary, sim.fconst, ic, batch,
+                                 abc_sim.DEFAULT_BLOCK)
+
+            def mine_fn():
+                return abc_sim.abc_sim_wave_kernel(12, box.lows, box.highs, sim.obs_summary,
+                                                   sim.fconst, ic, model=spec, batch=batch)
+        a, b = theirs_fn(), mine_fn()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"{m}: the two trees' wave entries differ")
+        timed = turns({"other": theirs_fn, "this_tree": mine_fn},
+                      ["other", "this_tree", "this_tree", "other"], 30)
+        out[m] = {"batch": batch, "days": 49, "regions": spec.n_regions, "turns": timed,
+                  "ratio": timed["this_tree"]["ms"] / timed["other"]["ms"],
+                  "sass_functions_identical": [same, len(theirs)], "bitwise_equal": True}
+    return out
 
 
 if __name__ == "__main__":

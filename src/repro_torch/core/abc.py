@@ -81,8 +81,9 @@ class ABCConfig:
     #: summary statistic compared by `distance`: a name, a SummarySpec or
     #: None for the paper's raw daily series
     summary: Optional[object] = None
-    #: CUDA block size in threads; distances do not depend on it
-    block: int = abc_sim.DEFAULT_BLOCK
+    #: CUDA block size in threads, None for the kernel's own default
+    #: (`abc_sim.check_kernel_block`); distances do not depend on it
+    block: Optional[int] = None
     #: intervention schedule (`epi.spec.InterventionSchedule`); None or an
     #: empty one: the model's own parameters only
     schedule: Optional[object] = None
@@ -106,8 +107,8 @@ class ABCConfig:
             )
         get_distance_kind(self.distance)
         get_summary(self.summary)
-        abc_sim.check_block(self.block)
         spec = get_model(self.model)
+        abc_sim.check_kernel_block(spec, self.block)
         schedule = active_schedule(self.schedule)
         if schedule is not None:
             schedule.shape(spec)  # its parameters are the model's

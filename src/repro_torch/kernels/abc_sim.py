@@ -1,5 +1,6 @@
 """ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cuh`)
-and of its region axis (`csrc/abc_sim_regional.cuh`).
+and of its region axis (`csrc/abc_sim_regional.cuh`,
+`csrc/abc_sim_regional_warp.cuh`).
 
 Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
 launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
@@ -33,7 +34,14 @@ The regional entries (`abc_sim_regional_distance_kernel`,
 simulator, the mobility matrix [R, R] (coupled models) and the channel
 weights [n_chan]; R, the seeded region and the pooling are run-time
 arguments. obs is [n_chan, T] with n_chan = R * n_observed, region-major,
-or n_observed when pooled. R past `MAX_REGIONS` raises.
+or n_observed when pooled. R past `MAX_REGIONS` raises. The region axis has
+two routes in each struct's library, both bitwise the plain version:
+"thread" (one thread a sample, `csrc/abc_sim_regional.cuh`) and "warp" (one
+warp a sample, its regions over the lanes, `csrc/abc_sim_regional_warp.cuh`,
+entries named `..._warp_<struct>`). `regional_route` picks one from R and
+the launch's batch before the launch; the entries take `route=` so that a
+test can hold both at any R.
+There is no fallback: a launch error of the chosen route raises.
 
 W is the model's P parameters plus a schedule's scale columns
 (`spec.InterventionSchedule`), P without one. The constants, the schedule,
@@ -85,8 +93,23 @@ N_ICONST = I_TV_SLOT + MAX_PARAMS
 #: the kernel's __launch_bounds__
 MAX_BLOCK = 256
 DEFAULT_BLOCK = 256
-#: the most regions the regional kernel takes (its local arrays' size)
+#: the most regions the regional kernels take (the thread route's local
+#: arrays, the warp route's 4 regions a lane)
 MAX_REGIONS = 128
+#: the warp route's __launch_bounds__ (128 registers a thread) and its block,
+#: in threads (block / 32 samples a block): the fastest of 128, 256, 384 and
+#: 512 at R = 100 (experiments/abc_sim_regional_routes.py, PERF.md)
+WARP_MAX_BLOCK = 512
+WARP_DEFAULT_BLOCK = 512
+#: R from which `regional_route` takes the warp route, by batch: (least
+#: batch, least R) pairs, batch ascending. Each R is the crossover of both
+#: routes timed in turns at that batch x 49 days (20,000, 50,000 and 100,000;
+#: 1,000,000 keeps 100,000's); a batch between two takes the lower one's.
+#: The thread route gains more from a larger batch (at 20,000 its 79 blocks
+#: leave SMs idle), so the crossover rises with the batch
+#: (experiments/abc_sim_regional_routes.py, PERF.md).
+WARP_MIN_REGIONS = ((0, 12), (50_000, 18), (100_000, 24))
+ROUTES = ("thread", "warp")
 #: shared memory a block may opt in to on compute capability 9.0
 SMEM_OPTIN_BYTES = 232_448
 
@@ -121,11 +144,76 @@ def struct_name(model) -> str:
     return "".join(part.capitalize() for part in _spec(model).kernel.split("_"))
 
 
-def entry_name(model, entry: str) -> str:
-    """The C name of `model`'s `entry` ("distance" or "wave"):
-    `abc_sim_wave_siard`, `abc_sim_regional_wave_metapop_seir`."""
+def warp_min_regions(batch: int) -> int:
+    """The least R that takes the warp route at `batch` samples a launch."""
+    return [r for b, r in WARP_MIN_REGIONS if batch >= b][-1]
+
+
+def regional_routes(model) -> tuple:
+    """The routes `model`'s region axis takes at some batch, in `ROUTES`
+    order."""
     spec = _spec(model)
-    return f"abc_sim_{'regional_' if spec.is_regional else ''}{entry}_{spec.kernel}"
+    if not spec.is_regional:
+        raise ValueError(f"{spec.name} is flat; it has no region axis")
+    least = [r for _, r in WARP_MIN_REGIONS]
+    return tuple(r for r, on in (("thread", spec.n_regions < max(least)),
+                                 ("warp", spec.n_regions >= min(least))) if on)
+
+
+def regional_route(model, batch: Optional[int] = None) -> str:
+    """The route of `model`'s region axis at `batch` samples a launch: "warp"
+    (one warp a sample) from `warp_min_regions(batch)` regions on, else
+    "thread" (one thread a sample). With no batch, the one route that R
+    takes at every batch; a ValueError where the route depends on it."""
+    spec = _spec(model)
+    routes = regional_routes(spec)
+    if batch is not None:
+        return "warp" if spec.n_regions >= warp_min_regions(int(batch)) else "thread"
+    if len(routes) > 1:
+        raise ValueError(f"{spec.name} takes the thread or the warp route by batch "
+                         f"(WARP_MIN_REGIONS = {WARP_MIN_REGIONS}); give the batch or the "
+                         "route")
+    return routes[0]
+
+
+def _route(model: CompartmentalModel, route: Optional[str],
+           batch: Optional[int] = None) -> str:
+    """`route`, checked, or `regional_route(model, batch)` where it is None."""
+    if route is None:
+        return regional_route(model, batch)
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    return route
+
+
+def route_block(route: str, block: Optional[int] = None) -> int:
+    """`block`, checked against the route's launch bound, or the route's
+    default where it is None ("thread" also stands for the flat kernel)."""
+    limit = WARP_MAX_BLOCK if route == "warp" else MAX_BLOCK
+    if block is None:
+        return WARP_DEFAULT_BLOCK if route == "warp" else DEFAULT_BLOCK
+    return check_block(block, limit)
+
+
+def check_kernel_block(model, block: Optional[int] = None) -> None:
+    """Raise unless `block` (threads; None: each kernel's default) is within
+    the launch bound of every kernel `model` may run: the flat one, or each
+    of `regional_routes`."""
+    spec = _spec(model)
+    for route in regional_routes(spec) if spec.is_regional else ("thread",):
+        route_block(route, block)
+
+
+def entry_name(model, entry: str, route: Optional[str] = None) -> str:
+    """The C name of `model`'s `entry` ("distance" or "wave"):
+    `abc_sim_wave_siard`, `abc_sim_regional_wave_metapop_seir`, and on the
+    warp route (`route`, or `regional_route` where it is None)
+    `abc_sim_regional_wave_warp_metapop_seir`."""
+    spec = _spec(model)
+    if not spec.is_regional:
+        return f"abc_sim_{entry}_{spec.kernel}"
+    warp = "warp_" if _route(spec, route) == "warp" else ""
+    return f"abc_sim_regional_{entry}_{warp}{spec.kernel}"
 
 
 #: the library that also holds the RNG test entries
@@ -153,6 +241,12 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
             if lib.abc_sim_max_regions() != MAX_REGIONS:
                 raise RuntimeError(f"{name} takes {lib.abc_sim_max_regions()} regions, the "
                                    f"wrapper {MAX_REGIONS}")
+            lib.abc_sim_warp_max_block.argtypes = []
+            lib.abc_sim_warp_max_block.restype = ctypes.c_int
+            if lib.abc_sim_warp_max_block() != WARP_MAX_BLOCK:
+                raise RuntimeError(f"{name}'s warp route takes blocks of "
+                                   f"{lib.abc_sim_warp_max_block()}, the wrapper "
+                                   f"{WARP_MAX_BLOCK}")
         if name == RNG_LIBRARY:
             lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, _VP, ctypes.c_int, _VP]
@@ -176,8 +270,9 @@ _ARGTYPES = {
 }
 
 
-def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distance"):
-    name = entry_name(model, entry)
+def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distance",
+               route: Optional[str] = None):
+    name = entry_name(model, entry, route)
     try:
         fn = getattr(lib, name)
     except AttributeError:
@@ -217,22 +312,29 @@ def variant(flags, wave: bool) -> int:
         | 4 * (int(flags[FLAG_POWER]) == 1) | 8 * bool(wave)
 
 
-def variant_symbol(model: CompartmentalModel, v: int) -> str:
+def variant_symbol(model: CompartmentalModel, v: int, route: Optional[str] = None) -> str:
     """The part of the mangled name that picks variant `v` of `model`'s
     kernel out of its library's SASS or ptxas report: `abc_sim_kernel<Siard,
     8>` is `abc_sim_kernelI5SiardLi8EE`, `abc_sim_kernel<Seiard, 8>`
     `abc_sim_kernelI6SeiardLi8EE`, and for a regional model
     `abc_sim_regional_kernel<MetapopSeir, 8>`
-    `abc_sim_regional_kernelI11MetapopSeirLi8EE`."""
+    `abc_sim_regional_kernelI11MetapopSeirLi8EE` on the thread route,
+    `abc_sim_regional_warp_kernelI11MetapopSeirLi8EE` on the warp route
+    (`route`, or `regional_route` where it is None)."""
     struct = struct_name(model)
-    kernel = "abc_sim_regional_kernel" if model.is_regional else "abc_sim_kernel"
+    if not model.is_regional:
+        kernel = "abc_sim_kernel"
+    else:
+        kernel = ("abc_sim_regional_warp_kernel" if _route(model, route) == "warp"
+                  else "abc_sim_regional_kernel")
     return f"{kernel}I{len(struct)}{struct}Li{int(v)}EE"
 
 
-def kernel_symbol(model: CompartmentalModel, flags, wave: bool) -> str:
+def kernel_symbol(model: CompartmentalModel, flags, wave: bool,
+                  route: Optional[str] = None) -> str:
     """`variant_symbol` of the variant that the summary flags and the entry
     select."""
-    return variant_symbol(model, variant(flags, wave))
+    return variant_symbol(model, variant(flags, wave), route)
 
 
 def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
@@ -329,9 +431,9 @@ def _check_2d_f32(name: str, t: torch.Tensor) -> None:
         )
 
 
-def _launched(model: CompartmentalModel, entry: str) -> None:
+def _launched(model: CompartmentalModel, entry: str, route: Optional[str] = None) -> None:
     """Count one launch of `model`'s `entry` under its C name."""
-    name = entry_name(model, entry)
+    name = entry_name(model, entry, route)
     ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
 
 
@@ -386,10 +488,11 @@ def abc_sim_distance_kernel(
     iconst: np.ndarray,  # [N_ICONST] i32 host
     *,
     model: CompartmentalModel,
-    block: int = DEFAULT_BLOCK,
+    block: Optional[int] = None,
 ) -> torch.Tensor:
-    """Launch the fused kernel on the current stream; returns distances [B]."""
-    block = check_block(block)
+    """Launch the fused kernel on the current stream; returns distances [B]
+    (`block` in threads, None: `DEFAULT_BLOCK`)."""
+    block = route_block("thread", block)
     if theta_soa.device.type != "cuda":
         raise ValueError(f"theta_soa must be a CUDA tensor, got {theta_soa.device}")
     if obs.device != theta_soa.device:
@@ -427,12 +530,12 @@ def abc_sim_wave_kernel(
     *,
     model: CompartmentalModel,
     batch: int,
-    block: int = DEFAULT_BLOCK,
+    block: Optional[int] = None,
 ):
     """Launch the wave entry on the current stream: theta [batch, W] drawn
     from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch)` does,
     and its distances [batch] with NaN turned to +inf."""
-    block = check_block(block)
+    block = route_block("thread", block)
     _check_obs_and_consts(obs, fconst, iconst, model)
     width = theta_width(model, iconst)
     lo, hi = _box(lows, highs, width, model)
@@ -462,20 +565,32 @@ def regional_channels(model: CompartmentalModel, pool: int) -> int:
     return model.n_observed if pool > 1 else model.total_observed
 
 
-def regional_smem_bytes(model: CompartmentalModel, pool: int, num_days: int) -> int:
-    """Shared memory of a regional block: the observed summary, the weights
-    and, for a coupled model, the mobility matrix."""
+def regional_smem_bytes(model: CompartmentalModel, pool: int, num_days: int,
+                        route: Optional[str] = None, block: Optional[int] = None) -> int:
+    """Shared memory of a regional block: the observed summary and the
+    weights, and for a coupled model the mobility matrix; on the warp route
+    (`block` threads, block / 32 warps) the matrix in groups of four sources
+    (ceil(R / 4) * 4 * R floats and 128 of padding) and each warp's vectors,
+    (N_COUPLED + N_OBS) * MAX_REGIONS floats."""
     n_chan = regional_channels(model, pool)
-    mob = model.n_regions ** 2 if model.coupled else 0
-    return 4 * (n_chan * (num_days + 1) + mob)
+    route = _route(model, route)
+    if route == "thread":
+        mob = model.n_regions ** 2 if model.coupled else 0
+        return 4 * (n_chan * (num_days + 1) + mob)
+    warps = route_block(route, block) // 32
+    per_warp = (len(model.coupled) + model.n_observed) * MAX_REGIONS
+    groups = -(-model.n_regions // 4)
+    mob4 = 4 * groups * model.n_regions + 128 if model.coupled else 0
+    return 4 * (warps * per_warp + mob4 + n_chan * (num_days + 1))
 
 
 def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weights,
-                   pool: int) -> None:
-    """Raise unless the region axis of `model` fits the kernel and the
-    device buffers are what it reads: R at most MAX_REGIONS, obs [n_chan,
-    T], weights [n_chan], mobility [R, R] (coupled models), the block's
-    shared memory within the opt-in limit."""
+                   pool: int, route: Optional[str] = None, block: Optional[int] = None) -> None:
+    """Raise unless the region axis of `model` fits the kernel of `route`
+    (each of `regional_routes` where it is None) at `block` and the device buffers
+    are what it reads: R at most MAX_REGIONS, obs [n_chan, T], weights
+    [n_chan], mobility [R, R] (coupled models), the block's shared memory
+    within the opt-in limit."""
     R = model.n_regions
     if not model.is_regional:
         raise ValueError(f"{model.name} is flat; it has no region axis")
@@ -494,10 +609,12 @@ def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weigh
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on "
                              f"{obs.device}")
-    smem = regional_smem_bytes(model, pool, obs.shape[1])
-    if smem > SMEM_OPTIN_BYTES:
-        raise ValueError(f"{model.name} at {obs.shape[1]} days needs {smem} bytes of shared "
-                         f"memory a block; the card gives at most {SMEM_OPTIN_BYTES}")
+    for route in regional_routes(model) if route is None else (_route(model, route),):
+        smem = regional_smem_bytes(model, pool, obs.shape[1], route, block)
+        if smem > SMEM_OPTIN_BYTES:
+            raise ValueError(f"{model.name} at {obs.shape[1]} days needs {smem} bytes of "
+                             f"shared memory a block on the {route} route; the card gives at "
+                             f"most {SMEM_OPTIN_BYTES}")
 
 
 def _regional_args(model: CompartmentalModel, mobility, pool: int):
@@ -515,19 +632,22 @@ def abc_sim_regional_distance_kernel(
     *,
     model: CompartmentalModel,
     pool: int = 1,
-    block: int = DEFAULT_BLOCK,
+    block: Optional[int] = None,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """Launch the theta-in entry of the region axis on the current stream;
     returns distances [B]. `pool` is the region-pooling factor
-    (`summaries.pool_factor`)."""
-    block = check_block(block)
+    (`summaries.pool_factor`); `route` "thread" or "warp" (None:
+    `regional_route` at B), `block` in threads (None: the route's default)."""
     if theta_soa.device.type != "cuda" or obs.device != theta_soa.device:
         raise ValueError(f"theta_soa ({theta_soa.device}) and obs ({obs.device}) must be "
                          "on one CUDA device")
     _check_2d_f32("theta_soa", theta_soa)
     _check_2d_f32("obs", obs)
+    route = _route(model, route, theta_soa.shape[1])
+    block = route_block(route, block)
     _check_consts(fconst, iconst, model)
-    check_regional(model, obs, mobility, weights, pool)
+    check_regional(model, obs, mobility, weights, pool, route, block)
     n_rows, batch = theta_soa.shape
     width = theta_width(model, iconst)
     if n_rows != width or batch < 1:
@@ -536,15 +656,15 @@ def abc_sim_regional_distance_kernel(
     fconst = np.ascontiguousarray(fconst)
     iconst = np.ascontiguousarray(iconst)
     lib = _lib(library(model))
-    fn = _kernel_fn(lib, model)
+    fn = _kernel_fn(lib, model, "distance", route)
     out = torch.empty((batch,), dtype=torch.float32, device=theta_soa.device)
     mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
     with torch.cuda.device(theta_soa.device):
         rc = fn(theta_soa.data_ptr(), obs.data_ptr(), mob, weights.data_ptr(), out.data_ptr(),
                 fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1], R, seed_region,
                 pooled, block, _stream_handle(theta_soa.device))
-    _check_rc(lib, rc, entry_name(model, "distance"))
-    _launched(model, "distance")
+    _check_rc(lib, rc, entry_name(model, "distance", route))
+    _launched(model, "distance", route)
     return out
 
 
@@ -561,24 +681,27 @@ def abc_sim_regional_wave_kernel(
     model: CompartmentalModel,
     batch: int,
     pool: int = 1,
-    block: int = DEFAULT_BLOCK,
+    block: Optional[int] = None,
+    route: Optional[str] = None,
 ):
     """Launch the wave entry of the region axis: theta [batch, W] drawn as
     `UniformBoxPrior.sample(prior_seed, batch)` does, and its distances
-    [batch] with NaN turned to +inf."""
-    block = check_block(block)
+    [batch] with NaN turned to +inf. `route` and `block` as for
+    `abc_sim_regional_distance_kernel` (None: `regional_route` at `batch`)."""
+    route = _route(model, route, batch)
+    block = route_block(route, block)
     if obs.device.type != "cuda":
         raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
     _check_2d_f32("obs", obs)
     _check_consts(fconst, iconst, model)
-    check_regional(model, obs, mobility, weights, pool)
+    check_regional(model, obs, mobility, weights, pool, route, block)
     width = theta_width(model, iconst)
     lo, hi = _box(lows, highs, width, model)
     batch = int(batch)
     if batch < 1:
         raise ValueError("a wave needs at least one sample")
     lib = _lib(library(model))
-    fn = _kernel_fn(lib, model, "wave")
+    fn = _kernel_fn(lib, model, "wave", route)
     theta = torch.empty((batch, width), dtype=torch.float32, device=obs.device)
     dist = torch.empty((batch,), dtype=torch.float32, device=obs.device)
     if theta.data_ptr() % 16:
@@ -591,8 +714,8 @@ def abc_sim_regional_wave_kernel(
                 mob, weights.data_ptr(), theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data,
                 iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled, block,
                 _stream_handle(obs.device))
-    _check_rc(lib, rc, entry_name(model, "wave"))
-    _launched(model, "wave")
+    _check_rc(lib, rc, entry_name(model, "wave", route))
+    _launched(model, "wave", route)
     return theta, dist
 
 

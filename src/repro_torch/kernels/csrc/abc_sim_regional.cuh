@@ -8,6 +8,10 @@
 // (:254-260), per-region hazards and RNG slots r * T + k at ctr_slots
 // (:261-276), the per-region drain (:280) and the region pooling (:287-294).
 //
+// This is the route for small R (`abc_sim.regional_route`); the route for
+// large R, one warp a sample, is abc_sim_regional_warp.cuh, which shares the
+// checked launch arguments below (RegionalArgs, opt_in_smem).
+//
 // One thread owns one sample, as in the flat kernel (abc_sim.cuh, whose
 // constants, parameter structs, theta draw and schedule windows this file
 // uses unchanged). R and the mobility matrix are run-time values: one build
@@ -251,27 +255,41 @@ void regional_shape(int* out) {
   }
 }
 
+// The checked arguments of a regional launch, shared by both routes (the
+// thread-per-sample kernel here, the warp-per-sample one in
+// abc_sim_regional_warp.cuh): the geometry, the constants, the schedule, the
+// box of the wave entry and the variant. Returns cudaErrorInvalidValue for
+// arguments the kernels do not take (R past MAX_REGIONS among them).
 template <class Model>
-int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* mob,
-                            const void* weights, void* theta_out, void* out,
-                            const float* fconst, const int* iconst, const float* lows,
-                            const float* highs, uint32_t prior_seed, bool wave, int B, int T,
-                            int R, int seed_region, int pool, int block, void* stream) {
-  constexpr int P = Model::N_PARAMS, NO = Model::N_OBS;
+struct RegionalArgs {
+  Geo g;
+  Consts c;
+  Sched<Model::N_PARAMS> sched;
+  Box<Model::N_PARAMS> box;
+  int variant;
+};
+
+template <class Model>
+int read_regional_args(const void* obs, const void* mob, const void* weights,
+                       const float* fconst, const int* iconst, const float* lows,
+                       const float* highs, uint32_t prior_seed, bool wave, int B, int T, int R,
+                       int seed_region, int pool, int block, int max_block,
+                       RegionalArgs<Model>& a) {
+  constexpr int NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value;
-  if (B <= 0 || T <= 0 || block <= 0 || block > MAX_BLOCK) return cudaErrorInvalidValue;
+  if (B <= 0 || T <= 0 || block <= 0 || block > max_block) return cudaErrorInvalidValue;
   if (R < 1 || R > MAX_REGIONS || seed_region < 0 || seed_region >= R) return cudaErrorInvalidValue;
   if (pool != 0 && pool != 1) return cudaErrorInvalidValue;
   if (obs == nullptr || weights == nullptr || (NC > 0 && mob == nullptr))
     return cudaErrorInvalidValue;
-  Geo g;
+  Geo& g = a.g;
   g.R = R;
   g.seed_region = seed_region;
   g.pool = pool && R > 1;
   g.n_chan = g.pool ? NO : R * NO;
   const int slots = R * Model::N_TRANS <= 8 ? 8 : (R * Model::N_TRANS + 7) / 8 * 8;
   g.day_stride = 2u * static_cast<uint32_t>(slots) * rng::P2;
-  Consts c;
+  Consts& c = a.c;
   c.pop = fconst[F_POP];
   c.a0 = fconst[F_A0];
   c.r0 = fconst[F_R0];
@@ -283,24 +301,24 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
   if (c.bin_days < 1) return cudaErrorInvalidValue;
   const int power = iconst[I_POWER], root = iconst[I_ROOT];
   if (!((power == 2 && root == 1) || (power == 1 && root == 0))) return cudaErrorInvalidValue;
-  Sched<P> sched;
-  if (!read_sched(iconst, sched)) return cudaErrorInvalidValue;
-  Box<P> box{};
+  if (!read_sched(iconst, a.sched)) return cudaErrorInvalidValue;
+  a.box = Box<Model::N_PARAMS>{};
   if (wave) {
-    for (int j = 0; j < sched.width(); ++j) {
-      box.lo[j] = lows[j];
-      box.hi[j] = highs[j];
+    for (int j = 0; j < a.sched.width(); ++j) {
+      a.box.lo[j] = lows[j];
+      a.box.hi[j] = highs[j];
     }
-    box.seed = prior_seed;
+    a.box.seed = prior_seed;
   }
-  const int variant = (iconst[I_CUMULATIVE] == 1 ? CUM : 0) | (iconst[I_LOG1P] == 1 ? LOG1P : 0) |
-                      (power == 1 ? L1 : 0) | (wave ? WAVE : 0);
-  static const auto table =
-      regional_kernel_table<Model>(std::make_integer_sequence<int, N_VARIANTS>{});
-  const auto kernel = table[variant];
+  a.variant = (iconst[I_CUMULATIVE] == 1 ? CUM : 0) | (iconst[I_LOG1P] == 1 ? LOG1P : 0) |
+              (power == 1 ? L1 : 0) | (wave ? WAVE : 0);
+  return cudaSuccess;
+}
 
-  const size_t smem = sizeof(float) * (static_cast<size_t>(g.n_chan) * (T + 1) +
-                                       (NC > 0 ? static_cast<size_t>(R) * R : 0));
+// Refuse `smem` bytes of dynamic shared memory past the card's opt-in limit;
+// opt `kernel` in above 48 KB.
+template <class Kernel>
+int opt_in_smem(Kernel kernel, size_t smem) {
   int dev = 0, smem_max = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -312,11 +330,32 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
+}
+
+template <class Model>
+int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* mob,
+                            const void* weights, void* theta_out, void* out,
+                            const float* fconst, const int* iconst, const float* lows,
+                            const float* highs, uint32_t prior_seed, bool wave, int B, int T,
+                            int R, int seed_region, int pool, int block, void* stream) {
+  constexpr int NC = coupled_count<Model>::value;
+  RegionalArgs<Model> a;
+  int err = read_regional_args<Model>(obs, mob, weights, fconst, iconst, lows, highs, prior_seed,
+                                      wave, B, T, R, seed_region, pool, block, MAX_BLOCK, a);
+  if (err != cudaSuccess) return err;
+  static const auto table =
+      regional_kernel_table<Model>(std::make_integer_sequence<int, N_VARIANTS>{});
+  const auto kernel = table[a.variant];
+  const size_t smem = sizeof(float) * (static_cast<size_t>(a.g.n_chan) * (T + 1) +
+                                       (NC > 0 ? static_cast<size_t>(R) * R : 0));
+  err = opt_in_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int grid = (B + block - 1) / block;
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
       static_cast<const float*>(mob), static_cast<const float*>(weights),
-      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, g, c, box, sched);
+      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched);
   return cudaGetLastError();
 }
 

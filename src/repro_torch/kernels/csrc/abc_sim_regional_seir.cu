@@ -1,13 +1,16 @@
-// The region axis of the fused ABC simulation kernel (abc_sim_regional.cuh,
-// where its design is described) for the seir struct (seir.cuh): the exports
-// abc_sim_regional_distance_seir and abc_sim_regional_wave_seir. One
-// translation unit a struct, so that nvcc builds them side by side with the
-// flat ones (abc_sim_<model>.cu), which this file leaves as they are.
+// The region axis of the fused ABC simulation kernel, both routes
+// (abc_sim_regional.cuh, one thread a sample, and abc_sim_regional_warp.cuh,
+// one warp a sample, where their designs are described) for the seir struct
+// (seir.cuh): the exports abc_sim_regional_{distance,wave}_seir and their
+// `_warp` twins. One translation unit a struct, so that nvcc builds them side
+// by side with the flat ones (abc_sim_<model>.cu), which this file leaves as
+// they are.
 //
 // Replaces the region axis of the TPU kernel src/repro/kernels/abc_sim.py:138
 // (_kernel) for this model's rows.
 
-#include "abc_sim_regional.cuh"
+#include "abc_sim_regional_warp.cuh"
 #include "seir.cuh"
 
 ABC_SIM_REGIONAL_EXPORTS(seir, Seir)
+ABC_SIM_REGIONAL_WARP_EXPORTS(seir, Seir)

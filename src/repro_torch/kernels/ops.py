@@ -53,7 +53,7 @@ class AbcSim:
 
     def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
                  r0: float, d0: float, model: CompartmentalModel, spec, distance: str,
-                 block: int, schedule=None, mobility=None):
+                 block: Optional[int], schedule=None, mobility=None):
         self.observed, self.model, self.spec, self.distance = observed, model, spec, distance
         self.scalars = dict(population=population, a0=a0, r0=r0, d0=d0)
         self.block = block
@@ -78,7 +78,7 @@ class AbcSim:
                 self.mob = (mobility_matrix(model, mobility, self.device).contiguous()
                             if model.coupled else None)
                 abc_sim.check_regional(model, self.obs_summary, self.mob, self.weights,
-                                       self.pool)
+                                       self.pool, None, block)
                 weights = torch.zeros((0,))
             self.fconst, self.iconst = abc_sim.pack_consts(
                 mean_scale=lowered.mean_scale, weights=weights.cpu().numpy(),
@@ -156,7 +156,7 @@ def make_abc_sim(
     summary=None,  # SummarySpec / registry name / None (identity)
     distance: str = "euclidean",
     schedule=None,
-    block: int = abc_sim.DEFAULT_BLOCK,
+    block: Optional[int] = None,  # threads; None: the kernel's own default
     mobility=None,  # [R][R] override of a regional model's matrix
 ) -> AbcSim:
     """The fused simulate-and-distance against `observed`, on `observed`'s

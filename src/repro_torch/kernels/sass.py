@@ -62,6 +62,20 @@ inner sum for R = 1, not counted), and the summary loop one after it: nvcc
 keeps a copy for pooled channels, which reads fewer words of local memory
 than the unpooled copy. A function of another shape is reported, with no
 floor.
+
+The warp route of the region axis (`csrc/abc_sim_regional_warp.cuh`) runs
+one sample on a warp, so its census counts warp-instructions a sample-day:
+`regional_warp_census` finds, inside the day loop, the coupled rows' loops
+over groups of four sources (one for each NR = 1..4 regions a lane, told
+apart by their FMULs, ceil(R / 4) trips), the pooled sums' loop (R - 1
+trips) and the channel chain's loop (the one with 16-byte shared loads,
+ceil(n_chan / 8) trips), and the region passes 1-3: the code after each
+conditional branch whose skipped code holds the normals' MUFU.RSQ, up to
+the next such branch (pass 3: up to its target). The walk falls through these branches (every pass runs) and
+takes the branch between the pooled sums and the chain that the launch
+takes; a pass a lane does not need (i >= ceil(R / 32)) is then taken out
+again, with its guard. `regional_warp_issue_floor_ms` counts a
+warp-instruction as one issue slot for one sample.
 """
 
 from __future__ import annotations
@@ -232,9 +246,10 @@ def decide(body: List[Instr], index: Dict[int, int], n: int) -> Tuple[bool, int,
 
 
 def walk(body: List[Instr], start: int, stop: int,
-         branches: Optional[list] = None) -> List[Instr]:
+         branches: Optional[list] = None, force: Optional[Dict[int, bool]] = None) -> List[Instr]:
     """The instructions from body[start] to body[stop] along the path the
-    rules choose. A backward branch other than `stop` is left (its loop
+    rules choose (`force` maps a branch's index to taken or not, in place
+    of the rules). A backward branch other than `stop` is left (its loop
     runs once); a conditional exit falls through."""
     index = {i.addr: n for n, i in enumerate(body)}
     path, n, seen = [], start, set()
@@ -254,6 +269,8 @@ def walk(body: List[Instr], start: int, stop: int,
                 n = index[t]
                 continue
             taken, rule, skipped = decide(body, index, n)
+            if force is not None and n in force:
+                taken, rule = force[n], 0
             if branches is not None:
                 branches.append({"at": f"{ins.addr:04x}", "branch": str(ins).split("*/ ")[1],
                                  "taken": taken, "rule": rule, "skips": skipped})
@@ -325,13 +342,33 @@ def _children(loop: Tuple[int, int], loops: Sequence[Tuple[int, int]]) -> List[T
 
 def _own(body: List[Instr], loop: Tuple[int, int], inner: Sequence[Tuple[int, int]]) -> dict:
     """Counts of one pass of `loop`'s path, less the loops inside it."""
-    path = walk(body, loop[0], loop[1])
+    return count(_own_path(body, loop, inner))
+
+
+def _own_path(body: List[Instr], loop: Tuple[int, int], inner: Sequence[Tuple[int, int]],
+              force: Optional[Dict[int, bool]] = None) -> List[Instr]:
+    path = walk(body, loop[0], loop[1], force=force)
     spans = [(body[a].addr, body[b].addr) for a, b in inner]
-    return count([i for i in path if not any(lo <= i.addr <= hi for lo, hi in spans)])
+    return [i for i in path if not any(lo <= i.addr <= hi for lo, hi in spans)]
 
 
 def _local_loads(body: List[Instr], loop: Tuple[int, int]) -> int:
     return sum(i.base == "LDL" for i in body[loop[0]:loop[1] + 1])
+
+
+def _day_steps(body: List[Instr]):
+    """(loops, the outermost loop, the day loop, the loops directly inside
+    it) of a regional kernel: the day loop is the outermost loop's largest
+    inner loop where it spans at least half of it (the segment loop holds
+    it), else the outermost loop."""
+    loops = _loops(body)
+    if not loops:
+        raise ValueError("no loop (backward branch) in this function")
+    top = max(loops, key=lambda lp: lp[1] - lp[0])
+    day = max(_children(top, loops), key=lambda lp: lp[1] - lp[0], default=top)
+    if 2 * (day[1] - day[0]) < top[1] - top[0]:
+        day = top
+    return loops, top, day, _children(day, loops)
 
 
 def regional_census(body: List[Instr], coupled: bool, pooled: bool = False) -> dict:
@@ -340,14 +377,7 @@ def regional_census(body: List[Instr], coupled: bool, pooled: bool = False) -> d
     (coupled models), `regions` and `channels` (the pooled copy when
     `pooled`); `shape_ok` is False, with the loop spans listed, where the
     function's loops are not that shape."""
-    loops = _loops(body)
-    if not loops:
-        raise ValueError("no loop (backward branch) in this function")
-    top = max(loops, key=lambda lp: lp[1] - lp[0])
-    day = max(_children(top, loops), key=lambda lp: lp[1] - lp[0], default=top)
-    if 2 * (day[1] - day[0]) < top[1] - top[0]:
-        day = top
-    steps = _children(day, loops)
+    loops, top, day, steps = _day_steps(body)
     out = {"day_loop_span": [f"{body[day[0]].addr:04x}", f"{body[day[1]].addr:04x}"],
            "steps_spans": [[f"{body[a].addr:04x}", f"{body[b].addr:04x}"] for a, b in steps],
            "shape_ok": False, "day": _own(body, day, steps)}
@@ -401,3 +431,121 @@ def regional_issue_floor_ms(result: dict, n_regions: int, rows: int, batch: int,
     return issue_floor_ms({"per_day": per_day,
                            "per_sample_outside_loop": result["per_sample_outside_loop"]},
                           batch, days, n_sm, clock_mhz)
+
+
+#: region slots a lane of the warp route holds (MAX_REGIONS / 32)
+WARP_SLOTS = 4
+
+
+def _skips(body: List[Instr], n: int, index: Dict[int, int]) -> List[Instr]:
+    return body[n + 1:index[body[n].target]]
+
+
+def regional_warp_census(body: List[Instr], coupled: bool, pooled: bool = False) -> dict:
+    """Per-loop warp-instruction counts of a warp-route kernel's day (module
+    docstring): `day` (the day loop's own path with every region pass),
+    `passes` (passes 1-3, each with its guard), `coupled_rows` (NR -> one
+    trip of the row loop for NR regions a lane; coupled models), `chain`
+    and `pooled_sum` (one trip each), with `pooled` choosing the path
+    through the summary; `shape_ok` is False, with the spans listed, where
+    the function's loops are not that shape."""
+    _, top, day, steps = _day_steps(body)
+    index = {i.addr: n for n, i in enumerate(body)}
+
+    def inside(n):
+        return any(a <= n <= b for a, b in steps)
+
+    def span(lp):
+        return [f"{body[lp[0]].addr:04x}", f"{body[lp[1]].addr:04x}"]
+
+    out = {"day_loop_span": span(day), "steps_spans": [span(lp) for lp in steps],
+           "shape_ok": False, "pooled": bool(pooled)}
+    whole = walk(body, 0, len(body) - 1)
+    out["per_sample_outside_loop"] = count(
+        [i for i in whole if not body[top[0]].addr <= i.addr <= body[top[1]].addr])
+    fwd = [n for n in range(day[0], day[1]) if not inside(n) and body[n].base == "BRA"
+           and body[n].pred and body[n].target is not None
+           and body[n].addr < body[n].target <= body[day[1]].addr]
+    guards = [n for n in fwd if any(i.opcode.startswith("MUFU.RSQ")
+                                    for i in _skips(body, n, index))]
+    out["pass_guards"] = [f"{body[n].addr:04x}" for n in guards]
+    if len(guards) != WARP_SLOTS - 1:
+        return out
+    after = [lp for lp in steps if lp[0] > index[body[guards[-1]].target]]
+    chain = [lp for lp in after if any(i.opcode.startswith("LDS.128")
+                                       for i in body[lp[0]:lp[1] + 1])]
+    pool_loops = [lp for lp in after if lp not in chain]
+    rows = [lp for lp in steps if lp[1] < guards[0]
+            and any(i.base == "FMUL" for i in body[lp[0]:lp[1] + 1])]
+    if len(chain) != 1 or len(pool_loops) != 1 or len(rows) != (WARP_SLOTS if coupled else 0):
+        return out
+    # every pass runs; the branch between the pooled sums and the chain goes
+    # the launch's way
+    force = {n: False for n in guards}
+    for n in fwd:
+        if index[body[n].target] > guards[-1] and n > guards[-1]:
+            skipped = {i.addr for i in _skips(body, n, index)}
+            holds_pool = body[pool_loops[0][0]].addr in skipped
+            holds_chain = body[chain[0][0]].addr in skipped
+            if holds_pool != holds_chain:
+                force[n] = holds_pool != pooled
+    path = _own_path(body, day, steps, force)
+    out["day"] = count(path)
+    passes = []
+    for k, n in enumerate(guards):
+        end = (body[guards[k + 1]].addr if k + 1 < len(guards)
+               else body[index[body[n].target]].addr)
+        passes.append(count([i for i in path if body[n].addr <= i.addr < end]))
+    out["passes"] = passes
+    fmul = {lp: sum(i.base == "FMUL" for i in body[lp[0]:lp[1] + 1]) for lp in rows}
+    ordered = sorted(rows, key=lambda lp: fmul[lp])
+    if len(set(fmul.values())) != len(rows):
+        return out
+    out["coupled_rows"] = {nr + 1: _own(body, lp, []) for nr, lp in enumerate(ordered)}
+    out["coupled_rows_spans"] = {nr + 1: span(lp) for nr, lp in enumerate(ordered)}
+    out["chain"], out["chain_span"] = _own(body, chain[0], []), span(chain[0])
+    out["pooled_sum"], out["pooled_sum_span"] = _own(body, pool_loops[0], []), span(pool_loops[0])
+    out["shape_ok"] = True
+    return out
+
+
+def regional_warp_per_day(result: dict, n_regions: int, n_chan: int) -> Dict[str, float]:
+    """Warp-instructions a sample-day by class from `regional_warp_census`:
+    the day with ceil(R / 32) region passes, the row loop for that many
+    regions a lane ceil(R / 4) times (coupled), and the pooled sums R - 1
+    times or the chain ceil(n_chan / 8) times, as the census walked."""
+    nr = -(-n_regions // 32)
+    out = {c: 0.0 for c in CLASSES + ("total",)}
+    parts = [(result["day"], 1)] + [(p, -1) for p in result["passes"][nr - 1:]]
+    if "coupled_rows" in result and result["coupled_rows"]:
+        parts.append((result["coupled_rows"][nr], -(-n_regions // 4)))
+    if result["pooled"]:
+        parts.append((result["pooled_sum"], n_regions - 1))
+    else:
+        parts.append((result["chain"], -(-n_chan // 8)))
+    for counts, n in parts:
+        for c, v in counts.items():
+            out[c] += n * v
+    return out
+
+
+def regional_warp_issue_floor_ms(result: dict, n_regions: int, n_chan: int, batch: int,
+                                 days: int, n_sm: int, clock_mhz: float) -> Optional[dict]:
+    """The issue floor of a warp-route launch, or None where the census did
+    not find its shape.
+
+    One warp runs one sample, so a warp-instruction is one issue slot (of 4
+    a clock an SM) for one sample: floor = warp-instructions a sample-day x
+    samples x days / (SMs x 4 x clock), and each class's pipe as many lanes
+    a clock as in `issue_floor_ms`. That is `issue_floor_ms` with every
+    count times 32: there a thread-instruction is 1/32 of an issue slot,
+    because 32 samples share each warp-instruction."""
+    if not result["shape_ok"]:
+        return None
+    per_day = regional_warp_per_day(result, n_regions, n_chan)
+    lanes = {c: 32 * v for c, v in per_day.items()}
+    outside = {c: 32 * v for c, v in result["per_sample_outside_loop"].items()}
+    floor = issue_floor_ms({"per_day": lanes, "per_sample_outside_loop": outside},
+                           batch, days, n_sm, clock_mhz)
+    floor["warp_instructions_per_sample_day"] = floor.pop("instructions_per_sample_day") / 32
+    return floor

@@ -39,7 +39,7 @@ from repro_torch.core.summaries import DISTANCE_KINDS, list_summaries
 from repro_torch.epi.data import get_dataset, list_datasets
 from repro_torch.epi.models import get_model, list_models
 from repro_torch.epi.spec import InterventionSchedule, regionalize
-from repro_torch.kernels.abc_sim import DEFAULT_BLOCK
+from repro_torch.kernels.abc_sim import DEFAULT_BLOCK, WARP_DEFAULT_BLOCK
 
 
 def parse_intervention(spec: str) -> InterventionSchedule | None:
@@ -136,8 +136,10 @@ def main(argv=None):
     ap.add_argument("--save-posterior", default="")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the fused kernel; cpu its plain PyTorch version")
-    ap.add_argument("--block", type=int, default=DEFAULT_BLOCK,
-                    help="CUDA block size in threads (distances do not depend on it)")
+    ap.add_argument("--block", type=int, default=None,
+                    help="CUDA block size in threads (default: the kernel's own, "
+                         f"{DEFAULT_BLOCK}, or {WARP_DEFAULT_BLOCK} on the regional warp "
+                         "route; distances do not depend on it)")
     args = ap.parse_args(argv)
     if args.regions < 1:
         ap.error("--regions must be >= 1")

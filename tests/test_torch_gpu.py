@@ -519,56 +519,146 @@ def _regional(name, regions=None, mobility=None):
     return spec if regions is None else regionalize(spec, regions, mobility)
 
 
-@pytest.mark.parametrize("case", [("metapop_seir", None, None), ("metapop_seir", 10, "ring:0.1"),
-                                  ("metapop_seir", 100, "ring:0.1"), ("seir", 3, None),
-                                  ("siard", 3, None), ("seiard", 2, "uniform:0.2")],
-                         ids=lambda c: f"{c[0]}-{c[1]}")
-@pytest.mark.parametrize("summary,distance", METAPOP_PAIRS)
-def test_regional_entries_equal_the_plain_version(cuda, case, summary, distance):
-    """Both regional entries against the plain version, bitwise (theta and
-    distances), one launch of the struct's entry each."""
-    spec = _regional(*case)
+#: (model, R, mobility): R = 33, 64 and 128 give a warp route's lanes up to
+#: 2, 2 and 4 regions; seiard at R=40 has 120 channels and no coupling
+REGIONAL_CASES = [("metapop_seir", None, None), ("metapop_seir", 10, "ring:0.1"),
+                  ("metapop_seir", 33, "ring:0.1"), ("metapop_seir", 64, "ring:0.1"),
+                  ("metapop_seir", 100, "ring:0.1"), ("metapop_seir", 128, "ring:0.1"),
+                  ("seir", 3, None), ("siard", 3, None), ("seiard", 2, "uniform:0.2"),
+                  ("seiard", 40, None)]
+
+
+def _regional_sim(cuda, spec, summary=None, distance="euclidean", **extra):
     ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
     kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0, model=spec,
-              summary=summary, distance=distance)
+              summary=summary, distance=distance, **extra)
     obs = torch.as_tensor(ds.observed, device=cuda)
+    return obs, kw, ops.make_abc_sim(obs, **kw)
+
+
+def _route_entries(sim, spec, theta, prior, seed, prior_seed, route, block=None):
+    """(theta-in distances, wave theta, wave distances) of one route."""
+    ic = abc_sim.with_seed(sim.iconst, seed)
+    d = abc_sim.abc_sim_regional_distance_kernel(
+        abc_sim.theta_to_soa(theta), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
+        model=spec, pool=sim.pool, route=route, block=block)
+    th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
+        prior_seed, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
+        ic, model=spec, batch=theta.shape[0], pool=sim.pool, route=route, block=block)
+    return d, th_w, d_w
+
+
+@pytest.mark.parametrize("case", REGIONAL_CASES, ids=lambda c: f"{c[0]}-{c[1]}")
+@pytest.mark.parametrize("summary,distance", METAPOP_PAIRS)
+def test_regional_entries_equal_the_plain_version(cuda, case, summary, distance):
+    """Both regional entries of both routes against the plain version,
+    bitwise (theta and distances): through `ops` on the route R picks, one
+    launch of its entry each, and through each route's entries."""
+    spec = _regional(*case)
+    obs, kw, sim = _regional_sim(cuda, spec, summary, distance)
     prior = spec.prior()
     theta = prior.sample(8, 1024, cuda)
     want = ref.abc_sim_distance_ref(theta, 3, obs, **kw)
+    want_wave = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
     entry = abc_sim.entry_name(spec, "distance")
     before = abc_sim.ENTRY_LAUNCHES.get(entry, 0)
     assert torch.equal(ops.abc_sim_distance(theta, 3, obs, **kw), want)
     assert abc_sim.ENTRY_LAUNCHES[entry] == before + 1
-    sim = ops.make_abc_sim(obs, **kw)
     got_theta, got = sim.wave(prior, 8, 3, 1024)
     assert torch.equal(got_theta, theta)
-    assert torch.equal(got, torch.where(torch.isnan(want), torch.full_like(want, float("inf")),
-                                        want))
+    assert torch.equal(got, want_wave)
+    for route in abc_sim.ROUTES:
+        before = dict(abc_sim.ENTRY_LAUNCHES)
+        d, th_w, d_w = _route_entries(sim, spec, theta, prior, 3, 8, route)
+        assert torch.equal(d, want) and torch.equal(th_w, theta) and torch.equal(d_w, want_wave)
+        for e in ("distance", "wave"):
+            name = abc_sim.entry_name(spec, e, route)
+            assert abc_sim.ENTRY_LAUNCHES[name] == before.get(name, 0) + 1
 
 
-def test_regional_schedule_and_mobility_sweep_reuse_one_build(cuda):
+@pytest.mark.parametrize("regions", [None, 100], ids=["metapop_path-4", "regions_path-100"])
+def test_both_routes_equal_the_plain_version_at_the_paths_batch(cuda, regions):
+    """Both entries of both routes at the CLI paths' shape, 100,000 x 49 on
+    metapop_seir (R=4, and R=100 on a ring at 0.1), bitwise the plain
+    version."""
+    spec = _regional("metapop_seir", regions, None if regions is None else "ring:0.1")
+    obs, kw, sim = _regional_sim(cuda, spec)
+    prior = spec.prior()
+    theta = prior.sample(6, 100_000, cuda)
+    want = ref.abc_sim_distance_ref(theta, 9, obs, **kw)
+    want_wave = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
+    for route in abc_sim.ROUTES:
+        d, th_w, d_w = _route_entries(sim, spec, theta, prior, 9, 6, route)
+        assert torch.equal(d, want) and torch.equal(th_w, theta) and torch.equal(d_w, want_wave)
+
+
+def test_regional_route_follows_the_batch_on_the_card(cuda):
+    """metapop_seir at R=16 through `AbcSim.wave`: the warp entry at 20,000
+    samples, the thread entry at 50,000 (`WARP_MIN_REGIONS`), each bitwise
+    the other route at the same batch."""
+    spec = _regional("metapop_seir", 16, "ring:0.1")
+    _, _, sim = _regional_sim(cuda, spec)
+    prior = spec.prior()
+    for batch, route in ((20_000, "warp"), (50_000, "thread")):
+        assert abc_sim.regional_route(spec, batch) == route
+        other = "thread" if route == "warp" else "warp"
+        before = dict(abc_sim.ENTRY_LAUNCHES)
+        theta, dist = sim.wave(prior, 4, 7, batch)
+        name = abc_sim.entry_name(spec, "wave", route)
+        assert abc_sim.ENTRY_LAUNCHES[name] == before.get(name, 0) + 1
+        assert abc_sim.ENTRY_LAUNCHES == {**before, name: before.get(name, 0) + 1}
+        th_o, d_o = abc_sim.abc_sim_regional_wave_kernel(
+            4, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
+            abc_sim.with_seed(sim.iconst, 7), model=spec, batch=batch, pool=sim.pool,
+            route=other)
+        assert torch.equal(th_o, theta) and torch.equal(d_o, dist)
+
+
+@pytest.mark.parametrize("case", [("metapop_seir", 100, "ring:0.1"), ("seiard", 40, None)],
+                         ids=lambda c: f"{c[0]}-{c[1]}")
+def test_regional_warp_kernel_is_block_invariant(cuda, case):
+    """The warp route's distances and theta do not depend on the samples a
+    block (block / 32), including a ragged last block."""
+    spec = _regional(*case)
+    _, _, sim = _regional_sim(cuda, spec)
+    prior = spec.prior()
+    theta = prior.sample(5, 1000, cuda)
+    first = _route_entries(sim, spec, theta, prior, 4, 5, "warp", 32)
+    for block in (128, 256, 384, 512):
+        got = _route_entries(sim, spec, theta, prior, 4, 5, "warp", block)
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+@pytest.mark.parametrize("regions", [None, 40], ids=["thread-4", "warp-40"])
+def test_regional_schedule_and_mobility_sweep_reuse_one_build(cuda, regions):
     """A one-window schedule on metapop_seir, and three mobility matrices
-    through the loaded library: bitwise the plain version, no rebuild."""
+    through the loaded library: bitwise the plain version, no rebuild, on
+    the route R picks (thread at R=4, warp at R=40)."""
     from repro_torch.epi.spec import make_mobility
 
-    spec = get_model("metapop_seir")
+    spec = _regional("metapop_seir", regions, None if regions is None else "ring:0.1")
+    R = spec.n_regions
     ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
     kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0, model=spec)
     obs = torch.as_tensor(ds.observed, device=cuda)
     sched = InterventionSchedule.inferred(("beta",), (20,), 0.0, 2.0)
     theta = schedule_prior(spec, sched).sample(2, 2048, cuda)
+    entry = abc_sim.entry_name(spec, "distance")
+    assert entry.endswith(("_warp_metapop_seir" if regions else "distance_metapop_seir"))
+    before = abc_sim.ENTRY_LAUNCHES.get(entry, 0)
     assert torch.equal(ops.abc_sim_distance(theta, 4, obs, schedule=sched, **kw),
                        ref.abc_sim_distance_ref(theta, 4, obs, schedule=sched, **kw))
     libs, built = dict(build._LIBS), dict(build._INFO)
     theta = spec.prior().sample(3, 2048, cuda)
     seen = []
     for grammar in ("identity", "ring:0.1", "uniform:0.2"):
-        mob = make_mobility(grammar, 4)
+        mob = make_mobility(grammar, R)
         got = ops.abc_sim_distance(theta, 4, obs, mobility=mob, **kw)
         assert torch.equal(got, ref.abc_sim_distance_ref(theta, 4, obs, mobility=mob, **kw))
         assert not any(torch.equal(got, s) for s in seen)
         seen.append(got)
     assert (build._LIBS, build._INFO) == (libs, built)
+    assert abc_sim.ENTRY_LAUNCHES[entry] == before + 4
 
 
 def test_regional_kernel_refuses_past_max_regions(cuda, monkeypatch):
@@ -608,3 +698,24 @@ def test_run_abc_on_the_card_goes_through_the_regional_kernel(cuda):
     assert (priors.DEVICE_DRAWS, ref.CALLS) == (draws, calls)
     lo, hi = np.asarray(spec.prior().lows), np.asarray(spec.prior().highs)
     assert len(post) >= 40 and ((post.theta >= lo) & (post.theta <= hi)).all()
+
+
+def test_run_abc_at_100_regions_goes_through_the_warp_kernel(cuda):
+    """metapop_seir at R=100 through run_abc: 1 + waves launches of the warp
+    route's wave entry and none of the thread route's, no host prior draw,
+    no plain-version call."""
+    from repro_torch.epi.spec import regionalize
+
+    spec = regionalize(get_model("metapop_seir"), 100, "ring:0.1")
+    assert abc_sim.regional_route(spec) == "warp"
+    ds = data.get_dataset("synthetic_small", num_days=20, model=spec)
+    cfg = tabc.ABCConfig(batch_size=8192, chunk_size=2048, num_days=20, tolerance=1.0,
+                         target_accepted=20, max_runs=20, model=spec)
+    abc_sim.ENTRY_LAUNCHES.clear()
+    draws, calls = priors.DEVICE_DRAWS, ref.CALLS
+    eps = tabc.calibrate_tolerance(ds, cfg, seed=2, quantile=0.01, n_pilot=8192, device=cuda)
+    post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=2, device=cuda)
+    assert abc_sim.ENTRY_LAUNCHES == {"abc_sim_regional_wave_warp_metapop_seir": 1 + post.runs}
+    assert (priors.DEVICE_DRAWS, ref.CALLS) == (draws, calls)
+    lo, hi = np.asarray(spec.prior().lows), np.asarray(spec.prior().highs)
+    assert len(post) >= 20 and ((post.theta >= lo) & (post.theta <= hi)).all()

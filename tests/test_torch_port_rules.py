@@ -119,7 +119,8 @@ def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     for model in FLAT + ("metapop_seir",):
         lib = f"abc_sim_regional_{model}"
         assert sorted(p.name for p in build.local_headers(by_name[lib])) == sorted([
-            "abc_sim.cuh", "abc_sim_regional.cuh", "rng.cuh", f"{model}.cuh"])
+            "abc_sim.cuh", "abc_sim_regional.cuh", "abc_sim_regional_warp.cuh", "rng.cuh",
+            f"{model}.cuh"])
     assert abc_sim.RNG_LIBRARY == "abc_sim_siard"
     for flash in ("flash_attention_tf32", "flash_attention_wgmma"):
         assert [p.name for p in build.local_headers(by_name[flash])] == ["wgmma.cuh"]
