@@ -21,7 +21,9 @@ printing one JSON line:
              of both entries for SIARD and of the wave entry for sir, seir
              and seiard (SIARD under a schedule runs the same function), and
              each step of the regional wave entry of metapop_seir on both
-             routes (`sass.regional_census`, `sass.regional_warp_census`);
+             routes (`sass.regional_census`, `sass.regional_warp_census`),
+             each a sample-day held to `CENSUS_PER_DAY` (checked after the
+             last phase, before the kernels line);
              the warp route's kernels (csrc/abc_sim_regional_warp.cuh) must
              show 0 bytes of stack and no spills
   rng        the kernel's hash bits and normals against the plain twin, and
@@ -51,9 +53,16 @@ printing one JSON line:
              `abc_sim.regional_route` picks); then both routes, each entry,
              at R = 4, 10, 100 and 128 (1024 x 49), R=100 pooled, and R=100
              at regions_path's 100,000 x 49
+  gate       every gated entry (the flat wave and theta-in entries of each
+             model, the regional ones of both routes at R=4 and R=100)
+             launched with a gate of 0 into buffers filled with a sentinel,
+             which stay bitwise unchanged; with a gate of 1 bitwise the
+             ungated launch; a gate on the CPU refused
   main_path  `repro_torch.launch.abc_run.main` on Italy at the paper's batch
              and horizon, with the launch counters set to 0 just before:
-             1 + waves launches of the wave entry, no theta-in launch, no
+             on the device wave loop (auto) 1 + waves + gated launches of the
+             wave entry, fewer than SEGMENT_WAVES gated and at most
+             ceil(waves / SEGMENT_WAVES) host syncs, no theta-in launch, no
              host prior draw on the card, no plain-version call
   models_path  the same CLI with --model seiard: 1 + waves launches of
              abc_sim_wave_seiard and nothing else; a posterior in the box
@@ -69,10 +78,26 @@ printing one JSON line:
              README's 100-region case, 200 observed channels), the same
              counters, of abc_sim_regional_wave_warp_metapop_seir: the warp
              route carries it (metapop_path, R=4, the thread route)
-  profile    the main path's waves once more under torch.profiler: wall time,
-             device busy time, device operations a wave (and the int64
-             elementwise ones a host prior draw would add) and the
-             operations that take the time
+  wave_loop  each of the five ABC paths above with --wave-loop host and with
+             --wave-loop device (host, device, device, host): the posteriors
+             bitwise equal (theta, distances, runs, simulations), both times
+             to posterior
+  profile    the main path's waves once more under torch.profiler, on each
+             loop (host, device, device, host): wall time, device busy time,
+             idle share, device operations a wave, the kernel's and the
+             copies' device ms and the rest (the device loop's gate,
+             comparison and compaction) a wave; compact_accepted alone at
+             100,000 rows by CUDA events
+  no_sync    one segment of the main path's device loop under
+             torch.cuda.set_sync_debug_mode("error"), its accepted set
+             bitwise the main path's
+  smc_path   `run_smc_abc` of SIARD on Italy at 100,000 x 49, 1,000
+             particles, 4 rounds, quantile 0.5, on the device round: the
+             tolerance falls every round, the particles are finite and in the
+             box, the posterior mean is nearer the generating parameters
+             than the prior mean, and the theta-in entry made waves + gated
+             launches (one wave-entry launch for round 0), with no plain
+             call and no host prior draw
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
@@ -109,8 +134,8 @@ printing one JSON line:
              and SDPA in float32; the kernels SDPA's float32 call launches,
              from one profiled call
   kernels    one line for each kernel: abc_sim (each of its eight flat
-             entries, with its launches on the three flat ABC paths and its
-             ms), its region axis on the thread route (all four regional
+             entries, with its launches, gated ones included, on the three
+             flat ABC paths and smc_path, and its ms), its region axis on the thread route (all four regional
              entries of both routes, with their launches on metapop_path and
              regions_path, the R=100 times at both batches and the route
              chosen at each R and batch) and on the warp route, the bf16
@@ -155,6 +180,14 @@ METAPOP_INTERVENTION = "beta@20=0:2"
 SCHEDULE_TV = {"siard": "alpha", "sir": "beta", "seir": "beta", "seiard": "alpha0"}
 #: the intervention of the schedule_path phase and of the timed scheduled SIARD
 INTERVENTION = "alpha0@25=0:2"
+#: instructions a sample-day of the main path's wave variant (PERF.md §6):
+#: each flat model, metapop_seir's thread route at R=4 and its warp route at
+#: R=100 (warp-instructions). The device gate adds its load and branch
+#: outside the day loop; on the warp route ptxas also schedules the day loop
+#: 5 warp-instructions shorter (2,938 before the gate) whichever way the
+#: gate is read (experiments/abc_sim_gate_census.py)
+CENSUS_PER_DAY = {"siard": 660, "sir": 249, "seir": 353, "seiard": 762,
+                  "metapop_seir thread R=4": 1671, "metapop_seir warp R=100": 2933}
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
@@ -640,8 +673,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "experiments"))
     import flash_f32_cuda_core
+    from repro_torch.core import abc as tabc
     from repro_torch.core import priors
     from repro_torch.core.priors import paper_prior, schedule_prior
+    from repro_torch.core.smc import SMCConfig, run_smc_abc
     from repro_torch.core.summaries import lower_summary, get_summary, summary_pairs
     from repro_torch.epi import data
     from repro_torch.epi.models import get_model
@@ -712,6 +747,12 @@ def main() -> int:
     for c in (mp_census, mp_warp_census):
         if c is not None and not c["shape_ok"]:
             raise AssertionError(f"build: the regional census found no day of its shape: {c}")
+    census_per_day = None
+    if census and mp_census and mp_warp_census:
+        census_per_day = {m: model_census[m]["per_day"]["total"] for m in ABC_MODELS}
+        census_per_day["metapop_seir thread R=4"] = sass.regional_per_day(mp_census, 4, 4)["total"]
+        census_per_day["metapop_seir warp R=100"] = sass.regional_warp_per_day(
+            mp_warp_census, 100, 2 * 100)["total"]
     emit("build", wall_s=build_wall,
          nvcc_s={k: v.seconds for k, v in info.items()},
          libraries={k: {"nvcc_s": v.seconds, "cached": v.cached,
@@ -743,7 +784,8 @@ def main() -> int:
          "not measured: the toolkit has no cuobjdump",
          tf32_hgmma_in_sass=hgmma_tf32 if hgmma_tf32 is not None else
          "not measured: the toolkit has no cuobjdump",
-         abc_sim_census=census or "not measured: the toolkit has no cuobjdump")
+         abc_sim_census=census or "not measured: the toolkit has no cuobjdump",
+         census_per_sample_day=census_per_day or "not measured: the toolkit has no cuobjdump")
 
     # ---- rng: the kernel's hash bits and normals against the plain twin
     B, C, seed = 1_000_000, 10, 0x5EED1234
@@ -981,27 +1023,103 @@ def main() -> int:
     max_abs_err = max(r["max_abs_err"] for r in results[:n_flat]
                       if r["case"].endswith("vs plain"))
 
+    # ---- gate: a launch whose gate reads 0 writes nothing, on every entry
+    gate_cases = []
+    g0 = torch.zeros((1,), dtype=torch.int32, device=dev)
+    g1 = torch.ones((1,), dtype=torch.int32, device=dev)
+    for spec in (*models.values(), metapop, regionalize(metapop, 100, "ring:0.1")):
+        ds = data.get_dataset("italy" if spec.name in ("siard", "seiard") else "synthetic_small",
+                              num_days=49, model=spec)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+        sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=dev), model=spec, **kw)
+        box, batch = spec.prior(), 4096
+        ic = abc_sim.with_seed(sim.iconst, 5)
+        soa = abc_sim.theta_to_soa(box.sample(3, batch, dev))
+        for route in abc_sim.ROUTES if spec.is_regional else (None,):
+            if spec.is_regional:
+                rkw = dict(model=spec, pool=sim.pool, route=route)
+
+                def run_wave(gate=None, out=None):
+                    return abc_sim.abc_sim_regional_wave_kernel(
+                        9, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
+                        sim.fconst, ic, batch=batch, gate=gate, out=out, **rkw)
+
+                def run_in(gate=None, out=None):
+                    return abc_sim.abc_sim_regional_distance_kernel(
+                        soa, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic, gate=gate,
+                        out=out, **rkw)
+            else:
+                def run_wave(gate=None, out=None):
+                    return abc_sim.abc_sim_wave_kernel(9, box.lows, box.highs, sim.obs_summary,
+                                                       sim.fconst, ic, model=spec, batch=batch,
+                                                       gate=gate, out=out)
+
+                def run_in(gate=None, out=None):
+                    return abc_sim.abc_sim_distance_kernel(soa, sim.obs_summary, sim.fconst, ic,
+                                                           model=spec, gate=gate, out=out)
+            for entry, fn, outs in (
+                    ("wave", run_wave, lambda: (torch.full((batch, box.dim), 7.5, device=dev),
+                                                torch.full((batch,), -3.25, device=dev))),
+                    ("distance", run_in, lambda: torch.full((batch,), -3.25, device=dev))):
+                tag = f"{abc_sim.entry_name(spec, entry, route)} R={spec.n_regions}"
+                sentinel = outs()
+                buffers = outs()
+                before = abc_sim.ENTRY_LAUNCHES.get(abc_sim.entry_name(spec, entry, route), 0)
+                fn(g0, buffers)
+                torch.cuda.synchronize()
+                if abc_sim.ENTRY_LAUNCHES.get(abc_sim.entry_name(spec, entry, route)) != \
+                        before + 1:
+                    raise AssertionError(f"gate {tag}: the gated call launched no kernel")
+                for got, want in zip(*((buffers, sentinel) if entry == "wave"
+                                       else ((buffers,), (sentinel,)))):
+                    gate_cases.append(bitwise(f"{tag} gate 0: buffer unchanged", got, want))
+                opened = fn(g1, outs())
+                plain = fn()
+                for got, want in zip(*((opened, plain) if entry == "wave"
+                                       else ((opened,), (plain,)))):
+                    gate_cases.append(bitwise(f"{tag} gate 1 vs no gate", got, want))
+                try:
+                    fn(torch.zeros((1,), dtype=torch.int32))
+                except ValueError as e:
+                    if "gate must be an int32 tensor" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"gate {tag}: a gate on the CPU was taken")
+    emit("gate", comparisons=gate_cases, cpu_gate_refused=True)
+
     def abc_path(phase, argv, model, intervention="", min_accepted=100):
         """`abc_run.main(argv)` with the counters set to 0 just before; raises
-        unless 1 + waves launches of the model's wave entry were all the
-        kernel's, with no host prior draw and no plain-version call, and the
-        posterior holds `min_accepted` samples inside the box."""
+        unless the model's wave entry made every launch, 1 + waves + gated
+        (the pilot, the waves, and on the device loop fewer than
+        SEGMENT_WAVES gated ones in at most ceil(waves / SEGMENT_WAVES) host
+        syncs; none on the host loop), with no host prior draw and no
+        plain-version call, and the posterior holds `min_accepted` samples
+        inside the box."""
         abc_sim.ENTRY_LAUNCHES.clear()
+        abc_sim.ENTRY_GATED.clear()
         priors.DEVICE_DRAWS = 0
         ref.CALLS = 0
+        tabc.HOST_SYNCS = 0
         t0 = time.perf_counter()
         post = abc_run.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         entries = dict(abc_sim.ENTRY_LAUNCHES)
-        counts = dict(wave_launches=abc_sim.launches("wave"),
+        gated = abc_sim.gated_launches("wave")
+        counts = dict(wave_launches=abc_sim.launches("wave"), gated_wave_launches=gated,
                       theta_in_launches=abc_sim.launches("distance"),
-                      host_prior_draws=priors.DEVICE_DRAWS, plain_calls=ref.CALLS)
+                      host_prior_draws=priors.DEVICE_DRAWS, plain_calls=ref.CALLS,
+                      host_syncs=tabc.HOST_SYNCS)
+        host_loop = "--wave-loop" in argv and argv[argv.index("--wave-loop") + 1] == "host"
+        segments = 0 if host_loop else -(-post.runs // tabc.SEGMENT_WAVES)
         entry = abc_sim.entry_name(model, "wave")
-        if entries != {entry: 1 + post.runs} or tuple(counts.values()) != (
-                1 + post.runs, 0, 0, 0):
+        if (entries != {entry: 1 + post.runs + gated}
+                or (counts["theta_in_launches"], counts["host_prior_draws"],
+                    counts["plain_calls"]) != (0, 0, 0)
+                or not 0 <= gated <= (0 if host_loop else tabc.SEGMENT_WAVES - 1)
+                or not (1 if segments else 0) <= tabc.HOST_SYNCS <= segments):
             raise AssertionError(f"{phase}: launches {entries} (want {entry}: 1 + "
-                                 f"{post.runs} waves), {counts}")
+                                 f"{post.runs} waves + {gated} gated), {counts}")
         box = schedule_prior(model, abc_run.parse_intervention(intervention))
         lo, hi = np.asarray(box.lows), np.asarray(box.highs)
         theta = post.theta
@@ -1023,7 +1141,7 @@ def main() -> int:
         prior_err = np.abs((hi + lo) / 2 - truth) / (hi - lo)
         return err.mean().item(), prior_err.mean().item()
 
-    path_launches = {}
+    path_launches, path_gated = {}, {}
     italy_argv = ["--dataset", "italy", "--days", "49", "--batch", "100000",
                   "--chunk", "10000", "--auto-tolerance", "1e-4", "--accept", "100",
                   "--device", "cuda"]
@@ -1032,6 +1150,7 @@ def main() -> int:
     argv = italy_argv
     post, wall, entries, counts, lo, hi = abc_path("main_path", argv, siard)
     path_launches["main_path"] = entries
+    path_gated["main_path"] = dict(abc_sim.ENTRY_GATED)
     theta = post.theta
     err, prior_err = against_truth(theta, lo, hi)
     if not err < prior_err:
@@ -1050,6 +1169,7 @@ def main() -> int:
     argv = italy_argv + ["--model", "seiard"]
     post_m, wall, entries, counts, lo, hi = abc_path("models_path", argv, seiard)
     path_launches["models_path"] = entries
+    path_gated["models_path"] = dict(abc_sim.ENTRY_GATED)
     err, prior_err = against_truth(post_m.theta, lo, hi)
     if not err < prior_err:
         raise AssertionError(f"models_path: posterior mean error {err} over SIARD's "
@@ -1064,6 +1184,7 @@ def main() -> int:
     argv = italy_argv + ["--intervention", INTERVENTION]
     post_s, wall, entries, counts, lo, hi = abc_path("schedule_path", argv, siard, INTERVENTION)
     path_launches["schedule_path"] = entries
+    path_gated["schedule_path"] = dict(abc_sim.ENTRY_GATED)
     if post_s.theta.shape[1] != 9 or post_s.param_names[-1] != "alpha0_w1":
         raise AssertionError(f"schedule_path: columns {post_s.param_names}")
     err, prior_err = against_truth(post_s.theta, lo, hi)
@@ -1092,6 +1213,7 @@ def main() -> int:
             raise AssertionError(f"{phase}: R={spec.n_regions} takes the {route} route")
         post_r, wall, entries, counts, lo, hi = abc_path(phase, argv, spec)
         path_launches[phase] = entries
+        path_gated[phase] = dict(abc_sim.ENTRY_GATED)
         err, prior_err = mean_error(post_r, spec, spec.default_theta)
         emit(phase, argv=argv, **counts, accepted=len(post_r), waves=post_r.runs,
              simulations=post_r.simulations, tolerance=post_r.tolerance, wall_s=wall,
@@ -1102,26 +1224,158 @@ def main() -> int:
              generating_theta=dict(zip(spec.param_names, spec.default_theta)),
              normalized_mean_error=err, prior_mean_normalized_error=prior_err)
 
-    # ---- profile: where the main path's waves spend their time
-    from repro_torch.core.abc import ABCConfig, run_abc
+    # ---- wave_loop: each ABC path under both wave loops in turns, bitwise
+    mp100 = regionalize(metapop, 100, "ring:0.1")
+    loop_paths = {
+        "main_path": (italy_argv, siard, ""),
+        "models_path": (italy_argv + ["--model", "seiard"], seiard, ""),
+        "schedule_path": (italy_argv + ["--intervention", INTERVENTION], siard, INTERVENTION),
+        "metapop_path": (mp_argv, metapop, ""),
+        "regions_path": (mp_argv + ["--regions", "100", "--mobility", "ring:0.1"], mp100, ""),
+    }
+    loops = {}
+    for phase, (argv, spec, iv) in loop_paths.items():
+        walls, posts, counted = {"host": [], "device": []}, {}, {}
+        for wl in ("host", "device", "device", "host"):
+            post_w, wall, _, counts, _, _ = abc_path(f"wave_loop {phase} {wl}",
+                                                     argv + ["--wave-loop", wl], spec, iv)
+            walls[wl].append(wall)
+            posts.setdefault(wl, post_w)
+            counted.setdefault(wl, counts)
+        h, d = posts["host"], posts["device"]
+        if (h.runs, h.simulations) != (d.runs, d.simulations):
+            raise AssertionError(f"wave_loop {phase}: runs and simulations {h.runs}, "
+                                 f"{h.simulations} (host) vs {d.runs}, {d.simulations}")
+        loops[phase] = {
+            "theta": bitwise(f"{phase} theta, device vs host loop", d.theta, h.theta),
+            "distances": bitwise(f"{phase} distances, device vs host loop", d.distances,
+                                 h.distances),
+            "runs": h.runs, "simulations": h.simulations, "accepted": len(h),
+            "wall_s": {wl: float(np.mean(v)) for wl, v in walls.items()}, "turns_s": walls,
+            "counts": counted}
+    emit("wave_loop", paths=loops, segment_waves=tabc.SEGMENT_WAVES, kind=name,
+         nvidia_smi=smi)
 
-    cfg = ABCConfig(batch_size=100_000, chunk_size=10_000, num_days=49,
-                    tolerance=post.tolerance, target_accepted=100)
-    runs = []
-    wall_ms, busy_ms, by_op = profile_device_ms(
-        lambda: runs.append(run_abc(italy, cfg, seed=0, device=dev)))
-    again = runs[0]
-    int64_rows = [(k, c, ms) for k, c, ms in by_op if "long" in k]
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / wall_ms, waves=again.runs,
-         accepted=len(again), kind=name, nvidia_smi=smi,
-         device_ops=sum(c for _, c, _ in by_op),
-         device_ops_per_wave=sum(c for _, c, _ in by_op) / again.runs,
-         abc_sim_device_ms=sum(ms for k, _, ms in by_op if "abc_sim_kernel" in k),
-         int64_elementwise_launches=sum(c for _, c, _ in int64_rows),
-         int64_elementwise_device_ms=sum(ms for _, _, ms in int64_rows),
-         top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
-                         for k, c, ms in by_op[:8]])
+    # ---- profile: where the main path's waves spend their time, on each loop
+    import dataclasses
+
+    cfg = tabc.ABCConfig(batch_size=100_000, chunk_size=10_000, num_days=49,
+                         tolerance=post.tolerance, target_accepted=100)
+    profiled = {"host": [], "device": []}
+    for wl in ("host", "device", "device", "host"):
+        runs = []
+        syncs = tabc.HOST_SYNCS
+        wall_ms, busy_ms, by_op = profile_device_ms(lambda: runs.append(tabc.run_abc(
+            italy, dataclasses.replace(cfg, wave_loop=wl), seed=0, device=dev)))
+        again = runs[0]
+        enqueued = (-(-again.runs // tabc.SEGMENT_WAVES) * tabc.SEGMENT_WAVES
+                    if wl == "device" else again.runs)
+        kernel_ms = sum(ms for k, _, ms in by_op if "abc_sim_kernel" in k)
+        copy_rows = [(k, c, ms) for k, c, ms in by_op if "Memcpy" in k or "Memset" in k]
+        copy_ms = sum(ms for _, _, ms in copy_rows)
+        profiled[wl].append({
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms, "waves": again.runs,
+            "enqueued_waves": enqueued, "accepted": len(again),
+            "host_syncs": tabc.HOST_SYNCS - syncs,
+            "device_ops": sum(c for _, c, _ in by_op),
+            "device_ops_per_wave": sum(c for _, c, _ in by_op) / again.runs,
+            "abc_sim_device_ms": kernel_ms,
+            "copies": sum(c for _, c, _ in copy_rows), "copies_device_ms": copy_ms,
+            "other_device_ms_per_enqueued_wave": (busy_ms - kernel_ms - copy_ms) / enqueued,
+            "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                               for k, c, ms in by_op[:10]]})
+    # the same runs unprofiled (the profiler adds host time to every
+    # operation), host clock, in turns
+    unprofiled = {"host": [], "device": []}
+    for wl in ("host", "device", "device", "host") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tabc.run_abc(italy, dataclasses.replace(cfg, wave_loop=wl), seed=0, device=dev)
+        torch.cuda.synchronize()
+        unprofiled[wl].append((time.perf_counter() - t0) * 1e3)
+    # compact_accepted alone at the main path's shape and a wave's accept
+    # mask: its device time, from the profiler, over 16 calls
+    th_w, d_w = ops.make_abc_sim(ob_it, model=siard, **it_kw).wave(prior, 3, 4, 100_000)
+    accept = d_w <= tabc.tolerance32(post.tolerance)
+    cap = tabc.wave_capacity(cfg)
+    th_buf = torch.zeros((cap + 1, 8), device=dev)
+    d_buf = torch.full((cap + 1,), float("inf"), device=dev)
+    fill0 = torch.zeros((1,), dtype=torch.int64, device=dev)
+    _, compact_busy, compact_ops = profile_device_ms(lambda: [tabc.compact_accepted(
+        th_buf, d_buf, fill0, th_w, d_w, accept, cap) for _ in range(16)])
+    emit("profile", loops={wl: {"runs": v, **{k: float(np.mean([r[k] for r in v])) for k in (
+        "wall_ms", "device_busy_ms", "device_idle_share", "abc_sim_device_ms",
+        "copies_device_ms", "other_device_ms_per_enqueued_wave")},
+        "unprofiled_wall_ms": float(np.mean(unprofiled[wl])), "unprofiled_turns_ms": unprofiled[wl],
+        "busy_share_of_unprofiled_wall": float(np.mean([r["device_busy_ms"] for r in v]))
+        / float(np.mean(unprofiled[wl]))}
+        for wl, v in profiled.items()},
+        compact_accepted_device_ms_100k=compact_busy / 16, accepted_in_mask=int(accept.sum()),
+        compact_accepted_ops=[{"name": k[:80], "count": c, "device_ms": ms}
+                              for k, c, ms in compact_ops],
+        kind=name, nvidia_smi=smi)
+
+    # ---- no_sync: one segment of the main path's device loop enqueues no sync
+    runner = tabc.make_wave_runner(siard.prior(), tabc.make_simulator(italy, cfg, dev), cfg)
+    carry = runner.init(tabc.ABCState(n_params=8))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        seg = runner(0, 0, carry, tabc.SEGMENT_WAVES)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    waves, n_acc, fill = runner.read(seg)
+    seg_state = tabc.ABCState(n_params=8)
+    runner.harvest(seg, seg_state, fill)
+    seg_theta, seg_dist = seg_state.to_arrays()
+    emit("no_sync", sync_debug_mode="error", enqueued_waves=tabc.SEGMENT_WAVES, waves=waves,
+         accepted=n_acc, theta=bitwise("no_sync segment theta vs main_path", seg_theta,
+                                       post.theta),
+         distances=bitwise("no_sync segment distances vs main_path", seg_dist,
+                           post.distances), kind=name, nvidia_smi=smi)
+
+    # ---- smc_path: SMC-ABC of SIARD on Italy through the theta-in entry
+    smc_cfg = SMCConfig(n_particles=1000, batch_size=100_000, n_rounds=4, quantile=0.5,
+                        num_days=49, wave_loop="device")
+    abc_sim.ENTRY_LAUNCHES.clear()
+    abc_sim.ENTRY_GATED.clear()
+    priors.DEVICE_DRAWS = 0
+    ref.CALLS = 0
+    tabc.HOST_SYNCS = 0
+    t0 = time.perf_counter()
+    post_smc = run_smc_abc(italy, smc_cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entries = dict(abc_sim.ENTRY_LAUNCHES)
+    gated = dict(abc_sim.ENTRY_GATED)
+    smc_waves = sum(post_smc.round_waves)
+    want = {"abc_sim_wave_siard": 1, "abc_sim_distance_siard": smc_waves
+            + gated.get("abc_sim_distance_siard", 0)}
+    if entries != want or (priors.DEVICE_DRAWS, ref.CALLS) != (0, 0):
+        raise AssertionError(f"smc_path: launches {entries}, want {want}; host prior draws "
+                             f"{priors.DEVICE_DRAWS}, plain calls {ref.CALLS}")
+    eps = post_smc.round_eps
+    lo, hi = np.asarray(prior.lows, np.float32), np.asarray(prior.highs, np.float32)
+    err, prior_err = against_truth(post_smc.theta, lo, hi)
+    if (not all(a > b for a, b in zip(eps, eps[1:])) or len(post_smc) != 1000
+            or not np.isfinite(post_smc.theta).all() or not np.isfinite(post_smc.distances).all()
+            or (post_smc.theta < lo).any() or (post_smc.theta > hi).any()
+            or not err < prior_err):
+        raise AssertionError(f"smc_path: eps {eps}, {len(post_smc)} particles, error {err} "
+                             f"against the prior mean's {prior_err}")
+    path_launches["smc_path"] = entries
+    path_gated["smc_path"] = gated
+    emit("smc_path", n_particles=1000, batch=100_000, days=49, rounds=smc_cfg.n_rounds,
+         quantile=smc_cfg.quantile, wave_loop="device", round_eps=eps,
+         round_waves=post_smc.round_waves, waves=smc_waves, simulations=post_smc.simulations,
+         theta_in_launches=want["abc_sim_distance_siard"], gated_theta_in_launches=gated,
+         wave_launches=1, host_syncs=tabc.HOST_SYNCS, plain_calls=ref.CALLS,
+         host_prior_draws=priors.DEVICE_DRAWS, wall_s=wall,
+         posterior_mean=dict(zip(post_smc.param_names, post_smc.theta.mean(axis=0).tolist())),
+         normalized_mean_error=err, prior_mean_normalized_error=prior_err,
+         ess=float(1.0 / np.sum(post_smc.weights.astype(np.float64) ** 2)), kind=name,
+         nvidia_smi=smi)
 
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version
@@ -1320,6 +1574,12 @@ def main() -> int:
     for counts in path_launches.values():
         for entry, n in counts.items():
             launched[entry] = launched.get(entry, 0) + n
+    gated_on_paths = {}
+    for counts in path_gated.values():
+        for entry, n in counts.items():
+            gated_on_paths[entry] = gated_on_paths.get(entry, 0) + n
+    if not launched.get("abc_sim_distance_siard"):
+        raise AssertionError(f"kernels: smc_path launched no theta-in entry: {launched}")
     at_100k = {c["case"]: c for c in model_cells if c["batch"] == 100_000}
     entries = []
     for m in ABC_MODELS:
@@ -1327,6 +1587,7 @@ def main() -> int:
             symbol = f"abc_sim_{entry}_{m}"
             entries.append({"entry": symbol, "source": "src/repro_torch/kernels/csrc/"
                             f"{abc_sim.library(m)}.cu", "launches": launched.get(symbol, 0),
+                            "gated_launches": gated_on_paths.get(symbol, 0),
                             "ms": main_cell[key] if m == "siard" else at_100k[m][key]})
     if not (launched.get("abc_sim_wave_siard") and launched.get("abc_sim_wave_seiard")
             and launched.get(abc_sim.entry_name(metapop, "wave", "thread"))
@@ -1336,6 +1597,8 @@ def main() -> int:
         "name": "abc_sim_distance", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": sum(n for e, n in launched.items() if not e.startswith("abc_sim_regional_")),
+        "gated_launches": sum(n for e, n in gated_on_paths.items()
+                              if not e.startswith("abc_sim_regional_")),
         "entries": entries,
         "scheduled_siard_wave_ms": at_100k["siard_scheduled"]["ms_wave"],
         "max_abs_err": max_abs_err,
@@ -1350,7 +1613,8 @@ def main() -> int:
         {"entry": abc_sim.entry_name(metapop, e, r),
          "source": f"src/repro_torch/kernels/csrc/{abc_sim.library(metapop)}.cu",
          "kernel": REGIONAL_SOURCE if r == "thread" else REGIONAL_WARP_SOURCE,
-         "launches": launched.get(abc_sim.entry_name(metapop, e, r), 0)}
+         "launches": launched.get(abc_sim.entry_name(metapop, e, r), 0),
+         "gated_launches": gated_on_paths.get(abc_sim.entry_name(metapop, e, r), 0)}
         for r in abc_sim.ROUTES for e in ("wave", "distance")]
 
     def route_launches(route):
@@ -1384,6 +1648,11 @@ def main() -> int:
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
     flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
 
+    # the census a sample-day, read in `build`, held last so that a drift
+    # still leaves every other phase measured
+    if census_per_day is not None and census_per_day != CENSUS_PER_DAY:
+        raise AssertionError(f"census: instructions a sample-day {census_per_day}, want "
+                             f"{CENSUS_PER_DAY}")
     emit("total", wall_s=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [abc_line, regional_line, warp_line, *flash_lines]}),
           flush=True)

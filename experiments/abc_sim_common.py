@@ -54,6 +54,22 @@ def build_copies(jobs):
     return out
 
 
+def gated(csrc) -> bool:
+    """Whether the abc_sim entries of the checkout whose `csrc/` directory
+    this is take a trailing device gate."""
+    head = next(p for p in (os.path.join(csrc, f) for f in ("abc_sim.cuh", "abc_sim.cu"))
+                if os.path.isfile(p))
+    return "gate" in open(head).read()
+
+
+def argtypes(kind: str, takes_gate: bool):
+    """`abc_sim._ARGTYPES[kind]`, less the trailing gate for a checkout
+    whose entries take none."""
+    from repro_torch.kernels import abc_sim
+
+    return abc_sim._ARGTYPES[kind] if takes_gate else abc_sim._ARGTYPES[kind][:-1]
+
+
 def entry(lib, name: str, argtypes):
     fn = getattr(lib, name)
     fn.argtypes = argtypes
@@ -67,9 +83,11 @@ def stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extra=()):
+def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extra=(),
+              gated=False):
     """(theta [batch, P], dist [batch]) from an `abc_sim_wave_<model>`-shaped
-    entry (`extra` goes before the arguments, e.g. a configuration index)."""
+    entry (`extra` goes before the arguments, e.g. a configuration index;
+    `gated`: the entry takes a trailing gate, passed as null)."""
     import torch
 
     p = len(prior.lows)
@@ -82,19 +100,21 @@ def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extr
             obs.shape[1]]
     if block is not None:
         args.append(block)
-    rc = fn(*args, stream())
+    rc = fn(*args, stream(), *([None] if gated else []))
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
     return theta, dist
 
 
-def call_distance(fn, soa, obs, fconst, iconst, block=128):
-    """distances [B] from an `abc_sim_distance_<model>`-shaped entry."""
+def call_distance(fn, soa, obs, fconst, iconst, block=128, gated=False):
+    """distances [B] from an `abc_sim_distance_<model>`-shaped entry
+    (`gated`: it takes a trailing gate, passed as null)."""
     import torch
 
     out = torch.empty((soa.shape[1],), dtype=torch.float32, device=soa.device)
     rc = fn(soa.data_ptr(), obs.data_ptr(), out.data_ptr(), fconst.ctypes.data,
-            iconst.ctypes.data, soa.shape[1], obs.shape[1], block, stream())
+            iconst.ctypes.data, soa.shape[1], obs.shape[1], block, stream(),
+            *([None] if gated else []))
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
     return out

@@ -20,13 +20,18 @@ this tree's nvcc flags for it, which keep `--fmad=false`, into
   shows apart from a change to the kernel; and gives each kernel's issue
   floor at the SM clock read under load (by this tree's rule).
 
-Then, for sir, seir and seiard and for metapop_seir's region axis at R=4
-on its thread route (`csrc/abc_sim_regional.cuh`), each where the other
-checkout has its source: builds it the same way, compares the SASS of each
-kernel with this tree's, function by function, checks that both wave
-entries give the same theta and distances bit for bit at 100,000 x 49
-(`synthetic_small` for the models that observe no country series), and
-times them in turns (other, this tree, this tree, other).
+Then, for sir, seir and seiard, for metapop_seir's region axis at R=4 on
+its thread route (`csrc/abc_sim_regional.cuh`) and at R=100 on its warp
+route (`csrc/abc_sim_regional_warp.cuh`), each where the other checkout
+has it: builds it the same way, compares the SASS of each kernel with this
+tree's, function by function (the main path's regional variants go to
+`build/experiments/parent_sass/`), checks that both wave entries give the
+same theta and distances bit for bit at 100,000 x 49 (`synthetic_small` for
+the models that observe no country series), and times them in turns
+(other, this tree, this tree, other).
+
+The other checkout's entries are called with its own arguments: those from
+before the device gate take no trailing gate (`abc_sim_common.gated`).
 
 Prints one JSON line, then the card's nvidia-smi name and power limit.
 """
@@ -41,8 +46,8 @@ import sys
 
 import numpy as np
 
-from abc_sim_common import build_copies, call_distance, call_wave, entry, italy_inputs, \
-    stream, turns
+from abc_sim_common import argtypes, build_copies, call_distance, call_wave, entry, gated, \
+    italy_inputs, stream, turns
 
 
 def main(argv) -> int:
@@ -66,7 +71,8 @@ def main(argv) -> int:
     lib, other_sass, ptxas = build_copies(
         [("abc_sim_other", open(siard_cu).read(), build.flags("abc_sim_siard"),
           [other_csrc])])["abc_sim_other"]
-    fn = entry(lib, "abc_sim_distance_siard", abc_sim._ARGTYPES["distance"])
+    other_gated = gated(other_csrc)  # its entries take the trailing gate
+    fn = entry(lib, "abc_sim_distance_siard", argtypes("distance", other_gated))
     wrapper = open(os.path.join(other_csrc, "..", "abc_sim.py")).read()
     other_block = int(re.search(r"^DEFAULT_BLOCK = (\d+)", wrapper, re.M).group(1))
 
@@ -99,7 +105,8 @@ def main(argv) -> int:
             soa = abc_sim.theta_to_soa(x["theta"])
 
             def other():
-                return call_distance(fn, soa, x["obs"], x["fconst"], x["iconst"], other_block)
+                return call_distance(fn, soa, x["obs"], x["fconst"], x["iconst"], other_block,
+                                     other_gated)
 
             def theta_in():
                 return abc_sim.abc_sim_distance_kernel(soa, x["obs"], x["fconst"], x["iconst"],
@@ -143,82 +150,117 @@ def main(argv) -> int:
 
 
 def other_models(dev, other_csrc: str) -> dict:
-    """sir, seir, seiard and metapop_seir's thread route at R=4 against the
-    other checkout's build of the same sources (module docstring)."""
+    """sir, seir, seiard, metapop_seir's thread route at R=4 and, where the
+    other checkout has it, its warp route at R=100, against the other
+    checkout's build of the same sources (module docstring). The SASS of the
+    main path's wave variant of each regional kernel, both trees', goes to
+    `build/experiments/parent_sass/`."""
     import torch
 
     from repro_torch.epi import data
     from repro_torch.epi.models import get_model
+    from repro_torch.epi.spec import regionalize
     from repro_torch.kernels import abc_sim, build, ops, sass
 
-    models = [m for m in ("sir", "seir", "seiard", "metapop_seir")
-              if os.path.isfile(os.path.join(other_csrc, abc_sim.library(m) + ".cu"))]
-    libs = {m: abc_sim.library(m) for m in models}
+    metapop = get_model("metapop_seir")
+    cases = [(m, get_model(m), None) for m in ("sir", "seir", "seiard")]
+    cases += [("metapop_seir", metapop, "thread"),
+              ("metapop_seir R=100 warp", regionalize(metapop, 100, "ring:0.1"), "warp")]
+    libs = {abc_sim.library(spec) for _, spec, _ in cases}
+    libs = {lib for lib in libs if os.path.isfile(os.path.join(other_csrc, lib + ".cu"))}
     built = build_copies([(f"other_{lib}", open(os.path.join(other_csrc, lib + ".cu")).read(),
-                           build.flags(lib), [other_csrc]) for lib in libs.values()])
+                           build.flags(lib), [other_csrc]) for lib in sorted(libs)])
+    sass_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                            "build", "experiments", "parent_sass")
+    os.makedirs(sass_dir, exist_ok=True)
 
-    def kernels(text, regional):
-        pick = "abc_sim_regional_kernelI" if regional else "abc_sim_kernelI"
+    def kernels(text, spec, route):
+        pick = ("abc_sim_kernelI" if not spec.is_regional else
+                "abc_sim_regional_warp_kernelI" if route == "warp" else
+                "abc_sim_regional_kernelI")
         return {re.search(r"(abc_sim_\w*kernelI.*)", k).group(1):
                 [(i.pred, i.opcode, i.operands) for i in body]
                 for k, body in sass.parse_functions(text).items() if pick in k}
 
     out = {}
     batch = 100_000
-    for m in models:
-        spec, lib = get_model(m), libs[m]
+    other_gated = gated(other_csrc)
+    for tag, spec, route in cases:
+        lib = abc_sim.library(spec)
+        if lib not in libs:
+            continue
         other_lib, other_sass, _ = built[f"other_{lib}"]
-        mine = kernels(build.sass_text(lib), spec.is_regional)
-        theirs = kernels(other_sass, spec.is_regional) if other_sass else {}
+        if not hasattr(other_lib, abc_sim.entry_name(spec, "wave", route)):
+            continue  # a checkout from before this route
+        mine = kernels(build.sass_text(lib), spec, route)
+        theirs = kernels(other_sass, spec, route) if other_sass else {}
         same = sum(mine.get(k) == v for k, v in theirs.items())
-        ds = data.get_dataset("italy" if m == "seiard" else "synthetic_small", num_days=49,
-                              model=m)
+        if spec.is_regional and other_sass:
+            symbol = abc_sim.variant_symbol(spec, 8, route)
+            for tree, funcs in (("this_tree", mine), ("other", theirs)):
+                name = next(k for k in funcs if symbol in k)
+                with open(os.path.join(sass_dir, f"{tree}_{route}_v8.sass"), "w") as f:
+                    f.write("\n".join(" ".join(filter(None, i)) for i in funcs[name]))
+        ds = data.get_dataset("italy" if spec.name == "seiard" else "synthetic_small",
+                              num_days=49, model=spec)
         kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
         ob = torch.as_tensor(ds.observed, device=dev)
         sim = ops.make_abc_sim(ob, model=spec, **kw)
         box = spec.prior()
         ic = abc_sim.with_seed(sim.iconst, 99)
         if spec.is_regional:
-            fn = entry(other_lib, abc_sim.entry_name(spec, "wave", "thread"),
-                       abc_sim._ARGTYPES["regional_wave"])
+            fn = entry(other_lib, abc_sim.entry_name(spec, "wave", route),
+                       argtypes("regional_wave", other_gated))
             lo = np.ascontiguousarray(box.lows, np.float32)
             hi = np.ascontiguousarray(box.highs, np.float32)
+            block = abc_sim.route_block(route)
 
-            def theirs_fn():
+            def theirs_fn(fn=fn, sim=sim, ic=ic, ob=ob, spec=spec, box=box, lo=lo, hi=hi,
+                          block=block):
                 theta = torch.empty((batch, box.dim), dtype=torch.float32, device=dev)
                 dist = torch.empty((batch,), dtype=torch.float32, device=dev)
                 rc = fn(12, lo.ctypes.data, hi.ctypes.data, sim.obs_summary.data_ptr(),
                         sim.mob.data_ptr(), sim.weights.data_ptr(), theta.data_ptr(),
                         dist.data_ptr(), sim.fconst.ctypes.data, ic.ctypes.data, batch,
-                        ob.shape[1], spec.n_regions, spec.seed_region, 0,
-                        abc_sim.DEFAULT_BLOCK, stream())
+                        ob.shape[1], spec.n_regions, spec.seed_region, 0, block, stream(),
+                        *([None] if other_gated else []))
                 if rc != 0:
                     raise RuntimeError(f"launch failed: cudaError {rc}")
                 return theta, dist
 
-            def mine_fn():
+            def mine_fn(sim=sim, ic=ic, spec=spec, box=box, route=route):
                 return abc_sim.abc_sim_regional_wave_kernel(
                     12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-                    ic, model=spec, batch=batch, route="thread")
+                    ic, model=spec, batch=batch, route=route)
         else:
-            fn = entry(other_lib, abc_sim.entry_name(spec, "wave"), abc_sim._ARGTYPES["wave"])
+            fn = entry(other_lib, abc_sim.entry_name(spec, "wave"),
+                       argtypes("wave", other_gated))
 
-            def theirs_fn():
+            def theirs_fn(fn=fn, sim=sim, ic=ic, box=box):
                 return call_wave(fn, box, 12, sim.obs_summary, sim.fconst, ic, batch,
-                                 abc_sim.DEFAULT_BLOCK)
+                                 abc_sim.DEFAULT_BLOCK, gated=other_gated)
 
-            def mine_fn():
+            def mine_fn(sim=sim, ic=ic, spec=spec, box=box):
                 return abc_sim.abc_sim_wave_kernel(12, box.lows, box.highs, sim.obs_summary,
                                                    sim.fconst, ic, model=spec, batch=batch)
         a, b = theirs_fn(), mine_fn()
         if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-            raise AssertionError(f"{m}: the two trees' wave entries differ")
+            raise AssertionError(f"{tag}: the two trees' wave entries differ")
+        once = cuda_ms_once(mine_fn)
+        iters = max(2, min(30, int(300 / max(once, 1e-3))))
         timed = turns({"other": theirs_fn, "this_tree": mine_fn},
-                      ["other", "this_tree", "this_tree", "other"], 30)
-        out[m] = {"batch": batch, "days": 49, "regions": spec.n_regions, "turns": timed,
-                  "ratio": timed["this_tree"]["ms"] / timed["other"]["ms"],
-                  "sass_functions_identical": [same, len(theirs)], "bitwise_equal": True}
+                      ["other", "this_tree", "this_tree", "other"], iters)
+        out[tag] = {"batch": batch, "days": 49, "regions": spec.n_regions, "route": route,
+                    "turns": timed, "ratio": timed["this_tree"]["ms"] / timed["other"]["ms"],
+                    "sass_functions_identical": [same, len(theirs)], "bitwise_equal": True,
+                    "iters": iters}
     return out
+
+
+def cuda_ms_once(fn) -> float:
+    from chip_smoke import cuda_ms
+
+    return cuda_ms(fn, 1, warmup=1)
 
 
 if __name__ == "__main__":

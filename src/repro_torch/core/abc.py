@@ -1,4 +1,5 @@
-"""Parallel ABC rejection sampling (paper §3), host wave loop (port).
+"""Parallel ABC rejection sampling (paper §3): the host and the device wave
+loops (port).
 
 Counterpart of `repro.core.abc` for the "pallas" backend, whose port is the
 "cuda" backend here. Each wave:
@@ -30,7 +31,19 @@ distinct streams of the port's hash (`wave_seeds`), so any wave can be
 recomputed from the base seed and its index, and a run resumed from an
 `ABCState` gives the same accepted set as one left uninterrupted.
 
-The device-resident wave loop of `repro` waits for a later slice.
+Two loops run the waves (`ABCConfig.wave_loop`):
+
+  * host loop: the host harvests each wave before it starts the next, one
+    copy of the chunk flags and one of each flagged chunk (`_harvest`);
+  * device loop (`WaveRunner`): the host enqueues a segment of up to
+    `SEGMENT_WAVES` waves without waiting. Each wave runs under a device
+    gate, `accepted < target`, which the kernel reads when it runs, and
+    compacts its accepted rows into a fixed accept buffer on the device
+    (`compact_accepted`); a wave enqueued past the target writes nothing.
+    After the segment the host reads the counts once and copies the
+    accepted rows. With the same seed it gives the host loop's accepted
+    set: the same rows in the same order, the same runs and simulations.
+    "auto" picks it for outfeed runs, as `repro` does.
 """
 
 from __future__ import annotations
@@ -57,6 +70,16 @@ from repro_torch.kernels.rng import stream_seed
 #: hash streams of (seed, index): the waves' prior and simulation seeds,
 #: and the pilot waves' of `calibrate_tolerance`
 PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM = range(4)
+
+#: waves the device loops enqueue between two reads of their counts: the
+#: main path's 9 waves fit in one segment, and a run that stops early pays
+#: for at most 15 gated launches, which write nothing
+SEGMENT_WAVES = 16
+#: host syncs of the device loops (ABC and SMC rounds): one a segment
+HOST_SYNCS = 0
+#: auto mode only picks the device loop when the accept buffer stays small
+#: enough to live comfortably on one device (rows, not bytes)
+_AUTO_DEVICE_MAX_ROWS = 4_000_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +115,11 @@ class ABCConfig:
     #: region count is checked against the model's when a simulator is made
     #: (`resolved_mobility`). None keeps the model's own matrix.
     mobility: Optional[Tuple[Tuple[float, ...], ...]] = None
+    #: the wave loop: "host" (the host harvests every wave), "device"
+    #: (segments of gated waves with a device accept buffer, one host sync a
+    #: segment) or "auto" (device for "outfeed" when the buffer fits, else
+    #: host); both give the same accepted set for the same seed
+    wave_loop: str = "auto"
 
     def __post_init__(self):
         if self.strategy not in ("outfeed", "topk"):
@@ -116,6 +144,16 @@ class ABCConfig:
             # nested float tuples keep the frozen config hashable
             object.__setattr__(self, "mobility",
                                validate_mobility(self.mobility, len(self.mobility)))
+        if self.wave_loop not in ("auto", "host", "device"):
+            raise ValueError(f"unknown wave_loop {self.wave_loop!r}")
+        if self.wave_loop == "device" and self.strategy == "topk":
+            # the device loop compacts every sub-tolerance sample (outfeed
+            # harvest semantics); it has no per-wave k cap
+            raise ValueError(
+                "wave_loop='device' implements outfeed harvest semantics; "
+                "use strategy='outfeed' (or wave_loop='host' to keep the "
+                "top-k truncation caveat)"
+            )
 
     @property
     def num_chunks(self) -> int:
@@ -212,6 +250,167 @@ def abc_run_batch(
                          torch.zeros((0,), dtype=torch.bool, device=device))
 
     return run
+
+
+# --------------------------------------------------------------------------
+# Device-resident wave loop
+# --------------------------------------------------------------------------
+
+class WaveLoopOutput(NamedTuple):
+    """What one call of a `WaveRunner` leaves on the device, in `repro`'s
+    segment layout with one shard: segment 0 is rows [0, capacity) of the
+    buffers and holds `fill_counts[0]` valid rows. Row `capacity` is the
+    spare row where rejected rows land; its content means nothing."""
+
+    theta_buf: torch.Tensor  # [capacity + 1, p]
+    dist_buf: torch.Tensor  # [capacity + 1]
+    n_accepted: torch.Tensor  # [1] int64: total accepted (may exceed the buffer's fill)
+    waves_done: torch.Tensor  # [1] int64: waves of this call whose gate was open
+    fill_counts: torch.Tensor  # [1] int64: valid rows (the fill, clamped to capacity)
+    enqueued: int = 0  # waves this call enqueued, gated ones included
+
+
+def wave_capacity(cfg: ABCConfig, batch_size: Optional[int] = None) -> int:
+    """Accept-buffer rows: never overflows within one wave. A wave only runs
+    while accepted < target and adds at most one batch, so `target + batch
+    - 1` bounds the fill; the last wave's overshoot is kept, as the host
+    outfeed path keeps it."""
+    return cfg.target_accepted + (batch_size or cfg.batch_size)
+
+
+def _auto_device_loop(cfg: ABCConfig) -> bool:
+    """auto: the device loop for outfeed runs whose accept buffer stays small."""
+    if cfg.wave_loop == "device":
+        return True
+    if cfg.wave_loop == "host":
+        return False
+    return cfg.strategy == "outfeed" and wave_capacity(cfg) <= _AUTO_DEVICE_MAX_ROWS
+
+
+def compact_accepted(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tensor,
+                     theta: torch.Tensor, dist: torch.Tensor, accept: torch.Tensor,
+                     capacity: int):
+    """Copy the accepted rows of a wave into the buffers' next free rows, in
+    stream order, and return (th_buf, d_buf, new_fill).
+
+    The buffers hold `capacity + 1` rows: row `capacity` is a spare that
+    takes every rejected row, so the copy has fixed shapes, no atomics and
+    no data-dependent indexing. As `repro`'s scatter drops out-of-bounds
+    rows, accepted rows past the capacity land in the spare row too (they
+    are dropped), and `new_fill` counts every accepted row: callers clamp
+    it to `capacity`. `fill` is an int64 tensor of shape [1]. Shared by the
+    ABC wave loop and the SMC round, on the CPU and on the card alike.
+    """
+    csum = torch.cumsum(accept, 0)  # int64
+    slot = torch.where(accept, csum + (fill - 1), capacity).clamp_(max=capacity)
+    th_buf.index_copy_(0, slot, theta)
+    d_buf.index_copy_(0, slot, dist)
+    return th_buf, d_buf, fill + csum[-1:]
+
+
+def sync_counts(*counts: torch.Tensor) -> list:
+    """The device loops' one host sync a segment: the [1] int64 count
+    tensors as Python ints, in one copy (counted by `HOST_SYNCS`)."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return [int(c) for c in torch.cat(counts).cpu()]
+
+
+def tolerance32(tolerance: float) -> float:
+    """`tolerance` rounded to float32 once: the threshold that the host
+    loop's float32 comparisons (torch's and numpy's) apply."""
+    with np.errstate(over="ignore"):
+        return float(np.float32(tolerance))
+
+
+@dataclasses.dataclass
+class WaveRunner:
+    """The device-resident wave loop of one simulator and its buffer layout.
+
+    `init(state)` makes the carry (theta_buf, dist_buf, fill0) on the
+    simulator's device from a (possibly resumed) state; `runner(seed,
+    run_idx0, carry, max_waves)` enqueues `max_waves` gated waves and
+    returns without waiting; `carry_of(out)` is the carry for the next
+    call; `harvest(out, state, fill)` copies the accepted rows to the state.
+    """
+
+    sim: SimulatorFn
+    prior: UniformBoxPrior
+    cfg: ABCConfig
+    capacity: int
+    n_params: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.sim.device
+
+    def init(self, state: "ABCState"):
+        """Device buffers seeded from the state's accepted rows, in order."""
+        theta, dist = state.to_arrays()
+        n = theta.shape[0]
+        if n > self.capacity:
+            raise ValueError(f"resumed state ({n} accepted) overflows the wave buffer "
+                             f"({self.capacity} rows); raise target/batch")
+        th_buf = torch.zeros((self.capacity + 1, self.n_params), dtype=torch.float32,
+                             device=self.device)
+        d_buf = torch.full((self.capacity + 1,), float("inf"), dtype=torch.float32,
+                           device=self.device)
+        if n:
+            th_buf[:n] = torch.from_numpy(theta).to(self.device)
+            d_buf[:n] = torch.from_numpy(dist).to(self.device)
+        return th_buf, d_buf, torch.full((1,), n, dtype=torch.int64, device=self.device)
+
+    def __call__(self, seed: int, run_idx0: int, carry, max_waves: int) -> WaveLoopOutput:
+        """Enqueue waves run_idx0 .. run_idx0 + max_waves - 1 of `seed`.
+
+        Each wave runs under the gate `accepted < target`, an int32 tensor
+        that the kernel reads when it runs; then its rows with dist <=
+        tolerance (in float32) and an open gate are compacted into the
+        buffers. Nothing here waits for the device."""
+        th_buf, d_buf, fill = carry
+        cfg, batch = self.cfg, self.cfg.batch_size
+        tol = tolerance32(cfg.tolerance)
+        theta = torch.empty((batch, self.n_params), dtype=torch.float32, device=self.device)
+        dist = torch.empty((batch,), dtype=torch.float32, device=self.device)
+        waves = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        for i in range(max_waves):
+            # one shard: the total accepted is the fill before clamping
+            active = fill < cfg.target_accepted
+            self.sim.wave(self.prior, *wave_seeds(seed, run_idx0 + i), batch,
+                          gate=active.to(torch.int32), out=(theta, dist))
+            accept = (dist <= tol) & active
+            th_buf, d_buf, fill = compact_accepted(th_buf, d_buf, fill, theta, dist, accept,
+                                                   self.capacity)
+            waves += active
+        return WaveLoopOutput(th_buf, d_buf, fill, waves, fill.clamp(max=self.capacity),
+                              max_waves)
+
+    def carry_of(self, out: WaveLoopOutput):
+        return out.theta_buf, out.dist_buf, out.n_accepted
+
+    def read(self, out: WaveLoopOutput) -> Tuple[int, int, int]:
+        """(waves done, accepted, valid rows) of a call: its one host sync.
+        On the card it records the gated launches beside the entry's
+        launches (`abc_sim.record_gated`)."""
+        waves, n, fill = sync_counts(out.waves_done, out.n_accepted, out.fill_counts)
+        if self.device.type == "cuda":
+            abc_sim.record_gated(self.sim.entry("wave", self.cfg.batch_size),
+                                 out.enqueued - waves)
+        return waves, n, fill
+
+    def harvest(self, out: WaveLoopOutput, state: "ABCState", fill: int) -> None:
+        """Replace the state's accepted set with the buffers' first `fill`
+        rows: the buffers are cumulative (a resumed prefix included), so
+        this replaces rather than appends."""
+        state.accepted_theta = [out.theta_buf[:fill].cpu().numpy()] if fill else []
+        state.accepted_dist = [out.dist_buf[:fill].cpu().numpy()] if fill else []
+
+
+def make_wave_runner(prior: UniformBoxPrior, simulator: SimulatorFn,
+                     cfg: ABCConfig) -> WaveRunner:
+    """The device wave loop of `simulator` (on its series' device)."""
+    return WaveRunner(sim=simulator, prior=prior, cfg=cfg, capacity=wave_capacity(cfg),
+                      n_params=prior.dim)
 
 
 @dataclasses.dataclass
@@ -322,9 +521,12 @@ def run_abc(
     checkpoint_path: Optional[str] = None,
     verbose: bool = False,
     device="cuda",
+    wave_runner: Optional[WaveRunner] = None,
 ) -> Posterior:
-    """Host wave loop: run waves until `target_accepted` posterior samples or
-    `max_runs` waves."""
+    """Run waves until `target_accepted` posterior samples or `max_runs`
+    waves: on the device loop where `cfg.wave_loop` picks it (or a
+    `wave_runner` is given), else on the host loop. Wave i is
+    `wave_seeds(seed, i)` in both."""
     device = resolve_device(device)
     spec = get_model(cfg.model)
     prior = prior or schedule_prior(spec, cfg.schedule)
@@ -336,6 +538,12 @@ def run_abc(
             f"resumed state holds {state.n_params}-parameter samples but model "
             f"{spec.name!r} (with its schedule) has {prior.dim} — wrong checkpoint?"
         )
+    if wave_runner is None and _auto_device_loop(cfg):
+        wave_runner = make_wave_runner(prior, make_simulator(dataset, cfg, device), cfg)
+    if wave_runner is not None:
+        return _run_abc_device(cfg, seed, state, wave_runner, spec,
+                               checkpoint_every=checkpoint_every,
+                               checkpoint_path=checkpoint_path, verbose=verbose)
     run = abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg, device)
 
     t0 = time.time()
@@ -354,6 +562,57 @@ def run_abc(
             )
         if checkpoint_every and checkpoint_path and state.run_idx % checkpoint_every == 0:
             state.save(checkpoint_path)
+
+    theta, dist = state.to_arrays()
+    post = Posterior(
+        theta=theta,
+        distances=dist,
+        tolerance=cfg.tolerance,
+        param_names=run_param_names(cfg, spec),
+        runs=state.run_idx,
+        simulations=state.simulations,
+        wall_time_s=time.time() - t0,
+    )
+    post.postproc_time_s = postproc_s  # type: ignore[attr-defined]
+    return post
+
+
+def _run_abc_device(
+    cfg: ABCConfig,
+    seed: int,
+    state: ABCState,
+    wave_runner: WaveRunner,
+    spec,
+    checkpoint_every: int = 0,
+    checkpoint_path: Optional[str] = None,
+    verbose: bool = False,
+) -> Posterior:
+    """The device loop: segments of up to `SEGMENT_WAVES` waves, each
+    bounded by the remaining `max_runs` and by the next multiple of
+    `checkpoint_every`, with one host sync a segment; the state is saved
+    after every segment when checkpointing."""
+    t0 = time.time()
+    postproc_s = 0.0
+    carry = wave_runner.init(state)
+    while state.n_accepted < cfg.target_accepted and state.run_idx < cfg.max_runs:
+        seg = min(SEGMENT_WAVES, cfg.max_runs - state.run_idx)
+        if checkpoint_every and checkpoint_path:
+            seg = min(seg, checkpoint_every - state.run_idx % checkpoint_every)
+        out = wave_runner(seed, state.run_idx, carry, seg)
+        waves, _, fill = wave_runner.read(out)  # the segment's one host sync
+        tp = time.time()
+        wave_runner.harvest(out, state, fill)
+        postproc_s += time.time() - tp
+        carry = wave_runner.carry_of(out)
+        state.run_idx += waves
+        state.simulations += waves * cfg.batch_size
+        if verbose:
+            print(f"[abc] run {state.run_idx}: accepted {state.n_accepted}/"
+                  f"{cfg.target_accepted} (device wave loop)")
+        if checkpoint_every and checkpoint_path:
+            state.save(checkpoint_path)
+        if waves == 0:  # nothing left to run; avoid a spin
+            break
 
     theta, dist = state.to_arrays()
     post = Posterior(

@@ -66,6 +66,11 @@ class UniformBoxPrior:
         )
         return torch.where(inside, -log_vol, torch.full_like(log_vol, -float("inf")))
 
+    def free_dims(self) -> tuple:
+        """True per dimension where the box has positive width; False marks
+        a pinned value (a zero-width dimension, e.g. a fixed scale)."""
+        return tuple(h > lo for lo, h in zip(self.lows, self.highs))
+
     def clip(self, theta: torch.Tensor) -> torch.Tensor:
         lo, hi = self._bounds(theta.device)
         return torch.clamp(theta, lo, hi)

@@ -43,6 +43,13 @@ the launch's batch before the launch; the entries take `route=` so that a
 test can hold both at any R.
 There is no fallback: a launch error of the chosen route raises.
 
+Every entry takes a `gate`: None, or an int32 tensor of shape [1] on the
+launch's device. A launch whose gate reads 0 when the kernel runs writes
+nothing, so that a loop can enqueue waves past its target without waiting
+for the count (`core.abc`'s device wave loop). The wave entries also take
+`out=(theta, dist)`, and the theta-in entries `out=dist`: buffers that a
+loop reuses from wave to wave.
+
 W is the model's P parameters plus a schedule's scale columns
 (`spec.InterventionSchedule`), P without one. The constants, the schedule,
 the box and the seeds travel in the kernel's parameters, not in device
@@ -55,7 +62,10 @@ every block size.
 `ENTRY_LAUNCHES` counts the launches of each exported entry by its C name
 (`abc_sim_wave_seiard`, `abc_sim_regional_wave_metapop_seir`, ...),
 `launches(entry)` those of one entry summed over the models, flat and
-regional, and `RNG_LAUNCHES` those of the two test entries:
+regional. Of those, `ENTRY_GATED` counts the launches whose gate read 0 (a
+loop records them once it has read its count, `record_gated`), so that
+`gated_launches(entry)` and `run_launches(entry)` split `launches(entry)`.
+`RNG_LAUNCHES` counts the launches of the two test entries:
 `rng_normals`, which writes the kernel's hash bits or normals for (seed,
 sample, counter), and `unit_math_mismatches`, which holds the kernel's
 branch-free Box-Muller pieces to logf, sqrtf and cosf on every uniform the
@@ -65,7 +75,7 @@ hash can give.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +125,8 @@ SMEM_OPTIN_BYTES = 232_448
 
 #: launches of each exported entry, by C name (abc_sim_wave_siard, ...)
 ENTRY_LAUNCHES: dict = {}
+#: of those, the launches whose gate read 0 (they wrote nothing)
+ENTRY_GATED: dict = {}
 #: launches of the two RNG test entries
 RNG_LAUNCHES = 0
 
@@ -260,13 +272,14 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
 
 
 _INT = ctypes.c_int
+#: each entry's C arguments; the last two are the stream and the gate
 _ARGTYPES = {
-    "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
-    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
+    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
     "regional_distance": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                          _INT, _VP],
+                          _INT, _VP, _VP],
     "regional_wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
-                      _INT, _INT, _INT, _INT, _VP],
+                      _INT, _INT, _INT, _INT, _VP, _VP],
 }
 
 
@@ -437,11 +450,70 @@ def _launched(model: CompartmentalModel, entry: str, route: Optional[str] = None
     ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
 
 
+def _entry_sum(counts: dict, entry: str) -> int:
+    return sum(n for name, n in counts.items()
+               if name.startswith((f"abc_sim_{entry}_", f"abc_sim_regional_{entry}_")))
+
+
 def launches(entry: str) -> int:
     """Launches of `entry` ("distance", the theta-in entry, or "wave") of
     every model, flat and regional, from `ENTRY_LAUNCHES`."""
-    return sum(n for name, n in ENTRY_LAUNCHES.items()
-               if name.startswith((f"abc_sim_{entry}_", f"abc_sim_regional_{entry}_")))
+    return _entry_sum(ENTRY_LAUNCHES, entry)
+
+
+def gated_launches(entry: str) -> int:
+    """Those of `launches(entry)` whose gate read 0, from `ENTRY_GATED`."""
+    return _entry_sum(ENTRY_GATED, entry)
+
+
+def run_launches(entry: str) -> int:
+    """Those of `launches(entry)` that ran: all but the gated ones."""
+    return launches(entry) - gated_launches(entry)
+
+
+def record_gated(name: str, n: int) -> None:
+    """Record `n` launches of the C entry `name` whose gate read 0."""
+    if n:
+        ENTRY_GATED[name] = ENTRY_GATED.get(name, 0) + int(n)
+
+
+def check_gate(gate: Optional[torch.Tensor], device: torch.device) -> None:
+    """Raise unless `gate` is None or an int32 tensor of shape [1] on
+    `device`: a launch reads it on the card, and a loop never waits for it."""
+    if gate is None:
+        return
+    if (not isinstance(gate, torch.Tensor) or gate.dtype != torch.int32
+            or tuple(gate.shape) != (1,) or gate.device != torch.device(device)):
+        what = (f"{gate.dtype} {tuple(gate.shape)} on {gate.device}"
+                if isinstance(gate, torch.Tensor) else type(gate).__name__)
+        raise ValueError(f"gate must be an int32 tensor of shape [1] on {device}, got {what}")
+
+
+def _gate_ptr(gate: Optional[torch.Tensor]):
+    return None if gate is None else gate.data_ptr()
+
+
+def _out_tensor(name: str, t, shape: tuple, device: torch.device) -> torch.Tensor:
+    """`t`, checked, or a new float32 tensor of `shape` where it is None."""
+    if t is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
+            or tuple(t.shape) != shape or not t.is_contiguous() or t.device != device):
+        raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on {device}")
+    return t
+
+
+def wave_out(out, batch: int, width: int, device: torch.device):
+    """(theta [batch, width], dist [batch]) to write: `out`, checked, or two
+    new tensors."""
+    theta, dist = (None, None) if out is None else out
+    return (_out_tensor("out's theta", theta, (batch, width), device),
+            _out_tensor("out's dist", dist, (batch,), device))
+
+
+def dist_out(out, batch: int, device: torch.device) -> torch.Tensor:
+    """dist [batch] to write: `out`, checked, or a new tensor."""
+    return _out_tensor("out", out, (batch,), device)
 
 
 def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
@@ -489,14 +561,18 @@ def abc_sim_distance_kernel(
     *,
     model: CompartmentalModel,
     block: Optional[int] = None,
+    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
+    out: Optional[torch.Tensor] = None,  # dist [B] to write
 ) -> torch.Tensor:
-    """Launch the fused kernel on the current stream; returns distances [B]
-    (`block` in threads, None: `DEFAULT_BLOCK`)."""
+    """Launch the fused kernel on the current stream; returns distances [B],
+    in `out` or a new tensor (`block` in threads, None: `DEFAULT_BLOCK`;
+    unwritten where `gate` reads 0)."""
     block = route_block("thread", block)
     if theta_soa.device.type != "cuda":
         raise ValueError(f"theta_soa must be a CUDA tensor, got {theta_soa.device}")
     if obs.device != theta_soa.device:
         raise ValueError(f"obs is on {obs.device}, theta_soa on {theta_soa.device}")
+    check_gate(gate, theta_soa.device)
     _check_2d_f32("theta_soa", theta_soa)
     _check_obs_and_consts(obs, fconst, iconst, model)
     n_rows, batch = theta_soa.shape
@@ -510,11 +586,11 @@ def abc_sim_distance_kernel(
     iconst = np.ascontiguousarray(iconst)
     lib = _lib(library(model))
     fn = _kernel_fn(lib, model)
-    out = torch.empty((batch,), dtype=torch.float32, device=theta_soa.device)
+    out = dist_out(out, batch, theta_soa.device)
     with torch.cuda.device(theta_soa.device):
         rc = fn(theta_soa.data_ptr(), obs.data_ptr(), out.data_ptr(),
                 fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1],
-                block, _stream_handle(theta_soa.device))
+                block, _stream_handle(theta_soa.device), _gate_ptr(gate))
     _check_rc(lib, rc, entry_name(model, "distance"))
     _launched(model, "distance")
     return out
@@ -531,12 +607,16 @@ def abc_sim_wave_kernel(
     model: CompartmentalModel,
     batch: int,
     block: Optional[int] = None,
+    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
 ):
     """Launch the wave entry on the current stream: theta [batch, W] drawn
     from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch)` does,
-    and its distances [batch] with NaN turned to +inf."""
+    and its distances [batch] with NaN turned to +inf, into `out` or two new
+    tensors (unwritten where `gate` reads 0)."""
     block = route_block("thread", block)
     _check_obs_and_consts(obs, fconst, iconst, model)
+    check_gate(gate, obs.device)
     width = theta_width(model, iconst)
     lo, hi = _box(lows, highs, width, model)
     batch = int(batch)
@@ -544,8 +624,7 @@ def abc_sim_wave_kernel(
         raise ValueError("a wave needs at least one sample")
     lib = _lib(library(model))
     fn = _kernel_fn(lib, model, "wave")
-    theta = torch.empty((batch, width), dtype=torch.float32, device=obs.device)
-    dist = torch.empty((batch,), dtype=torch.float32, device=obs.device)
+    theta, dist = wave_out(out, batch, width, obs.device)
     if theta.data_ptr() % 16:
         raise RuntimeError("theta's storage is not 16-byte aligned")
     fconst = np.ascontiguousarray(fconst)
@@ -553,7 +632,7 @@ def abc_sim_wave_kernel(
     with torch.cuda.device(obs.device):
         rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
                 theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data, iconst.ctypes.data,
-                batch, obs.shape[1], block, _stream_handle(obs.device))
+                batch, obs.shape[1], block, _stream_handle(obs.device), _gate_ptr(gate))
     _check_rc(lib, rc, entry_name(model, "wave"))
     _launched(model, "wave")
     return theta, dist
@@ -634,14 +713,18 @@ def abc_sim_regional_distance_kernel(
     pool: int = 1,
     block: Optional[int] = None,
     route: Optional[str] = None,
+    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
+    out: Optional[torch.Tensor] = None,  # dist [B] to write
 ) -> torch.Tensor:
     """Launch the theta-in entry of the region axis on the current stream;
     returns distances [B]. `pool` is the region-pooling factor
     (`summaries.pool_factor`); `route` "thread" or "warp" (None:
-    `regional_route` at B), `block` in threads (None: the route's default)."""
+    `regional_route` at B), `block` in threads (None: the route's default),
+    `gate` and `out` as for `abc_sim_distance_kernel`."""
     if theta_soa.device.type != "cuda" or obs.device != theta_soa.device:
         raise ValueError(f"theta_soa ({theta_soa.device}) and obs ({obs.device}) must be "
                          "on one CUDA device")
+    check_gate(gate, theta_soa.device)
     _check_2d_f32("theta_soa", theta_soa)
     _check_2d_f32("obs", obs)
     route = _route(model, route, theta_soa.shape[1])
@@ -657,12 +740,12 @@ def abc_sim_regional_distance_kernel(
     iconst = np.ascontiguousarray(iconst)
     lib = _lib(library(model))
     fn = _kernel_fn(lib, model, "distance", route)
-    out = torch.empty((batch,), dtype=torch.float32, device=theta_soa.device)
+    out = dist_out(out, batch, theta_soa.device)
     mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
     with torch.cuda.device(theta_soa.device):
         rc = fn(theta_soa.data_ptr(), obs.data_ptr(), mob, weights.data_ptr(), out.data_ptr(),
                 fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1], R, seed_region,
-                pooled, block, _stream_handle(theta_soa.device))
+                pooled, block, _stream_handle(theta_soa.device), _gate_ptr(gate))
     _check_rc(lib, rc, entry_name(model, "distance", route))
     _launched(model, "distance", route)
     return out
@@ -683,15 +766,19 @@ def abc_sim_regional_wave_kernel(
     pool: int = 1,
     block: Optional[int] = None,
     route: Optional[str] = None,
+    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
 ):
     """Launch the wave entry of the region axis: theta [batch, W] drawn as
     `UniformBoxPrior.sample(prior_seed, batch)` does, and its distances
     [batch] with NaN turned to +inf. `route` and `block` as for
-    `abc_sim_regional_distance_kernel` (None: `regional_route` at `batch`)."""
+    `abc_sim_regional_distance_kernel` (None: `regional_route` at `batch`),
+    `gate` and `out` as for `abc_sim_wave_kernel`."""
     route = _route(model, route, batch)
     block = route_block(route, block)
     if obs.device.type != "cuda":
         raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
+    check_gate(gate, obs.device)
     _check_2d_f32("obs", obs)
     _check_consts(fconst, iconst, model)
     check_regional(model, obs, mobility, weights, pool, route, block)
@@ -702,8 +789,7 @@ def abc_sim_regional_wave_kernel(
         raise ValueError("a wave needs at least one sample")
     lib = _lib(library(model))
     fn = _kernel_fn(lib, model, "wave", route)
-    theta = torch.empty((batch, width), dtype=torch.float32, device=obs.device)
-    dist = torch.empty((batch,), dtype=torch.float32, device=obs.device)
+    theta, dist = wave_out(out, batch, width, obs.device)
     if theta.data_ptr() % 16:
         raise RuntimeError("theta's storage is not 16-byte aligned")
     fconst = np.ascontiguousarray(fconst)
@@ -713,7 +799,7 @@ def abc_sim_regional_wave_kernel(
         rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
                 mob, weights.data_ptr(), theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data,
                 iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled, block,
-                _stream_handle(obs.device))
+                _stream_handle(obs.device), _gate_ptr(gate))
     _check_rc(lib, rc, entry_name(model, "wave", route))
     _launched(model, "wave", route)
     return theta, dist

@@ -272,9 +272,11 @@ __global__ void __launch_bounds__(MAX_BLOCK)
                    float* __restrict__ theta_out,       // [B, W] (wave entry)
                    float* __restrict__ out,             // [B]
                    int B, int T, Consts c, const __grid_constant__ Box<Model::N_PARAMS> box,
-                   const __grid_constant__ Sched<Model::N_PARAMS> sched) {
+                   const __grid_constant__ Sched<Model::N_PARAMS> sched,
+                   const int* __restrict__ gate) {  // null, or 0: the block writes nothing
   static_assert(Model::N_OBS <= MAX_CHAN, "too many summary channels");
   static_assert(Model::N_PARAMS <= MAX_PARAMS, "too many parameters");
+  if (gate != nullptr && *gate == 0) return;  // the same in every thread
   extern __shared__ float obs_s[];
   for (int i = threadIdx.x; i < Model::N_OBS * T; i += blockDim.x) obs_s[i] = obs[i];
   __syncthreads();
@@ -309,7 +311,7 @@ __global__ void __launch_bounds__(MAX_BLOCK)
 template <class Model, int... V>
 auto kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, float*, float*, int, int, Consts,
-                      Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>);
+                      Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>, const int*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_kernel<Model, V>...};
 }
 
@@ -341,7 +343,7 @@ template <class Model>
 int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void* out,
                    const float* fconst, const int* iconst, const float* lows,
                    const float* highs, uint32_t prior_seed, bool wave, int B, int T, int block,
-                   void* stream) {
+                   void* stream, const int* gate) {
   constexpr int P = Model::N_PARAMS;
   if (B <= 0 || T <= 0 || block <= 0 || block > MAX_BLOCK) return cudaErrorInvalidValue;
   Consts c;
@@ -387,7 +389,7 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
   const int grid = (B + block - 1) / block;
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
-      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, c, box, sched);
+      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, c, box, sched, gate);
   return cudaGetLastError();
 }
 
@@ -404,6 +406,9 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
 // are device outputs; lows and highs [W] are host arrays and, with
 // prior_seed, go into the kernel's parameters; iconst's seed word is the
 // simulation seed.
+// Both take a trailing gate, a device int or null: a launch whose gate reads
+// 0 when it runs writes nothing (a wave enqueued past the ABC target), null
+// always runs.
 // Both return cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for arguments the kernel does not take).
 #define ABC_SIM_EXPORTS(name, Model)                                                            \
@@ -413,19 +418,21 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
   int abc_sim_max_chan() { return MAX_CHAN; }                                                   \
   int abc_sim_max_block() { return MAX_BLOCK; }                                                 \
   int abc_sim_distance_##name(const void* theta, const void* obs, void* out, const void* fconst, \
-                              const void* iconst, int B, int T, int block, void* stream) {      \
+                              const void* iconst, int B, int T, int block, void* stream,       \
+                              const void* gate) {                                               \
     return launch_abc_sim<Model>(theta, obs, nullptr, out, static_cast<const float*>(fconst),   \
                                  static_cast<const int*>(iconst), nullptr, nullptr, 0u, false,  \
-                                 B, T, block, stream);                                          \
+                                 B, T, block, stream, static_cast<const int*>(gate));           \
   }                                                                                             \
   int abc_sim_wave_##name(unsigned int prior_seed, const void* lows, const void* highs,         \
                           const void* obs, void* theta, void* dist, const void* fconst,         \
-                          const void* iconst, int B, int T, int block, void* stream) {          \
+                          const void* iconst, int B, int T, int block, void* stream,            \
+                          const void* gate) {                                                   \
     return launch_abc_sim<Model>(nullptr, obs, theta, dist, static_cast<const float*>(fconst),  \
                                  static_cast<const int*>(iconst),                               \
                                  static_cast<const float*>(lows),                               \
                                  static_cast<const float*>(highs), prior_seed, true, B, T,      \
-                                 block, stream);                                                \
+                                 block, stream, static_cast<const int*>(gate));                 \
   }                                                                                             \
   const char* kernel_error_string(int code) {                                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \

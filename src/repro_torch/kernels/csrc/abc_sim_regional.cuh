@@ -88,10 +88,12 @@ __global__ void __launch_bounds__(MAX_BLOCK)
                             float* __restrict__ out,             // [B]
                             int B, int T, Geo g, Consts c,
                             const __grid_constant__ Box<Model::N_PARAMS> box,
-                            const __grid_constant__ Sched<Model::N_PARAMS> sched) {
+                            const __grid_constant__ Sched<Model::N_PARAMS> sched,
+                            const int* __restrict__ gate) {  // null, or 0: writes nothing
   constexpr int C = Model::N_STATE, TR = Model::N_TRANS, NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value;
   static_assert(Model::N_PARAMS <= MAX_PARAMS, "too many parameters");
+  if (gate != nullptr && *gate == 0) return;  // the same in every thread
   const int R = g.R, n_chan = g.n_chan;
   extern __shared__ float smem[];
   float* obs_s = smem;                         // [n_chan * T]
@@ -237,7 +239,8 @@ __global__ void __launch_bounds__(MAX_BLOCK)
 template <class Model, int... V>
 auto regional_kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, const float*, const float*, float*, float*,
-                      int, int, Geo, Consts, Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>);
+                      int, int, Geo, Consts, Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>,
+                      const int*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_regional_kernel<Model, V>...};
 }
 
@@ -338,7 +341,8 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
                             const void* weights, void* theta_out, void* out,
                             const float* fconst, const int* iconst, const float* lows,
                             const float* highs, uint32_t prior_seed, bool wave, int B, int T,
-                            int R, int seed_region, int pool, int block, void* stream) {
+                            int R, int seed_region, int pool, int block, void* stream,
+                            const int* gate) {
   constexpr int NC = coupled_count<Model>::value;
   RegionalArgs<Model> a;
   int err = read_regional_args<Model>(obs, mob, weights, fconst, iconst, lows, highs, prior_seed,
@@ -355,7 +359,8 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
       static_cast<const float*>(mob), static_cast<const float*>(weights),
-      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched);
+      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched,
+      gate);
   return cudaGetLastError();
 }
 
@@ -374,6 +379,8 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
 // abc_sim_regional_shape_<name>(out): N_STATE, N_TRANS, N_PARAMS, N_OBS,
 // N_COUPLED and the coupled compartments (out holds 5 + N_COUPLED ints);
 // abc_sim_max_regions(): MAX_REGIONS.
+// Both entries take a trailing gate, as the flat ones do (abc_sim.cuh): a
+// device int that makes the launch write nothing when it reads 0, or null.
 // Both entries return cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take, R past
 // MAX_REGIONS among them).
@@ -391,22 +398,23 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
   int abc_sim_regional_distance_##name(const void* theta, const void* obs, const void* mob,     \
                                        const void* weights, void* out, const void* fconst,      \
                                        const void* iconst, int B, int T, int R,                 \
-                                       int seed_region, int pool, int block, void* stream) {    \
+                                       int seed_region, int pool, int block, void* stream,      \
+                                       const void* gate) {                                      \
     return launch_abc_sim_regional<Model>(                                                      \
         theta, obs, mob, weights, nullptr, out, static_cast<const float*>(fconst),              \
         static_cast<const int*>(iconst), nullptr, nullptr, 0u, false, B, T, R, seed_region,     \
-        pool, block, stream);                                                                   \
+        pool, block, stream, static_cast<const int*>(gate));                                    \
   }                                                                                             \
   int abc_sim_regional_wave_##name(unsigned int prior_seed, const void* lows, const void* highs, \
                                    const void* obs, const void* mob, const void* weights,       \
                                    void* theta, void* dist, const void* fconst,                 \
                                    const void* iconst, int B, int T, int R, int seed_region,    \
-                                   int pool, int block, void* stream) {                         \
+                                   int pool, int block, void* stream, const void* gate) {       \
     return launch_abc_sim_regional<Model>(                                                      \
         nullptr, obs, mob, weights, theta, dist, static_cast<const float*>(fconst),             \
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
-        stream);                                                                                \
+        stream, static_cast<const int*>(gate));                                                 \
   }                                                                                             \
   const char* kernel_error_string(int code) {                                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \

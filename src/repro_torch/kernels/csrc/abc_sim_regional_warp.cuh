@@ -173,11 +173,13 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
                                  float* __restrict__ out,             // [B]
                                  int B, int T, Geo g, Consts c,
                                  const __grid_constant__ Box<Model::N_PARAMS> box,
-                                 const __grid_constant__ Sched<Model::N_PARAMS> sched) {
+                                 const __grid_constant__ Sched<Model::N_PARAMS> sched,
+                                 const int* __restrict__ gate) {  // null, or 0: writes nothing
   constexpr int C = Model::N_STATE, TR = Model::N_TRANS, NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value, NCX = NC > 0 ? NC : 1;
   constexpr int S = WARP_SLOTS;
   static_assert(Model::N_PARAMS <= MAX_PARAMS, "too many parameters");
+  if (gate != nullptr && *gate == 0) return;  // the same in every thread
   const int R = g.R, n_chan = g.n_chan;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   extern __shared__ float4 smem4[];
@@ -366,7 +368,8 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
 template <class Model, int... V>
 auto regional_warp_kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, const float*, const float*, float*, float*,
-                      int, int, Geo, Consts, Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>);
+                      int, int, Geo, Consts, Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>,
+                      const int*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_regional_warp_kernel<Model, V>...};
 }
 
@@ -376,7 +379,7 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
                                  const float* fconst, const int* iconst, const float* lows,
                                  const float* highs, uint32_t prior_seed, bool wave, int B,
                                  int T, int R, int seed_region, int pool, int block,
-                                 void* stream) {
+                                 void* stream, const int* gate) {
   constexpr int NC = coupled_count<Model>::value;
   if (block % 32 != 0) return cudaErrorInvalidValue;
   RegionalArgs<Model> a;
@@ -398,7 +401,8 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
       static_cast<const float*>(mob), static_cast<const float*>(weights),
-      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched);
+      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched,
+      gate);
   return cudaGetLastError();
 }
 
@@ -406,8 +410,8 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
 
 // The C interface of one struct's warp-per-sample kernel: the thread route's
 // entries (ABC_SIM_REGIONAL_EXPORTS) with `_warp` in their names and the
-// same arguments, `block` in threads (block / 32 samples a block, at most
-// abc_sim_warp_max_block()).
+// same arguments, the trailing gate too, `block` in threads (block / 32
+// samples a block, at most abc_sim_warp_max_block()).
 #define ABC_SIM_REGIONAL_WARP_EXPORTS(name, Model)                                               \
   extern "C" {                                                                                  \
   int abc_sim_warp_max_block() { return WARP_MAX_BLOCK; }                                       \
@@ -415,22 +419,22 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
                                             const void* mob, const void* weights, void* out,    \
                                             const void* fconst, const void* iconst, int B,      \
                                             int T, int R, int seed_region, int pool, int block, \
-                                            void* stream) {                                     \
+                                            void* stream, const void* gate) {                   \
     return launch_abc_sim_regional_warp<Model>(                                                 \
         theta, obs, mob, weights, nullptr, out, static_cast<const float*>(fconst),              \
         static_cast<const int*>(iconst), nullptr, nullptr, 0u, false, B, T, R, seed_region,     \
-        pool, block, stream);                                                                   \
+        pool, block, stream, static_cast<const int*>(gate));                                    \
   }                                                                                             \
   int abc_sim_regional_wave_warp_##name(unsigned int prior_seed, const void* lows,              \
                                         const void* highs, const void* obs, const void* mob,    \
                                         const void* weights, void* theta, void* dist,           \
                                         const void* fconst, const void* iconst, int B, int T,   \
                                         int R, int seed_region, int pool, int block,            \
-                                        void* stream) {                                         \
+                                        void* stream, const void* gate) {                       \
     return launch_abc_sim_regional_warp<Model>(                                                 \
         nullptr, obs, mob, weights, theta, dist, static_cast<const float*>(fconst),             \
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
-        stream);                                                                                \
+        stream, static_cast<const int*>(gate));                                                 \
   }                                                                                             \
   }

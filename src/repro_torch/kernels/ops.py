@@ -21,6 +21,12 @@ build. `region_pooled` pools the regions' channels (`pool`).
 Dispatch is by device: a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
 Nothing falls back from the card to the plain version.
+
+Both calls of `AbcSim` take a `gate`: None, or an int32 tensor of shape [1]
+on the simulator's device. Where it reads 0 the call writes nothing: on the
+card the kernel reads it when it runs, so a loop can enqueue calls without
+waiting; on the CPU the gate is a CPU tensor and a gate of 0 skips the
+plain version.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ class AbcSim:
     turned to +inf. On a CUDA device with a `UniformBoxPrior` that is one
     launch of the kernel's wave entry, which draws theta itself (no
     host-side prior draw); on the CPU it is `prior.sample` followed by the
-    plain version.
+    plain version. `wave` writes into `out=(theta, dist)` when given. Under
+    a `gate` that reads 0 neither call writes anything: the distances of
+    `sim(...)` and a new wave's tensors are then left unwritten.
     """
 
     def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
@@ -86,12 +94,27 @@ class AbcSim:
                 **self.scalars,
             )
 
-    def __call__(self, theta: torch.Tensor, seed: int) -> torch.Tensor:
+    def entry(self, entry: str, batch: int) -> str:
+        """The C name of the kernel entry ("wave" or "distance") that a call
+        of `batch` samples launches on the card."""
+        route = abc_sim.regional_route(self.model, batch) if self.model.is_regional else None
+        return abc_sim.entry_name(self.model, entry, route)
+
+    def _gated_off(self, gate: Optional[torch.Tensor]) -> bool:
+        """On the CPU: whether `gate` (checked) reads 0. On the card the
+        kernel reads it, so this only checks it and is False."""
+        abc_sim.check_gate(gate, self.device)
+        return gate is not None and self.device.type == "cpu" and int(gate[0]) == 0
+
+    def __call__(self, theta: torch.Tensor, seed: int,
+                 gate: Optional[torch.Tensor] = None) -> torch.Tensor:
         model = self.model
         check_theta_width(model, self.schedule, theta)
         if theta.device != self.device:
             raise ValueError(f"theta is on {theta.device}, the observed series on "
                              f"{self.device}")
+        if self._gated_off(gate):
+            return torch.empty((theta.shape[0],), dtype=torch.float32)
         if self.device.type == "cpu":
             return ref.abc_sim_distance_ref(
                 theta, seed, self.observed, model=model, summary=self.spec,
@@ -102,16 +125,19 @@ class AbcSim:
         if model.is_regional:
             return abc_sim.abc_sim_regional_distance_kernel(
                 abc_sim.theta_to_soa(theta), self.obs_summary, self.mob, self.weights,
-                self.fconst, iconst, model=model, pool=self.pool, block=self.block,
+                self.fconst, iconst, model=model, pool=self.pool, block=self.block, gate=gate,
             )
         return abc_sim.abc_sim_distance_kernel(
             abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst, iconst,
-            model=model, block=self.block,
+            model=model, block=self.block, gate=gate,
         )
 
-    def wave(self, prior, prior_seed: int, sim_seed: int,
-             batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(theta [batch, W], distances [batch] with NaN as +inf)."""
+    def wave(self, prior, prior_seed: int, sim_seed: int, batch: int,
+             gate: Optional[torch.Tensor] = None,
+             out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(theta [batch, W], distances [batch] with NaN as +inf), in `out`
+        when it is given."""
         if prior.dim != self.width:
             what = "" if self.schedule is None else " and scale columns"
             raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
@@ -122,16 +148,27 @@ class AbcSim:
                 return abc_sim.abc_sim_regional_wave_kernel(
                     prior_seed, prior.lows, prior.highs, self.obs_summary, self.mob,
                     self.weights, self.fconst, iconst, model=self.model, batch=batch,
-                    pool=self.pool, block=self.block,
+                    pool=self.pool, block=self.block, gate=gate, out=out,
                 )
             return abc_sim.abc_sim_wave_kernel(
                 prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
-                iconst, model=self.model, batch=batch, block=self.block,
+                iconst, model=self.model, batch=batch, block=self.block, gate=gate, out=out,
             )
+        if self.device.type == "cuda" and gate is not None:
+            raise ValueError("a gated wave on the card draws theta in the kernel: it needs "
+                             f"a UniformBoxPrior, got {type(prior).__name__}")
+        if self._gated_off(gate):
+            return abc_sim.wave_out(out, batch, self.width, self.device)
         theta = prior.sample(prior_seed, batch, self.device)
         dist = self(theta, sim_seed)
         # failed (NaN) simulations never count as accepted
-        return theta, torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
+        dist = torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
+        if out is None:
+            return theta, dist
+        th_out, d_out = abc_sim.wave_out(out, batch, self.width, self.device)
+        th_out.copy_(theta)
+        d_out.copy_(dist)
+        return th_out, d_out
 
 
 def check_mobility(model: CompartmentalModel, mobility):

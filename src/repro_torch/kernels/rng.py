@@ -10,7 +10,9 @@ agree to the last few ulps of `log` and `cos`.
 PyTorch has no dependable uint32 multiply, so the words ride in int64
 tensors holding values in [0, 2**32). A product with a 32-bit constant
 splits the word into 16-bit halves, so no partial product leaves int64 and
-the low 32 bits come out exact (`_mul32`).
+the low 32 bits come out exact (`_mul32`). A seed or counter given as a
+Python int stays one (a scalar operand of the tensor operations), so that
+hashing on the card copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -38,14 +40,22 @@ def as_u32(x, device=None) -> torch.Tensor:
     return t & MASK32
 
 
-def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
-    """(x * m) mod 2**32 for x in [0, 2**32) and a 32-bit constant m."""
+def _word(x, device=None):
+    """An int as a Python int of 32 bits, anything else as `as_u32` gives it."""
+    if isinstance(x, (int, np.integer)):
+        return int(x) & MASK32
+    return as_u32(x, device)
+
+
+def _mul32(x, m: int):
+    """(x * m) mod 2**32 for x in [0, 2**32) (a tensor or an int) and a
+    32-bit constant m."""
     lo = x & 0xFFFF
     hi = x >> 16
     return (lo * m + ((hi * (m & 0xFFFF)) << 16)) & MASK32
 
 
-def fmix32(x: torch.Tensor) -> torch.Tensor:
+def fmix32(x):
     """murmur3 32-bit finalizer (bijective mix)."""
     x = x ^ (x >> 16)
     x = _mul32(x, M1)
@@ -65,9 +75,9 @@ def _device_of(*xs):
 def hash_u32(seed, idx, ctr) -> torch.Tensor:
     """Counter-based uint32 stream h(seed, sample index, counter), as int64."""
     dev = _device_of(seed, idx, ctr)
-    seed, idx, ctr = as_u32(seed, dev), as_u32(idx, dev), as_u32(ctr, dev)
-    h = seed ^ _mul32(idx, P1) ^ _mul32(ctr, P2)
-    return fmix32(fmix32(h ^ X1))
+    seed, idx, ctr = _word(seed, dev), _word(idx, dev), _word(ctr, dev)
+    h = fmix32(fmix32(seed ^ _mul32(idx, P1) ^ _mul32(ctr, P2) ^ X1))
+    return h if isinstance(h, torch.Tensor) else torch.tensor(h, dtype=torch.int64)
 
 
 def uniform_open(seed, idx, ctr) -> torch.Tensor:
@@ -82,7 +92,7 @@ def normal(seed, idx, ctr) -> torch.Tensor:
     Consumes counters (2*ctr, 2*ctr + 1) of the (seed, idx) stream.
     """
     dev = _device_of(seed, idx, ctr)
-    ctr = as_u32(ctr, dev)
+    ctr = _word(ctr, dev)
     u1 = uniform_open(seed, idx, (ctr * 2) & MASK32)
     u2 = uniform_open(seed, idx, (ctr * 2 + 1) & MASK32)
     r = torch.sqrt(-2.0 * torch.log(u1))

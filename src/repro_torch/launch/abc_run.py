@@ -1,7 +1,8 @@
 """The paper's workload on the port: rejection ABC from the CLI.
 
-Single-run mode of `repro.launch.abc_run`, with the same flag names, plus
-`--device` (default cuda) and `--block`:
+Single-run mode of `repro.launch.abc_run`, with the same flag names
+(`--wave-loop` among them: auto, host or device), plus `--device` (default
+cuda) and `--block`:
 
     PYTHONPATH=src python -m repro_torch.launch.abc_run --dataset italy \\
         --days 49 --batch 100000 --chunk 10000 --auto-tolerance 1e-4 \\
@@ -124,6 +125,11 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=1024)
     ap.add_argument("--days", type=int, default=20)
     ap.add_argument("--strategy", default="outfeed", choices=["outfeed", "topk"])
+    ap.add_argument("--wave-loop", default="auto", choices=["auto", "host", "device"],
+                    help="ABC wave loop: 'device' enqueues segments of gated waves "
+                         "with a device accept buffer (one host sync a segment), 'host' "
+                         "harvests every wave; 'auto' picks device for outfeed runs. "
+                         "Both give the same accepted set")
     ap.add_argument("--summary", default="identity", choices=list(list_summaries()))
     ap.add_argument("--distance", default="euclidean", choices=sorted(DISTANCE_KINDS))
     ap.add_argument("--intervention", default="",
@@ -176,6 +182,7 @@ def main(argv=None):
         distance=args.distance,
         block=args.block,
         schedule=schedule,
+        wave_loop=args.wave_loop,
     )
     state = None
     if args.state and os.path.exists(args.state):

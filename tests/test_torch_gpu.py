@@ -112,15 +112,17 @@ def test_prior_draws_equal_on_cpu_and_card(cuda):
 
 
 def test_run_abc_on_the_card_goes_through_the_kernel(cuda):
-    """One launch of the wave entry a wave, and nothing else of the kernel's
-    or the plain version's."""
+    """One launch of the wave entry a wave that ran (and, on the device loop,
+    fewer than SEGMENT_WAVES gated ones), and nothing else of the kernel's or
+    the plain version's."""
     ds = data.get_dataset("synthetic_small", num_days=20)
     cfg = tabc.ABCConfig(batch_size=8192, chunk_size=1024, num_days=20,
                          tolerance=2e4, target_accepted=50, max_runs=20)
-    launches, waves = abc_sim.launches("distance"), abc_sim.launches("wave")
-    calls = ref.CALLS
+    launches, waves = abc_sim.launches("distance"), abc_sim.run_launches("wave")
+    gated, calls = abc_sim.gated_launches("wave"), ref.CALLS
     post = tabc.run_abc(ds, cfg, seed=0, device=cuda)
-    assert abc_sim.launches("wave") - waves == post.runs
+    assert abc_sim.run_launches("wave") - waves == post.runs
+    assert 0 <= abc_sim.gated_launches("wave") - gated < tabc.SEGMENT_WAVES
     assert (abc_sim.launches("distance"), ref.CALLS) == (launches, calls)
     again = tabc.run_abc(ds, cfg, seed=0, device=cuda)
     np.testing.assert_array_equal(post.theta, again.theta)
@@ -132,11 +134,11 @@ def test_run_abc_on_the_card_makes_no_host_prior_draw(cuda):
     ds = data.get_dataset("synthetic_small", num_days=20)
     cfg = tabc.ABCConfig(batch_size=8192, chunk_size=1024, num_days=20, tolerance=1.0,
                          target_accepted=50, max_runs=20)
-    draws, waves = priors.DEVICE_DRAWS, abc_sim.launches("wave")
+    draws, waves = priors.DEVICE_DRAWS, abc_sim.run_launches("wave")
     eps = tabc.calibrate_tolerance(ds, cfg, seed=1, quantile=0.01, n_pilot=8192, device=cuda)
     post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=1, device=cuda)
     assert priors.DEVICE_DRAWS == draws
-    assert abc_sim.launches("wave") - waves == 1 + post.runs
+    assert abc_sim.run_launches("wave") - waves == 1 + post.runs
     assert len(post) >= 50 and (post.distances <= eps).all()
 
 
@@ -691,10 +693,13 @@ def test_run_abc_on_the_card_goes_through_the_regional_kernel(cuda):
     cfg = tabc.ABCConfig(batch_size=16384, chunk_size=2048, num_days=30, tolerance=1.0,
                          target_accepted=40, max_runs=30, model=spec)
     abc_sim.ENTRY_LAUNCHES.clear()
+    abc_sim.ENTRY_GATED.clear()
     draws, calls = priors.DEVICE_DRAWS, ref.CALLS
     eps = tabc.calibrate_tolerance(ds, cfg, seed=2, quantile=0.01, n_pilot=16384, device=cuda)
     post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=2, device=cuda)
-    assert abc_sim.ENTRY_LAUNCHES == {"abc_sim_regional_wave_metapop_seir": 1 + post.runs}
+    gated = abc_sim.ENTRY_GATED.get("abc_sim_regional_wave_metapop_seir", 0)
+    assert abc_sim.ENTRY_LAUNCHES == {"abc_sim_regional_wave_metapop_seir": 1 + post.runs + gated}
+    assert gated < tabc.SEGMENT_WAVES
     assert (priors.DEVICE_DRAWS, ref.CALLS) == (draws, calls)
     lo, hi = np.asarray(spec.prior().lows), np.asarray(spec.prior().highs)
     assert len(post) >= 40 and ((post.theta >= lo) & (post.theta <= hi)).all()
@@ -712,10 +717,201 @@ def test_run_abc_at_100_regions_goes_through_the_warp_kernel(cuda):
     cfg = tabc.ABCConfig(batch_size=8192, chunk_size=2048, num_days=20, tolerance=1.0,
                          target_accepted=20, max_runs=20, model=spec)
     abc_sim.ENTRY_LAUNCHES.clear()
+    abc_sim.ENTRY_GATED.clear()
     draws, calls = priors.DEVICE_DRAWS, ref.CALLS
     eps = tabc.calibrate_tolerance(ds, cfg, seed=2, quantile=0.01, n_pilot=8192, device=cuda)
     post = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps), seed=2, device=cuda)
-    assert abc_sim.ENTRY_LAUNCHES == {"abc_sim_regional_wave_warp_metapop_seir": 1 + post.runs}
+    gated = abc_sim.ENTRY_GATED.get("abc_sim_regional_wave_warp_metapop_seir", 0)
+    assert abc_sim.ENTRY_LAUNCHES == {
+        "abc_sim_regional_wave_warp_metapop_seir": 1 + post.runs + gated}
+    assert gated < tabc.SEGMENT_WAVES
     assert (priors.DEVICE_DRAWS, ref.CALLS) == (draws, calls)
     lo, hi = np.asarray(spec.prior().lows), np.asarray(spec.prior().highs)
     assert len(post) >= 20 and ((post.theta >= lo) & (post.theta <= hi)).all()
+
+
+# ------------------------------------------------------ the device wave loop
+LOOP_CASES = [("siard", None), ("sir", None), ("seir", None), ("seiard", None),
+              ("metapop_seir", None), ("metapop_seir", 100)]
+
+
+@pytest.mark.parametrize("case", LOOP_CASES, ids=lambda c: f"{c[0]}-{c[1] or 'as registered'}")
+def test_device_loop_equals_the_host_loop_on_the_card(cuda, case):
+    """Bitwise the host loop's accepted set, runs and simulations, for each
+    flat model and for metapop_seir at R=4 (thread route) and R=100 (warp
+    route); the device loop calls neither `_harvest` nor the plain version."""
+    from repro_torch.epi.spec import regionalize
+
+    name, regions = case
+    spec = regionalize(get_model(name), regions, "ring:0.1") if regions else get_model(name)
+    ds = data.get_dataset("italy" if name in ("siard", "seiard") else "synthetic_small",
+                          num_days=30, model=spec)
+    cfg = tabc.ABCConfig(batch_size=16384, chunk_size=2048, num_days=30, tolerance=1.0,
+                         target_accepted=40, max_runs=30, model=spec)
+    eps = tabc.calibrate_tolerance(ds, cfg, seed=3, quantile=0.005, n_pilot=16384, device=cuda)
+    host = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps, wave_loop="host"), seed=3,
+                        device=cuda)
+    harvest, calls = tabc._harvest, ref.CALLS
+    tabc._harvest = None  # the device loop must not reach it
+    try:
+        dev = tabc.run_abc(ds, dataclasses.replace(cfg, tolerance=eps, wave_loop="device"),
+                           seed=3, device=cuda)
+    finally:
+        tabc._harvest = harvest
+    assert ref.CALLS == calls
+    assert (dev.runs, dev.simulations, len(dev)) == (host.runs, host.simulations, len(host))
+    assert len(host) >= 40
+    assert _bits_equal(torch.from_numpy(dev.theta), host.theta)
+    assert _bits_equal(torch.from_numpy(dev.distances), host.distances)
+
+
+def test_a_device_loop_segment_makes_no_host_sync(cuda):
+    """One segment of the device loop enqueues its waves under
+    set_sync_debug_mode("error"), and its accepted set is run_abc's."""
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(batch_size=32768, chunk_size=4096, num_days=49, tolerance=1.0,
+                         target_accepted=30, max_runs=16)
+    eps = tabc.calibrate_tolerance(ds, cfg, seed=0, quantile=1e-3, n_pilot=32768, device=cuda)
+    cfg = dataclasses.replace(cfg, tolerance=eps)
+    runner = tabc.make_wave_runner(get_model("siard").prior(),
+                                   tabc.make_simulator(ds, cfg, cuda), cfg)
+    carry = runner.init(tabc.ABCState(n_params=8))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = runner(0, 0, carry, tabc.SEGMENT_WAVES)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    waves, n, fill = runner.read(out)
+    state = tabc.ABCState(n_params=8)
+    runner.harvest(out, state, fill)
+    post = tabc.run_abc(ds, dataclasses.replace(cfg, max_runs=waves), seed=0, device=cuda)
+    assert (post.runs, len(post)) == (waves, fill)
+    theta, dist = state.to_arrays()
+    assert _bits_equal(torch.from_numpy(theta), post.theta)
+    assert _bits_equal(torch.from_numpy(dist), post.distances)
+
+
+def _gate_entries(cuda, spec, route, batch=2048):
+    ds = data.get_dataset("italy" if spec.name in ("siard", "seiard") else "synthetic_small",
+                          num_days=30, model=spec)
+    kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), model=spec, **kw)
+    box = spec.prior()
+    ic = abc_sim.with_seed(sim.iconst, 5)
+    soa = abc_sim.theta_to_soa(box.sample(3, batch, cuda))
+    if spec.is_regional:
+        rkw = dict(model=spec, pool=sim.pool, route=route)
+        return box, {
+            "wave": lambda gate=None, out=None: abc_sim.abc_sim_regional_wave_kernel(
+                9, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
+                batch=batch, gate=gate, out=out, **rkw),
+            "distance": lambda gate=None, out=None: (abc_sim.abc_sim_regional_distance_kernel(
+                soa, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic, gate=gate, out=out,
+                **rkw),)}
+    return box, {
+        "wave": lambda gate=None, out=None: abc_sim.abc_sim_wave_kernel(
+            9, box.lows, box.highs, sim.obs_summary, sim.fconst, ic, model=spec, batch=batch,
+            gate=gate, out=out),
+        "distance": lambda gate=None, out=None: (abc_sim.abc_sim_distance_kernel(
+            soa, sim.obs_summary, sim.fconst, ic, model=spec, gate=gate, out=out),)}
+
+
+GATE_CASES = [(m, None, None) for m in ("siard", "sir", "seir", "seiard")] + [
+    ("metapop_seir", r, route) for r in (None, 100) for route in ("thread", "warp")]
+
+
+@pytest.mark.parametrize("case", GATE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_a_gate_of_zero_writes_nothing(cuda, case):
+    """Each entry launched under a gate of 0 leaves its sentinel-filled
+    buffers bitwise unchanged; under a gate of 1 it equals the ungated
+    launch; a gate off the device is refused."""
+    from repro_torch.epi.spec import regionalize
+
+    name, regions, route = case
+    spec = regionalize(get_model(name), regions, "ring:0.1") if regions else get_model(name)
+    box, entries = _gate_entries(cuda, spec, route)
+    batch = 2048
+    zero = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    one = torch.ones((1,), dtype=torch.int32, device=cuda)
+    for entry, fn in entries.items():
+        def fresh():
+            t = torch.full((batch, box.dim), 7.5, device=cuda)
+            d = torch.full((batch,), -3.25, device=cuda)
+            return (t, d) if entry == "wave" else d
+
+        before = dict(abc_sim.ENTRY_LAUNCHES)
+        buffers = fresh()
+        fn(zero, buffers)
+        torch.cuda.synchronize()
+        assert sum(abc_sim.ENTRY_LAUNCHES.values()) == sum(before.values()) + 1
+        for got, want in zip(buffers if entry == "wave" else (buffers,),
+                             fresh() if entry == "wave" else (fresh(),)):
+            assert _bits_equal(got, want), (entry, "gate 0 wrote")
+        for got, want in zip(fn(one, fresh()), fn()):
+            assert _bits_equal(got, want), (entry, "gate 1")
+        with pytest.raises(ValueError, match="gate must be an int32 tensor"):
+            fn(torch.ones((1,), dtype=torch.int32))
+        with pytest.raises(ValueError, match="gate must be an int32 tensor"):
+            fn(torch.ones((1,), dtype=torch.int64, device=cuda))
+
+
+def test_the_census_of_a_sample_day_holds(cuda):
+    """The gate adds instructions outside the day loop only: the census of
+    a sample-day stays at PERF.md's counts, but for the warp route, whose
+    day loop ptxas schedules 5 warp-instructions shorter (2,938 before the
+    gate; experiments/abc_sim_gate_census.py)."""
+    from repro_torch.core.summaries import get_summary, lower_summary
+    from repro_torch.kernels import sass
+
+    flags = lower_summary(get_summary(None), "euclidean", torch.ones(3, 49)).flags
+    want = {"siard": 660, "sir": 249, "seir": 353, "seiard": 762}
+    for name, total in want.items():
+        text = build.sass_text(abc_sim.library(name))
+        if text is None:
+            pytest.skip("the toolkit has no cuobjdump")
+        funcs = sass.parse_functions(text)
+        symbol = abc_sim.kernel_symbol(get_model(name), flags, True)
+        body = next(f for k, f in funcs.items() if symbol in k)
+        assert sass.census(body)["per_day"]["total"] == total, name
+    metapop = get_model("metapop_seir")
+    funcs = sass.parse_functions(build.sass_text(abc_sim.library(metapop)))
+    thread = next(f for k, f in funcs.items()
+                  if abc_sim.kernel_symbol(metapop, flags, True, "thread") in k)
+    warp = next(f for k, f in funcs.items()
+                if abc_sim.kernel_symbol(metapop, flags, True, "warp") in k)
+    assert sass.regional_per_day(sass.regional_census(thread, True), 4, 4)["total"] == 1671
+    assert sass.regional_warp_per_day(sass.regional_warp_census(warp, True), 100,
+                                      200)["total"] == 2933
+
+
+def test_the_smc_device_round_accepts_at_or_below_eps_on_the_card(cuda):
+    """make_smc_round_fn on the card: its rows lie in the box at or below eps,
+    through the theta-in entry (waves + gated launches) and no plain call;
+    SMC through run_smc_abc falls in eps every round."""
+    from repro_torch.core import smc as tsmc
+
+    ds = data.get_dataset("italy", num_days=30)
+    cfg = tsmc.SMCConfig(n_particles=200, batch_size=16384, n_rounds=3, num_days=30,
+                         wave_loop="device")
+    prior = get_model("siard").prior()
+    sim = tabc.make_simulator(ds, tabc.ABCConfig(batch_size=16384, chunk_size=16384,
+                                                 num_days=30, tolerance=np.inf), cuda)
+    particles = prior.sample(1, 200).numpy()
+    d0 = sim(torch.from_numpy(particles).to(cuda), 1).cpu().numpy()
+    eps = float(np.quantile(d0[np.isfinite(d0)], 0.5))
+    sigma = np.full(8, 0.02, np.float32)
+    abc_sim.ENTRY_LAUNCHES.clear()
+    abc_sim.ENTRY_GATED.clear()
+    calls = ref.CALLS
+    th, d, accepted, waves = tsmc.make_smc_round_fn(sim, prior, cfg)(
+        4, 1, particles, np.full(200, 1 / 200), sigma, eps, 8)
+    assert ref.CALLS == calls and th.shape[0] == min(accepted, 200) > 0
+    assert abc_sim.ENTRY_LAUNCHES == {
+        "abc_sim_distance_siard": waves + abc_sim.ENTRY_GATED.get("abc_sim_distance_siard", 0)}
+    assert (d <= np.float32(eps)).all()
+    lo, hi = np.asarray(prior.lows, np.float32), np.asarray(prior.highs, np.float32)
+    assert ((th >= lo) & (th <= hi)).all()
+    post = tsmc.run_smc_abc(ds, cfg, seed=2, device=cuda)
+    assert all(a > b for a, b in zip(post.round_eps, post.round_eps[1:]))
+    assert len(post) == 200 and np.isfinite(post.theta).all()
