@@ -98,6 +98,22 @@ printing one JSON line:
              than the prior mean, and the theta-in entry made waves + gated
              launches (one wave-entry launch for round 0), with no plain
              call and no host prior draw
+  campaign_path  `abc_run --campaign` over Italy, New Zealand and the USA x
+             (siard, seiard, sir) at 100,000 x 49 with the counters set to 0
+             just before: 6 cells ok and 3 skipped (sir observes (I, R)) in 2
+             shape-cache entries; each ok cell's launches its pilot, its
+             waves and its gated waves, its host syncs one a segment; the
+             same command again: every ok cell resumed_complete with 0
+             launches; each ok cell's solo run (calibrate_tolerance +
+             run_abc on the device loop, its seed) bitwise the cell's
+             checkpointed rows, with its tolerance, runs and simulations;
+             a lockdown sweep on Italy (alpha0 pinned at 0.4 or 0.8 from day
+             20 or 30; 1 shape, the pinned scale back); two seeds of
+             metapop_seir at R=100 (ring:0.1) at 20,000 x 49 (1 shape, the
+             warp route). Prints each campaign's wall, the resume's, the
+             grid's again into a new directory after the solo runs (warm),
+             the sum of the solo walls, and each cell's waves, gated
+             launches and host syncs
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
@@ -135,9 +151,10 @@ printing one JSON line:
              from one profiled call
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
-             flat ABC paths and smc_path, and its ms), its region axis on the thread route (all four regional
-             entries of both routes, with their launches on metapop_path and
-             regions_path, the R=100 times at both batches and the route
+             flat ABC paths, smc_path and campaign_path, and its ms), its
+             region axis on the thread route (all four regional entries of
+             both routes, with their launches on metapop_path, regions_path
+             and campaign_path, the R=100 times at both batches and the route
              chosen at each R and batch) and on the warp route, the bf16
              flash route and the float32 one
 
@@ -1376,6 +1393,193 @@ def main() -> int:
          normalized_mean_error=err, prior_mean_normalized_error=prior_err,
          ess=float(1.0 / np.sum(post_smc.weights.astype(np.float64) ** 2)), kind=name,
          nvidia_smi=smi)
+
+    # ---- campaign_path: the campaign CLI, its resume, each cell against its
+    # solo run, a lockdown sweep and two seeds of the 100-region model
+    import shutil
+
+    from repro_torch.checkpoint import load_checkpoint
+
+    camp_root = os.path.join(ROOT, "build", "campaign_path")
+    shutil.rmtree(camp_root, ignore_errors=True)
+    camp_common = ["--days", "49", "--auto-tolerance", "1e-4", "--accept", "100",
+                   "--device", "cuda"]
+
+    def campaign_cli(phase, argv):
+        """`abc_run.main(["--campaign", ...])` with the counters set to 0
+        just before; its report, wall and counts."""
+        abc_sim.ENTRY_LAUNCHES.clear()
+        abc_sim.ENTRY_GATED.clear()
+        priors.DEVICE_DRAWS = 0
+        ref.CALLS = 0
+        tabc.HOST_SYNCS = 0
+        t0 = time.perf_counter()
+        report = abc_run.main(["--campaign"] + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return report, wall, {"entries": dict(abc_sim.ENTRY_LAUNCHES),
+                              "gated": dict(abc_sim.ENTRY_GATED),
+                              "host_syncs": tabc.HOST_SYNCS, "plain_calls": ref.CALLS,
+                              "host_prior_draws": priors.DEVICE_DRAWS}
+
+    def segments_of(runs, max_runs=10_000, every=32):
+        """(segments, enqueued waves) of a scenario that ran `runs` waves:
+        its segments end at SEGMENT_WAVES and at multiples of `every`."""
+        done = segments = 0
+        while done < runs:
+            done += min(tabc.SEGMENT_WAVES, max_runs - done, every - done % every)
+            segments += 1
+        return segments, done
+
+    def check_campaign(phase, report, counts, specs, batch, ok, skipped, shapes):
+        """Raise unless the campaign finished `ok` cells and skipped
+        `skipped`, in `shapes` shape-cache entries, and its launches are each
+        ok cell's pilot, waves and gated waves on the wave entry of its
+        model's route, its host syncs one a segment; returns the cells."""
+        statuses = [r.status for r in report.scenarios]
+        if (statuses.count("ok"), statuses.count("skipped"), len(statuses),
+                report.compiled_shapes) != (ok, skipped, ok + skipped, shapes):
+            raise AssertionError(f"{phase}: statuses {statuses}, compiled_shapes "
+                                 f"{report.compiled_shapes}")
+        want, want_gated, cells = {}, {}, []
+        for r in report.scenarios:
+            if r.status != "ok":
+                continue
+            spec = specs[r.model]
+            segments, enqueued = segments_of(r.runs)
+            entry = abc_sim.entry_name(spec, "wave", abc_sim.regional_route(spec, batch)
+                                       if spec.is_regional else None)
+            # calibrate_tolerance's pilot: 8,192 samples in waves of at most `batch`
+            per_wave = min(8192, batch)
+            pilot = abc_sim.entry_name(spec, "wave", abc_sim.regional_route(
+                spec, per_wave) if spec.is_regional else None)
+            want[pilot] = want.get(pilot, 0) + max(1, 8192 // per_wave)
+            want[entry] = want.get(entry, 0) + enqueued
+            want_gated[entry] = want_gated.get(entry, 0) + enqueued - r.runs
+            cells.append({"name": r.name, "waves": r.runs, "accepted": r.n_accepted,
+                          "simulations": r.simulations, "tolerance": r.tolerance,
+                          "gated_launches": enqueued - r.runs, "host_syncs": segments,
+                          "entry": entry, "wall_s": r.wall_time_s})
+        if (counts["entries"] != want
+                or {k: v for k, v in counts["gated"].items() if v} != {
+                    k: v for k, v in want_gated.items() if v}
+                or counts["host_syncs"] != sum(c["host_syncs"] for c in cells)
+                or (counts["plain_calls"], counts["host_prior_draws"]) != (0, 0)):
+            raise AssertionError(f"{phase}: counts {counts}, want launches {want}, gated "
+                                 f"{want_gated}, host syncs "
+                                 f"{sum(c['host_syncs'] for c in cells)}")
+        return cells
+
+    def cell_rows(r, cap, width):
+        """The accepted rows of a cell, from its newest checkpoint."""
+        tree, meta, _ = load_checkpoint(r.checkpoint_dir, {
+            "theta_buf": np.zeros((cap, width), np.float32),
+            "dist_buf": np.zeros((cap,), np.float32)})
+        return tree["theta_buf"][:meta["fill"]], tree["dist_buf"][:meta["fill"]]
+
+    grid_specs = {m: get_model(m) for m in ("siard", "seiard", "sir")}
+    camp_argv = (["--datasets", "italy", "new_zealand", "usa", "--models", "siard", "seiard",
+                  "sir", "--batch", "100000", "--out", os.path.join(camp_root, "grid")]
+                 + camp_common)
+    report, camp_wall, counts = campaign_cli("campaign_path", camp_argv)
+    path_launches["campaign_path"] = dict(counts["entries"])
+    path_gated["campaign_path"] = dict(counts["gated"])
+    cells = check_campaign("campaign_path", report, counts, grid_specs, 100_000, 6, 3, 2)
+    if any("observes" not in r.detail for r in report.scenarios if r.status == "skipped"):
+        raise AssertionError("campaign_path: a cell was skipped for another reason")
+    resumed, resume_wall, resume_counts = campaign_cli("campaign_path resume", camp_argv)
+    if ([r.status for r in resumed.scenarios]
+            != [("resumed_complete" if r.status == "ok" else r.status)
+                for r in report.scenarios]
+            or resume_counts["entries"] or resume_counts["host_syncs"]
+            or resume_counts["plain_calls"]):
+        raise AssertionError(f"campaign_path: the resume gave "
+                             f"{[r.status for r in resumed.scenarios]}, {resume_counts}")
+    # each ok cell against its solo run, on the card, bitwise
+    camp_cmp, solo_walls = [], {}
+    for r in report.scenarios:
+        if r.status != "ok":
+            continue
+        ds = data.get_dataset(r.dataset, num_days=49, model=r.model)
+        solo_cfg = tabc.ABCConfig(batch_size=100_000, tolerance=1.0, target_accepted=100,
+                                  strategy="outfeed", chunk_size=100_000, max_runs=10_000,
+                                  num_days=49, model=r.model, wave_loop="device")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eps = tabc.calibrate_tolerance(ds, solo_cfg, seed=r.seed, quantile=1e-4, n_pilot=8192,
+                                       device=dev)
+        solo = tabc.run_abc(ds, dataclasses.replace(solo_cfg, tolerance=eps), seed=r.seed,
+                            device=dev)
+        torch.cuda.synchronize()
+        solo_walls[r.name] = time.perf_counter() - t0
+        if (eps, solo.runs, solo.simulations, len(solo)) != (
+                r.tolerance, r.runs, r.simulations, r.n_accepted):
+            raise AssertionError(f"campaign_path {r.name}: solo tolerance, runs, simulations, "
+                                 f"accepted {eps, solo.runs, solo.simulations, len(solo)} vs "
+                                 f"the cell's {r.tolerance, r.runs, r.simulations, r.n_accepted}")
+        theta_c, dist_c = cell_rows(r, tabc.wave_capacity(solo_cfg), solo.theta.shape[1])
+        camp_cmp += [bitwise(f"{r.name} theta, cell vs solo", theta_c, solo.theta),
+                     bitwise(f"{r.name} distances, cell vs solo", dist_c, solo.distances),
+                     {"case": f"{r.name} tolerance, runs, simulations", "bitwise_equal": True}]
+
+    # the same grid again into a new directory, after the solo runs (every
+    # series made and every library loaded): the campaign's own cost
+    warm_argv = [a.replace(os.path.join(camp_root, "grid"), os.path.join(camp_root, "warm"))
+                 for a in camp_argv]
+    warm_report, warm_wall, warm_counts = campaign_cli("campaign_path warm", warm_argv)
+    path_launches["campaign_path warm"] = dict(warm_counts["entries"])
+    path_gated["campaign_path warm"] = dict(warm_counts["gated"])
+    check_campaign("campaign_path warm", warm_report, warm_counts, grid_specs, 100_000, 6, 3, 2)
+
+    # a lockdown sweep on Italy: four pinned schedules, one shape
+    sweep = ("alpha0@20=0.4", "alpha0@20=0.8", "alpha0@30=0.4", "alpha0@30=0.8")
+    sweep_argv = (["--datasets", "italy", "--models", "siard", "--batch", "100000",
+                   "--interventions", *sweep, "--out", os.path.join(camp_root, "sweep")]
+                  + camp_common)
+    sweep_report, sweep_wall, sweep_counts = campaign_cli("campaign_path sweep", sweep_argv)
+    path_launches["campaign_path sweep"] = dict(sweep_counts["entries"])
+    path_gated["campaign_path sweep"] = dict(sweep_counts["gated"])
+    sweep_cells = check_campaign("campaign_path sweep", sweep_report, sweep_counts,
+                                 {"siard": siard}, 100_000, 4, 0, 1)
+    for r, iv in zip(sweep_report.scenarios, sweep):
+        want = float(iv.split("=")[1])
+        if abs(r.posterior_mean["alpha0_w1"] - want) > 1e-5 * want:
+            raise AssertionError(f"campaign_path sweep {r.name}: alpha0_w1 "
+                                 f"{r.posterior_mean['alpha0_w1']}, pinned {want}")
+
+    # two seeds of the 100-region metapopulation: one shape, the warp route
+    mp100_argv = ["--datasets", "synthetic_small", "--models", "metapop_seir", "--regions",
+                  "100", "--mobility", "ring:0.1", "--seeds", "0", "1", "--days", "49",
+                  "--batch", "20000", "--auto-tolerance", "1e-3", "--accept", "20",
+                  "--out", os.path.join(camp_root, "regions"), "--device", "cuda"]
+    mp100_spec = regionalize(metapop, 100, "ring:0.1")
+    if abc_sim.regional_route(mp100_spec, 20_000) != "warp":
+        raise AssertionError("campaign_path: R=100 at 20,000 does not take the warp route")
+    mp_report, mp_wall, mp_counts = campaign_cli("campaign_path regions", mp100_argv)
+    path_launches["campaign_path regions"] = dict(mp_counts["entries"])
+    path_gated["campaign_path regions"] = dict(mp_counts["gated"])
+    mp_cells = check_campaign("campaign_path regions", mp_report, mp_counts,
+                              {mp100_spec.name: mp100_spec}, 20_000, 2, 0, 1)
+    if any(r.model != mp100_spec.name for r in mp_report.scenarios):
+        raise AssertionError("campaign_path regions: a cell is not tagged by its spec's name")
+    emit("campaign_path", argv=camp_argv, cells=cells, compiled_shapes=report.compiled_shapes,
+         statuses={r.name: r.status for r in report.scenarios}, wall_s=camp_wall,
+         launches_by_entry=counts["entries"], gated_by_entry=counts["gated"],
+         host_syncs=counts["host_syncs"], warm_wall_s=warm_wall, resume_wall_s=resume_wall,
+         resume_launches=sum(resume_counts["entries"].values()),
+         solo_wall_s=solo_walls, solo_wall_sum_s=sum(solo_walls.values()),
+         comparisons=camp_cmp, bitwise_comparisons=len(camp_cmp),
+         sweep={"argv": sweep_argv, "cells": sweep_cells, "wall_s": sweep_wall,
+                "compiled_shapes": sweep_report.compiled_shapes,
+                "launches_by_entry": sweep_counts["entries"],
+                "host_syncs": sweep_counts["host_syncs"],
+                "alpha0_w1": [r.posterior_mean["alpha0_w1"] for r in sweep_report.scenarios]},
+         regions={"argv": mp100_argv, "cells": mp_cells, "wall_s": mp_wall,
+                  "compiled_shapes": mp_report.compiled_shapes,
+                  "launches_by_entry": mp_counts["entries"],
+                  "host_syncs": mp_counts["host_syncs"]},
+         kind=name, nvidia_smi=smi)
+    shutil.rmtree(camp_root, ignore_errors=True)
 
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version

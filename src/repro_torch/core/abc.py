@@ -204,8 +204,9 @@ def wave_seeds(seed: int, index: int) -> Tuple[int, int]:
 
 
 def make_simulator(dataset: CountryData, cfg: ABCConfig,
-                   device="cuda") -> SimulatorFn:
-    """The batched theta -> distance function on `device`."""
+                   device="cuda", mob: Optional[torch.Tensor] = None) -> SimulatorFn:
+    """The batched theta -> distance function on `device`; `mob` as in
+    `ops.make_abc_sim` (a regional model's mobility buffer, shared)."""
     device = resolve_device(device)
     spec = get_model(cfg.model)
     if not dataset.compatible_with(spec):
@@ -226,7 +227,7 @@ def make_simulator(dataset: CountryData, cfg: ABCConfig,
         observed, population=dataset.population, a0=dataset.a0,
         r0=dataset.r0, d0=dataset.d0, model=spec, summary=cfg.summary_spec,
         distance=cfg.distance, block=cfg.block, schedule=cfg.schedule,
-        mobility=resolved_mobility(cfg, spec),
+        mobility=resolved_mobility(cfg, spec), mob=mob,
     )
 
 
@@ -636,13 +637,15 @@ def calibrate_tolerance(
     n_pilot: int = 65_536,
     prior: Optional[UniformBoxPrior] = None,
     device="cuda",
+    simulator: Optional[SimulatorFn] = None,
 ) -> float:
     """A tolerance at the `quantile` of a pilot of prior-predictive
     distances, so that the expected acceptance rate is set beforehand:
-    expected waves ~= target_accepted / (quantile * batch_size)."""
-    device = resolve_device(device)
+    expected waves ~= target_accepted / (quantile * batch_size). The pilot
+    runs on `simulator` where one is given (made from `dataset` and `cfg`
+    on its device), else on a new one on `device`."""
     prior = prior or schedule_prior(get_model(cfg.model), cfg.schedule)
-    simulator = make_simulator(dataset, cfg, device)
+    simulator = simulator or make_simulator(dataset, cfg, resolve_device(device))
     per_wave = min(n_pilot, cfg.batch_size)
     dists = []
     for w in range(max(1, n_pilot // per_wave)):

@@ -61,6 +61,34 @@ class SummarySpec:
             if any(w < 0 for w in self.channel_weights):
                 raise ValueError("channel weights must be non-negative")
 
+    @property
+    def is_identity(self) -> bool:
+        """True when the transform is a no-op (the paper's raw statistic)."""
+        return (not self.cumulative and not self.log1p and self.bin_days == 1
+                and self.channel_weights is None and not self.region_pool)
+
+    def tag(self) -> str:
+        """Filesystem-safe label for campaign scenario names, `repro`'s
+        letter for letter: the bare name only for the registered spec of
+        that name, else a label made from the parameters, so two different
+        statistics never share a name (and a checkpoint directory)."""
+        if SUMMARIES.get(self.name) == self:
+            return self.name
+        if self.is_identity:
+            return "identity"
+        parts = []
+        if self.cumulative:
+            parts.append("cum")
+        if self.bin_days > 1:
+            parts.append(f"bin{self.bin_days}")
+        if self.log1p:
+            parts.append("log1p")
+        if self.channel_weights is not None:
+            parts.append("w" + "-".join(f"{w:g}" for w in self.channel_weights))
+        if self.region_pool:
+            parts.append("rpool")
+        return "_".join(parts)
+
 
 #: named summaries
 SUMMARIES = {

@@ -61,7 +61,8 @@ class AbcSim:
 
     def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
                  r0: float, d0: float, model: CompartmentalModel, spec, distance: str,
-                 block: Optional[int], schedule=None, mobility=None):
+                 block: Optional[int], schedule=None, mobility=None,
+                 mob: Optional[torch.Tensor] = None):
         self.observed, self.model, self.spec, self.distance = observed, model, spec, distance
         self.scalars = dict(population=population, a0=a0, r0=r0, d0=d0)
         self.block = block
@@ -83,8 +84,9 @@ class AbcSim:
             if model.is_regional:
                 # device buffers of the region axis, made once a simulator
                 self.weights = weights.contiguous()
-                self.mob = (mobility_matrix(model, mobility, self.device).contiguous()
-                            if model.coupled else None)
+                if mob is None and model.coupled:
+                    mob = mobility_matrix(model, mobility, self.device).contiguous()
+                self.mob = mob if model.coupled else None
                 abc_sim.check_regional(model, self.obs_summary, self.mob, self.weights,
                                        self.pool, None, block)
                 weights = torch.zeros((0,))
@@ -195,11 +197,14 @@ def make_abc_sim(
     schedule=None,
     block: Optional[int] = None,  # threads; None: the kernel's own default
     mobility=None,  # [R][R] override of a regional model's matrix
+    mob: Optional[torch.Tensor] = None,
 ) -> AbcSim:
     """The fused simulate-and-distance against `observed`, on `observed`'s
     device (`AbcSim`), under an intervention `schedule` if one is given (an
     empty schedule is None) and, for a regional model, a `mobility`
-    override if one is given."""
+    override if one is given. `mob` is the `.mob` buffer of another
+    simulator of the same model and mobility on the same card, shared in
+    place of a new copy of the matrix."""
     if model is None:
         from repro_torch.epi.models import DEFAULT_MODEL as model  # noqa: N811
     schedule = active_schedule(schedule)
@@ -207,7 +212,7 @@ def make_abc_sim(
         schedule.shape(model)  # its parameters are the model's
     return AbcSim(observed.to(torch.float32), population=population, a0=a0, r0=r0, d0=d0,
                   model=model, spec=get_summary(summary), distance=distance, block=block,
-                  schedule=schedule, mobility=check_mobility(model, mobility))
+                  schedule=schedule, mobility=check_mobility(model, mobility), mob=mob)
 
 
 def abc_sim_distance(

@@ -27,7 +27,16 @@ cuda) and `--block`:
         --regions 100 --mobility ring:0.1 --dataset synthetic_small --days 49 \
         --batch 20000 --chunk 2000 --auto-tolerance 1e-3 --accept 20
 
-`--forecast`, `--scaling` and `--campaign` wait for later slices.
+    # a campaign: 3 countries x (siard, seiard) in one process, one report
+    # and per-scenario checkpoints under --out; a second call resumes
+    PYTHONPATH=src python -m repro_torch.launch.abc_run --campaign \
+        --datasets italy new_zealand usa --models siard seiard --days 49 \
+        --batch 100000 --auto-tolerance 1e-4 --accept 100 --out /tmp/camp
+
+`--campaign` reads the grid flags (`--datasets`, `--models`, `--backends`,
+`--seeds`, `--interventions`, `--summaries`) and refuses their singular
+forms, as `repro` does; the grid flags need `--campaign`. `--forecast` and
+`--scaling` wait for later slices.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import argparse
 import os
 
 from repro_torch.core.abc import ABCConfig, ABCState, calibrate_tolerance, run_abc
+from repro_torch.core.campaign import BACKENDS, CampaignConfig, run_campaign
 from repro_torch.core.summaries import DISTANCE_KINDS, list_summaries
 from repro_torch.epi.data import get_dataset, list_datasets
 from repro_torch.epi.models import get_model, list_models
@@ -100,6 +110,49 @@ def parse_intervention(spec: str) -> InterventionSchedule | None:
     )
 
 
+#: (grid flag, singular flag) pairs of campaign mode
+GRID_FLAGS = (("--datasets", "--dataset"), ("--models", "--model"), ("--seeds", "--seed"),
+              ("--interventions", "--intervention"), ("--summaries", "--summary"))
+
+
+def _dest(flag: str) -> str:
+    return flag.lstrip("-").replace("-", "_")
+
+
+def run_campaign_cli(args, parser):
+    """`--campaign`: the grid of the plural flags through `run_campaign`."""
+    # the grid reads only the plural flags; a singular one would be ignored
+    for _, flag in GRID_FLAGS:
+        if getattr(args, _dest(flag)) != parser.get_default(_dest(flag)):
+            parser.error(f"{flag} has no effect with --campaign; use the grid flag "
+                         f"{flag}s instead")
+    models = tuple(args.models)
+    if args.regions > 1:
+        # every grid model regionalized; the shape cache keys on the spec
+        models = tuple(regionalize(get_model(m), args.regions, args.mobility or "identity")
+                       for m in models)
+    cfg = CampaignConfig(
+        datasets=tuple(args.datasets),
+        models=models,
+        backends=tuple(args.backends),
+        seeds=tuple(args.seeds),
+        interventions=tuple(parse_intervention(s) for s in args.interventions),
+        summaries=tuple(None if s == "identity" else s for s in args.summaries),
+        distance=args.distance,
+        batch_size=args.batch,
+        num_days=args.days,
+        target_accepted=args.accept,
+        max_runs=args.max_runs,
+        tolerance=None if args.auto_tolerance else args.tolerance,
+        auto_quantile=args.auto_tolerance or 1e-3,
+        out_dir=args.out,
+        checkpoint_every=args.checkpoint_every,
+        devices_per_scenario=args.devices_per_scenario,
+        block=args.block,
+    )
+    return run_campaign(cfg, verbose=True, device=args.device)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Rejection ABC of a compartmental model (PyTorch/CUDA port)"
@@ -146,11 +199,44 @@ def main(argv=None):
                     help="CUDA block size in threads (default: the kernel's own, "
                          f"{DEFAULT_BLOCK}, or {WARP_DEFAULT_BLOCK} on the regional warp "
                          "route; distances do not depend on it)")
+    # campaign mode
+    ap.add_argument("--campaign", action="store_true",
+                    help="run a dataset x model x backend x seed (x intervention x summary) "
+                         "grid with per-scenario checkpoints and one report")
+    ap.add_argument("--datasets", nargs="+", default=["italy", "new_zealand", "usa"],
+                    choices=list_datasets(), help="campaign dataset grid axis")
+    ap.add_argument("--models", nargs="+", default=["siard"], choices=list_models(),
+                    help="campaign model grid axis")
+    ap.add_argument("--backends", nargs="+", default=list(BACKENDS), choices=list(BACKENDS),
+                    help="campaign backend grid axis (the port has the cuda backend only)")
+    ap.add_argument("--seeds", nargs="+", type=int, default=[0],
+                    help="campaign seed grid axis")
+    ap.add_argument("--out", default="experiments/campaigns/default",
+                    help="campaign output directory (checkpoints and the report)")
+    ap.add_argument("--checkpoint-every", type=int, default=32,
+                    help="a campaign scenario checkpoints at least every this many waves")
+    ap.add_argument("--devices-per-scenario", type=int, default=1,
+                    help="devices a campaign scenario is sharded over; the port takes 1 "
+                         "only (scale-out is not ported)")
+    ap.add_argument("--interventions", nargs="+", default=["none"],
+                    help="campaign intervention grid axis (schedule strings; 'none' is "
+                         "the constant-theta cell); schedules of one shape share a "
+                         "shape-cache entry")
+    ap.add_argument("--summaries", nargs="+", default=["identity"],
+                    choices=list(list_summaries()),
+                    help="campaign summary-statistic grid axis")
     args = ap.parse_args(argv)
     if args.regions < 1:
         ap.error("--regions must be >= 1")
     if args.mobility and args.regions == 1:
         ap.error("--mobility has no effect without --regions > 1")
+    if args.campaign:
+        return run_campaign_cli(args, ap)
+    # the grid flags do nothing without --campaign: refuse them
+    for flag, singular in GRID_FLAGS:
+        if getattr(args, _dest(flag)) != ap.get_default(_dest(flag)):
+            ap.error(f"{flag} has no effect without --campaign; use the singular flag "
+                     f"{singular} instead")
 
     model = args.model
     if args.regions > 1:

@@ -23,6 +23,8 @@ from repro_torch.core.posterior import Posterior
 from repro_torch.epi.models import get_model
 from repro_torch.launch import abc_run
 
+torch.set_num_threads(1)
+
 BAR = dict(rtol=2e-6, atol=1e-3)
 COUNTRY_BAR = dict(rtol=1e-5, atol=1.0)
 

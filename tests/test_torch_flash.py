@@ -27,6 +27,8 @@ from repro.models import common as jcm
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
+torch.set_num_threads(1)
+
 F32 = dict(rtol=3e-4, atol=3e-5)
 BF16 = dict(rtol=0.05, atol=0.05)
 

@@ -28,6 +28,8 @@ from repro_torch.kernels import abc_sim, build, ops, ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rng as krng
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.gpu
 
 PINS = os.path.join(os.path.dirname(__file__), "data", "r1_pins.npz")

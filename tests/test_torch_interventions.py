@@ -48,6 +48,8 @@ from repro_torch.epi.spec import (
 from repro_torch.kernels import abc_sim, ops, ref
 from repro_torch.launch import abc_run
 
+torch.set_num_threads(1)
+
 POP = 1e6
 KW = dict(population=POP, a0=100.0, r0=5.0, d0=1.0)
 BAR = dict(rtol=2e-6, atol=1e-3)

@@ -41,6 +41,8 @@ from repro_torch.models import common as tcm
 from repro_torch.models import decoder as tdec
 from repro_torch.models.registry import get_model, list_archs
 
+torch.set_num_threads(1)
+
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1 / 128, atol=1e-5)
 DTYPES = {"f32": (jnp.float32, torch.float32, F32), "bf16": (jnp.bfloat16, torch.bfloat16, BF16)}

@@ -49,6 +49,8 @@ from repro_torch.kernels import abc_sim, ops, sass
 from repro_torch.kernels import rng as krng
 from repro_torch.launch import abc_run
 
+torch.set_num_threads(1)
+
 BAR = dict(rtol=2e-5, atol=1e-2)
 FLAT = ("siard", "sir", "seir", "seiard")
 MP = get_model("metapop_seir")

@@ -35,6 +35,8 @@ from repro_torch.epi.models import get_model, list_models
 from repro_torch.epi.spec import EpiModelConfig
 from repro_torch.kernels import abc_sim, ops
 
+torch.set_num_threads(1)
+
 PINS = os.path.join(os.path.dirname(__file__), "data", "r1_pins.npz")
 BAR = dict(rtol=2e-6, atol=1e-3)
 FLAT = ("siard", "sir", "seir", "seiard")

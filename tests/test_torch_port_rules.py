@@ -5,6 +5,10 @@
   anything of `repro`: the port keeps its own copies.
 * Asking for device="cuda" without a card raises; nothing falls back to the
   CPU on its own.
+* Every tests/test_torch_*.py pins torch's CPU threads to one at its top:
+  under pytest-xdist each worker would otherwise spin a pool as wide as the
+  machine, and six such pools on one machine's cores slow the suite many
+  times over.
 """
 
 import ast
@@ -20,6 +24,8 @@ from repro_torch.epi.models import get_model, list_models
 from repro_torch.epi.spec import regionalize
 from repro_torch.kernels import abc_sim, build
 from repro_torch.launch import abc_run
+
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
@@ -45,6 +51,33 @@ def _forbidden(module: str) -> bool:
 def test_port_imports_neither_jax_nor_repro(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+PORT_TESTS = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+def _pins_one_thread(path: pathlib.Path) -> bool:
+    """Whether the module body calls torch.set_num_threads(1)."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        call = node.value if isinstance(node, ast.Expr) else None
+        if (isinstance(call, ast.Call) and ast.unparse(call.func) == "torch.set_num_threads"
+                and [ast.unparse(a) for a in call.args] == ["1"]):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("path", PORT_TESTS, ids=lambda p: p.name)
+def test_port_tests_pin_torch_to_one_thread(path):
+    assert _pins_one_thread(path), f"{path.name} does not call torch.set_num_threads(1) at its top"
+
+
+def test_thread_rule_catches_what_it_must(tmp_path):
+    cases = {"torch.set_num_threads(1)\n": True, "torch.set_num_threads(8)\n": False,
+             "def f():\n    torch.set_num_threads(1)\n": False, "import torch\n": False}
+    for i, (text, want) in enumerate(cases.items()):
+        (tmp_path / f"t{i}.py").write_text(text)
+        assert _pins_one_thread(tmp_path / f"t{i}.py") is want, text
+    assert len(PORT_TESTS) >= 14
 
 
 def test_import_rule_catches_what_it_must():

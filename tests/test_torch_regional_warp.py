@@ -17,6 +17,8 @@ from repro_torch.epi.models import get_model
 from repro_torch.epi.spec import make_mobility, regionalize
 from repro_torch.kernels import abc_sim, sass
 
+torch.set_num_threads(1)
+
 MP = get_model("metapop_seir")
 
 

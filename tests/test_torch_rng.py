@@ -12,6 +12,8 @@ import torch
 from repro.kernels import rng as jrng
 from repro_torch.kernels import rng as trng
 
+torch.set_num_threads(1)
+
 N = 1 << 20
 
 

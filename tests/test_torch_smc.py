@@ -29,6 +29,8 @@ from repro_torch.epi.models import get_model
 from repro_torch.epi.spec import InterventionSchedule
 from repro_torch.kernels import ref
 
+torch.set_num_threads(1)
+
 #: tests/test_posterior_recovery.py: 15 days, population 1e6, the truths and
 #: the normalized error budget
 DAYS, POP, REL_TOL = 15, 1e6, 0.30

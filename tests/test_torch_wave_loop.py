@@ -28,6 +28,8 @@ from repro_torch.epi.spec import InterventionSchedule, regionalize
 from repro_torch.kernels import ref
 from repro_torch.launch import abc_run
 
+torch.set_num_threads(1)
+
 DAYS = 12
 
 
