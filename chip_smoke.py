@@ -114,6 +114,40 @@ printing one JSON line:
              grid's again into a new directory after the solo runs (warm),
              the sum of the solo walls, and each cell's waves, gated
              launches and host syncs
+  forecast_path  the README's forecast, `abc_run --dataset italy --days 49
+             --intervention "alpha0@20=0:2" --auto-tolerance 1e-3 --forecast
+             28` at 100,000 a wave, with the counters set to 0 just before
+             (the fit's launches as main_path's; the forecast launches no
+             abc_sim entry): its wall, the forecast's seconds and share of
+             it; the bands strict JSON of 77 days that do not cross and
+             equal to `core.serving.forecast_bands` called directly on the
+             posterior; that call again warm and once under torch.profiler
+             (kernel launches, device busy time, idle share)
+  epi_serve  `serve --epi` and `abc_serve` on the card, each part counted
+             from 0, every on-demand fit's launches the device SMC round's
+             (a cold fit one wave-entry launch, a warm one one theta-in
+             launch, then waves + gated theta-in launches) and the query
+             path none: (a) the README's 3-country example (Italy, New
+             Zealand, the USA at horizon 14, Italy's counterfactual
+             alpha@25=0.5) at the CLI's defaults with a store, cold (3 fits)
+             and again (0 fits), 2 batched calls over 2 shapes; (b) the same
+             queries at the paper's width (49 days, fits of 1,000 particles
+             x 100,000 x 4 rounds, 1,000 forecast particles, 8 slots) for 4
+             seeds, 16 queries in 3 batched calls, cold and again; every
+             response of (a) and (b) dict-equal to sequential
+             `forecast_bands` from the stored posterior (padded chunks
+             included); one batched call of 8 lanes alone (wall, launches
+             and device busy time under torch.profiler), each lane bitwise
+             `simulate_observed` alone, and particle 0's trajectory over
+             the 49 fitted days fed to the theta-in entry as the observed
+             series: particle 0 at exactly 0.0, every other particle within
+             rtol 1e-6 of numpy's norm of its difference; (c) `abc_serve
+             --once` over the three countries as dataset files (3 cold
+             fits), one file's last day changed, a second sweep: 1 warm
+             re-fit, its simulations and final tolerance beside its cold
+             fit's; (d) tests/check_epi_serve.py's sir toy: 1 fit (which
+             launches abc_sim_distance_sir), 8 queries from the store in at
+             most 2 batched calls with 0 fits, bands that do not cross
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
@@ -151,7 +185,8 @@ printing one JSON line:
              from one profiled call
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
-             flat ABC paths, smc_path and campaign_path, and its ms), its
+             flat ABC paths, smc_path, campaign_path, forecast_path and
+             epi_serve, and its ms), its
              region axis on the thread route (all four regional entries of
              both routes, with their launches on metapop_path, regions_path
              and campaign_path, the R=100 times at both batches and the route
@@ -197,6 +232,8 @@ METAPOP_INTERVENTION = "beta@20=0:2"
 SCHEDULE_TV = {"siard": "alpha", "sir": "beta", "seir": "beta", "seiard": "alpha0"}
 #: the intervention of the schedule_path phase and of the timed scheduled SIARD
 INTERVENTION = "alpha0@25=0:2"
+#: the fit schedule of the README's forecast example (phase forecast_path)
+FORECAST_INTERVENTION = "alpha0@20=0:2"
 #: instructions a sample-day of the main path's wave variant (PERF.md §6):
 #: each flat model, metapop_seir's thread route at R=4 and its warp route at
 #: R=100 (warp-instructions). The device gate adds its load and branch
@@ -513,6 +550,354 @@ def profile_device_ms(fn):
     by_op = sorted(((e.key, e.count, device_us(e) / 1e3) for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA), key=lambda r: -r[2])
     return wall * 1e3, sum(r[2] for r in by_op), by_op
+
+
+def strict_loads(text: str):
+    """json.loads that refuses NaN and Infinity tokens."""
+    def refuse(token):
+        raise AssertionError(f"non-strict JSON token {token!r}")
+
+    return json.loads(text, parse_constant=refuse)
+
+
+def check_bands(case: str, resp: dict, fit_days: int, total: int) -> None:
+    """tests/check_epi_serve.py's check of one response: every band of
+    `total` finite days, q05 <= q50 <= q95, the observed fit window."""
+    if (resp["fit_days"], resp["total_days"]) != (fit_days, total) or not resp["channels"]:
+        raise AssertionError(f"{case}: fit/total days {resp['fit_days']}, "
+                             f"{resp['total_days']}, channels {list(resp['channels'])}")
+    for ch, bands in resp["channels"].items():
+        for key in ("mean", "q05", "q25", "q50", "q75", "q95"):
+            if len(bands[key]) != total or not np.isfinite(bands[key]).all():
+                raise AssertionError(f"{case}: {ch} {key} has {len(bands[key])} days or a "
+                                     "non-finite value")
+        lo, mid, hi = (np.asarray(bands[k]) for k in ("q05", "q50", "q95"))
+        if not ((lo <= mid).all() and (mid <= hi).all()):
+            raise AssertionError(f"{case}: {ch}'s quantile bands cross")
+    if any(len(v) != fit_days for v in resp["observed"].values()):
+        raise AssertionError(f"{case}: an observed series is not {fit_days} days")
+
+
+class FitLog:
+    """Records every on-demand fit of `EpiServer` while it is entered: the
+    dataset, cold or warm, wall, the abc_sim launches by C entry (and the
+    gated ones) it made, its simulations and waves a round. Raises unless
+    the launches are the device SMC round's: a cold fit's one wave-entry
+    launch (round 0) or a warm fit's one theta-in launch (the re-simulated
+    population), then waves + gated theta-in launches."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core.serving import EpiServer
+        from repro_torch.kernels import abc_sim
+
+        self.fits, self.real, log = [], EpiServer._fit, self
+
+        def fit(server, ds, model, warm):
+            torch.cuda.synchronize()
+            before, gated = dict(abc_sim.ENTRY_LAUNCHES), dict(abc_sim.ENTRY_GATED)
+            t0 = time.perf_counter()
+            post = log.real(server, ds, model, warm)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v - before.get(k, 0) for k, v in abc_sim.ENTRY_LAUNCHES.items()
+                        if v != before.get(k, 0)}
+            n_gated = {k: v - gated.get(k, 0) for k, v in abc_sim.ENTRY_GATED.items()
+                       if v != gated.get(k, 0)}
+            kind = "cold" if warm is None else "warm"
+            wave, dist = (abc_sim.entry_name(model, e) for e in ("wave", "distance"))
+            want = {dist: (kind == "warm") + sum(post.round_waves) + n_gated.get(dist, 0)}
+            if kind == "cold":
+                want[wave] = 1
+            if launches != want:
+                raise AssertionError(f"epi_serve {ds.name}/{model} ({kind} fit): launches "
+                                     f"{launches}, want {want}")
+            log.fits.append({"dataset": ds.name, "model": model, "kind": kind, "wall_s": wall,
+                             "launches_by_entry": launches, "gated_by_entry": n_gated,
+                             "simulations": post.simulations, "round_waves": post.round_waves,
+                             "round_eps": post.round_eps, "particles": len(post)})
+            return post
+
+        EpiServer._fit = fit
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.serving import EpiServer
+
+        EpiServer._fit = self.real
+        return False
+
+
+def counted(fn):
+    """(fn(), counts): the abc_sim launches by entry (and gated), plain-version
+    calls, host prior draws and host syncs of one call, the counters set to
+    0 just before it and read just after."""
+    import torch
+
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import priors
+    from repro_torch.kernels import abc_sim, ref
+
+    abc_sim.ENTRY_LAUNCHES.clear()
+    abc_sim.ENTRY_GATED.clear()
+    priors.DEVICE_DRAWS = 0
+    ref.CALLS = 0
+    tabc.HOST_SYNCS = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "entries": dict(abc_sim.ENTRY_LAUNCHES), "gated": dict(abc_sim.ENTRY_GATED),
+                 "plain_calls": ref.CALLS, "host_prior_draws": priors.DEVICE_DRAWS,
+                 "host_syncs": tabc.HOST_SYNCS}
+
+
+def epi_serve_phase(dev, name: str, smi: str) -> tuple:
+    """Phase epi_serve: `serve --epi` and `abc_serve` on the card, with
+    on-demand fits through the theta-in entries. Returns the launches and
+    gated launches by entry of its four parts (fits only: the query path
+    launches no abc_sim entry) and the bitwise comparisons made."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.core.serving import (
+        EpiServer, ForecastQuery, PosteriorStore, ServeConfig, _scalars, forecast_bands,
+        forecast_seed, load_dataset_file, save_dataset_file, subsample_particles)
+    from repro_torch.core.smc import SMCConfig
+    from repro_torch.epi import data, engine
+    from repro_torch.epi.models import get_model
+    from repro_torch.epi.spec import EpiModelConfig
+    from repro_torch.kernels import abc_sim, ops
+    from repro_torch.launch import abc_run, abc_serve, serve
+
+    root = os.path.join(ROOT, "build", "epi_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    countries = ("italy", "new_zealand", "usa")
+    launched, gated, comparisons, out = {}, {}, [], {}
+
+    def add(counts):
+        for table, key in ((launched, "entries"), (gated, "gated")):
+            for k, v in counts[key].items():
+                table[k] = table.get(k, 0) + v
+
+    def no_plain(part, counts, fits):
+        """Raise unless the part's launches are its fits' alone, with no
+        plain-version call and no host prior draw."""
+        want = {}
+        for f in fits:
+            for k, v in f["launches_by_entry"].items():
+                want[k] = want.get(k, 0) + v
+        if counts["entries"] != want or (counts["plain_calls"], counts["host_prior_draws"]) != (
+                0, 0):
+            raise AssertionError(f"epi_serve {part}: counts {counts}, the fits' launches {want}")
+
+    def serve_cli(part, queries, args):
+        """`serve --epi` over `queries`, counted; (response payload, counts, fits)."""
+        qpath = os.path.join(root, f"{part}_queries.json")
+        with open(qpath, "w") as f:
+            json.dump(queries, f)
+        resp = os.path.join(root, f"{part}_responses.json")
+        with FitLog() as log:
+            answered, counts = counted(lambda: serve.main(
+                ["--epi", "--queries", qpath, "--out", resp, "--device", "cuda"] + args))
+        no_plain(part, counts, log.fits)
+        add(counts)
+        with open(resp) as f:
+            payload = strict_loads(f.read())
+        if answered != len(queries) or len(payload["responses"]) != len(queries):
+            raise AssertionError(f"epi_serve {part}: {answered} answers for {len(queries)}")
+        return payload, counts, log.fits
+
+    def sequential(part, payload, queries, store, fit_days, particles):
+        """Every response dict-equal to sequential forecast_bands on the card
+        from the stored posterior, for the same (query, seed)."""
+        st = PosteriorStore(store)
+        server = EpiServer(ServeConfig(fit=SMCConfig(num_days=fit_days, wave_loop="device"),
+                                       store_dir=store), dev)
+        for i, (q, resp) in enumerate(zip(queries, payload["responses"])):
+            q = ForecastQuery.from_json(q)
+            ds, version = server.dataset(q.dataset, q.model)
+            post = st.get(server.posterior_key(q.dataset, q.model), version)
+            want = forecast_bands(post.theta, ds, model=q.model, fit_days=fit_days,
+                                  horizon=q.horizon, schedule=q.schedule, key=q.seed,
+                                  quantiles=q.quantiles, max_particles=particles, device=dev)
+            if resp != want:
+                raise AssertionError(f"epi_serve {part}: response {i} differs from sequential "
+                                     "forecast_bands")
+            check_bands(f"epi_serve {part} response {i}", resp, fit_days, fit_days + q.horizon)
+        comparisons.append({"case": f"{part}: {len(queries)} responses vs sequential "
+                                    "forecast_bands", "dict_equal": True})
+
+    readme = [{"dataset": c, "horizon": 14, "seed": 0} for c in countries] + [
+        {"dataset": "italy", "horizon": 14, "seed": 0, "schedule": "alpha@25=0.5"}]
+
+    # (a) the README's 3-country example at the CLI's defaults, cold then again
+    store_a = os.path.join(root, "store_a")
+    args_a = ["--store", store_a, "--days", "21", "--fit-rounds", "3"]
+    cold_a, counts_a, fits_a = serve_cli("a cold", readme, args_a)
+    again_a, counts_a2, fits_a2 = serve_cli("a again", readme, args_a)
+    stats = (cold_a["stats"], again_a["stats"])
+    if ([len(fits_a), len(fits_a2)] != [3, 0] or [s["fits"] for s in stats] != [3, 0]
+            or [s["batched_calls"] for s in stats] != [2, 2]
+            or [s["compiled_shapes"] for s in stats] != [2, 2]):
+        raise AssertionError(f"epi_serve a: fits {len(fits_a)}, {len(fits_a2)}; stats {stats}")
+    sequential("a", again_a, readme, store_a, 21, 128)
+    out["a_readme"] = {"queries": readme, "argv": args_a, "cold_fits": fits_a,
+                       "cold_stats": stats[0], "cold_wall_s": counts_a["wall_s"],
+                       "again_stats": stats[1], "again_wall_s": counts_a2["wall_s"]}
+
+    # (b) the same queries at the paper's width: 4 seeds x (3 forecasts + 1
+    # counterfactual), smc_path's fit
+    paper = [dict(q, seed=s) for s in range(4) for q in readme]
+    store_b = os.path.join(root, "store_b")
+    args_b = ["--store", store_b, "--days", "49", "--fit-batch", "100000", "--fit-particles",
+              "1000", "--fit-rounds", "4", "--particles", "1000", "--slots", "8"]
+    cold_b, counts_b, fits_b = serve_cli("b cold", paper, args_b)
+    again_b, counts_b2, fits_b2 = serve_cli("b again", paper, args_b)
+    stats = (cold_b["stats"], again_b["stats"])
+    if ([len(fits_b), len(fits_b2)] != [3, 0] or [s["fits"] for s in stats] != [3, 0]
+            or [s["batched_calls"] for s in stats] != [3, 3]
+            or [s["compiled_shapes"] for s in stats] != [2, 2]):
+        raise AssertionError(f"epi_serve b: fits {len(fits_b)}, {len(fits_b2)}; stats {stats}")
+    sequential("b", again_b, paper, store_b, 49, 1000)
+    # one batched call of 8 forecast lanes (the 3 countries in turn, seeds
+    # 0-7) alone: its launches, device busy time and wall; each lane
+    # against simulate_observed alone; particle 0 replayed by the kernel
+    siard = get_model("siard")
+    server = EpiServer(ServeConfig(fit=SMCConfig(num_days=49, wave_loop="device"),
+                                   store_dir=store_b), dev)
+    lanes = []
+    for lane in range(8):
+        c = countries[lane % 3]
+        post, ds = server.get_posterior(c, "siard")
+        lanes.append((subsample_particles(post.theta, lane, 1000), forecast_seed(lane), ds))
+    _, batched = server.kernels.get(siard, 63, 1000, 8, None)
+    theta = torch.from_numpy(np.stack([t for t, _, _ in lanes])).to(dev)
+    seeds = torch.tensor([s for _, s, _ in lanes])
+    scalars = torch.from_numpy(np.stack([_scalars(ds) for _, _, ds in lanes])).unbind(1)
+    bp = torch.zeros((8, 0), dtype=torch.int64)
+
+    def call():
+        return batched(theta, seeds, *scalars, bp)
+
+    traj = call()
+    warm_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+    wall_ms, busy_ms, by_op = profile_device_ms(call)
+    kernels = sum(c for k, c, _ in by_op if "Memcpy" not in k and "Memset" not in k)
+    for lane, (th, seed, ds) in enumerate(lanes):
+        solo = engine.simulate_observed(siard, torch.from_numpy(th).to(dev), seed,
+                                        EpiModelConfig(population=ds.population, num_days=63,
+                                                       a0=ds.a0, r0=ds.r0, d0=ds.d0))
+        comparisons.append(bitwise(f"b lane {lane} ({ds.name}) vs simulate_observed alone",
+                                   traj[lane], solo))
+    replay = []
+    for lane in (0, 1, 2):
+        th, seed, ds = lanes[lane]
+        fit = traj[lane, :, :, :49].cpu().numpy()
+        dist = ops.abc_sim_distance(torch.from_numpy(th).to(dev), seed,
+                                    torch.from_numpy(fit[0]).to(dev), model=siard,
+                                    population=ds.population, a0=ds.a0, r0=ds.r0,
+                                    d0=ds.d0).cpu().numpy()
+        if dist[0] != 0.0:
+            raise AssertionError(f"epi_serve replay {ds.name}: particle 0 at {dist[0]!r}, not 0")
+        want = np.sqrt(((fit.astype(np.float64) - fit[0]) ** 2).sum(axis=(1, 2)))
+        replay.append(compare(f"replay {ds.name}: theta-in entry vs numpy's norm of "
+                              "(traj_b - traj_0)", dist[1:], want[1:], rtol=1e-6, atol=0.0))
+    comparisons += replay
+    out["b_paper"] = {
+        "queries": len(paper), "argv": args_b, "cold_fits": fits_b, "cold_stats": stats[0],
+        "cold_wall_s": counts_b["wall_s"], "again_stats": stats[1],
+        "again_wall_s": counts_b2["wall_s"],
+        "batched_call": {"lanes": 8, "particles": 1000, "days": 63,
+                         "warm_wall_ms": warm_ms, "profiled_wall_ms": wall_ms,
+                         "device_busy_ms": busy_ms, "device_idle_share": 1 - busy_ms / wall_ms,
+                         "device_ops": sum(c for _, c, _ in by_op), "kernel_launches": kernels,
+                         "kernel_launches_per_day": kernels / 63,
+                         "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                                            for k, c, ms in by_op[:8]]},
+        "replay_particle0_distance": 0.0}
+
+    # (c) the daemon over the three countries as dataset files; one file's
+    # last fitted day changes and the next sweep re-fits it warm
+    data_c, store_c = os.path.join(root, "data_c"), os.path.join(root, "store_c")
+    for c in countries:
+        save_dataset_file(os.path.join(data_c, f"{c}.json"), data.get_dataset(c, num_days=21))
+    daemon = ["--once", "--data-dir", data_c, "--store", store_c, "--models", "siard",
+              "--device", "cuda"]
+    with FitLog() as log:
+        refits, counts_c = counted(lambda: abc_serve.main(daemon))
+    no_plain("c cold", counts_c, log.fits)
+    add(counts_c)
+    cold_c = log.fits
+    path = os.path.join(data_c, "italy.json")
+    changed = load_dataset_file(path)
+    obs = changed.observed.copy()
+    obs[:, 20] += 1.0
+    save_dataset_file(path, dataclasses.replace(changed, observed=obs))
+    with FitLog() as log:
+        refits2, counts_c2 = counted(lambda: abc_serve.main(daemon))
+    no_plain("c warm", counts_c2, log.fits)
+    add(counts_c2)
+    # the warm re-fit runs the template's rounds from the stored population,
+    # so its cost against the cold fit's is measured, not assumed
+    cold_it = next(f for f in cold_c if f["dataset"] == "italy")
+    if (refits, refits2, [f["kind"] for f in cold_c], [f["kind"] for f in log.fits],
+            log.fits[0]["dataset"]) != (3, 1, ["cold"] * 3, ["warm"], "italy"):
+        raise AssertionError(f"epi_serve c: refits {refits}, {refits2}; cold {cold_c}; "
+                             f"again {log.fits}")
+    out["c_daemon"] = {"argv": daemon, "cold_fits": cold_c, "cold_wall_s": counts_c["wall_s"],
+                       "warm_refit": log.fits[0], "warm_wall_s": counts_c2["wall_s"],
+                       "cold_simulations_italy": cold_it["simulations"],
+                       "warm_over_cold_simulations": log.fits[0]["simulations"]
+                       / cold_it["simulations"],
+                       "warm_over_cold_final_eps": log.fits[0]["round_eps"][-1]
+                       / cold_it["round_eps"][-1]}
+
+    # (d) tests/check_epi_serve.py's toy on the card: sir, 8 queries
+    data_d, store_d = os.path.join(root, "data_d"), os.path.join(root, "store_d")
+    save_dataset_file(os.path.join(data_d, "toy.json"), data.synthetic_dataset(
+        theta=(0.5, 0.2, 1.0), population=1e6, num_days=12, a0=100.0, seed=11, name="toy",
+        model="sir"))
+    fit_d = ["--days", "8", "--fit-particles", "16", "--fit-batch", "256", "--fit-rounds", "1"]
+    with FitLog() as log:
+        refits_d, counts_d = counted(lambda: abc_serve.main(
+            ["--once", "--data-dir", data_d, "--store", store_d, "--models", "sir",
+             "--device", "cuda"] + fit_d))
+    no_plain("d fit", counts_d, log.fits)
+    add(counts_d)
+    toy = ([{"dataset": "toy", "model": "sir", "horizon": 6, "seed": s} for s in range(4)]
+           + [{"dataset": "toy", "model": "sir", "horizon": 6, "seed": s,
+               "schedule": "beta@4=0.5"} for s in range(4)])
+    payload_d, counts_d2, fits_d2 = serve_cli("d", toy, ["--data-dir", data_d, "--store",
+                                                          store_d, "--slots", "4",
+                                                          "--particles", "16"] + fit_d)
+    if (refits_d, len(fits_d2), payload_d["stats"]["fits"]) != (1, 0, 0) or (
+            payload_d["stats"]["batched_calls"] > 2) or not log.fits[0]["launches_by_entry"].get(
+            "abc_sim_distance_sir"):
+        raise AssertionError(f"epi_serve d: refits {refits_d}, fits {log.fits}, stats "
+                             f"{payload_d['stats']}")
+    for i, resp in enumerate(payload_d["responses"]):
+        check_bands(f"epi_serve d response {i}", resp, 8, 14)
+        if (resp["schedule"] is None) != (i < 4):
+            raise AssertionError(f"epi_serve d: response {i}'s schedule {resp['schedule']}")
+    out["d_toy"] = {"fit": log.fits[0], "stats": payload_d["stats"],
+                    "wall_s": counts_d2["wall_s"]}
+    shutil.rmtree(root, ignore_errors=True)
+    emit("epi_serve", **out, launches_by_entry=launched, gated_by_entry=gated,
+         comparisons=comparisons, bitwise_comparisons=sum(
+             1 for c in comparisons if c.get("bitwise_equal") or c.get("dict_equal")),
+         kind=name, nvidia_smi=smi)
+    return launched, gated
 
 
 def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
@@ -1581,6 +1966,76 @@ def main() -> int:
          kind=name, nvidia_smi=smi)
     shutil.rmtree(camp_root, ignore_errors=True)
 
+    # ---- forecast_path: the README's forecast through the port's CLI, the
+    # forecast timed inside it, its bands against forecast_bands called
+    # directly, then one forecast call profiled
+    from repro_torch.core import serving as tserving
+
+    fc_root = os.path.join(ROOT, "build", "forecast_path")
+    shutil.rmtree(fc_root, ignore_errors=True)
+    fc_out = os.path.join(fc_root, "bands.json")
+    fc_argv = ["--dataset", "italy", "--days", "49", "--batch", "100000", "--chunk", "10000",
+               "--intervention", FORECAST_INTERVENTION, "--auto-tolerance", "1e-3",
+               "--accept", "100", "--forecast", "28", "--forecast-out", fc_out,
+               "--device", "cuda"]
+    fc_seconds, real_bands = [], tserving.forecast_bands
+
+    def timed_bands(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bands = real_bands(*args, **kw)
+        torch.cuda.synchronize()
+        fc_seconds.append(time.perf_counter() - t0)
+        return bands
+
+    tserving.forecast_bands = timed_bands
+    try:
+        post_fc, fc_wall, entries, counts, _, _ = abc_path("forecast_path", fc_argv, siard,
+                                                           FORECAST_INTERVENTION)
+    finally:
+        tserving.forecast_bands = real_bands
+    path_launches["forecast_path"] = entries
+    path_gated["forecast_path"] = dict(abc_sim.ENTRY_GATED)
+    with open(fc_out) as f:
+        fc_bands = strict_loads(f.read())
+    fc_kw = dict(model="siard", fit_days=49, horizon=28, key=1, device=dev,
+                 fit_schedule=abc_run.parse_intervention(FORECAST_INTERVENTION))
+
+    def direct_bands():
+        return tserving.forecast_bands(post_fc.theta, italy, **fc_kw)
+
+    if len(fc_seconds) != 1 or fc_bands != direct_bands():
+        raise AssertionError(f"forecast_path: {len(fc_seconds)} forecasts; the CLI's bands "
+                             "differ from forecast_bands on its posterior")
+    check_bands("forecast_path", fc_bands, 49, 77)
+    if fc_bands["n_particles"] != len(post_fc) or fc_bands["schedule"] is None:
+        raise AssertionError(f"forecast_path: {fc_bands['n_particles']} particles of "
+                             f"{len(post_fc)}, schedule {fc_bands['schedule']}")
+    fc_warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        direct_bands()
+        fc_warm.append((time.perf_counter() - t0) * 1e3)
+    fc_ms, fc_busy, fc_ops = profile_device_ms(direct_bands)
+    fc_kernels = sum(c for k, c, _ in fc_ops if "Memcpy" not in k and "Memset" not in k)
+    emit("forecast_path", argv=fc_argv, **counts, accepted=len(post_fc), waves=post_fc.runs,
+         tolerance=post_fc.tolerance, wall_s=fc_wall, forecast_s=fc_seconds[0],
+         forecast_share_of_wall=fc_seconds[0] / fc_wall, bands_equal_forecast_bands=True,
+         n_particles=fc_bands["n_particles"], total_days=fc_bands["total_days"],
+         forecast_warm_ms=fc_warm,
+         forecast_profile={"wall_ms": fc_ms, "device_busy_ms": fc_busy,
+                           "device_idle_share": 1 - fc_busy / fc_ms,
+                           "device_ops": sum(c for _, c, _ in fc_ops),
+                           "kernel_launches": fc_kernels,
+                           "kernel_launches_per_day": fc_kernels / 77,
+                           "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                                              for k, c, ms in fc_ops[:8]]},
+         kind=name, nvidia_smi=smi)
+    shutil.rmtree(fc_root, ignore_errors=True)
+
+    # ---- epi_serve: serve --epi and abc_serve, fits through the theta-in entries
+    path_launches["epi_serve"], path_gated["epi_serve"] = epi_serve_phase(dev, name, smi)
+
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version
     lowered = lower_summary(get_summary(None), "euclidean", ob_it)
@@ -1782,8 +2237,9 @@ def main() -> int:
     for counts in path_gated.values():
         for entry, n in counts.items():
             gated_on_paths[entry] = gated_on_paths.get(entry, 0) + n
-    if not launched.get("abc_sim_distance_siard"):
-        raise AssertionError(f"kernels: smc_path launched no theta-in entry: {launched}")
+    if not (launched.get("abc_sim_distance_siard") and launched.get("abc_sim_distance_sir")):
+        raise AssertionError(f"kernels: smc_path or epi_serve launched no theta-in entry: "
+                             f"{launched}")
     at_100k = {c["case"]: c for c in model_cells if c["batch"] == 100_000}
     entries = []
     for m in ABC_MODELS:

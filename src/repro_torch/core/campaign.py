@@ -22,9 +22,11 @@ and writes one report:
   * scenarios go round-robin over the cards (or all on the CPU) and advance
     in rounds: each round enqueues one segment of every active scenario,
     then reads and finishes them in order (one host sync a segment);
-  * each scenario checkpoints after every segment through
-    `repro_torch.checkpoint`, in `repro`'s layout and metadata, and resumes:
-    a finished one replays its recorded result and launches nothing.
+  * each scenario checkpoints through `repro_torch.checkpoint`, in
+    `repro`'s layout and metadata, at `repro`'s cadence: at a segment end
+    that reaches a multiple of `checkpoint_every`, and when it finishes
+    (with 0, only then). It resumes from its newest checkpoint: a finished
+    one replays its recorded result and launches nothing.
 
     from repro_torch.core.campaign import CampaignConfig, run_campaign
     report = run_campaign(CampaignConfig(
@@ -133,8 +135,9 @@ class CampaignConfig:
     auto_quantile: float = 1e-3
     pilot_size: int = 8192
     out_dir: str = "experiments/campaigns/default"
-    #: a segment never crosses a multiple of this many waves, so a scenario
-    #: checkpoints at least this often (0: segments of SEGMENT_WAVES only)
+    #: a segment never crosses a multiple of this many waves, and a scenario
+    #: checkpoints at each multiple and when it finishes (0: only when it
+    #: finishes; segments of SEGMENT_WAVES)
     checkpoint_every: int = 32
     keep_checkpoints: int = 2
     #: cells whose model does not observe the dataset's channels are
@@ -404,7 +407,7 @@ class _ScenarioRun:
 
     def complete_segment(self):
         """Read the segment (its one host sync), finish or carry on, and
-        checkpoint."""
+        checkpoint at a multiple of `checkpoint_every` or at the finish."""
         out, self._out = self._out, None
         waves, n_acc, fill = self.runner.read(out)
         self.state.run_idx += waves
@@ -415,7 +418,9 @@ class _ScenarioRun:
             self.done = True
             self.runner.harvest(out, self.state, fill)
             self._finalize(hit_target)
-        self._checkpoint(out, n_acc, fill)
+        every = self.cfg.checkpoint_every
+        if self.done or (every and self.state.run_idx % every == 0):
+            self._checkpoint(out, n_acc, fill)
         if self.verbose:
             print(f"[campaign] {self.sc.name}: run {self.state.run_idx}, "
                   f"accepted {n_acc}/{self.cfg.target_accepted}")

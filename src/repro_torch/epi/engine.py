@@ -24,6 +24,12 @@ order is not the kernel's.
 (`repro_torch.kernels.rng`), the same stream as the fused kernel: region r's
 transition k on day d is slot r * n_transitions + k of the day's
 `model.ctr_slots`. The JAX package's threefry streams have no PyTorch twin.
+
+The seed, the dataset scalars (population, a0, r0, d0) and the schedule's
+breakpoint days are run-time values of `simulate_observed`: each may be a
+Python scalar or a tensor with one row a sample, so one call can simulate
+the particles of many forecast queries as one batch (`core/serving.py`),
+each row bitwise what a call of its own would give.
 """
 
 from __future__ import annotations
@@ -58,19 +64,27 @@ def mobility_matrix(model: CompartmentalModel, mobility=None,
     return torch.as_tensor(mob, dtype=torch.float32, device=device)
 
 
+def _region_rows(x, like: torch.Tensor) -> torch.Tensor:
+    """A dataset scalar against [..., R] rows: float32, and a per-sample
+    tensor [B] as [B, 1]."""
+    x = _f32(x, like)
+    return x.unsqueeze(-1) if x.ndim else x
+
+
 def region_population(model: CompartmentalModel, population, like: torch.Tensor):
     """A region's population as a float32 tensor: population / R in float32
     for R > 1, the population itself at R=1."""
-    pop = _f32(population, like)
+    pop = _region_rows(population, like)
     return pop / model.n_regions if model.n_regions > 1 else pop
 
 
 def seed_vector(model: CompartmentalModel, value, like: torch.Tensor) -> torch.Tensor:
-    """[R] day-0 counts: `value` * 1 in `seed_region`, `value` * 0 in every
-    other region, each product in float32 as the kernels form it."""
+    """[R] day-0 counts ([B, R] for a per-sample `value`): `value` * 1 in
+    `seed_region`, `value` * 0 in every other region, each product in
+    float32 as the kernels form it."""
     z = torch.zeros((model.n_regions,), dtype=torch.float32, device=like.device)
     z[model.seed_region] = 1.0
-    return _f32(value, like) * z
+    return _region_rows(value, like) * z
 
 
 def initial_state(
@@ -117,10 +131,25 @@ def effective_param_rows(
     untouched; window w >= 1 multiplies each scaled parameter by its scale
     row, one rounding, as `repro.epi.engine.effective_param_rows` and the
     CUDA kernel do. `day` is a Python int: the port runs its days in a
-    Python loop (the plain version) or in the kernel."""
+    Python loop (the plain version) or in the kernel.
+
+    `breakpoints` is a sequence of ints, or an integer tensor [..., n_windows]
+    of days a sample; a tensor picks each row's window by `where` and
+    multiplies the base rows by 1.0 in window 0, which leaves them bitwise
+    as they are."""
     base = tuple(pc[: model.n_params])
     if shape is None or shape.n_windows == 0:
         return base
+    if isinstance(breakpoints, torch.Tensor):
+        w = (day >= breakpoints).sum(dim=-1)  # each row's window
+        out = list(base)
+        for j, pi in enumerate(shape.tv_indices):
+            scale = torch.ones_like(out[pi])
+            for win in range(shape.n_windows):
+                scale = torch.where(w == win + 1, pc[model.n_params + win * shape.n_tv + j],
+                                    scale)
+            out[pi] = out[pi] * scale
+        return tuple(out)
     w = sum(day >= b for b in breakpoints)  # #{breakpoints <= day}
     if w == 0:
         return base
@@ -136,14 +165,17 @@ def effective_theta(
     schedule: Optional[InterventionSchedule],
     theta: torch.Tensor,
     day: int,
+    breakpoints=None,
 ) -> torch.Tensor:
     """Widened theta [..., n_params + n_scales] -> day-effective theta
-    [..., n_params]."""
+    [..., n_params]. `breakpoints` overrides the schedule's days (ints, or a
+    tensor [..., n_windows] of days a sample), as `repro`'s does."""
     schedule = active_schedule(schedule)
     if schedule is None:
         return theta[..., : model.n_params]
     pc = tuple(theta[..., k] for k in range(schedule.param_width(model)))
-    rows = effective_param_rows(model, schedule.shape(model), pc, day, schedule.breakpoints)
+    bp = schedule.breakpoints if breakpoints is None else breakpoints
+    rows = effective_param_rows(model, schedule.shape(model), pc, day, bp)
     return torch.stack(list(rows), dim=-1)
 
 
@@ -261,6 +293,8 @@ def simulate_observed(
     cfg: EpiModelConfig,
     schedule: Optional[InterventionSchedule] = None,
     mobility=None,
+    breakpoints=None,
+    sample_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Observed channels [B, total_observed, T] under the counter-hash RNG,
     region-major for a regional spec (channel r * n_observed + m).
@@ -269,17 +303,31 @@ def simulate_observed(
     s)`, the fused kernel's stream, so the kernel run at the generating
     theta and seed replays this trajectory. Under a schedule theta carries
     the scale columns; the seeding uses the base parameters only.
+
+    Run-time values, each a scalar or a tensor with one row a sample: `seed`
+    (masked to 32 bits as an int seed is), `cfg`'s population, a0, r0 and
+    d0 (float32, as the kernel reads them), and `breakpoints`, an override of
+    the schedule's days ([n_windows] or [B, n_windows]). `sample_index` [B]
+    replaces b in the stream (default 0 .. B-1), so that rows stacked from
+    several queries keep the indices each would have alone.
     """
     theta = theta.to(torch.float32)
     check_theta_width(model, schedule, theta)
-    idx = torch.arange(theta.shape[0], device=theta.device)
+    if sample_index is None:
+        idx = torch.arange(theta.shape[0], device=theta.device)
+    else:
+        idx = sample_index.to(device=theta.device, dtype=torch.int64)
+    if isinstance(seed, torch.Tensor) and seed.ndim:
+        seed = krng.as_u32(seed, theta.device).reshape(-1, 1)  # a seed a row
+    if isinstance(breakpoints, torch.Tensor):
+        breakpoints = breakpoints.to(theta.device)
     state = initial_state(model, theta, cfg)
     pop = _f32(cfg.population, theta)
     mob = mobility_matrix(model, mobility, theta.device) if model.is_regional else None
     obs = []
     for day in range(cfg.num_days):
         z = krng.hash_normals(seed, idx, day, model.total_transitions, model.ctr_slots)
-        th_d = effective_theta(model, schedule, theta, day)
+        th_d = effective_theta(model, schedule, theta, day, breakpoints)
         state = tau_leap_step(model, state, th_d, z, pop, mob)
         obs.append(state[:, list(model.total_observed_idx)])
     return torch.stack(obs, dim=-1)

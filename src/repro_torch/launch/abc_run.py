@@ -33,15 +33,24 @@ cuda) and `--block`:
         --datasets italy new_zealand usa --models siard seiard --days 49 \
         --batch 100000 --auto-tolerance 1e-4 --accept 100 --out /tmp/camp
 
+    # the README's forecast: fit, then 28 days of posterior-predictive bands
+    # (strict JSON) past the 49 fitted ones; --forecast-schedule "alpha@25=0.5"
+    # asks for a counterfactual instead, "none" lifts every intervention
+    PYTHONPATH=src python -m repro_torch.launch.abc_run --dataset italy \
+        --days 49 --batch 100000 --chunk 10000 --intervention "alpha0@20=0:2" \
+        --auto-tolerance 1e-3 --forecast 28 --forecast-out /tmp/bands.json
+
 `--campaign` reads the grid flags (`--datasets`, `--models`, `--backends`,
 `--seeds`, `--interventions`, `--summaries`) and refuses their singular
-forms, as `repro` does; the grid flags need `--campaign`. `--forecast` and
-`--scaling` wait for later slices.
+forms, as `repro` does; the grid flags need `--campaign`. `--forecast`
+delegates to `core.serving.forecast_bands`, the path `serve --epi` answers
+from. `--scaling` waits for a later slice.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 from repro_torch.core.abc import ABCConfig, ABCState, calibrate_tolerance, run_abc
@@ -49,7 +58,8 @@ from repro_torch.core.campaign import BACKENDS, CampaignConfig, run_campaign
 from repro_torch.core.summaries import DISTANCE_KINDS, list_summaries
 from repro_torch.epi.data import get_dataset, list_datasets
 from repro_torch.epi.models import get_model, list_models
-from repro_torch.epi.spec import InterventionSchedule, regionalize
+from repro_torch.epi.spec import EMPTY_SCHEDULE, InterventionSchedule, regionalize
+from repro_torch.ioutils import atomic_write_text
 from repro_torch.kernels.abc_sim import DEFAULT_BLOCK, WARP_DEFAULT_BLOCK
 
 
@@ -107,6 +117,49 @@ def parse_intervention(spec: str) -> InterventionSchedule | None:
         breakpoints=tuple(breakpoints),
         scale_lows=tuple(lows),
         scale_highs=tuple(highs),
+    )
+
+
+def posterior_forecast(
+    theta,
+    dataset,
+    cfg: ABCConfig,
+    horizon: int,
+    schedule: InterventionSchedule | None = None,
+    key: int = 0,
+    quantiles=(0.05, 0.25, 0.5, 0.75, 0.95),
+    max_particles: int = 512,
+    device="cuda",
+) -> dict:
+    """Posterior-predictive forecast: simulate accepted particles forward
+    past the fitting horizon under a chosen schedule; returns credible bands.
+
+    `theta` is the accepted sample set [N, p]; `schedule` defaults to the
+    FIT schedule (cfg.schedule); pass a different fixed-scale schedule for
+    a counterfactual ("what if the lockdown lifts on day 60 instead"). The
+    result is a strict-JSON-serializable dict: per observed channel, the
+    mean and the requested quantiles over particles for every day of
+    `cfg.num_days + horizon`.
+
+    Sets larger than `max_particles` are subsampled with a seeded
+    permutation (not truncated: topk accepted sets are distance-ordered).
+    Delegates to `repro_torch.core.serving.forecast_bands` on `device`, the
+    path the `serve --epi` batch server answers from; `key` is the seed.
+    """
+    from repro_torch.core.serving import forecast_bands
+
+    return forecast_bands(
+        theta,
+        dataset,
+        model=cfg.model,
+        fit_days=cfg.num_days,
+        horizon=horizon,
+        fit_schedule=cfg.schedule,
+        schedule=schedule,
+        key=key,
+        quantiles=quantiles,
+        max_particles=max_particles,
+        device=device,
     )
 
 
@@ -214,7 +267,8 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/campaigns/default",
                     help="campaign output directory (checkpoints and the report)")
     ap.add_argument("--checkpoint-every", type=int, default=32,
-                    help="a campaign scenario checkpoints at least every this many waves")
+                    help="a campaign scenario checkpoints at every multiple of this many "
+                         "waves and when it finishes (0: only when it finishes)")
     ap.add_argument("--devices-per-scenario", type=int, default=1,
                     help="devices a campaign scenario is sharded over; the port takes 1 "
                          "only (scale-out is not ported)")
@@ -225,6 +279,17 @@ def main(argv=None):
     ap.add_argument("--summaries", nargs="+", default=["identity"],
                     choices=list(list_summaries()),
                     help="campaign summary-statistic grid axis")
+    # forecast mode
+    ap.add_argument("--forecast", type=int, default=0, metavar="DAYS",
+                    help="after fitting, simulate the accepted particles DAYS past the "
+                         "horizon and emit posterior-predictive credible bands as strict "
+                         "JSON")
+    ap.add_argument("--forecast-schedule", default="",
+                    help="counterfactual schedule for the forecast (fixed scales only); "
+                         "default: forecast under the FIT schedule; 'none': forecast "
+                         "with interventions lifted")
+    ap.add_argument("--forecast-out", default="",
+                    help="path for the forecast JSON (default: stdout)")
     args = ap.parse_args(argv)
     if args.regions < 1:
         ap.error("--regions must be >= 1")
@@ -284,6 +349,20 @@ def main(argv=None):
     if args.save_posterior:
         post.save(args.save_posterior)
         print(f"[abc] posterior saved to {args.save_posterior}")
+    if args.forecast:
+        if args.forecast_schedule:
+            # an explicit counterfactual; "none" lifts every intervention
+            fc_sched = parse_intervention(args.forecast_schedule) or EMPTY_SCHEDULE
+        else:
+            fc_sched = None  # forecast under the fit schedule
+        bands = posterior_forecast(post.theta, ds, cfg, args.forecast, schedule=fc_sched,
+                                   key=args.seed + 1, device=args.device)
+        text = json.dumps(bands, indent=1, allow_nan=False)
+        if args.forecast_out:
+            atomic_write_text(args.forecast_out, text)
+            print(f"[abc] forecast bands saved to {args.forecast_out}")
+        else:
+            print(text)
     return post
 
 

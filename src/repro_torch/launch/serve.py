@@ -1,27 +1,36 @@
-"""LM serving: a continuous-batching slot scheduler for decode.
-
-Counterpart of `repro.launch.serve` (LM mode, `:42-153`):
+"""Serving: LM decode with continuous batching, and epidemiology forecast
+queries (`--epi`). Counterpart of `repro.launch.serve`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke \
         --device cpu --requests 8 --prompt-len 16 --gen 8
 
-A static batch of slots; requests are slotted in and out of it; each slot
-advances at its own position, writing and attending its own cache prefix,
-and a slot's cache lanes are zeroed when a request is admitted into it. So
-batched outputs equal serving each request alone, token for token.
+    # answer forecast / counterfactual queries from cached SMC-ABC fits
+    # (fitted on demand, through the abc_sim kernel on the card)
+    PYTHONPATH=src python -m repro_torch.launch.serve --epi \
+        --queries queries.json --store store/ --out responses.json
 
-Epidemiology mode (`--epi`) is not ported yet.
+LM mode: a static batch of slots; requests are slotted in and out of it;
+each slot advances at its own position, writing and attending its own cache
+prefix, and a slot's cache lanes are zeroed when a request is admitted into
+it. So batched outputs equal serving each request alone, token for token.
+
+`--epi` mode (`core.serving.EpiServer`): queries that share a forecast
+shape are answered `--slots` lanes at a time in one batched call; the
+posteriors come from memory, the `--store`, or an on-demand fit.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.ioutils import atomic_write_text
 from repro_torch.models.registry import get_model
 
 
@@ -120,6 +129,71 @@ def run_lm_cli(args) -> dict:
             "tok_per_s": steps * args.slots / dt, "outputs": outputs, "device": where}
 
 
+# ---------------------------------------------------------------- epi mode
+def _load_queries(path: str):
+    from repro_torch.core.serving import ForecastQuery
+
+    with open(path) as f:
+        raw = json.load(f)
+    if isinstance(raw, dict):
+        raw = raw["queries"]
+    if not isinstance(raw, list) or not raw:
+        raise SystemExit(f"--queries {path!r}: expected a non-empty list")
+    return [ForecastQuery.from_json(q) for q in raw]
+
+
+def run_epi_cli(args):
+    """Answer `--queries` with an `EpiServer` on `--device`; returns the
+    number of responses."""
+    from repro_torch.core.serving import EpiServer, ServeConfig
+    from repro_torch.core.smc import SMCConfig
+
+    if not args.queries:
+        raise SystemExit("--epi requires --queries FILE.json")
+    queries = _load_queries(args.queries)
+    cfg = ServeConfig(
+        slots=args.slots,
+        forecast_particles=args.particles,
+        fit=SMCConfig(
+            n_particles=args.fit_particles,
+            batch_size=args.fit_batch,
+            n_rounds=args.fit_rounds,
+            quantile=args.fit_quantile,
+            num_days=args.days,
+            backend=args.fit_backend,
+            wave_loop="device",
+        ),
+        fit_seed=args.seed,
+        data_dir=args.data_dir or None,
+        store_dir=args.store or None,
+        fit_backend=args.backend,
+    )
+    server = EpiServer(cfg, device=args.device)
+    t0 = time.time()
+    responses = server.answer(queries)
+    stats = server.stats()
+    stats["wall_time_s"] = time.time() - t0
+    text = json.dumps(
+        {"responses": responses, "stats": stats}, indent=1, allow_nan=False
+    )
+    if args.out:
+        atomic_write_text(args.out, text)
+        print(f"[serve] {len(responses)} responses saved to {args.out}",
+              file=sys.stderr)
+    else:
+        print(text)
+    print(
+        f"[serve --epi] {len(responses)} queries, {stats['fits']} fits "
+        f"({stats['warm_fits']} warm), {stats['npe_trains']} npe trains "
+        f"({stats['npe_fine_tunes']} fine-tunes), "
+        f"{stats['batched_calls']} batched "
+        f"calls over {stats['compiled_shapes']} compiled shapes, "
+        f"{stats['wall_time_s']:.2f}s",
+        file=sys.stderr,
+    )
+    return len(responses)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None,
@@ -128,16 +202,46 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4, help="decode batch slots")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode batch slots (LM) / query lanes per batched call (--epi)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # epidemiology serving
     ap.add_argument("--epi", action="store_true",
-                    help="epidemiology serving: not ported yet")
+                    help="serve epidemiology posterior queries instead of an LM: answer "
+                         "a batch of forecast/counterfactual queries from cached SMC-ABC "
+                         "posteriors")
+    ap.add_argument("--queries", default="",
+                    help="JSON file: list of query objects (dataset, model, horizon, "
+                         "schedule, quantiles, seed), or {'queries': [...]}")
+    ap.add_argument("--data-dir", default="",
+                    help="directory of <name>.json dataset files (bundled registry "
+                         "datasets resolve otherwise)")
+    ap.add_argument("--store", default="",
+                    help="posterior-store directory (persist fits across invocations; "
+                         "the abc_serve daemon refreshes it)")
+    ap.add_argument("--out", default="", help="response JSON path (default: stdout)")
+    ap.add_argument("--particles", type=int, default=128,
+                    help="posterior particles per forecast")
+    ap.add_argument("--days", type=int, default=21,
+                    help="SMC fit window (days of observed data)")
+    ap.add_argument("--fit-particles", type=int, default=128)
+    ap.add_argument("--fit-batch", type=int, default=4096)
+    ap.add_argument("--fit-rounds", type=int, default=3)
+    ap.add_argument("--fit-quantile", type=float, default=0.5)
+    ap.add_argument("--fit-backend", default="cuda", choices=["cuda"],
+                    help="simulation backend of the SMC waves (the port's one backend: "
+                         "the CUDA kernel, its plain version on the CPU)")
+    ap.add_argument("--backend", default="smc", choices=["smc", "npe"],
+                    help="on-demand fit mechanism (--epi): SMC-ABC waves; npe is not "
+                         "ported yet and raises")
+    ap.add_argument("--seed", type=int, default=0, help="fit seed (--epi)")
     args = ap.parse_args(argv)
     if args.epi:
-        raise NotImplementedError("serve --epi is not yet ported to repro_torch; "
-                                  "use repro.launch.serve --epi")
+        if args.arch:
+            ap.error("--arch has no effect with --epi")
+        return run_epi_cli(args)
     if not args.arch:
-        ap.error("--arch is required (LM mode)")
+        ap.error("--arch is required (LM mode); or pass --epi")
     return run_lm_cli(args)
 
 

@@ -532,3 +532,69 @@ def test_checkpoint_from_the_port_loads_in_repro(tmp_path):
     restored, meta, step = jckpt.load_checkpoint(tmp_path, t)
     assert step == 7 and meta == META
     _assert_tree_equal({k: np.asarray(v) for k, v in restored.items()}, t)
+
+
+# ---------------------------------------------------------- checkpoint cadence
+#: cells that run past 32 waves (ROADMAP.md's reproduction of the cadence
+#: fault: batch 256, 10 days, target 120, quantile 0.005, pilot 1024)
+CADENCE = dict(datasets=("italy", "synthetic_small"), models=("siard",), batch_size=256,
+               num_days=10, target_accepted=120, auto_quantile=0.005, pilot_size=1024,
+               max_runs=100)
+
+
+@pytest.fixture(scope="module")
+def cadence(tmp_path_factory):
+    """The cadence campaign under checkpoint_every 0, 16 and 32, with the
+    step of every checkpoint each cell wrote."""
+    out = {}
+    for every in (0, 16, 32):
+        saved = {}
+        real = Checkpointer.save_async
+
+        def spy(self, step, tree, metadata=None):
+            saved.setdefault(self.directory.name, []).append(step)
+            return real(self, step, tree, metadata)
+
+        Checkpointer.save_async = spy
+        try:
+            cfg = CampaignConfig(out_dir=str(tmp_path_factory.mktemp(f"every{every}")),
+                                 checkpoint_every=every, **CADENCE)
+            report = run_campaign(cfg, device="cpu")
+        finally:
+            Checkpointer.save_async = real
+        out[every] = (cfg, report, saved)
+    return out
+
+
+@pytest.mark.parametrize("every", [0, 16, 32])
+def test_campaign_checkpoints_at_repros_cadence(cadence, every):
+    """repro's contract (src/repro/core/campaign.py:148-150): a checkpoint at
+    each multiple of checkpoint_every and at the finishing run; with 0 only
+    at the finishing run."""
+    _, report, saved = cadence[every]
+    for r in report.scenarios:
+        assert r.status == "ok" and r.runs > 32, (r.name, r.status, r.runs)
+        want = [s for s in range(every, r.runs, every)] if every else []
+        assert saved[r.name] == want + [r.runs], (r.name, saved[r.name])
+
+
+@pytest.mark.parametrize("every", [0, 16, 32])
+@pytest.mark.parametrize("dataset", CADENCE["datasets"])
+def test_cadence_cells_equal_their_solo_runs(cadence, every, dataset):
+    """Whatever the cadence, a cell is bitwise its solo run."""
+    cfg, report, _ = cadence[every]
+    r = next(s for s in report.scenarios if s.dataset == dataset)
+    ds = get_dataset(dataset, num_days=cfg.num_days)
+    solo_cfg = tabc.ABCConfig(
+        batch_size=cfg.batch_size, tolerance=1.0, target_accepted=cfg.target_accepted,
+        strategy="outfeed", chunk_size=cfg.batch_size, max_runs=cfg.max_runs,
+        num_days=cfg.num_days, wave_loop="device")
+    eps = tabc.calibrate_tolerance(ds, solo_cfg, seed=0, quantile=cfg.auto_quantile,
+                                   n_pilot=cfg.pilot_size, device="cpu")
+    solo = tabc.run_abc(ds, dataclasses.replace(solo_cfg, tolerance=eps), seed=0,
+                        device="cpu")
+    assert (eps, solo.runs, solo.simulations, len(solo)) == (
+        r.tolerance, r.runs, r.simulations, r.n_accepted)
+    theta, dist = _cell_rows(cfg, r)
+    np.testing.assert_array_equal(_bits(theta), _bits(solo.theta))
+    np.testing.assert_array_equal(_bits(dist), _bits(solo.distances))

@@ -917,3 +917,91 @@ def test_the_smc_device_round_accepts_at_or_below_eps_on_the_card(cuda):
     post = tsmc.run_smc_abc(ds, cfg, seed=2, device=cuda)
     assert all(a > b for a, b in zip(post.round_eps, post.round_eps[1:]))
     assert len(post) == 200 and np.isfinite(post.theta).all()
+
+
+def _forecast_server(cuda, slots=3):
+    """An EpiServer on the card holding prior samples as Italy's SIARD
+    posterior (forecasting is fit-agnostic: no fit runs)."""
+    from repro_torch.core.posterior import Posterior
+    from repro_torch.core.serving import EpiServer, ServeConfig
+    from repro_torch.core.smc import SMCConfig
+
+    server = EpiServer(ServeConfig(slots=slots, forecast_particles=64,
+                                   fit=SMCConfig(num_days=21, wave_loop="device")), cuda)
+    spec = get_model("siard")
+    theta = spec.prior().sample(5, 200, "cpu").numpy()
+    post = Posterior(theta=theta, distances=np.arange(200, dtype=np.float32), tolerance=1.0,
+                     param_names=spec.param_names)
+    server.preload("italy", "siard", post)
+    return server, post
+
+
+def test_batched_forecasts_equal_sequential_ones_on_the_card(cuda):
+    """8 queries over 2 shapes at 3 slots (a padded final chunk each): every
+    response dict-equal to sequential forecast_bands on the card, no fit, 4
+    batched calls over 2 entries; each lane of a batched trajectory bitwise
+    simulate_observed for that lane alone."""
+    from repro_torch.core.serving import ForecastQuery, forecast_seed
+    from repro_torch.epi import engine
+    from repro_torch.epi.spec import EpiModelConfig
+    from repro_torch.launch.abc_run import parse_intervention, posterior_forecast
+
+    server, post = _forecast_server(cuda)
+    sched = parse_intervention("alpha@10=0.5")
+    queries = ([ForecastQuery(dataset="italy", horizon=14, seed=s) for s in range(4)]
+               + [ForecastQuery(dataset="italy", horizon=14, schedule=sched, seed=s)
+                  for s in range(4)])
+    responses = server.answer(queries)
+    assert (server.fits, server.batched_calls, server.kernels.n_compiled) == (0, 4, 2)
+    ds, _ = server.dataset("italy", "siard")
+    acfg = tabc.ABCConfig(num_days=21)
+    for q, resp in zip(queries, responses):
+        assert resp == posterior_forecast(post.theta, ds, acfg, q.horizon, schedule=q.schedule,
+                                          key=q.seed, max_particles=64, device=cuda)
+    # one batched call of two lanes against each lane alone
+    spec = get_model("siard")
+    _, batched = server.kernels.get(spec, 35, 64, 9, sched)
+    theta = np.concatenate([post.theta[:128], np.full((128, 1), 0.5, np.float32)], axis=1)
+    theta = theta.reshape(2, 64, 9)
+    scalars = np.asarray([[ds.population, ds.a0, ds.r0, ds.d0],
+                          [4.917e6, 102.0, 0.0, 0.0]], np.float32)
+    seeds = [forecast_seed(1), forecast_seed(2)]
+    traj = batched(torch.from_numpy(theta).to(cuda), torch.tensor(seeds),
+                   *torch.from_numpy(scalars).T, torch.tensor([[10], [10]]))
+    for lane in range(2):
+        pop, a0, r0, d0 = (float(x) for x in scalars[lane])
+        solo = engine.simulate_observed(
+            spec, torch.from_numpy(theta[lane]).to(cuda), seeds[lane],
+            EpiModelConfig(population=pop, num_days=35, a0=a0, r0=r0, d0=d0), sched)
+        assert torch.equal(traj[lane], solo), lane
+
+
+def test_forecast_replays_through_the_theta_in_entry(cuda):
+    """Particle 0's forecast over the fit window, fed as the observed series
+    to the theta-in entry at the same theta, the forecast's seed and the
+    dataset's scalars, gives particle 0 a distance of exactly 0 and every
+    other particle numpy's Euclidean norm of its difference (rtol 1e-6):
+    the forecast core runs the kernel's stream."""
+    from repro_torch.core.serving import (
+        ForecastKernelCache, _breakpoint_arg, _scalars, forecast_seed)
+    from repro_torch.launch.abc_run import parse_intervention
+
+    spec = get_model("siard")
+    ds = data.get_dataset("italy", num_days=49)
+    for sched in (None, parse_intervention("alpha0@20=0.5")):
+        theta = spec.prior().sample(8, 1000, "cpu").numpy()
+        if sched is not None:
+            theta = np.concatenate([theta, np.full((1000, 1), 0.5, np.float32)], axis=1)
+        seed = forecast_seed(3)
+        single, _ = ForecastKernelCache().get(spec, 63, 1000, theta.shape[1], sched)
+        th = torch.from_numpy(theta).to(cuda)
+        traj = single(th, seed, *_scalars(ds), _breakpoint_arg(sched)).cpu().numpy()
+        fit = traj[:, :, :49]
+        launches = abc_sim.launches("distance")
+        dist = ops.abc_sim_distance(th, seed, torch.from_numpy(fit[0]).to(cuda), model=spec,
+                                    population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0,
+                                    schedule=sched).cpu().numpy()
+        assert abc_sim.launches("distance") == launches + 1
+        assert dist[0] == 0.0
+        want = np.sqrt(((fit.astype(np.float64) - fit[0]) ** 2).sum(axis=(1, 2)))
+        np.testing.assert_allclose(dist[1:], want[1:], rtol=1e-6, atol=0)

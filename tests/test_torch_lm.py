@@ -347,7 +347,7 @@ def test_serve_cli_on_the_cpu(capsys):
     assert stats["requests"] == 3 and stats["steps"] == 10 and stats["device"] == "CPU"
     assert all(len(o) == 2 for o in stats["outputs"])
     assert "[serve] 3 requests, 10 decode steps" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(SystemExit, match="--epi requires --queries"):
         tserve.main(["--epi"])
 
 
