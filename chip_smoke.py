@@ -148,6 +148,31 @@ printing one JSON line:
              fit's; (d) tests/check_epi_serve.py's sir toy: 1 fit (which
              launches abc_sim_distance_sir), 8 queries from the store in at
              most 2 batched calls with 0 fits, bands that do not cross
+  npe_path   the amortized backend (`core.npe`, plain PyTorch: `repro`'s
+             NPE path reaches no Pallas kernel), each NPE part counted from
+             0 and held to no abc_sim launch and no plain-version call: (a)
+             `npe_demo` (sir, 15 days; hidden 64, 4 components, batch 256,
+             300 steps, pilot 512) trained twice with seed 0, weights and
+             256 draws bitwise equal; the card's weights on the CPU: the
+             forward (log_pi, mu, sigma) within rtol 1e-5, atol 1e-5,
+             log_prob at the draws within rtol 1e-5, atol 1e-4 (a narrow
+             component carries mu's rounding times 1/sigma) and the draws
+             within atol 1e-5 of the card's; the train wall, a step's wall, kernel
+             launches, device busy time and idle share (torch.profiler; the
+             simulation alone apart), no host sync in a step
+             (torch.cuda.set_sync_debug_mode), and
+             `sample_posterior`'s ms for 256 draws; (b)
+             tests/test_posterior_recovery.py's bars for sir and seir on the
+             port's own series at its truth, population and days: REL_TOL
+             0.30, and against the port's CUDA ABC oracle (quantile 5e-3,
+             its launches listed apart) ORACLE_DRIFT 0.25 and overlapping
+             90% intervals; (c) `abc_serve --once --backend npe` (1 train),
+             a second server (0 trains, from the store), a version change
+             (1 fine-tune), then `serve --epi --backend npe` from the store
+             (4 answers, 0 trains), fits 0 throughout with the SMC fitter
+             made to fail; (d) `abc_run --backend npe` on main_path's SIARD
+             series (Italy, 49 days) at npe_demo's width, its steps cut to
+             `NPE_SIARD_STEPS` (printed)
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
@@ -186,7 +211,8 @@ printing one JSON line:
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path and
-             epi_serve, and its ms), its
+             epi_serve, and its ms; npe_path's launches, 0 in its fits and
+             the ABC oracle's apart), its
              region axis on the thread route (all four regional entries of
              both routes, with their launches on metapop_path, regions_path
              and campaign_path, the R=100 times at both batches and the route
@@ -898,6 +924,288 @@ def epi_serve_phase(dev, name: str, smi: str) -> tuple:
              1 for c in comparisons if c.get("bitwise_equal") or c.get("dict_equal")),
          kind=name, nvidia_smi=smi)
     return launched, gated
+
+
+#: tests/test_posterior_recovery.py's recovery fixtures (truth, population
+#: 1e6, 15 days, a0 100, seed 11) and bars, for phase npe_path (b)
+NPE_TRUTH = {"sir": (0.5, 0.2, 1.0), "seir": (0.6, 0.3, 0.2, 1.0)}
+NPE_REL_TOL, NPE_ORACLE_DRIFT = 0.30, 0.25
+#: training steps of phase npe_path (d), SIARD on Italy at 49 days and
+#: npe_demo's width: cut from npe_demo's 300 to keep the phase near a minute
+NPE_SIARD_STEPS = 50
+#: training steps a profiled call of phase npe_path
+NPE_PROFILED_STEPS = 5
+
+
+def npe_phase(dev, name: str, smi: str) -> dict:
+    """Phase npe_path: the amortized backend (`core.npe`) on the card, no
+    kernel of its own. Returns the abc_sim launches of its NPE fits (0) and
+    of the ABC oracle, apart."""
+    import dataclasses
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch.configs.epi_abc import npe_demo, npe_serving_demo
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import npe as tnpe
+    from repro_torch.core import serving
+    from repro_torch.core.serving import load_dataset_file, save_dataset_file
+    from repro_torch.epi import data, engine
+    from repro_torch.epi.models import get_model
+    from repro_torch.launch import abc_run, abc_serve, serve
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, tree_leaves, tree_map
+
+    out, fit_launches, oracle_launches = {}, {}, {}
+
+    def no_launch(part, counts):
+        """Raise unless an NPE part launched no abc_sim entry and called no
+        plain version of it."""
+        for k, v in counts["entries"].items():
+            fit_launches[k] = fit_launches.get(k, 0) + v
+        if counts["entries"] or counts["plain_calls"]:
+            raise AssertionError(f"npe_path {part}: abc_sim launches {counts['entries']}, "
+                                 f"plain calls {counts['plain_calls']}; an NPE fit makes none")
+
+    # (a) npe_demo twice with one seed: bitwise equal weights and draws; the
+    # card's weights on the CPU against the card
+    wl = npe_demo("sir", 15)
+    cfg, ds = wl.abc, wl.load_dataset()
+    obs = ds.observed[:, : cfg.num_days]
+    trained = []
+    for _ in range(2):
+        est, counts = counted(lambda: tnpe.train_npe(ds, cfg, seed=0, device=dev))
+        no_launch("a", counts)
+        trained.append((est, counts))
+    (e1, c1), (e2, c2) = trained
+    d1, d2 = (e.sample_posterior(obs, 256, seed=0) for e in (e1, e2))
+    comparisons = [bitwise(f"npe_path a leaf {i} of two trainings", a, b) for i, (a, b) in
+                   enumerate(zip(tree_leaves(e1.params), tree_leaves(e2.params)))]
+    comparisons += [bitwise("npe_path a 256 draws of two trainings", d1.theta, d2.theta),
+                    bitwise("npe_path a -log q of two trainings", d1.distances, d2.distances)]
+    if e1.final_loss != e2.final_loss or not np.isfinite(e1.final_loss):
+        raise AssertionError(f"npe_path a: final losses {e1.final_loss}, {e2.final_loss}")
+    e_cpu = dataclasses.replace(e1, params=tree_map(lambda t: t.cpu(), e1.params))
+    x = torch.from_numpy(e1.features_of(obs))
+    for part, got, want in zip(("log_pi", "mu", "sigma"),
+                               tnpe.mdn_forward(e1.params, x.to(dev), e1.npe, e1.n_params),
+                               tnpe.mdn_forward(e_cpu.params, x, e1.npe, e1.n_params)):
+        comparisons.append(compare(f"npe_path a {part}, card vs CPU forward", got, want,
+                                   rtol=1e-5, atol=1e-5))
+    # log q at the draws: a trained component's sigma is ~0.01-0.05 of the
+    # box, so (theta - mu) / sigma carries mu's float32 rounding times
+    # 1/sigma into z^2; atol 1e-4 is ~5x the largest such difference seen
+    comparisons.append(compare("npe_path a log_prob at the draws, card vs CPU forward",
+                               e1.log_prob(obs, d1.theta), e_cpu.log_prob(obs, d1.theta),
+                               rtol=1e-5, atol=1e-4))
+    comparisons.append(compare("npe_path a 256 draws, card vs CPU", d1.theta,
+                               e_cpu.sample_posterior(obs, 256, seed=0).theta, rtol=0.0,
+                               atol=1e-5))
+    sample_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        e1.sample_posterior(obs, 256, seed=1)
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+    s_wall, s_busy, s_ops = profile_device_ms(lambda: e1.sample_posterior(obs, 256, seed=1))
+
+    # one training step alone: wall by the clock, then under the profiler
+    # (kernels a step, device busy time, idle share), the simulation apart
+    spec, prior, mcfg, mob, summary, npe_cfg = tnpe._train_setup(ds, cfg, None)
+    opt_cfg = AdamWConfig(lr=npe_cfg.lr, weight_decay=npe_cfg.weight_decay,
+                          warmup_steps=max(1, npe_cfg.train_steps // 20),
+                          total_steps=npe_cfg.train_steps)
+    step = tnpe._make_train_step(spec, prior, mcfg, cfg.schedule, summary, mob, npe_cfg,
+                                 opt_cfg, e1.lows, e1.highs, e1.feat_mean, e1.feat_std, dev)
+    carry = [e1.params, adamw_init(e1.params)]
+
+    def steps(n=NPE_PROFILED_STEPS, first=1):
+        for i in range(n):
+            carry[0], carry[1], _ = step(carry[0], carry[1], *tnpe.step_seeds(1, first + i))
+
+    def simulations(n=NPE_PROFILED_STEPS):
+        with torch.no_grad():
+            for i in range(n):
+                p_seed, s_seed = tnpe.step_seeds(2, i + 1)
+                engine.simulate_features(spec, prior.sample(p_seed, npe_cfg.train_batch, dev),
+                                         s_seed, mcfg, cfg.schedule, None, summary, mob)
+
+    steps(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps(20, 10)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    p_wall, p_busy, p_ops = profile_device_ms(steps)
+    q_wall, q_busy, q_ops = profile_device_ms(simulations)
+
+    def kernels(by_op):
+        return sum(c for k, c, _ in by_op if "Memcpy" not in k and "Memset" not in k)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            steps(1, 100)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:120] for w in caught if "synchroniz" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"npe_path a: one training step synchronized the host "
+                             f"{len(syncs)} times: {syncs[:3]}")
+    n = NPE_PROFILED_STEPS
+    out["a_npe_demo"] = {
+        "config": dataclasses.asdict(npe_cfg), "model": "sir", "days": cfg.num_days,
+        "train_wall_s": [c1["wall_s"], c2["wall_s"]], "final_loss": e1.final_loss,
+        "train_sims": e1.train_sims, "prior_draws_on_card": c1["host_prior_draws"],
+        "bitwise_equal_trainings": True,
+        "step_ms": step_ms,
+        "step_profile": {"steps": n, "wall_ms": p_wall / n, "device_busy_ms": p_busy / n,
+                         "device_idle_share": 1 - p_busy / p_wall,
+                         "kernel_launches": kernels(p_ops) / n,
+                         "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                                            for k, c, ms in p_ops[:8]]},
+        "simulation_profile": {"wall_ms": q_wall / n, "device_busy_ms": q_busy / n,
+                               "kernel_launches": kernels(q_ops) / n,
+                               "kernel_launches_per_day": kernels(q_ops) / n / cfg.num_days},
+        "host_syncs_in_one_step": len(syncs),
+        "sample_posterior_256_ms": sample_ms,
+        "sample_profile": {"wall_ms": s_wall, "device_busy_ms": s_busy,
+                           "device_idle_share": 1 - s_busy / s_wall,
+                           "kernel_launches": kernels(s_ops)}}
+
+    # (b) the recovery bars of tests/test_posterior_recovery.py on the port's
+    # own series, against the port's CUDA ABC oracle at quantile 5e-3
+    npe_test = tnpe.NPEConfig(train_steps=300, train_batch=256, n_pilot=256)
+    out["b_recovery"] = {}
+    for m in ("sir", "seir"):
+        spec_m = get_model(m)
+        ds_m = data.synthetic_dataset(theta=NPE_TRUTH[m], population=1e6, num_days=15,
+                                      a0=100.0, seed=11, name=f"recovery_{m}", model=m)
+        ncfg = tabc.ABCConfig(num_days=15, backend="npe", model=m, target_accepted=256,
+                              npe=npe_test)
+        npe_post, counts = counted(lambda: tabc.run_abc(ds_m, ncfg, seed=0, device=dev))
+        no_launch(f"b {m}", counts)
+        ocfg = tabc.ABCConfig(batch_size=4096, chunk_size=4096, num_days=15, model=m,
+                              tolerance=1.0, max_runs=60, target_accepted=60)
+
+        def oracle():
+            eps = tabc.calibrate_tolerance(ds_m, ocfg, seed=5, quantile=5e-3, n_pilot=4096,
+                                           device=dev)
+            return tabc.run_abc(ds_m, dataclasses.replace(ocfg, tolerance=eps), seed=0,
+                                device=dev)
+
+        abc_post, ocounts = counted(oracle)
+        for k, v in ocounts["entries"].items():
+            oracle_launches[k] = oracle_launches.get(k, 0) + v
+        lo, hi = np.asarray(spec_m.prior().lows), np.asarray(spec_m.prior().highs)
+        width, truth = hi - lo, np.asarray(NPE_TRUTH[m])
+        err = np.abs(npe_post.theta.mean(0) - truth) / width
+        prior_err = np.abs((hi + lo) / 2 - truth) / width
+        drift = np.abs(npe_post.theta.mean(0) - abc_post.theta.mean(0)) / width
+        overlap = [min(np.quantile(npe_post.theta[:, j], 0.95),
+                       np.quantile(abc_post.theta[:, j], 0.95))
+                   - max(np.quantile(npe_post.theta[:, j], 0.05),
+                         np.quantile(abc_post.theta[:, j], 0.05)) for j in range(len(truth))]
+        row = {"npe_mean": npe_post.theta.mean(0).tolist(),
+               "abc_mean": abc_post.theta.mean(0).tolist(), "truth": list(truth),
+               "err_over_width": err.tolist(), "drift_over_width": drift.tolist(),
+               "overlap_90": [float(o) for o in overlap], "npe_wall_s": counts["wall_s"],
+               "oracle_wall_s": ocounts["wall_s"], "oracle_accepted": len(abc_post),
+               "oracle_tolerance": abc_post.tolerance, "oracle_launches": ocounts["entries"]}
+        out["b_recovery"][m] = row
+        if not ((err <= NPE_REL_TOL).all() and err.mean() < prior_err.mean()
+                and (drift <= NPE_ORACLE_DRIFT).all() and min(overlap) > 0
+                and len(abc_post) >= 60 and npe_post.runs == 0
+                and npe_post.theta.shape == (256, len(truth))
+                and np.isfinite(npe_post.distances).all()):
+            raise AssertionError(f"npe_path b {m}: {row}")
+
+    # (c) abc_serve --once --backend npe, a second server, a version change,
+    # then serve --epi from the store; no wave fit may run
+    root = os.path.join(ROOT, "build", "npe_path")
+    shutil.rmtree(root, ignore_errors=True)
+    data_c, store_c = os.path.join(root, "data"), os.path.join(root, "store")
+    path = os.path.join(data_c, "served.json")
+    save_dataset_file(path, data.synthetic_dataset(
+        theta=(0.5, 0.2, 1.0), population=1e6, num_days=15, a0=100.0, seed=3, name="served",
+        model="sir"))
+    demo = npe_serving_demo()  # the daemon at its template's steps, window and particles
+    daemon = ["--once", "--data-dir", data_c, "--store", store_c, "--models", "sir", "--days",
+              str(demo.fit.num_days), "--fit-particles", str(demo.fit.n_particles),
+              "--backend", "npe", "--npe-steps", str(demo.npe.train_steps),
+              "--npe-fine-tune", str(demo.npe.fine_tune_steps), "--device", "cuda"]
+    servers, real_server, real_smc = [], serving.EpiServer, serving.run_smc_abc
+
+    class Recorded(real_server):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            servers.append(self)
+
+    def no_waves(*a, **k):
+        raise AssertionError("npe_path c: the NPE server entered the SMC wave fitter")
+
+    qpath, rpath = os.path.join(root, "queries.json"), os.path.join(root, "responses.json")
+    with open(qpath, "w") as f:
+        json.dump([{"dataset": "served", "model": "sir", "horizon": 7, "seed": s}
+                   for s in range(4)], f)
+    serving.EpiServer, serving.run_smc_abc = Recorded, no_waves
+    try:
+        refits, parts = [], []
+        for part in ("cold", "second server", "version change"):
+            if part == "version change":
+                changed = load_dataset_file(path)
+                o = changed.observed.copy()
+                o[:, -1] += 1.0
+                save_dataset_file(path, dataclasses.replace(changed, observed=o))
+            r, counts = counted(lambda: abc_serve.main(daemon))
+            no_launch(f"c {part}", counts)
+            refits.append(r)
+            parts.append({"part": part, "refits": r, "wall_s": counts["wall_s"],
+                          "stats": servers[-1].stats()})
+        n_resp, counts = counted(lambda: serve.main(
+            ["--epi", "--device", "cuda", "--queries", qpath, "--data-dir", data_c, "--store",
+             store_c, "--days", str(demo.fit.num_days), "--fit-particles",
+             str(demo.fit.n_particles), "--particles", "64",
+             "--backend", "npe", "--out", rpath]))
+        no_launch("c serve --epi", counts)
+        with open(rpath) as f:
+            payload = strict_loads(f.read())
+    finally:
+        serving.EpiServer, serving.run_smc_abc = real_server, real_smc
+    stats = [p["stats"] for p in parts] + [payload["stats"]]
+    got = [(s["npe_trains"], s["npe_fine_tunes"], s["fits"]) for s in stats]
+    if refits != [1, 0, 1] or got != [(1, 0, 0), (0, 0, 0), (0, 1, 0), (0, 0, 0)] or n_resp != 4:
+        raise AssertionError(f"npe_path c: refits {refits}, (trains, fine-tunes, fits) {got}, "
+                             f"{n_resp} responses")
+    for i, resp in enumerate(payload["responses"]):
+        check_bands(f"npe_path c response {i}", resp, demo.fit.num_days, demo.fit.num_days + 7)
+    out["c_serving"] = {"argv": daemon, "parts": parts, "serve_epi_wall_s": counts["wall_s"],
+                        "serve_epi_stats": payload["stats"]}
+    shutil.rmtree(root, ignore_errors=True)
+
+    # (d) abc_run --backend npe on main_path's SIARD series at npe_demo's width
+    argv = ["--backend", "npe", "--dataset", "italy", "--days", "49", "--model", "siard",
+            "--accept", "256", "--npe-steps", str(NPE_SIARD_STEPS), "--npe-batch", "256",
+            "--npe-hidden", "64", "--npe-components", "4", "--seed", "0", "--device", "cuda"]
+    post, counts = counted(lambda: abc_run.main(argv))
+    no_launch("d", counts)
+    box = get_model("siard").prior()
+    lo, hi = np.asarray(box.lows), np.asarray(box.highs)
+    if (post.runs, len(post), post.tolerance) != (0, 256, 0.0) or not (
+            np.isfinite(post.theta).all() and np.isfinite(post.distances).all()
+            and (post.theta >= lo).all() and (post.theta <= hi).all()):
+        raise AssertionError(f"npe_path d: {len(post)} draws, runs {post.runs}")
+    out["d_siard_italy"] = {"argv": argv, "steps_cut": {"npe_demo": 300,
+                                                        "used": NPE_SIARD_STEPS},
+                            "wall_s": counts["wall_s"], "simulations": post.simulations,
+                            "posterior_mean": post.theta.mean(0).tolist()}
+    emit("npe_path", **out, npe_fit_abc_sim_launches=sum(fit_launches.values()),
+         oracle_launches_by_entry=oracle_launches, comparisons=comparisons,
+         kind=name, nvidia_smi=smi)
+    return {"npe_fit_launches": sum(fit_launches.values()),
+            "oracle_launches_by_entry": oracle_launches}
 
 
 def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
@@ -2036,6 +2344,9 @@ def main() -> int:
     # ---- epi_serve: serve --epi and abc_serve, fits through the theta-in entries
     path_launches["epi_serve"], path_gated["epi_serve"] = epi_serve_phase(dev, name, smi)
 
+    # ---- npe_path: the amortized backend; its fits launch no abc_sim entry
+    npe_counts = npe_phase(dev, name, smi)
+
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version
     lowered = lower_summary(get_summary(None), "euclidean", ob_it)
@@ -2266,6 +2577,7 @@ def main() -> int:
         "bound_ms": main_cell["wave_bound_ms"], "bound_by": main_cell["bound_by"],
         "issue_floor_ms": (main_cell["issue_floor"]["wave"] or {}).get("floor_ms"),
         "library_ms": None,
+        "npe_path": npe_counts,
     }
     cell = {(c["regions"], c["batch"]): c for c in regional_cells}
     r4, r100 = cell[(4, 100_000)], cell[(100, 100_000)]

@@ -16,7 +16,10 @@ The port imports nothing of `repro`; what crosses is plain data:
   * `theta_to_soa` lays a [B, P] parameter batch out as the kernel's
     structure of arrays [P, B];
   * `decoder_params_from_arrays` turns `repro`'s decoder parameter tree
-    (numpy arrays) into the port's parameters.
+    (numpy arrays) into the port's parameters;
+  * `mdn_params_from_arrays` does the same for the NPE estimator's MDN,
+    from its leaves in `jax.tree.leaves` order (the order of an estimator
+    file's `leaf_%03d` arrays).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.abc import ABCState
+from repro_torch.core.npe import NPEConfig, mdn_template
 from repro_torch.core.posterior import Posterior
 from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
@@ -34,9 +38,10 @@ from repro_torch.epi.spec import InterventionSchedule
 from repro_torch.kernels.abc_sim import theta_to_soa
 from repro_torch.models import common as cm
 from repro_torch.models.decoder import DecoderConfig, check_supported
+from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 __all__ = ["country_data_from_arrays", "decoder_params_from_arrays", "load_npz",
-           "schedule_from_fields", "theta_to_soa"]
+           "mdn_params_from_arrays", "schedule_from_fields", "theta_to_soa"]
 
 
 def country_data_from_arrays(
@@ -142,3 +147,19 @@ def decoder_params_from_arrays(cfg: DecoderConfig, tree: Dict[str, Any],
     if not cfg.tie_embed:
         params["unembed"] = leaf("unembed", tree["unembed"])
     return params
+
+
+def mdn_params_from_arrays(leaves: Sequence, cfg: NPEConfig, n_features: int,
+                           n_params: int, device="cpu") -> Dict[str, Any]:
+    """The port's MDN parameters (float32 on `device`) from `repro`'s leaves
+    in `jax.tree.leaves` order: blocks[i].{b1, b2, ln_b, ln_s, w1, w2} for
+    each block, then head_b, head_w, in_b, in_w."""
+    template = mdn_template(n_features, n_params, cfg)
+    want = tree_leaves(template)
+    leaves = [np.asarray(a, np.float32) for a in leaves]
+    if len(leaves) != len(want):
+        raise ValueError(f"expected {len(want)} leaves, got {len(leaves)}")
+    for got, w in zip(leaves, want):
+        if got.shape != tuple(w.shape):
+            raise ValueError(f"leaf shape {got.shape} != expected {tuple(w.shape)}")
+    return tree_unflatten(template, [torch.from_numpy(a.copy()).to(device) for a in leaves])

@@ -2,7 +2,8 @@
 loops (port).
 
 Counterpart of `repro.core.abc` for the "pallas" backend, whose port is the
-"cuda" backend here. Each wave:
+"cuda" backend here, and for the amortized "npe" backend, which `run_abc`
+hands to `core.npe.run_npe` (no waves). Each wave:
 
     theta  ~ prior                      [B, p]   counter-hash draws
     dist   = fused kernel(theta)        [B]      simulate + summary distance
@@ -94,8 +95,9 @@ class ABCConfig:
     top_k: int = 5  # samples returned per wave under "topk"
     max_runs: int = 100_000
     distance: str = "euclidean"
-    #: the one backend of this slice: the fused CUDA kernel on a CUDA
-    #: device, its plain PyTorch version on the CPU
+    #: "cuda": the fused CUDA kernel on a CUDA device, its plain PyTorch
+    #: version on the CPU; "npe": an amortized estimator (`core.npe`), no
+    #: waves
     backend: str = "cuda"
     num_days: int = 49
     #: the model to infer: a registry name (repro_torch.epi.models) or a
@@ -120,6 +122,9 @@ class ABCConfig:
     #: segment) or "auto" (device for "outfeed" when the buffer fits, else
     #: host); both give the same accepted set for the same seed
     wave_loop: str = "auto"
+    #: backend="npe" only: training hyperparameters (`core.npe.NPEConfig`);
+    #: None uses the NPEConfig defaults
+    npe: Optional[object] = None
 
     def __post_init__(self):
         if self.strategy not in ("outfeed", "topk"):
@@ -128,11 +133,20 @@ class ABCConfig:
             raise ValueError("batch_size must be a multiple of chunk_size")
         if self.strategy == "topk" and not 0 < self.top_k <= self.batch_size:
             raise ValueError(f"top_k must be in [1, batch_size], got {self.top_k}")
-        if self.backend != "cuda":
+        if self.backend not in ("cuda", "npe"):
             raise ValueError(
-                f"unknown backend {self.backend!r}; this slice of the port has "
-                "the 'cuda' backend only"
+                f"unknown backend {self.backend!r}; the port has the 'cuda' and "
+                "'npe' backends"
             )
+        if self.npe is not None:
+            from repro_torch.core.npe import resolve_npe_config
+
+            resolve_npe_config(self.npe)  # raises on a wrong type
+            if self.backend != "npe":
+                raise ValueError(
+                    f"cfg.npe is set but backend={self.backend!r}; NPE "
+                    "hyperparameters only apply to backend='npe'"
+                )
         get_distance_kind(self.distance)
         get_summary(self.summary)
         spec = get_model(self.model)
@@ -207,6 +221,11 @@ def make_simulator(dataset: CountryData, cfg: ABCConfig,
                    device="cuda", mob: Optional[torch.Tensor] = None) -> SimulatorFn:
     """The batched theta -> distance function on `device`; `mob` as in
     `ops.make_abc_sim` (a regional model's mobility buffer, shared)."""
+    if cfg.backend == "npe":
+        raise ValueError(
+            "backend='npe' has no theta -> distance simulator; it is an "
+            "amortized estimator — use repro_torch.core.npe.train_npe / run_npe"
+        )
     device = resolve_device(device)
     spec = get_model(cfg.model)
     if not dataset.compatible_with(spec):
@@ -527,7 +546,19 @@ def run_abc(
     """Run waves until `target_accepted` posterior samples or `max_runs`
     waves: on the device loop where `cfg.wave_loop` picks it (or a
     `wave_runner` is given), else on the host loop. Wave i is
-    `wave_seeds(seed, i)` in both."""
+    `wave_seeds(seed, i)` in both. `backend="npe"` runs no waves: it
+    trains an estimator and samples it (`core.npe.run_npe`)."""
+    if cfg.backend == "npe":
+        # the amortized backend has no wave loop: train, then one forward
+        # pass; the wave loop's knobs do not apply
+        if wave_runner is not None or state is not None:
+            raise ValueError(
+                "backend='npe' does not run waves; wave_runner / resumable "
+                "state do not apply"
+            )
+        from repro_torch.core import npe
+
+        return npe.run_npe(dataset, cfg, seed, prior=prior, verbose=verbose, device=device)
     device = resolve_device(device)
     spec = get_model(cfg.model)
     prior = prior or schedule_prior(spec, cfg.schedule)

@@ -9,6 +9,7 @@ the same seed gives the same theta on the CPU and on the card.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -37,10 +38,10 @@ class UniformBoxPrior:
         return len(self.highs)
 
     def _bounds(self, device):
-        return (
-            torch.tensor(self.lows, dtype=torch.float32, device=device),
-            torch.tensor(self.highs, dtype=torch.float32, device=device),
-        )
+        """(lows, highs) as float32 tensors on `device`, copied there once a
+        box and device (callers do not write to them)."""
+        device = torch.device(device)
+        return _box_tensor(self.lows, device), _box_tensor(self.highs, device)
 
     def sample(self, seed: int, batch: int, device="cpu") -> torch.Tensor:
         """[batch, dim] float32 draws for uint32 `seed`, on `device`."""
@@ -74,6 +75,11 @@ class UniformBoxPrior:
     def clip(self, theta: torch.Tensor) -> torch.Tensor:
         lo, hi = self._bounds(theta.device)
         return torch.clamp(theta, lo, hi)
+
+
+@functools.lru_cache(maxsize=256)
+def _box_tensor(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def schedule_prior(model, schedule=None) -> UniformBoxPrior:

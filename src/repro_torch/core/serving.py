@@ -25,7 +25,10 @@ Three pieces, with `repro`'s names and contracts:
     one `batched` call and copies the trajectories to the host once a call;
     it fits posteriors on demand with the port's `run_smc_abc` (the
     theta-in entries of the CUDA `abc_sim` kernel on the card), warm-started
-    from the previous dataset version's population.
+    from the previous dataset version's population, or with
+    `fit_backend="npe"` from one amortized estimator a cache key
+    (`core.npe`), trained once and fine-tuned when a dataset version moves:
+    no waves and no `abc_sim` launch.
 
 Streams. `repro` draws the subsample permutation and the forecast noise
 from threefry keys, which have no PyTorch twin. The port derives two
@@ -38,9 +41,6 @@ batched answers are bitwise the sequential `forecast_bands` ones.
 Bands are taken on the host: `bands_payload` runs `np.quantile` over the
 trajectory stack exactly as `repro` does, so one stack gives dict-equal
 payloads in both packages.
-
-NPE fits (`fit_backend="npe"`) are not ported yet (ROADMAP.md, queue 1,
-item 8) and are refused.
 """
 
 from __future__ import annotations
@@ -55,6 +55,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import npe as npe_mod
+from repro_torch.core.abc import ABCConfig
 from repro_torch.core.campaign import _jsonable, schedule_shape_key
 from repro_torch.core.posterior import Posterior
 from repro_torch.core.smc import SMCConfig, run_smc_abc
@@ -499,11 +501,6 @@ class PosteriorStore:
 
 
 # ----------------------------------------------------------------- server
-#: what refuses an NPE fit until core/npe.py is ported
-NPE_REFUSAL = ("fit_backend='npe' needs core/npe.py, which the port does not have yet "
-               "(ROADMAP.md, queue 1, item 8: NPE); serve with fit_backend='smc'")
-
-
 def _default_fit() -> SMCConfig:
     """`repro`'s template on the port's backend and the device round."""
     return SMCConfig(
@@ -530,10 +527,12 @@ class ServeConfig:
     data_dir: Optional[str] = None
     #: PosteriorStore directory (None = in-memory cache only)
     store_dir: Optional[str] = None
-    #: "smc" fits per dataset version via SMC-ABC waves; "npe" is refused
-    #: until NPE is ported
+    #: "smc" fits per dataset version via SMC-ABC waves; "npe" trains one
+    #: amortized estimator per (model, summary, schedule) and answers every
+    #: version with a forward pass (+ optional fine-tune on version change)
     fit_backend: str = "smc"
-    #: fit_backend="npe" only; refused with it
+    #: fit_backend="npe" only: training hyperparameters (core.npe.NPEConfig);
+    #: None uses the NPEConfig defaults
     npe: Optional[object] = None
 
     def __post_init__(self):
@@ -542,8 +541,10 @@ class ServeConfig:
                 f"unknown fit_backend {self.fit_backend!r} "
                 "(expected 'smc' or 'npe')"
             )
-        if self.fit_backend == "npe" or self.npe is not None:
-            raise ValueError(NPE_REFUSAL)
+        if self.npe is not None:
+            npe_mod.resolve_npe_config(self.npe)
+            if self.fit_backend != "npe":
+                raise ValueError("cfg.npe is set but fit_backend is not 'npe'")
 
 
 class EpiServer:
@@ -555,7 +556,8 @@ class EpiServer:
     pattern of launch/serve.py with forecast queries in the slots.
     Posteriors come from the in-memory cache, then the PosteriorStore, then
     an on-demand SMC fit (warm-started from the previous dataset version
-    when one is cached).
+    when one is cached) or, with `fit_backend="npe"`, a forward pass of the
+    key's estimator (trained, loaded or fine-tuned on `device`).
     """
 
     def __init__(self, cfg: ServeConfig, device="cuda"):
@@ -569,9 +571,13 @@ class EpiServer:
         )
         #: base cache key -> (dataset version, posterior)
         self._posteriors: Dict[str, Tuple[str, Posterior]] = {}
+        #: fit_backend="npe": base cache key -> trained NPEstimator
+        self._estimators: Dict[str, object] = {}
         self.fits = 0
         self.warm_fits = 0
         self.batched_calls = 0
+        self.npe_trains = 0
+        self.npe_fine_tunes = 0
 
     # -- cache keys --------------------------------------------------------
     def posterior_key(self, dataset_name: str, model: str) -> str:
@@ -638,6 +644,8 @@ class EpiServer:
         hit = self._posteriors.get(bk)
         if hit is not None and hit[0] == version:
             return hit[1], ds, "cached"
+        if self.cfg.fit_backend == "npe":
+            return self._ensure_npe(bk, ds, version)
         if self.store is not None:
             stored = self.store.get(bk, version)
             if stored is not None:
@@ -653,6 +661,62 @@ class EpiServer:
         if self.store is not None:
             self.store.put(bk, version, post)
         return post, ds, "warm_refit" if warm is not None else "cold_fit"
+
+    def _estimator_path(self, bk: str) -> Optional[str]:
+        """Where a trained estimator lives on disk (beside the store)."""
+        if self.cfg.store_dir is None:
+            return None
+        return os.path.join(self.cfg.store_dir, "npe", f"{PosteriorStore._slug(bk)}.npz")
+
+    def _npe_train_cfg(self, model: str):
+        """The backend='npe' ABCConfig of the SMC fit template: the same
+        model, window, summary, distance and schedule, so NPE and SMC
+        posteriors of a dataset share the cache key."""
+        f = self.cfg.fit
+        return ABCConfig(
+            model=model, num_days=f.num_days, backend="npe",
+            summary=f.summary, distance=f.distance, schedule=f.schedule,
+            mobility=f.mobility, target_accepted=f.n_particles,
+            npe=self.cfg.npe,
+        )
+
+    def _ensure_npe(self, bk: str, ds: CountryData, version: str):
+        """The amortized path: an estimator is trained at most once a cache
+        key and answers every dataset version with a forward pass. A version
+        change while an estimator exists costs `NPEConfig.fine_tune_steps`
+        gradient steps (0: a free refresh), never a wave fit (`self.fits`
+        stays as it is)."""
+        if self.store is not None:
+            stored = self.store.get(bk, version)
+            if stored is not None:
+                self._posteriors[bk] = (version, stored)
+                return stored, ds, "cached"
+        cfg = self._npe_train_cfg(ds.model)
+        est = self._estimators.get(bk)
+        path = self._estimator_path(bk)
+        if est is None and path is not None and os.path.exists(path):
+            est = npe_mod.NPEstimator.load(path, device=self.device)
+        if est is None:
+            est = npe_mod.train_npe(ds, cfg, seed=self.cfg.fit_seed, device=self.device)
+            self.npe_trains += 1
+            status = "cold_fit"
+        else:
+            # the estimator amortizes over content, but the posterior cache
+            # missed: the version moved (or the cache is cold); refresh with
+            # a short fine-tune against the current scalars
+            est = npe_mod.fine_tune(est, ds, seed=self.cfg.fit_seed)
+            self.npe_fine_tunes += 1
+            status = "warm_refit"
+        self._estimators[bk] = est
+        if path is not None:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            est.save(path)
+        post = est.sample_posterior(ds.observed, self.cfg.fit.n_particles,
+                                    seed=self.cfg.fit_seed)
+        self._posteriors[bk] = (version, post)
+        if self.store is not None:
+            self.store.put(bk, version, post)
+        return post, ds, status
 
     def _fit(self, ds: CountryData, model: str, warm: Optional[Posterior]):
         fit = dataclasses.replace(self.cfg.fit, model=model)
@@ -728,12 +792,12 @@ class EpiServer:
             )
 
     def stats(self) -> dict:
-        """`repro`'s keys; the NPE counters stay 0 (NPE is refused)."""
+        """`repro`'s keys and counters."""
         return {
             "fits": self.fits,
             "warm_fits": self.warm_fits,
             "batched_calls": self.batched_calls,
             "compiled_shapes": self.kernels.n_compiled,
-            "npe_trains": 0,
-            "npe_fine_tunes": 0,
+            "npe_trains": self.npe_trains,
+            "npe_fine_tunes": self.npe_fine_tunes,
         }

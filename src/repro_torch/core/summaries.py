@@ -27,6 +27,7 @@ sums it, and compares national aggregates; at R=1 it is the identity.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -203,6 +204,21 @@ def pool_channels(x: torch.Tensor, pool: int, axis: int = -1) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=256)
+def _bin_starts(num_days: int, bin_days: int, device: torch.device):
+    """(the day before each day's bin starts, clamped at 0; whether it has
+    one) on `device`, copied there once a shape."""
+    t = np.arange(num_days)
+    start = (t // bin_days) * bin_days  # first day of t's bin
+    return (torch.as_tensor(np.maximum(start - 1, 0), device=device),
+            torch.as_tensor(start > 0, device=device))
+
+
+@functools.lru_cache(maxsize=256)
+def _flush_index(num_days: int, bin_days: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(flush_columns(num_days, bin_days), device=device)
+
+
 def apply_summary(spec: SummarySpec, series: torch.Tensor) -> torch.Tensor:
     """Summary transform in the running-bin layout, [..., n_obs, T]."""
     x = series.to(torch.float32)
@@ -210,10 +226,7 @@ def apply_summary(spec: SummarySpec, series: torch.Tensor) -> torch.Tensor:
     v = torch.cumsum(x, dim=-1) if spec.cumulative else x
     if spec.bin_days > 1 and not spec.cumulative:
         cv = torch.cumsum(v, dim=-1)
-        t = np.arange(num_days)
-        start = (t // spec.bin_days) * spec.bin_days  # first day of t's bin
-        prev_idx = torch.as_tensor(np.maximum(start - 1, 0), device=x.device)
-        has_prev = torch.as_tensor(start > 0, device=x.device)
+        prev_idx, has_prev = _bin_starts(num_days, spec.bin_days, x.device)
         prev = torch.where(has_prev, cv[..., prev_idx], torch.zeros_like(cv))
         v = cv - prev  # running within-bin sum at day t
     if spec.log1p:
@@ -270,8 +283,7 @@ def summary_features(spec: SummarySpec, series: torch.Tensor,
     the values the running accumulator compares."""
     x = pool_channels(series.to(torch.float32), pool_factor(spec, n_regions), axis=-2)
     s = apply_summary(spec, x)
-    feats = s[..., torch.as_tensor(flush_columns(x.shape[-1], spec.bin_days),
-                                   device=x.device)]
+    feats = s[..., _flush_index(x.shape[-1], spec.bin_days, x.device)]
     return feats.reshape(feats.shape[:-2] + (-1,))
 
 

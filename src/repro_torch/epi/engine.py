@@ -34,8 +34,10 @@ each row bitwise what a call of its own would give.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.epi.spec import (
@@ -50,8 +52,19 @@ from repro_torch.kernels import rng as krng
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    """A float or tensor as a float32 tensor on `like`'s device."""
+    """A float or tensor as a float32 tensor on `like`'s device. A Python
+    or numpy number is filled in on the device (the same float32 rounding
+    as a copy), so that no host-to-device copy, which PyTorch follows with
+    a stream sync, stalls the host on the card."""
+    if isinstance(x, (int, float, np.integer, np.floating)):
+        return torch.full((), float(x), dtype=torch.float32, device=like.device)
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+@functools.lru_cache(maxsize=256)
+def _index(idx: tuple, device: torch.device) -> torch.Tensor:
+    """An index tuple as an int64 tensor on `device`, copied there once."""
+    return torch.tensor(idx, dtype=torch.int64, device=device)
 
 
 def mobility_matrix(model: CompartmentalModel, mobility=None,
@@ -324,13 +337,38 @@ def simulate_observed(
     state = initial_state(model, theta, cfg)
     pop = _f32(cfg.population, theta)
     mob = mobility_matrix(model, mobility, theta.device) if model.is_regional else None
+    obs_idx = _index(tuple(model.total_observed_idx), theta.device)
     obs = []
     for day in range(cfg.num_days):
         z = krng.hash_normals(seed, idx, day, model.total_transitions, model.ctr_slots)
         th_d = effective_theta(model, schedule, theta, day, breakpoints)
         state = tau_leap_step(model, state, th_d, z, pop, mob)
-        obs.append(state[:, list(model.total_observed_idx)])
+        obs.append(state[:, obs_idx])
     return torch.stack(obs, dim=-1)
+
+
+def simulate_features(
+    model: CompartmentalModel,
+    theta: torch.Tensor,
+    seed: int,
+    cfg: EpiModelConfig,
+    schedule: Optional[InterventionSchedule] = None,
+    breakpoints=None,
+    summary=None,
+    mobility=None,
+) -> torch.Tensor:
+    """Simulate + summary features: theta [B, p] -> [B, n_features].
+
+    The training-pair generator of the NPE backend (`core/npe.py`): the
+    summary values of `simulate_observed(theta)` on its flush-day columns
+    (`core.summaries.summary_features`), the values the ABC running
+    accumulator compares. The noise is `simulate_observed`'s counter-hash
+    stream, so a batch is the same for the same seed on every device.
+    """
+    from repro_torch.core.summaries import get_summary, summary_features
+
+    sim = simulate_observed(model, theta, seed, cfg, schedule, mobility, breakpoints)
+    return summary_features(get_summary(summary), sim, model.n_regions)
 
 
 def regional_view(series: torch.Tensor, model: CompartmentalModel) -> torch.Tensor:

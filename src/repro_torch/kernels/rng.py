@@ -100,8 +100,11 @@ def normal(seed, idx, ctr) -> torch.Tensor:
 
 
 def day_transition_ctr(day, k, slots: int = 8) -> torch.Tensor:
-    """Counter of transition slot `k` on `day`: day * slots + k (uint32)."""
+    """Counter of transition slot `k` on `day`: day * slots + k (uint32). An
+    int day stays a Python int (no copy to the device)."""
     dev = _device_of(day, k)
+    if isinstance(day, (int, np.integer)) and isinstance(k, torch.Tensor):
+        return (as_u32(k, dev) + (int(day) & MASK32) * slots) & MASK32
     return (as_u32(day, dev) * slots + as_u32(k, dev)) & MASK32
 
 

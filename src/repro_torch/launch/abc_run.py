@@ -33,6 +33,12 @@ cuda) and `--block`:
         --datasets italy new_zealand usa --models siard seiard --days 49 \
         --batch 100000 --auto-tolerance 1e-4 --accept 100 --out /tmp/camp
 
+    # amortized inference (NPE): train an estimator on fresh simulations,
+    # then one forward pass for the dataset's series; --npe-* size it
+    PYTHONPATH=src python -m repro_torch.launch.abc_run --backend npe \
+        --model sir --dataset synthetic_small --days 15 --accept 256 \
+        --npe-steps 300
+
     # the README's forecast: fit, then 28 days of posterior-predictive bands
     # (strict JSON) past the 49 fitted ones; --forecast-schedule "alpha@25=0.5"
     # asks for a counterfactual instead, "none" lifts every intervention
@@ -40,11 +46,14 @@ cuda) and `--block`:
         --days 49 --batch 100000 --chunk 10000 --intervention "alpha0@20=0:2" \
         --auto-tolerance 1e-3 --forecast 28 --forecast-out /tmp/bands.json
 
-`--campaign` reads the grid flags (`--datasets`, `--models`, `--backends`,
-`--seeds`, `--interventions`, `--summaries`) and refuses their singular
-forms, as `repro` does; the grid flags need `--campaign`. `--forecast`
-delegates to `core.serving.forecast_bands`, the path `serve --epi` answers
-from. `--scaling` waits for a later slice.
+`--backend npe` runs single-run mode only; with it `--auto-tolerance`
+and `--state` are refused (an estimator has no tolerance and no waves to
+resume), and `--npe-*` need it. `--campaign` reads the grid flags
+(`--datasets`, `--models`, `--backends`, `--seeds`, `--interventions`,
+`--summaries`) and refuses their singular forms, as `repro` does; the
+grid flags need `--campaign`. `--forecast` delegates to
+`core.serving.forecast_bands`, the path `serve --epi` answers from.
+`--scaling` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -231,6 +240,18 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=1024)
     ap.add_argument("--days", type=int, default=20)
     ap.add_argument("--strategy", default="outfeed", choices=["outfeed", "topk"])
+    ap.add_argument("--backend", default="cuda", choices=["cuda", "npe"],
+                    help="cuda: rejection ABC on the fused kernel (its plain version "
+                         "on the CPU); npe: train an amortized estimator, then sample "
+                         "it (single-run mode only)")
+    ap.add_argument("--npe-steps", type=int, default=None,
+                    help="backend=npe: training steps (default NPEConfig)")
+    ap.add_argument("--npe-batch", type=int, default=None,
+                    help="backend=npe: fresh simulations per training step")
+    ap.add_argument("--npe-hidden", type=int, default=None,
+                    help="backend=npe: MDN trunk width")
+    ap.add_argument("--npe-components", type=int, default=None,
+                    help="backend=npe: mixture components")
     ap.add_argument("--wave-loop", default="auto", choices=["auto", "host", "device"],
                     help="ABC wave loop: 'device' enqueues segments of gated waves "
                          "with a device accept buffer (one host sync a segment), 'host' "
@@ -295,6 +316,23 @@ def main(argv=None):
         ap.error("--regions must be >= 1")
     if args.mobility and args.regions == 1:
         ap.error("--mobility has no effect without --regions > 1")
+    if args.backend == "npe":
+        if args.campaign:
+            ap.error("backend 'npe' is not a campaign grid axis (it has no wave "
+                     "loop); use the single-run --backend npe")
+        if args.auto_tolerance:
+            ap.error("--auto-tolerance is wave-backend-only; backend npe has no "
+                     "tolerance (its posterior is a density estimator)")
+        if args.state:
+            ap.error("--state is wave-backend-only; NPE runs are not "
+                     "checkpoint/resumable (re-train or fine-tune instead)")
+    npe_overrides = {
+        k: v for k, v in (("train_steps", args.npe_steps), ("train_batch", args.npe_batch),
+                          ("hidden", args.npe_hidden), ("n_components", args.npe_components))
+        if v is not None
+    }
+    if npe_overrides and args.backend != "npe":
+        ap.error("--npe-* flags have no effect without --backend npe")
     if args.campaign:
         return run_campaign_cli(args, ap)
     # the grid flags do nothing without --campaign: refuse them
@@ -320,6 +358,11 @@ def main(argv=None):
                                         device=args.device)
         print(f"[abc] auto-calibrated tolerance = {tolerance:.4g} "
               f"(quantile {args.auto_tolerance:g})")
+    npe_cfg = None
+    if npe_overrides:
+        from repro_torch.core.npe import NPEConfig
+
+        npe_cfg = NPEConfig(**npe_overrides)
     cfg = ABCConfig(
         batch_size=args.batch,
         tolerance=tolerance,
@@ -327,6 +370,7 @@ def main(argv=None):
         strategy=args.strategy,
         chunk_size=args.chunk,
         num_days=args.days,
+        backend=args.backend,
         max_runs=args.max_runs,
         model=model,
         summary=args.summary,
@@ -334,6 +378,7 @@ def main(argv=None):
         block=args.block,
         schedule=schedule,
         wave_loop=args.wave_loop,
+        npe=npe_cfg,
     )
     state = None
     if args.state and os.path.exists(args.state):

@@ -26,8 +26,14 @@ The re-fit is SMC-ABC on the device round (`core.smc`, the theta-in entry
 of the CUDA kernel on the card), WARM-STARTED from the previous version's
 weighted population (`SMCConfig.initial_particles`): new daily rows barely
 move a posterior, so round 0 costs n_particles simulations instead of a
-full prior wave. `--backend npe` (an amortized estimator fine-tuned per
-version) is not ported yet and raises (ROADMAP.md, queue 1, item 8).
+full prior wave. `--backend npe` keeps one amortized estimator a (model,
+summary, schedule) instead (`core.npe`): trained on the first sweep, saved
+under `<store>/npe/`, and fine-tuned by `--npe-fine-tune` steps (0: a free
+refresh) when a version moves; a refresh runs no wave.
+
+    PYTHONPATH=src python -m repro_torch.launch.abc_serve --once --device cpu \\
+        --data-dir data/ --store store/ --models sir --days 8 --fit-particles 16 \\
+        --backend npe --npe-steps 30 --npe-fine-tune 2
 """
 
 from __future__ import annotations
@@ -86,8 +92,13 @@ def main(argv=None):
                     help="simulation backend of the SMC waves (the port's one backend: "
                          "the CUDA kernel, its plain version on the CPU)")
     ap.add_argument("--backend", default="smc", choices=["smc", "npe"],
-                    help="refresh mechanism: SMC re-fit waves; npe is not ported yet "
-                         "and raises")
+                    help="refresh mechanism: SMC re-fit waves, or an amortized NPE "
+                         "estimator fine-tuned per version")
+    ap.add_argument("--npe-steps", type=int, default=None,
+                    help="--backend npe: initial training steps (default NPEConfig)")
+    ap.add_argument("--npe-fine-tune", type=int, default=None,
+                    help="--backend npe: gradient steps per version change "
+                         "(0 = zero-cost refresh)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda fits through the fused kernel; cpu its plain PyTorch "
@@ -97,7 +108,18 @@ def main(argv=None):
     from repro_torch.core.serving import EpiServer, ServeConfig
     from repro_torch.core.smc import SMCConfig
 
-    # ServeConfig refuses --backend npe (ROADMAP.md, queue 1, item 8)
+    if args.backend != "npe" and (args.npe_steps is not None
+                                  or args.npe_fine_tune is not None):
+        ap.error("--npe-* flags have no effect without --backend npe")
+    npe_cfg = None
+    if args.backend == "npe":
+        from repro_torch.core.npe import NPEConfig
+
+        overrides = {k: v for k, v in (("train_steps", args.npe_steps),
+                                       ("fine_tune_steps", args.npe_fine_tune))
+                     if v is not None}
+        npe_cfg = NPEConfig(**overrides) if overrides else None
+
     server = EpiServer(ServeConfig(
         fit=SMCConfig(
             n_particles=args.fit_particles,
@@ -112,6 +134,7 @@ def main(argv=None):
         data_dir=args.data_dir,
         store_dir=args.store,
         fit_backend=args.backend,
+        npe=npe_cfg,
     ), device=args.device)
 
     sweeps = 0

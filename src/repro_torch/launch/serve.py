@@ -16,7 +16,10 @@ it. So batched outputs equal serving each request alone, token for token.
 
 `--epi` mode (`core.serving.EpiServer`): queries that share a forecast
 shape are answered `--slots` lanes at a time in one batched call; the
-posteriors come from memory, the `--store`, or an on-demand fit.
+posteriors come from memory, the `--store`, or an on-demand fit: SMC-ABC
+waves, or with `--backend npe` a forward pass of an amortized estimator
+(`core.npe`, trained on the first query of a model and kept beside the
+store).
 """
 
 from __future__ import annotations
@@ -232,8 +235,8 @@ def main(argv=None):
                     help="simulation backend of the SMC waves (the port's one backend: "
                          "the CUDA kernel, its plain version on the CPU)")
     ap.add_argument("--backend", default="smc", choices=["smc", "npe"],
-                    help="on-demand fit mechanism (--epi): SMC-ABC waves; npe is not "
-                         "ported yet and raises")
+                    help="on-demand fit mechanism (--epi): SMC-ABC waves, or an "
+                         "amortized NPE estimator (trained once, then forward passes)")
     ap.add_argument("--seed", type=int, default=0, help="fit seed (--epi)")
     args = ap.parse_args(argv)
     if args.epi:

@@ -2,9 +2,10 @@
 
 Counterpart of `repro.models.common`, for what the dense decoder needs:
 norms, soft-capping, RoPE, attention (dense, blockwise, one-token decode and
-the router that adds the flash kernel), the gated MLP and the embedding.
-`layer_norm`, `vanilla_mlp`, KV quantization and the cross-entropy helpers
-wait for the slices that use them.
+the router that adds the flash kernel), the gated MLP and the embedding;
+and for the NPE estimator's trunk (`core/npe.py`), `layer_norm` and
+`vanilla_mlp`. KV quantization and the cross-entropy helpers wait for the
+slices that use them.
 
 Conventions kept from `repro`: activations and matrices bf16, norms,
 softmax and RoPE angles float32; attention takes q [B, S, H, D] and k, v
@@ -47,6 +48,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """`repro`'s layer norm: the mean, the population variance (`jnp.var`),
+    then rsqrt(var + eps), all in float32."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32) + bias.to(
+        torch.float32)
     return out.to(x.dtype)
 
 
@@ -241,6 +254,13 @@ def gated_mlp(x, wg, wu, wd, act: str = "silu"):
     else:
         raise ValueError(act)
     return (a * (x @ wu)) @ wd
+
+
+def vanilla_mlp(x, w1, b1, w2, b2):
+    """Plain GELU MLP: the tanh GELU, as `jax.nn.gelu` defaults to
+    (`approximate=True`), in float32."""
+    a = F.gelu((x @ w1 + b1).to(torch.float32), approximate="tanh")
+    return (a.to(x.dtype) @ w2 + b2.to(x.dtype)).to(x.dtype)
 
 
 # ------------------------------------------------------------------ embedding

@@ -1005,3 +1005,44 @@ def test_forecast_replays_through_the_theta_in_entry(cuda):
         assert dist[0] == 0.0
         want = np.sqrt(((fit.astype(np.float64) - fit[0]) ** 2).sum(axis=(1, 2)))
         np.testing.assert_allclose(dist[1:], want[1:], rtol=1e-6, atol=0)
+
+
+def test_npe_forward_on_the_card_matches_the_cpu(cuda):
+    """The MDN (`core.npe`) at the same weights on the card and on the CPU:
+    log_pi, mu, sigma and the log-density within rtol 1e-5, atol 1e-5."""
+    from repro_torch.core import npe as tnpe
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = tnpe.NPEConfig(hidden=64, n_components=4)
+    params = tnpe.mdn_init(3, 30, 3, cfg)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(256, 30)).astype(np.float32))
+    th = torch.from_numpy(rng.uniform(size=(256, 3)).astype(np.float32))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    for got, want in zip(tnpe.mdn_forward(on_card, x.to(cuda), cfg, 3),
+                         tnpe.mdn_forward(params, x, cfg, 3)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        tnpe.mdn_log_prob(on_card, x.to(cuda), th.to(cuda), cfg, 3).cpu().numpy(),
+        tnpe.mdn_log_prob(params, x, th, cfg, 3).numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_npe_is_deterministic_on_the_card(cuda):
+    """Two trainings and samplings with one seed on the card are bitwise
+    equal, and launch no abc_sim entry."""
+    from repro_torch.core import npe as tnpe
+    from repro_torch.optim.adamw import tree_leaves
+
+    ds = data.synthetic_dataset(theta=(0.5, 0.2, 1.0), population=1e6, num_days=12,
+                                a0=100.0, seed=3, model="sir")
+    cfg = tabc.ABCConfig(num_days=12, backend="npe", model="sir", target_accepted=64,
+                         npe=tnpe.NPEConfig(train_steps=20, train_batch=64, n_pilot=64,
+                                            hidden=32))
+    before = (dict(abc_sim.ENTRY_LAUNCHES), ref.CALLS)
+    a, b = (tabc.run_abc(ds, cfg, seed=7, device=cuda) for _ in range(2))
+    np.testing.assert_array_equal(a.theta, b.theta)
+    np.testing.assert_array_equal(a.distances, b.distances)
+    e1, e2 = (tnpe.train_npe(ds, cfg, seed=7, device=cuda) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(e1.params), tree_leaves(e2.params)))
+    assert e1.device.type == "cuda"
+    assert (dict(abc_sim.ENTRY_LAUNCHES), ref.CALLS) == before

@@ -614,18 +614,6 @@ def test_forecast_query_from_json():
         ForecastQuery.from_json({"dataset": "italy", "schedule": {"day": 5}})
 
 
-@pytest.mark.parametrize("how", ["fit_backend", "npe_config", "abc_serve"])
-def test_npe_is_refused_until_it_is_ported(how, tmp_path):
-    with pytest.raises(ValueError, match="queue 1, item 8"):
-        if how == "fit_backend":
-            ServeConfig(fit_backend="npe")
-        elif how == "npe_config":
-            ServeConfig(npe=object())
-        else:
-            abc_serve.main(["--once", "--data-dir", str(tmp_path), "--store",
-                            str(tmp_path / "store"), "--backend", "npe", "--device", "cpu"])
-
-
 def test_entry_points_refuse_a_missing_card(monkeypatch):
     """The server and the sequential forecast take the card unless asked
     for the CPU; without one they raise, nothing runs on the CPU instead."""
