@@ -173,6 +173,32 @@ printing one JSON line:
              made to fail; (d) `abc_run --backend npe` on main_path's SIARD
              series (Italy, 49 days) at npe_demo's width, its steps cut to
              `NPE_SIARD_STEPS` (printed)
+  scaleout_path  scale-out on torch.distributed (`core.distributed`,
+             `core.scaling`), its abc_sim launches counted from 0 a part:
+             (a) the main path's config (Italy, 100,000 x 49, main_path's
+             tolerance) through `distributed.make_wave_runner` in a world
+             of 1 over NCCL: its posterior bitwise main_path's, waves +
+             gated launches of abc_sim_wave_siard, one host sync a segment,
+             warm time to posterior in turns with the unsharded loop, one
+             run of each under torch.profiler (device busy time, idle
+             share, device operations), and a count all-reduce's host and
+             completion microseconds; (b) the
+             lockstep reference on the card at tests/test_scaling.py's size
+             (2048 x 12) for N = 2, 4, 8, each digest equal to that of N
+             gloo ranks of the plain version on the CPU (8 spawned ranks,
+             subgroups of the first N), and at 100,000 a shard x 49 days
+             (sims/s a N, every shard on one card); (c) two gloo ranks
+             sharing cuda:0 (NCCL refuses two ranks a card) at 100,000 a
+             rank: their gathered segments and posterior bitwise the 2-shard
+             reference, their walls (not a scaling figure); (d)
+             `run_scaling_study` at n=1 (SIARD, 100,000 x 49, 8 waves, 3
+             reps): the report; (e) `smc_path`'s SMC round sharded in the
+             world of 1: two runs and smc_path's population bitwise equal;
+             (f) a campaign of Italy and the USA x siard at 100,000 x 49
+             with devices_per_scenario=2 on [cuda:0] * 4: groups "0+1" and
+             "2+3", each cell bitwise its 2-shard reference run, the resume
+             resumed_complete with 0 launches (writes under
+             build/scaleout_path and removes it)
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
@@ -210,8 +236,8 @@ printing one JSON line:
              from one profiled call
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
-             flat ABC paths, smc_path, campaign_path, forecast_path and
-             epi_serve, and its ms; npe_path's launches, 0 in its fits and
+             flat ABC paths, smc_path, campaign_path, forecast_path,
+             epi_serve and scaleout_path ((a), (d), (e), (f)), and its ms; npe_path's launches, 0 in its fits and
              the ABC oracle's apart), its
              region axis on the thread route (all four regional entries of
              both routes, with their launches on metapop_path, regions_path
@@ -1206,6 +1232,318 @@ def npe_phase(dev, name: str, smi: str) -> dict:
          kind=name, nvidia_smi=smi)
     return {"npe_fit_launches": sum(fit_launches.values()),
             "oracle_launches_by_entry": oracle_launches}
+
+
+#: the lockstep reference at tests/test_scaling.py's size (its `_CFG_KW`)
+SCALEOUT_TEST_KW = dict(batch_size=2048, tolerance=3.4e3, target_accepted=60,
+                        chunk_size=2048, max_runs=6, num_days=12, wave_loop="device")
+#: shard counts of the lockstep reference on the card (b)
+SCALEOUT_SHARDS = (2, 4, 8)
+#: a rank's join timeout in the spawned parts, seconds
+SCALEOUT_TIMEOUT = 120
+
+
+def scaleout_digest(runner, out):
+    """sha256 of a sharded run's gathered segments, fills, total and waves
+    (tests/test_torch_distributed.py's digest)."""
+    import hashlib
+
+    waves, n, _ = runner.read(out)
+    h = hashlib.sha256()
+    for a in runner.segments(out):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(np.int64(n).tobytes())
+    h.update(np.int64(waves).tobytes())
+    return h.hexdigest(), n, waves
+
+
+def scaleout_gloo_rank(rank, world, counts, kw):
+    """A gloo rank on the CPU (the plain version): the first N ranks run
+    `make_wave_runner` at tests/test_scaling.py's size for each N of
+    `counts`; {N: digest} of the ranks in the subgroup."""
+    import torch.distributed as dist
+
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import distributed, scaling
+    from repro_torch.epi.data import get_dataset
+
+    ds = get_dataset("synthetic_small", num_days=kw["num_days"])
+    cfg = tabc.ABCConfig(**kw)
+    digests = {}
+    for n in counts:
+        group = scaling.device_mesh(n)
+        if rank < n:
+            wr = distributed.make_wave_runner(group, ds, cfg, device="cpu")
+            digests[n] = scaleout_digest(wr, wr(0, 0, wr.init(tabc.ABCState(n_params=8)),
+                                                cfg.max_runs))
+        dist.barrier()
+    return digests
+
+
+def scaleout_shared_card_rank(rank, world, kw):
+    """A gloo rank on cuda:0 beside another: the sharded device loop on
+    Italy at 100,000 a rank; (digest, posterior theta, runs, warm wall s)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import distributed
+    from repro_torch.epi.data import get_dataset
+
+    ds = get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(**kw)
+    wr = distributed.make_wave_runner(dist.group.WORLD, ds, cfg, device="cuda:0")
+    tabc.run_abc(ds, cfg, seed=0, wave_runner=wr)  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    post = tabc.run_abc(ds, cfg, seed=0, wave_runner=wr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    digest = scaleout_digest(wr, wr(0, 0, wr.init(tabc.ABCState(n_params=8)),
+                                    tabc.SEGMENT_WAVES))
+    return digest, post.theta, post.runs, wall
+
+
+def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tuple:
+    """Phase `scaleout_path`: (a) the main path's config in a world of 1 over
+    NCCL, bitwise `main_path`, timed in turns with the unsharded loop; (b)
+    the lockstep reference on the card at the tests' size against gloo
+    ranks of the plain version, and at 100,000 a shard x 49 days; (c) two
+    gloo ranks sharing cuda:0, bitwise the 2-shard reference; (d) the
+    scaling study at n=1; (e) the sharded SMC round in a world of 1,
+    bitwise `smc_path`; (f) a campaign with devices_per_scenario=2 on
+    [cuda:0] * 4 and its resume. Returns the launches and gated launches of
+    (a), (d), (e) and (f), summed."""
+    import dataclasses
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import distributed, scaling
+    from repro_torch.core.campaign import CampaignConfig, run_campaign
+    from repro_torch.core.smc import run_smc_abc
+    from repro_torch.epi.data import get_dataset
+    from repro_torch.epi.models import get_model
+
+    italy = get_dataset("italy", num_days=49)
+    siard = get_model("siard")
+    prior = siard.prior()
+    launches, gated = {}, {}
+
+    def add(counts):
+        for table, key in ((launches, "entries"), (gated, "gated")):
+            for e, n in counts[key].items():
+                table[e] = table.get(e, 0) + n
+
+    def same(case, a, b):
+        if not np.array_equal(np.asarray(a).view(np.uint32), np.asarray(b).view(np.uint32)):
+            raise AssertionError(f"scaleout_path: {case} differs")
+
+    cfg = tabc.ABCConfig(batch_size=100_000, chunk_size=10_000, num_days=49,
+                         tolerance=main_post.tolerance, target_accepted=100)
+    with distributed.world("cuda") as group:
+        backend = dist.get_backend(group)
+        if backend != "nccl" or dist.get_world_size(group) != 1:
+            raise AssertionError(f"scaleout_path: a world of {dist.get_world_size(group)} "
+                                 f"over {backend}")
+        # ---- (a) the main path's config, NCCL world of 1
+        runner = distributed.make_wave_runner(group, italy, cfg, device="cuda")
+        post_a, counts_a = counted(lambda: tabc.run_abc(italy, cfg, seed=0, wave_runner=runner))
+        add(counts_a)
+        for case, a, b in (("(a) theta", post_a.theta, main_post.theta),
+                           ("(a) distances", post_a.distances, main_post.distances)):
+            same(case, a, b)
+        g = counts_a["gated"].get("abc_sim_wave_siard", 0)
+        if ((post_a.runs, post_a.simulations) != (main_post.runs, main_post.simulations)
+                or counts_a["entries"] != {"abc_sim_wave_siard": post_a.runs + g}
+                or not 1 <= counts_a["host_syncs"] <= -(-post_a.runs // tabc.SEGMENT_WAVES)):
+            raise AssertionError(f"scaleout_path (a): runs {post_a.runs}, {counts_a}")
+        # the host's cost of one count all-reduce, and its completion
+        count = torch.zeros((1,), dtype=torch.int64, device=dev)
+        for _ in range(20):
+            dist.all_reduce(count, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            dist.all_reduce(count, group=group)
+        enqueue_us = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+        done_us = (time.perf_counter() - t0) / 500 * 1e6
+        turns = {"nccl_world_of_1": [], "unsharded": []}
+        for kind in ("nccl_world_of_1", "unsharded", "unsharded", "nccl_world_of_1") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "unsharded":
+                tabc.run_abc(italy, cfg, seed=0, device=dev)
+            else:
+                tabc.run_abc(italy, cfg, seed=0, wave_runner=runner)
+            torch.cuda.synchronize()
+            turns[kind].append((time.perf_counter() - t0) * 1e3)
+
+        # one run of each under torch.profiler: what the collective adds on
+        # the device and how long the device idles
+        profiled = {}
+        for kind, fn in (("nccl_world_of_1",
+                          lambda: tabc.run_abc(italy, cfg, seed=0, wave_runner=runner)),
+                         ("unsharded", lambda: tabc.run_abc(italy, cfg, seed=0, device=dev))):
+            wall_ms, busy_ms, by_op = profile_device_ms(fn)
+            profiled[kind] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                              "device_idle_share": 1.0 - busy_ms / wall_ms,
+                              "device_ops": sum(c for _, c, _ in by_op),
+                              "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                                                 for k, c, ms in by_op[:8]]}
+
+        # ---- (b) the lockstep reference on the card: the tests' size against
+        # gloo ranks of the plain version, then 100,000 a shard x 49 days
+        small = get_dataset("synthetic_small", num_days=12)
+        small_cfg = tabc.ABCConfig(**SCALEOUT_TEST_KW)
+        small_sim = tabc.make_simulator(small, small_cfg, dev)
+        t0 = time.perf_counter()
+        gloo = distributed.spawn_ranks(scaleout_gloo_rank, max(SCALEOUT_SHARDS),
+                                       SCALEOUT_SHARDS, SCALEOUT_TEST_KW, device="cpu",
+                                       timeout=SCALEOUT_TIMEOUT)
+        gloo_s = time.perf_counter() - t0
+        digests = {}
+        for n in SCALEOUT_SHARDS:
+            ref = scaling.make_reference_wave_runner(prior, small_sim, small_cfg, n)
+            mine = scaleout_digest(ref, ref(0, 0, ref.init(tabc.ABCState(n_params=8)),
+                                            small_cfg.max_runs))
+            theirs = [d[n] for d in gloo if n in d]
+            if len(theirs) != n or any(t != mine for t in theirs) or not mine[1] > 0:
+                raise AssertionError(f"scaleout_path (b): {n} shards on the card {mine}, "
+                                     f"gloo ranks {theirs}")
+            digests[n] = {"sha256": mine[0], "accepted": mine[1], "waves": mine[2]}
+        weak = {}
+        for n in SCALEOUT_SHARDS:
+            b = n * 100_000
+            wcfg = tabc.ABCConfig(batch_size=b, chunk_size=b, num_days=49,
+                                  tolerance=main_post.tolerance, target_accepted=4 * b + 1,
+                                  max_runs=4, wave_loop="device")
+            ref = scaling.make_reference_wave_runner(
+                prior, tabc.make_simulator(italy, wcfg, dev), wcfg, n)
+            tabc.run_abc(italy, wcfg, seed=0, wave_runner=ref)  # warm-up
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                post_w = tabc.run_abc(italy, wcfg, seed=1, wave_runner=ref)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            weak[n] = {"global_batch": b, "waves": post_w.runs, "walls_s": walls,
+                       "sims_per_s": post_w.simulations / min(walls),
+                       "accepted": len(post_w)}
+
+        # ---- (c) two gloo ranks sharing cuda:0, against the 2-shard reference
+        c_kw = dict(batch_size=200_000, chunk_size=10_000, num_days=49,
+                    tolerance=main_post.tolerance, target_accepted=100, max_runs=16,
+                    wave_loop="device")
+        c_cfg = tabc.ABCConfig(**c_kw)
+        ref2 = scaling.make_reference_wave_runner(
+            prior, tabc.make_simulator(italy, c_cfg, dev), c_cfg, 2)
+        want = scaleout_digest(ref2, ref2(0, 0, ref2.init(tabc.ABCState(n_params=8)),
+                                          tabc.SEGMENT_WAVES))
+        want_post = tabc.run_abc(italy, c_cfg, seed=0, wave_runner=ref2)
+        t0 = time.perf_counter()
+        shared = distributed.spawn_ranks(scaleout_shared_card_rank, 2, c_kw, device="cuda:0",
+                                         backend="gloo", timeout=SCALEOUT_TIMEOUT)
+        shared_s = time.perf_counter() - t0
+        for r, (digest, theta, runs, _) in enumerate(shared):
+            if digest != want or runs != want_post.runs:
+                raise AssertionError(f"scaleout_path (c): rank {r} {digest}, {runs} runs; "
+                                     f"the 2-shard reference {want}, {want_post.runs}")
+            same(f"(c) rank {r} posterior", theta, want_post.theta)
+
+        # ---- (d) the scaling study at n=1
+        scfg = scaling.ScalingConfig(device_counts=(1,), models=("siard",),
+                                     batch_per_device=100_000, num_days=49, waves=8, reps=3)
+        report, counts_d = counted(lambda: scaling.run_scaling_study(scfg, group, device=dev))
+        add(counts_d)
+        cell = report["cells"]["siard/cuda/b100000/n1"]
+        if (cell["simulations"], cell["waves"], cell["parallel_efficiency"]) != (
+                800_000, 8, 1.0):
+            raise AssertionError(f"scaleout_path (d): {cell}")
+
+        # ---- (e) the sharded SMC round in a world of 1
+        smc_a, counts_e = counted(lambda: run_smc_abc(italy, smc_cfg, seed=0, device=dev,
+                                                      group=group))
+        add(counts_e)
+        smc_b = run_smc_abc(italy, smc_cfg, seed=0, device=dev, group=group)
+        same("(e) two sharded rounds", smc_a.theta, smc_b.theta)
+        same("(e) against smc_path", smc_a.theta, smc_post.theta)
+        if (len(smc_a) != smc_cfg.n_particles or not np.isfinite(smc_a.distances).all()
+                or not smc_a.tolerance <= 1.5 * smc_post.tolerance):
+            raise AssertionError(f"scaleout_path (e): {len(smc_a)} particles, tolerance "
+                                 f"{smc_a.tolerance} against {smc_post.tolerance}")
+
+    # ---- (f) a campaign of two-card groups on one card, and its resume
+    out_dir = os.path.join(ROOT, "build", "scaleout_path")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ccfg = CampaignConfig(datasets=("italy", "usa"), models=("siard",), batch_size=100_000,
+                          num_days=49, target_accepted=100, auto_quantile=1e-4,
+                          devices_per_scenario=2, out_dir=out_dir)
+    rep, counts_f = counted(lambda: run_campaign(ccfg, device=[dev] * 4))
+    add(counts_f)
+    if [(r.status, r.device) for r in rep.scenarios] != [("ok", "0+1"), ("ok", "2+3")]:
+        raise AssertionError(f"scaleout_path (f): {[(r.status, r.device) for r in rep.scenarios]}")
+    cells = []
+    for r in rep.scenarios:
+        ds = get_dataset(r.dataset, num_days=49)
+        shape = ccfg.abc_config(ccfg.scenarios()[0], 1.0)
+        eps = tabc.calibrate_tolerance(ds, shape, seed=0, quantile=ccfg.auto_quantile,
+                                       n_pilot=ccfg.pilot_size, device=dev)
+        solo_cfg = dataclasses.replace(shape, tolerance=eps)
+        solo = tabc.run_abc(ds, solo_cfg, seed=0, wave_runner=scaling.make_reference_wave_runner(
+            prior, tabc.make_simulator(ds, solo_cfg, dev), solo_cfg, 2))
+        cap = tabc.wave_capacity(solo_cfg, 50_000)
+        tree, meta, _ = load_checkpoint(r.checkpoint_dir, {
+            "theta_buf": np.zeros((2 * cap, 8), np.float32),
+            "dist_buf": np.zeros((2 * cap,), np.float32)})
+        rows = np.concatenate([tree["theta_buf"][s * cap:s * cap + c]
+                               for s, c in enumerate(meta["fills"])])
+        same(f"(f) {r.name} rows", rows, solo.theta)
+        if (eps, solo.runs, solo.simulations) != (r.tolerance, r.runs, r.simulations):
+            raise AssertionError(f"scaleout_path (f): {r.name} against its solo run")
+        cells.append({"name": r.name, "device": r.device, "runs": r.runs,
+                      "accepted": r.n_accepted, "fills": meta["fills"],
+                      "tolerance": r.tolerance})
+    rep2, counts_f2 = counted(lambda: run_campaign(ccfg, device=[dev] * 4))
+    if ([r.status for r in rep2.scenarios] != ["resumed_complete"] * 2
+            or counts_f2["entries"]):
+        raise AssertionError(f"scaleout_path (f): resume {[r.status for r in rep2.scenarios]}, "
+                             f"{counts_f2['entries']}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    emit("scaleout_path", kind=name, nvidia_smi=smi,
+         a_nccl_world_of_1={"posterior_bitwise_main_path": True, "waves": post_a.runs,
+                            "accepted": len(post_a), "counts": counts_a,
+                            "warm_time_to_posterior_ms": {
+                                k: float(np.mean(v)) for k, v in turns.items()},
+                            "turns_ms": turns,
+                            "profiled": profiled,
+                            "count_all_reduce_us": {"host_enqueue": enqueue_us,
+                                                    "to_completion": done_us,
+                                                    "calls": 500}},
+         b_reference={"tests_size": {"config": SCALEOUT_TEST_KW, "digests": digests,
+                                     "gloo_ranks": max(SCALEOUT_SHARDS),
+                                     "gloo_spawn_s": gloo_s},
+                      "weak_100k_a_shard_x49": weak,
+                      "note": "every shard on one card, lockstep: not a scaling figure"},
+         c_two_gloo_ranks_on_cuda0={"bitwise_2_shard_reference": True,
+                                    "runs": want_post.runs, "accepted": len(want_post),
+                                    "rank_walls_s": [s[3] for s in shared],
+                                    "spawn_wall_s": shared_s,
+                                    "note": "both ranks share one card: not a scaling figure"},
+         d_study=report, d_counts=counts_d,
+         e_sharded_smc={"bitwise_smc_path": True, "particles": len(smc_a),
+                        "tolerance": smc_a.tolerance, "smc_path_tolerance": smc_post.tolerance,
+                        "round_waves": smc_a.round_waves, "counts": counts_e},
+         f_campaign={"cells": cells, "wall_s": counts_f["wall_s"], "counts": counts_f,
+                     "resume_wall_s": counts_f2["wall_s"], "resume_launches": 0})
+    return launches, gated
 
 
 def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
@@ -2346,6 +2684,11 @@ def main() -> int:
 
     # ---- npe_path: the amortized backend; its fits launch no abc_sim entry
     npe_counts = npe_phase(dev, name, smi)
+
+    # ---- scaleout_path: torch.distributed (NCCL world of 1, gloo ranks),
+    # the lockstep reference, the study, the sharded SMC round, device groups
+    path_launches["scaleout_path"], path_gated["scaleout_path"] = scaleout_phase(
+        dev, name, smi, post, post_smc, smc_cfg)
 
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version

@@ -45,6 +45,17 @@ Two loops run the waves (`ABCConfig.wave_loop`):
     accepted rows. With the same seed it gives the host loop's accepted
     set: the same rows in the same order, the same runs and simulations.
     "auto" picks it for outfeed runs, as `repro` does.
+
+Sharded runs (`core.distributed`, one rank a shard, and the lockstep
+reference of `core.scaling`, every shard in one process) keep `repro`'s
+buffer layout: one segment of `wave_capacity(cfg, B / shards)` rows a shard
+(plus its spare row), `fill_counts` of shape [shards], a resumed state split
+over the segments by `np.array_split` (`split_state`), so a state written by
+either package resumes on any shard count. Shard s of wave i draws with
+`shard_seeds(seed, i, s)`: shard 0 keeps `wave_seeds(seed, i)`, so one shard
+is the unsharded run bit for bit, and shard s >= 1 hashes both of them with
+(s, SHARD_STREAM). `repro` instead folds the device index into each shard's
+threefry key; the two are held to each other by statistics, not bitwise.
 """
 
 from __future__ import annotations
@@ -69,8 +80,9 @@ from repro_torch.kernels import abc_sim, ops
 from repro_torch.kernels.rng import stream_seed
 
 #: hash streams of (seed, index): the waves' prior and simulation seeds,
-#: and the pilot waves' of `calibrate_tolerance`
-PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM = range(4)
+#: and the pilot waves' of `calibrate_tolerance`; SHARD_STREAM derives shard
+#: s >= 1's seeds of a wave from the wave's own (`shard_seeds`)
+PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM, SHARD_STREAM = range(5)
 
 #: waves the device loops enqueue between two reads of their counts: the
 #: main path's 9 waves fit in one segment, and a run that stops early pays
@@ -205,6 +217,9 @@ class RunOutput(NamedTuple):
     theta: torch.Tensor  # outfeed: [n_chunks, chunk, p]; topk: [k, p]
     dist: torch.Tensor  # outfeed: [n_chunks, chunk];    topk: [k]
     chunk_flags: torch.Tensor  # outfeed: [n_chunks] bool;  topk: [0]
+    #: the sharded host-loop runner's global accepted count ([1] int64,
+    #: summed over the shards); None from `abc_run_batch`
+    accept_count: Optional[torch.Tensor] = None
 
 
 #: (theta, seed) -> dist, and .wave(prior, prior_seed, sim_seed, batch)
@@ -215,6 +230,23 @@ def wave_seeds(seed: int, index: int) -> Tuple[int, int]:
     """(prior seed, simulation seed) of wave `index` under base `seed`."""
     return (stream_seed(seed, index, PRIOR_STREAM),
             stream_seed(seed, index, SIM_STREAM))
+
+
+def split_seeds(prior_seed: int, sim_seed: int, shard: int) -> Tuple[int, int]:
+    """Shard `shard`'s (prior seed, simulation seed) of a wave whose own are
+    (prior_seed, sim_seed): shard 0 keeps them, so that one shard is the
+    unsharded run bit for bit; shard s >= 1 hashes each with (s,
+    SHARD_STREAM)."""
+    if shard == 0:
+        return prior_seed, sim_seed
+    return (stream_seed(prior_seed, shard, SHARD_STREAM),
+            stream_seed(sim_seed, shard, SHARD_STREAM))
+
+
+def shard_seeds(seed: int, index: int, shard: int) -> Tuple[int, int]:
+    """(prior seed, simulation seed) of shard `shard` of wave `index` under
+    base `seed`: a pure function of the three, whatever the shard count."""
+    return split_seeds(*wave_seeds(seed, index), shard)
 
 
 def make_simulator(dataset: CountryData, cfg: ABCConfig,
@@ -278,23 +310,39 @@ def abc_run_batch(
 
 class WaveLoopOutput(NamedTuple):
     """What one call of a `WaveRunner` leaves on the device, in `repro`'s
-    segment layout with one shard: segment 0 is rows [0, capacity) of the
-    buffers and holds `fill_counts[0]` valid rows. Row `capacity` is the
-    spare row where rejected rows land; its content means nothing."""
+    segment layout: one segment a shard, segment s holding `fill_counts[s]`
+    valid rows. Each segment has `capacity + 1` rows; its last is the spare
+    row where rejected rows land, and its content means nothing."""
 
-    theta_buf: torch.Tensor  # [capacity + 1, p]
-    dist_buf: torch.Tensor  # [capacity + 1]
-    n_accepted: torch.Tensor  # [1] int64: total accepted (may exceed the buffer's fill)
+    theta_segments: Tuple[torch.Tensor, ...]  # a shard's [capacity + 1, p], on its device
+    dist_segments: Tuple[torch.Tensor, ...]  # a shard's [capacity + 1]
+    n_accepted: torch.Tensor  # [1] int64: total accepted over the shards (may exceed the fills)
     waves_done: torch.Tensor  # [1] int64: waves of this call whose gate was open
-    fill_counts: torch.Tensor  # [1] int64: valid rows (the fill, clamped to capacity)
+    fill_counts: torch.Tensor  # [shards] int64: valid rows a segment (clamped to capacity)
     enqueued: int = 0  # waves this call enqueued, gated ones included
+
+    @property
+    def theta_buf(self) -> torch.Tensor:
+        """The segments one after the other ([shards * (capacity + 1), p];
+        one shard: its segment, no copy)."""
+        return _joined(self.theta_segments)
+
+    @property
+    def dist_buf(self) -> torch.Tensor:
+        return _joined(self.dist_segments)
+
+
+def _joined(segments) -> torch.Tensor:
+    if len(segments) == 1:
+        return segments[0]
+    return torch.cat([t.to(segments[0].device) for t in segments])
 
 
 def wave_capacity(cfg: ABCConfig, batch_size: Optional[int] = None) -> int:
-    """Accept-buffer rows: never overflows within one wave. A wave only runs
-    while accepted < target and adds at most one batch, so `target + batch
-    - 1` bounds the fill; the last wave's overshoot is kept, as the host
-    outfeed path keeps it."""
+    """Accept-buffer rows a shard: never overflows within one wave. A wave
+    only runs while accepted < target and adds at most one batch, so
+    `target + batch - 1` bounds the fill; the last wave's overshoot is kept,
+    as the host outfeed path keeps it."""
     return cfg.target_accepted + (batch_size or cfg.batch_size)
 
 
@@ -329,8 +377,8 @@ def compact_accepted(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tens
 
 
 def sync_counts(*counts: torch.Tensor) -> list:
-    """The device loops' one host sync a segment: the [1] int64 count
-    tensors as Python ints, in one copy (counted by `HOST_SYNCS`)."""
+    """The device loops' one host sync a segment: the int64 count tensors
+    as Python ints, in one copy (counted by `HOST_SYNCS`)."""
     global HOST_SYNCS
     HOST_SYNCS += 1
     return [int(c) for c in torch.cat(counts).cpu()]
@@ -343,87 +391,166 @@ def tolerance32(tolerance: float) -> float:
         return float(np.float32(tolerance))
 
 
+def split_state(state: "ABCState", shards: int, capacity: int):
+    """The state's accepted rows split over `shards` segments as `repro`'s
+    `WaveRunner.init` splits them (`np.array_split`, in order): a list of
+    (theta, dist) a shard. Raises when a segment would overflow."""
+    theta, dist = state.to_arrays()
+    n = theta.shape[0]
+    parts = []
+    for idx in np.array_split(np.arange(n), shards):
+        if idx.size > capacity:
+            what = f"{capacity} rows" if shards == 1 else f"{shards} x {capacity} rows"
+            raise ValueError(f"resumed state ({n} accepted) overflows the wave buffer "
+                             f"({what}); raise target/batch")
+        parts.append((theta[idx], dist[idx]))
+    return parts
+
+
+def segment_buffers(theta: np.ndarray, dist: np.ndarray, capacity: int, n_params: int,
+                    device: torch.device):
+    """One segment's device buffers (`capacity + 1` rows) seeded with the
+    rows given, and its fill as an int64 tensor of shape [1]."""
+    n = theta.shape[0]
+    th_buf = torch.zeros((capacity + 1, n_params), dtype=torch.float32, device=device)
+    d_buf = torch.full((capacity + 1,), float("inf"), dtype=torch.float32, device=device)
+    if n:
+        th_buf[:n] = torch.from_numpy(np.ascontiguousarray(theta)).to(device)
+        d_buf[:n] = torch.from_numpy(np.ascontiguousarray(dist)).to(device)
+    return th_buf, d_buf, torch.full((1,), n, dtype=torch.int64, device=device)
+
+
 @dataclasses.dataclass
 class WaveRunner:
-    """The device-resident wave loop of one simulator and its buffer layout.
+    """The device-resident wave loop and its buffer layout: one shard on
+    `sim`, or the lockstep reference of `len(shard_sims)` shards in one
+    process (`core.scaling.make_reference_wave_runner`), shard s on
+    `shard_sims[s]`'s device with a batch of `cfg.batch_size / shards`.
 
-    `init(state)` makes the carry (theta_buf, dist_buf, fill0) on the
-    simulator's device from a (possibly resumed) state; `runner(seed,
-    run_idx0, carry, max_waves)` enqueues `max_waves` gated waves and
-    returns without waiting; `carry_of(out)` is the carry for the next
-    call; `harvest(out, state, fill)` copies the accepted rows to the state.
+    `init(state)` makes the carry on the shards' devices from a (possibly
+    resumed) state; `runner(seed, run_idx0, carry, max_waves)` enqueues
+    `max_waves` gated waves and returns without waiting; `carry_of(out)`
+    is the carry for the next call; `read(out)` is its one host sync;
+    `harvest(out, state, fill)` copies the accepted rows to the state.
     """
 
     sim: SimulatorFn
     prior: UniformBoxPrior
     cfg: ABCConfig
-    capacity: int
+    capacity: int  # rows a segment
     n_params: int
+    #: one simulator a shard (the lockstep reference); empty: one shard on `sim`
+    shard_sims: Tuple[SimulatorFn, ...] = ()
 
     @property
     def device(self) -> torch.device:
         return self.sim.device
 
+    @property
+    def sims(self) -> Tuple[SimulatorFn, ...]:
+        return self.shard_sims or (self.sim,)
+
+    @property
+    def shards(self) -> int:
+        return len(self.sims)
+
     def init(self, state: "ABCState"):
-        """Device buffers seeded from the state's accepted rows, in order."""
-        theta, dist = state.to_arrays()
-        n = theta.shape[0]
-        if n > self.capacity:
-            raise ValueError(f"resumed state ({n} accepted) overflows the wave buffer "
-                             f"({self.capacity} rows); raise target/batch")
-        th_buf = torch.zeros((self.capacity + 1, self.n_params), dtype=torch.float32,
-                             device=self.device)
-        d_buf = torch.full((self.capacity + 1,), float("inf"), dtype=torch.float32,
-                           device=self.device)
-        if n:
-            th_buf[:n] = torch.from_numpy(theta).to(self.device)
-            d_buf[:n] = torch.from_numpy(dist).to(self.device)
-        return th_buf, d_buf, torch.full((1,), n, dtype=torch.int64, device=self.device)
+        """Device buffers seeded from the state's accepted rows, split over
+        the segments as `repro`'s `WaveRunner.init` splits them (in order
+        for one shard). The carry is (theta segments, dist segments, fills,
+        total accepted)."""
+        segs = [segment_buffers(th, d, self.capacity, self.n_params, sim.device)
+                for (th, d), sim in zip(split_state(state, self.shards, self.capacity),
+                                        self.sims)]
+        th_segs, d_segs, fills = (list(x) for x in zip(*segs))
+        if self.shards == 1:
+            return th_segs, d_segs, fills, fills[0]
+        n = torch.full((1,), state.n_accepted, dtype=torch.int64, device=self.device)
+        return th_segs, d_segs, fills, n
 
     def __call__(self, seed: int, run_idx0: int, carry, max_waves: int) -> WaveLoopOutput:
         """Enqueue waves run_idx0 .. run_idx0 + max_waves - 1 of `seed`.
 
-        Each wave runs under the gate `accepted < target`, an int32 tensor
-        that the kernel reads when it runs; then its rows with dist <=
-        tolerance (in float32) and an open gate are compacted into the
-        buffers. Nothing here waits for the device."""
-        th_buf, d_buf, fill = carry
-        cfg, batch = self.cfg, self.cfg.batch_size
+        Each wave reads the gate `accepted < target` once, an int32 tensor
+        that the kernel reads when it runs; then each shard draws its
+        sub-batch with its own seeds (`shard_seeds`), compacts its rows with
+        dist <= tolerance (in float32) and an open gate into its segment,
+        and the shards' counts are summed into the total. Nothing here
+        waits for the device."""
+        th_segs, d_segs, fills, n = (list(carry[0]), list(carry[1]), list(carry[2]),
+                                     carry[3])
+        cfg, sims = self.cfg, self.sims
+        batch = cfg.batch_size // len(sims)
         tol = tolerance32(cfg.tolerance)
-        theta = torch.empty((batch, self.n_params), dtype=torch.float32, device=self.device)
-        dist = torch.empty((batch,), dtype=torch.float32, device=self.device)
+        scratch = [(torch.empty((batch, self.n_params), dtype=torch.float32, device=s.device),
+                    torch.empty((batch,), dtype=torch.float32, device=s.device))
+                   for s in sims]
         waves = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        away = [sim.device != self.device for sim in sims]
         for i in range(max_waves):
+            active = n < cfg.target_accepted
+            total = n
+            for s, sim in enumerate(sims):
+                act = active.to(sim.device) if away[s] else active
+                theta, dist = scratch[s]
+                sim.wave(self.prior, *shard_seeds(seed, run_idx0 + i, s), batch,
+                         gate=act.to(torch.int32), out=(theta, dist))
+                accept = (dist <= tol) & act
+                th_segs[s], d_segs[s], new_fill = compact_accepted(
+                    th_segs[s], d_segs[s], fills[s], theta, dist, accept, self.capacity)
+                if len(sims) > 1:
+                    total = total + (new_fill - fills[s]).to(self.device)
+                fills[s] = new_fill
             # one shard: the total accepted is the fill before clamping
-            active = fill < cfg.target_accepted
-            self.sim.wave(self.prior, *wave_seeds(seed, run_idx0 + i), batch,
-                          gate=active.to(torch.int32), out=(theta, dist))
-            accept = (dist <= tol) & active
-            th_buf, d_buf, fill = compact_accepted(th_buf, d_buf, fill, theta, dist, accept,
-                                                   self.capacity)
+            n = fills[0] if len(sims) == 1 else total
             waves += active
-        return WaveLoopOutput(th_buf, d_buf, fill, waves, fill.clamp(max=self.capacity),
-                              max_waves)
+        clamped = [f.clamp(max=self.capacity) for f in fills]
+        return WaveLoopOutput(tuple(th_segs), tuple(d_segs), n, waves,
+                              _joined(clamped), max_waves)
 
     def carry_of(self, out: WaveLoopOutput):
-        return out.theta_buf, out.dist_buf, out.n_accepted
+        """The next call's carry. A shard's fill is carried clamped, as
+        `repro`'s is: past the capacity every row lands in the spare row
+        either way."""
+        if self.shards == 1:
+            return [out.theta_segments[0]], [out.dist_segments[0]], [out.n_accepted], \
+                out.n_accepted
+        fills = [out.fill_counts[s:s + 1].to(sim.device) for s, sim in enumerate(self.sims)]
+        return list(out.theta_segments), list(out.dist_segments), fills, out.n_accepted
 
-    def read(self, out: WaveLoopOutput) -> Tuple[int, int, int]:
+    def read(self, out: WaveLoopOutput):
         """(waves done, accepted, valid rows) of a call: its one host sync.
-        On the card it records the gated launches beside the entry's
-        launches (`abc_sim.record_gated`)."""
-        waves, n, fill = sync_counts(out.waves_done, out.n_accepted, out.fill_counts)
-        if self.device.type == "cuda":
-            abc_sim.record_gated(self.sim.entry("wave", self.cfg.batch_size),
-                                 out.enqueued - waves)
-        return waves, n, fill
+        The valid rows are an int for one shard and a tuple of one count a
+        segment for more, as `repro`'s carry holds them. On the card it
+        records the gated launches beside the entry's launches
+        (`abc_sim.record_gated`)."""
+        waves, n, *fills = sync_counts(out.waves_done, out.n_accepted, out.fill_counts)
+        for sim in self.sims:
+            if sim.device.type == "cuda":
+                abc_sim.record_gated(sim.entry("wave", self.cfg.batch_size // self.shards),
+                                     out.enqueued - waves)
+        return waves, n, fills[0] if self.shards == 1 else tuple(fills)
 
-    def harvest(self, out: WaveLoopOutput, state: "ABCState", fill: int) -> None:
-        """Replace the state's accepted set with the buffers' first `fill`
-        rows: the buffers are cumulative (a resumed prefix included), so
-        this replaces rather than appends."""
-        state.accepted_theta = [out.theta_buf[:fill].cpu().numpy()] if fill else []
-        state.accepted_dist = [out.dist_buf[:fill].cpu().numpy()] if fill else []
+    def harvest(self, out: WaveLoopOutput, state: "ABCState", fill) -> None:
+        """Replace the state's accepted set with each segment's first valid
+        rows, in shard order: the buffers are cumulative (a resumed prefix
+        included), so this replaces rather than appends."""
+        fills = (fill,) if isinstance(fill, int) else fill
+        state.accepted_theta, state.accepted_dist = [], []
+        for th, d, c in zip(out.theta_segments, out.dist_segments, fills):
+            if c:
+                state.accepted_theta.append(th[:c].cpu().numpy())
+                state.accepted_dist.append(d[:c].cpu().numpy())
+
+    def segments(self, out: WaveLoopOutput):
+        """`repro`'s buffer layout on the host: (theta [shards * capacity, p],
+        dist [shards * capacity], fills [shards]), each segment without its
+        spare row. A checkpoint's tree, and what the sharded runners are
+        held to bitwise."""
+        cap = self.capacity
+        return (np.concatenate([t[:cap].cpu().numpy() for t in out.theta_segments]),
+                np.concatenate([d[:cap].cpu().numpy() for d in out.dist_segments]),
+                out.fill_counts.cpu().numpy())
 
 
 def make_wave_runner(prior: UniformBoxPrior, simulator: SimulatorFn,
@@ -505,6 +632,13 @@ class ABCState:
         return st
 
 
+def writes_files() -> bool:
+    """Whether this process writes run files: rank 0 of an initialised
+    process group, or a process outside one."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _harvest(out: RunOutput, cfg: ABCConfig, state: ABCState) -> int:
     """Copy what the strategy marked to the host, keep dist <= tolerance and
     append it to the state. Returns the number harvested."""
@@ -542,24 +676,27 @@ def run_abc(
     verbose: bool = False,
     device="cuda",
     wave_runner: Optional[WaveRunner] = None,
+    run_fn: Optional[Callable[[int, int], RunOutput]] = None,
 ) -> Posterior:
     """Run waves until `target_accepted` posterior samples or `max_runs`
     waves: on the device loop where `cfg.wave_loop` picks it (or a
-    `wave_runner` is given), else on the host loop. Wave i is
-    `wave_seeds(seed, i)` in both. `backend="npe"` runs no waves: it
-    trains an estimator and samples it (`core.npe.run_npe`)."""
+    `wave_runner` is given), else on the host loop (on `run_fn` where one
+    is given, such as `core.distributed`'s sharded runner). Wave i is
+    `wave_seeds(seed, i)` in both. Under an initialised process group only
+    rank 0 writes the checkpoint; every rank keeps the same segments.
+    `backend="npe"` runs no waves: it trains an estimator and samples it
+    (`core.npe.run_npe`)."""
     if cfg.backend == "npe":
         # the amortized backend has no wave loop: train, then one forward
         # pass; the wave loop's knobs do not apply
-        if wave_runner is not None or state is not None:
+        if wave_runner is not None or run_fn is not None or state is not None:
             raise ValueError(
-                "backend='npe' does not run waves; wave_runner / resumable "
-                "state do not apply"
+                "backend='npe' does not run waves; wave_runner / run_fn / "
+                "resumable state do not apply"
             )
         from repro_torch.core import npe
 
         return npe.run_npe(dataset, cfg, seed, prior=prior, verbose=verbose, device=device)
-    device = resolve_device(device)
     spec = get_model(cfg.model)
     prior = prior or schedule_prior(spec, cfg.schedule)
     state = state or ABCState()
@@ -570,13 +707,13 @@ def run_abc(
             f"resumed state holds {state.n_params}-parameter samples but model "
             f"{spec.name!r} (with its schedule) has {prior.dim} — wrong checkpoint?"
         )
-    if wave_runner is None and _auto_device_loop(cfg):
+    if wave_runner is None and run_fn is None and _auto_device_loop(cfg):
         wave_runner = make_wave_runner(prior, make_simulator(dataset, cfg, device), cfg)
     if wave_runner is not None:
         return _run_abc_device(cfg, seed, state, wave_runner, spec,
                                checkpoint_every=checkpoint_every,
                                checkpoint_path=checkpoint_path, verbose=verbose)
-    run = abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg, device)
+    run = run_fn or abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg, device)
 
     t0 = time.time()
     postproc_s = 0.0
@@ -592,7 +729,8 @@ def run_abc(
                 f"[abc] run {state.run_idx}: accepted {state.n_accepted}/"
                 f"{cfg.target_accepted}"
             )
-        if checkpoint_every and checkpoint_path and state.run_idx % checkpoint_every == 0:
+        if (checkpoint_every and checkpoint_path and state.run_idx % checkpoint_every == 0
+                and writes_files()):
             state.save(checkpoint_path)
 
     theta, dist = state.to_arrays()
@@ -641,7 +779,7 @@ def _run_abc_device(
         if verbose:
             print(f"[abc] run {state.run_idx}: accepted {state.n_accepted}/"
                   f"{cfg.target_accepted} (device wave loop)")
-        if checkpoint_every and checkpoint_path:
+        if checkpoint_every and checkpoint_path and writes_files():
             state.save(checkpoint_path)
         if waves == 0:  # nothing left to run; avoid a spin
             break

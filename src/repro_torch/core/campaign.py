@@ -21,7 +21,14 @@ and writes one report:
     (`kernels.build`);
   * scenarios go round-robin over the cards (or all on the CPU) and advance
     in rounds: each round enqueues one segment of every active scenario,
-    then reads and finishes them in order (one host sync a segment);
+    then reads and finishes them in order (one host sync a segment). With
+    `devices_per_scenario` k > 1 the devices are carved into disjoint groups
+    of k (a device list may name one device more than once, as in
+    `["cuda:0"] * 4` or `["cpu"] * 4`), scenarios go round-robin over the
+    groups, and each runs the lockstep reference of k shards
+    (`core.scaling.make_reference_wave_runner`), shard s on its group's s-th
+    device: a cell is bitwise its solo run with that runner, and its
+    report's `device` names the group's positions ("0+1", "2+3", ...);
   * each scenario checkpoints through `repro_torch.checkpoint`, in
     `repro`'s layout and metadata, at `repro`'s cadence: at a segment end
     that reaches a multiple of `checkpoint_every`, and when it finishes
@@ -52,22 +59,19 @@ from repro_torch.core.abc import (
     ABCConfig,
     ABCState,
     SimulatorFn,
-    WaveRunner,
     calibrate_tolerance,
     make_simulator,
     run_param_names,
     wave_capacity,
 )
 from repro_torch.core.priors import schedule_prior
+from repro_torch.core.scaling import BACKENDS, make_reference_wave_runner
 from repro_torch.core.summaries import get_summary
 from repro_torch.device import resolve_device
 from repro_torch.epi.data import CountryData, get_dataset
 from repro_torch.epi.models import get_model
 from repro_torch.epi.spec import InterventionSchedule
 from repro_torch.ioutils import atomic_write_text
-
-#: the port's backends: the fused CUDA kernel (its plain version on the CPU)
-BACKENDS = ("cuda",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,8 +147,10 @@ class CampaignConfig:
     #: cells whose model does not observe the dataset's channels are
     #: recorded as "skipped" instead of failing the campaign
     skip_incompatible: bool = True
-    #: 1: one scenario a device. Sharding a scenario over a group of cards
-    #: is scale-out, not ported yet
+    #: devices a scenario: 1 places one scenario a device; k > 1 carves the
+    #: devices into disjoint groups of k and shards each scenario's waves
+    #: over its group (`make_reference_wave_runner`, shard s on the group's
+    #: s-th device); the sample stream is a solo k-shard run's
     devices_per_scenario: int = 1
     #: CUDA block size in threads; None for the kernel's own default
     block: Optional[int] = None
@@ -152,12 +158,6 @@ class CampaignConfig:
     def __post_init__(self):
         if self.devices_per_scenario < 1:
             raise ValueError("devices_per_scenario must be >= 1")
-        if self.devices_per_scenario > 1:
-            raise ValueError(
-                "devices_per_scenario > 1 shards a scenario over a group of "
-                "devices, which the port does not have yet (ROADMAP.md, queue 1, "
-                "item 9: scale-out); run with devices_per_scenario=1"
-            )
         bad = [b for b in self.backends if b not in BACKENDS]
         if bad:
             raise ValueError(f"unknown backends {bad}; the port's campaign runs {BACKENDS}")
@@ -314,11 +314,17 @@ class _ScenarioRun:
     its result."""
 
     def __init__(self, sc: Scenario, cfg: CampaignConfig, cache: _ShapeCache,
-                 device: torch.device, verbose: bool = False):
+                 group, verbose: bool = False):
+        """`group`: one device, or the scenario's group as (position in the
+        campaign's device list, device) pairs."""
         self.sc, self.cfg, self.verbose = sc, cfg, verbose
+        if isinstance(group, torch.device):
+            group = [(0, group)]
+        label = (str(group[0][1]) if len(group) == 1
+                 else "+".join(str(i) for i, _ in group))
         self.result = ScenarioResult(name=sc.name, dataset=sc.dataset, model=sc.model_tag,
                                      backend=sc.backend, seed=sc.seed, status="pending",
-                                     device=str(device))
+                                     device=label)
         self.done = False
         self.ckpt = None
         self._out = None
@@ -335,8 +341,9 @@ class _ScenarioRun:
             return
         shape_cfg = cfg.abc_config(sc, tolerance=1.0)
         self.prior = schedule_prior(get_model(sc.model), sc.schedule)
-        self.sim = cache.simulator(sc, self.dataset, device)
-        self.capacity = wave_capacity(shape_cfg)
+        sims = [cache.simulator(sc, self.dataset, d) for _, d in group]
+        self.sim, self.shards = sims[0], len(sims)
+        self.capacity = wave_capacity(shape_cfg, cfg.batch_size // self.shards)
         ckpt_dir = Path(cfg.out_dir) / "checkpoints" / sc.name
         self.ckpt = Checkpointer(ckpt_dir, keep=cfg.keep_checkpoints)
         self.result.checkpoint_dir = str(ckpt_dir)
@@ -358,8 +365,7 @@ class _ScenarioRun:
         self.abc_cfg = cfg.abc_config(sc, tolerance=eps)
         self.result.tolerance = eps
         self.result.eps_schedule = tuple(self.eps_schedule)
-        self.runner = WaveRunner(sim=self.sim, prior=self.prior, cfg=self.abc_cfg,
-                                 capacity=self.capacity, n_params=self.prior.dim)
+        self.runner = make_reference_wave_runner(self.prior, sims, self.abc_cfg, self.shards)
         self.carry = self.runner.init(self.state)
 
     # ------------------------------------------------------------- restore
@@ -367,11 +373,14 @@ class _ScenarioRun:
         """Load the newest checkpoint, if any. Returns its epsilon (resume)
         or None (fresh start); sets `done` for a finished scenario. A
         checkpoint of another buffer layout restarts the scenario with a
-        message; every other error raises."""
+        message; every other error raises. The segments' rows go to the
+        state in shard order, and `WaveRunner.init` splits them again, as
+        `repro` does."""
         if not self.ckpt.steps():
             return None
-        like = {"theta_buf": np.zeros((self.capacity, self.prior.dim), np.float32),
-                "dist_buf": np.zeros((self.capacity,), np.float32)}
+        rows = self.shards * self.capacity
+        like = {"theta_buf": np.zeros((rows, self.prior.dim), np.float32),
+                "dist_buf": np.zeros((rows,), np.float32)}
         try:
             tree, meta, _ = self.ckpt.restore(like)
         except ValueError as e:
@@ -382,10 +391,12 @@ class _ScenarioRun:
             return None
         self.state.run_idx = int(meta["run_idx"])
         self.state.simulations = int(meta["simulations"])
-        fill = int(meta["fill"])
-        if fill:
-            self.state.accepted_theta = [tree["theta_buf"][:fill]]
-            self.state.accepted_dist = [tree["dist_buf"][:fill]]
+        # per-shard segment fills (a checkpoint without them holds one total)
+        for s, c in enumerate(int(c) for c in meta.get("fills", [meta["fill"]])):
+            if c:
+                lo = s * self.capacity
+                self.state.accepted_theta.append(tree["theta_buf"][lo:lo + c])
+                self.state.accepted_dist.append(tree["dist_buf"][lo:lo + c])
         self.eps_schedule = list(meta.get("eps_schedule", []))
         if meta.get("done"):
             self.result = ScenarioResult(**{
@@ -439,31 +450,35 @@ class _ScenarioRun:
             r.posterior_mean = {n: float(m) for n, m in zip(names, theta.mean(axis=0))}
             r.posterior_std = {n: float(s) for n, s in zip(names, theta.std(axis=0))}
 
-    def _checkpoint(self, out, n_accepted: int, fill: int):
+    def _checkpoint(self, out, n_accepted: int, fill):
         # a spec-object model goes into the metadata by its name
         sc_meta = dataclasses.asdict(dataclasses.replace(self.sc, model=self.sc.model_tag))
+        fills = [fill] if isinstance(fill, int) else list(fill)
         meta = {
             "scenario": sc_meta,
             "run_idx": self.state.run_idx,
             "simulations": self.state.simulations,
             "n_accepted": n_accepted,
-            "fill": fill,
-            "fills": [fill],
+            "fill": sum(fills),
+            "fills": fills,
             "tolerance": self.result.tolerance,
             "eps_schedule": list(self.eps_schedule),
             "done": self.done,
         }
         if self.done:
             meta["result"] = dataclasses.asdict(self.result)
-        # the buffers' first `capacity` rows (the spare row is not state);
-        # copied to the host here, written on the checkpointer's thread
-        tree = {"theta_buf": out.theta_buf[:self.capacity],
-                "dist_buf": out.dist_buf[:self.capacity]}
-        self.ckpt.save_async(self.state.run_idx, tree, meta)
+        # each segment's first `capacity` rows (the spare rows are not
+        # state), copied to the host here, written on the checkpointer's
+        # thread
+        theta, dist, _ = self.runner.segments(out)
+        self.ckpt.save_async(self.state.run_idx, {"theta_buf": theta, "dist_buf": dist}, meta)
 
 
 def _devices(device) -> List[torch.device]:
-    """Every card for "cuda", else the one device asked for."""
+    """Every card for "cuda", the devices of a list as listed (one may come
+    more than once), else the one device asked for."""
+    if isinstance(device, (list, tuple)):
+        return [resolve_device(d) for d in device]
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -473,12 +488,23 @@ def _devices(device) -> List[torch.device]:
 def run_campaign(cfg: CampaignConfig, verbose: bool = False,
                  device="cuda") -> CampaignReport:
     """Run (or resume) every scenario of the grid on `device` ("cuda": the
-    scenarios round-robin over the cards; "cpu": the plain version); write
-    the report to `<out_dir>/campaign_report.json` and return it."""
+    scenarios round-robin over the cards; "cpu": the plain version; a list
+    of devices: over those, a device named twice counting twice); write the
+    report to `<out_dir>/campaign_report.json` and return it. With
+    `devices_per_scenario` k the devices form disjoint groups of k, any
+    remainder left idle."""
     t0 = time.time()
     devices = _devices(device)
+    k = cfg.devices_per_scenario
+    if k > len(devices):
+        raise ValueError(
+            f"devices_per_scenario={k} exceeds the {len(devices)} visible devices; "
+            "pass a device list that names a device more than once (e.g. "
+            "['cuda:0'] * 4 or ['cpu'] * 4) to form groups on fewer devices"
+        )
+    groups = [list(enumerate(devices))[g * k:(g + 1) * k] for g in range(len(devices) // k)]
     cache = _ShapeCache(cfg)
-    runs = [_ScenarioRun(sc, cfg, cache, devices[i % len(devices)], verbose=verbose)
+    runs = [_ScenarioRun(sc, cfg, cache, groups[i % len(groups)], verbose=verbose)
             for i, sc in enumerate(cfg.scenarios())]
     active = [r for r in runs if not r.done]
     while active:

@@ -20,10 +20,20 @@ Two round loops (`SMCConfig.wave_loop`):
     enqueues segments of `core.abc.SEGMENT_WAVES` waves and syncs once a
     segment, as the ABC device wave loop does.
 
+With a process group (`run_smc_abc(..., group=...)`, the device round
+only) each round is sharded as `repro`'s `make_sharded_smc_round_fn` shards
+it (`core.distributed`'s execution model: a rank a shard, NCCL on cards,
+gloo on the CPU): the parents are replicated on every rank, each rank
+proposes `batch_size / n` a wave with the seeds of (round seed, wave,
+rank), runs the theta-in entry under the gate `global accepted <
+n_particles` and compacts into its own segment, and one all-reduce of the
+count a wave feeds the gate. At the round's end the segments are gathered in
+shard order and the first `n_particles` kept. Rank 0's seeds are the
+unsharded round's, so a world of 1 is the single round bit for bit.
+
 The streams are the port's hash, not `repro`'s threefry, so SMC is held to
 `repro` by its statistics and formulas (`_weighted_var`,
-`importance_weights`), not bitwise. The sharded round of `repro` is not
-ported.
+`importance_weights`), not bitwise.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import abc as abc_core
 from repro_torch.core.abc import (
@@ -44,6 +55,7 @@ from repro_torch.core.abc import (
     sync_counts,
     tolerance32,
 )
+from repro_torch.core.distributed import gather
 from repro_torch.core.posterior import Posterior
 from repro_torch.core.priors import UniformBoxPrior, schedule_prior
 from repro_torch.device import resolve_device
@@ -58,9 +70,11 @@ from repro_torch.kernels import rng as krng
 PRIOR_STREAM, SIM_STREAM, PARENT_STREAM, PERTURB_STREAM, ROUND_STREAM = range(5)
 
 
-def wave_seed(seed: int, rnd: int, wave: int, stream: int) -> int:
-    """The uint32 seed of `stream` for wave `wave` of round `rnd`."""
-    return krng.stream_seed(krng.stream_seed(seed, rnd, ROUND_STREAM), wave, stream)
+def wave_seed(seed: int, rnd: int, wave: int, stream: int, shard: int = 0) -> int:
+    """The uint32 seed of `stream` for wave `wave` of round `rnd`; shard s
+    >= 1 of a sharded round hashes it with (s, `abc.SHARD_STREAM`)."""
+    s = krng.stream_seed(krng.stream_seed(seed, rnd, ROUND_STREAM), wave, stream)
+    return s if shard == 0 else krng.stream_seed(s, shard, abc_core.SHARD_STREAM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +164,18 @@ def importance_weights(new_theta: np.ndarray, particles: np.ndarray, weights: np
     return w / w.sum() if w.sum() > 0 else np.full_like(w, 1.0 / len(w))
 
 
-def make_smc_round_fn(simulator, prior: UniformBoxPrior, cfg: SMCConfig):
+def make_sharded_smc_round_fn(group, simulator, prior: UniformBoxPrior, cfg: SMCConfig):
+    """The device SMC round sharded over the ranks of `group`: the same
+    round_fn as `make_smc_round_fn`, with `batch_size / n` proposals a rank
+    a wave, drawn with this rank's seeds; its buffer's segment gathered in
+    shard order at the round's end, the first `n_particles` kept."""
+    n = dist.get_world_size(group)
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} not divisible by {n} devices")
+    return make_smc_round_fn(simulator, prior, cfg, group=group)
+
+
+def make_smc_round_fn(simulator, prior: UniformBoxPrior, cfg: SMCConfig, group=None):
     """The device SMC round (the SMC face of the ABC device wave loop).
 
     round_fn(seed, rnd, particles [n, p], weights [n], sigma [p], eps,
@@ -166,8 +191,12 @@ def make_smc_round_fn(simulator, prior: UniformBoxPrior, cfg: SMCConfig):
     the counts once a segment. Returns the first k = min(accepted,
     n_particles) accepted rows in stream order, on the host.
     """
-    B, n_p = cfg.batch_size, cfg.n_particles
-    cap = n_p + B  # a final wave's overshoot always fits
+    n_p = cfg.n_particles
+    shard, n_shards = 0, 1
+    if group is not None:
+        shard, n_shards = dist.get_rank(group), dist.get_world_size(group)
+    B = cfg.batch_size // n_shards
+    cap = n_p + B  # a final wave's overshoot always fits a shard
     dev = simulator.device
 
     def round_fn(seed: int, rnd: int, particles: np.ndarray, weights: np.ndarray,
@@ -186,30 +215,47 @@ def make_smc_round_fn(simulator, prior: UniformBoxPrior, cfg: SMCConfig):
         th_buf = torch.zeros((cap + 1, p), dtype=torch.float32, device=dev)
         d_buf = torch.full((cap + 1,), float("inf"), dtype=torch.float32, device=dev)
         fill = torch.zeros((1,), dtype=torch.int64, device=dev)
+        total = fill  # one shard: the fill before clamping
         tol = tolerance32(eps)
         waves_done = accepted = 0
         while accepted < n_p and waves_done < max_waves:
             first, seg = waves_done, min(abc_core.SEGMENT_WAVES, max_waves - waves_done)
             waves = torch.zeros((1,), dtype=torch.int64, device=dev)
             for w in range(first, first + seg):
-                active = fill < n_p
-                u = krng.uniform_open(wave_seed(seed, rnd, w, PARENT_STREAM), idx, 0)
+                active = total < n_p
+                u = krng.uniform_open(wave_seed(seed, rnd, w, PARENT_STREAM, shard), idx, 0)
                 parents = torch.searchsorted(cdf, u)
-                z = krng.normal(wave_seed(seed, rnd, w, PERTURB_STREAM), idx[:, None], ctr)
+                z = krng.normal(wave_seed(seed, rnd, w, PERTURB_STREAM, shard), idx[:, None],
+                                ctr)
                 prop = parts.index_select(0, parents) + sig * z
                 inside = ((prop >= lo) & (prop <= hi)).all(dim=1)
-                d = simulator(prop, wave_seed(seed, rnd, w, SIM_STREAM),
+                d = simulator(prop, wave_seed(seed, rnd, w, SIM_STREAM, shard),
                               gate=active.to(torch.int32))
                 d = torch.where(torch.isnan(d) | ~inside, float("inf"), d)
-                th_buf, d_buf, fill = compact_accepted(th_buf, d_buf, fill, prop, d,
-                                                       (d <= tol) & active, cap)
+                th_buf, d_buf, new_fill = compact_accepted(th_buf, d_buf, fill, prop, d,
+                                                           (d <= tol) & active, cap)
+                if group is None:
+                    total = new_fill
+                else:
+                    count = new_fill - fill
+                    dist.all_reduce(count, group=group)  # the one collective a wave
+                    total = total + count
+                fill = new_fill
                 waves += active
-            ran, accepted = sync_counts(waves, fill)  # the segment's one host sync
+            ran, accepted = sync_counts(waves, total)  # the segment's one host sync
             if dev.type == "cuda":
                 abc_sim.record_gated(simulator.entry("distance", B), seg - ran)
             waves_done += ran
-        k = min(accepted, n_p)
-        return (th_buf[:k].cpu().numpy(), d_buf[:k].cpu().numpy(), accepted, waves_done)
+        if group is None:
+            k = min(accepted, n_p)
+            return (th_buf[:k].cpu().numpy(), d_buf[:k].cpu().numpy(), accepted, waves_done)
+        # the round's host re-entry: every shard's rows, in shard order
+        fills = [int(f) for f in gather(fill.clamp(max=cap), group)]
+        top = max(fills)
+        ths, ds = gather(th_buf[:top], group), gather(d_buf[:top], group)
+        th = np.concatenate([t[:c].cpu().numpy() for t, c in zip(ths, fills)])[:n_p]
+        d = np.concatenate([x[:c].cpu().numpy() for x, c in zip(ds, fills)])[:n_p]
+        return th, d, accepted, waves_done
 
     return round_fn
 
@@ -221,10 +267,16 @@ def run_smc_abc(
     prior: Optional[UniformBoxPrior] = None,
     verbose: bool = False,
     device="cuda",
+    group=None,
 ) -> Posterior:
     """The final particle population as a Posterior (with its weights). The
     tolerance of each round is in `post.round_eps`, the waves of each round
-    in `post.round_waves`."""
+    in `post.round_waves`. With a process group each round's waves are
+    sharded over its ranks (`make_sharded_smc_round_fn`; the device round
+    only): every rank runs round 0 and the host's arithmetic alike and
+    returns the same population."""
+    if group is not None and cfg.wave_loop != "device":
+        raise ValueError("sharded SMC requires wave_loop='device'")
     device = resolve_device(device)
     spec = get_model(cfg.model)
     prior = prior or schedule_prior(spec, cfg.schedule)
@@ -235,7 +287,11 @@ def run_smc_abc(
         mobility=cfg.mobility,
     )
     sim = make_simulator(dataset, abc_cfg, device)
-    round_fn = make_smc_round_fn(sim, prior, cfg) if cfg.wave_loop == "device" else None
+    round_fn = None
+    if group is not None:
+        round_fn = make_sharded_smc_round_fn(group, sim, prior, cfg)
+    elif cfg.wave_loop == "device":
+        round_fn = make_smc_round_fn(sim, prior, cfg)
     lo = np.asarray(prior.lows, np.float32)
     hi = np.asarray(prior.highs, np.float32)
     # zero-width prior dims are point masses (pinned intervention scales):

@@ -46,23 +46,45 @@ cuda) and `--block`:
         --days 49 --batch 100000 --chunk 10000 --intervention "alpha0@20=0:2" \
         --auto-tolerance 1e-3 --forecast 28 --forecast-out /tmp/bands.json
 
-`--backend npe` runs single-run mode only; with it `--auto-tolerance`
-and `--state` are refused (an estimator has no tolerance and no waves to
-resume), and `--npe-*` need it. `--campaign` reads the grid flags
-(`--datasets`, `--models`, `--backends`, `--seeds`, `--interventions`,
-`--summaries`) and refuses their singular forms, as `repro` does; the
-grid flags need `--campaign`. `--forecast` delegates to
-`core.serving.forecast_bands`, the path `serve --epi` answers from.
-`--scaling` waits for a later slice.
+    # scale-out (core.distributed): one rank a card over NCCL under torchrun,
+    # or gloo ranks on the CPU; --multi-device shards the run's waves over
+    # the ranks (a world of 1 without torchrun), --scaling runs the weak
+    # scaling study at every --scaling-devices count (--batch a device)
+    torchrun --nproc-per-node 4 -m repro_torch.launch.abc_run --multi-device \
+        --wave-loop device --dataset italy --days 49 --batch 400000 \
+        --chunk 400000 --auto-tolerance 1e-4 --accept 100
+    torchrun --nproc-per-node 2 -m repro_torch.launch.abc_run --scaling \
+        --device cpu --models sir --batch 512 --days 12 --scaling-devices 1 2 \
+        --scaling-waves 2 --scaling-reps 1 --scaling-out /tmp/scaling.json
+
+`--backend npe` runs single-run mode only; with it `--auto-tolerance`,
+`--state` and `--multi-device` are refused (an estimator has no
+tolerance, no waves to resume and no waves to shard), and `--npe-*` need
+it. `--campaign` reads the grid flags (`--datasets`, `--models`,
+`--backends`, `--seeds`, `--interventions`, `--summaries`) and refuses
+their singular forms, as `repro` does; the grid flags need `--campaign`.
+`--scaling` reads `--models`, `--backends`, `--dataset`, `--days` and
+`--batch` (a device), refuses `--regions`/`--mobility` and npe, and the
+`--scaling-*` flags need it. Under several ranks only rank 0 prints and
+writes files. `--forecast` delegates to `core.serving.forecast_bands`, the
+path `serve --epi` answers from.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 
-from repro_torch.core.abc import ABCConfig, ABCState, calibrate_tolerance, run_abc
+from repro_torch.core.abc import (
+    ABCConfig,
+    ABCState,
+    calibrate_tolerance,
+    run_abc,
+    writes_files,
+)
 from repro_torch.core.campaign import BACKENDS, CampaignConfig, run_campaign
 from repro_torch.core.summaries import DISTANCE_KINDS, list_summaries
 from repro_torch.epi.data import get_dataset, list_datasets
@@ -181,6 +203,36 @@ def _dest(flag: str) -> str:
     return flag.lstrip("-").replace("-", "_")
 
 
+def run_scaling_cli(args):
+    """`--scaling`: the paper's multi-device experiment as one command, over
+    the ranks of the default process group (torchrun's, or a world of 1):
+    the sharded device wave loop at every --scaling-devices count, weak
+    scaling with --batch a device; rank 0 prints the table and writes
+    --scaling-out and returns the report, the other ranks return None."""
+    from repro_torch.core.scaling import ScalingConfig, format_report, run_scaling_study
+
+    scfg = ScalingConfig(
+        device_counts=tuple(args.scaling_devices),
+        models=tuple(args.models),
+        backends=tuple(args.backends),
+        batch_per_device=args.batch,
+        waves=args.scaling_waves,
+        num_days=args.days,
+        dataset=args.dataset,
+        reps=args.scaling_reps,
+        block=args.block,
+    )
+    report = run_scaling_study(scfg, verbose=True, device=args.device)
+    if report is None:
+        return None
+    print()
+    print(format_report(report))
+    if args.scaling_out:
+        atomic_write_text(args.scaling_out, json.dumps(report, indent=1, allow_nan=False))
+        print(f"[scaling] report saved to {args.scaling_out}")
+    return report
+
+
 def run_campaign_cli(args, parser):
     """`--campaign`: the grid of the plural flags through `run_campaign`."""
     # the grid reads only the plural flags; a singular one would be ignored
@@ -291,8 +343,34 @@ def main(argv=None):
                     help="a campaign scenario checkpoints at every multiple of this many "
                          "waves and when it finishes (0: only when it finishes)")
     ap.add_argument("--devices-per-scenario", type=int, default=1,
-                    help="devices a campaign scenario is sharded over; the port takes 1 "
-                         "only (scale-out is not ported)")
+                    help="devices a campaign scenario is sharded over: the cards are "
+                         "carved into disjoint groups of this many, and each scenario "
+                         "runs the lockstep reference of that many shards, shard s on "
+                         "its group's s-th card (at most the cards visible; the CPU is "
+                         "one device)")
+    # scale-out
+    ap.add_argument("--multi-device", action="store_true",
+                    help="shard each wave over the ranks of the process group (torchrun "
+                         "--nproc-per-node N: one rank a card over NCCL, or gloo ranks "
+                         "with --device cpu; a world of 1 without torchrun); "
+                         "--wave-loop device runs the sharded device loop, else the "
+                         "sharded host loop")
+    ap.add_argument("--scaling", action="store_true",
+                    help="run the multi-device scaling study (the paper's 16-IPU "
+                         "experiment): sharded wave loop at every --scaling-devices "
+                         "count, weak scaling with --batch per device, "
+                         "efficiency/overhead per (model, backend) cell from "
+                         "--models/--backends")
+    ap.add_argument("--scaling-devices", nargs="+", type=int, default=[1, 2, 4, 8],
+                    help="device counts of the curve (the first ranks of the process "
+                         "group)")
+    ap.add_argument("--scaling-waves", type=int, default=4,
+                    help="fixed wave budget per scaling cell")
+    ap.add_argument("--scaling-reps", type=int, default=3,
+                    help="timed repetitions per cell (best-of)")
+    ap.add_argument("--scaling-out", default="",
+                    help="path for the scaling report JSON (default: stdout table "
+                         "only)")
     ap.add_argument("--interventions", nargs="+", default=["none"],
                     help="campaign intervention grid axis (schedule strings; 'none' is "
                          "the constant-theta cell); schedules of one shape share a "
@@ -316,10 +394,16 @@ def main(argv=None):
         ap.error("--regions must be >= 1")
     if args.mobility and args.regions == 1:
         ap.error("--mobility has no effect without --regions > 1")
+    if args.scaling and (args.regions > 1 or args.mobility):
+        ap.error("--regions/--mobility are not supported with --scaling; "
+                 "regionalized specs go through single-run or --campaign")
     if args.backend == "npe":
-        if args.campaign:
-            ap.error("backend 'npe' is not a campaign grid axis (it has no wave "
-                     "loop); use the single-run --backend npe")
+        if args.campaign or args.scaling:
+            ap.error("backend 'npe' is not a campaign/scaling grid axis (it has no "
+                     "wave loop to shard); use the single-run --backend npe")
+        if args.multi_device:
+            ap.error("--multi-device has no effect with --backend npe: training is "
+                     "a single-device loop")
         if args.auto_tolerance:
             ap.error("--auto-tolerance is wave-backend-only; backend npe has no "
                      "tolerance (its posterior is a density estimator)")
@@ -335,12 +419,37 @@ def main(argv=None):
         ap.error("--npe-* flags have no effect without --backend npe")
     if args.campaign:
         return run_campaign_cli(args, ap)
+    if args.scaling:
+        return _on_ranks(args, run_scaling_cli, args)
     # the grid flags do nothing without --campaign: refuse them
     for flag, singular in GRID_FLAGS:
         if getattr(args, _dest(flag)) != ap.get_default(_dest(flag)):
             ap.error(f"{flag} has no effect without --campaign; use the singular flag "
                      f"{singular} instead")
+    for flag in ("--scaling-devices", "--scaling-waves", "--scaling-reps", "--scaling-out"):
+        if getattr(args, _dest(flag)) != ap.get_default(_dest(flag)):
+            ap.error(f"{flag} has no effect without --scaling")
+    if args.multi_device:
+        return _on_ranks(args, run_single, args, npe_overrides)
+    return run_single(args, npe_overrides)
 
+
+def _on_ranks(args, fn, *fn_args):
+    """`fn(*fn_args)` inside the default process group
+    (`distributed.world`); on ranks other than 0 its output goes nowhere."""
+    from repro_torch.core import distributed
+
+    with distributed.world(args.device):
+        distributed.rank_device(args.device)  # this rank's card before any launch
+        quiet = (contextlib.nullcontext() if writes_files()
+                 else contextlib.redirect_stdout(io.StringIO()))
+        with quiet:
+            return fn(*fn_args)
+
+
+def run_single(args, npe_overrides):
+    """Single-run mode: one posterior (sharded over the process group's
+    ranks under --multi-device); rank 0 alone writes files."""
     model = args.model
     if args.regions > 1:
         model = regionalize(get_model(args.model), args.regions, args.mobility or "identity")
@@ -380,6 +489,14 @@ def main(argv=None):
         wave_loop=args.wave_loop,
         npe=npe_cfg,
     )
+    wave_runner = run_fn = None
+    if args.multi_device:
+        from repro_torch.core import distributed
+
+        if args.wave_loop == "device":
+            wave_runner = distributed.make_wave_runner(None, ds, cfg, device=args.device)
+        else:
+            run_fn = distributed.make_runner(None, ds, cfg, device=args.device)
     state = None
     if args.state and os.path.exists(args.state):
         state = ABCState.load(args.state)
@@ -389,8 +506,11 @@ def main(argv=None):
         ds, cfg, seed=args.seed, state=state,
         checkpoint_every=25 if args.state else 0,
         checkpoint_path=args.state or None, verbose=True, device=args.device,
+        wave_runner=wave_runner, run_fn=run_fn,
     )
     print(post.summary_table())
+    if not writes_files():
+        return post
     if args.save_posterior:
         post.save(args.save_posterior)
         print(f"[abc] posterior saved to {args.save_posterior}")

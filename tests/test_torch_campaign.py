@@ -388,13 +388,59 @@ def test_other_backends_are_refused(capsys):
 
 
 def test_devices_per_scenario_above_one_raises(tmp_path):
-    with pytest.raises(ValueError, match="item 9"):
-        CampaignConfig(datasets=("italy",), devices_per_scenario=2)
+    """More devices a scenario than the campaign is given is refused, as
+    `repro` refuses more than its visible devices (the CPU is one device)."""
+    cfg = CampaignConfig(datasets=("italy",), devices_per_scenario=2, out_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
+        run_campaign(cfg, device="cpu")
     with pytest.raises(ValueError, match=">= 1"):
         CampaignConfig(datasets=("italy",), devices_per_scenario=0)
-    with pytest.raises(ValueError, match="item 9"):
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         abc_run.main(["--campaign", "--device", "cpu", "--devices-per-scenario", "2",
                       "--out", str(tmp_path)])
+
+
+def test_campaign_disjoint_device_groups(tmp_path):
+    """devices_per_scenario=2 on four devices ([cpu] * 4, the port's analogue
+    of `repro`'s forced host device count; tests/test_scaling.py:226): two
+    scenarios on the disjoint groups "0+1" and "2+3", each bitwise its solo
+    2-shard reference run (calibrate_tolerance + run_abc on
+    `make_reference_wave_runner`), checkpointed with `repro`'s per-shard
+    fills, and resumed complete with no launch."""
+    from repro_torch.core.scaling import make_reference_wave_runner
+
+    cfg = CampaignConfig(
+        datasets=("italy", "usa"), models=("siard",), batch_size=1024, num_days=12,
+        target_accepted=20, max_runs=300, auto_quantile=2e-3, pilot_size=1024,
+        out_dir=str(tmp_path), checkpoint_every=4, devices_per_scenario=2)
+    rep = run_campaign(cfg, device=["cpu"] * 4)
+    assert [r.status for r in rep.scenarios] == ["ok", "ok"]
+    assert [r.device for r in rep.scenarios] == ["0+1", "2+3"]
+    assert all(r.n_accepted >= 20 for r in rep.scenarios)
+    capacity = tabc.wave_capacity(cfg.abc_config(cfg.scenarios()[0], 1.0), 512)
+    for r in rep.scenarios:
+        ds = get_dataset(r.dataset, num_days=12)
+        shape = cfg.abc_config(cfg.scenarios()[0], 1.0)
+        eps = tabc.calibrate_tolerance(ds, shape, seed=0, quantile=cfg.auto_quantile,
+                                       n_pilot=cfg.pilot_size, device="cpu")
+        solo_cfg = dataclasses.replace(shape, tolerance=eps)
+        prior = get_model("siard").prior()
+        runner = make_reference_wave_runner(prior, tabc.make_simulator(ds, solo_cfg, "cpu"),
+                                            solo_cfg, 2)
+        solo = tabc.run_abc(ds, solo_cfg, seed=0, wave_runner=runner)
+        assert (eps, solo.runs, solo.simulations) == (r.tolerance, r.runs, r.simulations)
+        like = {"theta_buf": np.zeros((2 * capacity, 8), np.float32),
+                "dist_buf": np.zeros((2 * capacity,), np.float32)}
+        tree, meta, _ = load_checkpoint(r.checkpoint_dir, like)
+        fills = meta["fills"]
+        assert len(fills) == 2 and meta["fill"] == sum(fills) == len(solo)
+        theta = np.concatenate([tree["theta_buf"][s * capacity:s * capacity + c]
+                                for s, c in enumerate(fills)])
+        np.testing.assert_array_equal(_bits(theta), _bits(solo.theta))
+    calls = ref.CALLS
+    rep2 = run_campaign(cfg, device=["cpu"] * 4)
+    assert [r.status for r in rep2.scenarios] == ["resumed_complete"] * 2
+    assert ref.CALLS == calls
 
 
 def test_checkpoint_of_another_layout_restarts_with_a_message(tmp_path, capsys):

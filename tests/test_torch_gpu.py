@@ -1046,3 +1046,112 @@ def test_npe_is_deterministic_on_the_card(cuda):
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(e1.params), tree_leaves(e2.params)))
     assert e1.device.type == "cuda"
     assert (dict(abc_sim.ENTRY_LAUNCHES), ref.CALLS) == before
+
+
+# ------------------------------------------------------------------------
+# Scale-out on the card (core/distributed.py, core/scaling.py)
+# ------------------------------------------------------------------------
+
+_SCALE_KW = dict(batch_size=2 * 16384, chunk_size=4096, num_days=49, target_accepted=30,
+                 max_runs=16, wave_loop="device")
+
+
+def _scale_eps(cuda):
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(**{**_SCALE_KW, "tolerance": 1.0})
+    return tabc.calibrate_tolerance(ds, cfg, seed=0, quantile=1e-3, n_pilot=32768,
+                                    device=cuda)
+
+
+def test_nccl_world_of_one_is_the_unsharded_run_on_the_card(cuda):
+    """A world of 1 over NCCL: the unsharded posterior bit for bit, every
+    launch the wave entry's, one host sync a segment."""
+    from repro_torch.core import distributed
+
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(**{**_SCALE_KW, "tolerance": _scale_eps(cuda)})
+    solo = tabc.run_abc(ds, cfg, seed=0, device=cuda)
+    with distributed.world("cuda") as group:
+        assert torch.distributed.get_backend(group) == "nccl"
+        runner = distributed.make_wave_runner(group, ds, cfg, device="cuda")
+        abc_sim.ENTRY_LAUNCHES.clear()
+        abc_sim.ENTRY_GATED.clear()
+        syncs = tabc.HOST_SYNCS
+        post = tabc.run_abc(ds, cfg, seed=0, wave_runner=runner)
+        gated = abc_sim.ENTRY_GATED.get("abc_sim_wave_siard", 0)
+        assert dict(abc_sim.ENTRY_LAUNCHES) == {"abc_sim_wave_siard": post.runs + gated}
+        assert tabc.HOST_SYNCS - syncs == -(-post.runs // tabc.SEGMENT_WAVES)
+    assert not torch.distributed.is_initialized()
+    assert (post.runs, post.simulations) == (solo.runs, solo.simulations) and len(post) >= 30
+    assert _bits_equal(torch.from_numpy(post.theta), solo.theta)
+    assert _bits_equal(torch.from_numpy(post.distances), solo.distances)
+
+
+def _shared_card_rank(rank, world, kw):
+    from repro_torch.core import distributed
+
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(**kw)
+    runner = distributed.make_wave_runner(torch.distributed.group.WORLD, ds, cfg,
+                                          device="cuda:0")
+    out = runner(0, 0, runner.init(tabc.ABCState(n_params=8)), tabc.SEGMENT_WAVES)
+    waves, n, fills = runner.read(out)
+    return runner.segments(out), waves, n, fills
+
+
+def test_two_gloo_ranks_sharing_one_card_equal_the_two_shard_reference(cuda, tmp_path):
+    """NCCL refuses two ranks on one card; over gloo they run, and their
+    gathered segments are bitwise the 2-shard lockstep reference's."""
+    from repro_torch.core import distributed
+    from repro_torch.core.scaling import make_reference_wave_runner
+
+    kw = {**_SCALE_KW, "tolerance": _scale_eps(cuda)}
+    got = distributed.spawn_ranks(_shared_card_rank, 2, kw, device="cuda:0", backend="gloo",
+                                  timeout=120, tmp_dir=str(tmp_path))
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(**kw)
+    ref_runner = make_reference_wave_runner(get_model("siard").prior(),
+                                            tabc.make_simulator(ds, cfg, cuda), cfg, 2)
+    out = ref_runner(0, 0, ref_runner.init(tabc.ABCState(n_params=8)), tabc.SEGMENT_WAVES)
+    want = ref_runner.read(out)
+    want_segments = ref_runner.segments(out)
+    assert want[1] >= 30
+    for segments, waves, n, fills in got:
+        assert (waves, n, fills) == want
+        for a, b in zip(segments, want_segments):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_campaign_device_groups_on_one_card(cuda, tmp_path):
+    """devices_per_scenario=2 on [cuda:0] * 4: groups "0+1" and "2+3", each
+    cell bitwise its solo 2-shard reference run, the resume launching
+    nothing."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.campaign import CampaignConfig, run_campaign
+    from repro_torch.core.scaling import make_reference_wave_runner
+
+    cfg = CampaignConfig(datasets=("italy", "usa"), models=("siard",), batch_size=32768,
+                         num_days=49, target_accepted=30, auto_quantile=1e-3,
+                         devices_per_scenario=2, out_dir=str(tmp_path))
+    rep = run_campaign(cfg, device=[cuda] * 4)
+    assert [(r.status, r.device) for r in rep.scenarios] == [("ok", "0+1"), ("ok", "2+3")]
+    cap = tabc.wave_capacity(cfg.abc_config(cfg.scenarios()[0], 1.0), 16384)
+    for r in rep.scenarios:
+        ds = data.get_dataset(r.dataset, num_days=49)
+        shape = cfg.abc_config(cfg.scenarios()[0], 1.0)
+        eps = tabc.calibrate_tolerance(ds, shape, seed=0, quantile=cfg.auto_quantile,
+                                       n_pilot=cfg.pilot_size, device=cuda)
+        solo_cfg = dataclasses.replace(shape, tolerance=eps)
+        solo = tabc.run_abc(ds, solo_cfg, seed=0, wave_runner=make_reference_wave_runner(
+            get_model("siard").prior(), tabc.make_simulator(ds, solo_cfg, cuda), solo_cfg, 2))
+        tree, meta, _ = load_checkpoint(r.checkpoint_dir, {
+            "theta_buf": np.zeros((2 * cap, 8), np.float32),
+            "dist_buf": np.zeros((2 * cap,), np.float32)})
+        rows = np.concatenate([tree["theta_buf"][s * cap:s * cap + c]
+                               for s, c in enumerate(meta["fills"])])
+        assert _bits_equal(torch.from_numpy(rows), solo.theta)
+        assert (eps, solo.runs, solo.simulations) == (r.tolerance, r.runs, r.simulations)
+    launches = dict(abc_sim.ENTRY_LAUNCHES)
+    rep2 = run_campaign(cfg, device=[cuda] * 4)
+    assert [r.status for r in rep2.scenarios] == ["resumed_complete"] * 2
+    assert dict(abc_sim.ENTRY_LAUNCHES) == launches
