@@ -199,6 +199,22 @@ printing one JSON line:
              "2+3", each cell bitwise its 2-shard reference run, the resume
              resumed_complete with 0 launches (writes under
              build/scaleout_path and removes it)
+  tuning_path  `core.tuning` and `repro_torch.analysis` on the card, the
+             launch counters set to 0 just before: (a) the spec-derived
+             cost model of siard, sir, seir, seiard, siard under a window
+             and metapop_seir at R = 4 and 100 beside the kernel's hand
+             count (`abc_sim.ops_per_sample_day`); (b) `autotune` of SIARD
+             at 100,000 x 49 and metapop_seir R=100 at 20,000 x 49 into a
+             cache under build/tuning_path: every candidate block's wall,
+             the winner, best_batch; every candidate's wave and theta-in
+             distances bitwise the default block's; a second call a hit
+             with 0 launches; (c) `abc_run ... --autotune` at main_path's
+             flags into a fresh cache: its posterior bitwise main_path's,
+             then warm in turns with the untuned run; (d) `roofline_metrics`
+             of the wave entry at 100,000 x 49 and of the warm main path,
+             each efficiency in (0, 1.05]; (e) one device-loop segment under
+             torch.cuda.set_sync_debug_mode("warn"): one synchronizing call;
+             (f) `python -m repro_torch.analysis`: no finding
   timing     both entries at 100,000 and 1,000,000 x 49 days in turns, the
              wave entry at blocks 64/128/256 in turns, beside the operation
              bound, the issue floor from the census at the SM clock that
@@ -237,12 +253,14 @@ printing one JSON line:
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
-             epi_serve and scaleout_path ((a), (d), (e), (f)), and its ms; npe_path's launches, 0 in its fits and
+             epi_serve, scaleout_path ((a), (d), (e), (f)) and tuning_path,
+             and its ms; npe_path's launches, 0 in its fits and
              the ABC oracle's apart), its
              region axis on the thread route (all four regional entries of
              both routes, with their launches on metapop_path, regions_path
              and campaign_path, the R=100 times at both batches and the route
-             chosen at each R and batch) and on the warp route, the bf16
+             chosen at each R and batch; tuning_path's autotune of R=100
+             on the warp route) and on the warp route, the bf16
              flash route and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
@@ -262,6 +280,17 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+# the card's ceilings (H100 SXM published peaks), one place for the port
+from repro_torch.device import (  # noqa: E402
+    BF16_OPS_PER_S,
+    F32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    TF32_OPS_PER_S,
+    TF32_PASSES,
+)
+from repro_torch.ioutils import atomic_write_text  # noqa: E402
+
 PINS = os.path.join(ROOT, "tests", "data", "r1_pins.npz")
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim.cuh"
 TPU_KERNEL = "src/repro/kernels/abc_sim.py:138"
@@ -297,16 +326,6 @@ CENSUS_PER_DAY = {"siard": 660, "sir": 249, "seir": 353, "seiard": 762,
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"
 FLASH_F32_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_tf32.cu"
 FLASH_TPU_KERNEL = "src/repro/kernels/flash_attention.py:38"
-#: H100 SXM published peaks (NVIDIA's data sheet): float32 outside
-#: the tensor cores, bf16 and TF32 on the tensor cores (dense), and HBM
-#: bandwidth
-F32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 494.7e12
-#: TF32 products for each float32 one in the float32 flash kernel (3xTF32:
-#: a_hi b_hi + a_lo b_hi + a_hi b_lo); its bound counts all three
-TF32_PASSES = 3
-HBM_BYTES_PER_S = 3.35e12
 #: kernel-vs-oracle bar (tests/test_kernel_abc_sim.py:58): repro's pinned
 #: oracle distances differ from its pinned Pallas ones, which the kernel
 #: equals bitwise, by up to 1.2e-7 relative
@@ -750,8 +769,7 @@ def epi_serve_phase(dev, name: str, smi: str) -> tuple:
     def serve_cli(part, queries, args):
         """`serve --epi` over `queries`, counted; (response payload, counts, fits)."""
         qpath = os.path.join(root, f"{part}_queries.json")
-        with open(qpath, "w") as f:
-            json.dump(queries, f)
+        atomic_write_text(qpath, json.dumps(queries))
         resp = os.path.join(root, f"{part}_responses.json")
         with FitLog() as log:
             answered, counts = counted(lambda: serve.main(
@@ -1173,9 +1191,8 @@ def npe_phase(dev, name: str, smi: str) -> dict:
         raise AssertionError("npe_path c: the NPE server entered the SMC wave fitter")
 
     qpath, rpath = os.path.join(root, "queries.json"), os.path.join(root, "responses.json")
-    with open(qpath, "w") as f:
-        json.dump([{"dataset": "served", "model": "sir", "horizon": 7, "seed": s}
-                   for s in range(4)], f)
+    atomic_write_text(qpath, json.dumps([{"dataset": "served", "model": "sir", "horizon": 7,
+                                          "seed": s} for s in range(4)]))
     serving.EpiServer, serving.run_smc_abc = Recorded, no_waves
     try:
         refits, parts = [], []
@@ -1711,6 +1728,230 @@ def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
     return lines
 
 
+#: tuning_path's autotuned cells: (tag, model, regions, dataset, batch, chunk)
+TUNING_CELLS = (("siard 100000x49", "siard", 1, "italy", 100_000, 10_000),
+                ("metapop_seir R=100 20000x49", "metapop_seir", 100, "synthetic_small",
+                 20_000, 2_000))
+#: the cost-model cases of tuning_path (a): (tag, model, regions, schedule)
+COST_CASES = (("siard", "siard", 1, ""), ("sir", "sir", 1, ""), ("seir", "seir", 1, ""),
+              ("seiard", "seiard", 1, ""), (f"siard {INTERVENTION}", "siard", 1, INTERVENTION),
+              ("metapop_seir R=4", "metapop_seir", 4, ""),
+              ("metapop_seir R=100", "metapop_seir", 100, ""))
+
+
+def tuning_phase(dev, name: str, smi: str, italy_argv, main_post, main_tolerance) -> tuple:
+    """Phase tuning_path (`core.tuning` and `repro_torch.analysis` on the
+    card), its abc_sim launches counted from 0: (a) the cost model of each
+    of `COST_CASES` beside the kernel's hand count; (b) `autotune` of each
+    of `TUNING_CELLS` into a cache under build/tuning_path: every
+    candidate's wall, the winner and best_batch, every candidate block's
+    wave and theta-in distances bitwise the default block's, a second call a
+    hit with 0 launches; (c) `abc_run ... --autotune` at main_path's flags
+    into a fresh cache, its posterior bitwise main_path's, then warm in
+    turns with the untuned run (a warm tuned run launches as main_path
+    does: the hit measures nothing); (d) the roofline fields of the wave
+    entry at 100,000 x 49 and of main_path's warm run, each efficiency in
+    (0, 1.05]; (e) one device-loop segment, enqueue and read, under
+    torch.cuda.set_sync_debug_mode("warn"): one synchronizing call, the
+    count read (the harvest's row copies counted apart); (f) `python -m
+    repro_torch.analysis` on the tree: no finding. Returns (launches,
+    gated) by entry."""
+    import dataclasses
+    import pathlib
+    import shutil
+    import warnings
+
+    import torch
+
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import tuning
+    from repro_torch.core.priors import schedule_prior
+    from repro_torch.core.summaries import get_summary, lower_summary
+    from repro_torch.epi import data
+    from repro_torch.epi.models import get_model
+    from repro_torch.epi.spec import regionalize
+    from repro_torch.kernels import abc_sim
+    from repro_torch.launch import abc_run
+
+    root = os.path.join(ROOT, "build", "tuning_path")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    abc_sim.ENTRY_LAUNCHES.clear()
+    abc_sim.ENTRY_GATED.clear()
+
+    def spec_of(model, regions):
+        spec = get_model(model)
+        return spec if regions == spec.n_regions else regionalize(spec, regions, "ring:0.1")
+
+    # (a) the cost model, spec-derived, beside the kernel's hand count
+    costs = {}
+    for tag, model, regions, iv in COST_CASES:
+        spec = spec_of(model, regions)
+        sched = abc_run.parse_intervention(iv)
+        cm = tuning.cost_model(spec, 49, schedule=sched)
+        obs = torch.as_tensor(data.get_dataset(
+            "italy" if model in ("siard", "seiard") else "synthetic_small", num_days=49,
+            model=spec).observed, device=dev)
+        hand = abc_sim.ops_per_sample_day(spec, lower_summary(get_summary(None), "euclidean",
+                                                              obs, n_regions=spec.n_regions))
+        costs[tag] = {**dataclasses.asdict(cm), "hand_count_ops_per_sample_day": hand,
+                      "traced_over_hand": cm.flops_per_sample_day / hand,
+                      "arithmetic_intensity_fused": cm.arithmetic_intensity_fused}
+
+    # (b) autotune each cell into a temporary cache; the blocks bitwise
+    cache = tuning.TuningCache(os.path.join(root, "cache.json"))
+    tuned, wave_ms = {}, None
+    for tag, model, regions, ds_name, batch, chunk in TUNING_CELLS:
+        spec = spec_of(model, regions)
+        ds = data.get_dataset(ds_name, num_days=49, model=spec)
+        cfg = tabc.ABCConfig(batch_size=batch, chunk_size=chunk, num_days=49,
+                             tolerance=main_tolerance, model=spec, autotune=True)
+        t0 = time.perf_counter()
+        entry = tuning.autotune(ds, cfg, cache=cache, device=dev)
+        search_s = time.perf_counter() - t0
+        before = sum(abc_sim.ENTRY_LAUNCHES.values())
+        if tuning.autotune(ds, cfg, cache=cache, device=dev) != entry:
+            raise AssertionError(f"tuning_path {tag}: the second autotune is not the hit")
+        hit_launches = sum(abc_sim.ENTRY_LAUNCHES.values()) - before
+        if hit_launches:
+            raise AssertionError(f"tuning_path {tag}: a cache hit launched {hit_launches}")
+        prior = schedule_prior(spec)
+        base = dataclasses.replace(cfg, autotune=False)
+        sim0 = tabc.make_simulator(ds, base, dev)
+        th0, d0 = sim0.wave(prior, 7, 8, batch)
+        din0 = sim0(th0, 9)
+        checks = []
+        for block in tuning.block_candidates(spec, batch):
+            sim = tabc.make_simulator(ds, dataclasses.replace(base, block=block), dev)
+            th, d = sim.wave(prior, 7, 8, batch)
+            checks.append(bitwise(f"tuning_path {tag} block {block} wave theta", th, th0))
+            checks.append(bitwise(f"tuning_path {tag} block {block} wave distances", d, d0))
+            checks.append(bitwise(f"tuning_path {tag} block {block} theta-in distances",
+                                  sim(th0, 9), din0))
+        if model == "siard":
+            wave_ms = cuda_ms(lambda: sim0.wave(prior, 12, 99, batch), 50)
+        tuned[tag] = {"key": tuning.cfg_cache_key(cfg), "entry": entry, "search_s": search_s,
+                      "route": abc_sim.regional_route(spec, batch) if spec.is_regional
+                      else "flat", "default_block": abc_sim.route_block(
+                          abc_sim.regional_route(spec, batch) if spec.is_regional
+                          else "thread"),
+                      "hit_launches": hit_launches, "bitwise_blocks": checks}
+
+    # (c) the main path autotuned, cold into a fresh cache, then warm in turns
+    default_cache = tuning.DEFAULT_CACHE_PATH
+    tuning.DEFAULT_CACHE_PATH = pathlib.Path(root) / "main.json"
+    argv_t = italy_argv + ["--autotune"]
+    t0 = time.perf_counter()
+    post_t = abc_run.main(argv_t)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    same = {"theta": bitwise("tuning_path autotuned main_path theta", post_t.theta,
+                             main_post.theta),
+            "distances": bitwise("tuning_path autotuned main_path distances",
+                                 post_t.distances, main_post.distances)}
+    if (post_t.runs, post_t.simulations) != (main_post.runs, main_post.simulations):
+        raise AssertionError(f"tuning_path: the autotuned run's runs/simulations "
+                             f"{post_t.runs}/{post_t.simulations} differ from main_path's")
+    main_cfg = tabc.ABCConfig(batch_size=100_000, chunk_size=10_000, num_days=49,
+                              tolerance=main_tolerance, target_accepted=100)
+    main_entry = tuning.TuningCache(tuning.DEFAULT_CACHE_PATH).get(
+        tuning.cfg_cache_key(main_cfg))
+    if main_entry is None:
+        raise AssertionError("tuning_path: abc_run --autotune left no entry in its cache")
+    walls = {"untuned": [], "autotuned": []}
+    # calibrate_tolerance's pilot: 65,536 samples in waves of at most a batch
+    pilot = min(65_536, main_cfg.batch_size)
+    pilot_waves = 65_536 // pilot
+    for which in ("untuned", "autotuned", "autotuned", "untuned"):
+        waves0 = abc_sim.run_launches("wave")
+        t0 = time.perf_counter()
+        p = abc_run.main(italy_argv if which == "untuned" else argv_t)
+        torch.cuda.synchronize()
+        walls[which].append(time.perf_counter() - t0)
+        made = abc_sim.run_launches("wave") - waves0
+        if made != pilot_waves + p.runs:
+            raise AssertionError(f"tuning_path: a warm {which} run made {made} wave launches "
+                                 f"that ran, want {pilot_waves} + {p.runs}")
+
+    tuning.DEFAULT_CACHE_PATH = default_cache
+
+    # (d) roofline fields of the wave entry and of the warm main path
+    cm = tuning.cost_model("siard", 49)
+    roofline = {
+        "wave_entry_100000x49": {"ms": wave_ms, **tuning.roofline_metrics(
+            cm, main_cfg.batch_size, wave_ms * 1e-3)},
+        "main_path_warm": {"wall_s": min(walls["autotuned"]),
+                           "simulations": main_post.simulations + pilot * pilot_waves,
+                           **tuning.roofline_metrics(
+                               cm, main_post.simulations + pilot * pilot_waves,
+                               min(walls["autotuned"]))},
+    }
+    for k, v in roofline.items():
+        if not 0 < v["roofline_efficiency"] <= 1.05:
+            raise AssertionError(f"tuning_path: roofline_efficiency of {k} is "
+                                 f"{v['roofline_efficiency']}, not in (0, 1.05]")
+
+    # (e) the card-side audit: the syncs of one segment of the device loop
+    italy = data.get_dataset("italy", num_days=49)
+    runner = tabc.make_wave_runner(get_model("siard").prior(),
+                                   tabc.make_simulator(italy, main_cfg, dev), main_cfg)
+    carry = runner.init(tabc.ABCState(n_params=8))
+    torch.cuda.synchronize()
+
+    def synchronizing(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        msgs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+        return out, msgs
+
+    def segment():
+        seg = runner(0, 0, carry, tabc.SEGMENT_WAVES)
+        return seg, runner.read(seg)
+
+    (seg, (waves, n_acc, fill)), seg_syncs = synchronizing(segment)
+    state = tabc.ABCState(n_params=8)
+    _, harvest_syncs = synchronizing(lambda: runner.harvest(seg, state, fill))
+    if len(seg_syncs) != 1:
+        raise AssertionError(f"tuning_path: a device-loop segment made {len(seg_syncs)} "
+                             f"synchronizing calls, the contract is 1: {seg_syncs[:4]}")
+    seg_same = bitwise("tuning_path audited segment theta", state.to_arrays()[0],
+                       main_post.theta)
+
+    # (f) the static analysis of the tree: no finding
+    report_path = os.path.join(root, "analysis.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--report",
+                           report_path], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    analysis_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tuning_path: python -m repro_torch.analysis exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(report_path) as f:
+        report = json.load(f)
+    launches, gated = dict(abc_sim.ENTRY_LAUNCHES), dict(abc_sim.ENTRY_GATED)
+    emit("tuning_path", cost_model=costs, autotune=tuned,
+         autotuned_main_path={"argv": argv_t, "cold_s": cold_s, "entry": main_entry,
+                              "bitwise_main_path": same, "runs": post_t.runs,
+                              "warm_wall_s": {k: float(np.mean(v)) for k, v in walls.items()},
+                              "turns_s": walls},
+         roofline=roofline,
+         sync_audit={"sync_debug_mode": "warn", "enqueued_waves": tabc.SEGMENT_WAVES,
+                     "waves": waves, "accepted": n_acc, "segment_syncs": len(seg_syncs),
+                     "segment_sync_messages": seg_syncs[:2],
+                     "harvest_syncs": len(harvest_syncs), "rows_bitwise_main_path": seg_same},
+         analysis={"returncode": proc.returncode, "findings": report["counts"]["total"],
+                   "passes": report["passes"], "wall_s": analysis_s},
+         launches=launches, gated_launches=gated, kind=name, nvidia_smi=smi)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, gated
+
+
 def main() -> int:
     import torch
 
@@ -1718,7 +1959,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, os.path.join(ROOT, "experiments"))
     import flash_f32_cuda_core
     from repro_torch.core import abc as tabc
@@ -2689,6 +2929,11 @@ def main() -> int:
     # the lockstep reference, the study, the sharded SMC round, device groups
     path_launches["scaleout_path"], path_gated["scaleout_path"] = scaleout_phase(
         dev, name, smi, post, post_smc, smc_cfg)
+
+    # ---- tuning_path: the cost model, the autotuner, the audit of a segment's
+    # syncs and the static analysis, on the card
+    path_launches["tuning_path"], path_gated["tuning_path"] = tuning_phase(
+        dev, name, smi, italy_argv, post, post.tolerance)
 
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version

@@ -78,8 +78,8 @@ def save_checkpoint(directory: str | Path, step: int, tree: Dict,
         arr = _to_numpy(leaf)
         shape = list(arr.shape)  # before ascontiguousarray (it promotes 0-d)
         arr = np.ascontiguousarray(arr)
-        # the files land in the uncommitted .tmp directory; the rename
-        # below is the commit
+        # analysis: allow(non-atomic-artifact-write) — the files land in the
+        # uncommitted .tmp directory; the rename below is the commit
         np.save(tmp / _leaf_filename(i), arr.reshape(-1).view(np.uint8))
         manifest["leaves"].append({"path": path, "file": _leaf_filename(i),
                                    "shape": shape, "dtype": str(arr.dtype)})

@@ -137,6 +137,10 @@ class ABCConfig:
     #: backend="npe" only: training hyperparameters (`core.npe.NPEConfig`);
     #: None uses the NPEConfig defaults
     npe: Optional[object] = None
+    #: fill `block` from the measured tuning cache when the simulator is
+    #: made (`core.tuning.resolve_tuned`; a miss runs the search once and
+    #: persists it). An explicit `block` wins; the distances are the same
+    autotune: bool = False
 
     def __post_init__(self):
         if self.strategy not in ("outfeed", "topk"):
@@ -159,6 +163,9 @@ class ABCConfig:
                     f"cfg.npe is set but backend={self.backend!r}; NPE "
                     "hyperparameters only apply to backend='npe'"
                 )
+        if self.autotune and self.backend != "cuda":
+            raise ValueError(f"autotune tunes the cuda backend's block; backend "
+                             f"{self.backend!r} has none")
         get_distance_kind(self.distance)
         get_summary(self.summary)
         spec = get_model(self.model)
@@ -252,7 +259,8 @@ def shard_seeds(seed: int, index: int, shard: int) -> Tuple[int, int]:
 def make_simulator(dataset: CountryData, cfg: ABCConfig,
                    device="cuda", mob: Optional[torch.Tensor] = None) -> SimulatorFn:
     """The batched theta -> distance function on `device`; `mob` as in
-    `ops.make_abc_sim` (a regional model's mobility buffer, shared)."""
+    `ops.make_abc_sim` (a regional model's mobility buffer, shared). Under
+    `cfg.autotune` its block is the tuning cache's winner."""
     if cfg.backend == "npe":
         raise ValueError(
             "backend='npe' has no theta -> distance simulator; it is an "
@@ -270,6 +278,13 @@ def make_simulator(dataset: CountryData, cfg: ABCConfig,
             f"dataset {dataset.name!r} has {dataset.num_days} days; "
             f"cfg.num_days is {cfg.num_days}"
         )
+    if cfg.autotune:
+        # the block from the measured tuning cache (a miss runs the search
+        # once and persists it); the config comes back with autotune=False,
+        # so the search's own probes build their simulators below
+        from repro_torch.core import tuning
+
+        cfg = tuning.resolve_tuned(dataset, cfg, device=device)
     observed = torch.as_tensor(
         np.ascontiguousarray(dataset.observed[:, : cfg.num_days], np.float32),
         device=device,
@@ -381,6 +396,8 @@ def sync_counts(*counts: torch.Tensor) -> list:
     as Python ints, in one copy (counted by `HOST_SYNCS`)."""
     global HOST_SYNCS
     HOST_SYNCS += 1
+    # analysis: allow(host-sync-in-wave-loop) — the loops' one sanctioned
+    # sync a segment: one copy of the counts, then ints of host tensors
     return [int(c) for c in torch.cat(counts).cpu()]
 
 

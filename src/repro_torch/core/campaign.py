@@ -114,8 +114,8 @@ class Scenario:
 @dataclasses.dataclass(frozen=True)
 class CampaignConfig:
     """Grid, per-scenario ABC settings and campaign policy: `repro`'s
-    fields less its JAX-only knobs (`interpret`, `tile`, `scan_unroll`,
-    `autotune`), plus the CUDA `block`."""
+    fields less its JAX-only knobs (`interpret`, `tile`, `scan_unroll`),
+    plus the CUDA `block`."""
 
     datasets: Tuple[str, ...]
     #: registry names and/or spec objects
@@ -154,6 +154,10 @@ class CampaignConfig:
     devices_per_scenario: int = 1
     #: CUDA block size in threads; None for the kernel's own default
     block: Optional[int] = None
+    #: take the block of each shape from the measured tuning cache
+    #: (`core.tuning`), tuned against the first dataset that reaches the
+    #: shape; an explicit `block` wins
+    autotune: bool = False
 
     def __post_init__(self):
         if self.devices_per_scenario < 1:
@@ -190,6 +194,7 @@ class CampaignConfig:
             summary=sc.summary,
             distance=sc.distance,
             block=self.block,
+            autotune=self.autotune,
         )
 
 
@@ -282,11 +287,14 @@ class CampaignReport:
 class _ShapeCache:
     """One entry a scenario shape, holding the simulators made under it,
     one a (dataset, schedule, device). The dataset is not part of the key:
-    the kernel reads the series and its scalars at run time."""
+    the kernel reads the series and its scalars at run time. Under
+    `autotune` the entry's block is resolved once, against the first
+    dataset that reaches the shape: the block is a property of the shape."""
 
     def __init__(self, cfg: CampaignConfig):
         self.cfg = cfg
         self._entries: Dict[tuple, Dict[tuple, SimulatorFn]] = {}
+        self._blocks: Dict[tuple, Optional[int]] = {}
 
     @property
     def n_compiled(self) -> int:
@@ -305,8 +313,22 @@ class _ShapeCache:
             # a regional entry shares its mobility buffer on each device
             mob = next((s.mob for (_, _, d), s in sims.items()
                         if d == device and getattr(s, "mob", None) is not None), None)
-            sims[key] = make_simulator(dataset, self.cfg.abc_config(sc, 1.0), device, mob=mob)
+            sims[key] = make_simulator(dataset, self.shape_config(sc, dataset, device), device,
+                                       mob=mob)
         return sims[key]
+
+    def shape_config(self, sc: Scenario, dataset: CountryData, device) -> ABCConfig:
+        """The scenario's config for its simulators: under autotune the
+        shape's tuned block, with autotune off."""
+        cfg = self.cfg.abc_config(sc, 1.0)
+        if not cfg.autotune:
+            return cfg
+        key = self.key_of(sc)
+        if key not in self._blocks:
+            from repro_torch.core import tuning
+
+            self._blocks[key] = tuning.resolve_tuned(dataset, cfg, device=device).block
+        return dataclasses.replace(cfg, autotune=False, block=self._blocks[key])
 
 
 class _ScenarioRun:

@@ -75,6 +75,7 @@ from repro_torch.core.abc import (
 from repro_torch.core.priors import UniformBoxPrior, schedule_prior
 from repro_torch.device import resolve_device
 from repro_torch.epi.models import get_model
+from repro_torch.ioutils import atomic_write
 from repro_torch.kernels import abc_sim
 
 STYLES = ("shard_map", "pjit")
@@ -352,7 +353,8 @@ def _rank_main(rank, fn, nprocs, store, backend, device, out_dir, args):
         dist.barrier()
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+    # atomic: a rank that dies while writing leaves no truncated result
+    with atomic_write(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 
 

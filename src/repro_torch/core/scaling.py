@@ -99,8 +99,7 @@ def make_reference_wave_runner(prior: UniformBoxPrior, simulator, cfg: ABCConfig
 class ScalingConfig:
     """One scaling study: (model, backend) x device-count grid, weak scaling.
     `repro`'s fields and defaults, less its JAX-only knobs (`tile`,
-    `scan_unroll`, `autotune`) and with the port's backend, plus the CUDA
-    `block`."""
+    `scan_unroll`) and with the port's backend, plus the CUDA `block`."""
 
     device_counts: Tuple[int, ...] = (1, 2, 4, 8)
     models: Tuple[str, ...] = ("siard",)
@@ -119,6 +118,9 @@ class ScalingConfig:
     style: str = "shard_map"
     #: CUDA block size in threads; None for the kernel's own default
     block: Optional[int] = None
+    #: take each cell's block from the measured tuning cache (`core.tuning`,
+    #: keyed by the cell's global batch); an explicit `block` wins
+    autotune: bool = False
 
     def __post_init__(self):
         if not self.device_counts:
@@ -151,6 +153,7 @@ def _cell_abc_config(scfg: ScalingConfig, model: str, backend: str,
         model=model,
         wave_loop="device",
         block=scfg.block,
+        autotune=scfg.autotune,
     )
 
 

@@ -2,11 +2,26 @@
 
 Entry points take a `device` argument that defaults to "cuda". Asking for a
 card that is not there raises; nothing falls back to the CPU on its own.
+
+It also holds the card's ceilings, the port's counterpart of
+`repro.launch.analysis`'s `PEAK_FLOPS`/`HBM_BW` (which are a TPU v5e's): the
+bounds of `chip_smoke.py` and the roofline of `core.tuning` read them here.
 """
 
 from __future__ import annotations
 
 import torch
+
+#: H100 SXM published peaks (NVIDIA's data sheet): float32 outside
+#: the tensor cores, bf16 and TF32 on the tensor cores (dense), and HBM
+#: bandwidth
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 494.7e12
+#: TF32 products for each float32 one in the float32 flash kernel (3xTF32:
+#: a_hi b_hi + a_lo b_hi + a_hi b_lo); its bound counts all three
+TF32_PASSES = 3
+HBM_BYTES_PER_S = 3.35e12
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -20,3 +35,22 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "is False; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def card_label(device: str | torch.device = "cuda") -> str:
+    """The card of `device` as `nvidia-smi --query-gpu=name,power.limit`
+    names it ("NVIDIA H100 80GB HBM3, 700.00 W"), for records of measured
+    numbers; "cpu" for the CPU."""
+    import subprocess
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"

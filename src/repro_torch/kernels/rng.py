@@ -36,6 +36,8 @@ def as_u32(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         t = x.to(device=device or x.device, dtype=torch.int64)
     else:
+        # analysis: allow(host-sync-in-wave-loop) — x is a host int or array
+        # here (a tensor takes the branch above): nothing is read from a card
         t = torch.as_tensor(np.asarray(x, np.int64), device=device)
     return t & MASK32
 
@@ -43,6 +45,8 @@ def as_u32(x, device=None) -> torch.Tensor:
 def _word(x, device=None):
     """An int as a Python int of 32 bits, anything else as `as_u32` gives it."""
     if isinstance(x, (int, np.integer)):
+        # analysis: allow(host-sync-in-wave-loop) — x is a Python or numpy
+        # integer here, not a tensor
         return int(x) & MASK32
     return as_u32(x, device)
 
@@ -72,11 +76,15 @@ def _device_of(*xs):
     return None
 
 
+def _hash(seed, idx, ctr):
+    """h(seed, idx, ctr) of 32-bit words (ints or int64 tensors)."""
+    return fmix32(fmix32(seed ^ _mul32(idx, P1) ^ _mul32(ctr, P2) ^ X1))
+
+
 def hash_u32(seed, idx, ctr) -> torch.Tensor:
     """Counter-based uint32 stream h(seed, sample index, counter), as int64."""
     dev = _device_of(seed, idx, ctr)
-    seed, idx, ctr = _word(seed, dev), _word(idx, dev), _word(ctr, dev)
-    h = fmix32(fmix32(seed ^ _mul32(idx, P1) ^ _mul32(ctr, P2) ^ X1))
+    h = _hash(_word(seed, dev), _word(idx, dev), _word(ctr, dev))
     return h if isinstance(h, torch.Tensor) else torch.tensor(h, dtype=torch.int64)
 
 
@@ -124,4 +132,6 @@ def stream_seed(seed: int, index: int, stream: int) -> int:
     distinct streams of (seed, i), so any wave can be recomputed from the
     base seed and its index alone, which is what makes resume exact.
     """
-    return int(hash_u32(seed, index, stream))
+    # analysis: allow(host-sync-in-wave-loop) — the loops pass Python ints,
+    # hashed as ints on the host: int() of an int reads no tensor
+    return int(_hash(_word(seed), _word(index), _word(stream)))

@@ -1,8 +1,8 @@
 """The paper's workload on the port: rejection ABC from the CLI.
 
 Single-run mode of `repro.launch.abc_run`, with the same flag names
-(`--wave-loop` among them: auto, host or device), plus `--device` (default
-cuda) and `--block`:
+(`--wave-loop` and `--autotune` among them), plus `--device` (default cuda)
+and `--block`:
 
     PYTHONPATH=src python -m repro_torch.launch.abc_run --dataset italy \\
         --days 49 --batch 100000 --chunk 10000 --auto-tolerance 1e-4 \\
@@ -65,9 +65,10 @@ it. `--campaign` reads the grid flags (`--datasets`, `--models`,
 their singular forms, as `repro` does; the grid flags need `--campaign`.
 `--scaling` reads `--models`, `--backends`, `--dataset`, `--days` and
 `--batch` (a device), refuses `--regions`/`--mobility` and npe, and the
-`--scaling-*` flags need it. Under several ranks only rank 0 prints and
-writes files. `--forecast` delegates to `core.serving.forecast_bands`, the
-path `serve --epi` answers from.
+`--scaling-*` flags need it. `--autotune` takes the block of every
+mode's simulators from the tuning cache (`core.tuning`). Under several
+ranks only rank 0 prints and writes files. `--forecast` delegates to
+`core.serving.forecast_bands`, the path `serve --epi` answers from.
 """
 
 from __future__ import annotations
@@ -221,6 +222,7 @@ def run_scaling_cli(args):
         dataset=args.dataset,
         reps=args.scaling_reps,
         block=args.block,
+        autotune=args.autotune,
     )
     report = run_scaling_study(scfg, verbose=True, device=args.device)
     if report is None:
@@ -263,6 +265,7 @@ def run_campaign_cli(args, parser):
         checkpoint_every=args.checkpoint_every,
         devices_per_scenario=args.devices_per_scenario,
         block=args.block,
+        autotune=args.autotune,
     )
     return run_campaign(cfg, verbose=True, device=args.device)
 
@@ -325,6 +328,12 @@ def main(argv=None):
                     help="CUDA block size in threads (default: the kernel's own, "
                          f"{DEFAULT_BLOCK}, or {WARP_DEFAULT_BLOCK} on the regional warp "
                          "route; distances do not depend on it)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="resolve --block from the measured tuning cache "
+                         "(experiments/tuning/cache_torch.json) when the simulator is "
+                         "made (a cache miss runs the best-of-N search once and "
+                         "persists the winner; see repro_torch.core.tuning). Single "
+                         "runs, --campaign and --scaling; an explicit --block wins")
     # campaign mode
     ap.add_argument("--campaign", action="store_true",
                     help="run a dataset x model x backend x seed (x intervention x summary) "
@@ -410,6 +419,8 @@ def main(argv=None):
         if args.state:
             ap.error("--state is wave-backend-only; NPE runs are not "
                      "checkpoint/resumable (re-train or fine-tune instead)")
+        if args.autotune:
+            ap.error("--autotune tunes the cuda backend's block; backend npe has none")
     npe_overrides = {
         k: v for k, v in (("train_steps", args.npe_steps), ("train_batch", args.npe_batch),
                           ("hidden", args.npe_hidden), ("n_components", args.npe_components))
@@ -488,6 +499,7 @@ def run_single(args, npe_overrides):
         schedule=schedule,
         wave_loop=args.wave_loop,
         npe=npe_cfg,
+        autotune=args.autotune,
     )
     wave_runner = run_fn = None
     if args.multi_device:

@@ -40,7 +40,7 @@ torch.set_num_threads(1)
 COUNTRIES = ("italy", "new_zealand", "usa")
 MODELS = ("siard", "seiard")
 #: `repro`'s config fields the port drops (JAX-only knobs) and adds
-JAX_ONLY = {"interpret", "tile", "scan_unroll", "autotune"}
+JAX_ONLY = {"interpret", "tile", "scan_unroll"}
 PORT_ONLY = {"block"}
 
 

@@ -1155,3 +1155,82 @@ def test_campaign_device_groups_on_one_card(cuda, tmp_path):
     rep2 = run_campaign(cfg, device=[cuda] * 4)
     assert [r.status for r in rep2.scenarios] == ["resumed_complete"] * 2
     assert dict(abc_sim.ENTRY_LAUNCHES) == launches
+
+
+#: (model, R, dataset) of the autotuner's block search: each flat model, the
+#: region axis's thread route (R=4) and its warp route (R=100) at 20,000
+TUNED_CASES = [("siard", 1, "italy"), ("sir", 1, "synthetic_small"),
+               ("seir", 1, "synthetic_small"), ("seiard", 1, "italy"),
+               ("metapop_seir", 4, "synthetic_small"), ("metapop_seir", 100, "synthetic_small")]
+
+
+@pytest.mark.parametrize("model,regions,dataset", TUNED_CASES)
+def test_every_candidate_block_is_bitwise_the_default(cuda, model, regions, dataset):
+    """The safety contract that lets `core.tuning` apply its winner: at every
+    block of `tuning.block_candidates` the wave entry's theta and distances
+    and the theta-in entry's distances are the default block's, bit for bit."""
+    from repro_torch.core import tuning
+    from repro_torch.epi.spec import regionalize
+
+    spec = get_model(model)
+    if regions != spec.n_regions:
+        spec = regionalize(spec, regions, "ring:0.1")
+    batch = 20_000
+    if spec.is_regional:
+        assert abc_sim.regional_route(spec, batch) == ("thread" if regions == 4 else "warp")
+    ds = data.get_dataset(dataset, num_days=49, model=spec)
+    cfg = tabc.ABCConfig(batch_size=batch, chunk_size=batch, num_days=49, model=spec)
+    prior = schedule_prior(spec)
+    sim0 = tabc.make_simulator(ds, cfg, cuda)
+    th0, d0 = sim0.wave(prior, 7, 8, batch)
+    din0 = sim0(th0, 9)
+    blocks = tuning.block_candidates(spec, batch)
+    assert len(blocks) >= 3
+    for block in blocks:
+        sim = tabc.make_simulator(ds, dataclasses.replace(cfg, block=block), cuda)
+        th, d = sim.wave(prior, 7, 8, batch)
+        assert _bits_equal(th, th0) and _bits_equal(d, d0), block
+        assert _bits_equal(sim(th0, 9), din0), block
+
+
+def test_autotune_on_the_card_records_it_and_a_hit_launches_nothing(cuda, tmp_path):
+    from repro_torch.core import tuning
+
+    ds = data.get_dataset("italy", num_days=20)
+    cfg = tabc.ABCConfig(batch_size=8192, chunk_size=8192, num_days=20, autotune=True)
+    cache = tuning.TuningCache(tmp_path / "cache.json")
+    before = abc_sim.launches("wave")
+    entry = tuning.autotune(ds, cfg, cache=cache, reps=1, device=cuda)
+    assert abc_sim.launches("wave") > before  # the search timed the wave entry
+    assert entry["block"] in tuning.block_candidates("siard", 8192)
+    assert entry["device"] != "cpu" and "W" in entry["device"]  # name, power limit
+    launches = dict(abc_sim.ENTRY_LAUNCHES)
+    assert tuning.autotune(ds, cfg, cache=cache, device=cuda) == entry
+    assert dict(abc_sim.ENTRY_LAUNCHES) == launches
+
+
+def test_a_device_loop_segment_synchronizes_once(cuda):
+    """The device loop's contract on the card: a segment, enqueued and read,
+    makes one synchronizing call (the count read of `sync_counts`), as
+    torch.cuda.set_sync_debug_mode("warn") reports them."""
+    import warnings
+
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(batch_size=100_000, chunk_size=10_000, num_days=49,
+                         tolerance=2e4, target_accepted=100)
+    runner = tabc.make_wave_runner(get_model("siard").prior(),
+                                   tabc.make_simulator(ds, cfg, cuda), cfg)
+    carry = runner.init(tabc.ABCState(n_params=8))
+    torch.cuda.synchronize()
+    syncs = tabc.HOST_SYNCS
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = runner(0, 0, carry, tabc.SEGMENT_WAVES)
+            runner.read(out)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    found = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(found) == 1, found
+    assert tabc.HOST_SYNCS == syncs + 1

@@ -40,7 +40,7 @@ DAYS = 12
 _CFG_KW = dict(batch_size=2048, tolerance=3.4e3, target_accepted=60, chunk_size=2048,
                max_runs=6, num_days=DAYS, wave_loop="device")
 #: `repro`'s ScalingConfig fields the port drops (JAX-only knobs) and adds
-JAX_ONLY = {"tile", "scan_unroll", "autotune"}
+JAX_ONLY = {"tile", "scan_unroll"}
 PORT_ONLY = {"block"}
 
 
