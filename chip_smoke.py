@@ -198,7 +198,21 @@ printing one JSON line:
              with devices_per_scenario=2 on [cuda:0] * 4: groups "0+1" and
              "2+3", each cell bitwise its 2-shard reference run, the resume
              resumed_complete with 0 launches (writes under
-             build/scaleout_path and removes it)
+             build/scaleout_path and removes it); then the pjit style
+             (rank r draws rows [r·B/n, (r+1)·B/n) of the one wave): (g)
+             every wave entry (siard, sir, seir, seiard, SIARD under a
+             one-window schedule, metapop_seir on both routes) at sample
+             offsets 0, 1, 4,096 and 50,000, 1,024 rows bitwise the rows
+             of the offset-0 wave and its plain version at the offset on
+             the card, and the wave entry at 100,000 x 49 at offsets 0 and
+             50,000 in turns; (h) the main path's config in a world of 1
+             over NCCL with style="pjit": its posterior bitwise
+             main_path's, timed in turns with (a) and the unsharded loop;
+             (i) 2 and 4 gloo ranks sharing cuda:0 in the pjit style, each
+             rank's posterior bitwise main_path's; (j) metapop_seir at
+             R=20 on 2 such ranks, whose 50,000 rows take the warp route
+             where the single device's 100,000 take the thread route:
+             bitwise the single-device run
   tuning_path  `core.tuning` and `repro_torch.analysis` on the card, the
              launch counters set to 0 just before: (a) the spec-derived
              cost model of siard, sir, seir, seiard, siard under a window
@@ -253,15 +267,15 @@ printing one JSON line:
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
-             epi_serve, scaleout_path ((a), (d), (e), (f)) and tuning_path,
-             and its ms; npe_path's launches, 0 in its fits and
-             the ABC oracle's apart), its
-             region axis on the thread route (all four regional entries of
-             both routes, with their launches on metapop_path, regions_path
-             and campaign_path, the R=100 times at both batches and the route
-             chosen at each R and batch; tuning_path's autotune of R=100
-             on the warp route) and on the warp route, the bf16
-             flash route and the float32 one
+             epi_serve, scaleout_path ((a), (d), (e), (f), (h)) and
+             tuning_path, and its ms; npe_path's launches, 0 in its fits
+             and the ABC oracle's apart), its region axis on the thread
+             route (all four regional entries of both routes, with their
+             launches on metapop_path, regions_path, campaign_path and
+             scaleout_path (j)'s single-device run, the R=100 times at both
+             batches and the route chosen at each R and batch;
+             tuning_path's autotune of R=100 on the warp route) and on the
+             warp route, the bf16 flash route and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -1258,6 +1272,15 @@ SCALEOUT_TEST_KW = dict(batch_size=2048, tolerance=3.4e3, target_accepted=60,
 SCALEOUT_SHARDS = (2, 4, 8)
 #: a rank's join timeout in the spawned parts, seconds
 SCALEOUT_TIMEOUT = 120
+#: (g) the sample offsets of each wave entry, and the wave entry's time at
+#: 100,000 x 49 before the offset (PERF.md §6)
+SCALEOUT_OFFSETS = (0, 1, 4096, 50_000)
+WAVE_MS_BEFORE_OFFSET = 0.1438
+#: (i) gloo ranks sharing cuda:0 in the pjit style
+PJIT_SHARED_RANKS = (2, 4)
+#: (j) metapop_seir's regions: a wave of 100,000 takes the thread route, a
+#: rank's 50,000 the warp route (`abc_sim.regional_route`)
+PJIT_ROUTE_REGIONS = 20
 
 
 def scaleout_digest(runner, out):
@@ -1322,6 +1345,109 @@ def scaleout_shared_card_rank(rank, world, kw):
     return digest, post.theta, post.runs, wall
 
 
+def pjit_config(kw, regions=None):
+    """(dataset, ABCConfig) of a pjit part: Italy and SIARD, or metapop_seir
+    regionalized to `regions` (ring:0.1) on its synthetic_small series."""
+    from repro_torch.core import abc as tabc
+    from repro_torch.epi.data import get_dataset
+    from repro_torch.epi.models import get_model
+    from repro_torch.epi.spec import regionalize
+
+    if regions is None:
+        return get_dataset("italy", num_days=49), tabc.ABCConfig(**kw)
+    spec = regionalize(get_model("metapop_seir"), regions, "ring:0.1")
+    return (get_dataset("synthetic_small", num_days=49, model=spec),
+            tabc.ABCConfig(model=spec, **kw))
+
+
+def pjit_shared_card_rank(rank, world, kw, regions=None):
+    """A gloo rank on cuda:0 in the pjit style (`pjit_config`): its
+    posterior (theta, distances, runs) and its abc_sim launches by entry."""
+    import torch.distributed as dist
+
+    from repro_torch.core import abc as tabc
+    from repro_torch.core import distributed
+    from repro_torch.kernels import abc_sim
+
+    ds, cfg = pjit_config(kw, regions)
+    wr = distributed.make_wave_runner(dist.group.WORLD, ds, cfg, style="pjit",
+                                      device="cuda:0")
+    abc_sim.ENTRY_LAUNCHES.clear()
+    post = tabc.run_abc(ds, cfg, seed=0, wave_runner=wr)
+    return post.theta, post.distances, post.runs, dict(abc_sim.ENTRY_LAUNCHES)
+
+
+def offset_phase(dev) -> dict:
+    """Phase scaleout_path (g): every wave entry (the four flat models, SIARD
+    under a one-window schedule, metapop_seir on both routes) at each of
+    `SCALEOUT_OFFSETS`: b rows at offset o bitwise rows [o, o + b) of the
+    offset-0 wave of o + b rows, and bitwise prior.sample + the plain
+    version at that offset on the card; then the wave entry at 100,000 x 49
+    at offsets 0 and 50,000 in turns."""
+    import torch
+
+    from repro_torch.core.abc import ABCConfig, make_simulator
+    from repro_torch.core.priors import schedule_prior
+    from repro_torch.epi.data import get_dataset
+    from repro_torch.epi.models import get_model
+    from repro_torch.kernels import abc_sim, ops, ref
+    from repro_torch.launch.abc_run import parse_intervention
+
+    def bits(a, b):
+        return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                       b.view(torch.int32)))
+
+    b, checked = 1024, []
+    for case in ABC_MODELS + ("siard_scheduled", "metapop_seir-thread", "metapop_seir-warp"):
+        name, _, route = case.partition("-")
+        spec = get_model(name.replace("_scheduled", ""))
+        sched = parse_intervention(INTERVENTION) if name.endswith("_scheduled") else None
+        ds = get_dataset("synthetic_small", num_days=49, model=spec)
+        kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+        sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=dev), model=spec,
+                               schedule=sched, **kw)
+        box = schedule_prior(spec, sched)
+
+        def wave(offset, batch, sim=sim, box=box, spec=spec, route=route):
+            if route:
+                return abc_sim.abc_sim_regional_wave_kernel(
+                    7, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
+                    sim.fconst, abc_sim.with_seed(sim.iconst, 9), model=spec, batch=batch,
+                    pool=sim.pool, route=route, offset=offset)
+            return sim.wave(box, 7, 9, batch, offset=offset)
+
+        for offset in SCALEOUT_OFFSETS:
+            theta, d = wave(offset, b)
+            theta0, d0 = wave(0, offset + b)
+            theta_p = box.sample(7, b, dev, offset=offset)
+            d_p = ref.abc_sim_distance_ref(theta_p, 9, sim.observed, model=spec,
+                                           schedule=sched, sample_offset=offset, **kw)
+            d_p = torch.where(torch.isnan(d_p), torch.full_like(d_p, float("inf")), d_p)
+            if not (bits(theta, theta0[offset:]) and bits(d, d0[offset:])):
+                raise AssertionError(f"scaleout_path (g): {case} at offset {offset} is not "
+                                     "the tail of the offset-0 wave")
+            if not (bits(theta, theta_p) and bits(d, d_p)):
+                raise AssertionError(f"scaleout_path (g): {case} at offset {offset} differs "
+                                     "from its plain version")
+        checked.append(case)
+    # the wave entry at 100,000 x 49 at offsets 0 and 50,000, in turns
+    italy = get_dataset("italy", num_days=49)
+    siard = get_model("siard")
+    sim = make_simulator(italy, ABCConfig(batch_size=100_000, chunk_size=10_000,
+                                          num_days=49), dev)
+    prior, iconst = siard.prior(), abc_sim.with_seed(sim.iconst, 99)
+    turns = {0: [], 50_000: []}
+    for offset in (0, 50_000, 50_000, 0) * 2:
+        turns[offset].append(cuda_ms(lambda: abc_sim.abc_sim_wave_kernel(
+            12, prior.lows, prior.highs, sim.obs_summary, sim.fconst, iconst, model=siard,
+            batch=100_000, offset=offset), 50))
+    return {"bitwise_tail_and_plain": checked, "offsets": list(SCALEOUT_OFFSETS),
+            "rows": b, "days": 49,
+            "wave_entry_100000x49_ms": {str(o): float(np.mean(v)) for o, v in turns.items()},
+            "turns_ms": {str(o): v for o, v in turns.items()},
+            "ms_before_the_offset": WAVE_MS_BEFORE_OFFSET}
+
+
 def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tuple:
     """Phase `scaleout_path`: (a) the main path's config in a world of 1 over
     NCCL, bitwise `main_path`, timed in turns with the unsharded loop; (b)
@@ -1330,8 +1456,14 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
     gloo ranks sharing cuda:0, bitwise the 2-shard reference; (d) the
     scaling study at n=1; (e) the sharded SMC round in a world of 1,
     bitwise `smc_path`; (f) a campaign with devices_per_scenario=2 on
-    [cuda:0] * 4 and its resume. Returns the launches and gated launches of
-    (a), (d), (e) and (f), summed."""
+    [cuda:0] * 4 and its resume; then the pjit style: (g) every wave entry
+    at sample offsets (`offset_phase`); (h) the main path's config in a
+    world of 1 over NCCL, bitwise `main_path`, timed in turns with (a); (i)
+    2 and 4 gloo ranks sharing cuda:0, each bitwise `main_path`; (j)
+    metapop_seir at R=20 on 2 gloo ranks, whose shards take the warp route,
+    bitwise the single-device run on the thread route. Returns the launches
+    and gated launches of (a), (d), (e), (f), (h) and (j)'s single-device
+    run, summed."""
     import dataclasses
     import shutil
 
@@ -1345,6 +1477,7 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
     from repro_torch.core.smc import run_smc_abc
     from repro_torch.epi.data import get_dataset
     from repro_torch.epi.models import get_model
+    from repro_torch.kernels import abc_sim
 
     italy = get_dataset("italy", num_days=49)
     siard = get_model("siard")
@@ -1379,6 +1512,20 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
                 or counts_a["entries"] != {"abc_sim_wave_siard": post_a.runs + g}
                 or not 1 <= counts_a["host_syncs"] <= -(-post_a.runs // tabc.SEGMENT_WAVES)):
             raise AssertionError(f"scaleout_path (a): runs {post_a.runs}, {counts_a}")
+        # ---- (h) the same config in the pjit style, NCCL world of 1
+        pjit_runner = distributed.make_wave_runner(group, italy, cfg, style="pjit",
+                                                   device="cuda")
+        post_h, counts_h = counted(lambda: tabc.run_abc(italy, cfg, seed=0,
+                                                        wave_runner=pjit_runner))
+        add(counts_h)
+        for case, a, b in (("(h) theta", post_h.theta, main_post.theta),
+                           ("(h) distances", post_h.distances, main_post.distances)):
+            same(case, a, b)
+        g = counts_h["gated"].get("abc_sim_wave_siard", 0)
+        if ((post_h.runs, post_h.simulations) != (main_post.runs, main_post.simulations)
+                or counts_h["entries"] != {"abc_sim_wave_siard": post_h.runs + g}
+                or not 1 <= counts_h["host_syncs"] <= -(-post_h.runs // tabc.SEGMENT_WAVES)):
+            raise AssertionError(f"scaleout_path (h): runs {post_h.runs}, {counts_h}")
         # the host's cost of one count all-reduce, and its completion
         count = torch.zeros((1,), dtype=torch.int64, device=dev)
         for _ in range(20):
@@ -1390,14 +1537,16 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
         enqueue_us = (time.perf_counter() - t0) / 500 * 1e6
         torch.cuda.synchronize()
         done_us = (time.perf_counter() - t0) / 500 * 1e6
-        turns = {"nccl_world_of_1": [], "unsharded": []}
-        for kind in ("nccl_world_of_1", "unsharded", "unsharded", "nccl_world_of_1") * 2:
+        turns = {"nccl_world_of_1": [], "pjit_world_of_1": [], "unsharded": []}
+        for kind in ("nccl_world_of_1", "pjit_world_of_1", "unsharded", "unsharded",
+                     "pjit_world_of_1", "nccl_world_of_1") * 2:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if kind == "unsharded":
                 tabc.run_abc(italy, cfg, seed=0, device=dev)
             else:
-                tabc.run_abc(italy, cfg, seed=0, wave_runner=runner)
+                tabc.run_abc(italy, cfg, seed=0, wave_runner=runner if kind.startswith(
+                    "nccl") else pjit_runner)
             torch.cuda.synchronize()
             turns[kind].append((time.perf_counter() - t0) * 1e3)
 
@@ -1474,6 +1623,48 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
                                      f"the 2-shard reference {want}, {want_post.runs}")
             same(f"(c) rank {r} posterior", theta, want_post.theta)
 
+        # ---- (i) gloo ranks sharing cuda:0 in the pjit style: main_path's
+        # posterior on every rank
+        pjit_kw = dict(batch_size=100_000, chunk_size=10_000, num_days=49,
+                       tolerance=main_post.tolerance, target_accepted=100, wave_loop="device")
+        shared_pjit = {}
+        for n in PJIT_SHARED_RANKS:
+            t0 = time.perf_counter()
+            got = distributed.spawn_ranks(pjit_shared_card_rank, n, pjit_kw, device="cuda:0",
+                                          backend="gloo", timeout=SCALEOUT_TIMEOUT)
+            for r, (theta, d, runs, entries) in enumerate(got):
+                same(f"(i) {n} ranks, rank {r} theta", theta, main_post.theta)
+                same(f"(i) {n} ranks, rank {r} distances", d, main_post.distances)
+                if runs != main_post.runs or set(entries) != {"abc_sim_wave_siard"}:
+                    raise AssertionError(f"scaleout_path (i): {n} ranks, rank {r}: {runs} "
+                                         f"runs, {entries}")
+            shared_pjit[n] = {"spawn_wall_s": time.perf_counter() - t0, "runs": got[0][2],
+                              "launches_by_rank": [x[3] for x in got]}
+
+        # ---- (j) metapop_seir at R=20: the single device's wave takes the
+        # thread route, a rank's half the warp route
+        j_ds, j_cal = pjit_config(dict(batch_size=100_000, chunk_size=10_000, num_days=49,
+                                       tolerance=1.0), PJIT_ROUTE_REGIONS)
+        j_eps = tabc.calibrate_tolerance(j_ds, j_cal, seed=0, quantile=2e-4,
+                                         n_pilot=100_000, device=dev)
+        j_kw = dict(batch_size=100_000, chunk_size=10_000, num_days=49, tolerance=j_eps,
+                    target_accepted=50, max_runs=16, wave_loop="device")
+        _, j_cfg = pjit_config(j_kw, PJIT_ROUTE_REGIONS)
+        thread, warp = (abc_sim.entry_name(j_cfg.model, "wave", r) for r in abc_sim.ROUTES)
+        j_solo, j_counts = counted(lambda: tabc.run_abc(j_ds, j_cfg, seed=0, device=dev))
+        add(j_counts)
+        if set(j_counts["entries"]) != {thread} or not len(j_solo):
+            raise AssertionError(f"scaleout_path (j): the single device {j_counts}")
+        t0 = time.perf_counter()
+        got = distributed.spawn_ranks(pjit_shared_card_rank, 2, j_kw, PJIT_ROUTE_REGIONS,
+                                      device="cuda:0", backend="gloo", timeout=SCALEOUT_TIMEOUT)
+        j_spawn_s = time.perf_counter() - t0
+        for r, (theta, d, runs, entries) in enumerate(got):
+            same(f"(j) rank {r} theta", theta, j_solo.theta)
+            same(f"(j) rank {r} distances", d, j_solo.distances)
+            if runs != j_solo.runs or set(entries) != {warp}:
+                raise AssertionError(f"scaleout_path (j): rank {r}: {runs} runs, {entries}")
+
         # ---- (d) the scaling study at n=1
         scfg = scaling.ScalingConfig(device_counts=(1,), models=("siard",),
                                      batch_per_device=100_000, num_days=49, waves=8, reps=3)
@@ -1534,6 +1725,9 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
                              f"{counts_f2['entries']}")
     shutil.rmtree(out_dir, ignore_errors=True)
 
+    # ---- (g) every wave entry at sample offsets, and its time at offset 50,000
+    offsets = offset_phase(dev)
+
     emit("scaleout_path", kind=name, nvidia_smi=smi,
          a_nccl_world_of_1={"posterior_bitwise_main_path": True, "waves": post_a.runs,
                             "accepted": len(post_a), "counts": counts_a,
@@ -1559,7 +1753,20 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
                         "tolerance": smc_a.tolerance, "smc_path_tolerance": smc_post.tolerance,
                         "round_waves": smc_a.round_waves, "counts": counts_e},
          f_campaign={"cells": cells, "wall_s": counts_f["wall_s"], "counts": counts_f,
-                     "resume_wall_s": counts_f2["wall_s"], "resume_launches": 0})
+                     "resume_wall_s": counts_f2["wall_s"], "resume_launches": 0},
+         g_offsets=offsets,
+         h_pjit_nccl_world_of_1={"posterior_bitwise_main_path": True, "waves": post_h.runs,
+                                 "counts": counts_h,
+                                 "warm_time_to_posterior_ms": float(np.mean(
+                                     turns["pjit_world_of_1"]))},
+         i_pjit_gloo_ranks_on_cuda0={
+             "posterior_bitwise_main_path": True, "ranks": shared_pjit,
+             "note": "every rank shares one card: not a scaling figure"},
+         j_pjit_metapop_r20={
+             "posterior_bitwise_single_device": True, "regions": PJIT_ROUTE_REGIONS,
+             "single_device_route": "thread", "rank_route": "warp", "tolerance": j_eps,
+             "runs": j_solo.runs, "accepted": len(j_solo), "single_device_counts": j_counts,
+             "spawn_wall_s": j_spawn_s, "launches_by_rank": [x[3] for x in got]})
     return launches, gated
 
 

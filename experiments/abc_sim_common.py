@@ -62,12 +62,23 @@ def gated(csrc) -> bool:
     return "gate" in open(head).read()
 
 
-def argtypes(kind: str, takes_gate: bool):
-    """`abc_sim._ARGTYPES[kind]`, less the trailing gate for a checkout
-    whose entries take none."""
+def takes_offset(csrc) -> bool:
+    """Whether the abc_sim wave entries of the checkout whose `csrc/`
+    directory this is take a trailing sample offset."""
+    head = os.path.join(csrc, "abc_sim.cuh")
+    return os.path.isfile(head) and "uint32_t offset" in open(head).read()
+
+
+def argtypes(kind: str, takes_gate: bool, offset: bool = False):
+    """`abc_sim._ARGTYPES[kind]`, less the wave entries' trailing offset for
+    a checkout whose entries take none (`offset`), and less the trailing
+    gate for one whose entries take none."""
     from repro_torch.kernels import abc_sim
 
-    return abc_sim._ARGTYPES[kind] if takes_gate else abc_sim._ARGTYPES[kind][:-1]
+    types = list(abc_sim._ARGTYPES[kind])
+    if kind.endswith("wave") and not offset:
+        types = types[:-1]
+    return types if takes_gate else types[:-1]
 
 
 def entry(lib, name: str, argtypes):
@@ -84,10 +95,11 @@ def stream():
 
 
 def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extra=(),
-              gated=False):
+              gated=False, offset=None):
     """(theta [batch, P], dist [batch]) from an `abc_sim_wave_<model>`-shaped
     entry (`extra` goes before the arguments, e.g. a configuration index;
-    `gated`: the entry takes a trailing gate, passed as null)."""
+    `gated`: the entry takes a trailing gate, passed as null; `offset`: the
+    entry takes a sample offset after it, passed as given)."""
     import torch
 
     p = len(prior.lows)
@@ -100,7 +112,8 @@ def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extr
             obs.shape[1]]
     if block is not None:
         args.append(block)
-    rc = fn(*args, stream(), *([None] if gated else []))
+    rc = fn(*args, stream(), *([None] if gated else []),
+            *([] if offset is None else [offset]))
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
     return theta, dist

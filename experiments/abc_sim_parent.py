@@ -47,7 +47,7 @@ import sys
 import numpy as np
 
 from abc_sim_common import argtypes, build_copies, call_distance, call_wave, entry, gated, \
-    italy_inputs, stream, turns
+    italy_inputs, stream, takes_offset, turns
 
 
 def main(argv) -> int:
@@ -185,6 +185,7 @@ def other_models(dev, other_csrc: str) -> dict:
     out = {}
     batch = 100_000
     other_gated = gated(other_csrc)
+    other_offset = takes_offset(other_csrc)  # its wave entries take a sample offset
     for tag, spec, route in cases:
         lib = abc_sim.library(spec)
         if lib not in libs:
@@ -210,7 +211,7 @@ def other_models(dev, other_csrc: str) -> dict:
         ic = abc_sim.with_seed(sim.iconst, 99)
         if spec.is_regional:
             fn = entry(other_lib, abc_sim.entry_name(spec, "wave", route),
-                       argtypes("regional_wave", other_gated))
+                       argtypes("regional_wave", other_gated, other_offset))
             lo = np.ascontiguousarray(box.lows, np.float32)
             hi = np.ascontiguousarray(box.highs, np.float32)
             block = abc_sim.route_block(route)
@@ -223,7 +224,7 @@ def other_models(dev, other_csrc: str) -> dict:
                         sim.mob.data_ptr(), sim.weights.data_ptr(), theta.data_ptr(),
                         dist.data_ptr(), sim.fconst.ctypes.data, ic.ctypes.data, batch,
                         ob.shape[1], spec.n_regions, spec.seed_region, 0, block, stream(),
-                        *([None] if other_gated else []))
+                        *([None] if other_gated else []), *([0] if other_offset else []))
                 if rc != 0:
                     raise RuntimeError(f"launch failed: cudaError {rc}")
                 return theta, dist
@@ -234,11 +235,12 @@ def other_models(dev, other_csrc: str) -> dict:
                     ic, model=spec, batch=batch, route=route)
         else:
             fn = entry(other_lib, abc_sim.entry_name(spec, "wave"),
-                       argtypes("wave", other_gated))
+                       argtypes("wave", other_gated, other_offset))
 
             def theirs_fn(fn=fn, sim=sim, ic=ic, box=box):
                 return call_wave(fn, box, 12, sim.obs_summary, sim.fconst, ic, batch,
-                                 abc_sim.DEFAULT_BLOCK, gated=other_gated)
+                                 abc_sim.DEFAULT_BLOCK, gated=other_gated,
+                                 offset=0 if other_offset else None)
 
             def mine_fn(sim=sim, ic=ic, spec=spec, box=box):
                 return abc_sim.abc_sim_wave_kernel(12, box.lows, box.highs, sim.obs_summary,

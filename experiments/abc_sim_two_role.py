@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(S + 32 * PW)
     const bool live = b < B;
     Sample<Model, V> s;
     if (live) {
-      s.load_theta(nullptr, theta_out, b, B, box);
+      s.load_theta(nullptr, theta_out, b, static_cast<uint32_t>(b), B, box);
       s.start(c);
     }
     for (int chunk = 0; chunk < n_chunks; ++chunk) {

@@ -67,7 +67,8 @@ RULES: Dict[str, str] = {
 #: loop bodies run a wave (or a round) an iteration
 DEVICE_LOOPS: Dict[str, Tuple[str, ...]] = {
     "src/repro_torch/core/abc.py": ("WaveRunner.__call__",),
-    "src/repro_torch/core/distributed.py": ("ShardedWaveRunner.__call__",),
+    "src/repro_torch/core/distributed.py": ("ShardedWaveRunner.__call__",
+                                            "PjitWaveRunner.__call__"),
     "src/repro_torch/core/smc.py": ("make_smc_round_fn.round_fn",),
     "src/repro_torch/core/campaign.py": ("run_campaign",),
 }

@@ -4,7 +4,11 @@
 For each (model x summary x distance x schedule shape) combo this pass runs
 the device wave loop (`core.abc.WaveRunner`) on the CPU, at a small size,
 under a dispatch recorder that sees every aten operation, and checks the
-contracts the campaign runner and the card's numbers rely on:
+contracts the campaign runner and the card's numbers rely on. A combo of
+style "pjit" runs the pjit device loop (`core.distributed.PjitWaveRunner`)
+instead, in a world of 1 over gloo: its count all-reduce a wave and its
+gather and placement of the rows at the host re-entry are under the same
+checks.
 
   f64-promotion           no float64 tensor is produced in a segment: the
                           stack is float32 by contract; a float64 leak
@@ -263,11 +267,15 @@ class Combo:
     #: regionalize the model to this R at audit time (1 = as registered;
     #: metapop_seir is 4-region as registered)
     regions: int = 1
+    #: the device loop: "single" (`core.abc.WaveRunner`) or "pjit"
+    #: (`core.distributed.PjitWaveRunner`, a world of 1)
+    style: str = "single"
 
     @property
     def tag(self) -> str:
         return (f"{self.model}/{self.summary or 'identity'}/{self.distance}/"
-                f"sched{self.sched_shape}" + (f"/r{self.regions}" if self.regions > 1 else ""))
+                f"sched{self.sched_shape}" + (f"/r{self.regions}" if self.regions > 1 else "")
+                + ("/pjit" if self.style == "pjit" else ""))
 
 
 def registered_combos(quick: bool = False) -> List[Combo]:
@@ -280,6 +288,11 @@ def registered_combos(quick: bool = False) -> List[Combo]:
     summaries = [None] + [s for s in list_summaries() if s != "identity"]
     distances = list(DISTANCE_KINDS)
     sched_shapes = [0, 2]
+    # the pjit device loop, flat and on the region axis
+    pjit = [Combo("siard" if "siard" in models else models[0], None, distances[0], 0,
+                  style="pjit")]
+    if "metapop_seir" in models:
+        pjit.append(Combo("metapop_seir", None, distances[0], 0, regions=3, style="pjit"))
     if not quick:
         full = [Combo(m, su, d, ss) for m, su, d, ss in itertools.product(
             models, summaries, distances, sched_shapes)]
@@ -288,9 +301,9 @@ def registered_combos(quick: bool = False) -> List[Combo]:
         full += [Combo(m, su, distances[0], ss, regions=3)
                  for m in ("metapop_seir", "seir") if m in models
                  for su in (None, "region_pooled") for ss in sched_shapes]
-        return full
+        return full + pjit
     base = Combo(models[0], None, distances[0], 0)
-    combos = {base}
+    combos = {base, *pjit}
     for m in models:
         combos.add(dataclasses.replace(base, model=m))
     for su in summaries:
@@ -376,6 +389,9 @@ def _shape_cache_variants(combo: Combo, spec, num_days: int, batch: int):
 
 def audit_combo(combo: Combo, batch: int = 256, num_days: int = 21) -> List[Finding]:
     """Run one combo's wave loop on the CPU and every check of this pass."""
+    import contextlib
+
+    from repro_torch.core import distributed
     from repro_torch.core.abc import ABCConfig, ABCState, make_simulator, make_wave_runner
     from repro_torch.core.priors import schedule_prior
     from repro_torch.epi.data import get_dataset
@@ -391,10 +407,13 @@ def audit_combo(combo: Combo, batch: int = 256, num_days: int = 21) -> List[Find
                         wave_loop="device")
         prior = schedule_prior(spec, cfg.schedule)
         sim = make_simulator(get_dataset("synthetic_small", num_days, spec), cfg, "cpu")
-        runner = make_wave_runner(prior, sim, cfg)
-        carry = runner.init(ABCState(n_params=prior.dim))
-        out1, ev1, reads1 = _segment(runner, 0, 0, carry, 1)
-        out2, ev2, reads2 = _segment(runner, 0, 1, runner.carry_of(out1), 3)
+        with (distributed.world("cpu") if combo.style == "pjit"
+              else contextlib.nullcontext()) as group:
+            runner = (distributed.make_pjit_wave_runner(group, prior, sim, cfg)
+                      if combo.style == "pjit" else make_wave_runner(prior, sim, cfg))
+            carry = runner.init(ABCState(n_params=prior.dim))
+            out1, ev1, reads1 = _segment(runner, 0, 0, carry, 1)
+            out2, ev2, reads2 = _segment(runner, 0, 1, runner.carry_of(out1), 3)
         variants, entries = _shape_cache_variants(combo, spec, num_days, batch)
     except Exception as e:  # a combo that cannot run
         return [Finding(rule="audit-trace-error", path="-", line=0, context=combo.tag,

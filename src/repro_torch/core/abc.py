@@ -335,6 +335,9 @@ class WaveLoopOutput(NamedTuple):
     waves_done: torch.Tensor  # [1] int64: waves of this call whose gate was open
     fill_counts: torch.Tensor  # [shards] int64: valid rows a segment (clamped to capacity)
     enqueued: int = 0  # waves this call enqueued, gated ones included
+    #: what `read` still has to place in the segments (the pjit loop's,
+    #: `core.distributed.PjitWaveRunner`); None elsewhere
+    pending: Optional[list] = None
 
     @property
     def theta_buf(self) -> torch.Tensor:

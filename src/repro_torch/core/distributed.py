@@ -13,33 +13,49 @@ Execution model:
     one is initialised (torchrun, or a caller's); with none they form one
     (`process_group`): from torchrun's environment, or, without it, a world
     of 1 from a `file://` store in a temporary directory.
-  * **The one steady-state collective.** Each wave's accepted count is
-    all-reduced as an int64 device tensor of shape [1] and added to the
-    global count, which the next wave's gate reads: `repro`'s
-    `count_all=psum`. On NCCL the all-reduce is ordered on the streams;
-    nothing here reads it on the host or waits on its work object, so the
-    device loop keeps its one host sync a segment (`core.abc.HOST_SYNCS`).
-  * **Gathers.** The per-shard buffers are gathered once a segment, at the
-    host re-entry, in shard order (rank order in the group), so every rank
-    holds the same `ABCState` and returns the same `Posterior`. Over gloo
-    the gathers go through host tensors.
-  * **Seeds.** Shard s of wave i draws with `core.abc.shard_seeds(seed, i,
-    s)`: shard 0 keeps `wave_seeds(seed, i)`, so a world of 1 is the
-    unsharded `run_abc` bit for bit, and an N-rank run is bitwise the
-    lockstep reference of N shards in one process
-    (`core.scaling.make_reference_wave_runner`). `repro` folds the device
-    index into a threefry key instead; the two packages agree by statistics.
-  * **Buffer layout.** `repro`'s: one segment of `wave_capacity(cfg, B / n)`
-    rows a shard, `fill_counts` of shape [shards], a resumed state split over
-    the segments by `np.array_split` (`core.abc.split_state`).
+  * **One small collective a wave.** The device loops' gate reads the
+    global accepted count, so each wave all-reduces an int64 device tensor
+    of counts: `repro`'s `count_all=psum`. On NCCL the all-reduce is ordered
+    on the streams; nothing here reads it on the host or waits on its work
+    object, so the device loops keep their one host sync a segment
+    (`core.abc.HOST_SYNCS`).
+  * **Gathers.** Rows are gathered once a segment, at the host re-entry,
+    so every rank holds the same `ABCState` and returns the same
+    `Posterior`. Over gloo the gathers go through host tensors.
 
-Two runners, as in `repro`: `make_shardmap_runner` (the host loop: one
-wave a call, the chunks gathered from every rank, the global accepted
-count beside them) and `make_shardmap_wave_runner` (the device loop).
-`style="pjit"` would make rank r draw rows [r·B/n, (r+1)·B/n) of the
-single-device wave, which needs a sample offset in every `abc_sim` wave
-entry; it is refused (ROADMAP.md, queue 1). `spawn_ranks` runs a function
-on N ranks of this host, as the tests and `chip_smoke.py` do.
+Two styles, as in `repro` (`make_runner` and `make_wave_runner` dispatch on
+`style`), each with a host loop (one wave a call, the `RunOutput` of
+`core.abc.abc_run_batch` with the global accepted count beside it) and a
+device loop (`core.abc.WaveRunner`'s contract):
+
+  * **shard_map**, the paper's per-device replica (`make_shardmap_runner`,
+    `make_shardmap_wave_runner`): rank r runs B / n samples a wave with its
+    own seeds, `core.abc.shard_seeds(seed, i, r)`; shard 0 keeps
+    `wave_seeds(seed, i)`, so a world of 1 is the unsharded `run_abc` bit
+    for bit, and an N-rank run is bitwise the lockstep reference of N shards
+    in one process (`core.scaling.make_reference_wave_runner`). The layout
+    is `repro`'s: a segment of `wave_capacity(cfg, B / n)` rows a shard,
+    `fill_counts` of shape [shards], a resumed state split over the
+    segments by `np.array_split` (`core.abc.split_state`), the segments
+    gathered in rank order. The collective a wave is the all-reduce of this
+    rank's count. `repro` folds the device index into a threefry key
+    instead; the two packages agree by statistics.
+  * **pjit**, GSPMD's one logical wave (`make_pjit_runner`,
+    `make_pjit_wave_runner`): rank r draws rows [r·B/n, (r+1)·B/n) of the
+    single-device wave, with the wave's own seeds at sample offset r·B/n
+    (the `offset` of the `abc_sim` wave entries), so N ranks give the
+    single-device run's samples, accepted set and posterior bit for bit.
+    The device loop keeps a single-device state on every rank (one segment
+    of `wave_capacity(cfg)` rows, `fill_counts` of shape [1]), so its
+    states and the unsharded run's resume in each other. The collective a
+    wave is the all-reduce of a vector of the n ranks' counts (each rank
+    adds its own at its rank), which gives every rank the exclusive prefix
+    of the ranks before it: a rank's accepted rows keep their single-device
+    positions, and the segment's rows are gathered and placed by those
+    positions once a segment (`PjitWaveRunner.read`).
+
+`spawn_ranks` runs a function on N ranks of this host, as the tests and
+`chip_smoke.py` do.
 """
 
 from __future__ import annotations
@@ -71,6 +87,7 @@ from repro_torch.core.abc import (
     sync_counts,
     tolerance32,
     wave_capacity,
+    wave_seeds,
 )
 from repro_torch.core.priors import UniformBoxPrior, schedule_prior
 from repro_torch.device import resolve_device
@@ -174,36 +191,40 @@ def gather(t: torch.Tensor, group) -> list:
 
 
 def _check_style(style: str) -> None:
-    if style == "pjit":
-        raise ValueError(
-            "style='pjit' would make each rank draw rows [r*B/n, (r+1)*B/n) of "
-            "the single-device wave, which needs a sample-offset argument in "
-            "every abc_sim wave entry; it is queued in ROADMAP.md, queue 1 "
-            "(scale-out, pjit style). Use style='shard_map'"
-        )
     if style not in STYLES:
         raise ValueError(f"unknown runner style {style!r}")
 
 
+def _rank_simulator(dataset, cfg: ABCConfig, dev, group) -> SimulatorFn:
+    """This rank's simulator. Its launches draw B / n samples, so under
+    `cfg.autotune` the block is the tuning cache's winner at that batch."""
+    n = dist.get_world_size(group)
+    b = cfg.batch_size // n if cfg.batch_size % n == 0 else cfg.batch_size
+    return make_simulator(dataset, dataclasses.replace(cfg, batch_size=b, chunk_size=b,
+                                                       strategy="outfeed"), dev)
+
+
 def make_runner(group, dataset, cfg: ABCConfig, style: str = "shard_map", device="cuda"):
-    """The sharded host-loop runner from the config alone, on this rank's
-    device (`rank_device`) and `group` (`process_group`)."""
+    """The sharded host-loop runner of `style` from the config alone, on
+    this rank's device (`rank_device`) and `group` (`process_group`)."""
     _check_style(style)
     dev = rank_device(device)
     group = process_group(group, dev)
     prior = schedule_prior(get_model(cfg.model), cfg.schedule)
-    return make_shardmap_runner(group, prior, make_simulator(dataset, cfg, dev), cfg)
+    maker = make_shardmap_runner if style == "shard_map" else make_pjit_runner
+    return maker(group, prior, _rank_simulator(dataset, cfg, dev, group), cfg)
 
 
 def make_wave_runner(group, dataset, cfg: ABCConfig, style: str = "shard_map",
-                     device="cuda") -> "ShardedWaveRunner":
-    """The sharded device wave loop (the multi-rank analogue of
+                     device="cuda") -> WaveRunner:
+    """The sharded device wave loop of `style` (the multi-rank analogue of
     `core.abc.make_wave_runner`), on this rank's device and `group`."""
     _check_style(style)
     dev = rank_device(device)
     group = process_group(group, dev)
     prior = schedule_prior(get_model(cfg.model), cfg.schedule)
-    return make_shardmap_wave_runner(group, prior, make_simulator(dataset, cfg, dev), cfg)
+    maker = make_shardmap_wave_runner if style == "shard_map" else make_pjit_wave_runner
+    return maker(group, prior, _rank_simulator(dataset, cfg, dev, group), cfg)
 
 
 def make_shardmap_runner(group, prior: UniformBoxPrior, simulator: SimulatorFn,
@@ -332,6 +353,168 @@ def make_shardmap_wave_runner(group, prior: UniformBoxPrior, simulator: Simulato
     return ShardedWaveRunner(sim=simulator, prior=prior, cfg=cfg,
                              capacity=wave_capacity(cfg, cfg.batch_size // n),
                              n_params=prior.dim, group=group, shard=shard, n_shards=n)
+
+
+# --------------------------------------------------------------------------
+# The pjit style: one logical wave, rank r its rows [r·B/n, (r+1)·B/n)
+# --------------------------------------------------------------------------
+
+def make_pjit_runner(group, prior: UniformBoxPrior, simulator: SimulatorFn,
+                     cfg: ABCConfig) -> Callable[[int, int], RunOutput]:
+    """One logical wave of `cfg.batch_size` a call, from the wave's own
+    (prior seed, simulation seed): this rank draws its rows at offset
+    r·B/n. Under outfeed every rank's chunks are gathered in rank order, so
+    the output is `core.abc.abc_run_batch`'s chunk for chunk, with the
+    global accepted count (`RunOutput.accept_count`); `chunk_size` must
+    divide B / n. Under topk it is the k lowest distances of the whole
+    wave, ties to the lower row of the wave, the same on every rank."""
+    n, shard = _shards_of(group, cfg)
+    b = cfg.batch_size // n
+    if cfg.strategy == "outfeed" and b % cfg.chunk_size:
+        raise ValueError(f"chunk_size {cfg.chunk_size} does not divide the {b} rows of a "
+                         f"rank (batch_size {cfg.batch_size} over {n} ranks)")
+    p, dev, offset = prior.dim, simulator.device, shard * b
+
+    def run(prior_seed: int, sim_seed: int) -> RunOutput:
+        theta, d = simulator.wave(prior, prior_seed, sim_seed, b, offset=offset)
+        count = (d <= cfg.tolerance).sum(dtype=torch.int64).reshape(1)
+        dist.all_reduce(count, group=group)
+        if cfg.strategy == "outfeed":
+            nc, cs = b // cfg.chunk_size, cfg.chunk_size
+            th_c, d_c = theta.reshape(nc, cs, p), d.reshape(nc, cs)
+            flags = (d_c <= cfg.tolerance).any(dim=1)
+            return RunOutput(*(torch.cat(gather(x, group)).to(dev)
+                               for x in (th_c, d_c, flags)), count)
+        # each rank's k lowest by (distance, row), then the wave's k lowest
+        idx = torch.argsort(d, stable=True)[:min(cfg.top_k, b)]
+        th_k, d_k, rows = (torch.cat(gather(x, group)).to(dev)
+                           for x in (theta[idx], d[idx], idx + offset))
+        order = torch.argsort(rows)
+        order = order[torch.argsort(d_k[order], stable=True)][:cfg.top_k]
+        return RunOutput(th_k[order], d_k[order],
+                         torch.zeros((0,), dtype=torch.bool, device=dev), count)
+
+    return run
+
+
+@dataclasses.dataclass
+class PjitWaveRunner(WaveRunner):
+    """The device wave loop of one logical wave over `group`: every rank
+    keeps the single-device state (one segment of `wave_capacity(cfg)` rows,
+    `fill_counts` of shape [1]) and draws rows [r·B/n, (r+1)·B/n) of each
+    wave. A wave's accepted rows of rank r land at the single-device
+    positions fill + (the accepts of ranks 0..r-1) + their order on rank r:
+    the rank keeps them in a local buffer during the segment, and `read`
+    gathers every rank's and places them by those positions, so the
+    segment, the fill and the posterior are the unsharded run's bitwise.
+    `read` must come before `carry_of`, `harvest` and `segments`."""
+
+    group: object = None
+    shard: int = 0
+    n_shards: int = 1
+
+    def __call__(self, seed: int, run_idx0: int, carry, max_waves: int) -> WaveLoopOutput:
+        """Enqueue waves run_idx0 .. run_idx0 + max_waves - 1 of `seed`: each
+        reads the global gate `accepted < target`, draws this rank's rows at
+        its offset with the wave's own seeds and all-reduces the n ranks'
+        counts (the one collective a wave). Nothing here waits for the
+        device."""
+        (th_buf,), (d_buf,), (fill,), _ = carry
+        cfg, dev, cap, n = self.cfg, self.device, self.capacity, self.n_shards
+        batch = cfg.batch_size // n
+        offset = self.shard * batch
+        tol = tolerance32(cfg.tolerance)
+        theta = torch.empty((batch, self.n_params), dtype=torch.float32, device=dev)
+        dist_ = torch.empty((batch,), dtype=torch.float32, device=dev)
+        # this rank's accepted rows of the segment in stream order, and every
+        # rank's accepted count of each wave
+        loc_th = torch.empty((cap + 1, self.n_params), dtype=torch.float32, device=dev)
+        loc_d = torch.empty((cap + 1,), dtype=torch.float32, device=dev)
+        loc_fill = torch.zeros((1,), dtype=torch.int64, device=dev)
+        hist = torch.zeros((max_waves, n), dtype=torch.int64, device=dev)
+        me = torch.full((1,), self.shard, dtype=torch.int64, device=dev)
+        fill0 = fill
+        waves = torch.zeros((1,), dtype=torch.int64, device=dev)
+        for i in range(max_waves):
+            active = fill < cfg.target_accepted
+            self.sim.wave(self.prior, *wave_seeds(seed, run_idx0 + i), batch,
+                          gate=active.to(torch.int32), out=(theta, dist_), offset=offset)
+            accept = (dist_ <= tol) & active
+            loc_th, loc_d, new_fill = compact_accepted(loc_th, loc_d, loc_fill, theta, dist_,
+                                                       accept, cap)
+            counts = torch.zeros((n,), dtype=torch.int64, device=dev)
+            counts.index_copy_(0, me, new_fill - loc_fill)
+            dist.all_reduce(counts, group=self.group)  # the one collective a wave
+            hist[i] = counts
+            loc_fill = new_fill
+            fill = fill + counts.sum(0, keepdim=True)
+            waves += active
+        return WaveLoopOutput((th_buf,), (d_buf,), fill, waves, fill.clamp(max=cap),
+                              max_waves, pending=[loc_th, loc_d, hist, fill0])
+
+    def read(self, out: WaveLoopOutput):
+        """(waves done, accepted, valid rows) in one host sync, then every
+        rank's rows of the segment gathered and placed at their
+        single-device positions; the same on every rank."""
+        loc_th, loc_d, hist, fill0 = out.pending
+        waves, n, fill, *local = sync_counts(out.waves_done, out.n_accepted, out.fill_counts,
+                                             hist.sum(0))
+        if self.device.type == "cuda":
+            abc_sim.record_gated(self.sim.entry("wave", self.cfg.batch_size // self.n_shards),
+                                 out.enqueued - waves)
+        top = min(max(local), self.capacity)
+        if top:
+            self._place(out, loc_th[:top], loc_d[:top], hist, fill0, local)
+        out.pending.clear()
+        return waves, n, fill
+
+    def _place(self, out: WaveLoopOutput, loc_th, loc_d, hist, fill0, local) -> None:
+        """Rank s's row j of the segment, from wave w, goes to (the fill
+        before w) + (the accepts of ranks 0..s-1 in w) + (j less rank s's
+        rows before w); rows at or past the capacity, and the rows a rank
+        does not hold, go to the spare row."""
+        dev, cap = self.device, self.capacity
+        totals = hist.sum(1)
+        wave_start = fill0 + torch.cumsum(totals, 0) - totals  # [waves]
+        ranks_before = torch.cumsum(hist, 1) - hist  # [waves, n]
+        ends = torch.cumsum(hist, 0)  # [waves, n]: a rank's rows up to each wave
+        j = torch.arange(loc_d.shape[0], device=dev)
+        ths, ds = gather(loc_th, self.group), gather(loc_d, self.group)
+        th_buf, d_buf = out.theta_segments[0], out.dist_segments[0]
+        for s, rows in enumerate(local):
+            if not rows:
+                continue
+            w = torch.searchsorted(ends[:, s].contiguous(), j, right=True).clamp_(
+                max=hist.shape[0] - 1)
+            pos = wave_start[w] + ranks_before[w, s] + j - (ends[w, s] - hist[w, s])
+            pos = torch.where(j < rows, pos, cap).clamp_(max=cap)
+            th_buf.index_copy_(0, pos, ths[s].to(dev))
+            d_buf.index_copy_(0, pos, ds[s].to(dev))
+
+    def _check_read(self, out: WaveLoopOutput) -> None:
+        if out.pending:
+            raise RuntimeError("read() this output first: it places the ranks' rows")
+
+    def carry_of(self, out: WaveLoopOutput):
+        self._check_read(out)
+        return super().carry_of(out)
+
+    def harvest(self, out: WaveLoopOutput, state, fill) -> None:
+        self._check_read(out)
+        super().harvest(out, state, fill)
+
+    def segments(self, out: WaveLoopOutput):
+        self._check_read(out)
+        return super().segments(out)
+
+
+def make_pjit_wave_runner(group, prior: UniformBoxPrior, simulator: SimulatorFn,
+                          cfg: ABCConfig) -> PjitWaveRunner:
+    """The pjit device loop: B / n rows a rank a wave at offset r·B/n, the
+    single-device buffers (`wave_capacity(cfg)` rows) on every rank."""
+    n, shard = _shards_of(group, cfg)
+    return PjitWaveRunner(sim=simulator, prior=prior, cfg=cfg, capacity=wave_capacity(cfg),
+                          n_params=prior.dim, group=group, shard=shard, n_shards=n)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Uniform box priors drawn from the counter-hash stream (port).
 
 `UniformBoxPrior.sample(seed, batch, device)` maps `uniform_open(seed, b, j)`
-(sample b, dimension j) into the box: theta = low + u * (high - low). The
+(sample b, dimension j) into the box: theta = low + u * (high - low); at
+`offset=o` sample b draws on index o + b, so its rows are rows [o, o + batch)
+of the draw of o + batch at offset 0 (the kernels' wave entries). The
 integer bits and the three float32 operations are exact on every device, so
 the same seed gives the same theta on the CPU and on the card.
 """
@@ -43,14 +45,15 @@ class UniformBoxPrior:
         device = torch.device(device)
         return _box_tensor(self.lows, device), _box_tensor(self.highs, device)
 
-    def sample(self, seed: int, batch: int, device="cpu") -> torch.Tensor:
-        """[batch, dim] float32 draws for uint32 `seed`, on `device`."""
+    def sample(self, seed: int, batch: int, device="cpu", offset: int = 0) -> torch.Tensor:
+        """[batch, dim] float32 draws for uint32 `seed`, on `device`, of the
+        samples at indices offset .. offset + batch - 1."""
         global DEVICE_DRAWS
         device = torch.device(device)
         if device.type == "cuda":
             DEVICE_DRAWS += 1
         lo, hi = self._bounds(device)
-        idx = torch.arange(batch, device=device)[:, None]
+        idx = krng.sample_indices(batch, device, offset)[:, None]
         ctr = torch.arange(self.dim, device=device)[None, :]
         u = krng.uniform_open(seed, idx, ctr)
         return lo + u * (hi - lo)

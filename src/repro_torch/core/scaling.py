@@ -11,10 +11,11 @@ shard, NCCL on cards, gloo on the CPU):
     share rank 0, as the paper sweeps 1..16 IPUs on one machine); every rank
     calls it, and ranks outside a cell's subgroup wait at a barrier;
   * `run_scaling_cell` times the sharded device wave loop
-    (`distributed.make_wave_runner`) over a fixed wave budget with an
-    unreachable acceptance target, so every device count does the same work
-    a rank and the measured difference is the scaling overhead (the count's
-    all-reduce a wave and the gather of the accept buffers a segment);
+    (`distributed.make_wave_runner`, of `ScalingConfig.style`: "shard_map"
+    or "pjit") over a fixed wave budget with an unreachable acceptance
+    target, so every device count does the same work a rank and the
+    measured difference is the scaling overhead (the counts' all-reduce a
+    wave and the gather of the accepted rows a segment);
   * `run_scaling_study` sweeps (model, backend) x device count under weak
     scaling (global batch = n x batch_per_device, the paper's "2x100k means
     100k per IPU") and derives, a cell,
@@ -119,7 +120,8 @@ class ScalingConfig:
     #: CUDA block size in threads; None for the kernel's own default
     block: Optional[int] = None
     #: take each cell's block from the measured tuning cache (`core.tuning`,
-    #: keyed by the cell's global batch); an explicit `block` wins
+    #: keyed by the batch of a rank's launches, batch_per_device); an
+    #: explicit `block` wins
     autotune: bool = False
 
     def __post_init__(self):

@@ -327,7 +327,7 @@ def simulate_observed(
     theta = theta.to(torch.float32)
     check_theta_width(model, schedule, theta)
     if sample_index is None:
-        idx = torch.arange(theta.shape[0], device=theta.device)
+        idx = krng.sample_indices(theta.shape[0], theta.device)
     else:
         idx = sample_index.to(device=theta.device, dtype=torch.int64)
     if isinstance(seed, torch.Tensor) and seed.ndim:

@@ -26,7 +26,11 @@ by `model.kernel` and not by its name (`regionalize` renames a spec
 * `abc_sim_wave_kernel` (the ABC wave) takes the uniform box (lows, highs)
   and a prior seed in place of theta, draws theta inside the kernel as
   `UniformBoxPrior.sample` does, and returns theta [B, W] row-major and the
-  distances with NaN turned to +inf.
+  distances with NaN turned to +inf. Its `offset` makes sample b hash on
+  offset + b (prior draw and noise) while it writes row b, so a wave of B
+  rows at offset o is bitwise rows [o, o + B) of the offset-0 wave of o + B
+  rows: a rank's slice of one logical wave (`core.distributed`'s pjit
+  style). The theta-in entries take no offset.
 
 The regional entries (`abc_sim_regional_distance_kernel`,
 `abc_sim_regional_wave_kernel`) take the same theta, box and host constants
@@ -91,6 +95,7 @@ from repro_torch.core.summaries import (
 )
 from repro_torch.epi.spec import MAX_WINDOWS, CompartmentalModel, active_schedule
 from repro_torch.kernels import build
+from repro_torch.kernels.rng import check_offset
 
 #: host constant layout (checked against the library at load)
 MAX_CHAN = 8
@@ -272,14 +277,16 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
 
 
 _INT = ctypes.c_int
-#: each entry's C arguments; the last two are the stream and the gate
+#: each entry's C arguments: the theta-in entries end with the stream and
+#: the gate, the wave entries with the stream, the gate and the sample offset
 _ARGTYPES = {
     "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
-    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
+    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP,
+             ctypes.c_uint],
     "regional_distance": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                           _INT, _VP, _VP],
     "regional_wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
-                      _INT, _INT, _INT, _INT, _VP, _VP],
+                      _INT, _INT, _INT, _INT, _VP, _VP, ctypes.c_uint],
 }
 
 
@@ -609,11 +616,12 @@ def abc_sim_wave_kernel(
     block: Optional[int] = None,
     gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
+    offset: int = 0,  # hash index of the wave's first sample
 ):
     """Launch the wave entry on the current stream: theta [batch, W] drawn
-    from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch)` does,
-    and its distances [batch] with NaN turned to +inf, into `out` or two new
-    tensors (unwritten where `gate` reads 0)."""
+    from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch,
+    offset=offset)` does, and its distances [batch] with NaN turned to +inf,
+    into `out` or two new tensors (unwritten where `gate` reads 0)."""
     block = route_block("thread", block)
     _check_obs_and_consts(obs, fconst, iconst, model)
     check_gate(gate, obs.device)
@@ -622,6 +630,7 @@ def abc_sim_wave_kernel(
     batch = int(batch)
     if batch < 1:
         raise ValueError("a wave needs at least one sample")
+    offset = check_offset(offset, batch)
     lib = _lib(library(model))
     fn = _kernel_fn(lib, model, "wave")
     theta, dist = wave_out(out, batch, width, obs.device)
@@ -632,7 +641,8 @@ def abc_sim_wave_kernel(
     with torch.cuda.device(obs.device):
         rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
                 theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data, iconst.ctypes.data,
-                batch, obs.shape[1], block, _stream_handle(obs.device), _gate_ptr(gate))
+                batch, obs.shape[1], block, _stream_handle(obs.device), _gate_ptr(gate),
+                offset)
     _check_rc(lib, rc, entry_name(model, "wave"))
     _launched(model, "wave")
     return theta, dist
@@ -768,12 +778,13 @@ def abc_sim_regional_wave_kernel(
     route: Optional[str] = None,
     gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
+    offset: int = 0,  # hash index of the wave's first sample
 ):
     """Launch the wave entry of the region axis: theta [batch, W] drawn as
-    `UniformBoxPrior.sample(prior_seed, batch)` does, and its distances
-    [batch] with NaN turned to +inf. `route` and `block` as for
+    `UniformBoxPrior.sample(prior_seed, batch, offset=offset)` does, and its
+    distances [batch] with NaN turned to +inf. `route` and `block` as for
     `abc_sim_regional_distance_kernel` (None: `regional_route` at `batch`),
-    `gate` and `out` as for `abc_sim_wave_kernel`."""
+    `gate`, `out` and `offset` as for `abc_sim_wave_kernel`."""
     route = _route(model, route, batch)
     block = route_block(route, block)
     if obs.device.type != "cuda":
@@ -787,6 +798,7 @@ def abc_sim_regional_wave_kernel(
     batch = int(batch)
     if batch < 1:
         raise ValueError("a wave needs at least one sample")
+    offset = check_offset(offset, batch)
     lib = _lib(library(model))
     fn = _kernel_fn(lib, model, "wave", route)
     theta, dist = wave_out(out, batch, width, obs.device)
@@ -799,7 +811,7 @@ def abc_sim_regional_wave_kernel(
         rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
                 mob, weights.data_ptr(), theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data,
                 iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled, block,
-                _stream_handle(obs.device), _gate_ptr(gate))
+                _stream_handle(obs.device), _gate_ptr(gate), offset)
     _check_rc(lib, rc, entry_name(model, "wave", route))
     _launched(model, "wave", route)
     return theta, dist

@@ -31,9 +31,16 @@
 //                             turned to +inf.
 // W = P + S, the model's P parameters and an intervention schedule's S
 // scale columns (S = 0 without one). theta_j is lows[j] + u * (highs[j] -
-// lows[j]) with u = uniform_open(prior_seed, b, j), each operation rounded
-// once, in the order of UniformBoxPrior.sample, so theta is bitwise that of
-// the host draw of the widened prior.
+// lows[j]) with u = uniform_open(prior_seed, offset + b, j), each operation
+// rounded once, in the order of UniformBoxPrior.sample, so theta is bitwise
+// that of the host draw of the widened prior.
+//
+// Sample offset. A wave entry takes an `offset`: sample b of the launch
+// hashes its prior draw and its noise on the index offset + b, and writes
+// row b. A launch of B rows at offset o is therefore bitwise rows [o, o + B)
+// of the offset-0 launch of o + B rows, which is how a rank of a pjit-style
+// run draws its slice of one logical wave (core/distributed.py). The
+// theta-in entries hash on b (offset 0).
 //
 // Intervention schedules. The breakpoints, the scales and the schedule's
 // shape (windows, scaled parameters) are run-time values in the kernel's
@@ -110,6 +117,7 @@ struct Consts {
   float pop, a0, r0, d0, mean_scale;
   float weights[MAX_CHAN];
   uint32_t seed;
+  uint32_t offset;  // the hash index of the launch's sample 0
   int bin_days;
 };
 
@@ -144,15 +152,17 @@ struct Sample {
   int next_flush;  // the day that closes the current bin: (day + 1) % bin_days == 0
 
   // theta from the box (wave entry; all W columns written once, row-major,
-  // to theta_out) or read from theta_in [W, B]; p holds the P base values
+  // to row b of theta_out, drawn on hash index idx) or read from theta_in
+  // [W, B]; p holds the P base values
   __device__ __forceinline__ void load_theta(const float* __restrict__ theta_in,
-                                             float* __restrict__ theta_out, int b, int B,
+                                             float* __restrict__ theta_out, int b,
+                                             uint32_t idx, int B,
                                              const Box<Model::N_PARAMS>& box,
                                              int W = Model::N_PARAMS) {
     constexpr int P = Model::N_PARAMS;
     if constexpr ((V & WAVE) != 0) {
       float* row = theta_out + static_cast<size_t>(b) * W;
-      const uint32_t base = rng::sample_base(box.seed, static_cast<uint32_t>(b));
+      const uint32_t base = rng::sample_base(box.seed, idx);
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const float u = rng::unit_open(rng::hash_from(base, static_cast<uint32_t>(j) * rng::P2));
@@ -284,14 +294,15 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int W = sched.width();
+  const uint32_t idx = c.offset + static_cast<uint32_t>(b);  // the sample's hash index
   Sample<Model, V> s;
-  s.load_theta(theta_in, theta_out, b, B, box, W);
+  s.load_theta(theta_in, theta_out, b, idx, B, box, W);
   s.start(c);
   // this sample's theta: a column of theta_in, or the row just written
   const bool wave = (V & WAVE) != 0;
   const float* col = wave ? theta_out + static_cast<size_t>(b) * W : theta_in + b;
   const size_t stride = wave ? 1 : static_cast<size_t>(B);
-  const uint32_t base = rng::sample_base(c.seed, static_cast<uint32_t>(b));
+  const uint32_t base = rng::sample_base(c.seed, idx);
   uint32_t day_p2 = 0u;  // day * DAY_P2
   int day = 0;
   for (int w = 0;; ++w) {
@@ -313,6 +324,11 @@ auto kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, float*, float*, int, int, Consts,
                       Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>, const int*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_kernel<Model, V>...};
+}
+
+// Whether the hash indices offset .. offset + B - 1 all fit in 32 bits.
+inline bool index_range_ok(uint32_t offset, int B) {
+  return static_cast<uint64_t>(offset) + static_cast<uint64_t>(B) <= (uint64_t{1} << 32);
 }
 
 // The schedule lanes of iconst, checked: 0 windows and no scaled parameter,
@@ -343,9 +359,10 @@ template <class Model>
 int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void* out,
                    const float* fconst, const int* iconst, const float* lows,
                    const float* highs, uint32_t prior_seed, bool wave, int B, int T, int block,
-                   void* stream, const int* gate) {
+                   void* stream, const int* gate, uint32_t offset = 0u) {
   constexpr int P = Model::N_PARAMS;
   if (B <= 0 || T <= 0 || block <= 0 || block > MAX_BLOCK) return cudaErrorInvalidValue;
+  if (!index_range_ok(offset, B)) return cudaErrorInvalidValue;
   Consts c;
   c.pop = fconst[F_POP];
   c.a0 = fconst[F_A0];
@@ -354,6 +371,7 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
   c.mean_scale = fconst[F_MEAN_SCALE];
   for (int m = 0; m < MAX_CHAN; ++m) c.weights[m] = fconst[F_WEIGHTS + m];
   c.seed = static_cast<uint32_t>(iconst[I_SEED]);
+  c.offset = offset;
   c.bin_days = iconst[I_BIN_DAYS];
   if (c.bin_days < 1) return cudaErrorInvalidValue;
   // (power, root) is (2, 1) or (1, 0): the two distance families
@@ -405,9 +423,11 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
 // abc_sim_wave_<name>: theta [B, W] f32 (16-byte aligned) and dist [B] f32
 // are device outputs; lows and highs [W] are host arrays and, with
 // prior_seed, go into the kernel's parameters; iconst's seed word is the
-// simulation seed.
-// Both take a trailing gate, a device int or null: a launch whose gate reads
-// 0 when it runs writes nothing (a wave enqueued past the ABC target), null
+// simulation seed; sample b hashes on offset + b (cudaErrorInvalidValue
+// where offset + B passes 2^32).
+// Both take a gate (the theta-in entry's last argument, the wave entry's
+// last but its offset), a device int or null: a launch whose gate reads 0
+// when it runs writes nothing (a wave enqueued past the ABC target), null
 // always runs.
 // Both return cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for arguments the kernel does not take).
@@ -427,12 +447,12 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
   int abc_sim_wave_##name(unsigned int prior_seed, const void* lows, const void* highs,         \
                           const void* obs, void* theta, void* dist, const void* fconst,         \
                           const void* iconst, int B, int T, int block, void* stream,            \
-                          const void* gate) {                                                   \
+                          const void* gate, unsigned int offset) {                              \
     return launch_abc_sim<Model>(nullptr, obs, theta, dist, static_cast<const float*>(fconst),  \
                                  static_cast<const int*>(iconst),                               \
                                  static_cast<const float*>(lows),                               \
                                  static_cast<const float*>(highs), prior_seed, true, B, T,      \
-                                 block, stream, static_cast<const int*>(gate));                 \
+                                 block, stream, static_cast<const int*>(gate), offset);         \
   }                                                                                             \
   const char* kernel_error_string(int code) {                                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \

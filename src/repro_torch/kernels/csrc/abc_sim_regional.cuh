@@ -45,7 +45,7 @@
 // host), and so are the two entries: abc_sim_regional_distance_<struct>
 // (theta in [W, B]) and abc_sim_regional_wave_<struct> (theta drawn in the
 // kernel as UniformBoxPrior.sample does, written [B, W], NaN distances as
-// +inf). The loops over regions are not unrolled (#pragma unroll 1) and
+// +inf; sample b hashes on offset + b, as in the flat wave entry). The loops over regions are not unrolled (#pragma unroll 1) and
 // pooling picks values, not code, so that the instruction census
 // (kernels/sass.py, `regional_census`) finds one loop a step of the day.
 //
@@ -109,8 +109,9 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const int W = sched.width();
+  const uint32_t idx = c.offset + static_cast<uint32_t>(b);  // the sample's hash index
   Sample<Model, V> s;  // its parameters p, the theta draw and the windows
-  s.load_theta(theta_in, theta_out, b, B, box, W);
+  s.load_theta(theta_in, theta_out, b, idx, B, box, W);
 
   float x[MAX_REGIONS * C];
   float cum[MAX_REGIONS * NO], bin[MAX_REGIONS * NO];
@@ -146,7 +147,7 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const bool wave = (V & WAVE) != 0;
   const float* col = wave ? theta_out + static_cast<size_t>(b) * W : theta_in + b;
   const size_t stride = wave ? 1 : static_cast<size_t>(B);
-  const uint32_t base = rng::sample_base(c.seed, static_cast<uint32_t>(b));
+  const uint32_t base = rng::sample_base(c.seed, idx);
   uint32_t day_p2 = 0u;  // day * 2 * slots * P2
   int day = 0;
   for (int w = 0;; ++w) {
@@ -276,11 +277,12 @@ template <class Model>
 int read_regional_args(const void* obs, const void* mob, const void* weights,
                        const float* fconst, const int* iconst, const float* lows,
                        const float* highs, uint32_t prior_seed, bool wave, int B, int T, int R,
-                       int seed_region, int pool, int block, int max_block,
+                       int seed_region, int pool, int block, int max_block, uint32_t offset,
                        RegionalArgs<Model>& a) {
   constexpr int NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value;
   if (B <= 0 || T <= 0 || block <= 0 || block > max_block) return cudaErrorInvalidValue;
+  if (!index_range_ok(offset, B)) return cudaErrorInvalidValue;
   if (R < 1 || R > MAX_REGIONS || seed_region < 0 || seed_region >= R) return cudaErrorInvalidValue;
   if (pool != 0 && pool != 1) return cudaErrorInvalidValue;
   if (obs == nullptr || weights == nullptr || (NC > 0 && mob == nullptr))
@@ -300,6 +302,7 @@ int read_regional_args(const void* obs, const void* mob, const void* weights,
   c.mean_scale = fconst[F_MEAN_SCALE];
   for (int m = 0; m < MAX_CHAN; ++m) c.weights[m] = 0.0f;  // read from `weights`
   c.seed = static_cast<uint32_t>(iconst[I_SEED]);
+  c.offset = offset;
   c.bin_days = iconst[I_BIN_DAYS];
   if (c.bin_days < 1) return cudaErrorInvalidValue;
   const int power = iconst[I_POWER], root = iconst[I_ROOT];
@@ -342,11 +345,12 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
                             const float* fconst, const int* iconst, const float* lows,
                             const float* highs, uint32_t prior_seed, bool wave, int B, int T,
                             int R, int seed_region, int pool, int block, void* stream,
-                            const int* gate) {
+                            const int* gate, uint32_t offset = 0u) {
   constexpr int NC = coupled_count<Model>::value;
   RegionalArgs<Model> a;
   int err = read_regional_args<Model>(obs, mob, weights, fconst, iconst, lows, highs, prior_seed,
-                                      wave, B, T, R, seed_region, pool, block, MAX_BLOCK, a);
+                                      wave, B, T, R, seed_region, pool, block, MAX_BLOCK,
+                                      offset, a);
   if (err != cudaSuccess) return err;
   static const auto table =
       regional_kernel_table<Model>(std::make_integer_sequence<int, N_VARIANTS>{});
@@ -375,12 +379,14 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
 // kernel's parameters. n_chan is N_OBS when pool is 1 and R > 1, else
 // R * N_OBS.
 // abc_sim_regional_wave_<name>: theta [B, W] (16-byte aligned) and dist [B]
-// are device outputs; lows and highs [W] are host arrays.
+// are device outputs; lows and highs [W] are host arrays; sample b hashes on
+// offset + b (cudaErrorInvalidValue where offset + B passes 2^32).
 // abc_sim_regional_shape_<name>(out): N_STATE, N_TRANS, N_PARAMS, N_OBS,
 // N_COUPLED and the coupled compartments (out holds 5 + N_COUPLED ints);
 // abc_sim_max_regions(): MAX_REGIONS.
-// Both entries take a trailing gate, as the flat ones do (abc_sim.cuh): a
-// device int that makes the launch write nothing when it reads 0, or null.
+// Both entries take a gate, as the flat ones do (abc_sim.cuh; the wave
+// entry's last argument but its offset): a device int that makes the launch
+// write nothing when it reads 0, or null.
 // Both entries return cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take, R past
 // MAX_REGIONS among them).
@@ -409,12 +415,13 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
                                    const void* obs, const void* mob, const void* weights,       \
                                    void* theta, void* dist, const void* fconst,                 \
                                    const void* iconst, int B, int T, int R, int seed_region,    \
-                                   int pool, int block, void* stream, const void* gate) {       \
+                                   int pool, int block, void* stream, const void* gate,         \
+                                   unsigned int offset) {                                       \
     return launch_abc_sim_regional<Model>(                                                      \
         nullptr, obs, mob, weights, theta, dist, static_cast<const float*>(fconst),             \
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
-        stream, static_cast<const int*>(gate));                                                 \
+        stream, static_cast<const int*>(gate), offset);                                         \
   }                                                                                             \
   const char* kernel_error_string(int code) {                                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \

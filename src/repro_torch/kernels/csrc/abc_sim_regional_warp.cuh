@@ -206,8 +206,9 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
   const int b = blockIdx.x * warps + warp;
   if (b >= B) return;  // the whole warp
   const int W = sched.width();
+  const uint32_t idx = c.offset + static_cast<uint32_t>(b);  // the sample's hash index
   Sample<Model, V> s;  // its parameters p, the theta draw and the windows
-  if (lane == 0) s.load_theta(theta_in, theta_out, b, B, box, W);
+  if (lane == 0) s.load_theta(theta_in, theta_out, b, idx, B, box, W);
 #pragma unroll
   for (int j = 0; j < Model::N_PARAMS; ++j) s.p[j] = __shfl_sync(FULL_MASK, s.p[j], 0);
   __syncwarp();  // theta_out's row is read again where a window starts
@@ -241,7 +242,7 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
   const bool wave = (V & WAVE) != 0;
   const float* col = wave ? theta_out + static_cast<size_t>(b) * W : theta_in + b;
   const size_t stride = wave ? 1 : static_cast<size_t>(B);
-  const uint32_t base = rng::sample_base(c.seed, static_cast<uint32_t>(b));
+  const uint32_t base = rng::sample_base(c.seed, idx);
   uint32_t day_p2 = 0u;  // day * 2 * slots * P2
   int day = 0;
   for (int win = 0;; ++win) {
@@ -379,13 +380,13 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
                                  const float* fconst, const int* iconst, const float* lows,
                                  const float* highs, uint32_t prior_seed, bool wave, int B,
                                  int T, int R, int seed_region, int pool, int block,
-                                 void* stream, const int* gate) {
+                                 void* stream, const int* gate, uint32_t offset = 0u) {
   constexpr int NC = coupled_count<Model>::value;
   if (block % 32 != 0) return cudaErrorInvalidValue;
   RegionalArgs<Model> a;
   int err = read_regional_args<Model>(obs, mob, weights, fconst, iconst, lows, highs, prior_seed,
                                       wave, B, T, R, seed_region, pool, block, WARP_MAX_BLOCK,
-                                      a);
+                                      offset, a);
   if (err != cudaSuccess) return err;
   static const auto table =
       regional_warp_kernel_table<Model>(std::make_integer_sequence<int, N_VARIANTS>{});
@@ -410,7 +411,7 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
 
 // The C interface of one struct's warp-per-sample kernel: the thread route's
 // entries (ABC_SIM_REGIONAL_EXPORTS) with `_warp` in their names and the
-// same arguments, the trailing gate too, `block` in threads (block / 32
+// same arguments, the gate and the wave entry's offset too, `block` in threads (block / 32
 // samples a block, at most abc_sim_warp_max_block()).
 #define ABC_SIM_REGIONAL_WARP_EXPORTS(name, Model)                                               \
   extern "C" {                                                                                  \
@@ -430,11 +431,11 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
                                         const void* weights, void* theta, void* dist,           \
                                         const void* fconst, const void* iconst, int B, int T,   \
                                         int R, int seed_region, int pool, int block,            \
-                                        void* stream, const void* gate) {                       \
+                                        void* stream, const void* gate, unsigned int offset) {  \
     return launch_abc_sim_regional_warp<Model>(                                                 \
         nullptr, obs, mob, weights, theta, dist, static_cast<const float*>(fconst),             \
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
-        stream, static_cast<const int*>(gate));                                                 \
+        stream, static_cast<const int*>(gate), offset);                                         \
   }                                                                                             \
   }

@@ -54,9 +54,12 @@ class AbcSim:
     turned to +inf. On a CUDA device with a `UniformBoxPrior` that is one
     launch of the kernel's wave entry, which draws theta itself (no
     host-side prior draw); on the CPU it is `prior.sample` followed by the
-    plain version. `wave` writes into `out=(theta, dist)` when given. Under
-    a `gate` that reads 0 neither call writes anything: the distances of
-    `sim(...)` and a new wave's tensors are then left unwritten.
+    plain version. `wave` writes into `out=(theta, dist)` when given, and
+    at `offset=o` draws the samples at indices o .. o + batch - 1 of the
+    hash (`rng.sample_indices`): rows [o, o + batch) of the wave of o + batch
+    at offset 0. Under a `gate` that reads 0 neither call writes anything:
+    the distances of `sim(...)` and a new wave's tensors are then left
+    unwritten.
     """
 
     def __init__(self, observed: torch.Tensor, *, population: float, a0: float,
@@ -118,11 +121,7 @@ class AbcSim:
         if self._gated_off(gate):
             return torch.empty((theta.shape[0],), dtype=torch.float32)
         if self.device.type == "cpu":
-            return ref.abc_sim_distance_ref(
-                theta, seed, self.observed, model=model, summary=self.spec,
-                distance=self.distance, schedule=self.schedule, mobility=self.mobility,
-                **self.scalars,
-            )
+            return self._plain(theta, seed)
         iconst = abc_sim.with_seed(self.iconst, seed)
         if model.is_regional:
             return abc_sim.abc_sim_regional_distance_kernel(
@@ -134,12 +133,23 @@ class AbcSim:
             model=model, block=self.block, gate=gate,
         )
 
+    def _plain(self, theta: torch.Tensor, seed: int, offset: int = 0) -> torch.Tensor:
+        """The plain version's distances of a CPU theta, its samples hashed
+        from index `offset` on."""
+        return ref.abc_sim_distance_ref(
+            theta, seed, self.observed, model=self.model, summary=self.spec,
+            distance=self.distance, schedule=self.schedule, mobility=self.mobility,
+            sample_offset=offset, **self.scalars,
+        )
+
     def wave(self, prior, prior_seed: int, sim_seed: int, batch: int,
              gate: Optional[torch.Tensor] = None,
              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             offset: int = 0,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(theta [batch, W], distances [batch] with NaN as +inf), in `out`
-        when it is given."""
+        """(theta [batch, W], distances [batch] with NaN as +inf) of the
+        samples at hash indices offset .. offset + batch - 1, in `out` when
+        it is given."""
         if prior.dim != self.width:
             what = "" if self.schedule is None else " and scale columns"
             raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
@@ -150,19 +160,21 @@ class AbcSim:
                 return abc_sim.abc_sim_regional_wave_kernel(
                     prior_seed, prior.lows, prior.highs, self.obs_summary, self.mob,
                     self.weights, self.fconst, iconst, model=self.model, batch=batch,
-                    pool=self.pool, block=self.block, gate=gate, out=out,
+                    pool=self.pool, block=self.block, gate=gate, out=out, offset=offset,
                 )
             return abc_sim.abc_sim_wave_kernel(
                 prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
                 iconst, model=self.model, batch=batch, block=self.block, gate=gate, out=out,
+                offset=offset,
             )
-        if self.device.type == "cuda" and gate is not None:
-            raise ValueError("a gated wave on the card draws theta in the kernel: it needs "
-                             f"a UniformBoxPrior, got {type(prior).__name__}")
+        if self.device.type == "cuda" and (gate is not None or offset):
+            raise ValueError("a gated or offset wave on the card draws theta in the kernel: "
+                             f"it needs a UniformBoxPrior, got {type(prior).__name__}")
         if self._gated_off(gate):
             return abc_sim.wave_out(out, batch, self.width, self.device)
-        theta = prior.sample(prior_seed, batch, self.device)
-        dist = self(theta, sim_seed)
+        theta = prior.sample(prior_seed, batch, self.device, offset=offset)
+        dist = (self._plain(theta, sim_seed, offset) if self.device.type == "cpu"
+                else self(theta, sim_seed))
         # failed (NaN) simulations never count as accepted
         dist = torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
         if out is None:

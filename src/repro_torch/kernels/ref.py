@@ -65,12 +65,14 @@ def abc_sim_distance_ref(
     distance: str = "euclidean",
     schedule=None,
     mobility=None,
+    sample_offset: int = 0,
 ) -> torch.Tensor:
     """Distances [B] on theta's device. Under an intervention `schedule`
     theta is [B, n_params + n_scales] and each day runs on the day-effective
     parameters (`engine.effective_theta`), as `repro.kernels.ref` does. A
     regional model's `observed` is [R * n_observed, T], region-major;
-    `mobility` overrides its matrix."""
+    `mobility` overrides its matrix. Sample b's noise hashes on
+    `sample_offset` + b (`rng.sample_indices`), as in the wave entries."""
     global CALLS
     CALLS += 1
     if model is None:
@@ -86,7 +88,7 @@ def abc_sim_distance_ref(
     num_days = observed.shape[1]
     cfg = EpiModelConfig(population=population, num_days=num_days,
                          a0=a0, r0=r0, d0=d0)
-    idx = torch.arange(theta.shape[0], device=theta.device)
+    idx = krng.sample_indices(theta.shape[0], theta.device, sample_offset)
     pop = torch.tensor(population, dtype=torch.float32, device=theta.device)
     state = engine.initial_state(model, theta, cfg)
     obs_idx = list(model.total_observed_idx)

@@ -125,6 +125,28 @@ def hash_normals(seed, idx: torch.Tensor, day: int, n_transitions: int,
     return normal(seed, idx[:, None], ctr[None, :])
 
 
+#: sample indices are 32-bit words: a launch's indices end at or below this
+INDEX_LIMIT = 1 << 32
+
+
+def check_offset(offset: int, batch: int) -> int:
+    """`offset` as an int, checked: the indices offset .. offset + batch - 1
+    of a launch's samples must be 32-bit words."""
+    offset = int(offset)
+    if offset < 0 or offset + int(batch) > INDEX_LIMIT:
+        raise ValueError(f"sample offset {offset} with {batch} samples leaves the 32-bit "
+                         f"sample index (offset + batch must be at most 2**32)")
+    return offset
+
+
+def sample_indices(batch: int, device=None, offset: int = 0) -> torch.Tensor:
+    """The hash indices [batch] (int64) of a launch's samples: sample b
+    hashes on offset + b, as the kernels' wave entries do, so a launch at
+    offset o is rows [o, o + batch) of the launch at offset 0."""
+    offset = check_offset(offset, batch)
+    return torch.arange(offset, offset + int(batch), device=device)
+
+
 def stream_seed(seed: int, index: int, stream: int) -> int:
     """A uint32 seed for `stream` of run `index` under a base `seed`.
 

@@ -28,6 +28,7 @@ from repro_torch.analysis.trace_audit import (
     wave_buffer_allocations,
 )
 from repro_torch.core import abc as tabc
+from repro_torch.core import distributed
 
 torch.set_num_threads(1)
 
@@ -314,14 +315,18 @@ def test_planted_shape_cache_retrace_trips():
 # ---------------------------------------------------------------------------
 
 COMBO = Combo("sir", None, "euclidean", 0)
+#: the pjit device loop (`core.distributed.PjitWaveRunner`, a world of 1)
+PJIT_COMBO = Combo("sir", None, "euclidean", 0, style="pjit")
 
 
-@pytest.mark.parametrize("fault,rule", [
-    ("item", "host-sync-in-segment"),
-    ("float64", "f64-promotion"),
-    ("copy", "buffer-not-reused"),
-])
-def test_audit_catches_a_fault_planted_in_the_wave_loop(monkeypatch, fault, rule):
+@pytest.mark.parametrize("combo,fault,rule", [
+    (COMBO, "item", "host-sync-in-segment"),
+    (COMBO, "float64", "f64-promotion"),
+    (COMBO, "copy", "buffer-not-reused"),
+    (PJIT_COMBO, "item", "host-sync-in-segment"),
+    (PJIT_COMBO, "float64", "f64-promotion"),
+], ids=["item", "float64", "copy", "pjit-item", "pjit-float64"])
+def test_audit_catches_a_fault_planted_in_the_wave_loop(monkeypatch, combo, fault, rule):
     real = tabc.compact_accepted
 
     def planted(th_buf, d_buf, fill, theta, dist, accept, capacity):
@@ -335,7 +340,20 @@ def test_audit_catches_a_fault_planted_in_the_wave_loop(monkeypatch, fault, rule
         return th_buf, d_buf, new_fill
 
     monkeypatch.setattr(tabc, "compact_accepted", planted)
-    assert rules_of(audit_combo(COMBO, batch=64, num_days=6)) == [rule]
+    monkeypatch.setattr(distributed, "compact_accepted", planted)
+    assert rules_of(audit_combo(combo, batch=64, num_days=6)) == [rule]
+
+
+def test_pjit_loop_audits_clean_with_one_sync_a_segment():
+    """The pjit combo runs its count all-reduce a wave and its gather and
+    placement at the host re-entry under the audit: no finding, and the
+    registered grids carry it, flat and on the region axis."""
+    assert audit_combo(PJIT_COMBO, batch=64, num_days=6) == []
+    for quick in (True, False):
+        pjit = sorted(c.tag for c in trace_audit.registered_combos(quick=quick)
+                      if c.style == "pjit")
+        assert pjit == ["metapop_seir/identity/euclidean/sched0/r3/pjit",
+                        "siard/identity/euclidean/sched0/pjit"]
 
 
 def test_audit_catches_a_wave_that_allocates_its_buffers(monkeypatch):

@@ -14,7 +14,9 @@ its own, so a hung rank fails its test) at tests/test_scaling.py's sizes
   * one shard overflowing while the others stay empty
     (tests/test_distributed_edges.py:57), uneven batches refused;
   * the sharded SMC round (tests/test_scaling.py:193);
-  * `abc_run --scaling` over 2 ranks; `style="pjit"` refused.
+  * `abc_run --scaling` over 2 ranks; unknown styles refused by both
+    makers, and the pjit style's own refusals (an uneven batch, a chunk
+    that does not divide B/n); tests/test_torch_pjit.py holds that style.
 
 The ranks import neither `jax` nor `repro`; neither does this file.
 """
@@ -288,12 +290,40 @@ def test_scaling_cli_over_two_ranks(tmp_path):
     assert report["n_visible_devices"] == 2
 
 
-def test_pjit_style_and_other_styles_refused():
+def _pjit_refusal_rank(rank, world):
+    """The pjit makers on 2 ranks: what each refuses, by its message."""
+    ds = get_dataset("synthetic_small", num_days=DAYS)
+    cfg = tabc.ABCConfig(**_CFG_KW)
+    prior, sim = get_model("siard").prior(), tabc.make_simulator(ds, cfg, "cpu")
+    refused = []
+    for kw in (dict(batch_size=1023, chunk_size=1023), dict(chunk_size=2048)):
+        bad = dataclasses.replace(cfg, **kw)
+        for maker in (distributed.make_pjit_runner, distributed.make_pjit_wave_runner):
+            try:
+                maker(dist.group.WORLD, prior, sim, bad)
+            except ValueError as e:
+                refused.append((maker.__name__, str(e)))
+    wr = distributed.make_wave_runner(None, ds, cfg, style="pjit", device="cpu")
+    return refused, type(wr).__name__
+
+
+def test_unknown_styles_and_pjit_uneven_shapes_refused(tmp_path):
+    """Both makers refuse an unknown style, before they form a group. On 2
+    ranks the pjit style is accepted, and refuses what cannot be one
+    logical wave: an uneven batch (both runners), and a chunk that does not
+    divide a rank's B/n rows (the host loop; the device loop has no
+    chunks)."""
     ds = get_dataset("synthetic_small", num_days=DAYS)
     cfg = tabc.ABCConfig(**_CFG_KW)
     for maker in (distributed.make_wave_runner, distributed.make_runner):
-        with pytest.raises(ValueError, match="ROADMAP.md, queue 1"):
-            maker(None, ds, cfg, style="pjit", device="cpu")
         with pytest.raises(ValueError, match="unknown runner style"):
             maker(None, ds, cfg, style="magic", device="cpu")
     assert not dist.is_initialized()
+    got = distributed.spawn_ranks(_pjit_refusal_rank, 2, device="cpu", timeout=TIMEOUT,
+                                  tmp_dir=str(tmp_path))
+    for refused, runner in got:
+        assert runner == "PjitWaveRunner"
+        assert [(name, msg.split(" (")[0]) for name, msg in refused] == [
+            ("make_pjit_runner", "batch_size 1023 not divisible by 2 devices"),
+            ("make_pjit_wave_runner", "batch_size 1023 not divisible by 2 devices"),
+            ("make_pjit_runner", "chunk_size 2048 does not divide the 1024 rows of a rank")]

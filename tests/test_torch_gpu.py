@@ -8,6 +8,7 @@ Whether a card is there is decided inside the `cuda` fixture, never at
 import, so every worker collects the same tests.
 """
 
+import ctypes
 import dataclasses
 import os
 import shutil
@@ -1234,3 +1235,111 @@ def test_a_device_loop_segment_synchronizes_once(cuda):
     found = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
     assert len(found) == 1, found
     assert tabc.HOST_SYNCS == syncs + 1
+
+
+#: the wave entries held at a sample offset: each flat model, SIARD under a
+#: one-window schedule, and metapop_seir's region axis on both routes
+OFFSET_CASES = ["siard", "sir", "seir", "seiard", "siard_scheduled", "metapop_seir-thread",
+                "metapop_seir-warp"]
+#: the offsets of chip_smoke.py's phase scaleout_path (g)
+OFFSETS = (0, 1, 4096, 50_000)
+
+
+def _offset_wave(cuda, case):
+    """(wave(offset, batch), plain(offset, batch)) of an offset case: the
+    wave entry's (theta, dist) and prior.sample + the plain version at the
+    same offset, on the card."""
+    name, _, route = case.partition("-")
+    spec = get_model(name.replace("_scheduled", ""))
+    sched = (InterventionSchedule.inferred(("alpha0",), (20,), 0.2, 1.5)
+             if name.endswith("_scheduled") else None)
+    ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+    kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), model=spec,
+                           schedule=sched, **kw)
+    prior = schedule_prior(spec, sched)
+
+    def wave(offset, batch):
+        if route:
+            return abc_sim.abc_sim_regional_wave_kernel(
+                7, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
+                abc_sim.with_seed(sim.iconst, 9), model=spec, batch=batch, pool=sim.pool,
+                route=route, offset=offset)
+        return sim.wave(prior, 7, 9, batch, offset=offset)
+
+    def plain(offset, batch):
+        theta = prior.sample(7, batch, cuda, offset=offset)
+        d = ref.abc_sim_distance_ref(theta, 9, sim.observed, model=spec, schedule=sched,
+                                     sample_offset=offset, **kw)
+        return theta, torch.where(torch.isnan(d), torch.full_like(d, float("inf")), d)
+
+    return wave, plain
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES)
+def test_wave_entry_at_an_offset_is_the_tail_on_the_card(cuda, case):
+    """A wave of b rows at offset o is bitwise rows [o, o + b) of the
+    offset-0 wave of o + b rows, and its plain version at the same offset."""
+    wave, plain = _offset_wave(cuda, case)
+    b = 1024
+    for offset in OFFSETS:
+        theta, d = wave(offset, b)
+        theta0, d0 = wave(0, offset + b)
+        assert _bits_equal(theta, theta0[offset:]) and _bits_equal(d, d0[offset:]), offset
+        theta_p, d_p = plain(offset, b)
+        assert _bits_equal(theta, theta_p) and _bits_equal(d, d_p), offset
+
+
+@pytest.mark.parametrize("case", ["siard", "metapop_seir-thread", "metapop_seir-warp"])
+def test_wave_entry_refuses_an_offset_past_the_32_bit_index(cuda, case):
+    """The wrapper refuses offset + batch past 2^32, and so does the C entry
+    itself (cudaErrorInvalidValue) when called around the wrapper; the last
+    valid offset runs."""
+    wave, _ = _offset_wave(cuda, case)
+    with pytest.raises(ValueError, match="32-bit sample index"):
+        wave(2**32 - 8, 16)
+    theta, d = wave(2**32 - 16, 16)
+    assert theta.shape[0] == 16 and not torch.isnan(d).any()
+    name, _, route = case.partition("-")
+    spec = get_model(name)
+    lib = abc_sim._lib(abc_sim.library(spec))
+    fn = abc_sim._kernel_fn(lib, spec, "wave", route or None)
+    args = list(fn.argtypes)
+    assert args[-1] is ctypes.c_uint and len(args) in (14, 19)
+    ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
+    sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), model=spec,
+                           population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    lo = np.ascontiguousarray(spec.prior().lows, np.float32)
+    hi = np.ascontiguousarray(spec.prior().highs, np.float32)
+    out = torch.empty((16, spec.n_params), device=cuda), torch.empty((16,), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    head = [7, lo.ctypes.data, hi.ctypes.data, sim.obs_summary.data_ptr()]
+    if route:
+        head += [sim.mob.data_ptr(), sim.weights.data_ptr()]
+    head += [out[0].data_ptr(), out[1].data_ptr(), sim.fconst.ctypes.data,
+             sim.iconst.ctypes.data, 16, 49]
+    if route:
+        head += [spec.n_regions, spec.seed_region, 0]
+    head += [abc_sim.route_block(route or "thread"), stream, None]
+    assert fn(*head, 2**32 - 8) == 1  # cudaErrorInvalidValue
+    assert fn(*head, 2**32 - 16) == 0
+
+
+def test_pjit_world_of_one_over_nccl_is_the_unsharded_run(cuda):
+    """The pjit device loop in a world of 1 over NCCL: the unsharded
+    posterior bit for bit, one host sync a segment."""
+    from repro_torch.core import distributed
+
+    ds = data.get_dataset("italy", num_days=49)
+    cfg = tabc.ABCConfig(**{**_SCALE_KW, "tolerance": _scale_eps(cuda)})
+    solo = tabc.run_abc(ds, cfg, seed=0, device=cuda)
+    with distributed.world("cuda") as group:
+        assert torch.distributed.get_backend(group) == "nccl"
+        runner = distributed.make_wave_runner(group, ds, cfg, style="pjit", device="cuda")
+        syncs = tabc.HOST_SYNCS
+        post = tabc.run_abc(ds, cfg, seed=0, wave_runner=runner)
+        assert tabc.HOST_SYNCS - syncs == -(-post.runs // tabc.SEGMENT_WAVES)
+    assert not torch.distributed.is_initialized()
+    assert (post.runs, post.simulations) == (solo.runs, solo.simulations) and len(post) >= 30
+    assert _bits_equal(torch.from_numpy(post.theta), solo.theta)
+    assert _bits_equal(torch.from_numpy(post.distances), solo.distances)
