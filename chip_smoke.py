@@ -245,7 +245,9 @@ printing one JSON line:
              one (route counters), on the causal GQA shapes of
              tests/test_kernel_flash.py, window + softcap, non-causal
              cross-length, ragged 2047, rows with no allowed key, gemma-2b's
-             prefill shape, D 72 and 20, and a ragged Skv != Sq; then a q
+             prefill shape, D 72 and 20, a ragged Skv != Sq, and the prefill
+             shapes of deepseek-moe-16b (16 heads over 16 kv heads, D 128)
+             and qwen3-moe-30b-a3b (32 over 4, D 128) at 4 x 2048; then a q
              sliced at an odd offset in each dtype, staged element by
              element (LAUNCHES_STAGED)
   lm_prefill full-width gemma-2b (bf16, weights from a generator seeded 0)
@@ -264,6 +266,32 @@ printing one JSON line:
              the 3xTF32 bound (and the 67 TFLOP/s one), the plain version
              and SDPA in float32; the kernels SDPA's float32 call launches,
              from one profiled call
+  moe_layer  for deepseek-moe-16b and qwen3-moe-30b-a3b in turn: one
+             full-width MoE layer (weights from a generator seeded 0) on 4 x
+             2048 tokens at ample capacity against the dense oracle on the
+             card (every expert on every token; tests/test_moe.py's bar), the
+             share of routed slots dropped at the default capacity factor, its
+             ms beside the oracle's
+  moe_prefill the model at full width and depth prefills 4 x 2048 tokens
+             through `ModelDef.prefill` with attn_impl="flash", the counters
+             set to 0 just before (n_layers bf16 launches: 28 and 48, no
+             float32 one, no plain call), its logits against attn_impl=
+             "dense" at lm_prefill's bar and argmax rule (the flash run
+             again, its routing pinned to the dense run's at the tokens
+             where a near-tie of the router went the other way, each such
+             flip explained by the two router inputs' difference, and
+             counted: `RoutingPin`), the dropped share,
+             the wall, tokens a second and torch.cuda.max_memory_allocated
+  moe_profile one flash prefill under torch.profiler: the flash kernel's
+             device ms against the matrix products, and the idle share
+  moe_serve  a decode step of 4 slots (CUDA events, and one under
+             torch.profiler: device busy, idle share, kernels) beside its weight-read
+             floor (every weight but the untied embedding table, over the
+             HBM rate: the dispatch runs every routed expert each step), two
+             requests served alone, then `repro_torch.launch.serve` at its
+             defaults (8 requests, 8 tokens each, 4 slots) whose first two
+             requests must equal them; deepseek once more under
+             REPRO_KV_QUANT=1 (the int8 KV cache)
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
@@ -275,7 +303,8 @@ printing one JSON line:
              scaleout_path (j)'s single-device run, the R=100 times at both
              batches and the route chosen at each R and batch;
              tuning_path's autotune of R=100 on the warp route) and on the
-             warp route, the bf16 flash route and the float32 one
+             warp route, the bf16 flash route (its launches on lm_prefill and
+             both moe_prefill runs, `launches_by_path`) and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -367,6 +396,8 @@ FLASH_CASES = [
     (1, 100, 4, 2, 72, 100, True, None, None),  # D a multiple of 8, not of 16
     (2, 50, 2, 1, 20, 50, True, None, None),  # D off the 8 grid: staged by element
     (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
+    (4, 2048, 16, 16, 128, 2048, True, None, None),  # deepseek-moe-16b prefill
+    (4, 2048, 32, 4, 128, 2048, True, None, None),  # qwen3-moe-30b-a3b prefill (GQA 8)
 ]
 #: gemma-2b prefill through the flash route against the dense route: both
 #: round the unembedding product to bf16, so a logit in [2^e, 2^(e+1)) moves
@@ -377,6 +408,13 @@ FLASH_CASES = [
 #: the largest |logit| (1/8 of its binade), and the argmax must agree on
 #: every row whose top-2 gap exceeds twice the bar.
 PREFILL_BAR_STEPS = 16
+#: the MoE decoders served at full width and depth (moe_layer, moe_prefill,
+#: moe_serve), in the order they run: qwen3's 61 GB of weights last
+MOE_ARCHS = ("deepseek-moe-16b", "qwen3-moe-30b-a3b")
+#: the capacity dispatch against the dense oracle: tests/test_moe.py:34-37
+MOE_ORACLE_BAR = dict(rtol=0.08, atol=0.05)
+#: decode steps of 4 slots timed with CUDA events beside the weight-read floor
+MOE_DECODE_ITERS = 10
 
 
 def emit(phase: str, **fields) -> None:
@@ -1935,6 +1973,293 @@ def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
     return lines
 
 
+def decode_weight_bytes(params, cfg) -> int:
+    """Bytes of the weights one decode step reads: every parameter but an
+    untied embedding table, whose rows a step only gathers. The capacity
+    dispatch runs every routed expert at every step, so all of them count."""
+    import torch
+
+    skip = None if cfg.tie_embed else params["embed"]
+    stack = [params]
+    total = 0
+    while stack:
+        item = stack.pop()
+        if isinstance(item, dict):
+            stack.extend(item.values())
+        elif isinstance(item, (list, tuple)):
+            stack.extend(item)
+        elif isinstance(item, torch.Tensor) and item is not skip:
+            total += item.numel() * item.element_size()
+    return total
+
+
+class RoutingPin:
+    """Hold one MoE prefill's routing to another's. `record()` keeps the
+    router inputs and top_ids of each MoE layer of a reference run; under
+    `pin()` each layer of the next run routes as its own router says,
+    except at the tokens where it chose another expert set than the
+    reference: there it takes the reference's experts (weights from its own
+    probabilities), provided the difference of the two router inputs
+    explains the flip (the reference's logit gap between a dropped and an
+    added expert within sum_i |dx_i| (|R_ia| + |R_ib|)); else it raises."""
+
+    def __init__(self, moe_lib):
+        self.moe_lib, self.ref, self.flips, self.worst = moe_lib, [], 0, 0.0
+
+    def _patched(self, fn):
+        import contextlib
+
+        @contextlib.contextmanager
+        def cm():
+            route = self.moe_lib.route
+            self.moe_lib.route = fn(route)
+            try:
+                yield self
+            finally:
+                self.moe_lib.route = route
+        return cm()
+
+    def record(self):
+        def wrap(route):
+            def recording(xf, router, cfg, c):
+                r = route(xf, router, cfg, c)
+                self.ref.append((xf.clone(), r.top_ids.clone()))
+                return r
+            return recording
+        return self._patched(wrap)
+
+    def pin(self):
+        import torch
+
+        calls = iter(range(len(self.ref)))
+
+        def wrap(route):
+            def pinned(xf, router, cfg, c):
+                xr, ids_ref = self.ref[next(calls)]
+                r = route(xf, router, cfg, c)
+                differ = (r.top_ids.sort(-1).values != ids_ref.sort(-1).values).any(-1)
+                tokens = torch.nonzero(differ).flatten().tolist()
+                if not tokens:
+                    return r
+                rf = router.to(torch.float32)
+                for t in tokens:
+                    ref_logits = xr[t].to(torch.float32) @ rf
+                    slack = (xf[t].to(torch.float32) - xr[t].to(torch.float32)).abs() @ rf.abs()
+                    for a in set(ids_ref[t].tolist()) - set(r.top_ids[t].tolist()):
+                        for b in set(r.top_ids[t].tolist()) - set(ids_ref[t].tolist()):
+                            gap = float(ref_logits[a] - ref_logits[b])
+                            bound = float(slack[a] + slack[b]) + 1e-5
+                            if gap > bound:
+                                raise AssertionError(
+                                    f"routing: token {t} goes to expert {b} instead of {a}; "
+                                    f"the logit gap {gap} is more than the router inputs' "
+                                    f"difference explains ({bound})")
+                            self.worst = max(self.worst, gap / bound)
+                self.flips += len(tokens)
+                select = self.moe_lib.select_experts
+
+                def take_reference(probs, k):
+                    w, ids = select(probs, k)
+                    ids[differ] = ids_ref[differ]
+                    picked = torch.gather(probs[differ], 1, ids[differ])
+                    w[differ] = picked / picked.sum(-1, keepdim=True)
+                    return w, ids
+
+                self.moe_lib.select_experts = take_reference
+                try:
+                    return route(xf, router, cfg, c)
+                finally:
+                    self.moe_lib.select_experts = select
+            return pinned
+        return self._patched(wrap)
+
+
+def moe_phases(dev, name: str, smi: str) -> dict:
+    """moe_layer, moe_prefill, moe_profile and moe_serve for each of
+    MOE_ARCHS; returns the bf16 flash kernel's launches on each prefill."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.registry import get_model
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    launches = {}
+    for arch in MOE_ARCHS:
+        model = get_model(arch)
+        cfg, mcfg = model.cfg, model.cfg.moe
+        torch.cuda.empty_cache()
+        # ---- moe_layer: one full-width layer against the dense oracle
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = moe_lib.init_moe(gen, cfg.d_model, mcfg)
+        x = torch.randn((4, 2048, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        n = x.shape[0] * x.shape[1]
+        ample = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / mcfg.top_k)
+        y, aux = moe_lib.moe_ffn(x, p, ample)
+        want = moe_lib.dense_reference(x, p, mcfg)
+        r = compare(f"moe_layer {arch}: ample capacity vs the dense oracle", y.float(),
+                    want.float(), **MOE_ORACLE_BAR)
+        c = moe_lib.capacity(n, mcfg)
+        routing = moe_lib.route(x.reshape(n, -1), p["router"], mcfg, c)
+        dropped = float((~routing.keep).double().mean())
+        layer_ms = cuda_ms(lambda: moe_lib.moe_ffn(x, p, mcfg), 5)
+        oracle_ms = cuda_ms(lambda: moe_lib.dense_reference(x, p, mcfg), 3, warmup=1)
+        emit("moe_layer", arch=arch, tokens=n, experts=mcfg.n_experts, top_k=mcfg.top_k,
+             capacity=c, capacity_ample=moe_lib.capacity(n, ample),
+             dropped_share_default_capacity=dropped, aux=float(aux), comparison=r,
+             ms_default_capacity=layer_ms, dense_oracle_ms=oracle_ms,
+             max_memory_allocated_gb=peak_gb(), kind=name, nvidia_smi=smi)
+        del p, x, y, want, routing
+        torch.cuda.empty_cache()
+
+        # ---- moe_prefill: full width and depth through the flash kernel
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model.init_params(device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(4, 2048)), device=dev)
+        flash_model = model.with_cfg(attn_impl="flash")
+        dropped_slots = []
+        route = moe_lib.route
+
+        def counting_route(xf, router, mcfg_, c_):
+            out = route(xf, router, mcfg_, c_)
+            dropped_slots.append((~out.keep).sum())
+            return out
+
+        moe_lib.route = counting_route
+        try:
+            fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_TENSOR_CORE_F32 = 0
+            ref.FLASH_CALLS = 0
+            t0 = time.perf_counter()
+            logits = flash_model.prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+                      ref.FLASH_CALLS)
+        finally:
+            moe_lib.route = route
+        if counts != (cfg.n_layers, cfg.n_layers, 0, 0):
+            raise AssertionError(f"moe_prefill {arch}: (flash, bf16 kernel, float32 kernel, "
+                                 f"plain) launches {counts}, want ({cfg.n_layers}, "
+                                 f"{cfg.n_layers}, 0, 0)")
+        launches[f"moe_prefill {arch}"] = counts[1]
+        n_moe = cfg.n_layers - cfg.n_dense_prefix
+        if len(dropped_slots) != n_moe:
+            raise AssertionError(f"moe_prefill {arch}: {len(dropped_slots)} MoE layers routed, "
+                                 f"want {n_moe}")
+        dropped_share = float(torch.stack(dropped_slots).sum()) / (n_moe * n * mcfg.top_k)
+        prefill_peak = peak_gb()
+        # the dense route as the reference; the flash route again, its routing
+        # pinned to the dense run's where the two tell a near-tie apart otherwise
+        pin = RoutingPin(moe_lib)
+        with pin.record():
+            dense = model.with_cfg(attn_impl="dense").prefill(params, {"tokens": tokens})
+        with pin.pin():
+            pinned = flash_model.prefill(params, {"tokens": tokens})
+        del pin.ref
+        unpinned_diff = float((logits - dense).abs().max())
+        logits = pinned
+        if logits.shape != (4, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"moe_prefill {arch}: logits {tuple(logits.shape)}, finite="
+                                 f"{bool(torch.isfinite(logits).all())}")
+        diff = float((logits - dense).abs().max())
+        top = float(dense.abs().max())
+        bar = PREFILL_BAR_STEPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+        top2 = torch.topk(dense[:, 0], 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+        agree = logits[:, 0].argmax(-1) == dense[:, 0].argmax(-1)
+        if not diff <= bar or not bool(agree[decided].all()):
+            raise AssertionError(f"moe_prefill {arch}: flash vs dense max |diff| {diff} (bar "
+                                 f"{bar}), argmax agreement {agree.tolist()} on rows "
+                                 f"{decided.tolist()}")
+        emit("moe_prefill", arch=arch, batch=4, prompt_len=2048, params=model.param_count(),
+             active_params=model.active_param_count(), init_s=init_s, wall_s=wall,
+             tok_per_s=n / wall, flash_launches=counts[0], tensor_core_launches=counts[1],
+             tensor_core_f32_launches=counts[2], plain_calls=counts[3],
+             dropped_share=dropped_share, capacity=moe_lib.capacity(n, mcfg),
+             routing_flips_pinned=pin.flips, routing_flip_worst_gap_over_bound=pin.worst,
+             max_abs_diff_vs_dense_unpinned=unpinned_diff,
+             max_abs_diff_vs_dense=diff, max_abs_logit=top, bar=bar,
+             argmax_agree=agree.tolist(), argmax_decided_rows=decided.tolist(),
+             max_memory_allocated_gb=prefill_peak, kind=name, nvidia_smi=smi)
+        del dense, logits, pinned
+
+        # ---- moe_profile: one flash prefill, device time by kernel
+        wall_ms, busy_ms, by_op = profile_device_ms(
+            lambda: flash_model.prefill(params, {"tokens": tokens}))
+        flash_ms = sum(ms for k, _, ms in by_op if "flash_fwd" in k)
+        gemm_ms = sum(ms for k, _, ms in by_op
+                      if any(t in k.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")))
+        emit("moe_profile", arch=arch, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=1.0 - busy_ms / wall_ms, flash_device_ms=flash_ms,
+             matmul_device_ms=gemm_ms, other_device_ms=busy_ms - flash_ms - gemm_ms,
+             kind=name, nvidia_smi=smi,
+             top_device_ops=[{"name": k[:80], "count": c_, "device_ms": ms}
+                             for k, c_, ms in by_op[:10]])
+
+        # ---- moe_serve: a decode step of 4 slots beside its weight-read floor,
+        # two requests served alone, then the serving CLI with its defaults
+        cache = model.init_cache(4, 24, dev)
+        step = {"tokens": tokens[:, :1].contiguous(),
+                "pos": torch.full((4,), 16, dtype=torch.long, device=dev)}
+        step_ms = cuda_ms(lambda: model.decode_step(params, cache, step), MOE_DECODE_ITERS)
+        step_wall_ms, step_busy_ms, step_ops = profile_device_ms(
+            lambda: model.decode_step(params, cache, step))
+        weight_bytes = decode_weight_bytes(params, cfg)
+        floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+        rng = np.random.default_rng(0)  # the prompts of serve.run_lm_cli
+        prompts = [rng.integers(0, cfg.vocab, size=16).astype(np.int32).tolist()
+                   for _ in range(8)]
+        alone = [serve.run_lm_server(model, [prompts[i]], 8, 1, 24, params=params,
+                                     device=dev)[0][0] for i in (0, 1)]
+        del params, cache, step, tokens
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = {"bf16 cache": ()}
+        if arch == MOE_ARCHS[0]:
+            runs["int8 cache"] = (("REPRO_KV_QUANT", "1"),)
+        for tag, env in runs.items():
+            os.environ.update(env)
+            try:
+                stats = serve.main(["--arch", arch, "--device", "cuda"])
+            finally:
+                for key, _ in env:
+                    del os.environ[key]
+            torch.cuda.empty_cache()
+            outs = stats["outputs"]
+            if stats["requests"] != 8 or len(outs) != 8 or any(len(o) != 8 for o in outs):
+                raise AssertionError(f"moe_serve {arch} {tag}: {stats['requests']} requests, "
+                                     f"lengths {[len(o) for o in outs]}")
+            if tag == "bf16 cache" and outs[:2] != alone:
+                raise AssertionError(f"moe_serve {arch}: batched {outs[:2]} != alone {alone}")
+            emit("moe_serve", arch=arch, cache=tag, requests=stats["requests"],
+                 decode_steps=stats["steps"], seconds=stats["seconds"],
+                 tok_per_s=stats["tok_per_s"],
+                 cli_ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
+                 decode_step_ms=step_ms if tag == "bf16 cache" else None,
+                 decode_step_iters=MOE_DECODE_ITERS,
+                 decode_step_profile=None if tag != "bf16 cache" else {
+                     "wall_ms": step_wall_ms, "device_busy_ms": step_busy_ms,
+                     "device_idle_share": 1.0 - step_busy_ms / step_wall_ms,
+                     "kernels": sum(c_ for _, c_, _ in step_ops),
+                     "top_device_ops": [{"name": k[:80], "count": c_, "device_ms": ms}
+                                        for k, c_, ms in step_ops[:6]]},
+                 weight_read_bytes=weight_bytes,
+                 weight_read_floor_ms=floor_ms, alone_equal_batched=tag == "bf16 cache",
+                 max_memory_allocated_gb=peak_gb(), kind=name, nvidia_smi=smi)
+    return launches
+
+
 #: tuning_path's autotuned cells: (tag, model, regions, dataset, batch, chunk)
 TUNING_CELLS = (("siard 100000x49", "siard", 1, "italy", 100_000, 10_000),
                 ("metapop_seir R=100 20000x49", "metapop_seir", 100, "synthetic_small",
@@ -3414,6 +3739,11 @@ def main() -> int:
 
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
     flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
+    # ---- moe_layer, moe_prefill, moe_profile, moe_serve: the bf16 flash
+    # kernel's launches on each prefill join lm_prefill's
+    by_path = {"lm_prefill gemma-2b": flash_lines[0]["launches"],
+               **moe_phases(dev, name, smi)}
+    flash_lines[0].update(launches=sum(by_path.values()), launches_by_path=by_path)
 
     # the census a sample-day, read in `build`, held last so that a drift
     # still leaves every other phase measured

@@ -113,8 +113,20 @@ def load_npz(path: str) -> Union[ABCState, Posterior]:
     )
 
 
-#: parameters kept in float32 (norm scales); every other leaf is bf16
-_F32_LEAVES = ("ln1", "ln2", "post_attn", "post_ffn", "final_norm")
+#: parameters kept in float32 (norm scales and the MoE router); every other
+#: leaf is bf16
+_F32_LEAVES = ("ln1", "ln2", "post_attn", "post_ffn", "final_norm", "router")
+
+
+def _leaf(name: str, a, device) -> torch.Tensor:
+    dtype = torch.float32 if name in _F32_LEAVES else cm.DEFAULT_DTYPE
+    return torch.from_numpy(np.array(a, np.float32)).to(device=device, dtype=dtype)
+
+
+def _layer_from_stack(stack: Dict[str, Any], j: int, device) -> Dict[str, Any]:
+    """Layer j of a stacked parameter dict, nested dicts (the MoE's) included."""
+    return {name: _layer_from_stack(a, j, device) if isinstance(a, dict) else
+            _leaf(name, a[j], device) for name, a in stack.items()}
 
 
 def decoder_params_from_arrays(cfg: DecoderConfig, tree: Dict[str, Any],
@@ -123,29 +135,32 @@ def decoder_params_from_arrays(cfg: DecoderConfig, tree: Dict[str, Any],
     arrays (float32, or bf16 values in any float type: bf16 -> float32 ->
     bf16 is exact).
 
-    `repro` stacks layers per attention-pattern position: layer
-    g * len(attn_pattern) + p is `tree["layers"][p][g]`. Its embedding is
-    [V, d] and serves as the unembedding when `tie_embed`.
+    `repro` stacks its dense prefix layers in `tree["prefix"]` ([n_dense_prefix,
+    ...]), which become the first layers, and the others per
+    attention-pattern position: layer n_dense_prefix + g * len(attn_pattern)
+    + p is `tree["layers"][p][g]`, its MoE parameters under `"moe"`. Its
+    embedding is [V, d] and serves as the unembedding when `tie_embed`.
     """
     check_supported(cfg)
-
-    def leaf(name, a):
-        dtype = torch.float32 if name in _F32_LEAVES else cm.DEFAULT_DTYPE
-        t = torch.from_numpy(np.array(a, np.float32))
-        return t.to(device=device, dtype=dtype)
-
     npos = len(cfg.attn_pattern)
     if len(tree["layers"]) != npos:
         raise ValueError(f"expected {npos} pattern positions, got {len(tree['layers'])}")
+    n_prefix = cfg.n_dense_prefix
+    if bool(n_prefix) != ("prefix" in tree):
+        raise ValueError(f"{cfg.name}: n_dense_prefix={n_prefix} but the tree "
+                         f"{'has' if 'prefix' in tree else 'lacks'} a prefix stack")
     layers = []
     for i in range(cfg.n_layers):
-        stack = tree["layers"][i % npos]
-        layers.append({name: leaf(name, a[i // npos]) for name, a in stack.items()})
-    params = {"embed": leaf("embed", tree["embed"]),
-              "final_norm": leaf("final_norm", tree["final_norm"]),
+        if i < n_prefix:
+            layers.append(_layer_from_stack(tree["prefix"], i, device))
+        else:
+            j = i - n_prefix
+            layers.append(_layer_from_stack(tree["layers"][j % npos], j // npos, device))
+    params = {"embed": _leaf("embed", tree["embed"], device),
+              "final_norm": _leaf("final_norm", tree["final_norm"], device),
               "layers": layers}
     if not cfg.tie_embed:
-        params["unembed"] = leaf("unembed", tree["unembed"])
+        params["unembed"] = _leaf("unembed", tree["unembed"], device)
     return params
 
 

@@ -4,6 +4,10 @@ queries (`--epi`). Counterpart of `repro.launch.serve`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke \
         --device cpu --requests 8 --prompt-len 16 --gen 8
 
+    # an MoE decoder, with the int8 KV cache
+    REPRO_KV_QUANT=1 PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-moe-16b --smoke --device cpu
+
     # answer forecast / counterfactual queries from cached SMC-ABC fits
     # (fitted on demand, through the abc_sim kernel on the card)
     PYTHONPATH=src python -m repro_torch.launch.serve --epi \
@@ -12,7 +16,17 @@ queries (`--epi`). Counterpart of `repro.launch.serve`.
 LM mode: a static batch of slots; requests are slotted in and out of it;
 each slot advances at its own position, writing and attending its own cache
 prefix, and a slot's cache lanes are zeroed when a request is admitted into
-it. So batched outputs equal serving each request alone, token for token.
+it (bf16 k and v, or under `REPRO_KV_QUANT=1` the int8 values and their
+scales alike). So batched outputs equal serving each request alone, token
+for token.
+
+The MoE archs (deepseek-moe-16b, qwen3-moe-30b-a3b) route the batch's
+tokens of a step together: an expert holds C = max(8, ...) slots of the
+step (`models.moe.capacity`), and a token picks top_k distinct experts, so
+with at most 8 slots no expert overflows and the guarantee above holds. With
+more slots (`--slots 16`) more than C tokens of one step may pick one
+expert; the later ones are dropped from it, as `repro`'s serving loop drops
+them too, and a request's tokens may then depend on the requests beside it.
 
 `--epi` mode (`core.serving.EpiServer`): queries that share a forecast
 shape are answered `--slots` lanes at a time in one batched call; the

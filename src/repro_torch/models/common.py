@@ -1,11 +1,11 @@
-"""Shared neural layers of the dense decoder (PyTorch).
+"""Shared neural layers of the decoder (PyTorch).
 
-Counterpart of `repro.models.common`, for what the dense decoder needs:
-norms, soft-capping, RoPE, attention (dense, blockwise, one-token decode and
-the router that adds the flash kernel), the gated MLP and the embedding;
-and for the NPE estimator's trunk (`core/npe.py`), `layer_norm` and
-`vanilla_mlp`. KV quantization and the cross-entropy helpers wait for the
-slices that use them.
+Counterpart of `repro.models.common`, for what the decoder needs: norms,
+soft-capping, RoPE, attention (dense, blockwise, one-token decode and the
+router that adds the flash kernel), the gated MLP, the int8 KV-cache
+quantization and the embedding; and for the NPE estimator's trunk
+(`core/npe.py`), `layer_norm` and `vanilla_mlp`. The cross-entropy helpers
+wait for the slice that trains.
 
 Conventions kept from `repro`: activations and matrices bf16, norms,
 softmax and RoPE angles float32; attention takes q [B, S, H, D] and k, v
@@ -261,6 +261,33 @@ def vanilla_mlp(x, w1, b1, w2, b2):
     (`approximate=True`), in float32."""
     a = F.gelu((x @ w1 + b1).to(torch.float32), approximate="tanh")
     return (a.to(x.dtype) @ w2 + b2.to(x.dtype)).to(x.dtype)
+
+
+# ----------------------------------------------------------- KV quantization
+#: float32 1/127 and 1e-12, the constants of the scale as XLA compiles it
+_INV_127 = float(np.float32(1.0 / 127.0))
+_EPS_12 = float(np.float32(1e-12))
+
+
+def kv_quantize(x: torch.Tensor):
+    """Symmetric int8 quantization a (token, head): x [B, S, K, D] ->
+    (int8 [B, S, K, D], float32 scale [B, S, K, 1]). The scale is
+    max|x| / 127 + 1e-12; values round half to even and clip to +-127.
+
+    `repro` runs it compiled, where XLA turns the division by 127 into a
+    product with float32 1/127 and fuses it with the add: the scale is
+    fma(max|x|, f32(1/127), f32(1e-12)), one rounding. The product of two
+    float32 values is exact in float64, so the float64 sum rounded to
+    float32 gives the same value."""
+    xf = x.to(torch.float32)
+    top = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    scale = (top.to(torch.float64) * _INV_127 + _EPS_12).to(torch.float32)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype=DEFAULT_DTYPE) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 # ------------------------------------------------------------------ embedding

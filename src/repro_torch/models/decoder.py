@@ -1,21 +1,30 @@
-"""Dense decoder-only LM (PyTorch), over a plain parameter dictionary.
+"""Decoder-only LM (PyTorch), dense and MoE, over a plain parameter dictionary.
 
-Counterpart of `repro.models.decoder` for the dense configurations
-(gemma-2b, gemma2-27b, internlm2-20b, minitron-8b): local/global attention
+Counterpart of `repro.models.decoder`: gemma-2b, gemma2-27b, internlm2-20b,
+minitron-8b, deepseek-moe-16b and qwen3-moe-30b-a3b. Local/global attention
 patterns, windows, attention and final soft-caps, a Python-float query
-scale, post-norms, embedding scale, tied or separate unembedding, and
-silu/gelu (gated) or relu2 MLPs. MoE, dense prefixes and the int8 KV cache
-raise `NotImplementedError` until their slice.
+scale, post-norms, embedding scale, tied or separate unembedding,
+silu/gelu (gated) or relu2 MLPs, MoE FFN layers (`models.moe`), dense
+prefix layers and the int8 KV cache.
 
 Parameters: {"embed": [V, d], "final_norm": [d], "layers": [one dict a
-layer], "unembed": [V, d] when not tied}. `repro` stacks its layers per
-attention-pattern position; layer i here is `repro`'s
-`params["layers"][i % len(attn_pattern)][i // len(attn_pattern)]`
-(`repro_torch.convert.decoder_params_from_arrays` crosses between the two).
+layer], "unembed": [V, d] when not tied}. The first `n_dense_prefix`
+layers are dense prefix layers: a gated MLP of width `dense_prefix_ff` and
+global attention. Each later layer i has an MoE FFN (under `"moe"`) when
+the config has one, else a dense MLP of width `d_ff`, and the attention
+kind of pattern position (i - n_dense_prefix) % len(attn_pattern). `repro`
+stacks the prefix layers in `params["prefix"]` and the others per pattern
+position; layer n_dense_prefix + g * len(attn_pattern) + p here is its
+`params["layers"][p][g]` (`repro_torch.convert.decoder_params_from_arrays`
+crosses between the two).
 
-KV cache: {"k": [L, B, T, KH, D], "v": [L, B, T, KH, D]} in bf16, one row
-of layers where `repro` keeps one stack per pattern position. `decode_step`
-writes the new token's rows into it IN PLACE and returns the same tensors.
+KV cache, one row of layers where `repro` keeps one stack per pattern
+position (and one for the prefix): {"k": [L, B, T, KH, D], "v": ...} in
+bf16, or with the int8 cache (`kv_quant` or `REPRO_KV_QUANT=1`)
+{"k_q", "v_q": int8 [L, B, T, KH, D], "k_s", "v_s": float32
+[L, B, T, KH, 1]}. `decode_step` writes the new token's rows into it IN
+PLACE and returns the same tensors; the int8 cache quantizes only the new
+token and dequantizes the whole view for attention.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,24 +61,37 @@ class DecoderConfig:
     embed_scale: bool = False  # gemma: embeddings * sqrt(d_model)
     tie_embed: bool = True
     post_norms: bool = False  # gemma2: post-attn/post-ffn RMSNorms
-    moe: Optional[Any] = None  # not ported yet
-    n_dense_prefix: int = 0  # not ported yet
-    dense_prefix_ff: int = 0
+    moe: Optional[moe_lib.MoEConfig] = None
+    n_dense_prefix: int = 0  # deepseek: leading dense-FFN layers
+    dense_prefix_ff: int = 0  # their width
     remat: str = "full"  # kept for parity with repro; the port has no backward yet
     attn_impl: str = "auto"  # "auto" | "dense" | "blockwise" | "flash"
     sub_quadratic: bool = False
-    kv_quant: bool = False  # int8 KV cache: not ported yet
+    kv_quant: bool = False  # int8 KV cache (env REPRO_KV_QUANT=1 also turns it on)
 
     def param_count(self) -> int:
         d, hd = self.d_model, self.head_dim
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * d
         if self.moe:
-            raise NotImplementedError("MoE decoders are not ported yet")
-        ffn = (2 if self.act == "relu2" else 3) * d * self.d_ff
+            m = self.moe
+            ffn = d * m.n_experts + 3 * m.n_experts * d * m.d_expert
+            ffn += 3 * d * m.d_expert * m.n_shared
+        else:
+            ffn = (2 if self.act == "relu2" else 3) * d * self.d_ff
         n = self.n_layers * (attn + ffn + 2 * d)
         n += self.n_dense_prefix * (3 * d * self.dense_prefix_ff - ffn)
         n += self.vocab * d * (1 if self.tie_embed else 2) + d
         return int(n)
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: routed top-k and shared only). As in
+        `repro`, every layer counts its routed experts out, prefix layers too."""
+        if not self.moe:
+            return self.param_count()
+        m = self.moe
+        routed_all = 3 * m.n_experts * self.d_model * m.d_expert
+        routed_act = 3 * m.top_k * self.d_model * m.d_expert
+        return int(self.param_count() - self.n_layers * (routed_all - routed_act))
 
 
 def _kv_quant_on(cfg: DecoderConfig) -> bool:
@@ -76,24 +99,28 @@ def _kv_quant_on(cfg: DecoderConfig) -> bool:
 
 
 def check_supported(cfg: DecoderConfig) -> None:
-    """Raise NotImplementedError on what this slice does not port."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported yet")
-    if cfg.n_dense_prefix:
-        raise NotImplementedError(f"{cfg.name}: dense prefix layers are not ported yet")
-    if _kv_quant_on(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the int8 KV cache (kv_quant / REPRO_KV_QUANT=1) is not ported yet")
+    """Raise on an attention route the port does not have."""
     if cfg.attn_impl not in cm.ATTN_IMPLS:
         raise ValueError(f"attn_impl {cfg.attn_impl!r} is not one of {cm.ATTN_IMPLS}")
 
 
 def layer_kind(cfg: DecoderConfig, i: int) -> str:
-    return cfg.attn_pattern[i % len(cfg.attn_pattern)]
+    """Attention kind of layer i: global for a prefix layer, else the pattern
+    position counted from the first layer after the prefix."""
+    if i < cfg.n_dense_prefix:
+        return "global"
+    return cfg.attn_pattern[(i - cfg.n_dense_prefix) % len(cfg.attn_pattern)]
+
+
+def ffn_kind(cfg: DecoderConfig, i: int) -> str:
+    """The FFN of layer i: "dense_prefix", "moe" or "dense"."""
+    if i < cfg.n_dense_prefix:
+        return "dense_prefix"
+    return "moe" if cfg.moe else "dense"
 
 
 # ----------------------------------------------------------------- params
-def _init_layer(gen: torch.Generator, cfg: DecoderConfig) -> Dict[str, torch.Tensor]:
+def _init_layer(gen: torch.Generator, cfg: DecoderConfig, kind: str) -> Dict[str, Any]:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dev = gen.device
     zeros = lambda: torch.zeros((d,), dtype=torch.float32, device=dev)  # noqa: E731
@@ -108,23 +135,28 @@ def _init_layer(gen: torch.Generator, cfg: DecoderConfig) -> Dict[str, torch.Ten
     if cfg.post_norms:
         p["post_attn"] = zeros()
         p["post_ffn"] = zeros()
-    p["wg"] = cm.ninit(gen, (d, cfg.d_ff), d)
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, d, cfg.moe)
+        return p
+    ff = cfg.dense_prefix_ff if kind == "dense_prefix" else cfg.d_ff
+    p["wg"] = cm.ninit(gen, (d, ff), d)
     if cfg.act != "relu2":  # relu2 MLP is non-gated (no up-projection)
-        p["wu"] = cm.ninit(gen, (d, cfg.d_ff), d)
-    p["wd"] = cm.ninit(gen, (cfg.d_ff, d), cfg.d_ff)
+        p["wu"] = cm.ninit(gen, (d, ff), d)
+    p["wd"] = cm.ninit(gen, (ff, d), ff)
     return p
 
 
 def init_params(generator: torch.Generator, cfg: DecoderConfig) -> Dict[str, Any]:
-    """Random parameters from `generator`, on the generator's device. The
-    draws are the port's own: a test that compares with `repro` converts
-    `repro`'s parameters instead."""
+    """Random parameters from `generator`, on the generator's device, drawn
+    tensor by tensor. The draws are the port's own: a test that compares
+    with `repro` converts `repro`'s parameters instead."""
     check_supported(cfg)
     params = {
         "embed": cm.ninit(generator, (cfg.vocab, cfg.d_model), cfg.d_model),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                   device=generator.device),
-        "layers": [_init_layer(generator, cfg) for _ in range(cfg.n_layers)],
+        "layers": [_init_layer(generator, cfg, ffn_kind(cfg, i))
+                   for i in range(cfg.n_layers)],
     }
     if not cfg.tie_embed:
         params["unembed"] = cm.ninit(generator, (cfg.vocab, cfg.d_model), cfg.d_model)
@@ -147,6 +179,18 @@ def _write_token(entry: torch.Tensor, new: torch.Tensor, pos_idx: torch.Tensor) 
         entry[:, pos_idx] = new[:, 0]
 
 
+def _cache_write_read(entry, new: torch.Tensor, pos_idx: torch.Tensor) -> torch.Tensor:
+    """Write one token into a cache entry (a bf16 view, or an int8 view and
+    its scales) and return the view attention reads (dequantized to bf16)."""
+    if isinstance(entry, tuple):
+        q, s = cm.kv_quantize(new)
+        _write_token(entry[0], q, pos_idx)
+        _write_token(entry[1], s, pos_idx)
+        return cm.kv_dequantize(*entry)
+    _write_token(entry, new, pos_idx)
+    return entry
+
+
 def _attn(x, p, cfg: DecoderConfig, kind: str, positions, impl, cache=None, pos=None):
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -158,12 +202,12 @@ def _attn(x, p, cfg: DecoderConfig, kind: str, positions, impl, cache=None, pos=
     k = cm.rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else None
     if cache is not None:
-        kc, vc = cache  # [B, T, KH, D] views of this layer's rows, written in place
+        kc, vc = cache  # this layer's rows, written in place
         pos_idx = (pos if pos is not None else positions[..., 0]).to(torch.long)
-        _write_token(kc, k, pos_idx)
-        _write_token(vc, v, pos_idx)
+        k_view = _cache_write_read(kc, k, pos_idx)
+        v_view = _cache_write_read(vc, v, pos_idx)
         out = cm.decode_attention(
-            q, kc, vc,
+            q, k_view, v_view,
             valid_len=torch.broadcast_to(pos_idx + 1, (b,)),
             window=window,
             attn_softcap=cfg.attn_softcap,
@@ -184,38 +228,46 @@ def _attn(x, p, cfg: DecoderConfig, kind: str, positions, impl, cache=None, pos=
     return out
 
 
-def _ffn(x, p, cfg: DecoderConfig):
+def _ffn(x, p, cfg: DecoderConfig, kind: str):
+    """(y, aux): the layer's FFN by its kind, and the MoE aux loss (0 else)."""
     hx = cm.rms_norm(x, p["ln2"], cfg.norm_eps)
-    if cfg.act == "relu2":
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "moe":
+        y, aux = moe_lib.moe_ffn(hx, p["moe"], cfg.moe, cfg.act)
+    elif cfg.act == "relu2":
         a = torch.square(F.relu((hx @ p["wg"]).to(torch.float32))).to(hx.dtype)
         y = a @ p["wd"]
     else:
         y = cm.gated_mlp(hx, p["wg"], p["wu"], p["wd"], cfg.act)
     if cfg.post_norms:
         y = cm.rms_norm(y, p["post_ffn"], cfg.norm_eps)
-    return y
+    return y, aux
 
 
-def _block(x, p, cfg, kind, positions, impl, cache=None, pos=None):
-    x = x + _attn(x, p, cfg, kind, positions, impl, cache, pos)
-    return x + _ffn(x, p, cfg)
+def _block(x, p, cfg, i, positions, impl, cache=None, pos=None):
+    """Layer i: (x after it, its aux loss)."""
+    x = x + _attn(x, p, cfg, layer_kind(cfg, i), positions, impl, cache, pos)
+    f, aux = _ffn(x, p, cfg, ffn_kind(cfg, i))
+    return x + f, aux
 
 
 @torch.no_grad()
 def forward(params, tokens: torch.Tensor, cfg: DecoderConfig):
-    """Prefill trunk. tokens [B, S] -> final features [B, S, d] (`repro`
-    also returns the MoE aux loss, always 0 here)."""
+    """Prefill trunk. tokens [B, S] -> (final features [B, S, d], MoE aux
+    loss summed over the layers)."""
     check_supported(cfg)
     x = cm.embed(tokens, params["embed"], cfg.embed_scale)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        x = _block(x, lp, cfg, layer_kind(cfg, i), positions, cfg.attn_impl)
-    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, a = _block(x, lp, cfg, i, positions, cfg.attn_impl)
+        aux = aux + a
+    return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def prefill_logits(params, batch, cfg: DecoderConfig):
     """Next-token logits [B, 1, V] float32 of a prompt batch."""
-    feats = forward(params, batch["tokens"], cfg)
+    feats, _ = forward(params, batch["tokens"], cfg)
     return cm.last_token_logits(feats, unembed_table(params, cfg), cfg.final_softcap)
 
 
@@ -228,9 +280,15 @@ class TensorSpec(NamedTuple):
 
 
 def init_cache_shape(cfg: DecoderConfig, batch: int, cache_len: int) -> Dict[str, TensorSpec]:
+    """Shapes and dtypes of the KV cache: bf16 k and v, or with the int8
+    cache their int8 values and float32 scales a (token, head)."""
     check_supported(cfg)
-    spec = TensorSpec((cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim),
-                      cm.DEFAULT_DTYPE)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    if _kv_quant_on(cfg):
+        q = TensorSpec(shape, torch.int8)
+        s = TensorSpec(shape[:-1] + (1,), torch.float32)
+        return {"k_q": q, "k_s": s, "v_q": q, "v_s": s}
+    spec = TensorSpec(shape, cm.DEFAULT_DTYPE)
     return {"k": spec, "v": spec}
 
 
@@ -239,9 +297,19 @@ def init_cache(cfg: DecoderConfig, batch: int, cache_len: int, device) -> Dict[s
             for name, s in init_cache_shape(cfg, batch, cache_len).items()}
 
 
-def cache_logical(cfg: DecoderConfig) -> Dict[str, Tuple[str, ...]]:
+def cache_logical(cfg: DecoderConfig) -> Dict[str, Tuple[Optional[str], ...]]:
     kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    if _kv_quant_on(cfg):
+        s = ("layers", "batch", "seq", "kv_heads", None)
+        return {"k_q": kv, "k_s": s, "v_q": kv, "v_s": s}
     return {"k": kv, "v": kv}
+
+
+def _layer_cache(cache, i: int):
+    """Layer i's (k, v) entries: bf16 views, or (int8 view, scales) pairs."""
+    if "k" in cache:
+        return cache["k"][i], cache["v"][i]
+    return (cache["k_q"][i], cache["k_s"][i]), (cache["v_q"][i], cache["v_s"][i])
 
 
 @torch.no_grad()
@@ -256,8 +324,8 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: DecoderConfig):
     pos = torch.as_tensor(pos, device=x.device).to(torch.long)
     positions = torch.broadcast_to(pos.reshape(-1, 1) if pos.ndim else pos, (b, 1))
     for i, lp in enumerate(params["layers"]):
-        x = _block(x, lp, cfg, layer_kind(cfg, i), positions, "dense",
-                   cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        x, _ = _block(x, lp, cfg, i, positions, "dense", cache=_layer_cache(cache, i),
+                      pos=pos)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = cm.unembed(x, unembed_table(params, cfg), cfg.final_softcap)
     return logits, cache

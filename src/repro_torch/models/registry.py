@@ -7,7 +7,8 @@ Each architecture is a `ModelDef` with the surface of `repro`'s:
   decode_step(params, cache, batch)     — one-token serve step
   init_cache_shape / init_cache / cache_logical — decode state
 
-This slice ports the dense decoder family only; the others raise.
+The port has the decoder family, dense and MoE (`models.decoder`); the
+ssm, hybrid, encdec and vlm families raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -64,6 +65,9 @@ class ModelDef:
     # ----- stats
     def param_count(self) -> int:
         return self.cfg.param_count()
+
+    def active_param_count(self) -> int:
+        return self.cfg.active_param_count()
 
 
 # --------------------------------------------------------------------------

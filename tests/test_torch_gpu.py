@@ -318,6 +318,8 @@ FLASH_CASES = [
     (1, 100, 4, 2, 72, 100, True, None, None),  # D a multiple of 8, not of 16
     (2, 50, 2, 1, 20, 50, True, None, None),  # D off the 8 grid: staged by element
     (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
+    (4, 2048, 16, 16, 128, 2048, True, None, None),  # deepseek-moe-16b prefill
+    (4, 2048, 32, 4, 128, 2048, True, None, None),  # qwen3-moe-30b-a3b prefill (GQA 8)
 ]
 #: float32: the bar of tests/test_kernel_flash.py:31 (the float32 kernel's
 #: 3xTF32 products keep about 21 bits of each factor). bf16: kernel and plain
@@ -510,6 +512,66 @@ def test_gemma_2b_prefill_goes_through_the_kernel(cuda):
     top = float(want.abs().max())
     bar = 16 * 2.0 ** (np.floor(np.log2(top)) - 7)
     assert float((got - want).abs().max()) <= bar
+
+
+def test_moe_smoke_prefill_on_the_card_matches_its_cpu_run(cuda):
+    """deepseek-moe-16b smoke (a dense prefix layer, shared experts) through
+    the bf16 flash kernel on the card, one launch a layer, against the same
+    parameters' plain run on the CPU: logits within 16 bf16 steps at the
+    largest |logit| (chip_smoke.py's prefill bar), argmax equal where the
+    top two are more than twice that apart."""
+    from repro_torch.models.registry import get_model
+
+    model = get_model("deepseek-moe-16b", smoke=True).with_cfg(attn_impl="flash")
+    params = model.init_params(device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab, size=(2, 64)))
+    want = model.prefill(params, {"tokens": tokens})
+    on_card = [{k: v.to(cuda) if not isinstance(v, dict) else
+                {kk: vv.to(cuda) for kk, vv in v.items()} for k, v in layer.items()}
+               for layer in params["layers"]]
+    card_params = {k: v.to(cuda) for k, v in params.items() if k != "layers"}
+    card_params["layers"] = on_card
+    launches, calls, tc = fa.LAUNCHES, ref.FLASH_CALLS, fa.LAUNCHES_TENSOR_CORE
+    got = model.prefill(card_params, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - launches, ref.FLASH_CALLS - calls) == (model.cfg.n_layers, 0)
+    assert fa.LAUNCHES_TENSOR_CORE - tc == model.cfg.n_layers
+    got = got.cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    bar = 16 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got - want).abs().max()) <= bar
+    top2 = torch.topk(want[:, 0], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+    assert bool((got[:, 0].argmax(-1) == want[:, 0].argmax(-1))[decided].all())
+
+
+@pytest.mark.parametrize("shape", [(16, 4, 64, 32, 2), (64, 6, 256, 64, 2), (128, 8, 256, 48, 0)],
+                         ids=lambda s: "e{}-k{}-d{}-f{}-shared{}".format(*s))
+def test_moe_layer_on_the_card_matches_the_dense_oracle(cuda, shape):
+    """The capacity dispatch on the card at ample capacity against every
+    expert on every token (tests/test_moe.py's oracle and bar), and against
+    its own CPU run at that bar."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    e, k, d, f, n_shared = shape
+    cfg = moe.MoEConfig(n_experts=e, top_k=k, d_expert=f, n_shared=n_shared,
+                        capacity_factor=e / k)
+    params = moe.init_moe(torch.Generator().manual_seed(0), d, cfg)
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal((2, 64, d), dtype=np.float32)
+                        ).to(torch.bfloat16)
+    card = {name: t.to(cuda) for name, t in params.items()}
+    y, aux = moe.moe_ffn(x.to(cuda), card, cfg)
+    want = moe.dense_reference(x.to(cuda), card, cfg)
+    bar = dict(rtol=0.08, atol=0.05)
+    torch.testing.assert_close(y.float(), want.float(), **bar)
+    torch.testing.assert_close(y.float().cpu(), moe.moe_ffn(x, params, cfg)[0].float(), **bar)
+    assert float(aux) > 0
+    tight = dataclasses.replace(cfg, capacity_factor=0.25)
+    r = moe.route(x.to(cuda).reshape(-1, d), card["router"], tight, moe.capacity(128, tight))
+    assert 0 < int((~r.keep).sum()) < r.keep.numel()
 
 
 # ------------------------------------------------------------ the region axis

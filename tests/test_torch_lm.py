@@ -47,6 +47,8 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1 / 128, atol=1e-5)
 DTYPES = {"f32": (jnp.float32, torch.float32, F32), "bf16": (jnp.bfloat16, torch.bfloat16, BF16)}
 ARCHS = ["gemma-2b", "gemma2-27b"]
+#: the MoE decoders (tests/test_torch_moe.py holds their models against repro)
+MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
 
 
 def _arr(rng, *shape, scale=1.0):
@@ -177,7 +179,7 @@ def test_ninit_is_seeded_and_scaled():
 def jax_models():
     """repro's smoke models and their PRNGKey(0) parameters, once per module."""
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         jm = jget_model(arch, smoke=True)
         jp = jm.init_params(jax.random.PRNGKey(0))
         tm = get_model(arch, smoke=True)
@@ -188,33 +190,38 @@ def jax_models():
 
 
 def test_registry_and_configs_mirror_repro():
-    assert list_archs() == ("gemma-2b", "gemma2-27b")
-    for arch in ARCHS:
+    assert list_archs() == ("deepseek-moe-16b", "gemma-2b", "gemma2-27b",
+                            "qwen3-moe-30b-a3b")
+    for arch in ARCHS + MOE_ARCHS:
         for smoke in (False, True):
             jc, tc = jget_model(arch, smoke=smoke).cfg, get_model(arch, smoke=smoke).cfg
             for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
                       "vocab", "act", "attn_pattern", "window", "attn_softcap",
                       "final_softcap", "query_scale", "embed_scale", "tie_embed",
-                      "post_norms", "rope_theta", "norm_eps"):
+                      "post_norms", "rope_theta", "norm_eps", "n_dense_prefix",
+                      "dense_prefix_ff", "kv_quant", "remat", "attn_impl", "sub_quadratic"):
                 assert getattr(tc, f) == getattr(jc, f), (arch, smoke, f)
+            assert (tc.moe is None) == (jc.moe is None), (arch, smoke)
+            if tc.moe is not None:
+                assert dataclasses.asdict(tc.moe) == dataclasses.asdict(jc.moe), (arch, smoke)
             assert tc.param_count() == jc.param_count()
+            assert tc.active_param_count() == jc.active_param_count()
     assert get_model("gemma-2b").param_count() == 2_506_172_416
     with pytest.raises(KeyError, match="unknown arch"):
         get_model("mamba2-130m")
 
 
 def test_unported_features_raise(monkeypatch):
+    """What stays unported raises: other families and unknown attention
+    routes. MoE layers, dense prefixes and the int8 cache now build."""
     m = get_model("gemma-2b", smoke=True)
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        m.with_cfg(moe=object()).init_params(g)
-    with pytest.raises(NotImplementedError, match="dense prefix"):
-        m.with_cfg(n_dense_prefix=1).init_params(g)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        m.with_cfg(kv_quant=True).init_cache_shape(2, 8)
+    moe = get_model("deepseek-moe-16b", smoke=True).cfg.moe
+    params = m.with_cfg(moe=moe, n_dense_prefix=1, dense_prefix_ff=48).init_params(g)
+    assert "moe" in params["layers"][1] and params["layers"][0]["wg"].shape == (64, 48)
+    assert set(m.with_cfg(kv_quant=True).init_cache_shape(2, 8)) == {"k_q", "k_s", "v_q", "v_s"}
     monkeypatch.setenv("REPRO_KV_QUANT", "1")
-    with pytest.raises(NotImplementedError, match="REPRO_KV_QUANT"):
-        m.init_cache_shape(2, 8)
+    assert m.init_cache_shape(2, 8)["k_q"].dtype == torch.int8
     monkeypatch.delenv("REPRO_KV_QUANT")
     with pytest.raises(NotImplementedError, match="family"):
         dataclasses.replace(m, family="ssm").init_params(g)
@@ -222,17 +229,25 @@ def test_unported_features_raise(monkeypatch):
         m.with_cfg(attn_impl="flash_pallas").init_params(g)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_converted_layers_follow_the_pattern_stacks(jax_models, arch):
+    """Layer i is repro's prefix layer i, then pattern stack (i - prefix) %
+    len(pattern), group (i - prefix) // len(pattern); norms and the MoE
+    router float32, all else bf16."""
     jm, jp, tm, tp = jax_models[arch]
-    npos = len(tm.cfg.attn_pattern)
+    npos, n_prefix = len(tm.cfg.attn_pattern), tm.cfg.n_dense_prefix
     assert len(tp["layers"]) == tm.cfg.n_layers
     for i, layer in enumerate(tp["layers"]):
-        for name, t in layer.items():
-            want = np.asarray(jp["layers"][i % npos][name][i // npos], np.float32)
-            np.testing.assert_array_equal(t.float().numpy(), want)
-            assert t.dtype == (torch.float32 if name.startswith(("ln", "post")) else
-                               torch.bfloat16)
+        j = i - n_prefix
+        stack, g = ((jp["prefix"], i) if i < n_prefix else
+                    (jp["layers"][j % npos], j // npos))
+        leaves = [(name, t, stack[name]) for name, t in layer.items() if name != "moe"]
+        leaves += [(name, t, stack["moe"][name]) for name, t in layer.get("moe", {}).items()]
+        assert len(leaves) == len(jax.tree.leaves(stack))
+        for name, t, a in leaves:
+            np.testing.assert_array_equal(t.float().numpy(), np.asarray(a[g], np.float32))
+            assert t.dtype == (torch.float32 if name.startswith(("ln", "post")) or
+                               name == "router" else torch.bfloat16), name
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash", "blockwise", "auto"])
