@@ -247,9 +247,12 @@ printing one JSON line:
              cross-length, ragged 2047, rows with no allowed key, gemma-2b's
              prefill shape, D 72 and 20, a ragged Skv != Sq, and the prefill
              shapes of deepseek-moe-16b (16 heads over 16 kv heads, D 128)
-             and qwen3-moe-30b-a3b (32 over 4, D 128) at 4 x 2048; then a q
-             sliced at an odd offset in each dtype, staged element by
-             element (LAUNCHES_STAGED)
+             and qwen3-moe-30b-a3b (32 over 4, D 128), zamba2-2.7b's shared
+             attention (32 over 32, D 80, padded to 128 in the kernel),
+             internvl2-2b's (16 over 8), internlm2-20b's (48 over 8) and
+             minitron-8b's (32 over 8, D 128) at 4 x 2048; then a q sliced
+             at an odd offset in each dtype, staged element by element
+             (LAUNCHES_STAGED)
   lm_prefill full-width gemma-2b (bf16, weights from a generator seeded 0)
              prefills 4 x 2048 tokens through `ModelDef.prefill` with
              attn_impl="flash", the launch counters set to 0 just before
@@ -266,6 +269,24 @@ printing one JSON line:
              the 3xTF32 bound (and the 67 TFLOP/s one), the plain version
              and SDPA in float32; the kernels SDPA's float32 call launches,
              from one profiled call
+  family_prefill  for mamba2-130m (ssm), zamba2-2.7b (hybrid), internvl2-2b
+             (vlm), minitron-8b and internlm2-20b in turn, at full width and
+             depth (bf16, weights from a generator seeded 0): a prefill of 4 x
+             2048 tokens (internvl2-2b: 256 random patch rows, then 1,792
+             tokens) through `ModelDef.prefill` with attn_impl="flash", the
+             counters set to 0 just before (bf16 launches: one a shared-block
+             site, 9, or a layer, 24, 32 and 48; mamba2 none; no float32 one,
+             no plain call), its logits against attn_impl="dense" at
+             lm_prefill's bar and argmax rule; mamba2-130m's chunked prefill
+             against its own token-by-token decode over 128 tokens, in bf16
+             and in float32 (`SSM_DECODE_*`)
+  family_profile  one such prefill under torch.profiler
+  family_flash_timing  the bf16 kernel alone at zamba2-2.7b's attention shape
+             (4, 2048, 32, 32, 80) beside the plain version, SDPA, its bound at
+             D 80 and at the padded 128
+  family_serve  as moe_serve, without the int8 run, each of the two requests
+             served alone in 4 slots (a step's floor: each weight once, and for
+             the hybrid also with the shared block re-read at each site)
   moe_layer  for deepseek-moe-16b and qwen3-moe-30b-a3b in turn: one
              full-width MoE layer (weights from a generator seeded 0) on 4 x
              2048 tokens at ample capacity against the dense oracle on the
@@ -303,8 +324,9 @@ printing one JSON line:
              scaleout_path (j)'s single-device run, the R=100 times at both
              batches and the route chosen at each R and batch;
              tuning_path's autotune of R=100 on the warp route) and on the
-             warp route, the bf16 flash route (its launches on lm_prefill and
-             both moe_prefill runs, `launches_by_path`) and the float32 one
+             warp route, the bf16 flash route (its launches on lm_prefill,
+             every family_prefill and both moe_prefill runs,
+             `launches_by_path`; its zamba2-2.7b cell) and the float32 one
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -398,6 +420,10 @@ FLASH_CASES = [
     (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
     (4, 2048, 16, 16, 128, 2048, True, None, None),  # deepseek-moe-16b prefill
     (4, 2048, 32, 4, 128, 2048, True, None, None),  # qwen3-moe-30b-a3b prefill (GQA 8)
+    (4, 2048, 32, 32, 80, 2048, True, None, None),  # zamba2-2.7b shared attention (D 80)
+    (4, 2048, 16, 8, 128, 2048, True, None, None),  # internvl2-2b prefill
+    (4, 2048, 48, 8, 128, 2048, True, None, None),  # internlm2-20b prefill
+    (4, 2048, 32, 8, 128, 2048, True, None, None),  # minitron-8b prefill
 ]
 #: gemma-2b prefill through the flash route against the dense route: both
 #: round the unembedding product to bf16, so a logit in [2^e, 2^(e+1)) moves
@@ -1976,9 +2002,14 @@ def lm_phases(dev, name: str, smi: str, flash_errs, cuda_core_fn) -> list:
 def decode_weight_bytes(params, cfg) -> int:
     """Bytes of the weights one decode step reads: every parameter but an
     untied embedding table, whose rows a step only gathers. The capacity
-    dispatch runs every routed expert at every step, so all of them count."""
+    dispatch runs every routed expert at every step, so all of them count.
+    A vlm's step is its decoder's: the projector is not read. Each weight
+    counts once (the hybrid's shared block too, though a step reads it at
+    each of its sites)."""
     import torch
 
+    if hasattr(cfg, "lm"):
+        params, cfg = params["lm"], cfg.lm
     skip = None if cfg.tie_embed else params["embed"]
     stack = [params]
     total = 0
@@ -2258,6 +2289,262 @@ def moe_phases(dev, name: str, smi: str) -> dict:
                  weight_read_floor_ms=floor_ms, alone_equal_batched=tag == "bf16 cache",
                  max_memory_allocated_gb=peak_gb(), kind=name, nvidia_smi=smi)
     return launches
+
+
+#: the ssm, hybrid and vlm families and the dense configs internlm2-20b and
+#: minitron-8b, prefilled and served at full width and depth (family_prefill,
+#: family_profile, family_serve), in the order they run: internlm2-20b's 40 GB
+#: of weights last, before the MoE phases
+FAMILY_ARCHS = ("mamba2-130m", "zamba2-2.7b", "internvl2-2b", "minitron-8b", "internlm2-20b")
+#: mamba2-130m's chunked prefill against its own decode, one token at a time,
+#: over the first SSM_DECODE_TOKENS tokens of each prompt. The two forms are one
+#: recurrence: in float32 (the same weights, cast) they agree to float32
+#: rounding, held at SSM_DECODE_F32_REL of the largest |logit|. In bf16 the
+#: chunked form rounds the decay-weighted scores and x * dt to bf16 where the
+#: recurrence keeps float32; over 24 layers that moved the logits by 10.9 bf16
+#: steps at 128 tokens and 20.2 at 256 on the CPU (the same model, seeded 0), so
+#: the bf16 bar is SSM_DECODE_BAR_STEPS steps at the largest |logit|, with no
+#: argmax rule
+SSM_DECODE_TOKENS = 128
+SSM_DECODE_F32_REL = 1e-4
+SSM_DECODE_BAR_STEPS = 32
+#: decode steps of 4 slots timed with CUDA events beside the weight-read floor
+FAMILY_DECODE_ITERS = 10
+
+
+def family_flash_cell(dev, b, s, h, kh, d, iters=20) -> dict:
+    """The bf16 flash kernel alone at (b, s, h, kh, d), causal, beside the
+    plain version and SDPA; its bound from 4 * d operations a pair, and from
+    4 * DP at the head dim DP the kernel pads d to (a multiple of 64)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(s + h)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+               .to(device=dev, dtype=torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    before = fa.LAUNCHES_TENSOR_CORE
+    ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, causal=True), iters)
+    if fa.LAUNCHES_TENSOR_CORE == before:
+        raise AssertionError(f"family_flash_timing: ({b}, {s}, {h}, {kh}, {d}) did not "
+                             f"launch the bf16 kernel")
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=h != kh), iters)
+    dp = -(-d // 64) * 64
+    bytes_ms = fa.attention_bytes(q, k, v) / HBM_BYTES_PER_S * 1e3
+    ops_ms = fa.attention_flops(b, s, s, h, d, causal=True) / BF16_OPS_PER_S * 1e3
+    padded_ms = fa.attention_flops(b, s, s, h, dp, causal=True) / BF16_OPS_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    return {"shape": [b, s, h, kh, d], "padded_head_dim": dp, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_ms_padded": max(padded_ms, bytes_ms), "share_of_bound": bound / ms,
+            "iters": iters}
+
+
+def ssm_decode_check(dev, model, params, tokens) -> dict:
+    """mamba2-130m's chunked prefill of `tokens`' first SSM_DECODE_TOKENS
+    columns against its decode_step fed the same tokens one at a time, in
+    bf16 and in float32 (weights cast); raises past the bars above."""
+    import torch
+
+    from repro_torch.models import common as cm
+
+    toks = tokens[:, :SSM_DECODE_TOKENS].contiguous()
+
+    def run(p):
+        pre = model.prefill(p, {"tokens": toks})
+        cache = model.init_cache(toks.shape[0], 0, dev)
+        for i in range(toks.shape[1]):
+            logits, cache = model.decode_step(p, cache, {"tokens": toks[:, i:i + 1], "pos": i})
+        return pre, logits
+
+    def to_f32(t):
+        if isinstance(t, dict):
+            return {k: to_f32(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_f32(v) for v in t]
+        return t.to(torch.float32)
+
+    out = {"decode_check_tokens": toks.shape[1]}
+    pre, dec = run(params)
+    top, diff = float(pre.abs().max()), float((dec - pre).abs().max())
+    step = 2.0 ** (np.floor(np.log2(top)) - 7)
+    if not diff <= SSM_DECODE_BAR_STEPS * step:
+        raise AssertionError(f"family_prefill mamba2-130m: bf16 decode vs chunked prefill "
+                             f"{diff} ({diff / step} steps, bar {SSM_DECODE_BAR_STEPS})")
+    out.update(decode_vs_prefill_bf16_max_abs=diff, decode_vs_prefill_bf16_steps=diff / step,
+               decode_vs_prefill_bf16_bar=SSM_DECODE_BAR_STEPS * step,
+               decode_vs_prefill_bf16_argmax_agree=(dec[:, 0].argmax(-1) ==
+                                                    pre[:, 0].argmax(-1)).tolist())
+    bf16 = cm.DEFAULT_DTYPE
+    cm.DEFAULT_DTYPE = torch.float32  # embeddings and the conv cache in float32
+    try:
+        pre, dec = run(to_f32(params))
+    finally:
+        cm.DEFAULT_DTYPE = bf16
+    top, diff = float(pre.abs().max()), float((dec - pre).abs().max())
+    if pre.dtype != torch.float32 or not diff <= SSM_DECODE_F32_REL * top:
+        raise AssertionError(f"family_prefill mamba2-130m: float32 decode vs chunked prefill "
+                             f"{diff}, bar {SSM_DECODE_F32_REL * top}")
+    out.update(decode_vs_prefill_f32_max_abs=diff,
+               decode_vs_prefill_f32_bar=SSM_DECODE_F32_REL * top)
+    return out
+
+
+def family_phases(dev, name: str, smi: str) -> tuple:
+    """family_prefill, family_profile and family_serve for each of
+    FAMILY_ARCHS, and family_flash_timing at zamba2-2.7b's attention shape;
+    returns (the bf16 flash kernel's launches on each prefill, the timing
+    cell)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_model
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9
+
+    launches, zamba_cell = {}, None
+    for arch in FAMILY_ARCHS:
+        model = get_model(arch)
+        cfg = model.cfg
+        lm = cfg.lm if model.family == "vlm" else cfg
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = model.init_params(device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        if model.family == "vlm":  # 256 image rows, then 1,792 text tokens
+            gen = torch.Generator(device=dev).manual_seed(0)
+            batch = {"patch_embeds": torch.randn((4, cfg.n_patches, cfg.vit_dim), generator=gen,
+                                                 device=dev).to(torch.bfloat16),
+                     "tokens": torch.as_tensor(rng.integers(
+                         0, lm.vocab, size=(4, 2048 - cfg.n_patches)), device=dev)}
+        else:
+            batch = {"tokens": torch.as_tensor(rng.integers(0, lm.vocab, size=(4, 2048)),
+                                               device=dev)}
+        sites = {"ssm": 0, "hybrid": getattr(cfg, "n_super", 0)}.get(model.family, lm.n_layers)
+        run = model if model.family == "ssm" else model.with_cfg(attn_impl="flash")
+
+        # ---- family_prefill: full width and depth, the counters around it
+        fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_TENSOR_CORE_F32 = 0
+        ref.FLASH_CALLS = 0
+        t0 = time.perf_counter()
+        logits = run.prefill(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+                  ref.FLASH_CALLS)
+        if counts != (sites, sites, 0, 0):
+            raise AssertionError(f"family_prefill {arch}: (flash, bf16 kernel, float32 kernel, "
+                                 f"plain) launches {counts}, want ({sites}, {sites}, 0, 0)")
+        launches[f"family_prefill {arch}"] = counts[1]
+        if logits.shape != (4, 1, lm.vocab) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"family_prefill {arch}: logits {tuple(logits.shape)}, "
+                                 f"finite={bool(torch.isfinite(logits).all())}")
+        prefill_peak = peak_gb()
+        if model.family == "ssm":
+            checks = ssm_decode_check(dev, model, params, batch["tokens"])
+        else:
+            dense = model.with_cfg(attn_impl="dense").prefill(params, batch)
+            diff = float((logits - dense).abs().max())
+            top = float(dense.abs().max())
+            bar = PREFILL_BAR_STEPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+            top2 = torch.topk(dense[:, 0], 2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+            agree = logits[:, 0].argmax(-1) == dense[:, 0].argmax(-1)
+            if not diff <= bar or not bool(agree[decided].all()):
+                raise AssertionError(f"family_prefill {arch}: flash vs dense max |diff| {diff} "
+                                     f"(bar {bar}), argmax agreement {agree.tolist()} on rows "
+                                     f"{decided.tolist()}")
+            checks = dict(max_abs_diff_vs_dense=diff, max_abs_logit=top, bar=bar,
+                          argmax_agree=agree.tolist(), argmax_decided_rows=decided.tolist())
+            del dense
+        emit("family_prefill", arch=arch, family=model.family, batch=4, prompt_len=2048,
+             patches=getattr(cfg, "n_patches", 0), params=model.param_count(), init_s=init_s,
+             wall_s=wall, tok_per_s=4 * 2048 / wall, flash_launches=counts[0],
+             tensor_core_launches=counts[1], tensor_core_f32_launches=counts[2],
+             plain_calls=counts[3], max_memory_allocated_gb=prefill_peak, kind=name,
+             nvidia_smi=smi, **checks)
+        del logits
+
+        # ---- family_profile: one prefill, device time by kernel
+        wall_ms, busy_ms, by_op = profile_device_ms(lambda: run.prefill(params, batch))
+        flash_ms = sum(ms for k, _, ms in by_op if "flash_fwd" in k)
+        gemm_ms = sum(ms for k, _, ms in by_op
+                      if any(t in k.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")))
+        emit("family_profile", arch=arch, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=1.0 - busy_ms / wall_ms, flash_device_ms=flash_ms,
+             matmul_device_ms=gemm_ms, other_device_ms=busy_ms - flash_ms - gemm_ms,
+             kernels=sum(c for _, c, _ in by_op), kind=name, nvidia_smi=smi,
+             top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
+                             for k, c, ms in by_op[:10]])
+        if model.family == "hybrid":
+            zamba_cell = family_flash_cell(dev, 4, 2048, cfg.n_heads, cfg.n_kv_heads,
+                                           cfg.head_dim)
+            emit("family_flash_timing", arch=arch, kind=name, nvidia_smi=smi,
+                 peak_bf16_ops_per_s=BF16_OPS_PER_S, peak_bytes_per_s=HBM_BYTES_PER_S,
+                 **zamba_cell)
+
+        # ---- family_serve: a decode step of 4 slots beside its weight-read
+        # floor, two requests served alone, then the serving CLI's defaults
+        cache = model.init_cache(4, 24, dev)
+        step = {"tokens": batch["tokens"][:, :1].contiguous(),
+                "pos": torch.full((4,), 16, dtype=torch.long, device=dev)}
+        step_ms = cuda_ms(lambda: model.decode_step(params, cache, step), FAMILY_DECODE_ITERS)
+        step_wall_ms, step_busy_ms, step_ops = profile_device_ms(
+            lambda: model.decode_step(params, cache, step))
+        weight_bytes = decode_weight_bytes(params, cfg)
+        reread = ((cfg.n_super - 1) * decode_weight_bytes(params["shared"], cfg)
+                  if model.family == "hybrid" else 0)
+        rng = np.random.default_rng(0)  # the prompts of serve.run_lm_cli
+        prompts = [rng.integers(0, lm.vocab, size=16).astype(np.int32).tolist()
+                   for _ in range(8)]
+        # alone: one request in the CLI's 4 slots, the others idle. cuBLAS
+        # picks its product kernels by the row count, so a 1-slot server
+        # rounds the projections otherwise than a 4-slot one (zamba2's first
+        # request took another token at a near-tie, step 8, in a first run)
+        alone = [serve.run_lm_server(model, [prompts[i]], 8, 4, 24, params=params,
+                                     device=dev)[0][0] for i in (0, 1)]
+        del params, cache, step, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats = serve.main(["--arch", arch, "--device", "cuda"])
+        torch.cuda.empty_cache()
+        outs = stats["outputs"]
+        if stats["requests"] != 8 or len(outs) != 8 or any(len(o) != 8 for o in outs):
+            raise AssertionError(f"family_serve {arch}: {stats['requests']} requests, "
+                                 f"lengths {[len(o) for o in outs]}")
+        if outs[:2] != alone:
+            raise AssertionError(f"family_serve {arch}: batched {outs[:2]} != alone {alone}")
+        emit("family_serve", arch=arch, requests=stats["requests"],
+             decode_steps=stats["steps"], seconds=stats["seconds"],
+             tok_per_s=stats["tok_per_s"],
+             cli_ms_per_step=stats["seconds"] / stats["steps"] * 1e3,
+             decode_step_ms=step_ms, decode_step_iters=FAMILY_DECODE_ITERS,
+             decode_step_profile={
+                 "wall_ms": step_wall_ms, "device_busy_ms": step_busy_ms,
+                 "device_idle_share": 1.0 - step_busy_ms / step_wall_ms,
+                 "kernels": sum(c for _, c, _ in step_ops),
+                 "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                                    for k, c, ms in step_ops[:6]]},
+             weight_read_bytes=weight_bytes,
+             weight_read_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+             shared_block_reread_bytes=reread,
+             weight_read_floor_ms_with_rereads=(weight_bytes + reread) / HBM_BYTES_PER_S * 1e3,
+             alone_equal_batched=True, max_memory_allocated_gb=peak_gb(), kind=name,
+             nvidia_smi=smi)
+    return launches, zamba_cell
 
 
 #: tuning_path's autotuned cells: (tag, model, regions, dataset, batch, chunk)
@@ -3739,11 +4026,14 @@ def main() -> int:
 
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
     flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
-    # ---- moe_layer, moe_prefill, moe_profile, moe_serve: the bf16 flash
+    # ---- family_prefill, family_profile, family_flash_timing, family_serve;
+    # then moe_layer, moe_prefill, moe_profile, moe_serve: the bf16 flash
     # kernel's launches on each prefill join lm_prefill's
-    by_path = {"lm_prefill gemma-2b": flash_lines[0]["launches"],
+    family_launches, zamba_cell = family_phases(dev, name, smi)
+    by_path = {"lm_prefill gemma-2b": flash_lines[0]["launches"], **family_launches,
                **moe_phases(dev, name, smi)}
-    flash_lines[0].update(launches=sum(by_path.values()), launches_by_path=by_path)
+    flash_lines[0].update(launches=sum(by_path.values()), launches_by_path=by_path,
+                          zamba2_shape=zamba_cell)
 
     # the census a sample-day, read in `build`, held last so that a drift
     # still leaves every other phase measured

@@ -16,7 +16,10 @@ The port imports nothing of `repro`; what crosses is plain data:
   * `theta_to_soa` lays a [B, P] parameter batch out as the kernel's
     structure of arrays [P, B];
   * `decoder_params_from_arrays` turns `repro`'s decoder parameter tree
-    (numpy arrays) into the port's parameters;
+    (numpy arrays) into the port's parameters, and `params_from_arrays`
+    does the same for any family the port serves (decoder, ssm, hybrid,
+    vlm); `cache_from_arrays` carries a decode cache across likewise, so
+    that both packages can decode on from one state;
   * `mdn_params_from_arrays` does the same for the NPE estimator's MDN,
     from its leaves in `jax.tree.leaves` order (the order of an estimator
     file's `leaf_%03d` arrays).
@@ -40,8 +43,9 @@ from repro_torch.models import common as cm
 from repro_torch.models.decoder import DecoderConfig, check_supported
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
-__all__ = ["country_data_from_arrays", "decoder_params_from_arrays", "load_npz",
-           "mdn_params_from_arrays", "schedule_from_fields", "theta_to_soa"]
+__all__ = ["cache_from_arrays", "country_data_from_arrays", "decoder_params_from_arrays",
+           "load_npz", "mdn_params_from_arrays", "params_from_arrays", "schedule_from_fields",
+           "theta_to_soa"]
 
 
 def country_data_from_arrays(
@@ -113,9 +117,10 @@ def load_npz(path: str) -> Union[ABCState, Posterior]:
     )
 
 
-#: parameters kept in float32 (norm scales and the MoE router); every other
-#: leaf is bf16
-_F32_LEAVES = ("ln1", "ln2", "post_attn", "post_ffn", "final_norm", "router")
+#: parameters kept in float32 (norm scales, the MoE router, and a Mamba
+#: layer's norms, conv bias, dt bias, A_log and D); every other leaf is bf16
+_F32_LEAVES = ("ln1", "ln2", "post_attn", "post_ffn", "final_norm", "router",
+               "ln", "conv_b", "dt_bias", "A_log", "D", "gate_norm")
 
 
 def _leaf(name: str, a, device) -> torch.Tensor:
@@ -162,6 +167,100 @@ def decoder_params_from_arrays(cfg: DecoderConfig, tree: Dict[str, Any],
     if not cfg.tie_embed:
         params["unembed"] = _leaf("unembed", tree["unembed"], device)
     return params
+
+
+def _mamba_layers(stack: Dict[str, Any], n: int, device) -> list:
+    return [_layer_from_stack(stack, j, device) for j in range(n)]
+
+
+def params_from_arrays(model, tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """The port's parameters of `model` (a `ModelDef`) from `repro`'s tree
+    of numpy arrays, by family:
+
+      * decoder: `decoder_params_from_arrays`;
+      * ssm: the layers stacked [L, ...] become a list of L layer dicts;
+      * hybrid: the Mamba layers stacked [n_super, shared_every, ...] become
+        n_super lists of shared_every dicts, beside the shared block's
+        parameters under "shared";
+      * vlm: the projector's two matrices, and the decoder tree under "lm".
+    """
+    cfg = model.cfg
+    if model.family == "decoder":
+        return decoder_params_from_arrays(cfg, tree, device)
+    if model.family == "vlm":
+        return {"projector": {k: _leaf(k, tree["projector"][k], device) for k in ("w1", "w2")},
+                "lm": decoder_params_from_arrays(cfg.lm, tree["lm"], device)}
+    out = {"embed": _leaf("embed", tree["embed"], device),
+           "final_norm": _leaf("final_norm", tree["final_norm"], device)}
+    if model.family == "ssm":
+        out["layers"] = _mamba_layers(tree["layers"], cfg.n_layers, device)
+        return out
+    if model.family == "hybrid":
+        stack = tree["layers"]
+        out["layers"] = [_mamba_layers({k: a[i] for k, a in stack.items()}, cfg.shared_every,
+                                       device) for i in range(cfg.n_super)]
+        out["shared"] = {k: _leaf(k, a, device) for k, a in tree["shared"].items()}
+        return out
+    raise NotImplementedError(f"{model.name}: no parameter conversion for the "
+                              f"{model.family!r} family")
+
+
+def _decoder_cache(cfg: DecoderConfig, tree: Dict[str, Any], spec, device):
+    """`repro`'s decoder cache {"layers": ((k, v) a pattern position),
+    "prefix": (k, v)} (entries bf16, or {"q", "s"} int8 and scales) as the
+    port's one row of layers: layer i of the port is the prefix's i, then
+    pattern stack (i - prefix) % len(pattern), group (i - prefix) //
+    len(pattern), as in `decoder_params_from_arrays`."""
+    npos, n_prefix = len(cfg.attn_pattern), cfg.n_dense_prefix
+    out = {name: torch.empty(s.shape, dtype=s.dtype, device=device) for name, s in spec.items()}
+    for i in range(cfg.n_layers):
+        if i < n_prefix:
+            kv, g = tree["prefix"], i
+        else:
+            kv, g = tree["layers"][(i - n_prefix) % npos], (i - n_prefix) // npos
+        for which, entry in zip("kv", kv):
+            parts = ({which: entry} if not isinstance(entry, dict) else
+                     {f"{which}_q": entry["q"], f"{which}_s": entry["s"]})
+            for name, a in parts.items():
+                out[name][i] = torch.from_numpy(np.array(a[g], np.float32)).to(out[name].dtype)
+    return out
+
+
+def cache_from_arrays(model, tree: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """The port's decode cache of `model` from `repro`'s cache tree of numpy
+    arrays (bf16 values may come as float32: the crossing is exact). The ssm
+    cache keeps its keys and shapes; the hybrid's {"attn": (k, v)} becomes
+    {"k", "v"}; a decoder's (and a vlm's) per-pattern stacks become one row
+    of layers."""
+    b, t = _cache_batch_len(model, tree)
+    spec = model.init_cache_shape(b, t)
+    if model.family in ("decoder", "vlm"):
+        cfg = model.cfg.lm if model.family == "vlm" else model.cfg
+        return _decoder_cache(cfg, tree, spec, device)
+    flat = dict(tree)
+    if model.family == "hybrid":
+        flat["k"], flat["v"] = flat.pop("attn")
+    if set(flat) != set(spec):
+        raise ValueError(f"cache keys {sorted(flat)} != the port's {sorted(spec)}")
+    out = {}
+    for name, s in spec.items():
+        a = np.array(flat[name], np.float32)
+        if a.shape != tuple(s.shape):
+            raise ValueError(f"cache {name}: shape {a.shape} != {tuple(s.shape)}")
+        out[name] = torch.from_numpy(a).to(device=device, dtype=s.dtype)
+    return out
+
+
+def _cache_batch_len(model, tree):
+    """(batch, cache length) of a `repro` cache tree (length 0 for ssm)."""
+    if model.family == "ssm":
+        return np.shape(tree["ssm"])[1], 0
+    if model.family == "hybrid":
+        shape = np.shape(tree["attn"][0])
+        return shape[1], shape[2]
+    entry = tree["layers"][0][0]
+    shape = np.shape(entry["q"] if isinstance(entry, dict) else entry)
+    return shape[1], shape[2]
 
 
 def mdn_params_from_arrays(leaves: Sequence, cfg: NPEConfig, n_features: int,

@@ -8,6 +8,10 @@ queries (`--epi`). Counterpart of `repro.launch.serve`.
     REPRO_KV_QUANT=1 PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-moe-16b --smoke --device cpu
 
+    # the state-space, hybrid and vision-language families
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --smoke --device cpu
+
     # answer forecast / counterfactual queries from cached SMC-ABC fits
     # (fitted on demand, through the abc_sim kernel on the card)
     PYTHONPATH=src python -m repro_torch.launch.serve --epi \
@@ -17,8 +21,16 @@ LM mode: a static batch of slots; requests are slotted in and out of it;
 each slot advances at its own position, writing and attending its own cache
 prefix, and a slot's cache lanes are zeroed when a request is admitted into
 it (bf16 k and v, or under `REPRO_KV_QUANT=1` the int8 values and their
-scales alike). So batched outputs equal serving each request alone, token
-for token.
+scales alike; the Mamba layers' float32 ssm state and bf16 conv rows of
+mamba2-130m and zamba2-2.7b too). So batched outputs equal serving each
+request alone, token for token.
+
+Every arch of the port serves: the decoders (gemma-2b, gemma2-27b,
+internlm2-20b, minitron-8b and the MoE ones), mamba2-130m (ssm),
+zamba2-2.7b (hybrid: Mamba layers and a shared attention block with its own
+KV rows at each of its sites) and internvl2-2b (vlm: served as its text
+decoder, as `repro` serves it, with no image rows in the cache). The
+encoder-decoder family is refused, as in `repro`.
 
 The MoE archs (deepseek-moe-16b, qwen3-moe-30b-a3b) route the batch's
 tokens of a step together: an expert holds C = max(8, ...) slots of the
@@ -121,7 +133,9 @@ def run_lm_cli(args) -> dict:
     """Serve `args.requests` random prompts; returns what it printed as a dict."""
     device = resolve_device(args.device)
     model = get_model(args.arch, smoke=args.smoke)
-    vocab = model.cfg.vocab
+    if model.family == "encdec":
+        raise SystemExit("serve.py LM mode drives decoder-family archs")
+    vocab = model.cfg.vocab if hasattr(model.cfg, "vocab") else model.cfg.lm.vocab
     cache_len = args.prompt_len + args.gen
     rng = np.random.default_rng(0)
     prompts = [

@@ -1,7 +1,8 @@
 """Decoder-only LM (PyTorch), dense and MoE, over a plain parameter dictionary.
 
 Counterpart of `repro.models.decoder`: gemma-2b, gemma2-27b, internlm2-20b,
-minitron-8b, deepseek-moe-16b and qwen3-moe-30b-a3b. Local/global attention
+minitron-8b, deepseek-moe-16b, qwen3-moe-30b-a3b and the LM backbone of
+internvl2-2b (`models.vlm`, through `embeds=`). Local/global attention
 patterns, windows, attention and final soft-caps, a Python-float query
 scale, post-norms, embedding scale, tied or separate unembedding,
 silu/gelu (gated) or relu2 MLPs, MoE FFN layers (`models.moe`), dense
@@ -252,11 +253,14 @@ def _block(x, p, cfg, i, positions, impl, cache=None, pos=None):
 
 
 @torch.no_grad()
-def forward(params, tokens: torch.Tensor, cfg: DecoderConfig):
-    """Prefill trunk. tokens [B, S] -> (final features [B, S, d], MoE aux
-    loss summed over the layers)."""
+def forward(params, tokens: Optional[torch.Tensor], cfg: DecoderConfig, *, embeds=None):
+    """Prefill trunk. tokens [B, S], or `embeds` [B, S, d] in their place
+    (cast to bf16, with no embedding scale; positions 0..S-1 over the whole
+    row) -> (final features [B, S, d], MoE aux loss summed over the
+    layers)."""
     check_supported(cfg)
-    x = cm.embed(tokens, params["embed"], cfg.embed_scale)
+    x = (cm.embed(tokens, params["embed"], cfg.embed_scale) if embeds is None
+         else embeds.to(cm.DEFAULT_DTYPE))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
@@ -265,9 +269,10 @@ def forward(params, tokens: torch.Tensor, cfg: DecoderConfig):
     return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def prefill_logits(params, batch, cfg: DecoderConfig):
-    """Next-token logits [B, 1, V] float32 of a prompt batch."""
-    feats, _ = forward(params, batch["tokens"], cfg)
+def prefill_logits(params, batch, cfg: DecoderConfig, *, embeds=None):
+    """Next-token logits [B, 1, V] float32 of a prompt batch (or of
+    `embeds`, see `forward`)."""
+    feats, _ = forward(params, batch.get("tokens"), cfg, embeds=embeds)
     return cm.last_token_logits(feats, unembed_table(params, cfg), cfg.final_softcap)
 
 
@@ -292,9 +297,13 @@ def init_cache_shape(cfg: DecoderConfig, batch: int, cache_len: int) -> Dict[str
     return {"k": spec, "v": spec}
 
 
+def allocate(specs: Dict[str, TensorSpec], device) -> Dict[str, torch.Tensor]:
+    """Zero tensors of the given shapes and dtypes on `device`."""
+    return {name: torch.zeros(s.shape, dtype=s.dtype, device=device) for name, s in specs.items()}
+
+
 def init_cache(cfg: DecoderConfig, batch: int, cache_len: int, device) -> Dict[str, torch.Tensor]:
-    return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for name, s in init_cache_shape(cfg, batch, cache_len).items()}
+    return allocate(init_cache_shape(cfg, batch, cache_len), device)
 
 
 def cache_logical(cfg: DecoderConfig) -> Dict[str, Tuple[Optional[str], ...]]:

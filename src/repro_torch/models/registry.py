@@ -7,8 +7,9 @@ Each architecture is a `ModelDef` with the surface of `repro`'s:
   decode_step(params, cache, batch)     — one-token serve step
   init_cache_shape / init_cache / cache_logical — decode state
 
-The port has the decoder family, dense and MoE (`models.decoder`); the
-ssm, hybrid, encdec and vlm families raise `NotImplementedError`.
+The port has the decoder family, dense and MoE (`models.decoder`), the
+ssm (`models.ssm`), hybrid (`models.hybrid`) and vlm (`models.vlm`)
+families; the encdec family raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import decoder as dec_lib
+from repro_torch.models import hybrid as hybrid_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import vlm as vlm_lib
+
+_FAMILIES = {"decoder": dec_lib, "ssm": ssm_lib, "hybrid": hybrid_lib, "vlm": vlm_lib}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,13 +34,21 @@ class ModelDef:
     cfg: Any
 
     def module(self):
-        if self.family != "decoder":
+        if self.family not in _FAMILIES:
             raise NotImplementedError(
-                f"{self.name}: the {self.family!r} family is not ported yet (decoder only)")
-        return dec_lib
+                f"{self.name}: the {self.family!r} family is not ported yet (the port has "
+                f"{sorted(_FAMILIES)})")
+        return _FAMILIES[self.family]
 
     def with_cfg(self, **changes) -> "ModelDef":
-        """This model with some config fields replaced (e.g. attn_impl="flash")."""
+        """This model with some config fields replaced (e.g. attn_impl="flash");
+        a vlm passes the fields its own config lacks to its decoder's."""
+        if self.family == "vlm":
+            own = {f.name for f in dataclasses.fields(self.cfg)}
+            lm = {k: v for k, v in changes.items() if k not in own}
+            changes = {k: v for k, v in changes.items() if k in own}
+            if lm:
+                changes["lm"] = dataclasses.replace(changes.get("lm", self.cfg.lm), **lm)
         return dataclasses.replace(self, cfg=dataclasses.replace(self.cfg, **changes))
 
     # ----- params
@@ -46,7 +60,8 @@ class ModelDef:
 
     # ----- serve entry points
     def prefill(self, params, batch):
-        """Serving prefill: next-token logits [B, 1, V] float32."""
+        """Serving prefill: next-token logits [B, 1, V] float32. The batch
+        goes through whole: "tokens", and for a vlm "patch_embeds"."""
         return self.module().prefill_logits(params, batch, self.cfg)
 
     def decode_step(self, params, cache, batch):

@@ -320,6 +320,10 @@ FLASH_CASES = [
     (1, 130, 4, 2, 128, 200, False, None, 30.0),  # Skv no multiple of 64, Sq != Skv
     (4, 2048, 16, 16, 128, 2048, True, None, None),  # deepseek-moe-16b prefill
     (4, 2048, 32, 4, 128, 2048, True, None, None),  # qwen3-moe-30b-a3b prefill (GQA 8)
+    (4, 2048, 32, 32, 80, 2048, True, None, None),  # zamba2-2.7b shared attention (D 80)
+    (4, 2048, 16, 8, 128, 2048, True, None, None),  # internvl2-2b prefill
+    (4, 2048, 48, 8, 128, 2048, True, None, None),  # internlm2-20b prefill
+    (4, 2048, 32, 8, 128, 2048, True, None, None),  # minitron-8b prefill
 ]
 #: float32: the bar of tests/test_kernel_flash.py:31 (the float32 kernel's
 #: 3xTF32 products keep about 21 bits of each factor). bf16: kernel and plain
@@ -544,6 +548,69 @@ def test_moe_smoke_prefill_on_the_card_matches_its_cpu_run(cuda):
     top2 = torch.topk(want[:, 0], 2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
     assert bool((got[:, 0].argmax(-1) == want[:, 0].argmax(-1))[decided].all())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "internvl2-2b", "minitron-8b"])
+def test_family_prefill_goes_through_the_kernel(cuda, arch):
+    """Full-width zamba2-2.7b (shared attention, D 80 padded in the kernel),
+    internvl2-2b (256 patch rows, then text) and minitron-8b on 2 x 512 rows:
+    one launch a shared-block site or a layer, no plain call, logits within
+    16 bf16 steps at the largest |logit| of the dense route, argmax equal
+    where the top two are more than twice that apart (chip_smoke.py's
+    family_prefill bar)."""
+    from repro_torch.models.registry import get_model
+
+    model = get_model(arch)
+    cfg = model.cfg
+    lm = cfg.lm if model.family == "vlm" else cfg
+    params = model.init_params(device=cuda)
+    rng = np.random.default_rng(0)
+    if model.family == "vlm":
+        batch = {"patch_embeds": torch.randn((2, cfg.n_patches, cfg.vit_dim), device=cuda,
+                                             generator=torch.Generator(device=cuda).manual_seed(0)
+                                             ).to(torch.bfloat16),
+                 "tokens": torch.as_tensor(rng.integers(0, lm.vocab, size=(2, 512 - cfg.n_patches)),
+                                           device=cuda)}
+    else:
+        batch = {"tokens": torch.as_tensor(rng.integers(0, lm.vocab, size=(2, 512)), device=cuda)}
+    sites = cfg.n_super if model.family == "hybrid" else lm.n_layers
+    launches, calls, tc = fa.LAUNCHES, ref.FLASH_CALLS, fa.LAUNCHES_TENSOR_CORE
+    got = model.with_cfg(attn_impl="flash").prefill(params, batch)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - launches, ref.FLASH_CALLS - calls) == (sites, 0)
+    assert fa.LAUNCHES_TENSOR_CORE - tc == sites
+    want = model.with_cfg(attn_impl="dense").prefill(params, batch)
+    assert got.shape == (2, 1, lm.vocab) and bool(torch.isfinite(got).all())
+    bar = 16 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got - want).abs().max()) <= bar
+    top2 = torch.topk(want[:, 0], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+    assert bool((got[:, 0].argmax(-1) == want[:, 0].argmax(-1))[decided].all())
+
+
+def test_mamba2_prefill_on_the_card_matches_its_decode_and_the_cpu(cuda):
+    """Full-width mamba2-130m launches no flash kernel; on the card its
+    chunked prefill of 2 x 64 tokens equals its token-by-token decode within
+    chip_smoke.py's bf16 bar (32 steps at the largest |logit|), and the CPU's
+    run of the same parameters within 16 steps."""
+    from repro_torch.models.registry import get_model
+
+    model = get_model("mamba2-130m")
+    params = model.init_params(device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab, size=(2, 64)))
+    want = model.prefill(params, {"tokens": tokens})
+    card = {"embed": params["embed"].to(cuda), "final_norm": params["final_norm"].to(cuda),
+            "layers": [{k: v.to(cuda) for k, v in lp.items()} for lp in params["layers"]]}
+    toks = tokens.to(cuda)
+    launches = fa.LAUNCHES
+    got = model.prefill(card, {"tokens": toks})
+    assert fa.LAUNCHES == launches
+    step = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got.cpu() - want).abs().max()) <= 16 * step
+    cache = model.init_cache(2, 0, cuda)
+    for i in range(toks.shape[1]):
+        dec, cache = model.decode_step(card, cache, {"tokens": toks[:, i:i + 1], "pos": i})
+    assert float((dec - got).abs().max()) <= 32 * step
 
 
 @pytest.mark.parametrize("shape", [(16, 4, 64, 32, 2), (64, 6, 256, 64, 2), (128, 8, 256, 48, 0)],

@@ -2,9 +2,12 @@
 
 Each ported layer of `repro_torch.models.common` is fed the same numpy
 inputs as its `repro.models.common` twin, in float32 and in bf16; the
-gemma-2b and gemma2-27b smoke models run with `repro`'s own parameters
-(`init_params(PRNGKey(0))`, crossed as float32 copies of bf16 values, which
-is exact) through prefill, teacher-forced decode and the serving loop.
+gemma-2b, gemma2-27b, internlm2-20b and minitron-8b (relu2) smoke models run
+with `repro`'s own parameters (`init_params(PRNGKey(0))`, crossed as float32
+copies of bf16 values, which is exact) through prefill, teacher-forced
+decode and the serving loop; the serving loop also over the ssm, hybrid and
+vlm families (mamba2-130m, zamba2-2.7b, internvl2-2b), whose layers
+tests/test_torch_{ssm,hybrid,vlm}.py hold.
 
 Tolerances, and why:
   * float32 layers: rtol 1e-5, atol 1e-5. XLA and PyTorch evaluate rsqrt,
@@ -33,22 +36,25 @@ from repro.launch.mesh import make_host_mesh, set_mesh_compat
 from repro.launch import serve as jserve
 from repro.models import common as jcm
 from repro.models.registry import get_model as jget_model
-from repro_torch.convert import decoder_params_from_arrays
+from repro_torch.convert import decoder_params_from_arrays, params_from_arrays
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.launch import serve as tserve
 from repro_torch.models import common as tcm
 from repro_torch.models import decoder as tdec
 from repro_torch.models.registry import get_model, list_archs
+from test_torch_moe import RecordingModel, TieBreakingModel
 
 torch.set_num_threads(1)
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1 / 128, atol=1e-5)
 DTYPES = {"f32": (jnp.float32, torch.float32, F32), "bf16": (jnp.bfloat16, torch.bfloat16, BF16)}
-ARCHS = ["gemma-2b", "gemma2-27b"]
+ARCHS = ["gemma-2b", "gemma2-27b", "internlm2-20b", "minitron-8b"]
 #: the MoE decoders (tests/test_torch_moe.py holds their models against repro)
 MOE_ARCHS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b"]
+#: the other families the serving loop drives
+FAMILY_ARCHS = ["mamba2-130m", "zamba2-2.7b", "internvl2-2b"]
 
 
 def _arr(rng, *shape, scale=1.0):
@@ -179,19 +185,28 @@ def test_ninit_is_seeded_and_scaled():
 def jax_models():
     """repro's smoke models and their PRNGKey(0) parameters, once per module."""
     out = {}
-    for arch in ARCHS + MOE_ARCHS:
+    for arch in ARCHS + MOE_ARCHS + FAMILY_ARCHS:
         jm = jget_model(arch, smoke=True)
         jp = jm.init_params(jax.random.PRNGKey(0))
         tm = get_model(arch, smoke=True)
-        tp = decoder_params_from_arrays(
-            tm.cfg, jax.tree.map(lambda a: np.asarray(a, np.float32), jp))
+        tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jp)
+        tp = (decoder_params_from_arrays(tm.cfg, tree) if tm.family == "decoder"
+              else params_from_arrays(tm, tree))
         out[arch] = (jm, jp, tm, tp)
     return out
 
 
 def test_registry_and_configs_mirror_repro():
-    assert list_archs() == ("deepseek-moe-16b", "gemma-2b", "gemma2-27b",
-                            "qwen3-moe-30b-a3b")
+    """The port registers repro's archs but the encoder-decoder
+    whisper-large-v3, in repro's ALL_ARCHS order."""
+    from repro.configs import ALL_ARCHS as JALL
+    from repro.models.registry import list_archs as jlist_archs
+    from repro_torch.configs import ALL_ARCHS
+
+    assert list_archs() == tuple(a for a in jlist_archs() if a != "whisper-large-v3")
+    assert ALL_ARCHS == tuple(a for a in JALL if a != "whisper-large-v3")
+    for arch in FAMILY_ARCHS:
+        assert get_model(arch).family == jget_model(arch).family
     for arch in ARCHS + MOE_ARCHS:
         for smoke in (False, True):
             jc, tc = jget_model(arch, smoke=smoke).cfg, get_model(arch, smoke=smoke).cfg
@@ -208,12 +223,13 @@ def test_registry_and_configs_mirror_repro():
             assert tc.active_param_count() == jc.active_param_count()
     assert get_model("gemma-2b").param_count() == 2_506_172_416
     with pytest.raises(KeyError, match="unknown arch"):
-        get_model("mamba2-130m")
+        get_model("whisper-large-v3")
 
 
 def test_unported_features_raise(monkeypatch):
-    """What stays unported raises: other families and unknown attention
-    routes. MoE layers, dense prefixes and the int8 cache now build."""
+    """What stays unported raises: the encdec family and unknown attention
+    routes. MoE layers, dense prefixes, the int8 cache and the ssm, hybrid
+    and vlm families now build."""
     m = get_model("gemma-2b", smoke=True)
     g = torch.Generator().manual_seed(0)
     moe = get_model("deepseek-moe-16b", smoke=True).cfg.moe
@@ -223,8 +239,12 @@ def test_unported_features_raise(monkeypatch):
     monkeypatch.setenv("REPRO_KV_QUANT", "1")
     assert m.init_cache_shape(2, 8)["k_q"].dtype == torch.int8
     monkeypatch.delenv("REPRO_KV_QUANT")
-    with pytest.raises(NotImplementedError, match="family"):
-        dataclasses.replace(m, family="ssm").init_params(g)
+    with pytest.raises(NotImplementedError, match="'encdec' family"):
+        dataclasses.replace(m, family="encdec").init_params(g)
+    monkeypatch.setattr(tserve, "get_model",
+                        lambda *a, **k: dataclasses.replace(m, family="encdec"))
+    with pytest.raises(SystemExit, match="decoder-family archs"):  # repro's refusal
+        tserve.main(["--arch", "whisper-large-v3", "--smoke", "--device", "cpu"])
     with pytest.raises(ValueError, match="attn_impl"):
         m.with_cfg(attn_impl="flash_pallas").init_params(g)
 
@@ -296,16 +316,26 @@ def test_teacher_forced_decode_matches_repro(jax_models, arch):
         np.testing.assert_array_equal(_np(got).argmax(-1), want.argmax(-1))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_run_lm_server_matches_repro_token_for_token(jax_models, arch):
+    """The serving loop token for token. A step whose choice is a near-tie
+    (repro's top token ahead of the port's by at most twice the logit bar)
+    takes repro's token and is named, as in tests/test_torch_moe.py; any
+    other difference of choice fails. gemma-2b and gemma2-27b run without
+    it, as before this slice (minitron-8b's smoke model meets a near-tie)."""
     jm, jp, tm, tp = jax_models[arch]
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, tm.cfg.vocab, size=n).astype(np.int32).tolist()
+    vocab = tm.cfg.lm.vocab if tm.family == "vlm" else tm.cfg.vocab
+    prompts = [rng.integers(0, vocab, size=n).astype(np.int32).tolist()
                for n in (16, 5, 9, 16, 3, 7)]
+    repro_logits = []
     with set_mesh_compat(make_host_mesh()):
-        want, want_steps = jserve.run_lm_server(jm, prompts, 8, 4, 24)
+        want, want_steps = jserve.run_lm_server(RecordingModel(jm, repro_logits), prompts,
+                                                8, 4, 24)
     launches = fa.LAUNCHES
-    got, steps = tserve.run_lm_server(tm, prompts, 8, 4, 24, params=tp, device="cpu")
+    port = tm if arch in ("gemma-2b", "gemma2-27b") else TieBreakingModel(tm, repro_logits)
+    got, steps = tserve.run_lm_server(port, prompts, 8, 4, 24, params=tp, device="cpu")
+    assert not getattr(port, "problems", []), port.problems
     assert got == want and steps == want_steps
     assert fa.LAUNCHES == launches
 
@@ -314,12 +344,13 @@ def test_run_lm_server_matches_repro_token_for_token(jax_models, arch):
 PROMPT_LENS = (5, 9, 3, 7)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FAMILY_ARCHS)
 def test_mixed_length_batched_matches_single(arch):
     model = get_model(arch, smoke=True)
     params = model.init_params(device="cpu")
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, model.cfg.vocab, size=n).astype(np.int32).tolist()
+    vocab = model.cfg.lm.vocab if model.family == "vlm" else model.cfg.vocab
+    prompts = [rng.integers(0, vocab, size=n).astype(np.int32).tolist()
                for n in PROMPT_LENS]
     cache_len = max(PROMPT_LENS) + 3
     batched, _ = tserve.run_lm_server(model, prompts, 3, 2, cache_len, params=params,
@@ -344,8 +375,11 @@ def test_decode_step_vector_pos_matches_scalar():
         assert a_cache[name][:, :, :2].abs().sum() == 0 and a_cache[name][:, :, 3:].abs().sum() == 0
 
 
-def test_zero_slot_clears_only_that_lane():
-    model = get_model("gemma2-27b", smoke=True)
+@pytest.mark.parametrize("arch", ["gemma2-27b"] + FAMILY_ARCHS)
+def test_zero_slot_clears_only_that_lane(arch):
+    """Every cache tensor: KV rows, and the Mamba layers' ssm state and conv
+    rows (tests/test_serve_slots.py:91-92 on the hybrid)."""
+    model = get_model(arch, smoke=True)
     logical = model.cache_logical()
     cache = {k: torch.ones_like(v) for k, v in model.init_cache(3, 6, "cpu").items()}
     wiped = tserve.zero_slot(cache, logical, 1)
@@ -354,6 +388,14 @@ def test_zero_slot_clears_only_that_lane():
         arr = arr.movedim(b, 0)
         assert (arr[1] == 0).all()
         assert (arr[0] == 1).all() and (arr[2] == 1).all()
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_serve_cli_serves_every_family(arch, capsys):
+    stats = tserve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+                         "--prompt-len", "4", "--gen", "2", "--slots", "2"])
+    assert stats["requests"] == 3 and all(len(o) == 2 for o in stats["outputs"])
+    assert "[serve] 3 requests" in capsys.readouterr().out
 
 
 def test_serve_cli_on_the_cpu(capsys):
