@@ -250,7 +250,10 @@ printing one JSON line:
              and qwen3-moe-30b-a3b (32 over 4, D 128), zamba2-2.7b's shared
              attention (32 over 32, D 80, padded to 128 in the kernel),
              internvl2-2b's (16 over 8), internlm2-20b's (48 over 8) and
-             minitron-8b's (32 over 8, D 128) at 4 x 2048; then a q sliced
+             minitron-8b's (32 over 8, D 128) at 4 x 2048, and
+             whisper-large-v3's three (20 over 20, D 64: the encoder's
+             1,500 frames and the cross-attention of 187 tokens over them,
+             non-causal, and the decoder's 187 causal); then a q sliced
              at an odd offset in each dtype, staged element by element
              (LAUNCHES_STAGED)
   lm_prefill full-width gemma-2b (bf16, weights from a generator seeded 0)
@@ -313,6 +316,43 @@ printing one JSON line:
              defaults (8 requests, 8 tokens each, 4 slots) whose first two
              requests must equal them; deepseek once more under
              REPRO_KV_QUANT=1 (the int8 KV cache)
+  encdec_prefill  whisper-large-v3 at full width (bf16, weights from a
+             generator seeded 0) on 4 x 1,500 frames and make_inputs' 187
+             decoder tokens through `ModelDef.prefill` with attn_impl=
+             "flash", the counters set to 0 just before: exactly 96 bf16
+             launches (32 encoder, 32 causal decoder, 32 cross), no float32
+             one, no plain call; its logits against attn_impl="dense" at
+             lm_prefill's bar and argmax rule
+  encdec_profile  one such prefill under torch.profiler
+  encdec_flash_timing  the bf16 kernel alone at whisper's three shapes
+             beside its bound (4 D operations an allowed pair at 989
+             TFLOP/s, or its bytes), the plain version and SDPA
+  encdec_decode  the cross cache filled from the encoder's output through
+             each layer's cross wk / wv (the caller's work in repro as in
+             the port), then 16 greedy decode steps, step t against
+             prefill_logits of the first t + 1 tokens at lm_prefill's bar
+             and argmax rule; a step's ms (CUDA events), one under
+             torch.profiler, beside its weight-read floor with and without
+             the two caches
+  train_path (a) every arch's smoke model, one build_train_step step and
+             its gradient on the card against the CPU from the same
+             parameters (MoE routing pinned to the CPU's, each flip
+             explained: `RoutingPin`): loss rtol 1e-3, grad norm rtol 1e-2,
+             each gradient leaf within 8 bf16 steps, or 8 plus half the
+             CPU's own bf16-vs-float32 difference of the leaf, each
+             parameter within 2 lr + a bf16 step after the step; (b)
+             gemma-2b and (c) mamba2-130m at full width through
+             `launch.train.main` on the card, 4 x 2048 tokens, 4 steps,
+             remat "full": every loss finite and step 4's below step 1's,
+             each step's ms (CUDA events), tokens a second, the peak of
+             torch.cuda.max_memory_allocated beside the estimate, the bound
+             8 N T operations at 989 TFLOP/s; one more step of each under
+             torch.profiler (train_profile); (d) resume: gemma-2b smoke, 4
+             steps against 2, a checkpoint, a restore and 2 more, at
+             tests/test_checkpoint.py:73's bar (run again under
+             torch.use_deterministic_algorithms only if it fails); (e)
+             microbatch 2 against 1 at (a)'s bars; (f) a loss through
+             attn_impl="flash" refused
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
@@ -325,8 +365,12 @@ printing one JSON line:
              batches and the route chosen at each R and batch;
              tuning_path's autotune of R=100 on the warp route) and on the
              warp route, the bf16 flash route (its launches on lm_prefill,
-             every family_prefill and both moe_prefill runs,
-             `launches_by_path`; its zamba2-2.7b cell) and the float32 one
+             every family_prefill, both moe_prefill runs and
+             encdec_prefill, `launches_by_path`; its zamba2-2.7b cell and
+             whisper's three) and the float32 one
+
+`python3 chip_smoke.py --only flash,encdec,train` runs the build and then
+only those groups of phases, with no kernels line.
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -424,6 +468,9 @@ FLASH_CASES = [
     (4, 2048, 16, 8, 128, 2048, True, None, None),  # internvl2-2b prefill
     (4, 2048, 48, 8, 128, 2048, True, None, None),  # internlm2-20b prefill
     (4, 2048, 32, 8, 128, 2048, True, None, None),  # minitron-8b prefill
+    (4, 1500, 20, 20, 64, 1500, False, None, None),  # whisper-large-v3 encoder (D 64)
+    (4, 187, 20, 20, 64, 1500, False, None, None),  # whisper's cross-attention
+    (4, 187, 20, 20, 64, 187, True, None, None),  # whisper's decoder self-attention
 ]
 #: gemma-2b prefill through the flash route against the dense route: both
 #: round the unembedding product to bf16, so a logit in [2^e, 2^(e+1)) moves
@@ -2037,6 +2084,19 @@ class RoutingPin:
     def __init__(self, moe_lib):
         self.moe_lib, self.ref, self.flips, self.worst = moe_lib, [], 0, 0.0
 
+    @classmethod
+    def around(cls, moe_lib, reference, run, enabled=True):
+        """(reference(), run()) with `run`'s routing pinned to
+        `reference`'s (its own if not `enabled`), and the pin."""
+        if not enabled:
+            return reference(), run(), None
+        pin = cls(moe_lib)
+        with pin.record():
+            want = reference()
+        with pin.pin():
+            got = run()
+        return want, got, pin
+
     def _patched(self, fn):
         import contextlib
 
@@ -2054,7 +2114,7 @@ class RoutingPin:
         def wrap(route):
             def recording(xf, router, cfg, c):
                 r = route(xf, router, cfg, c)
-                self.ref.append((xf.clone(), r.top_ids.clone()))
+                self.ref.append((xf.detach().clone(), r.top_ids.clone()))
                 return r
             return recording
         return self._patched(wrap)
@@ -2066,16 +2126,17 @@ class RoutingPin:
 
         def wrap(route):
             def pinned(xf, router, cfg, c):
-                xr, ids_ref = self.ref[next(calls)]
+                xr, ids_ref = (t.to(xf.device) for t in self.ref[next(calls)])
                 r = route(xf, router, cfg, c)
                 differ = (r.top_ids.sort(-1).values != ids_ref.sort(-1).values).any(-1)
                 tokens = torch.nonzero(differ).flatten().tolist()
                 if not tokens:
                     return r
-                rf = router.to(torch.float32)
+                rf = router.detach().to(torch.float32)
                 for t in tokens:
                     ref_logits = xr[t].to(torch.float32) @ rf
-                    slack = (xf[t].to(torch.float32) - xr[t].to(torch.float32)).abs() @ rf.abs()
+                    slack = (xf[t].detach().to(torch.float32)
+                             - xr[t].to(torch.float32)).abs() @ rf.abs()
                     for a in set(ids_ref[t].tolist()) - set(r.top_ids[t].tolist()):
                         for b in set(r.top_ids[t].tolist()) - set(ids_ref[t].tolist()):
                             gap = float(ref_logits[a] - ref_logits[b])
@@ -2091,6 +2152,7 @@ class RoutingPin:
 
                 def take_reference(probs, k):
                     w, ids = select(probs, k)
+                    w, ids = w.clone(), ids.clone()  # top-k's backward reads its own
                     ids[differ] = ids_ref[differ]
                     picked = torch.gather(probs[differ], 1, ids[differ])
                     w[differ] = picked / picked.sum(-1, keepdim=True)
@@ -2547,6 +2609,469 @@ def family_phases(dev, name: str, smi: str) -> tuple:
     return launches, zamba_cell
 
 
+#: whisper-large-v3's prefill on the card: 4 windows of 1,500 frames (30 s
+#: of audio after the stubbed frontend) and make_inputs' 1500 // 8 = 187
+#: decoder tokens; its flash shapes (b, sq, h, kh, d, skv, causal), timed
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_TOKENS = 4, 1500, 187
+ENCDEC_FLASH_SHAPES = ((4, 1500, 20, 20, 64, 1500, False), (4, 187, 20, 20, 64, 1500, False),
+                       (4, 187, 20, 20, 64, 187, True))
+#: greedy decode steps of encdec_decode, each against prefill_logits
+ENCDEC_DECODE_STEPS = 16
+
+
+def flash_cell(dev, b, sq, h, kh, d, skv, causal, iters=20) -> dict:
+    """The bf16 flash kernel alone at one shape beside the plain version and
+    SDPA; its bound from 4 * d operations an allowed pair at the bf16 peak,
+    or its bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(sq + skv + h)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32))
+               .to(device=dev, dtype=torch.bfloat16)
+               for shape in ((b, sq, h, d), (b, skv, kh, d), (b, skv, kh, d)))
+    before = fa.LAUNCHES_TENSOR_CORE
+    ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, causal=causal), iters)
+    if fa.LAUNCHES_TENSOR_CORE == before:
+        raise AssertionError(f"flash_cell ({b}, {sq}, {h}, {kh}, {d}, {skv}): no bf16 launch")
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), 2, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=h != kh), iters)
+    flops = fa.attention_flops(b, sq, skv, h, d, causal=causal)
+    bytes_ms = fa.attention_bytes(q, k, v) / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    return {"shape": [b, sq, h, kh, d, skv], "causal": causal, "flops": flops, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": bound / ms, "tflops": flops / (ms * 1e-3) / 1e12, "iters": iters}
+
+
+def logits_check(phase: str, got, want) -> dict:
+    """lm_prefill's rule: |got - want| within PREFILL_BAR_STEPS bf16 steps
+    at the largest |want|, the argmax equal on every row whose top two are
+    more than twice the bar apart."""
+    import torch
+
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{phase}: logits {tuple(got.shape)} vs {tuple(want.shape)}, "
+                             f"finite={bool(torch.isfinite(got).all())}")
+    diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    bar = PREFILL_BAR_STEPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    top2 = torch.topk(want[:, 0], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+    agree = got[:, 0].argmax(-1) == want[:, 0].argmax(-1)
+    if not diff <= bar or not bool(agree[decided].all()):
+        raise AssertionError(f"{phase}: max |diff| {diff} (bar {bar}), argmax agreement "
+                             f"{agree.tolist()} on rows {decided.tolist()}")
+    return {"max_abs_diff": diff, "max_abs_logit": top, "bar": bar,
+            "argmax_agree": agree.tolist(), "argmax_decided_rows": decided.tolist()}
+
+
+def fill_cross_cache(params, cache, enc_out, cfg) -> None:
+    """The encdec cross cache's rows: the encoder's output through each
+    decoder layer's cross wk / wv. `decode_step` reads a cross cache its
+    caller fills, in `repro` as in the port; this is that caller."""
+    import torch
+
+    b, t, _ = enc_out.shape
+    with torch.no_grad():
+        for i, lp in enumerate(params["dec_layers"]):
+            for name, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                cache[name][i].copy_((enc_out @ lp["cross"][w]).reshape(
+                    b, t, cfg.n_kv_heads, cfg.head_dim))
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts and lists."""
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if isinstance(tree, torch.Tensor) else 0
+
+
+def encdec_phases(dev, name: str, smi: str) -> tuple:
+    """encdec_prefill, encdec_profile, encdec_flash_timing and encdec_decode
+    of whisper-large-v3 at full width; returns (the bf16 flash launches of
+    its prefill, the timing cells)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+
+    model = get_model("whisper-large-v3")
+    cfg = model.cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init_params(device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(ENCDEC_BATCH, ENCDEC_TOKENS)), device=dev)
+    batch = {"frames": frames, "tokens": tokens}
+    spec, _ = model.make_inputs("prefill", ENCDEC_BATCH, ENCDEC_FRAMES)
+    if (tuple(spec["frames"].shape), tuple(spec["tokens"].shape)) != (
+            tuple(frames.shape), tuple(tokens.shape)):
+        raise AssertionError(f"encdec_prefill: make_inputs gives {spec}")
+    flash = model.with_cfg(attn_impl="flash")
+    want = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+
+    # ---- encdec_prefill: the counters set to 0 just before
+    fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_TENSOR_CORE_F32 = 0
+    ref.FLASH_CALLS = 0
+    t0 = time.perf_counter()
+    logits = flash.prefill(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+              ref.FLASH_CALLS)
+    if counts != (want, want, 0, 0):
+        raise AssertionError(f"encdec_prefill: (flash, bf16 kernel, float32 kernel, plain) "
+                             f"launches {counts}, want ({want}, {want}, 0, 0)")
+    dense = model.with_cfg(attn_impl="dense").prefill(params, batch)
+    checks = logits_check("encdec_prefill flash vs dense", logits, dense)
+    emit("encdec_prefill", arch=cfg.name, batch=ENCDEC_BATCH, frames=ENCDEC_FRAMES,
+         decoder_tokens=ENCDEC_TOKENS, params=model.param_count(), init_s=init_s, wall_s=wall,
+         flash_launches=counts[0], tensor_core_launches=counts[1],
+         tensor_core_f32_launches=counts[2], plain_calls=counts[3],
+         launches_by_attention={"encoder": cfg.n_enc_layers, "decoder_self": cfg.n_dec_layers,
+                                "cross": cfg.n_dec_layers},
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9, kind=name,
+         nvidia_smi=smi, **checks)
+    del dense
+
+    # ---- encdec_profile: one flash prefill, device time by kernel
+    wall_ms, busy_ms, by_op = profile_device_ms(lambda: flash.prefill(params, batch))
+    flash_ms = sum(ms for k, _, ms in by_op if "flash_fwd" in k)
+    gemm_ms = sum(ms for k, _, ms in by_op
+                  if any(t in k.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")))
+    emit("encdec_profile", arch=cfg.name, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / wall_ms, flash_device_ms=flash_ms,
+         matmul_device_ms=gemm_ms, other_device_ms=busy_ms - flash_ms - gemm_ms,
+         kernels=sum(c for _, c, _ in by_op), kind=name, nvidia_smi=smi,
+         top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
+                         for k, c, ms in by_op[:10]])
+
+    # ---- encdec_flash_timing: the kernel alone at whisper's three shapes
+    cells = [flash_cell(dev, *shape) for shape in ENCDEC_FLASH_SHAPES]
+    emit("encdec_flash_timing", arch=cfg.name, kind=name, nvidia_smi=smi,
+         peak_bf16_ops_per_s=BF16_OPS_PER_S, peak_bytes_per_s=HBM_BYTES_PER_S, cells=cells)
+
+    # ---- encdec_decode: the cross cache filled from the encoder's output,
+    # then greedy steps, step t against prefill_logits of the first t + 1 tokens
+    with torch.no_grad():
+        enc_out = encdec.encode(params, frames, flash.cfg)
+    cache = model.init_cache(ENCDEC_BATCH, ENCDEC_FRAMES, dev)
+    fill_cross_cache(params, cache, enc_out, cfg)
+    seq = tokens[:, :1]
+    steps = []
+    for t in range(ENCDEC_DECODE_STEPS):
+        got, cache = model.decode_step(params, cache, {"tokens": seq[:, t:t + 1], "pos": t})
+        want_t = flash.prefill(params, {"frames": frames, "tokens": seq})
+        steps.append(logits_check(f"encdec_decode step {t}", got, want_t))
+        seq = torch.cat([seq, got[:, 0].argmax(-1, keepdim=True)], dim=1)
+    step = {"tokens": seq[:, -1:].contiguous(), "pos": ENCDEC_DECODE_STEPS}
+    step_ms = cuda_ms(lambda: model.decode_step(params, cache, step), FAMILY_DECODE_ITERS)
+    step_wall_ms, step_busy_ms, step_ops = profile_device_ms(
+        lambda: model.decode_step(params, cache, step))
+    weights = tensor_bytes({k: params[k] for k in ("embed", "dec_layers", "dec_norm")})
+    caches = tensor_bytes(cache)
+    emit("encdec_decode", arch=cfg.name, batch=ENCDEC_BATCH, cache_len=ENCDEC_FRAMES,
+         steps=ENCDEC_DECODE_STEPS, tokens=seq.tolist(),
+         max_steps_off=max(s["max_abs_diff"] / s["bar"] * PREFILL_BAR_STEPS for s in steps),
+         per_step=steps, decode_step_ms=step_ms, decode_step_iters=FAMILY_DECODE_ITERS,
+         decode_step_profile={
+             "wall_ms": step_wall_ms, "device_busy_ms": step_busy_ms,
+             "device_idle_share": 1.0 - step_busy_ms / step_wall_ms,
+             "kernels": sum(c for _, c, _ in step_ops),
+             "top_device_ops": [{"name": k[:80], "count": c, "device_ms": ms}
+                                for k, c, ms in step_ops[:6]]},
+         weight_read_bytes=weights, weight_read_floor_ms=weights / HBM_BYTES_PER_S * 1e3,
+         cache_read_bytes=caches,
+         weight_and_cache_floor_ms=(weights + caches) / HBM_BYTES_PER_S * 1e3,
+         kind=name, nvidia_smi=smi)
+    del params, cache, enc_out, logits
+    torch.cuda.empty_cache()
+    return counts[1], cells
+
+
+#: the full-width training runs of train_path (b, c): (arch, batch, seq, steps)
+TRAIN_RUNS = (("gemma-2b", 4, 2048, 4), ("mamba2-130m", 4, 2048, 4))
+#: the smoke train step on the card against the CPU (train_path a, e): loss,
+#: grad norm (tests/test_torch_train_families.py's bars), each gradient leaf
+#: within 8 bf16 steps of its largest |value| or, past that, 8 steps plus
+#: half the CPU's own bf16-vs-float32 difference of that leaf; after one
+#: AdamW step each parameter within 2 lr + one bf16 step (a step-1 update
+#: is lr (g / |g| + wd p): a gradient near 0 may take the other sign)
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_LEAF_STEPS = 1e-3, 1e-2, 8
+TRAIN_LR = 1e-3
+
+
+def _to(tree, dev, dtype=None):
+    """A tree of dicts and lists of tensors on `dev` (floats cast to `dtype`)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev, dtype) for v in tree]
+    if dtype is not None and tree.is_floating_point():
+        return tree.to(device=dev, dtype=dtype)
+    return tree.to(dev)
+
+
+def smoke_train_check(dev, arch: str) -> dict:
+    """One build_train_step step of `arch`'s smoke model on the card against
+    the same step on the CPU (parameters made on the CPU, seeded 0), and the
+    gradients leaf by leaf (the bars above)."""
+    import torch
+
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    model = get_model(arch, smoke=True)
+    moe = getattr(model.cfg, "moe", None) is not None
+    params = model.init_params(device="cpu")
+    batch = model.example_inputs("train", 2, 64, "cpu", seed=1)
+    # an MoE model routes on the card as on the CPU, each flip explained
+    # and pinned (RoutingPin), in the gradient, its float32 noise and the step
+    (loss_c, grads_c), (loss_g, grads_g), pin = RoutingPin.around(
+        moe_lib, lambda: tsteps.value_and_grad(model, params, batch),
+        lambda: tsteps.value_and_grad(model, _to(params, dev), _to(batch, dev)), moe)
+    flips = pin.flips if pin else 0
+    worst, over = 0.0, []
+    f32 = None
+    for i, (c, g) in enumerate(zip(tree_leaves(grads_c), tree_leaves(grads_g))):
+        c, g = c.float(), g.float().cpu()
+        top = float(c.abs().max())
+        step = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+        diff = float((g - c).abs().max())
+        if diff > TRAIN_LEAF_STEPS * step:
+            if f32 is None:  # the CPU's float32 gradient: its bf16 rounding noise
+                keep = cm.DEFAULT_DTYPE
+                cm.DEFAULT_DTYPE = torch.float32
+                try:
+                    f32 = tree_leaves(RoutingPin.around(
+                        moe_lib, lambda: tsteps.value_and_grad(model, params, batch),
+                        lambda: tsteps.value_and_grad(model, _to(params, "cpu", torch.float32),
+                                                      _to(batch, "cpu", torch.float32)),
+                        moe)[1][1])
+                finally:
+                    cm.DEFAULT_DTYPE = keep
+            noise = float((c - f32[i]).abs().max())
+            if diff > TRAIN_LEAF_STEPS * step + noise / 2:
+                raise AssertionError(f"train_path {arch}: gradient leaf {i} {diff / step:.1f} "
+                                     f"bf16 steps from the CPU's (its bf16 noise "
+                                     f"{noise / step:.1f} steps)")
+            over.append({"leaf": i, "steps": diff / step, "cpu_bf16_noise_steps": noise / step})
+        worst = max(worst, diff / step if step else 0.0)
+    norm_c = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in tree_leaves(grads_c))))
+    norm_g = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in tree_leaves(grads_g))))
+    if abs(float(loss_g) - float(loss_c)) > TRAIN_LOSS_RTOL * abs(float(loss_c)) or \
+            abs(norm_g - norm_c) > TRAIN_NORM_RTOL * norm_c:
+        raise AssertionError(f"train_path {arch}: loss {float(loss_g)} vs {float(loss_c)}, "
+                             f"grad norm {norm_g} vs {norm_c}")
+    # one build_train_step step on each device
+    shape = InputShape("smoke", "train", 64, 2)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    fn = tsteps.build_train_step(model, shape, opt_cfg=opt_cfg).fn
+    pg = _to(model.init_params(device="cpu"), dev)
+    (pc, _, mc), (pg, _, mg), pin = RoutingPin.around(
+        moe_lib, lambda: fn(params, adamw_init(params), batch),
+        lambda: fn(pg, adamw_init(pg), _to(batch, dev)), moe)
+    flips += pin.flips if pin else 0
+    for k in ("loss", "grad_norm"):
+        rtol = TRAIN_LOSS_RTOL if k == "loss" else TRAIN_NORM_RTOL
+        if abs(float(mg[k]) - float(mc[k])) > rtol * abs(float(mc[k])):
+            raise AssertionError(f"train_path {arch}: step {k} {float(mg[k])} vs {float(mc[k])}")
+    moved = 0.0
+    for c, g in zip(tree_leaves(pc), tree_leaves(pg)):
+        c, g = c.float(), g.float().cpu()
+        bad = (g - c).abs() > 2 * TRAIN_LR + 2.0 ** -7 * c.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"train_path {arch}: {int(bad.sum())} parameters off after "
+                                 f"one step")
+        moved = max(moved, float((g - c).abs().max()))
+    return {"arch": arch, "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+            "grad_norm_card": norm_g, "grad_norm_cpu": norm_c, "worst_leaf_steps": worst,
+            "leaves_past_8_steps": over, "routing_flips_pinned": flips,
+            "step_loss_card": float(mg["loss"]),
+            "step_loss_cpu": float(mc["loss"]), "max_param_diff_after_step": moved}
+
+
+def train_phases(dev, name: str, smi: str) -> dict:
+    """train_path (a)-(f): every smoke model's step on the card against the
+    CPU, gemma-2b and mamba2-130m at full width through
+    `launch.train.main`, resume, microbatch and the flash refusal; returns
+    the full-width runs' records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels.ops import FlashBackwardError
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch import train
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.registry import get_model, list_archs
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    # ---- (a) every arch's smoke model: the card against the CPU
+    t0 = time.perf_counter()
+    smoke = [smoke_train_check(dev, arch) for arch in list_archs()]
+    emit("train_path_smoke", archs=smoke, seconds=time.perf_counter() - t0, kind=name,
+         nvidia_smi=smi)
+
+    # ---- (b), (c) full width through the training CLI
+    runs = {}
+    for arch, b, s, n in TRAIN_RUNS:
+        model = get_model(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats = train.main(["--arch", arch, "--steps", str(n), "--batch", str(b), "--seq",
+                            str(s), "--log-every", "1", "--device", "cuda"])
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = stats["losses"]
+        if len(losses) != n or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"train_path {arch}: losses {losses}")
+        n_params = model.param_count()
+        tokens = b * s
+        flops = 8 * n_params * tokens  # 6 N T, and the forward again under remat "full"
+        step_ms = float(np.median(stats["step_ms"][1:]))
+        bound_ms = flops / BF16_OPS_PER_S * 1e3
+        param_bytes = 2 * n_params  # bf16 (the norms' float32 are a rounding error)
+        runs[arch] = {
+            "arch": arch, "batch": b, "seq": s, "steps": n, "remat": model.cfg.remat,
+            "params": n_params, "losses": losses, "step_ms": stats["step_ms"],
+            "median_step_ms_after_first": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "cli_tokens_per_s": stats["tokens_per_s"], "max_memory_allocated_gb": peak / 1e9,
+            "estimate_gb": {"params": param_bytes / 1e9, "grads": param_bytes / 1e9,
+                            "moments_f32": 8 * n_params / 1e9},
+            "bound_flops": flops, "bound_ms": bound_ms, "share_of_bound": bound_ms / step_ms}
+        emit("train_path_full", kind=name, nvidia_smi=smi, **runs[arch])
+        # ---- train_profile: one more step of the same model under torch.profiler
+        params = model.init_params(device=dev)
+        opt = adamw_init(params)
+        step_fn = tsteps.build_train_step(model, InputShape("cli", "train", s, b)).fn
+        raw = SyntheticTokenDataset(model.vocab, s, seed=0).batch(0, b)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        step_fn(params, opt, batch)  # warm
+        wall_ms, busy_ms, by_op = profile_device_ms(lambda: step_fn(params, opt, batch))
+        gemm_ms = sum(ms for k, _, ms in by_op
+                      if any(t in k.lower() for t in ("gemm", "xmma", "nvjet", "cutlass")))
+        emit("train_profile", arch=arch, wall_ms=wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=1.0 - busy_ms / wall_ms, matmul_device_ms=gemm_ms,
+             other_device_ms=busy_ms - gemm_ms, kernels=sum(c for _, c, _ in by_op),
+             kind=name, nvidia_smi=smi,
+             top_device_ops=[{"name": k[:80], "count": c, "device_ms": ms}
+                             for k, c, ms in by_op[:12]])
+        del params, opt, batch, step_fn
+        torch.cuda.empty_cache()
+
+    # ---- (d) resume: 4 steps against 2, a checkpoint, a restore and 2 more
+    model = get_model("gemma-2b", smoke=True)
+    opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    ds = SyntheticTokenDataset(vocab=model.vocab, seq_len=16, seed=1)
+    fn = tsteps.build_train_step(model, InputShape("t", "train", 16, 4), opt_cfg=opt_cfg).fn
+
+    def run(params, opt, start, stop):
+        for s_ in range(start, stop):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in ds.batch(s_, 4).items()}
+            params, opt, _ = fn(params, opt, batch)
+        return params, opt
+
+    def resume_diff():
+        p0 = model.init_params(device=dev)
+        pa, _ = run(p0, adamw_init(p0), 0, 4)
+        p1 = model.init_params(device=dev)
+        pb, ob = run(p1, adamw_init(p1), 0, 2)
+        directory = os.path.join(ROOT, "build", "train_resume")
+        ck = Checkpointer(directory)
+        ck.save_async(2, train.state_arrays(pb, ob))
+        like = model.init_params(device=dev)
+        arrays, _, step = ck.restore(train.state_arrays(like, adamw_init(like)))
+        pc, oc = run(*train.state_from_arrays(arrays, like, adamw_init(like)), 2, 4)
+        import shutil
+
+        shutil.rmtree(directory, ignore_errors=True)
+        worst = 0.0
+        for a, c in zip(tree_leaves(pa), tree_leaves(pc)):
+            a, c = a.float(), c.float()
+            excess = (a - c).abs() - (1e-6 + 1e-5 * c.abs())
+            worst = max(worst, float(excess.max()))
+        return step, worst <= 0, max(float((a.float() - c.float()).abs().max())
+                                     for a, c in zip(tree_leaves(pa), tree_leaves(pc)))
+
+    step, ok, diff = resume_diff()
+    deterministic = False
+    if not ok:  # the card's atomics: run again with deterministic algorithms
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        try:
+            step, ok, diff2 = resume_diff()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        deterministic = {"first_max_abs_diff": diff}
+        diff = diff2
+        if not ok:
+            raise AssertionError(f"train_path resume: 4 steps vs 2 + restore + 2 differ by {diff}")
+
+    # ---- (e) microbatch 2 against 1 on the card
+    big = get_model("gemma-2b", smoke=True)
+    raw = {k: torch.from_numpy(v).to(dev) for k, v in
+           SyntheticTokenDataset(big.vocab, 64, seed=2).batch(0, 4).items()}
+    mb = {}
+    for m in (1, 2):
+        p = big.init_params(device=dev)
+        step_fn = tsteps.build_train_step(big, InputShape("t", "train", 64, 4), microbatch=m,
+                                          opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=1)).fn
+        p, _, met = step_fn(p, adamw_init(p), raw)
+        mb[m] = (p, met)
+    for k in ("loss", "grad_norm"):
+        a, c = float(mb[2][1][k]), float(mb[1][1][k])
+        if abs(a - c) > (TRAIN_LOSS_RTOL if k == "loss" else TRAIN_NORM_RTOL) * abs(c):
+            raise AssertionError(f"train_path microbatch: {k} {a} vs {c}")
+    for a, c in zip(tree_leaves(mb[2][0]), tree_leaves(mb[1][0])):
+        if bool(((a.float() - c.float()).abs() > 2 * TRAIN_LR + 2.0 ** -7 * c.float().abs()).any()):
+            raise AssertionError("train_path microbatch: parameters off after one step")
+
+    # ---- (f) a loss through the flash route raises on the card
+    flash = dataclasses.replace(big, cfg=dataclasses.replace(big.cfg, attn_impl="flash"))
+    try:
+        tsteps.value_and_grad(flash, big.init_params(device=dev),
+                              big.example_inputs("train", 2, 64, dev))
+        raise AssertionError("train_path: a loss through the flash route did not raise")
+    except FlashBackwardError as e:
+        refusal = str(e)
+    emit("train_path_checks", resume_step=step, resume_max_abs_diff=diff,
+         resume_deterministic=deterministic,
+         microbatch={str(m): {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])}
+                     for m, (_, met) in mb.items()},
+         flash_refusal=refusal, kind=name, nvidia_smi=smi)
+    return runs
+
+
 #: tuning_path's autotuned cells: (tag, model, regions, dataset, batch, chunk)
 TUNING_CELLS = (("siard 100000x49", "siard", 1, "italy", 100_000, 10_000),
                 ("metapop_seir R=100 20000x49", "metapop_seir", 100, "synthetic_small",
@@ -2771,9 +3296,40 @@ def tuning_phase(dev, name: str, smi: str, italy_argv, main_post, main_tolerance
     return launches, gated
 
 
-def main() -> int:
+#: the phase groups `--only` can run after the build, in this order
+ONLY_GROUPS = ("flash", "encdec", "train")
+
+
+def partial_run(dev, name: str, smi: str, only, t_start: float) -> int:
+    """`--only`: the named groups of phases after the build, for work on
+    one part (no kernels line: that is the whole run's)."""
     import torch
 
+    if "flash" in only:
+        flash_phase(dev)
+    if "encdec" in only:
+        encdec_phases(dev, name, smi)
+    if "train" in only:
+        train_phases(dev, name, smi)
+    emit("total", wall_s=time.perf_counter() - t_start, only=sorted(only))
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on one card (see the docstring).")
+    ap.add_argument("--only", default="",
+                    help=f"comma list of {', '.join(ONLY_GROUPS)}: run only these phases "
+                    "after the build (the default runs everything)")
+    only = {g for g in ap.parse_args(argv).only.split(",") if g}
+    if not only <= set(ONLY_GROUPS):
+        ap.error(f"--only takes {ONLY_GROUPS}, got {sorted(only)}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one CUDA card", file=sys.stderr)
@@ -2893,6 +3449,9 @@ def main() -> int:
          "not measured: the toolkit has no cuobjdump",
          abc_sim_census=census or "not measured: the toolkit has no cuobjdump",
          census_per_sample_day=census_per_day or "not measured: the toolkit has no cuobjdump")
+
+    if only:
+        return partial_run(dev, name, smi, only, t_start)
 
     # ---- rng: the kernel's hash bits and normals against the plain twin
     B, C, seed = 1_000_000, 10, 0x5EED1234
@@ -4032,8 +4591,12 @@ def main() -> int:
     family_launches, zamba_cell = family_phases(dev, name, smi)
     by_path = {"lm_prefill gemma-2b": flash_lines[0]["launches"], **family_launches,
                **moe_phases(dev, name, smi)}
+    # ---- encdec_prefill, encdec_profile, encdec_flash_timing, encdec_decode;
+    # then train_path
+    by_path["encdec_prefill whisper-large-v3"], whisper_cells = encdec_phases(dev, name, smi)
+    train_phases(dev, name, smi)
     flash_lines[0].update(launches=sum(by_path.values()), launches_by_path=by_path,
-                          zamba2_shape=zamba_cell)
+                          zamba2_shape=zamba_cell, whisper_shapes=whisper_cells)
 
     # the census a sample-day, read in `build`, held last so that a drift
     # still leaves every other phase measured

@@ -1,12 +1,12 @@
 """Architecture configs of the port; importing this package registers them.
 
-Counterpart of `repro.configs` for every arch the port serves, which is all
-of `repro`'s but the encoder-decoder whisper-large-v3: the dense decoders
+Counterpart of `repro.configs`, every arch of `repro`'s: the dense decoders
 internlm2-20b, gemma2-27b (local windows, soft-caps, post-norms and a
 Python-float query scale), minitron-8b (relu2) and gemma-2b; the MoE
 decoders deepseek-moe-16b (a dense prefix layer, shared experts) and
 qwen3-moe-30b-a3b (GQA 8, 128 routed experts); the state-space
-mamba2-130m; the vision-language internvl2-2b; and the hybrid zamba2-2.7b.
+mamba2-130m; the encoder-decoder whisper-large-v3; the vision-language
+internvl2-2b; and the hybrid zamba2-2.7b.
 """
 
 from repro_torch.configs import (  # noqa: F401
@@ -18,6 +18,7 @@ from repro_torch.configs import (  # noqa: F401
     mamba2_130m,
     minitron_8b,
     qwen3_moe_30b_a3b,
+    whisper_large_v3,
     zamba2_2_7b,
 )
 
@@ -28,6 +29,7 @@ ALL_ARCHS = (
     "gemma-2b",
     "deepseek-moe-16b",
     "qwen3-moe-30b-a3b",
+    "whisper-large-v3",
     "mamba2-130m",
     "internvl2-2b",
     "zamba2-2.7b",

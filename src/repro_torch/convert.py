@@ -17,9 +17,12 @@ The port imports nothing of `repro`; what crosses is plain data:
     structure of arrays [P, B];
   * `decoder_params_from_arrays` turns `repro`'s decoder parameter tree
     (numpy arrays) into the port's parameters, and `params_from_arrays`
-    does the same for any family the port serves (decoder, ssm, hybrid,
-    vlm); `cache_from_arrays` carries a decode cache across likewise, so
-    that both packages can decode on from one state;
+    does the same for every family (decoder, ssm, hybrid, encdec, vlm);
+    `cache_from_arrays` carries a decode cache across likewise, so that
+    both packages can decode on from one state; `params_to_arrays` goes
+    the other way, for any tree shaped like the port's parameters (a
+    gradient, an optimizer moment): the port's per-layer lists restacked
+    into `repro`'s layout as float32 numpy arrays;
   * `mdn_params_from_arrays` does the same for the NPE estimator's MDN,
     from its leaves in `jax.tree.leaves` order (the order of an estimator
     file's `leaf_%03d` arrays).
@@ -27,6 +30,7 @@ The port imports nothing of `repro`; what crosses is plain data:
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Sequence, Union
 
 import numpy as np
@@ -44,8 +48,8 @@ from repro_torch.models.decoder import DecoderConfig, check_supported
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 __all__ = ["cache_from_arrays", "country_data_from_arrays", "decoder_params_from_arrays",
-           "load_npz", "mdn_params_from_arrays", "params_from_arrays", "schedule_from_fields",
-           "theta_to_soa"]
+           "load_npz", "mdn_params_from_arrays", "params_from_arrays", "params_to_arrays",
+           "schedule_from_fields", "theta_to_soa"]
 
 
 def country_data_from_arrays(
@@ -117,10 +121,12 @@ def load_npz(path: str) -> Union[ABCState, Posterior]:
     )
 
 
-#: parameters kept in float32 (norm scales, the MoE router, and a Mamba
-#: layer's norms, conv bias, dt bias, A_log and D); every other leaf is bf16
+#: parameters kept in float32 (norm scales, the MoE router, a Mamba layer's
+#: norms, conv bias, dt bias, A_log and D, and the encoder-decoder's layer
+#: norms and MLP biases); every other leaf is bf16
 _F32_LEAVES = ("ln1", "ln2", "post_attn", "post_ffn", "final_norm", "router",
-               "ln", "conv_b", "dt_bias", "A_log", "D", "gate_norm")
+               "ln", "conv_b", "dt_bias", "A_log", "D", "gate_norm", "scale", "bias",
+               "b1", "b2")
 
 
 def _leaf(name: str, a, device) -> torch.Tensor:
@@ -182,7 +188,9 @@ def params_from_arrays(model, tree: Dict[str, Any], device="cpu") -> Dict[str, A
       * hybrid: the Mamba layers stacked [n_super, shared_every, ...] become
         n_super lists of shared_every dicts, beside the shared block's
         parameters under "shared";
-      * vlm: the projector's two matrices, and the decoder tree under "lm".
+      * vlm: the projector's two matrices, and the decoder tree under "lm";
+      * encdec: the stacked "enc_layers" and "dec_layers" become lists of
+        layer dicts (their norms and attention nested as in `repro`).
     """
     cfg = model.cfg
     if model.family == "decoder":
@@ -190,6 +198,15 @@ def params_from_arrays(model, tree: Dict[str, Any], device="cpu") -> Dict[str, A
     if model.family == "vlm":
         return {"projector": {k: _leaf(k, tree["projector"][k], device) for k in ("w1", "w2")},
                 "lm": decoder_params_from_arrays(cfg.lm, tree["lm"], device)}
+    if model.family == "encdec":
+        ln = lambda t: {k: _leaf(k, a, device) for k, a in t.items()}  # noqa: E731
+        return {"frontend": _leaf("frontend", tree["frontend"], device),
+                "enc_layers": _mamba_layers(tree["enc_layers"], cfg.n_enc_layers, device),
+                "enc_norm": ln(tree["enc_norm"]),
+                "embed": _leaf("embed", tree["embed"], device),
+                "dec_pos": _leaf("dec_pos", tree["dec_pos"], device),
+                "dec_layers": _mamba_layers(tree["dec_layers"], cfg.n_dec_layers, device),
+                "dec_norm": ln(tree["dec_norm"])}
     out = {"embed": _leaf("embed", tree["embed"], device),
            "final_norm": _leaf("final_norm", tree["final_norm"], device)}
     if model.family == "ssm":
@@ -240,6 +257,9 @@ def cache_from_arrays(model, tree: Dict[str, Any], device="cpu") -> Dict[str, to
     flat = dict(tree)
     if model.family == "hybrid":
         flat["k"], flat["v"] = flat.pop("attn")
+    if model.family == "encdec":
+        flat["self_k"], flat["self_v"] = flat.pop("self")
+        flat["cross_k"], flat["cross_v"] = flat.pop("cross")
     if set(flat) != set(spec):
         raise ValueError(f"cache keys {sorted(flat)} != the port's {sorted(spec)}")
     out = {}
@@ -255,12 +275,58 @@ def _cache_batch_len(model, tree):
     """(batch, cache length) of a `repro` cache tree (length 0 for ssm)."""
     if model.family == "ssm":
         return np.shape(tree["ssm"])[1], 0
-    if model.family == "hybrid":
-        shape = np.shape(tree["attn"][0])
+    if model.family in ("hybrid", "encdec"):
+        shape = np.shape(tree["attn" if model.family == "hybrid" else "self"][0])
         return shape[1], shape[2]
     entry = tree["layers"][0][0]
     shape = np.shape(entry["q"] if isinstance(entry, dict) else entry)
     return shape[1], shape[2]
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().to(device="cpu", dtype=torch.float32).numpy()
+
+
+def _stack(layers) -> Dict[str, Any]:
+    """A list of layer dicts (nested dicts included) stacked on a new first
+    axis, as float32 numpy arrays."""
+    return {name: _stack([lp[name] for lp in layers]) if isinstance(layers[0][name], dict)
+            else np.stack([_host(lp[name]) for lp in layers]) for name in layers[0]}
+
+
+def _flat(tree) -> Any:
+    return ({k: _flat(v) for k, v in tree.items()} if isinstance(tree, dict)
+            else _host(tree))
+
+
+def params_to_arrays(model, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A tree shaped like the port's parameters of `model` (the parameters,
+    a gradient, a moment) in `repro`'s layout, float32 numpy arrays: the
+    inverse of `params_from_arrays` but for dtypes (every leaf float32)."""
+    cfg = model.cfg
+    if model.family == "vlm":
+        return {"projector": _flat(tree["projector"]),
+                "lm": params_to_arrays(dataclasses.replace(model, family="decoder",
+                                                           cfg=cfg.lm), tree["lm"])}
+    out = {k: _flat(v) for k, v in tree.items()
+           if k not in ("layers", "enc_layers", "dec_layers")}
+    if model.family == "decoder":
+        npos, n_prefix = len(cfg.attn_pattern), cfg.n_dense_prefix
+        layers = tree["layers"]
+        if n_prefix:
+            out["prefix"] = _stack(layers[:n_prefix])
+        out["layers"] = tuple(_stack(layers[n_prefix + p::npos]) for p in range(npos))
+    elif model.family == "ssm":
+        out["layers"] = _stack(tree["layers"])
+    elif model.family == "hybrid":
+        sites = [_stack(site) for site in tree["layers"]]
+        out["layers"] = {k: np.stack([s_[k] for s_ in sites]) for k in sites[0]}
+    elif model.family == "encdec":
+        out["enc_layers"] = _stack(tree["enc_layers"])
+        out["dec_layers"] = _stack(tree["dec_layers"])
+    else:
+        raise NotImplementedError(f"{model.name}: no {model.family!r} family")
+    return out
 
 
 def mdn_params_from_arrays(leaves: Sequence, cfg: NPEConfig, n_features: int,

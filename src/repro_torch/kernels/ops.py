@@ -238,6 +238,10 @@ def abc_sim_distance(
     return make_abc_sim(observed.to(theta.device), **kwargs)(theta, seed)
 
 
+class FlashBackwardError(RuntimeError):
+    """A gradient was asked of the flash route, which has none."""
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, S, H, D] (model layout)
     k: torch.Tensor,  # [B, T, KH, D]
@@ -254,7 +258,19 @@ def flash_attention(
     lengths themselves, so nothing is transposed or padded here. A CPU q
     goes to `ref.flash_attention_ref`, a CUDA q to the kernel of its dtype
     (`flash_attention.route`: bf16 on the tensor cores, float32 on the CUDA
-    cores), which raises on tensors it does not take."""
+    cores), which raises on tensors it does not take.
+
+    Neither the kernels nor `repro`'s TPU kernel have a backward: a call
+    that autograd would have to differentiate (grad mode on and q, k or v
+    requiring a gradient) raises `FlashBackwardError` on every device,
+    rather than train on the CPU's plain version and drop the gradients of
+    q, k and v on the card. Training takes attn_impl "dense" or
+    "blockwise", as `repro`'s does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise FlashBackwardError(
+            "the flash route has no backward (neither the CUDA kernels nor repro's "
+            "TPU kernel); a loss that needs gradients takes attn_impl='dense' or "
+            "'blockwise'")
     if q.device.type == "cpu":
         for name, t in (("k", k), ("v", v)):
             if t.device != q.device:

@@ -3,9 +3,10 @@
 Counterpart of `repro.models.common`, for what the decoder needs: norms,
 soft-capping, RoPE, attention (dense, blockwise, one-token decode and the
 router that adds the flash kernel), the gated MLP, the int8 KV-cache
-quantization and the embedding; and for the NPE estimator's trunk
-(`core/npe.py`), `layer_norm` and `vanilla_mlp`. The cross-entropy helpers
-wait for the slice that trains.
+quantization, the embedding, the training loss (`cross_entropy_loss`,
+`cross_entropy_chunked`) and the configs' rematerialization (`remat`);
+and for the NPE estimator's trunk (`core/npe.py`) and the encoder-decoder,
+`layer_norm` and `vanilla_mlp`.
 
 Conventions kept from `repro`: activations and matrices bf16, norms,
 softmax and RoPE angles float32; attention takes q [B, S, H, D] and k, v
@@ -20,11 +21,13 @@ scores are then rounded to bf16 before they are cast to float32).
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as torch_checkpoint
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -309,3 +312,95 @@ def unembed(x: torch.Tensor, table: torch.Tensor, logit_cap: Optional[float] = N
 def last_token_logits(x: torch.Tensor, table: torch.Tensor, logit_cap=None) -> torch.Tensor:
     """Serving prefill output: next-token logits [B, 1, V] only."""
     return unembed(x[:, -1:], table, logit_cap)
+
+
+# ---------------------------------------------------------------------- loss
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross entropy. logits [B, S, V] float32, labels [B, S]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.long))[..., 0]
+    return torch.mean(logz - gold)
+
+
+def _pick_chunk(s: int, target: int = 1024) -> int:
+    for c in (target, 512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if c <= s and s % c == 0:
+            return c
+    return s
+
+
+def _chunk_ce_sum(xc, table, lc, logit_cap):
+    logits = unembed(xc, table, logit_cap)  # [B, c, V] float32, one chunk
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].to(torch.long))[..., 0]
+    return torch.sum(logz - gold)
+
+
+def cross_entropy_chunked(
+    x: torch.Tensor,  # [B, S, d] final features
+    table: torch.Tensor,  # [V, d] unembedding
+    labels: torch.Tensor,  # [B, S]
+    logit_cap: Optional[float] = None,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Mean cross entropy without the whole [B, S, V] float32 logits: the
+    unembedding and logsumexp run a sequence chunk at a time (`_pick_chunk`:
+    the largest of 1024, 512, ... that divides S), each chunk checkpointed
+    as `repro`'s `jax.checkpoint` does, so that autograd keeps one [B, chunk,
+    V] slab at a time and not one a chunk. The chunk sums add up in float32
+    in order, then divide by B * S."""
+    b, s, _ = x.shape
+    c = _pick_chunk(s, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    grad = torch.is_grad_enabled()
+    for c0 in range(0, s, c):
+        xc, lc = x[:, c0:c0 + c], labels[:, c0:c0 + c]
+        if grad:
+            part = torch_checkpoint.checkpoint(_chunk_ce_sum, xc, table, lc, logit_cap,
+                                               use_reentrant=False)
+        else:
+            part = _chunk_ce_sum(xc, table, lc, logit_cap)
+        total = total + part
+    return total / (b * s)
+
+
+# --------------------------------------------------------------------- remat
+REMAT_POLICIES = ("none", "dots", "full")
+
+#: the products `"dots"` keeps, `repro`'s `dots_with_no_batch_dims_saveable`:
+#: matrix products with no batch dimension (a [B, S, d] @ [d, f] product
+#: reaches autograd as one `mm` of the flattened rows)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """`fn` under a config's `remat` policy, as `repro` wraps its scanned
+    layer bodies: "none" keeps every activation autograd saves; "full"
+    checkpoints the call (its backward runs `fn` again); "dots" also runs it
+    again but keeps the outputs of its matrix products
+    (`torch.utils.checkpoint.create_selective_checkpoint_contexts`). Remat
+    moves memory, not values: the gradients are the same bits. With no
+    gradient to take (serving), `fn` runs as it is."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat {policy!r} is not one of {REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts, _dots_policy)
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped

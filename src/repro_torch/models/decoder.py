@@ -65,7 +65,7 @@ class DecoderConfig:
     moe: Optional[moe_lib.MoEConfig] = None
     n_dense_prefix: int = 0  # deepseek: leading dense-FFN layers
     dense_prefix_ff: int = 0  # their width
-    remat: str = "full"  # kept for parity with repro; the port has no backward yet
+    remat: str = "full"  # "none" | "dots" | "full" (common.remat), each layer
     attn_impl: str = "auto"  # "auto" | "dense" | "blockwise" | "flash"
     sub_quadratic: bool = False
     kv_quant: bool = False  # int8 KV cache (env REPRO_KV_QUANT=1 also turns it on)
@@ -252,23 +252,33 @@ def _block(x, p, cfg, i, positions, impl, cache=None, pos=None):
     return x + f, aux
 
 
-@torch.no_grad()
 def forward(params, tokens: Optional[torch.Tensor], cfg: DecoderConfig, *, embeds=None):
-    """Prefill trunk. tokens [B, S], or `embeds` [B, S, d] in their place
-    (cast to bf16, with no embedding scale; positions 0..S-1 over the whole
-    row) -> (final features [B, S, d], MoE aux loss summed over the
-    layers)."""
+    """Training and prefill trunk. tokens [B, S], or `embeds` [B, S, d] in
+    their place (cast to bf16, with no embedding scale; positions 0..S-1
+    over the whole row) -> (final features [B, S, d], MoE aux loss summed
+    over the layers). Under autograd each layer runs under `cfg.remat`."""
     check_supported(cfg)
     x = (cm.embed(tokens, params["embed"], cfg.embed_scale) if embeds is None
          else embeds.to(cm.DEFAULT_DTYPE))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = cm.remat(_block, cfg.remat)
     for i, lp in enumerate(params["layers"]):
-        x, a = _block(x, lp, cfg, i, positions, cfg.attn_impl)
+        x, a = block(x, lp, cfg, i, positions, cfg.attn_impl)
         aux = aux + a
     return cm.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+def loss_fn(params, batch, cfg: DecoderConfig, *, embeds=None):
+    """The training objective: the mean next-token cross entropy of
+    batch["labels"] (chunked, `common.cross_entropy_chunked`) plus the MoE
+    aux loss of every MoE layer."""
+    feats, aux = forward(params, batch.get("tokens"), cfg, embeds=embeds)
+    return cm.cross_entropy_chunked(feats, unembed_table(params, cfg), batch["labels"],
+                                    cfg.final_softcap) + aux
+
+
+@torch.no_grad()
 def prefill_logits(params, batch, cfg: DecoderConfig, *, embeds=None):
     """Next-token logits [B, 1, V] float32 of a prompt batch (or of
     `embeds`, see `forward`)."""

@@ -47,7 +47,7 @@ class HybridConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     chunk: int = 128
-    remat: str = "full"  # kept for parity with repro; the port has no backward yet
+    remat: str = "full"  # "none" | "dots" | "full" (common.remat), each site
     attn_impl: str = "auto"  # "auto" | "dense" | "blockwise" | "flash"
     sub_quadratic: bool = True
     tie_embed: bool = True
@@ -149,22 +149,37 @@ def _shared_block(x, x0, p, cfg: HybridConfig, positions, impl, cache=None, pos=
     return x + h @ p["w_out"]
 
 
-@torch.no_grad()
+def _site(x, x0, site, shared, cfg: HybridConfig, positions, impl):
+    """One site: its Mamba layers, then the shared block."""
+    mcfg = cfg.mamba
+    for mp in site:
+        x = ssm_lib.mamba_block(x, mp, mcfg)
+    return _shared_block(x, x0, shared, cfg, positions, impl)
+
+
 def forward(params, tokens: torch.Tensor, cfg: HybridConfig):
-    """Prefill trunk. tokens [B, S] -> (final features [B, S, d], 0)."""
+    """Training and prefill trunk. tokens [B, S] -> (final features
+    [B, S, d], 0). Under autograd each site (its Mamba layers and the
+    shared block) runs under `cfg.remat`, as `repro`'s scanned site body
+    does; the shared block's gradient adds up over its sites."""
     check_supported(cfg)
     x0 = cm.embed(tokens, params["embed"])
     x = x0
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    mcfg = cfg.mamba
+    site_fn = cm.remat(_site, cfg.remat)
     for site in params["layers"]:
-        for mp in site:
-            x = ssm_lib.mamba_block(x, mp, mcfg)
-        x = _shared_block(x, x0, params["shared"], cfg, positions, cfg.attn_impl)
+        x = site_fn(x, x0, site, params["shared"], cfg, positions, cfg.attn_impl)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def loss_fn(params, batch, cfg: HybridConfig) -> torch.Tensor:
+    """Mean next-token cross entropy of batch["labels"] (chunked)."""
+    feats, aux = forward(params, batch["tokens"], cfg)
+    return cm.cross_entropy_chunked(feats, params["embed"], batch["labels"]) + aux
+
+
+@torch.no_grad()
 def prefill_logits(params, batch, cfg: HybridConfig) -> torch.Tensor:
     """Next-token logits [B, 1, V] float32 of a prompt batch."""
     feats, _ = forward(params, batch["tokens"], cfg)

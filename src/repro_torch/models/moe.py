@@ -150,13 +150,29 @@ def aux_loss(r: Routing, cfg: MoEConfig) -> torch.Tensor:
     return cfg.router_aux_weight * e * torch.sum(f_e * p_e)
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+class _BmmF32(torch.autograd.Function):
     """a @ b of bf16 batches with the float32 accumulator kept, not rounded
     to bf16: cuBLAS's bf16 product with a float32 output on the card, a
-    float32 product of the same (exact) values elsewhere."""
-    if a.is_cuda:
-        return torch.ops.aten.bmm.dtype(a, b, torch.float32)
-    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+    float32 product of the same (exact) values elsewhere. Its backward is
+    JAX's of `repro`'s bf16 einsum: the float32 cotangent rounded to the
+    inputs' dtype, then the two transposed bf16 products."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.ops.aten.bmm.dtype(a, b, torch.float32)
+        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        grad = grad.to(a.dtype)
+        return torch.bmm(grad, b.transpose(1, 2)), torch.bmm(a.transpose(1, 2), grad)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _BmmF32.apply(a, b)
 
 
 def _experts(buf: torch.Tensor, p: dict, act: str) -> torch.Tensor:

@@ -63,7 +63,7 @@ class Mamba2Config:
     chunk: int = 128
     norm_eps: float = 1e-6
     tie_embed: bool = True
-    remat: str = "full"  # kept for parity with repro; the port has no backward yet
+    remat: str = "full"  # "none" | "dots" | "full" (common.remat), each layer
     sub_quadratic: bool = True
 
     @property
@@ -204,8 +204,12 @@ def ssd_chunked(
     # intra-chunk (quadratic in q: the "attention dual"), every chunk at once,
     # the heads ahead of the [q, q] plane so that its passes run contiguous
     cum_h = cum.transpose(2, 3).contiguous()  # [b, c, h, q]
-    L = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])  # [b, c, h, qi, qj]
-    L = torch.where(causal, L, 0.0)
+    # masked before the exp, where repro masks after it: above the diagonal
+    # cum_i - cum_j is a positive sum of dt that overflows exp at a full
+    # chunk, and the masked inf then makes the gradient 0 * inf = NaN (as
+    # repro's is). The values are the same: exp(-inf) is 0.
+    L = torch.exp(torch.where(causal, cum_h[..., :, None] - cum_h[..., None, :],
+                              float("-inf")))  # [b, c, h, qi, qj]
     scores = torch.einsum("bcqgn,bckgn->bcgqk", Cr, Br)  # [b, c, g, qi, qj]
     # groups -> heads as jnp.repeat maps them: head j reads group j // hg
     w = (scores[:, :, :, None] * L.view(b, nc, g, hg, q, q)).to(dtype).view(b, nc, h, q, q)
@@ -288,16 +292,25 @@ def mamba_decode_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: Mamba2C
 
 
 # ------------------------------------------------------------- full LM defs
-@torch.no_grad()
 def forward(params, tokens: torch.Tensor, cfg: Mamba2Config):
-    """Prefill trunk. tokens [B, S] -> (final features [B, S, d], 0)."""
+    """Training and prefill trunk. tokens [B, S] -> (final features
+    [B, S, d], 0). Under autograd each layer runs under `cfg.remat`."""
     x = cm.embed(tokens, params["embed"])
+    block = cm.remat(mamba_block, cfg.remat)
     for lp in params["layers"]:
-        x = mamba_block(x, lp, cfg)
+        x = block(x, lp, cfg)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def loss_fn(params, batch, cfg: Mamba2Config) -> torch.Tensor:
+    """Mean next-token cross entropy of batch["labels"] (chunked), through
+    the SSD chunked form: its backward is autograd's."""
+    feats, aux = forward(params, batch["tokens"], cfg)
+    return cm.cross_entropy_chunked(feats, params["embed"], batch["labels"]) + aux
+
+
+@torch.no_grad()
 def prefill_logits(params, batch, cfg: Mamba2Config) -> torch.Tensor:
     """Next-token logits [B, 1, V] float32 of a prompt batch."""
     feats, _ = forward(params, batch["tokens"], cfg)

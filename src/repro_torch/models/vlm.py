@@ -68,6 +68,19 @@ def _embeds(params, batch, cfg: VLMConfig) -> torch.Tensor:
     return torch.cat([img, txt], dim=1)
 
 
+def forward(params, batch, cfg: VLMConfig):
+    """batch: patch_embeds [B, P, vit_dim], tokens [B, S-P] -> (features
+    [B, S, d], aux) of the decoder over the image rows and the text."""
+    return dec_lib.forward(params["lm"], None, cfg.lm, embeds=_embeds(params, batch, cfg))
+
+
+def loss_fn(params, batch, cfg: VLMConfig) -> torch.Tensor:
+    """The decoder's loss over the whole row: batch["labels"] [B, S] covers
+    the P patch rows and the S-P text tokens, as `make_inputs` lays them
+    out."""
+    return dec_lib.loss_fn(params["lm"], batch, cfg.lm, embeds=_embeds(params, batch, cfg))
+
+
 @torch.no_grad()
 def prefill_logits(params, batch, cfg: VLMConfig) -> torch.Tensor:
     """batch: patch_embeds [B, P, vit_dim], tokens [B, S-P] -> next-token

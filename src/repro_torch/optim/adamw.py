@@ -2,8 +2,9 @@
 `repro.optim.adamw`).
 
 `repro`'s own optimizer, not `torch.optim.AdamW`, whose clipping, schedule
-and rounding differ. Parameters are a tree of float32 tensors: dicts (walked
-in sorted key order, as `jax.tree.leaves` walks them), lists and tuples.
+and rounding differ. Parameters are a tree of tensors: dicts (walked in
+sorted key order, as `jax.tree.leaves` walks them), lists and tuples; a
+bf16 parameter is updated in float32 and rounded back, as `repro` does.
 The step is a float32 computation on the parameters' device:
 
     scale = min(1, clip_norm / max(||g||, 1e-9))          global norm
@@ -14,8 +15,11 @@ The step is a float32 computation on the parameters' device:
 
 with `b1 ** t` in float32 and each product and sum in `repro`'s order. The
 step counter is an int32 tensor on the device, so an update reads nothing
-back to the host. Each operation runs once over all leaves
-(`torch._foreach_*`).
+back to the host. `adamw_update` runs each operation once over all leaves
+(`torch._foreach_*`) and returns new tensors; `adamw_update_` computes the
+same values leaf by leaf into the caller's parameters and moments (the
+port's form of `repro`'s donated buffers), so that no more than one leaf's
+temporaries live at a time.
 """
 
 from __future__ import annotations
@@ -102,18 +106,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-@torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig) -> Tuple[Any, dict, dict]:
-    """Returns (new_params, new_state, metrics); the inputs are not changed."""
+def _schedule_terms(grads, state: dict, cfg: AdamWConfig):
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    lr = cosine_schedule(cfg, step)
     step_f = step.to(torch.float32)
-    b1c = 1 - torch.pow(cfg.b1, step_f)
-    b2c = 1 - torch.pow(cfg.b2, step_f)
+    return (step, gnorm, scale, cosine_schedule(cfg, step), 1 - torch.pow(cfg.b1, step_f),
+            1 - torch.pow(cfg.b2, step_f))
 
-    p = tree_leaves(params)
+
+@torch.no_grad()
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig) -> Tuple[Any, dict, dict]:
+    """Returns (new_params, new_state, metrics); the inputs are not changed."""
+    step, gnorm, scale, lr, b1c, b2c = _schedule_terms(grads, state, cfg)
+    p = [x.to(torch.float32) for x in tree_leaves(params)]
     g = [x.to(torch.float32) for x in tree_leaves(grads)]
     # mu = b1 * mu + (1 - b1) * g * scale
     mu = torch._foreach_add(torch._foreach_mul(tree_leaves(state["mu"]), cfg.b1),
@@ -127,6 +133,34 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig) -> Tuple[Any, dic
     delta = torch._foreach_add(torch._foreach_div(torch._foreach_div(mu, b1c), denom),
                                torch._foreach_mul(p, cfg.weight_decay))
     new_p = torch._foreach_sub(p, torch._foreach_mul(delta, lr))
+    new_p = [x.to(old.dtype) for x, old in zip(new_p, tree_leaves(params))]
     new_state = {"mu": tree_unflatten(state["mu"], mu), "nu": tree_unflatten(state["nu"], nu),
                  "step": step}
     return tree_unflatten(params, new_p), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_(params, grads, state: dict, cfg: AdamWConfig) -> Tuple[Any, dict, dict]:
+    """`adamw_update` in place: the same values, written into `params` and
+    `state`'s moments leaf by leaf (each operation in `adamw_update`'s
+    order, so the bits are the same). Returns (params, state, metrics),
+    the caller's trees."""
+    step, gnorm, scale, lr, b1c, b2c = _schedule_terms(grads, state, cfg)
+    for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]),
+                            tree_leaves(state["nu"])):
+        g = g.to(torch.float32)
+        t = g * (1 - cfg.b1)
+        t.mul_(scale)
+        mu.mul_(cfg.b1).add_(t)
+        gs = g * scale
+        t = gs * (1 - cfg.b2)
+        t.mul_(gs)
+        nu.mul_(cfg.b2).add_(t)
+        denom = nu / b2c
+        denom.sqrt_().add_(cfg.eps)
+        delta = mu / b1c
+        delta.div_(denom).add_(p.to(torch.float32) * cfg.weight_decay)
+        delta.mul_(lr)
+        p.copy_(p.to(torch.float32) - delta)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -324,6 +324,9 @@ FLASH_CASES = [
     (4, 2048, 16, 8, 128, 2048, True, None, None),  # internvl2-2b prefill
     (4, 2048, 48, 8, 128, 2048, True, None, None),  # internlm2-20b prefill
     (4, 2048, 32, 8, 128, 2048, True, None, None),  # minitron-8b prefill
+    (4, 1500, 20, 20, 64, 1500, False, None, None),  # whisper-large-v3 encoder (D 64)
+    (4, 187, 20, 20, 64, 1500, False, None, None),  # whisper's cross-attention
+    (4, 187, 20, 20, 64, 187, True, None, None),  # whisper's decoder self-attention
 ]
 #: float32: the bar of tests/test_kernel_flash.py:31 (the float32 kernel's
 #: 3xTF32 products keep about 21 bits of each factor). bf16: kernel and plain
@@ -639,6 +642,89 @@ def test_moe_layer_on_the_card_matches_the_dense_oracle(cuda, shape):
     tight = dataclasses.replace(cfg, capacity_factor=0.25)
     r = moe.route(x.to(cuda).reshape(-1, d), card["router"], tight, moe.capacity(128, tight))
     assert 0 < int((~r.keep).sum()) < r.keep.numel()
+
+
+# ------------------------------------------------- encoder-decoder and training
+def test_whisper_prefill_goes_through_the_kernel(cuda):
+    """Full-width whisper-large-v3 on 1 x 1,500 frames and 187 tokens: 96
+    bf16 launches (32 encoder, 32 causal decoder, 32 cross-attention with
+    Skv 1,500 != Sq 187), no plain call, logits within 16 bf16 steps of the
+    dense route at the largest |logit| (chip_smoke.py's encdec_prefill bar),
+    argmax equal where the top two are more than twice that apart."""
+    from repro_torch.models.registry import get_model
+
+    model = get_model("whisper-large-v3")
+    params = model.init_params(device=cuda)
+    batch = model.example_inputs("prefill", 1, 1500, cuda)
+    assert batch["tokens"].shape == (1, 187)
+    launches, calls, tc = fa.LAUNCHES, ref.FLASH_CALLS, fa.LAUNCHES_TENSOR_CORE
+    got = model.with_cfg(attn_impl="flash").prefill(params, batch)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES - launches, ref.FLASH_CALLS - calls) == (96, 0)
+    assert fa.LAUNCHES_TENSOR_CORE - tc == 96
+    want = model.with_cfg(attn_impl="dense").prefill(params, batch)
+    assert got.shape == (1, 1, model.cfg.vocab) and bool(torch.isfinite(got).all())
+    bar = 16 * 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got - want).abs().max()) <= bar
+    top2 = torch.topk(want[:, 0], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+    assert bool((got[:, 0].argmax(-1) == want[:, 0].argmax(-1))[decided].all())
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-moe-16b", "mamba2-130m", "zamba2-2.7b",
+                                  "whisper-large-v3", "internvl2-2b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One build_train_step step of each family's smoke model on the card
+    against the same step on the CPU from the same parameters: loss rtol
+    1e-3, grad norm rtol 1e-2 (tests/test_torch_train_families.py's bars),
+    each parameter within 2 lr + one bf16 step (a first AdamW step moves a
+    parameter by lr (g / |g| + wd p))."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    model = get_model(arch, smoke=True)
+    lr = 1e-3
+    fn = steps.build_train_step(model, InputShape("t", "train", 64, 2),
+                                opt_cfg=AdamWConfig(lr=lr, warmup_steps=1)).fn
+    batch = model.example_inputs("train", 2, 64, "cpu", seed=1)
+    pc = model.init_params(device="cpu")
+    pg = _on(pc, cuda)
+    pc, _, mc = fn(pc, adamw_init(pc), batch)
+    pg, _, mg = fn(pg, adamw_init(pg), _on(batch, cuda))
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-3 * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= 1e-2 * float(mc["grad_norm"])
+    for c, g in zip(tree_leaves(pc), tree_leaves(pg)):
+        c, g = c.float(), g.float().cpu()
+        assert bool(((g - c).abs() <= 2 * lr + 2.0 ** -7 * c.abs()).all())
+
+
+def test_a_loss_through_flash_is_refused_on_the_card(cuda):
+    """Neither flash kernel has a backward: a gradient through the flash
+    route raises on the card as on the CPU, and launches nothing."""
+    from repro_torch.kernels.ops import FlashBackwardError
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.registry import get_model
+
+    model = get_model("gemma-2b", smoke=True)
+    params = model.init_params(device=cuda)
+    batch = model.example_inputs("train", 2, 64, cuda)
+    launches = fa.LAUNCHES
+    with pytest.raises(FlashBackwardError, match="no backward"):
+        value_and_grad(model.with_cfg(attn_impl="flash"), params, batch)
+    assert fa.LAUNCHES == launches
+    assert model.with_cfg(attn_impl="flash").prefill(params, batch).shape == (2, 1, model.vocab)
+    assert fa.LAUNCHES == launches + model.cfg.n_layers
 
 
 # ------------------------------------------------------------ the region axis

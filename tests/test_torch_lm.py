@@ -197,15 +197,15 @@ def jax_models():
 
 
 def test_registry_and_configs_mirror_repro():
-    """The port registers repro's archs but the encoder-decoder
-    whisper-large-v3, in repro's ALL_ARCHS order."""
+    """The port registers every arch of repro, the encoder-decoder
+    whisper-large-v3 included, in repro's ALL_ARCHS order."""
     from repro.configs import ALL_ARCHS as JALL
     from repro.models.registry import list_archs as jlist_archs
     from repro_torch.configs import ALL_ARCHS
 
-    assert list_archs() == tuple(a for a in jlist_archs() if a != "whisper-large-v3")
-    assert ALL_ARCHS == tuple(a for a in JALL if a != "whisper-large-v3")
-    for arch in FAMILY_ARCHS:
+    assert list_archs() == jlist_archs()
+    assert ALL_ARCHS == JALL
+    for arch in FAMILY_ARCHS + ["whisper-large-v3"]:
         assert get_model(arch).family == jget_model(arch).family
     for arch in ARCHS + MOE_ARCHS:
         for smoke in (False, True):
@@ -222,14 +222,20 @@ def test_registry_and_configs_mirror_repro():
             assert tc.param_count() == jc.param_count()
             assert tc.active_param_count() == jc.active_param_count()
     assert get_model("gemma-2b").param_count() == 2_506_172_416
+    assert get_model("whisper-large-v3").param_count() == jget_model(
+        "whisper-large-v3").param_count()
     with pytest.raises(KeyError, match="unknown arch"):
-        get_model("whisper-large-v3")
+        get_model("whisper-tiny")
 
 
 def test_unported_features_raise(monkeypatch):
-    """What stays unported raises: the encdec family and unknown attention
-    routes. MoE layers, dense prefixes, the int8 cache and the ssm, hybrid
-    and vlm families now build."""
+    """What the port does not do raises: a loss through the flash route
+    (neither kernel has a backward), the serve CLI on the encdec family (as
+    repro's refuses it), an unknown family and unknown attention routes.
+    MoE layers, dense prefixes, the int8 cache and every family build."""
+    from repro_torch.kernels.ops import FlashBackwardError
+    from repro_torch.launch.steps import value_and_grad
+
     m = get_model("gemma-2b", smoke=True)
     g = torch.Generator().manual_seed(0)
     moe = get_model("deepseek-moe-16b", smoke=True).cfg.moe
@@ -239,8 +245,11 @@ def test_unported_features_raise(monkeypatch):
     monkeypatch.setenv("REPRO_KV_QUANT", "1")
     assert m.init_cache_shape(2, 8)["k_q"].dtype == torch.int8
     monkeypatch.delenv("REPRO_KV_QUANT")
-    with pytest.raises(NotImplementedError, match="'encdec' family"):
-        dataclasses.replace(m, family="encdec").init_params(g)
+    batch = m.example_inputs("train", 2, 8, "cpu")
+    with pytest.raises(FlashBackwardError, match="no backward"):
+        value_and_grad(m.with_cfg(attn_impl="flash"), m.init_params(g), batch)
+    with pytest.raises(NotImplementedError, match="'audio' family"):
+        dataclasses.replace(m, family="audio").init_params(g)
     monkeypatch.setattr(tserve, "get_model",
                         lambda *a, **k: dataclasses.replace(m, family="encdec"))
     with pytest.raises(SystemExit, match="decoder-family archs"):  # repro's refusal

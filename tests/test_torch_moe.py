@@ -447,6 +447,8 @@ class RoutingRecorder:
 
             def pick(probs, k_):
                 w, ids = _SELECT_EXPERTS(probs, k_)
+                if forced:  # copies: top-k's backward reads the ids it chose
+                    w, ids = w.clone(), ids.clone()
                 for t, want in forced.items():
                     ids[t] = torch.as_tensor(want)
                     w[t] = probs[t, ids[t]] / probs[t, ids[t]].sum()
@@ -457,7 +459,7 @@ class RoutingRecorder:
                 r = _ROUTE(xf, router, cfg, c)
             finally:
                 tmoe.select_experts = _SELECT_EXPERTS
-            self.port.append((xf.float().numpy(), r.top_ids.numpy()))
+            self.port.append((xf.detach().float().numpy(), r.top_ids.numpy()))
             return r
 
         monkeypatch.setattr(jmoe, "moe_ffn", ffn)
