@@ -353,6 +353,20 @@ printing one JSON line:
              torch.use_deterministic_algorithms only if it fails); (e)
              microbatch 2 against 1 at (a)'s bars; (f) a loss through
              attn_impl="flash" refused
+  mesh_path  the meshed steps (`launch.steps` on a DeviceMesh): (a) a
+             world of 1 over NCCL on a (1, 1) mesh, gemma-2b's train step
+             at full width, 4 x 2048, 2 steps, against the single-device
+             step from the same parameters and batches (losses and
+             parameters bitwise, else within the bars with the cause), each
+             step's ms beside the single device's; (b) 2 gloo ranks sharing
+             cuda:0 on (1, 2) and (2, 1): gemma2-27b's and
+             qwen3-moe-30b-a3b's smoke train steps against the card's
+             single-device step (qwen3 on (2, 1) as G = 2 dispatch groups,
+             `grouped_moe_reference`; routing pinned, flips explained) at
+             train_path's bars, and on (1, 2) gemma-2b's full-width 4 x
+             2048 prefill through the bf16 flash kernel on each rank's 4
+             query heads, 18 launches a rank, within lm_prefill's bar of
+             the single-device dense route
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
@@ -365,11 +379,11 @@ printing one JSON line:
              batches and the route chosen at each R and batch;
              tuning_path's autotune of R=100 on the warp route) and on the
              warp route, the bf16 flash route (its launches on lm_prefill,
-             every family_prefill, both moe_prefill runs and
-             encdec_prefill, `launches_by_path`; its zamba2-2.7b cell and
+             every family_prefill, both moe_prefill runs,
+             encdec_prefill and mesh_path's two ranks, `launches_by_path`; its zamba2-2.7b cell and
              whisper's three) and the float32 one
 
-`python3 chip_smoke.py --only flash,encdec,train` runs the build and then
+`python3 chip_smoke.py --only flash,encdec,train,mesh` runs the build and then
 only those groups of phases, with no kernels line.
 
 then the card's name and power limit as nvidia-smi gives them, and the last
@@ -2119,14 +2133,17 @@ class RoutingPin:
             return recording
         return self._patched(wrap)
 
-    def pin(self):
+    def pin(self, index=None):
+        """Pin each call to the reference's; `index(n)` names the reference
+        call of this run's call n (the same n by default)."""
         import torch
 
-        calls = iter(range(len(self.ref)))
+        calls = iter(range(10**9))
+        index = index or (lambda n: n)
 
         def wrap(route):
             def pinned(xf, router, cfg, c):
-                xr, ids_ref = (t.to(xf.device) for t in self.ref[next(calls)])
+                xr, ids_ref = (t.to(xf.device) for t in self.ref[index(next(calls))])
                 r = route(xf, router, cfg, c)
                 differ = (r.top_ids.sort(-1).values != ids_ref.sort(-1).values).any(-1)
                 tokens = torch.nonzero(differ).flatten().tolist()
@@ -3072,6 +3089,444 @@ def train_phases(dev, name: str, smi: str) -> dict:
     return runs
 
 
+#: mesh_path (b): the smoke train steps' shape (name, mode, seq, batch) and
+#: the full-width prefill's (batch 4, prompt 2048)
+MESH_TRAIN = ("t", "train", 64, 4)
+MESH_PREFILL = ("p", "prefill", 2048, 4)
+#: mesh_path (a): gemma-2b's meshed train step at full width, 4 x 2048, 2
+#: steps, beside the single-device step of train_path
+MESH_FULL = ("gemma-2b", 4, 2048, 2)
+
+
+def grouped_moe_reference(groups):
+    """`models.moe.moe_ffn` on one device as G = `groups` dispatch groups
+    compute it (`repro`'s grouped form on a mesh of G data ranks): each
+    group's consecutive tokens routed and dispatched with capacity(n / G),
+    the aux loss over every token. The plain reference of a meshed MoE step
+    on G data ranks."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    def ffn(x, p, cfg, act="silu"):
+        b, s, d = x.shape
+        n = b * s
+        m = n // groups
+        xf = x.reshape(n, d)
+        ys = [moe_lib._moe(xf[i * m:(i + 1) * m].reshape(1, m, d), p, cfg, act, True)[0]
+              for i in range(groups)]
+        probs = torch.softmax(xf.to(torch.float32) @ p["router"].to(torch.float32), dim=-1)
+        _, top_ids = moe_lib.select_experts(probs, cfg.top_k)
+        counts = moe_lib.expert_counts(top_ids.reshape(-1), cfg.n_experts).to(torch.float32)
+        aux = cfg.router_aux_weight * cfg.n_experts * torch.sum(
+            (counts / top_ids.numel()) * probs.mean(dim=0))
+        return torch.cat(ys, dim=1).reshape(b, s, d), aux
+    return ffn
+
+
+def gloo_cuda_all_gather() -> None:
+    """mesh_path (b)'s two gloo ranks on one card: gloo's all-gather crashes
+    its process on CUDA tensors (torch 2.11; its all-reduce, reduce-scatter
+    and all-to-all take them), so this process's functional all-gathers
+    (`all_gather_tensor`, `all_gather_single`, which DTensor's
+    redistributions call) run, for a gloo group and a CUDA tensor, as an
+    all-reduce of a buffer zero but for this rank's block: the same values,
+    on the card, n times an all-gather's wire. Every other call goes to
+    torch's own. A layout of this smoke test only: a deployment's ranks
+    each have a card and NCCL."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def by_all_reduce(fn):
+        def all_gather(t, gather_dim, group, tag=""):
+            pg = _resolve_process_group(funcol._resolve_group_name(group, tag))
+            if not t.is_cuda or dist.get_backend(pg) != "gloo":
+                return fn(t, gather_dim, group, tag)
+            buf = t.new_zeros((pg.size(),) + tuple(t.shape))
+            buf[dist.get_rank(pg)] = t  # x + 0 is x (a -0.0 comes back +0.0)
+            out = funcol.wait_tensor(funcol.all_reduce(buf, "sum", group, tag))
+            return torch.cat(list(out.unbind(0)), dim=gather_dim)
+        return all_gather
+
+    for name in ("all_gather_tensor", "all_gather_single"):
+        fn = getattr(funcol, name, None)
+        if fn is not None:
+            setattr(funcol, name, by_all_reduce(fn))
+
+
+def mesh_rank(rank, world, cases):
+    """A gloo rank on cuda:0 beside another: each case of `cases` on its
+    mesh, in order. A train case ({"case": "train", "arch", "shape",
+    "ref"}) runs the meshed smoke train step, its MoE routing pinned to the
+    reference's (`RoutingPin`, call n of this rank's group g taken from the
+    reference's call n G + g); a prefill case runs gemma-2b's full-width
+    prefill through the flash kernel on this rank's heads, its launches
+    counted from 0."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.mesh import make_compat_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import build_step, full_tree, shard_tree
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    dev = torch.device("cuda:0")
+    gloo_cuda_all_gather()
+    out = []
+    for case in cases:
+        mesh = make_compat_mesh(case["shape"], ("data", "model"), "cuda")
+        if case["case"] == "prefill":
+            model = get_model("gemma-2b").with_cfg(attn_impl="flash")
+            params = model.init_params(device=dev)
+            built = build_step(model, InputShape(*MESH_PREFILL), mesh)
+            tokens = torch.as_tensor(np.random.default_rng(0).integers(
+                0, model.vocab, size=(MESH_PREFILL[3], MESH_PREFILL[2])), device=dev)
+            p = shard_tree(params, built.in_shardings[0])
+            batch = shard_tree({"tokens": tokens}, built.in_shardings[1])
+            del params
+            torch.cuda.synchronize()
+            fa.LAUNCHES = fa.LAUNCHES_TENSOR_CORE = fa.LAUNCHES_TENSOR_CORE_F32 = 0
+            kref.FLASH_CALLS = 0
+            t0 = time.perf_counter()
+            logits = built.fn(p, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = (fa.LAUNCHES, fa.LAUNCHES_TENSOR_CORE, fa.LAUNCHES_TENSOR_CORE_F32,
+                      kref.FLASH_CALLS)
+            full = logits.full_tensor().cpu()
+            out.append({"case": "prefill", "shape": case["shape"], "launches": counts,
+                        "wall_s": wall, "logits": full if rank == 0 else None,
+                        "local_q_heads": model.cfg.n_heads // case["shape"][1]})
+            del p, batch, logits
+            torch.cuda.empty_cache()
+            continue
+        model = get_model(case["arch"], smoke=True)
+        params = _to(model.init_params(device="cpu"), dev)
+        batch = _to(model.example_inputs("train", MESH_TRAIN[3], MESH_TRAIN[2], "cpu", seed=1),
+                    dev)
+        built = build_step(model, InputShape(*MESH_TRAIN), mesh,
+                           opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10))
+        p_sh, o_sh, b_sh = built.in_shardings
+        dp = shard_tree(params, p_sh)
+        do = shard_tree(adamw_init(params), o_sh)
+        db = shard_tree(batch, b_sh)
+        flips = 0
+        if case.get("ref") is not None:
+            pin = RoutingPin(moe_lib)
+            pin.ref = case["ref"]
+            groups, g = case["shape"][0], mesh.get_coordinate()[0]
+            with pin.pin(lambda n: n * groups + g):
+                dp, do, met = built.fn(dp, do, db)
+            flips = pin.flips
+        else:
+            dp, do, met = built.fn(dp, do, db)
+        leaves = [t.float().cpu() for t in tree_leaves(full_tree(dp))]
+        mu = [t.float().cpu() for t in tree_leaves(full_tree(do["mu"]))]
+        nu = [t.float().cpu() for t in tree_leaves(full_tree(do["nu"]))]
+        out.append({"case": "train", "arch": case["arch"], "shape": case["shape"],
+                    "loss": float(met["loss"].full_tensor()),
+                    "grad_norm": float(met["grad_norm"].full_tensor()), "flips": flips,
+                    "params": leaves if rank == 0 else None, "mu": mu if rank == 0 else None,
+                    "nu": nu if rank == 0 else None,
+                    "mu_local": [tuple(t.to_local().shape) for t in tree_leaves(do["mu"])]})
+    return out
+
+
+def mesh_train_reference(dev, arch: str, groups: int, f32: bool = False):
+    """The card's single-device smoke train step of `arch` on mesh_path
+    (b)'s inputs: an MoE as `groups` dispatch groups (`grouped_moe_reference`),
+    its routing recorded (`RoutingPin`). With `f32`, the parameters widened
+    and `common.DEFAULT_DTYPE` float32 (the bf16 reference's noise)."""
+    import torch
+
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    model = get_model(arch, smoke=True)
+    moe = getattr(model.cfg, "moe", None) is not None
+    dtype = torch.float32 if f32 else None
+    params = _to(model.init_params(device="cpu"), dev, dtype)
+    batch = _to(model.example_inputs("train", MESH_TRAIN[3], MESH_TRAIN[2], "cpu", seed=1),
+                dev, dtype)
+    fn = tsteps.build_train_step(model, InputShape(*MESH_TRAIN), opt_cfg=AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=10), donate=False).fn
+    keep_ffn, keep_dtype = moe_lib.moe_ffn, cm.DEFAULT_DTYPE
+    if moe and groups > 1:
+        moe_lib.moe_ffn = grouped_moe_reference(groups)
+    if f32:
+        cm.DEFAULT_DTYPE = torch.float32
+    pin = RoutingPin(moe_lib)
+    try:
+        with pin.record():
+            p2, opt, met = fn(params, adamw_init(params), batch)
+    finally:
+        moe_lib.moe_ffn, cm.DEFAULT_DTYPE = keep_ffn, keep_dtype
+    return {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+            "params0": [t.float().cpu() for t in tree_leaves(params)],
+            "params": [t.float().cpu() for t in tree_leaves(p2)],
+            "mu": [t.float().cpu() for t in tree_leaves(opt["mu"])],
+            "nu": [t.float().cpu() for t in tree_leaves(opt["nu"])],
+            "ref": [(x.cpu(), i.cpu()) for x, i in pin.ref] if moe else None}
+
+
+def _bf16_step(t):
+    """The bf16 step (unit in the last place) at each |value| of `t`, 0 at 0."""
+    import torch
+
+    _, e = torch.frexp(t.double())
+    return torch.where(t != 0, torch.ldexp(torch.ones_like(t, dtype=torch.float64), e - 8),
+                       torch.zeros_like(t, dtype=torch.float64))
+
+
+def check_mesh_train(dev, got: dict, want: dict, groups: int) -> dict:
+    """mesh_path (b)'s bars, tests/test_torch_steps_mesh.py's: loss rtol
+    1e-3, grad norm rtol 1e-2, each first moment within 8 bf16 steps (or 8
+    plus half the reference's own bf16-vs-float32 noise there), each second
+    moment, read as the |gradient| it holds, at the first's bar, and each
+    parameter's change against the reference's: where the reference's
+    first moment exceeds the two moments' difference and both gradients
+    exceed 1000 eps, equal but for lr eps / min |g| and one bf16 rounding
+    (where neither has a gradient, but for the rounding); at least 90% of
+    the parameters held so and at most 1% of those not equal."""
+    import torch
+
+    from repro_torch.optim import AdamWConfig
+
+    cfg = AdamWConfig()
+    what = f"mesh_path {got['arch']} on {got['shape']}"
+    if abs(got["loss"] - want["loss"]) > TRAIN_LOSS_RTOL * abs(want["loss"]) or \
+            abs(got["grad_norm"] - want["grad_norm"]) > TRAIN_NORM_RTOL * want["grad_norm"]:
+        raise AssertionError(f"{what}: loss {got['loss']} vs {want['loss']}, grad norm "
+                             f"{got['grad_norm']} vs {want['grad_norm']}")
+    f32, worst, over = None, 0.0, []
+    decided = rounded = total = 0
+    for i, (g, w) in enumerate(zip(got["mu"], want["mu"])):
+        top = float(w.abs().max())
+        step = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 0.0
+        diff = float((g - w).abs().max())
+        worst = max(worst, diff / step if step else 0.0)
+        bar = TRAIN_LEAF_STEPS * step
+        if diff > bar:
+            if f32 is None:
+                f32 = mesh_train_reference(dev, got["arch"], groups, f32=True)["mu"]
+            noise = float((w - f32[i]).abs().max())
+            if diff > bar + noise / 2:
+                raise AssertionError(f"{what}: first moment leaf {i} {diff / step:.1f} bf16 "
+                                     f"steps from the single-device step's (its bf16 noise "
+                                     f"{noise / step:.1f} steps)")
+            over.append({"leaf": i, "steps": diff / step,
+                         "reference_bf16_noise_steps": noise / step})
+            bar += noise / 2
+        held = [torch.sqrt(t["nu"][i].double() / (1 - cfg.b2)) * (1 - cfg.b1)
+                for t in (got, want)]
+        nu_diff = float((held[0] - held[1]).abs().max())
+        if nu_diff > bar:
+            raise AssertionError(f"{what}: second moment leaf {i}: its |gradient| "
+                                 f"{nu_diff / step:.1f} bf16 steps from the reference's")
+        gs = torch.minimum(g.abs(), w.abs()).double() / (1 - cfg.b1)
+        sure = ((w.abs() > (g - w).abs()) & (gs > 1e3 * cfg.eps))
+        slack = TRAIN_LR * cfg.eps / torch.where(sure, gs, torch.full_like(gs, float("inf")))
+        sure |= (g == 0) & (w == 0)
+        p0 = want["params0"][i]
+        moved = got["params"][i] - p0, want["params"][i] - p0
+        off = sure & (moved[0] != moved[1])
+        apart = (moved[0] - moved[1]).abs().double()
+        one = _bf16_step(torch.maximum(got["params"][i].abs(), want["params"][i].abs()))
+        if bool((off & (apart > one + slack)).any()):
+            raise AssertionError(f"{what}: parameter leaf {i}: updates more than a bf16 step "
+                                 f"from the single-device step's where its gradient decides "
+                                 f"their sign")
+        decided += int(sure.sum())
+        rounded += int(off.sum())
+        total += sure.numel()
+    if decided < 0.9 * total or rounded > 0.01 * decided:
+        raise AssertionError(f"{what}: updates held at {decided} of {total} parameters, "
+                             f"{rounded} of them not equal")
+    return {"arch": got["arch"], "mesh": list(got["shape"]), "groups": groups,
+            "loss": got["loss"], "reference_loss": want["loss"], "grad_norm": got["grad_norm"],
+            "reference_grad_norm": want["grad_norm"], "routing_flips": got["flips"],
+            "worst_moment_steps": worst, "moment_leaves_over_8_steps": over,
+            "updates_held": decided, "parameters": total, "updates_held_not_equal": rounded}
+
+
+def mesh_phases(dev, name: str, smi: str) -> dict:
+    """mesh_path: the meshed steps (`launch.steps` on a `DeviceMesh`).
+    (a) a world of 1 over NCCL on a (1, 1) mesh: gemma-2b's meshed train
+    step at full width, 4 x 2048, 2 steps, against the single-device step
+    from the same parameters and batches, losses and parameters bit for bit,
+    each step's ms (CUDA events) beside the single device's in this run;
+    (b) 2 gloo ranks sharing cuda:0 on a (1, 2) model mesh and a (2, 1)
+    data mesh: gemma2-27b's and qwen3-moe-30b-a3b's smoke train steps
+    against the card's single-device step (qwen3 on (2, 1) against the
+    single device as G = 2 dispatch groups, `grouped_moe_reference`; its
+    routing pinned to the reference's, each flip explained), and on (1, 2)
+    gemma-2b's full-width 4 x 2048 prefill through the bf16 flash kernel on
+    each rank's 4 local query heads, its launches counted for each rank and
+    its logits within lm_prefill's bar of the single-device dense route.
+    Gloo on CUDA tensors: its all-gather runs as an all-reduce in the rank
+    processes (`gloo_cuda_all_gather`, on the card); any other collective it
+    lacks fails the phase, with its error. Returns {path: flash launches}
+    for the kernels line."""
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import make_compat_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_start = time.perf_counter()
+    # ---- (a) a world of 1 over NCCL, (1, 1), gemma-2b at full width
+    arch, b, s, n_steps = MESH_FULL
+    model = get_model(arch)
+    shape = InputShape("mesh", "train", s, b)
+    opt_cfg = AdamWConfig(lr=3e-4, total_steps=n_steps, warmup_steps=1)
+    ds = SyntheticTokenDataset(vocab=model.vocab, seq_len=s, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in ds.batch(i, b).items()}
+               for i in range(n_steps)]
+    runs = {}
+    with distributed.world("cuda"):
+        mesh = make_compat_mesh((1, 1), ("data", "model"), "cuda")
+        # the single device twice: its own run-to-run bits are the yardstick
+        for which in ("single", "mesh", "single_again"):
+            torch.cuda.empty_cache()
+            built = tsteps.build_train_step(model, shape, mesh if which == "mesh" else None,
+                                            opt_cfg=opt_cfg)
+            params = model.init_params(device=dev)
+            opt = adamw_init(params)
+            if which == "mesh":
+                params = tsteps.shard_tree(params, built.in_shardings[0])
+                opt = tsteps.shard_tree(opt, built.in_shardings[1])
+            losses, ms = [], []
+            for batch in batches:
+                if which == "mesh":
+                    batch = tsteps.shard_tree(batch, built.in_shardings[2])
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                params, opt, met = built.fn(params, opt, batch)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+                loss = met["loss"]
+                losses.append(float(loss.full_tensor() if which == "mesh" else loss))
+            leaves = [t.to_local() if which == "mesh" else t for t in tree_leaves(params)]
+            runs[which] = {"losses": losses, "step_ms": ms, "leaves": leaves}
+            del opt, built
+        single, meshed, again = runs["single"], runs["mesh"], runs["single_again"]
+        bitwise_losses = single["losses"] == meshed["losses"]
+        same_leaves = sum(bool(torch.equal(a, c)) for a, c in zip(single["leaves"],
+                                                                  meshed["leaves"]))
+        rerun_leaves = sum(bool(torch.equal(a, c)) for a, c in zip(single["leaves"],
+                                                                   again["leaves"]))
+        worst = max(float((a.float() - c.float()).abs().max())
+                    for a, c in zip(single["leaves"], meshed["leaves"]))
+        if not bitwise_losses or same_leaves != len(single["leaves"]):
+            # not bit for bit: then within the bars, the cause recorded
+            for x, y in zip(meshed["losses"], single["losses"]):
+                if abs(x - y) > TRAIN_LOSS_RTOL * abs(y):
+                    raise AssertionError(f"mesh_path (a): losses {meshed['losses']} vs "
+                                         f"{single['losses']}")
+            for a, c in zip(meshed["leaves"], single["leaves"]):
+                a, c = a.float(), c.float()
+                if bool(((a - c).abs() > 2 * 3e-4 * n_steps * (1 + 2.0 ** -7)
+                         + 2.0 ** -7 * c.abs()).any()):
+                    raise AssertionError("mesh_path (a): parameters off the single-device "
+                                         f"step's after {n_steps} steps (worst {worst})")
+        emit("mesh_world_of_one", arch=arch, batch=b, seq=s, steps=n_steps,
+             backend="nccl", mesh=[1, 1], losses=meshed["losses"],
+             single_device_losses=single["losses"], bitwise_losses=bitwise_losses,
+             bitwise_leaves=same_leaves, leaves=len(single["leaves"]),
+             max_abs_leaf_diff=worst, step_ms=meshed["step_ms"],
+             single_device_step_ms=single["step_ms"],
+             single_device_again_step_ms=again["step_ms"],
+             single_device_again_losses=again["losses"],
+             single_device_again_bitwise_leaves=rerun_leaves,
+             single_device_again_max_abs_leaf_diff=max(
+                 float((a.float() - c.float()).abs().max())
+                 for a, c in zip(single["leaves"], again["leaves"])),
+             mesh_over_single_step2=meshed["step_ms"][-1] / single["step_ms"][-1],
+             kind=name, nvidia_smi=smi)
+        del runs, single, meshed, again
+        torch.cuda.empty_cache()
+
+    # ---- (b) 2 gloo ranks sharing cuda:0
+    t0 = time.perf_counter()
+    refs, checks = {}, []
+    for arch in ("gemma2-27b", "qwen3-moe-30b-a3b"):
+        for groups in (1, 2):
+            refs[(arch, groups)] = mesh_train_reference(dev, arch, groups)
+    by_path = {}
+    for mesh_shape in ((1, 2), (2, 1)):
+        groups = mesh_shape[0]
+        cases = [{"case": "train", "arch": a, "shape": mesh_shape,
+                  "ref": refs[(a, groups)]["ref"]} for a in ("gemma2-27b", "qwen3-moe-30b-a3b")]
+        if mesh_shape == (1, 2):
+            cases.append({"case": "prefill", "shape": mesh_shape})
+        try:
+            ranks = distributed.spawn_ranks(mesh_rank, 2, cases, device="cuda:0",
+                                            backend="gloo", timeout=600)
+        except Exception as e:
+            raise AssertionError(f"mesh_path (b) on {mesh_shape} over gloo on cuda:0 failed "
+                                 f"(a collective gloo lacks on CUDA tensors fails here): "
+                                 f"{type(e).__name__}: {str(e)[-1500:]}") from e
+        for i, case in enumerate(cases):
+            got = [r[i] for r in ranks]
+            if case["case"] == "train":
+                checks.append(check_mesh_train(dev, got[0], refs[(case["arch"], groups)],
+                                               groups))
+                checks[-1]["rank_flips"] = [g["flips"] for g in got]
+                continue
+            # the prefill: every rank launched the bf16 kernel once a layer
+            n_layers = get_model("gemma-2b").cfg.n_layers
+            for r, g in enumerate(got):
+                launches, tc, f32, plain = g["launches"]
+                if (launches, tc, f32, plain) != (n_layers, n_layers, 0, 0):
+                    raise AssertionError(f"mesh_path prefill rank {r}: {launches} flash "
+                                         f"launches, {tc} bf16, {f32} float32, {plain} plain")
+                by_path[f"mesh_prefill gemma-2b rank {r}"] = launches
+            model = get_model("gemma-2b").with_cfg(attn_impl="dense")
+            params = model.init_params(device=dev)
+            tokens = torch.as_tensor(np.random.default_rng(0).integers(
+                0, model.vocab, size=(MESH_PREFILL[3], MESH_PREFILL[2])), device=dev)
+            dense = model.prefill(params, {"tokens": tokens}).float().cpu()
+            del params
+            torch.cuda.empty_cache()
+            logits = got[0]["logits"].float()
+            diff, top = float((logits - dense).abs().max()), float(dense.abs().max())
+            bar = PREFILL_BAR_STEPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+            top2 = torch.topk(dense[:, 0], 2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > 2 * bar
+            agree = logits[:, 0].argmax(-1) == dense[:, 0].argmax(-1)
+            if not diff <= bar or not bool(agree[decided].all()):
+                raise AssertionError(f"mesh_path prefill: 2 ranks' flash logits vs the single "
+                                     f"device's dense max |diff| {diff} (bar {bar})")
+            emit("mesh_prefill", arch="gemma-2b", batch=MESH_PREFILL[3],
+                 prompt_len=MESH_PREFILL[2], mesh=list(mesh_shape), backend="gloo",
+                 flash_launches_by_rank=[g["launches"][0] for g in got],
+                 local_q_heads=got[0]["local_q_heads"], wall_s=[g["wall_s"] for g in got],
+                 max_abs_diff_vs_dense=diff, bar=bar, argmax_agree=agree.tolist(),
+                 kind=name, nvidia_smi=smi)
+    emit("mesh_gloo_train", checks=checks, all_gather="all-reduce (gloo_cuda_all_gather)",
+         seconds=time.perf_counter() - t0, kind=name, nvidia_smi=smi)
+    emit("mesh_path", seconds=time.perf_counter() - t_start, kind=name, nvidia_smi=smi)
+    return by_path
+
+
 #: tuning_path's autotuned cells: (tag, model, regions, dataset, batch, chunk)
 TUNING_CELLS = (("siard 100000x49", "siard", 1, "italy", 100_000, 10_000),
                 ("metapop_seir R=100 20000x49", "metapop_seir", 100, "synthetic_small",
@@ -3297,7 +3752,7 @@ def tuning_phase(dev, name: str, smi: str, italy_argv, main_post, main_tolerance
 
 
 #: the phase groups `--only` can run after the build, in this order
-ONLY_GROUPS = ("flash", "encdec", "train")
+ONLY_GROUPS = ("flash", "encdec", "train", "mesh")
 
 
 def partial_run(dev, name: str, smi: str, only, t_start: float) -> int:
@@ -3311,6 +3766,8 @@ def partial_run(dev, name: str, smi: str, only, t_start: float) -> int:
         encdec_phases(dev, name, smi)
     if "train" in only:
         train_phases(dev, name, smi)
+    if "mesh" in only:
+        mesh_phases(dev, name, smi)
     emit("total", wall_s=time.perf_counter() - t_start, only=sorted(only))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4595,6 +5052,8 @@ def main(argv=None) -> int:
     # then train_path
     by_path["encdec_prefill whisper-large-v3"], whisper_cells = encdec_phases(dev, name, smi)
     train_phases(dev, name, smi)
+    # ---- mesh_path: the N-rank steps; its 2 ranks' flash launches join
+    by_path.update(mesh_phases(dev, name, smi))
     flash_lines[0].update(launches=sum(by_path.values()), launches_by_path=by_path,
                           zamba2_shape=zamba_cell, whisper_shapes=whisper_cells)
 

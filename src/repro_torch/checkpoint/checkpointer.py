@@ -17,8 +17,14 @@ loads in the other:
 A tree is a flat `dict[str, torch.Tensor | np.ndarray]`. `Checkpointer`
 keeps the newest `keep` steps; its `save_async` copies the tensors to host
 numpy on the caller's thread and writes them on a writer thread, one write
-in flight at a time, whose error comes back at the next `wait`. `repro`'s
-reshard-on-load (`shardings`) is scale-out and is not ported.
+in flight at a time, whose error comes back at the next `wait`.
+
+Reshard-on-load, `repro`'s elastic path: given `shardings` (a dict like
+`like` of layouts, anything with `.mesh` and `.placements`, such as
+`launch.steps.Sharding`), each leaf is restored as a DTensor of that
+layout, and each rank reads only its own block of the leaf's file (the
+`.npy` is memory-mapped and sliced). A checkpoint written by one device
+thereby restores onto N ranks under the step's layout.
 """
 
 from __future__ import annotations
@@ -91,10 +97,43 @@ def save_checkpoint(directory: str | Path, step: int, tree: Dict,
     return final
 
 
-def load_checkpoint(directory: str | Path, like: Dict,
-                    step: Optional[int] = None) -> Tuple[Dict[str, np.ndarray], Dict, int]:
+def _local_block(shape, layout) -> Tuple[slice, ...]:
+    """This rank's block of a tensor of `shape` laid out as `layout`: on
+    each dim, the chunk its mesh coordinates pick (major to minor over the
+    mesh dims that shard it, as DTensor lays it out)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = layout.mesh
+    coord = mesh.get_coordinate()
+    block = []
+    for d, n in enumerate(shape):
+        k, parts = 0, 1
+        for i, pl in enumerate(layout.placements):
+            if isinstance(pl, Shard) and pl.dim == d:
+                k, parts = k * mesh.size(i) + coord[i], parts * mesh.size(i)
+        size = n // parts
+        block.append(slice(k * size, (k + 1) * size))
+    return tuple(block)
+
+
+def _resharded(arr: np.ndarray, layout, device):
+    """The DTensor of layout `layout` whose local block is this rank's
+    block of `arr`."""
+    from torch.distributed.tensor import DTensor
+
+    local = torch.from_numpy(np.array(arr[_local_block(arr.shape, layout)]))
+    return DTensor.from_local(local.to(device), layout.mesh, layout.placements,
+                              run_check=False, shape=torch.Size(arr.shape),
+                              stride=torch.empty(arr.shape, device="meta").stride())
+
+
+def load_checkpoint(directory: str | Path, like: Dict, step: Optional[int] = None,
+                    shardings: Optional[Dict] = None,
+                    device="cpu") -> Tuple[Dict[str, object], Dict, int]:
     """Restore the leaves of `like` (the newest step unless `step` is
-    given) as host numpy arrays. Returns (tree, metadata, step). A leaf
+    given) as host numpy arrays, or, with `shardings`, as DTensors of those
+    layouts on `device`, each rank holding its own block (reshard-on-load;
+    the dtype is the file's). Returns (tree, metadata, step). A leaf
     missing from the checkpoint raises KeyError, one of another shape
     ValueError("shape mismatch ...")."""
     directory = Path(directory)
@@ -111,12 +150,12 @@ def load_checkpoint(directory: str | Path, like: Dict,
         e = by_path.get(keypath)
         if e is None:
             raise KeyError(f"checkpoint missing leaf {keypath}")
-        raw = np.load(path / e["file"])
+        raw = np.load(path / e["file"], mmap_mode="r" if shardings is not None else None)
         arr = raw.view(np.dtype(e["dtype"])).reshape(e["shape"])
         expected = tuple(np.shape(leaf_like))
         if tuple(arr.shape) != expected:
             raise ValueError(f"shape mismatch for {keypath}: ckpt {arr.shape} vs {expected}")
-        out[key] = arr
+        out[key] = arr if shardings is None else _resharded(arr, shardings[key], device)
     return out, manifest["metadata"], step
 
 
@@ -157,9 +196,10 @@ class Checkpointer:
         save_checkpoint(self.directory, step, tree, metadata)
         self._gc()
 
-    def restore(self, like: Dict, step: Optional[int] = None):
+    def restore(self, like: Dict, step: Optional[int] = None,
+                shardings: Optional[Dict] = None, device="cpu"):
         self.wait()
-        return load_checkpoint(self.directory, like, step)
+        return load_checkpoint(self.directory, like, step, shardings, device)
 
     def steps(self) -> List[int]:
         return _steps(self.directory)

@@ -4,8 +4,9 @@ Entry points take a `device` argument that defaults to "cuda". Asking for a
 card that is not there raises; nothing falls back to the CPU on its own.
 
 It also holds the card's ceilings, the port's counterpart of
-`repro.launch.analysis`'s `PEAK_FLOPS`/`HBM_BW` (which are a TPU v5e's): the
-bounds of `chip_smoke.py` and the roofline of `core.tuning` read them here.
+`repro.launch.analysis`'s `PEAK_FLOPS`/`HBM_BW`/`LINK_BW` (which are a TPU
+v5e's): the bounds of `chip_smoke.py`, the roofline of `core.tuning` and
+the dry run's (`launch.analysis`) read them here.
 """
 
 from __future__ import annotations
@@ -22,6 +23,15 @@ TF32_OPS_PER_S = 494.7e12
 #: a_hi b_hi + a_lo b_hi + a_hi b_lo); its bound counts all three
 TF32_PASSES = 3
 HBM_BYTES_PER_S = 3.35e12
+#: the link a rank's collectives cross when a mesh axis spans hosts: one
+#: InfiniBand NDR port of 400 Gb/s a GPU (NVIDIA DGX H100 user guide: eight
+#: ConnectX-7 400 Gb/s ports, one a GPU), 50 GB/s each way. A 16-wide
+#: "model" axis spans two 8-GPU nodes, so the dry run's collective term
+#: divides by this
+LINK_BYTES_PER_S = 50e9
+#: NVLink 4 within a node (the H100 SXM data sheet: 900 GB/s a GPU, both
+#: directions), for collectives that stay inside one 8-GPU node
+NVLINK_BYTES_PER_S = 900e9
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

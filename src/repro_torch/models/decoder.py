@@ -164,6 +164,44 @@ def init_params(generator: torch.Generator, cfg: DecoderConfig) -> Dict[str, Any
     return params
 
 
+def _layer_logical(cfg: DecoderConfig, kind: str) -> Dict[str, Any]:
+    """Logical axes of one layer's parameters (`repro`'s less its leading
+    "layers" axis: the port keeps a list of layers, not a stack)."""
+    spec = {
+        "ln1": ("embed",),
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+        "ln2": ("embed",),
+    }
+    if cfg.post_norms:
+        spec["post_attn"] = ("embed",)
+        spec["post_ffn"] = ("embed",)
+    if kind == "moe":
+        spec["moe"] = moe_lib.moe_logical(cfg.moe)
+    else:
+        spec["wg"] = ("embed", "ffn")
+        if cfg.act != "relu2":
+            spec["wu"] = ("embed", "ffn")
+        spec["wd"] = ("ffn", "embed")
+    return spec
+
+
+def param_logical(cfg: DecoderConfig) -> Dict[str, Any]:
+    """Logical axes of `init_params`' tree, leaf for leaf: layer i's are
+    `repro`'s of its stack (prefix or pattern position) without the
+    stack's "layers" axis, which no rule shards."""
+    spec = {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": [_layer_logical(cfg, ffn_kind(cfg, i)) for i in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embed:
+        spec["unembed"] = ("vocab", "embed")
+    return spec
+
+
 def unembed_table(params, cfg: DecoderConfig):
     return params["embed"] if cfg.tie_embed else params["unembed"]
 
@@ -173,11 +211,52 @@ def _write_token(entry: torch.Tensor, new: torch.Tensor, pos_idx: torch.Tensor) 
     """Write one decode token [B, 1, ...] into a cache array [B, T, ...] in
     place at `pos_idx`: a scalar (all rows at one position) or a [B] vector
     (each row writes its own lane at its own position)."""
+    if cm.is_dtensor(entry):
+        return _write_token_sharded(entry, new, pos_idx)
     new = new.to(entry.dtype)
     if pos_idx.ndim == 1:
         entry[torch.arange(entry.shape[0], device=entry.device), pos_idx] = new[:, 0]
     else:
         entry[:, pos_idx] = new[:, 0]
+
+
+def _write_token_sharded(entry, new, pos_idx) -> None:
+    """`_write_token` into a DTensor cache entry [B, T, ...], which DTensor
+    cannot index in place: each rank writes its own rows. The new token is
+    laid out as the entry but for the sequence, which it has whole; the rank
+    whose sequence shard holds the position writes it, the others write
+    their rows back as they were (no host read of the position)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = entry.device_mesh
+    seq_dims = [i for i, pl in enumerate(entry.placements) if pl == Shard(1)]
+    layout = tuple(Replicate() if i in seq_dims else pl for i, pl in enumerate(entry.placements))
+    loc = entry.to_local()
+    new_loc = new.redistribute(mesh, layout).to_local().to(loc.dtype)
+    t_loc = loc.shape[1]
+    coord, shard = mesh.get_coordinate(), 0
+    for i in seq_dims:
+        shard = shard * mesh.size(i) + coord[i]
+    if cm.is_dtensor(pos_idx):
+        pos_idx = pos_idx.full_tensor()
+    pos_idx = pos_idx.to(device=loc.device, dtype=torch.long)
+    rows = torch.arange(loc.shape[0], device=loc.device)
+    if pos_idx.ndim == 1:  # a position a row: this rank's rows of the batch
+        batch_dims = [i for i, pl in enumerate(entry.placements) if pl == Shard(0)]
+        first = 0
+        for i in batch_dims:
+            first = first * mesh.size(i) + coord[i]
+        pos_idx = pos_idx[first * loc.shape[0]:(first + 1) * loc.shape[0]]
+    rel = pos_idx - shard * t_loc
+    mine = (rel >= 0) & (rel < t_loc)
+    rel = torch.clamp(rel, 0, t_loc - 1)
+    if pos_idx.ndim == 1:
+        old = loc[rows, rel]
+        keep = mine.reshape((-1,) + (1,) * (loc.ndim - 2))
+        loc[rows, rel] = torch.where(keep, new_loc[:, 0], old)
+    else:  # index_select / index_copy_: a 0-d index would be read on the host
+        at = rel.reshape(1)
+        loc.index_copy_(1, at, torch.where(mine, new_loc, loc.index_select(1, at)))
 
 
 def _cache_write_read(entry, new: torch.Tensor, pos_idx: torch.Tensor) -> torch.Tensor:
@@ -196,9 +275,9 @@ def _attn(x, p, cfg: DecoderConfig, kind: str, positions, impl, cache=None, pos=
     b, s, _ = x.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     hx = cm.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = (hx @ p["wq"]).reshape(b, s, h, hd)
-    k = (hx @ p["wk"]).reshape(b, s, kh, hd)
-    v = (hx @ p["wv"]).reshape(b, s, kh, hd)
+    q = cm.split_heads(hx @ p["wq"], h, hd)
+    k = cm.split_heads(hx @ p["wk"], kh, hd)
+    v = cm.split_heads(hx @ p["wv"], kh, hd)
     q = cm.rope(q, positions, cfg.rope_theta)
     k = cm.rope(k, positions, cfg.rope_theta)
     window = cfg.window if kind == "local" else None
@@ -223,7 +302,7 @@ def _attn(x, p, cfg: DecoderConfig, kind: str, positions, impl, cache=None, pos=
             attn_softcap=cfg.attn_softcap,
             scale=cfg.query_scale,
         )
-    out = out.reshape(b, s, h * hd) @ p["wo"]
+    out = cm.pinned_tokens(cm.reshape(out, b, s, h * hd) @ p["wo"])
     if cfg.post_norms:
         out = cm.rms_norm(out, p["post_attn"], cfg.norm_eps)
     return out
@@ -237,9 +316,9 @@ def _ffn(x, p, cfg: DecoderConfig, kind: str):
         y, aux = moe_lib.moe_ffn(hx, p["moe"], cfg.moe, cfg.act)
     elif cfg.act == "relu2":
         a = torch.square(F.relu((hx @ p["wg"]).to(torch.float32))).to(hx.dtype)
-        y = a @ p["wd"]
+        y = cm.pinned_tokens(a @ p["wd"])
     else:
-        y = cm.gated_mlp(hx, p["wg"], p["wu"], p["wd"], cfg.act)
+        y = cm.pinned_tokens(cm.gated_mlp(hx, p["wg"], p["wu"], p["wd"], cfg.act))
     if cfg.post_norms:
         y = cm.rms_norm(y, p["post_ffn"], cfg.norm_eps)
     return y, aux
@@ -247,9 +326,9 @@ def _ffn(x, p, cfg: DecoderConfig, kind: str):
 
 def _block(x, p, cfg, i, positions, impl, cache=None, pos=None):
     """Layer i: (x after it, its aux loss)."""
-    x = x + _attn(x, p, cfg, layer_kind(cfg, i), positions, impl, cache, pos)
+    x = cm.token_layout(x + _attn(x, p, cfg, layer_kind(cfg, i), positions, impl, cache, pos))
     f, aux = _ffn(x, p, cfg, ffn_kind(cfg, i))
-    return x + f, aux
+    return cm.token_layout(x + f), aux
 
 
 def forward(params, tokens: Optional[torch.Tensor], cfg: DecoderConfig, *, embeds=None):
@@ -259,7 +338,7 @@ def forward(params, tokens: Optional[torch.Tensor], cfg: DecoderConfig, *, embed
     over the layers). Under autograd each layer runs under `cfg.remat`."""
     check_supported(cfg)
     x = (cm.embed(tokens, params["embed"], cfg.embed_scale) if embeds is None
-         else embeds.to(cm.DEFAULT_DTYPE))
+         else cm.token_layout(embeds.to(cm.DEFAULT_DTYPE)))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     block = cm.remat(_block, cfg.remat)

@@ -114,6 +114,37 @@ def init_params(generator: torch.Generator, cfg: EncDecConfig) -> Dict[str, Any]
     }
 
 
+_ATTN_SPEC = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+              "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+_LN_SPEC = {"scale": ("embed",), "bias": ("embed",)}
+
+
+def _enc_layer_logical() -> Dict[str, Any]:
+    return {"ln1": dict(_LN_SPEC), "attn": dict(_ATTN_SPEC), "ln2": dict(_LN_SPEC),
+            "w1": ("embed", "ffn"), "b1": ("ffn",), "w2": ("ffn", "embed"), "b2": ("embed",)}
+
+
+def _dec_layer_logical() -> Dict[str, Any]:
+    s = _enc_layer_logical()
+    s["ln_cross"] = dict(_LN_SPEC)
+    s["cross"] = dict(_ATTN_SPEC)
+    return s
+
+
+def param_logical(cfg: EncDecConfig) -> Dict[str, Any]:
+    """Logical axes of `init_params`' tree: `repro`'s, each layer's without
+    the stack's "layers" axis."""
+    return {
+        "frontend": ("embed", "ffn"),
+        "enc_layers": [_enc_layer_logical() for _ in range(cfg.n_enc_layers)],
+        "enc_norm": dict(_LN_SPEC),
+        "embed": ("vocab", "embed"),
+        "dec_pos": ("seq", "embed"),
+        "dec_layers": [_dec_layer_logical() for _ in range(cfg.n_dec_layers)],
+        "dec_norm": dict(_LN_SPEC),
+    }
+
+
 # ----------------------------------------------------------------- layers
 def _sinusoid(s: int, d: int, device) -> torch.Tensor:
     """Encoder positions [s, d] bf16: sin then cos of pos / 10000^(2i/d),
@@ -139,11 +170,11 @@ def _mha(hx, p, cfg: EncDecConfig, *, kv_input=None, causal: bool, impl: str,
     b, s, _ = hx.shape
     h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kv_src = hx if kv_input is None else kv_input
-    q = (hx @ p["wq"]).reshape(b, s, h, hd)
+    q = cm.split_heads(hx @ p["wq"], h, hd)
     if cache is not None and kv_input is None:  # self-attention decode
         kc, vc = cache
-        k = (kv_src @ p["wk"]).reshape(b, s, kh, hd)
-        v = (kv_src @ p["wv"]).reshape(b, s, kh, hd)
+        k = cm.split_heads(kv_src @ p["wk"], kh, hd)
+        v = cm.split_heads(kv_src @ p["wv"], kh, hd)
         _write_token(kc, k, pos)
         _write_token(vc, v, pos)
         out = cm.decode_attention(q, kc, vc, valid_len=torch.broadcast_to(pos + 1, (b,)))
@@ -151,11 +182,10 @@ def _mha(hx, p, cfg: EncDecConfig, *, kv_input=None, causal: bool, impl: str,
         kc, vc = cache
         out = cm.decode_attention(q, kc, vc)
     else:
-        t = kv_src.shape[1]
-        k = (kv_src @ p["wk"]).reshape(b, t, kh, hd)
-        v = (kv_src @ p["wv"]).reshape(b, t, kh, hd)
+        k = cm.split_heads(kv_src @ p["wk"], kh, hd)
+        v = cm.split_heads(kv_src @ p["wv"], kh, hd)
         out = cm.attention(q, k, v, impl=impl, causal=causal)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    return cm.reshape(out, b, s, h * hd) @ p["wo"]
 
 
 def _enc_layer(x, lp, cfg: EncDecConfig):
@@ -182,8 +212,9 @@ def encode(params, frames: torch.Tensor, cfg: EncDecConfig) -> torch.Tensor:
     x = frames.to(cm.DEFAULT_DTYPE) @ params["frontend"]
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device)[None]
     layer = cm.remat(_enc_layer, cfg.remat)
+    x = cm.token_layout(x)
     for lp in params["enc_layers"]:
-        x = layer(x, lp, cfg)
+        x = cm.token_layout(layer(x, lp, cfg))
     return _norm(x, params["enc_norm"], cfg)
 
 
@@ -195,7 +226,7 @@ def decode_train(params, enc_out: torch.Tensor, tokens: torch.Tensor,
         cm.DEFAULT_DTYPE)
     layer = cm.remat(_dec_layer, cfg.remat)
     for lp in params["dec_layers"]:
-        x = layer(x, enc_out, lp, cfg)
+        x = cm.token_layout(layer(x, enc_out, lp, cfg))
     return _norm(x, params["dec_norm"], cfg)
 
 
@@ -257,7 +288,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: EncDecConfig):
         x = x + _mha(hx, lp["cross"], cfg, kv_input=x, causal=False, impl="dense",
                      cache=(cache["cross_k"][i], cache["cross_v"][i]))
         hx = _norm(x, lp["ln2"], cfg)
-        x = x + cm.vanilla_mlp(hx, lp["w1"], lp["b1"], lp["w2"], lp["b2"])
+        x = cm.token_layout(x + cm.vanilla_mlp(hx, lp["w1"], lp["b1"], lp["w2"], lp["b2"]))
     x = _norm(x, params["dec_norm"], cfg)
     return cm.unembed(x, params["embed"]), cache
 

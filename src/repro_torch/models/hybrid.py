@@ -123,17 +123,43 @@ def init_params(generator: torch.Generator, cfg: HybridConfig) -> Dict[str, Any]
     }
 
 
+def param_logical(cfg: HybridConfig) -> Dict[str, Any]:
+    """Logical axes of `init_params`' tree: `repro`'s, each Mamba layer's
+    without the stack's ("layers", None) axes."""
+    return {
+        "embed": ("vocab", "embed"),
+        "final_norm": ("embed",),
+        "layers": [[ssm_lib.mamba_layer_logical(cfg.mamba) for _ in range(cfg.shared_every)]
+                   for _ in range(cfg.n_super)],
+        "shared": {
+            "w_in": ("embed", "ffn"),
+            "ln1": ("embed",),
+            "wq": ("embed", "heads"),
+            "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"),
+            "wo": ("heads", "embed"),
+            "ln2": ("embed",),
+            "wg": ("embed", "ffn"),
+            "wu": ("embed", "ffn"),
+            "wd": ("ffn", "embed"),
+            "w_out": ("embed", "ffn"),
+        },
+    }
+
+
 def _shared_block(x, x0, p, cfg: HybridConfig, positions, impl, cache=None, pos=None):
     """The shared attention block at one site. x, x0 (the embeddings)
     [B, S, d]. With `cache` (the site's (k, v) rows [B, T, KH, D]) it is a
     decode step: the new rows are written in place at `pos` (a scalar or
     [B]) and the query attends densely over rows 0..pos."""
-    h = torch.cat([x, x0], dim=-1) @ p["w_in"]
+    # on a mesh the products' outputs are pinned to the token layout, their
+    # gradients with them (`common.pinned_tokens`)
+    h = cm.pinned_tokens(torch.cat([x, x0], dim=-1) @ p["w_in"])
     hx = cm.rms_norm(h, p["ln1"], cfg.norm_eps)
     b, s, _ = h.shape
-    q = (hx @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (hx @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (hx @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = cm.split_heads(hx @ p["wq"], cfg.n_heads, cfg.head_dim)
+    k = cm.split_heads(hx @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = cm.split_heads(hx @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
     q = cm.rope(q, positions, cfg.rope_theta)
     k = cm.rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -144,9 +170,10 @@ def _shared_block(x, x0, p, cfg: HybridConfig, positions, impl, cache=None, pos=
         a = cm.decode_attention(q, kc, vc, valid_len=torch.broadcast_to(pos_idx + 1, (b,)))
     else:
         a = cm.attention(q, k, v, impl=impl, causal=True)
-    h = h + a.reshape(b, s, -1) @ p["wo"]
-    h = h + cm.gated_mlp(cm.rms_norm(h, p["ln2"], cfg.norm_eps), p["wg"], p["wu"], p["wd"])
-    return x + h @ p["w_out"]
+    h = h + cm.pinned_tokens(cm.reshape(a, b, s, cfg.n_heads * cfg.head_dim) @ p["wo"])
+    hx = cm.rms_norm(h, p["ln2"], cfg.norm_eps)
+    h = h + cm.pinned_tokens(cm.gated_mlp(hx, p["wg"], p["wu"], p["wd"]))
+    return x + cm.pinned_tokens(h @ p["w_out"])
 
 
 def _site(x, x0, site, shared, cfg: HybridConfig, positions, impl):
@@ -168,7 +195,8 @@ def forward(params, tokens: torch.Tensor, cfg: HybridConfig):
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     site_fn = cm.remat(_site, cfg.remat)
     for site in params["layers"]:
-        x = site_fn(x, x0, site, params["shared"], cfg, positions, cfg.attn_impl)
+        x = cm.token_layout(site_fn(x, x0, site, params["shared"], cfg, positions,
+                                    cfg.attn_impl))
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -230,9 +258,10 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: HybridConfig):
         for j, mp in enumerate(site):
             x, ssm, conv = ssm_lib.mamba_decode_block(x, mp, mcfg, cache["ssm"][i, j],
                                                       cache["conv"][i, j])
+            x = cm.token_layout(x)
             cache["ssm"][i, j].copy_(ssm)
             cache["conv"][i, j].copy_(conv)
-        x = _shared_block(x, x0, params["shared"], cfg, positions, "dense",
-                          cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        x = cm.token_layout(_shared_block(x, x0, params["shared"], cfg, positions, "dense",
+                                          cache=(cache["k"][i], cache["v"][i]), pos=pos))
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return cm.unembed(x, params["embed"]), cache

@@ -9,12 +9,26 @@ rows included), and the outputs are gathered back and combined with the
 renormalised router weights. The router runs in float32; a switch-style
 load-balancing aux loss is returned beside the output.
 
-One device is one dispatch group: `moe_ffn` is `repro`'s grouped form with
-G = 1 and `moe_ffn_global` its global-buffer baseline (taken when
-`REPRO_MOE_GROUPED=0`). The two differ only in the combine: the grouped
-form rounds the router weights to bf16 before the product, the global one
-keeps them in float32. `MoEConfig.shard_constraints` is kept as a field;
-with no mesh it does nothing, as in `repro`.
+`moe_ffn` is `repro`'s grouped form and `moe_ffn_global` its global-buffer
+baseline (taken when `REPRO_MOE_GROUPED=0`). The two differ only in the
+combine: the grouped form rounds the router weights to bf16 before the
+product, the global one keeps them in float32. With no mesh there is one
+dispatch group (G = 1). Under a mesh (`launch.mesh.set_mesh_compat`, the
+input a DTensor) G is the product of the data axes when G > 1 and it
+divides the tokens (`_dp_group_count`), and capacity is taken per group,
+`capacity(n // G)`: G changes which slots are dropped, so an MoE model on
+a mesh of 2 data ranks computes `repro`'s G = 2 function. The meshed
+dispatch (`_moe_meshed`) has no DTensor strategy for its sort, scatters and
+top-k, so it runs on local tensors with its collectives written out: each
+data rank routes its own group's tokens (the rows of its batch shard), the
+model ranks each run their own slice of the experts on that group's
+buffer, and an all-gather over "model" brings every expert's rows back for
+the combine. That is `repro`'s [G, E, C, d] -> [E, G·C, d] exchange and
+back with the redundant work left out: in `repro`'s layout each expert
+shard computes every group's rows and keeps its own group's. The global
+baseline has no groups to run on local tensors and raises under a mesh.
+`MoEConfig.shard_constraints` is kept as a field; the meshed dispatch lays
+the tokens and buffers out as its hints would, with or without it.
 
 Rounding follows `repro`'s MoE as XLA compiles it (`jax.jit`, or inside
 `lax.scan`), which is how `repro` always runs it: the expert gate product
@@ -39,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import ambient_mesh, submesh
 from repro_torch.models import common as cm
 
 
@@ -91,6 +106,20 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
     cf = float(os.environ.get("REPRO_MOE_CF", cfg.capacity_factor))
     c = int(np.ceil(n_tokens * cfg.top_k * cf / cfg.n_experts))
     return max(8, int(np.ceil(c / 8) * 8))
+
+
+def _dp_group_count(n_tokens: int, mesh=None) -> int:
+    """Number of data shards (dispatch groups) of the ambient mesh: the
+    product of the data axes, 1 when that is 1 or does not divide the
+    tokens."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None:
+        return 1
+    g = 1
+    for a, size in zip(mesh.mesh_dim_names, mesh.shape):
+        if a in ("pod", "data"):
+            g *= int(size)
+    return g if g > 1 and n_tokens % g == 0 else 1
 
 
 class Routing(NamedTuple):
@@ -217,19 +246,114 @@ def _moe(x: torch.Tensor, p: dict, cfg: MoEConfig, act: str, bf16_weights: bool)
     return y, aux
 
 
+def _meshed(x: torch.Tensor):
+    """The ambient mesh when `x` is a DTensor on it, else None."""
+    mesh = ambient_mesh()
+    return mesh if mesh is not None and cm.is_dtensor(x) else None
+
+
+def _moe_meshed(x, p: dict, cfg: MoEConfig, act: str, mesh):
+    """Grouped dispatch over `mesh` (see the module docstring): x a DTensor
+    [B, S, d] -> (y DTensor [B, S, d] laid out with the batch over the data
+    axes, aux a replicated float32 DTensor scalar)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    b, s, d = x.shape
+    n, e, k = b * s, cfg.n_experts, cfg.top_k
+    g = _dp_group_count(n, mesh)
+    if g > 1 and b % g:
+        raise NotImplementedError(f"{n} tokens make {g} dispatch groups but the batch of "
+                                  f"{b} rows does not split over the data axes")
+    grouped = g > 1
+    # which mesh dims split the experts (Shard(0) of the expert weights)
+    ep_dims = [i for i, pl in enumerate(p["wg"].placements) if pl == Shard(0)]
+    rep = Replicate()
+
+    def lay(on_dp, on_ep, other=rep):
+        return tuple(on_dp if i in dp else (on_ep if i in ep_dims else other)
+                     for i in range(len(names)))
+
+    tokens = lay(Shard(0) if grouped else rep, rep)
+    x = x.redistribute(mesh, tokens)
+    m = n // g
+    c = capacity(m, cfg)
+    dp_sum = Partial() if grouped else rep
+    # routing is computed alike on every expert rank (its gradient is
+    # replicated there); the dispatch feeds this rank's experts only (its
+    # gradient is a partial sum over them); weights see this group only
+    xr = x.to_local().reshape(m, d)
+    xd = x.to_local(grad_placements=lay(Shard(0) if grouped else rep, Partial())).reshape(m, d)
+    router = p["router"].redistribute(mesh, (rep,) * len(names)).to_local(
+        grad_placements=lay(dp_sum, rep))
+    w = {name: p[name].to_local(grad_placements=lay(dp_sum, Shard(0)))
+         for name in ("wg", "wu", "wd")}
+    r = route(xr, router, cfg, c)
+
+    # aux over every group's tokens: counts and router probabilities summed
+    # over the data axes
+    counts = expert_counts(r.top_ids.reshape(-1), e).to(torch.float32)
+    p_sum = r.probs.sum(dim=0)
+    if grouped:
+        counts = DTensor.from_local(counts, mesh, lay(Partial(), rep), run_check=False)
+        counts = counts.redistribute(mesh, (rep,) * len(names)).to_local()
+        p_sum = DTensor.from_local(p_sum, mesh, lay(Partial(), rep), run_check=False)
+        p_sum = p_sum.redistribute(mesh, (rep,) * len(names)).to_local()
+    aux = cfg.router_aux_weight * e * torch.sum((counts / (n * k)) * (p_sum / n))
+
+    # dispatch this group's slots; run this rank's experts on them
+    n_ep = 1
+    for i in ep_dims:
+        n_ep *= mesh.size(i)
+    e_loc = e // n_ep
+    j = 0
+    coord = mesh.get_coordinate()
+    for i in ep_dims:
+        j = j * mesh.size(i) + coord[i]
+    tok_idx = torch.arange(m * k, device=xd.device) // k
+    rows = torch.where(r.keep, r.slot, e * c)
+    buf = torch.zeros((e * c + 1, d), dtype=xd.dtype, device=xd.device)
+    buf.index_copy_(0, rows, xd[tok_idx])
+    mine = buf[:e * c].reshape(e, c, d)[j * e_loc:(j + 1) * e_loc]
+    out = _experts(mine, w, act)  # [E_loc, C, d]
+    if ep_dims:
+        # every expert's rows for the combine: an all-gather over the expert
+        # ranks, whose consumers are alike there (its backward a slice)
+        sub = submesh(mesh, [names[i] for i in ep_dims])
+        out = DTensor.from_local(out, sub, (Shard(0),), run_check=False).full_tensor()
+    out = out.reshape(e * c, d)
+
+    gathered = torch.where(r.keep[:, None], out[r.slot], 0)
+    weighted = (gathered * r.top_w.reshape(-1, 1).to(xd.dtype)).to(torch.float32)
+    y = weighted.reshape(m, k, d).sum(dim=1).to(xd.dtype)
+    y = DTensor.from_local(y.reshape(x.to_local().shape), mesh, tokens, run_check=False)
+    if cfg.n_shared:
+        y = y + cm.gated_mlp(x, p["shared_wg"], p["shared_wu"], p["shared_wd"], act)
+    aux = DTensor.from_local(aux, mesh, (rep,) * len(names), run_check=False)
+    return y, aux
+
+
 def moe_ffn(x: torch.Tensor, p: dict, cfg: MoEConfig,
             act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Grouped dispatch on one device (one group). x [B, S, d] ->
-    (y [B, S, d], aux loss float32 scalar). `REPRO_MOE_GROUPED=0` takes
-    `moe_ffn_global`."""
+    """Grouped dispatch. x [B, S, d] -> (y [B, S, d], aux loss float32
+    scalar): one group on one device, `_moe_meshed` under a mesh.
+    `REPRO_MOE_GROUPED=0` takes `moe_ffn_global`."""
     if os.environ.get("REPRO_MOE_GROUPED", "1") != "1":
         return moe_ffn_global(x, p, cfg, act)
+    mesh = _meshed(x)
+    if mesh is not None:
+        return _moe_meshed(x, p, cfg, act, mesh)
     return _moe(x, p, cfg, act, bf16_weights=True)
 
 
 def moe_ffn_global(x: torch.Tensor, p: dict, cfg: MoEConfig,
                    act: str = "silu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Global-capacity dispatch: x [B, S, d] -> (y [B, S, d], aux)."""
+    """Global-capacity dispatch: x [B, S, d] -> (y [B, S, d], aux). One
+    device only: its one buffer for every token has no local form."""
+    if _meshed(x) is not None:
+        raise NotImplementedError("the global-capacity MoE dispatch (REPRO_MOE_GROUPED=0) "
+                                  "runs on one device; under a mesh use the grouped one")
     return _moe(x, p, cfg, act, bf16_weights=False)
 
 

@@ -12,9 +12,10 @@ Each architecture is a `ModelDef` with the surface of `repro`'s:
 
 over every family of `repro`: the decoder, dense and MoE
 (`models.decoder`), the ssm (`models.ssm`), hybrid (`models.hybrid`),
-encoder-decoder (`models.encdec`) and vlm (`models.vlm`). The parameters'
-logical axes and shapes (`param_logical`, `param_shapes`) wait for the
-sharding slice.
+encoder-decoder (`models.encdec`) and vlm (`models.vlm`), with the
+parameters' logical axes (`param_logical`, mapped to mesh axes by
+`models.sharding`) and their shapes and dtypes on the meta device
+(`param_shapes`, nothing allocated).
 """
 
 from __future__ import annotations
@@ -36,6 +37,17 @@ from repro_torch.models.decoder import TensorSpec
 _FAMILIES = {"decoder": dec_lib, "ssm": ssm_lib, "hybrid": hybrid_lib, "encdec": encdec_lib,
              "vlm": vlm_lib}
 I32 = torch.int32
+
+
+class _MetaFactories(torch.overrides.TorchFunctionMode):
+    """Every tensor made in the block is made on the meta device, whatever
+    device the caller names."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +79,16 @@ class ModelDef:
         if generator is None:
             generator = torch.Generator(device=torch.device(device)).manual_seed(0)
         return self.module().init_params(generator, self.cfg)
+
+    def param_shapes(self):
+        """The tree of `init_params` as meta tensors: shapes and dtypes, no
+        storage and no draws."""
+        with _MetaFactories():
+            return self.init_params(torch.Generator(), device="cpu")
+
+    def param_logical(self):
+        """Logical axes of `init_params`' tree, leaf for leaf."""
+        return self.module().param_logical(self.cfg)
 
     # ----- train / serve entry points
     def loss(self, params, batch):

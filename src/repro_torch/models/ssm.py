@@ -133,6 +133,28 @@ def init_params(generator: torch.Generator, cfg: Mamba2Config) -> Dict[str, Any]
     }
 
 
+def mamba_layer_logical(cfg: Mamba2Config) -> Dict[str, Tuple[str, ...]]:
+    """Logical axes of one Mamba layer's parameters, as in `repro`."""
+    return {
+        "ln": ("embed",),
+        "in_proj": ("embed", "ssm_heads"),
+        "conv_w": ("conv", "ssm_heads"),
+        "conv_b": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "gate_norm": ("ssm_heads",),
+        "out_proj": ("ssm_heads", "embed"),
+    }
+
+
+def param_logical(cfg: Mamba2Config) -> Dict[str, Any]:
+    """Logical axes of `init_params`' tree: `repro`'s, each layer's without
+    the stack's "layers" axis."""
+    return {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+            "layers": [mamba_layer_logical(cfg) for _ in range(cfg.n_layers)]}
+
+
 # ----------------------------------------------------------------- core SSD
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.softplus`, which is `jnp.logaddexp(x, 0)`:
@@ -237,6 +259,47 @@ def ssd_chunked(
     return y.reshape(b, s, h, p), state
 
 
+def _ssd_sharded(x, dt, A, B_in, C_in, chunk: int) -> torch.Tensor:
+    """`ssd_chunked`'s y for DTensors, on local tensors (DTensor's layouts
+    for the chunk products' gradients are strided ones it cannot always
+    propagate): each rank runs the SSD of its rows of the batch (over the
+    data axes, where they divide) and of its heads (over "model", where the
+    heads and groups divide; else every head), the groups' B and C whole
+    where one group serves heads of several ranks. Returns y laid out as
+    the rank's x."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    dp = [i for i, a in enumerate(names) if a in ("pod", "data")]
+    n_dp, n_h = 1, 1
+    for i in range(len(names)):
+        if i in dp:
+            n_dp *= mesh.size(i)
+        else:
+            n_h *= mesh.size(i)
+    b, _, h, _ = x.shape
+    g = B_in.shape[2]
+    rows = Shard(0) if b % n_dp == 0 else Replicate()
+    split = h % n_h == 0
+    split_groups = split and g % n_h == 0
+    lay = lambda on_h: tuple(rows if i in dp else on_h for i in range(len(names)))  # noqa: E731
+    x_lay = lay(Shard(2) if split else Replicate())
+    bc_lay = lay(Shard(2) if split_groups else Replicate())
+    bc_grad = lay(Shard(2) if split_groups else (Partial() if split else Replicate()))
+    a_lay = tuple(Replicate() if i in dp else (Shard(0) if split else Replicate())
+                  for i in range(len(names)))
+    a_grad = tuple((Partial() if rows == Shard(0) else Replicate()) if i in dp else pl
+                   for i, pl in enumerate(a_lay))
+    y, _ = ssd_chunked(x.redistribute(mesh, x_lay).to_local(),
+                       dt.redistribute(mesh, x_lay).to_local(),
+                       A.redistribute(mesh, a_lay).to_local(grad_placements=a_grad),
+                       B_in.redistribute(mesh, bc_lay).to_local(grad_placements=bc_grad),
+                       C_in.redistribute(mesh, bc_lay).to_local(grad_placements=bc_grad),
+                       chunk)
+    return DTensor.from_local(y, mesh, x_lay, run_check=False)
+
+
 def _gate(y: torch.Tensor, z: torch.Tensor, p, cfg: Mamba2Config) -> torch.Tensor:
     """rms_norm(y * silu(z)) in y's dtype. silu(z) is rounded to z's dtype;
     the product is a bf16 product in `repro`, which XLA leaves unrounded
@@ -249,19 +312,65 @@ def mamba_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: Mamba2Config) 
     """Full Mamba-2 block with pre-norm and residual. x [B, S, d]."""
     b, s, _ = x.shape
     h = cm.rms_norm(x, p["ln"], cfg.norm_eps)
-    proj = h @ p["in_proj"]
+    proj = cm.pin_grad(h @ p["in_proj"])
     z, xbc, dt = _split_proj(proj, cfg)
     xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     di, gn = cfg.d_inner, cfg.n_groups * cfg.d_state
-    xs = xbc[..., :di].reshape(b, s, cfg.n_heads, cfg.head_dim)
-    B_in = xbc[..., di:di + gn].reshape(b, s, cfg.n_groups, cfg.d_state)
-    C_in = xbc[..., di + gn:].reshape(b, s, cfg.n_groups, cfg.d_state)
+    xs = cm.reshape(xbc[..., :di], b, s, cfg.n_heads, cfg.head_dim)
+    B_in = cm.reshape(xbc[..., di:di + gn], b, s, cfg.n_groups, cfg.d_state)
+    C_in = cm.reshape(xbc[..., di + gn:], b, s, cfg.n_groups, cfg.d_state)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, _ = ssd_chunked(xs, dt, A, B_in, C_in, cfg.chunk)
-    y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = _gate(y.reshape(b, s, di), z, p, cfg)
-    return x + (y @ p["out_proj"]).to(x.dtype)
+    if cm.is_dtensor(xs):
+        y = _ssd_sharded(cm.pin_grad(xs), dt, A, B_in, C_in, cfg.chunk)
+    else:
+        y, _ = ssd_chunked(xs, dt, A, B_in, C_in, cfg.chunk)
+    y = cm.pin_grad(y) + cm.pin_grad(xs) * p["D"][None, None, :, None].to(xs.dtype)
+    y = cm.pin_grad(_gate(cm.reshape(y, b, s, di), z, p, cfg))
+    return x + cm.pinned_tokens(y @ p["out_proj"]).to(x.dtype)
+
+
+def _ssd_step(xs, dt1, A, B_in, C_in, ssm_state, hg: int):
+    """The recurrence of one token: (y [B, H, P] float32, the new state
+    [B, H, N, P])."""
+    Bh = B_in.repeat_interleave(hg, dim=1)  # [B, H, N]
+    Ch = C_in.repeat_interleave(hg, dim=1)
+    decay = torch.exp(dt1 * A[None, :])  # [B, H]
+    upd = ((dt1[..., None] * Bh.to(torch.float32))[..., :, None]
+           * xs.to(torch.float32)[..., None, :])
+    ssm_state = decay[..., None, None] * ssm_state + upd  # [B, H, N, P]
+    return torch.einsum("bhn,bhnp->bhp", Ch.to(torch.float32), ssm_state), ssm_state
+
+
+def _ssd_step_sharded(xs, dt1, A, B_in, C_in, ssm_state, hg: int):
+    """`_ssd_step` against a DTensor state, on local tensors: each rank steps
+    its rows of the batch and its heads, as the cache lays the state out
+    (DTensor's layout for the state products is a strided one it cannot
+    propagate). Returns y laid out as the state's rows and heads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = ssm_state.device_mesh
+    lay = tuple(pl if pl in (Shard(0), Shard(1)) else Replicate() for pl in ssm_state.placements)
+    state = ssm_state.redistribute(mesh, lay).to_local()
+    rows = tuple(Shard(0) if pl == Shard(0) else Replicate() for pl in lay)
+    heads = tuple(Shard(0) if pl == Shard(1) else Replicate() for pl in lay)
+    coord, first = mesh.get_coordinate(), 0
+    for i, pl in enumerate(lay):
+        if pl == Shard(1):
+            first = first * mesh.size(i) + coord[i]
+    h_loc = state.shape[1]
+    first *= h_loc
+
+    def group_rows(t):  # [B, G, N] -> this rank's heads' rows [B_l, H_l, N]
+        t = t.redistribute(mesh, rows).to_local().repeat_interleave(hg, dim=1)
+        return t[:, first:first + h_loc]
+
+    y, state = _ssd_step(xs.redistribute(mesh, lay).to_local(),
+                         dt1.redistribute(mesh, lay).to_local(),
+                         A.redistribute(mesh, heads).to_local(),
+                         group_rows(B_in), group_rows(C_in), state, 1)
+    return (DTensor.from_local(y, mesh, lay, run_check=False),
+            DTensor.from_local(state, mesh, lay, run_check=False))
 
 
 def mamba_decode_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: Mamba2Config,
@@ -278,14 +387,8 @@ def mamba_decode_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: Mamba2C
     C_in = xbc[:, 0, di + gn:].reshape(b, cfg.n_groups, cfg.d_state)
     dt1 = softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])  # [B, H]
     A = -torch.exp(p["A_log"])
-    hg = cfg.n_heads // cfg.n_groups
-    Bh = B_in.repeat_interleave(hg, dim=1)  # [B, H, N]
-    Ch = C_in.repeat_interleave(hg, dim=1)
-    decay = torch.exp(dt1 * A[None, :])  # [B, H]
-    upd = ((dt1[..., None] * Bh.to(torch.float32))[..., :, None]
-           * xs.to(torch.float32)[..., None, :])
-    ssm_state = decay[..., None, None] * ssm_state + upd  # [B, H, N, P]
-    y = torch.einsum("bhn,bhnp->bhp", Ch.to(torch.float32), ssm_state)
+    step = _ssd_step_sharded if cm.is_dtensor(ssm_state) else _ssd_step
+    y, ssm_state = step(xs, dt1, A, B_in, C_in, ssm_state, cfg.n_heads // cfg.n_groups)
     y = y.to(xs.dtype) + xs * p["D"][None, :, None].to(xs.dtype)
     y = _gate(y.reshape(b, 1, di), z, p, cfg)
     return x + (y @ p["out_proj"]).to(x.dtype), ssm_state, conv_state
@@ -298,7 +401,7 @@ def forward(params, tokens: torch.Tensor, cfg: Mamba2Config):
     x = cm.embed(tokens, params["embed"])
     block = cm.remat(mamba_block, cfg.remat)
     for lp in params["layers"]:
-        x = block(x, lp, cfg)
+        x = cm.token_layout(block(x, lp, cfg))
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -346,6 +449,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: Mamba2Config):
     x = cm.embed(tokens, params["embed"])
     for i, lp in enumerate(params["layers"]):
         x, ssm, conv = mamba_decode_block(x, lp, cfg, cache["ssm"][i], cache["conv"][i])
+        x = cm.token_layout(x)
         cache["ssm"][i].copy_(ssm)
         cache["conv"][i].copy_(conv)
     x = cm.rms_norm(x, params["final_norm"], cfg.norm_eps)

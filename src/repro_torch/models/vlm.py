@@ -53,6 +53,11 @@ def init_params(generator: torch.Generator, cfg: VLMConfig) -> Dict[str, Any]:
     }
 
 
+def param_logical(cfg: VLMConfig) -> Dict[str, Any]:
+    return {"projector": {"w1": ("embed", "ffn"), "w2": ("ffn", "embed")},
+            "lm": dec_lib.param_logical(cfg.lm)}
+
+
 def _project(patches: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Patch embeddings [B, P, vit_dim] -> [B, P, d]: the tanh GELU of the
     first product in float32, rounded to bf16 before the second."""
@@ -61,9 +66,35 @@ def _project(patches: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return h @ p["w2"]
 
 
+def _project_sharded(patches, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """`_project` of DTensors on local tensors (DTensor's own choice of
+    layout for the second product's gradient is a strided one it cannot
+    propagate): each rank runs its rows of the batch through its columns of
+    w1 and its rows of w2 ("model" splits the projector's width), and the
+    partial sums add up into the token layout."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    x = cm.token_layout(patches)
+    mesh = x.device_mesh
+    width = [i for i, pl in enumerate(p["w1"].placements) if pl == Shard(1)]
+    if [i for i, pl in enumerate(p["w2"].placements) if pl == Shard(0)] != width:
+        return cm.token_layout(_project(x, p))
+    rows = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+    grad = lambda dim: tuple(Shard(dim) if i in width else  # noqa: E731
+                             (Partial() if i in rows else Replicate())
+                             for i in range(mesh.ndim))
+    y = _project(x.to_local(), {"w1": p["w1"].to_local(grad_placements=grad(1)),
+                                "w2": p["w2"].to_local(grad_placements=grad(0))})
+    part = tuple(Partial() if i in width else x.placements[i] for i in range(mesh.ndim))
+    return cm.token_layout(DTensor.from_local(y, mesh, part, run_check=False))
+
+
 def _embeds(params, batch, cfg: VLMConfig) -> torch.Tensor:
     """The decoder's input rows: the projected image rows, then the text."""
-    img = _project(batch["patch_embeds"], params["projector"])  # [B, P, d]
+    if cm.is_dtensor(batch["patch_embeds"]):
+        img = _project_sharded(batch["patch_embeds"], params["projector"])
+    else:
+        img = _project(batch["patch_embeds"], params["projector"])  # [B, P, d]
     txt = cm.embed(batch["tokens"], params["lm"]["embed"])
     return torch.cat([img, txt], dim=1)
 

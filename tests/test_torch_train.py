@@ -346,8 +346,8 @@ def test_train_cli_refuses_what_repro_refuses():
         ttrain.main(["--arch", "whisper-large-v3", "--smoke", "--device", "cpu"])
     with pytest.raises(SystemExit, match="family=vlm"):
         ttrain.main(["--arch", "internvl2-2b", "--smoke", "--device", "cpu"])
-    for mesh in ("single", "multi"):
-        with pytest.raises(SystemExit, match="sharding slice"):
+    for mesh, ranks in (("single", 256), ("multi", 512)):
+        with pytest.raises(SystemExit, match=f"needs a world of {ranks} ranks.*this one has 1"):
             ttrain.main(["--arch", "gemma-2b", "--smoke", "--mesh", mesh, "--device", "cpu"])
 
 
