@@ -78,6 +78,7 @@ from repro_torch.epi.spec import active_schedule, validate_mobility
 from repro_torch.ioutils import atomic_write
 from repro_torch.kernels import abc_sim, ops
 from repro_torch.kernels.rng import stream_seed
+from repro_torch.runtime.trace import span
 
 #: hash streams of (seed, index): the waves' prior and simulation seeds,
 #: and the pilot waves' of `calibrate_tolerance`; SHARD_STREAM derives shard
@@ -385,23 +386,27 @@ def compact_accepted(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tens
     rows, accepted rows past the capacity land in the spare row too (they
     are dropped), and `new_fill` counts every accepted row: callers clamp
     it to `capacity`. `fill` is an int64 tensor of shape [1]. Shared by the
-    ABC wave loop and the SMC round, on the CPU and on the card alike.
+    ABC wave loop and the SMC round, on the CPU and on the card alike; its
+    launches are the span `abc.compact`.
     """
-    csum = torch.cumsum(accept, 0)  # int64
-    slot = torch.where(accept, csum + (fill - 1), capacity).clamp_(max=capacity)
-    th_buf.index_copy_(0, slot, theta)
-    d_buf.index_copy_(0, slot, dist)
-    return th_buf, d_buf, fill + csum[-1:]
+    with span("abc.compact"):
+        csum = torch.cumsum(accept, 0)  # int64
+        slot = torch.where(accept, csum + (fill - 1), capacity).clamp_(max=capacity)
+        th_buf.index_copy_(0, slot, theta)
+        d_buf.index_copy_(0, slot, dist)
+        return th_buf, d_buf, fill + csum[-1:]
 
 
 def sync_counts(*counts: torch.Tensor) -> list:
     """The device loops' one host sync a segment: the int64 count tensors
-    as Python ints, in one copy (counted by `HOST_SYNCS`)."""
+    as Python ints, in one copy (counted by `HOST_SYNCS`, the span
+    `abc.sync`)."""
     global HOST_SYNCS
-    HOST_SYNCS += 1
-    # analysis: allow(host-sync-in-wave-loop) — the loops' one sanctioned
-    # sync a segment: one copy of the counts, then ints of host tensors
-    return [int(c) for c in torch.cat(counts).cpu()]
+    with span("abc.sync"):
+        HOST_SYNCS += 1
+        # analysis: allow(host-sync-in-wave-loop) — the loops' one sanctioned
+        # sync a segment: one copy of the counts, then ints of host tensors
+        return [int(c) for c in torch.cat(counts).cpu()]
 
 
 def tolerance32(tolerance: float) -> float:
@@ -496,7 +501,7 @@ class WaveRunner:
         sub-batch with its own seeds (`shard_seeds`), compacts its rows with
         dist <= tolerance (in float32) and an open gate into its segment,
         and the shards' counts are summed into the total. Nothing here
-        waits for the device."""
+        waits for the device. Each wave is the span `abc.wave`."""
         th_segs, d_segs, fills, n = (list(carry[0]), list(carry[1]), list(carry[2]),
                                      carry[3])
         cfg, sims = self.cfg, self.sims
@@ -508,22 +513,23 @@ class WaveRunner:
         waves = torch.zeros((1,), dtype=torch.int64, device=self.device)
         away = [sim.device != self.device for sim in sims]
         for i in range(max_waves):
-            active = n < cfg.target_accepted
-            total = n
-            for s, sim in enumerate(sims):
-                act = active.to(sim.device) if away[s] else active
-                theta, dist = scratch[s]
-                sim.wave(self.prior, *shard_seeds(seed, run_idx0 + i, s), batch,
-                         gate=act.to(torch.int32), out=(theta, dist))
-                accept = (dist <= tol) & act
-                th_segs[s], d_segs[s], new_fill = compact_accepted(
-                    th_segs[s], d_segs[s], fills[s], theta, dist, accept, self.capacity)
-                if len(sims) > 1:
-                    total = total + (new_fill - fills[s]).to(self.device)
-                fills[s] = new_fill
-            # one shard: the total accepted is the fill before clamping
-            n = fills[0] if len(sims) == 1 else total
-            waves += active
+            with span("abc.wave"):
+                active = n < cfg.target_accepted
+                total = n
+                for s, sim in enumerate(sims):
+                    act = active.to(sim.device) if away[s] else active
+                    theta, dist = scratch[s]
+                    sim.wave(self.prior, *shard_seeds(seed, run_idx0 + i, s), batch,
+                             gate=act.to(torch.int32), out=(theta, dist))
+                    accept = (dist <= tol) & act
+                    th_segs[s], d_segs[s], new_fill = compact_accepted(
+                        th_segs[s], d_segs[s], fills[s], theta, dist, accept, self.capacity)
+                    if len(sims) > 1:
+                        total = total + (new_fill - fills[s]).to(self.device)
+                    fills[s] = new_fill
+                # one shard: the total accepted is the fill before clamping
+                n = fills[0] if len(sims) == 1 else total
+                waves += active
         clamped = [f.clamp(max=self.capacity) for f in fills]
         return WaveLoopOutput(tuple(th_segs), tuple(d_segs), n, waves,
                               _joined(clamped), max_waves)
@@ -727,21 +733,37 @@ def run_abc(
             f"resumed state holds {state.n_params}-parameter samples but model "
             f"{spec.name!r} (with its schedule) has {prior.dim} — wrong checkpoint?"
         )
-    if wave_runner is None and run_fn is None and _auto_device_loop(cfg):
-        wave_runner = make_wave_runner(prior, make_simulator(dataset, cfg, device), cfg)
-    if wave_runner is not None:
-        return _run_abc_device(cfg, seed, state, wave_runner, spec,
-                               checkpoint_every=checkpoint_every,
-                               checkpoint_path=checkpoint_path, verbose=verbose)
-    run = run_fn or abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg, device)
+    with span("abc.posterior"):
+        if wave_runner is None and run_fn is None and _auto_device_loop(cfg):
+            wave_runner = make_wave_runner(prior, make_simulator(dataset, cfg, device), cfg)
+        if wave_runner is not None:
+            return _run_abc_device(cfg, seed, state, wave_runner, spec,
+                                   checkpoint_every=checkpoint_every,
+                                   checkpoint_path=checkpoint_path, verbose=verbose)
+        run = run_fn or abc_run_batch(prior, make_simulator(dataset, cfg, device), cfg,
+                                      device)
+        return _run_abc_host(cfg, seed, state, run, spec, checkpoint_every=checkpoint_every,
+                             checkpoint_path=checkpoint_path, verbose=verbose)
 
+
+def _run_abc_host(
+    cfg: ABCConfig,
+    seed: int,
+    state: ABCState,
+    run: Callable[[int, int], RunOutput],
+    spec,
+    checkpoint_every: int = 0,
+    checkpoint_path: Optional[str] = None,
+    verbose: bool = False,
+) -> Posterior:
+    """The host loop: one wave at a time, each harvested (`_harvest`, the
+    span `abc.harvest`) before the next is started; the state is saved
+    every `checkpoint_every` waves when checkpointing."""
     t0 = time.time()
-    postproc_s = 0.0
     while state.n_accepted < cfg.target_accepted and state.run_idx < cfg.max_runs:
         out = run(*wave_seeds(seed, state.run_idx))
-        tp = time.time()
-        _harvest(out, cfg, state)  # its first copy waits for the wave
-        postproc_s += time.time() - tp
+        with span("abc.harvest"):
+            _harvest(out, cfg, state)  # its first copy waits for the wave
         state.run_idx += 1
         state.simulations += cfg.batch_size
         if verbose and state.run_idx % 50 == 0:
@@ -754,7 +776,7 @@ def run_abc(
             state.save(checkpoint_path)
 
     theta, dist = state.to_arrays()
-    post = Posterior(
+    return Posterior(
         theta=theta,
         distances=dist,
         tolerance=cfg.tolerance,
@@ -763,8 +785,6 @@ def run_abc(
         simulations=state.simulations,
         wall_time_s=time.time() - t0,
     )
-    post.postproc_time_s = postproc_s  # type: ignore[attr-defined]
-    return post
 
 
 def _run_abc_device(
@@ -780,19 +800,21 @@ def _run_abc_device(
     """The device loop: segments of up to `SEGMENT_WAVES` waves, each
     bounded by the remaining `max_runs` and by the next multiple of
     `checkpoint_every`, with one host sync a segment; the state is saved
-    after every segment when checkpointing."""
+    after every segment when checkpointing. Spans: `abc.init` (the
+    buffers), `abc.segment` (a segment's enqueue), `abc.harvest` (the
+    accepted rows to the host); the sync is `abc.sync`."""
     t0 = time.time()
-    postproc_s = 0.0
-    carry = wave_runner.init(state)
+    with span("abc.init"):
+        carry = wave_runner.init(state)
     while state.n_accepted < cfg.target_accepted and state.run_idx < cfg.max_runs:
         seg = min(SEGMENT_WAVES, cfg.max_runs - state.run_idx)
         if checkpoint_every and checkpoint_path:
             seg = min(seg, checkpoint_every - state.run_idx % checkpoint_every)
-        out = wave_runner(seed, state.run_idx, carry, seg)
+        with span("abc.segment"):
+            out = wave_runner(seed, state.run_idx, carry, seg)
         waves, _, fill = wave_runner.read(out)  # the segment's one host sync
-        tp = time.time()
-        wave_runner.harvest(out, state, fill)
-        postproc_s += time.time() - tp
+        with span("abc.harvest"):
+            wave_runner.harvest(out, state, fill)
         carry = wave_runner.carry_of(out)
         state.run_idx += waves
         state.simulations += waves * cfg.batch_size
@@ -805,7 +827,7 @@ def _run_abc_device(
             break
 
     theta, dist = state.to_arrays()
-    post = Posterior(
+    return Posterior(
         theta=theta,
         distances=dist,
         tolerance=cfg.tolerance,
@@ -814,8 +836,6 @@ def _run_abc_device(
         simulations=state.simulations,
         wall_time_s=time.time() - t0,
     )
-    post.postproc_time_s = postproc_s  # type: ignore[attr-defined]
-    return post
 
 
 def calibrate_tolerance(

@@ -94,6 +94,7 @@ from repro_torch.device import resolve_device
 from repro_torch.epi.models import get_model
 from repro_torch.ioutils import atomic_write
 from repro_torch.kernels import abc_sim
+from repro_torch.runtime.trace import span
 
 STYLES = ("shard_map", "pjit")
 
@@ -293,17 +294,18 @@ class ShardedWaveRunner(WaveRunner):
         dist_ = torch.empty((batch,), dtype=torch.float32, device=dev)
         waves = torch.zeros((1,), dtype=torch.int64, device=dev)
         for i in range(max_waves):
-            active = n < cfg.target_accepted
-            self.sim.wave(self.prior, *shard_seeds(seed, run_idx0 + i, self.shard), batch,
-                          gate=active.to(torch.int32), out=(theta, dist_))
-            accept = (dist_ <= tol) & active
-            th_buf, d_buf, new_fill = compact_accepted(th_buf, d_buf, fill, theta, dist_,
-                                                       accept, self.capacity)
-            count = new_fill - fill
-            dist.all_reduce(count, group=self.group)  # the one collective a wave
-            n = n + count
-            fill = new_fill
-            waves += active
+            with span("abc.wave"):
+                active = n < cfg.target_accepted
+                self.sim.wave(self.prior, *shard_seeds(seed, run_idx0 + i, self.shard), batch,
+                              gate=active.to(torch.int32), out=(theta, dist_))
+                accept = (dist_ <= tol) & active
+                th_buf, d_buf, new_fill = compact_accepted(th_buf, d_buf, fill, theta, dist_,
+                                                           accept, self.capacity)
+                count = new_fill - fill
+                dist.all_reduce(count, group=self.group)  # the one collective a wave
+                n = n + count
+                fill = new_fill
+                waves += active
         return WaveLoopOutput((th_buf,), (d_buf,), n, waves, fill.clamp(max=self.capacity),
                               max_waves)
 
@@ -436,19 +438,20 @@ class PjitWaveRunner(WaveRunner):
         fill0 = fill
         waves = torch.zeros((1,), dtype=torch.int64, device=dev)
         for i in range(max_waves):
-            active = fill < cfg.target_accepted
-            self.sim.wave(self.prior, *wave_seeds(seed, run_idx0 + i), batch,
-                          gate=active.to(torch.int32), out=(theta, dist_), offset=offset)
-            accept = (dist_ <= tol) & active
-            loc_th, loc_d, new_fill = compact_accepted(loc_th, loc_d, loc_fill, theta, dist_,
-                                                       accept, cap)
-            counts = torch.zeros((n,), dtype=torch.int64, device=dev)
-            counts.index_copy_(0, me, new_fill - loc_fill)
-            dist.all_reduce(counts, group=self.group)  # the one collective a wave
-            hist[i] = counts
-            loc_fill = new_fill
-            fill = fill + counts.sum(0, keepdim=True)
-            waves += active
+            with span("abc.wave"):
+                active = fill < cfg.target_accepted
+                self.sim.wave(self.prior, *wave_seeds(seed, run_idx0 + i), batch,
+                              gate=active.to(torch.int32), out=(theta, dist_), offset=offset)
+                accept = (dist_ <= tol) & active
+                loc_th, loc_d, new_fill = compact_accepted(loc_th, loc_d, loc_fill, theta,
+                                                           dist_, accept, cap)
+                counts = torch.zeros((n,), dtype=torch.int64, device=dev)
+                counts.index_copy_(0, me, new_fill - loc_fill)
+                dist.all_reduce(counts, group=self.group)  # the one collective a wave
+                hist[i] = counts
+                loc_fill = new_fill
+                fill = fill + counts.sum(0, keepdim=True)
+                waves += active
         return WaveLoopOutput((th_buf,), (d_buf,), fill, waves, fill.clamp(max=cap),
                               max_waves, pending=[loc_th, loc_d, hist, fill0])
 

@@ -343,13 +343,6 @@ def roofline_metrics(cm: CostModel, n_samples: float, wall_s: float,
     return roofline_from_totals(cm.flops(n_samples, days), cm.fused_bytes(n_samples), wall_s)
 
 
-def bench_cell_metrics(model, days: int, simulations: float, wall_s: float,
-                       schedule=None, summary=None, distance: str = "euclidean") -> Dict:
-    """One-call helper for benchmark scripts: cost model + roofline fields."""
-    cm = cost_model(model, days, schedule=schedule, summary=summary, distance=distance)
-    return roofline_metrics(cm, simulations, wall_s)
-
-
 # --------------------------------------------------------------------------
 # 3. Persistent tuning cache
 # --------------------------------------------------------------------------

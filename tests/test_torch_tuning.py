@@ -153,7 +153,6 @@ def test_roofline_fields_shape_and_ceiling():
     slow = tuning.roofline_metrics(cm, n_samples=1e6, wall_s=2.0)
     assert slow["roofline_efficiency"] == pytest.approx(out["roofline_efficiency"] / 2)
     assert slow["achieved_flops"] == pytest.approx(out["achieved_flops"] / 2)
-    assert tuning.bench_cell_metrics("siard", 49, 1e6, 1.0) == out
 
 
 # --------------------------------------------------------------------------
