@@ -86,8 +86,12 @@ printing one JSON line:
              loop (host, device, device, host): wall time, device busy time,
              idle share, device operations a wave, the kernel's and the
              copies' device ms and the rest (the device loop's gate,
-             comparison and compaction) a wave; compact_accepted alone at
-             100,000 rows by CUDA events
+             comparison and compaction) a wave; then the compaction at
+             100,000 rows: the kernel (compact_accepted on the card) bitwise
+             the plain lines it replaced (core.abc.compact_plain) on the
+             wave's accept mask, a gated one and a dense one past the
+             capacity, each one's device us by CUDA events (100 calls
+             queued behind a sleep of the card), and the kernel's bound
   no_sync    one segment of the main path's device loop under
              torch.cuda.set_sync_debug_mode("error"), its accepted set
              bitwise the main path's
@@ -378,7 +382,10 @@ printing one JSON line:
              scaleout_path (j)'s single-device run, the R=100 times at both
              batches and the route chosen at each R and batch;
              tuning_path's autotune of R=100 on the warp route) and on the
-             warp route, the bf16 flash route (its launches on lm_prefill,
+             warp route, the wave loop's compaction kernel abc_compact
+             (its launches by path, which must reach it on main_path and
+             smc_path, and profile's device us against its bound and the
+             plain lines'), the bf16 flash route (its launches on lm_prefill,
              every family_prefill, both moe_prefill runs,
              encdec_prefill and mesh_path's two ranks, `launches_by_path`; its zamba2-2.7b cell and
              whisper's three) and the float32 one
@@ -656,6 +663,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_us(fn, calls: int = 100) -> float:
+    """Mean device microseconds per call of `fn`, by CUDA events around
+    `calls` calls enqueued behind a sleep of the card: for calls whose host
+    enqueue outlasts their device time, the events then time the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
 def flash_phase(dev):
     """The flash kernels against their plain version on every FLASH_CASES
     case, float32 and bf16; returns the largest absolute error of the bf16
@@ -841,8 +866,9 @@ class FitLog:
 
 def counted(fn):
     """(fn(), counts): the abc_sim launches by entry (and gated), plain-version
-    calls, host prior draws and host syncs of one call, the counters set to
-    0 just before it and read just after."""
+    calls, host prior draws, host syncs and compaction-kernel launches of one
+    call, the counters set to 0 just before it and read just after (the
+    compactions as a difference, which keeps the phases' own count whole)."""
     import torch
 
     from repro_torch.core import abc as tabc
@@ -854,13 +880,15 @@ def counted(fn):
     priors.DEVICE_DRAWS = 0
     ref.CALLS = 0
     tabc.HOST_SYNCS = 0
+    compactions = tabc.COMPACT_KERNEL_LAUNCHES
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     return out, {"wall_s": time.perf_counter() - t0,
                  "entries": dict(abc_sim.ENTRY_LAUNCHES), "gated": dict(abc_sim.ENTRY_GATED),
                  "plain_calls": ref.CALLS, "host_prior_draws": priors.DEVICE_DRAWS,
-                 "host_syncs": tabc.HOST_SYNCS}
+                 "host_syncs": tabc.HOST_SYNCS,
+                 "compactions": tabc.COMPACT_KERNEL_LAUNCHES - compactions}
 
 
 def epi_serve_phase(dev, name: str, smi: str) -> tuple:
@@ -4217,22 +4245,25 @@ def main(argv=None) -> int:
         SEGMENT_WAVES gated ones in at most ceil(waves / SEGMENT_WAVES) host
         syncs; none on the host loop), with no host prior draw and no
         plain-version call, and the posterior holds `min_accepted` samples
-        inside the box."""
+        inside the box. Its compaction-kernel launches go to
+        `path_compactions`."""
         abc_sim.ENTRY_LAUNCHES.clear()
         abc_sim.ENTRY_GATED.clear()
         priors.DEVICE_DRAWS = 0
         ref.CALLS = 0
         tabc.HOST_SYNCS = 0
+        compactions = tabc.COMPACT_KERNEL_LAUNCHES
         t0 = time.perf_counter()
         post = abc_run.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        path_compactions[phase] = tabc.COMPACT_KERNEL_LAUNCHES - compactions
         entries = dict(abc_sim.ENTRY_LAUNCHES)
         gated = abc_sim.gated_launches("wave")
         counts = dict(wave_launches=abc_sim.launches("wave"), gated_wave_launches=gated,
                       theta_in_launches=abc_sim.launches("distance"),
                       host_prior_draws=priors.DEVICE_DRAWS, plain_calls=ref.CALLS,
-                      host_syncs=tabc.HOST_SYNCS)
+                      host_syncs=tabc.HOST_SYNCS, compactions=path_compactions[phase])
         host_loop = "--wave-loop" in argv and argv[argv.index("--wave-loop") + 1] == "host"
         segments = 0 if host_loop else -(-post.runs // tabc.SEGMENT_WAVES)
         entry = abc_sim.entry_name(model, "wave")
@@ -4265,6 +4296,16 @@ def main(argv=None) -> int:
         return err.mean().item(), prior_err.mean().item()
 
     path_launches, path_gated = {}, {}
+    #: compaction-kernel launches by path (`core.abc.COMPACT_KERNEL_LAUNCHES`)
+    path_compactions = {}
+
+    def compacting(phase, fn):
+        """fn(), its compaction-kernel launches kept under `phase`."""
+        compactions = tabc.COMPACT_KERNEL_LAUNCHES
+        out = fn()
+        path_compactions[phase] = tabc.COMPACT_KERNEL_LAUNCHES - compactions
+        return out
+
     italy_argv = ["--dataset", "italy", "--days", "49", "--batch", "100000",
                   "--chunk", "10000", "--auto-tolerance", "1e-4", "--accept", "100",
                   "--device", "cuda"]
@@ -4417,16 +4458,42 @@ def main(argv=None) -> int:
         tabc.run_abc(italy, dataclasses.replace(cfg, wave_loop=wl), seed=0, device=dev)
         torch.cuda.synchronize()
         unprofiled[wl].append((time.perf_counter() - t0) * 1e3)
-    # compact_accepted alone at the main path's shape and a wave's accept
-    # mask: its device time, from the profiler, over 16 calls
+    # the compaction at the main path's shape: the kernel (compact_accepted
+    # on CUDA tensors) against the plain lines it replaced on the card
+    # (core.abc.compact_plain) on fresh buffers alike, rows [0, cap) and new
+    # fill bit for bit, for the wave's accept mask, a gated (all false) one
+    # and a dense one whose accepts overflow the capacity from a fill of
+    # cap - 40; then the device time of each (`queued_us`)
     th_w, d_w = ops.make_abc_sim(ob_it, model=siard, **it_kw).wave(prior, 3, 4, 100_000)
-    accept = d_w <= tabc.tolerance32(post.tolerance)
     cap = tabc.wave_capacity(cfg)
-    th_buf = torch.zeros((cap + 1, 8), device=dev)
-    d_buf = torch.full((cap + 1,), float("inf"), device=dev)
-    fill0 = torch.zeros((1,), dtype=torch.int64, device=dev)
-    _, compact_busy, compact_ops = profile_device_ms(lambda: [tabc.compact_accepted(
-        th_buf, d_buf, fill0, th_w, d_w, accept, cap) for _ in range(16)])
+    masks = {"wave": (d_w <= tabc.tolerance32(post.tolerance), 0),
+             "gated": (torch.zeros_like(d_w, dtype=torch.bool), 0),
+             "dense_overflow": (d_w <= d_w.median(), cap - 40)}
+    compaction = {}
+    for case, (accept, fill) in masks.items():
+        fill0 = torch.full((1,), fill, dtype=torch.int64, device=dev)
+        bufs = {}
+        for path, fn in (("kernel", tabc.compact_accepted), ("plain", tabc.compact_plain)):
+            bufs[path] = fn(torch.full((cap + 1, 8), -7.5, device=dev),
+                            torch.full((cap + 1,), float("inf"), device=dev), fill0, th_w, d_w,
+                            accept, cap)
+        n = int(accept.sum())
+        (k_th, k_d, k_fill), (p_th, p_d, p_fill) = bufs["kernel"], bufs["plain"]
+        if not int(k_fill) == int(p_fill) == fill + n:
+            raise AssertionError(f"profile compaction {case}: new fill {int(k_fill)} (kernel), "
+                                 f"{int(p_fill)} (plain), want {fill + n}")
+        checks = [bitwise(f"compaction {case} rows, kernel vs plain", k_th[:cap], p_th[:cap]),
+                  bitwise(f"compaction {case} distances, kernel vs plain", k_d[:cap], p_d[:cap])]
+        timed = {path: queued_us(lambda: fn(k_th, k_d, fill0, th_w, d_w, accept, cap))
+                 for path, fn in (("kernel", tabc.compact_accepted),
+                                  ("plain", tabc.compact_plain))}
+        written = min(n, max(cap - fill, 0))
+        # the mask read once, and each written row's p + 1 floats read and written
+        bound_us = ((accept.numel() + written * (th_w.shape[1] + 1) * 4 * 2)
+                    / HBM_BYTES_PER_S * 1e6)
+        compaction[case] = {"accepted": n, "fill": fill, "rows_written": written,
+                            "checks": checks, "kernel_device_us": timed["kernel"],
+                            "plain_device_us": timed["plain"], "bound_us": bound_us}
     emit("profile", loops={wl: {"runs": v, **{k: float(np.mean([r[k] for r in v])) for k in (
         "wall_ms", "device_busy_ms", "device_idle_share", "abc_sim_device_ms",
         "copies_device_ms", "other_device_ms_per_enqueued_wave")},
@@ -4434,10 +4501,8 @@ def main(argv=None) -> int:
         "busy_share_of_unprofiled_wall": float(np.mean([r["device_busy_ms"] for r in v]))
         / float(np.mean(unprofiled[wl]))}
         for wl, v in profiled.items()},
-        compact_accepted_device_ms_100k=compact_busy / 16, accepted_in_mask=int(accept.sum()),
-        compact_accepted_ops=[{"name": k[:80], "count": c, "device_ms": ms}
-                              for k, c, ms in compact_ops],
-        kind=name, nvidia_smi=smi)
+        compaction_100k=compaction, kind=name, nvidia_smi=smi)
+    compaction_100k = compaction
 
     # ---- no_sync: one segment of the main path's device loop enqueues no sync
     runner = tabc.make_wave_runner(siard.prior(), tabc.make_simulator(italy, cfg, dev), cfg)
@@ -4467,7 +4532,7 @@ def main(argv=None) -> int:
     ref.CALLS = 0
     tabc.HOST_SYNCS = 0
     t0 = time.perf_counter()
-    post_smc = run_smc_abc(italy, smc_cfg, seed=0, device=dev)
+    post_smc = compacting("smc_path", lambda: run_smc_abc(italy, smc_cfg, seed=0, device=dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     entries = dict(abc_sim.ENTRY_LAUNCHES)
@@ -4494,6 +4559,7 @@ def main(argv=None) -> int:
          round_waves=post_smc.round_waves, waves=smc_waves, simulations=post_smc.simulations,
          theta_in_launches=want["abc_sim_distance_siard"], gated_theta_in_launches=gated,
          wave_launches=1, host_syncs=tabc.HOST_SYNCS, plain_calls=ref.CALLS,
+         compactions=path_compactions["smc_path"],
          host_prior_draws=priors.DEVICE_DRAWS, wall_s=wall,
          posterior_mean=dict(zip(post_smc.param_names, post_smc.theta.mean(axis=0).tolist())),
          normalized_mean_error=err, prior_mean_normalized_error=prior_err,
@@ -4520,13 +4586,14 @@ def main(argv=None) -> int:
         ref.CALLS = 0
         tabc.HOST_SYNCS = 0
         t0 = time.perf_counter()
-        report = abc_run.main(["--campaign"] + argv)
+        report = compacting(phase, lambda: abc_run.main(["--campaign"] + argv))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return report, wall, {"entries": dict(abc_sim.ENTRY_LAUNCHES),
                               "gated": dict(abc_sim.ENTRY_GATED),
                               "host_syncs": tabc.HOST_SYNCS, "plain_calls": ref.CALLS,
-                              "host_prior_draws": priors.DEVICE_DRAWS}
+                              "host_prior_draws": priors.DEVICE_DRAWS,
+                              "compactions": path_compactions[phase]}
 
     def segments_of(runs, max_runs=10_000, every=32):
         """(segments, enqueued waves) of a scenario that ran `runs` waves:
@@ -4755,20 +4822,21 @@ def main(argv=None) -> int:
     shutil.rmtree(fc_root, ignore_errors=True)
 
     # ---- epi_serve: serve --epi and abc_serve, fits through the theta-in entries
-    path_launches["epi_serve"], path_gated["epi_serve"] = epi_serve_phase(dev, name, smi)
+    path_launches["epi_serve"], path_gated["epi_serve"] = compacting(
+        "epi_serve", lambda: epi_serve_phase(dev, name, smi))
 
     # ---- npe_path: the amortized backend; its fits launch no abc_sim entry
     npe_counts = npe_phase(dev, name, smi)
 
     # ---- scaleout_path: torch.distributed (NCCL world of 1, gloo ranks),
     # the lockstep reference, the study, the sharded SMC round, device groups
-    path_launches["scaleout_path"], path_gated["scaleout_path"] = scaleout_phase(
-        dev, name, smi, post, post_smc, smc_cfg)
+    path_launches["scaleout_path"], path_gated["scaleout_path"] = compacting(
+        "scaleout_path", lambda: scaleout_phase(dev, name, smi, post, post_smc, smc_cfg))
 
     # ---- tuning_path: the cost model, the autotuner, the audit of a segment's
     # syncs and the static analysis, on the card
-    path_launches["tuning_path"], path_gated["tuning_path"] = tuning_phase(
-        dev, name, smi, italy_argv, post, post.tolerance)
+    path_launches["tuning_path"], path_gated["tuning_path"] = compacting(
+        "tuning_path", lambda: tuning_phase(dev, name, smi, italy_argv, post, post.tolerance))
 
     # ---- timing: both entries alone, in turns, beside the operation bound,
     # the issue floor at the SM clock read under load, and the plain version
@@ -5040,6 +5108,20 @@ def main(argv=None) -> int:
         "shape": {"regions": 100, "batch": 100_000, "days": 49},
     }
 
+    if not (path_compactions.get("main_path") and path_compactions.get("smc_path")):
+        raise AssertionError(f"kernels: a device loop took no compaction kernel: "
+                             f"{path_compactions}")
+    compact_line = {
+        "name": "abc_compact", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/abc_compact.cu",
+        "replaces": None, "plain": "src/repro_torch/core/abc.py compact_plain",
+        "launches": sum(path_compactions.values()), "launches_by_path": path_compactions,
+        "us": {case: c["kernel_device_us"] for case, c in compaction_100k.items()},
+        "plain_us": {case: c["plain_device_us"] for case, c in compaction_100k.items()},
+        "bound_us": {case: c["bound_us"] for case, c in compaction_100k.items()},
+        "shape": {"batch": 100_000, "params": 8}, "library_us": None,
+    }
+
     # ---- flash, lm_prefill, lm_profile, lm_serve, lm_timing
     flash_lines = lm_phases(dev, name, smi, flash_phase(dev), cuda_core_fn)
     # ---- family_prefill, family_profile, family_flash_timing, family_serve;
@@ -5063,7 +5145,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"census: instructions a sample-day {census_per_day}, want "
                              f"{CENSUS_PER_DAY}")
     emit("total", wall_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [abc_line, regional_line, warp_line, *flash_lines]}),
+    print(json.dumps({"kernels": [abc_line, regional_line, warp_line, compact_line,
+                                  *flash_lines]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -180,7 +180,10 @@ class Checkpointer:
     def save_async(self, step: int, tree: Dict, metadata: Optional[Dict] = None):
         """Copy to host memory now; write on a background thread."""
         self.wait()  # one in-flight save at a time
-        host_tree = {k: _to_numpy(v) for k, v in tree.items()}
+        # a copy of every host leaf, which the caller's next in-place update
+        # (an optimizer step) cannot reach while the thread writes it
+        host_tree = {k: _to_numpy(v) if isinstance(v, torch.Tensor) and v.device.type != "cpu"
+                     else np.array(_to_numpy(v)) for k, v in tree.items()}
 
         def work():
             try:

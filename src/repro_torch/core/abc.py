@@ -76,7 +76,7 @@ from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
 from repro_torch.epi.spec import active_schedule, validate_mobility
 from repro_torch.ioutils import atomic_write
-from repro_torch.kernels import abc_sim, ops
+from repro_torch.kernels import abc_sim, compact, ops
 from repro_torch.kernels.rng import stream_seed
 from repro_torch.runtime.trace import span
 
@@ -91,6 +91,8 @@ PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM, SHARD_STREAM = r
 SEGMENT_WAVES = 16
 #: host syncs of the device loops (ABC and SMC rounds): one a segment
 HOST_SYNCS = 0
+#: compactions that took the kernel (`compact_accepted` on CUDA tensors)
+COMPACT_KERNEL_LAUNCHES = 0
 #: auto mode only picks the device loop when the accept buffer stays small
 #: enough to live comfortably on one device (rows, not bytes)
 _AUTO_DEVICE_MAX_ROWS = 4_000_000
@@ -380,21 +382,39 @@ def compact_accepted(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tens
     """Copy the accepted rows of a wave into the buffers' next free rows, in
     stream order, and return (th_buf, d_buf, new_fill).
 
-    The buffers hold `capacity + 1` rows: row `capacity` is a spare that
-    takes every rejected row, so the copy has fixed shapes, no atomics and
-    no data-dependent indexing. As `repro`'s scatter drops out-of-bounds
-    rows, accepted rows past the capacity land in the spare row too (they
-    are dropped), and `new_fill` counts every accepted row: callers clamp
+    The buffers hold `capacity + 1` rows; row `capacity` is a spare whose
+    content means nothing. As `repro`'s scatter drops out-of-bounds rows,
+    accepted rows past the capacity are dropped, and `new_fill` (a new
+    tensor; `fill` is not updated) counts every accepted row: callers clamp
     it to `capacity`. `fill` is an int64 tensor of shape [1]. Shared by the
-    ABC wave loop and the SMC round, on the CPU and on the card alike; its
-    launches are the span `abc.compact`.
+    ABC wave loops and the SMC round; its launches are the span
+    `abc.compact`.
+
+    CUDA tensors take one launch of the compaction kernel
+    (`kernels.compact`, counted by `COMPACT_KERNEL_LAUNCHES`), which writes
+    only the accepted rows; other tensors take `compact_plain`. Both give
+    the same rows [0, capacity) and the same new fill.
     """
+    global COMPACT_KERNEL_LAUNCHES
     with span("abc.compact"):
-        csum = torch.cumsum(accept, 0)  # int64
-        slot = torch.where(accept, csum + (fill - 1), capacity).clamp_(max=capacity)
-        th_buf.index_copy_(0, slot, theta)
-        d_buf.index_copy_(0, slot, dist)
-        return th_buf, d_buf, fill + csum[-1:]
+        if theta.device.type == "cuda":
+            new_fill = compact.compact_rows(th_buf, d_buf, fill, theta, dist, accept, capacity)
+            COMPACT_KERNEL_LAUNCHES += 1
+            return th_buf, d_buf, new_fill
+        return compact_plain(th_buf, d_buf, fill, theta, dist, accept, capacity)
+
+
+def compact_plain(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tensor,
+                  theta: torch.Tensor, dist: torch.Tensor, accept: torch.Tensor,
+                  capacity: int):
+    """`compact_accepted` in plain PyTorch, on any device: fixed shapes, no
+    atomics and no data-dependent indexing, as every rejected row is
+    written to the spare row `capacity`."""
+    csum = torch.cumsum(accept, 0)  # int64
+    slot = torch.where(accept, csum + (fill - 1), capacity).clamp_(max=capacity)
+    th_buf.index_copy_(0, slot, theta)
+    d_buf.index_copy_(0, slot, dist)
+    return th_buf, d_buf, fill + csum[-1:]
 
 
 def sync_counts(*counts: torch.Tensor) -> list:

@@ -9,7 +9,8 @@ flags, so an unchanged source reuses its build and a changed one rebuilds.
 Every source is built with `NVCC_FLAGS`; every `abc_sim*` source (one a
 model, `abc_sim_<model>`) adds `ABC_SIM_FLAGS`, `--fmad=false`, on which
 its bitwise agreement with the plain version rests, while the two
-flash-attention sources let nvcc fuse multiply-adds.
+flash-attention sources and `abc_compact` (the wave loop's compaction,
+which copies bits) let nvcc fuse multiply-adds.
 
 Each source that needs building is compiled by its own nvcc, all of them
 started together, so a build takes as long as its slowest source.

@@ -521,6 +521,33 @@ def test_checkpoint_async_save_commits(tmp_path):
     _assert_tree_equal(restored, t)
 
 
+def test_checkpoint_async_save_keeps_the_tree_as_it_was_when_called(tmp_path, monkeypatch):
+    """An in-place update right after `save_async` (an optimizer step on CPU
+    tensors and arrays) does not reach the checkpoint: the write, held here
+    until the update is done, saves the tree as it was at the call."""
+    import threading
+
+    from repro_torch.checkpoint import checkpointer
+
+    updated, real = threading.Event(), checkpointer.save_checkpoint
+
+    def held(*args, **kw):
+        assert updated.wait(30)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(checkpointer, "save_checkpoint", held)
+    t, want = _tree(2), _tree(2)
+    ck = Checkpointer(tmp_path)
+    ck.save_async(3, t)
+    t["w"].add_(1.0)
+    t["b"] += 1.0
+    updated.set()
+    ck.wait()
+    restored, _, step = ck.restore(_tree())
+    assert step == 3
+    _assert_tree_equal(restored, want)
+
+
 def test_checkpoint_async_error_comes_back_at_wait(tmp_path):
     (tmp_path / "file").write_text("")
     ck = Checkpointer(tmp_path / "file" / "sub")

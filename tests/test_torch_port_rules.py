@@ -132,14 +132,16 @@ FLAT = ("siard", "sir", "seir", "seiard")
 ABC_SOURCES = {abc_sim.library(m) for m in FLAT}
 REGIONAL_SOURCES = ({abc_sim.library(regionalize(get_model(m), 2)) for m in FLAT}
                     | {abc_sim.library("metapop_seir")})
-SOURCES = ABC_SOURCES | REGIONAL_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma"}
+SOURCES = ABC_SOURCES | REGIONAL_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma",
+                                            "abc_compact"}
 
 
 def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     """A change to a flash-attention source does not rebuild abc_sim, nor a
     change to one model's struct another model's library, nor a change to
     the region axis a flat library; the abc_sim sources alone keep
-    --fmad=false (their bitwise agreement rests on it)."""
+    --fmad=false (their bitwise agreement rests on it), and the compaction
+    kernel, which copies bits, takes nothing of theirs."""
     by_name = {src.stem: src for src in build.sources()}
     assert set(by_name) == SOURCES
     assert ABC_SOURCES == {"abc_sim_siard", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"}
@@ -160,6 +162,8 @@ def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     assert all("--fmad=false" in build.flags(n) for n in ABC_SOURCES | REGIONAL_SOURCES)
     assert "--fmad=false" not in build.flags("flash_attention_tf32")
     assert "--fmad=false" not in build.flags("flash_attention_wgmma")
+    assert build.local_headers(by_name["abc_compact"]) == []
+    assert "--fmad=false" not in build.flags("abc_compact")
     assert all("arch=compute_90a,code=sm_90a" in build.flags(n) for n in by_name)
     digests = {n: build._digest(src) for n, src in by_name.items()}
     assert len(set(digests.values())) == len(SOURCES)

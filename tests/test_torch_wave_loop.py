@@ -309,6 +309,78 @@ def test_compact_accepted_equals_repro(case):
     assert int(t_fill) == int(j_fill) == fill + int(accept.sum())
 
 
+def test_cpu_tensors_take_the_plain_compaction(monkeypatch):
+    """CPU tensors never reach the compaction kernel: one compaction is one
+    `abc.compact` span, and a whole device-loop posterior on the CPU leaves
+    `COMPACT_KERNEL_LAUNCHES` where it was."""
+    from repro_torch.kernels import compact
+    from repro_torch.runtime import trace
+
+    def refuse(*args):
+        raise AssertionError("a CPU compaction reached the kernel's wrapper")
+
+    monkeypatch.setattr(compact, "compact_rows", refuse)
+    launches = tabc.COMPACT_KERNEL_LAUNCHES
+    cap, B, fill, accept, dist = CASES["overflow_drops_excess"]
+    th_buf, d_buf = torch.zeros((cap + 1, 2)), torch.zeros((cap + 1,))
+    trace.disable()
+    trace.clear()
+    trace.enable()
+    try:
+        _, _, new_fill = tabc.compact_accepted(
+            th_buf, d_buf, torch.tensor([fill]), torch.ones((B, 2)),
+            torch.from_numpy(np.asarray(dist, np.float32)), torch.tensor(accept), cap)
+    finally:
+        trace.disable()
+    assert [s[0] for s in trace.records()] == ["abc.compact"]
+    trace.clear()
+    assert int(new_fill) == fill + sum(accept)
+    spec = get_model("siard")
+    ds = get_dataset("synthetic_small", num_days=DAYS)
+    post = tabc.run_abc(ds, _cfg(spec, _model_tolerance(spec), wave_loop="device"), seed=2,
+                        device="cpu")
+    assert len(post) > 0
+    assert tabc.COMPACT_KERNEL_LAUNCHES == launches
+
+
+def _wrapper_args(**over):
+    cap, B, p = 8, 40, 3
+    args = dict(th_buf=torch.zeros((cap + 1, p)), d_buf=torch.zeros((cap + 1,)),
+                fill=torch.zeros((1,), dtype=torch.int64), theta=torch.zeros((B, p)),
+                dist=torch.zeros((B,)), accept=torch.zeros((B,), dtype=torch.bool),
+                capacity=cap)
+    args.update(over)
+    return args
+
+
+#: what the kernel's wrapper refuses, and the words of its ValueError
+WRAPPER_REFUSALS = {
+    "theta_not_contiguous": (dict(theta=torch.zeros((3, 40)).t()), "theta must be a contiguous"),
+    "theta_float64": (dict(theta=torch.zeros((40, 3), dtype=torch.float64)),
+                      "theta must be a contiguous torch.float32"),
+    "dist_float64": (dict(dist=torch.zeros((40,), dtype=torch.float64)), "dist must be"),
+    "accept_uint8": (dict(accept=torch.zeros((40,), dtype=torch.uint8)),
+                     "accept must be a contiguous torch.bool"),
+    "fill_int32": (dict(fill=torch.zeros((1,), dtype=torch.int32)), "fill must be"),
+    "fill_on_another_device": (dict(fill=torch.zeros((1,), dtype=torch.int64, device="meta")),
+                               r"fill must be .* on cpu, got .* on meta"),
+    "buffer_without_its_spare_row": (dict(th_buf=torch.zeros((8, 3))), "th_buf must be"),
+    "theta_one_dimensional": (dict(theta=torch.zeros((40,))), r"theta must be \[B, p\]"),
+    "cpu_tensors": ({}, "takes CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("case", WRAPPER_REFUSALS)
+def test_compaction_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """Checked before any launch (and before the library is loaded), so the
+    refusals hold on the CPU too."""
+    from repro_torch.kernels import compact
+
+    over, words = WRAPPER_REFUSALS[case]
+    with pytest.raises(ValueError, match=words):
+        compact.compact_rows(**_wrapper_args(**over))
+
+
 # ------------------------------------------------------------------------
 # The gate of the simulator on the CPU, and the CLI
 # ------------------------------------------------------------------------
