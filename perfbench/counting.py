@@ -9,6 +9,9 @@ count nothing. The reference keeps its 32-bit hash words in int64, so a
 `& MASK32` on an integer tensor (it only emulates uint32 wraparound) is
 free, and `_mul32` (seven int64 operations for one uint32 multiply) counts
 as one multiply an element. A transcendental counts as one operation.
+A model file's hooks count where the day calls them: `coupled_inputs` and
+`hazard_rows` with the day; `region_constants`, worked out once a run when
+the reference's constants are made, is no sample's work and counts nothing.
 
 The counts are data in each configuration file (`ops_per_sample_day`,
 `ops_per_sample`); `test_perfbench_reference.py` holds the files to this

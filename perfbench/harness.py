@@ -143,16 +143,27 @@ def make_cell(name: str, entry: dict, workload: dict, config: dict) -> Cell:
 # --------------------------------------------------------------------------
 
 def program_spec(config: dict):
-    """The program's model of a configuration: its registered model, taken
-    to the configuration's regions and ring mobility where they differ."""
+    """The program's model of a configuration: its registered model; where
+    that is regional or the configuration has regions, taken to the
+    configuration's regions, mobility (a ring as the program's own
+    `ring:eps`, a file's matrix as it is) and seeded region; with the
+    configuration's prior box; then handed to the model file's
+    `program_spec(config, spec)` hook, where it has one."""
+    from perfbench import reference as ref
     from repro_torch.epi.models import get_model
     from repro_torch.epi.spec import regionalize
 
+    model = ref.Model(config)
     spec = get_model(config["model"])
-    mob = config.get("mobility")
-    if config["regions"] != spec.n_regions or mob:
-        spec = regionalize(spec, int(config["regions"]), f"ring:{mob['ring']}" if mob else None)
-    return spec
+    if model.n_regions > 1 or spec.is_regional:
+        mob = config.get("mobility") or {}
+        spec = regionalize(spec, model.n_regions,
+                           f"ring:{mob['ring']}" if "ring" in mob else model.mobility,
+                           seed_region=model.seed_region)
+    spec = dataclasses.replace(spec, prior_lows=tuple(model.lows),
+                               prior_highs=tuple(model.highs))
+    hook = getattr(model.rows, "program_spec", None)
+    return spec if hook is None else hook(config, spec)
 
 
 def make_program(cell: Cell, device):

@@ -16,19 +16,27 @@ loop, so that in float32 it gives the same bits:
   * a day of tau-leaping: n_k = floor(h_k + sqrt(h_k) * z_k), each count
     clamped to what its source compartment still holds, in declaration
     order; transition k of region r draws counter day * slots + r * T + k;
+    a row with no source (an inflow) is clamped at zero alone, as if its
+    source held without limit, and what it adds is not held by a later
+    row's source that day;
   * the identity summary under the Euclidean distance, accumulated day by
     day and channel by channel, NaN distances read as +inf;
   * a posterior is every sample with distance <= tolerance (in float32) of
     waves 0, 1, ... in stream order, up to the first wave at which the count
     reaches the target.
 
-A model's rows come from `perfbench/models/<model>.py`. `dtype` runs the
-same arithmetic in a lower precision, the control of `perfbench/control.py`.
+A model's rows come from `perfbench/models/<model>.py`, with its optional
+hooks (`coupled_inputs`, `region_constants`; `perfbench/README.md`). A
+configuration's arrays (`{"file": "<name>.npy"}` of `mobility` and
+`populations`) are float32 files under `perfbench/configs/`. `dtype` runs
+the same arithmetic in a lower precision, the control of
+`perfbench/control.py`.
 """
 
 from __future__ import annotations
 
 import importlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,6 +51,8 @@ PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM = range(4)
 CTR_SLOTS = 8
 #: elements of the widest [rows, transitions] tensor a block holds
 BLOCK_ELEMENTS = 32_000_000
+#: where a configuration's array files lie
+CONFIGS = Path(__file__).resolve().parent / "configs"
 
 
 def _mul32(x, m: int):
@@ -98,6 +108,30 @@ def ring_mobility(n_regions: int, eps: float):
     return rows
 
 
+def config_array(entry: dict, shape: tuple) -> np.ndarray:
+    """The float32 array of a configuration's `{"file": "<name>.npy"}`,
+    read from `CONFIGS` and checked against `shape`."""
+    arr = np.load(CONFIGS / entry["file"], allow_pickle=False)
+    if arr.dtype != np.float32 or arr.shape != tuple(shape):
+        raise ValueError(f"{entry['file']}: a float32 array of shape {tuple(shape)} is "
+                         f"wanted, not {arr.dtype} {arr.shape}")
+    return arr
+
+
+def config_mobility(cfg: dict):
+    """The configuration's [R][R] mobility as lists of floats: a ring
+    (`{"ring": eps}`), a file (`{"file": "<name>.npy"}`, row r weighting
+    each region q's mass in region r), or None (the identity)."""
+    mob, n = cfg.get("mobility"), int(cfg["regions"])
+    if not mob:
+        return None
+    if set(mob) == {"ring"}:
+        return ring_mobility(n, mob["ring"])
+    if set(mob) == {"file"}:
+        return config_array(mob, (n, n)).tolist()
+    raise ValueError(f"mobility {mob!r}: a ring or a file is wanted")
+
+
 class Model:
     """One configuration file's model, series scalars and prior."""
 
@@ -113,18 +147,26 @@ class Model:
         self.n_trans = len(rows.STOICHIOMETRY)
         self.obs_idx = [rows.COMPARTMENTS.index(c) for c in rows.OBSERVED]
         self.coupled_idx = [rows.COMPARTMENTS.index(c) for c in rows.COUPLED]
-        self.sources = [row.index(-1) for row in rows.STOICHIOMETRY]
+        self.sources = [row.index(-1) if -1 in row else None for row in rows.STOICHIOMETRY]
         self.n_chan = self.n_regions * len(self.obs_idx)
         total = self.n_regions * self.n_trans
         self.slots = max(CTR_SLOTS, -(-total // 8) * 8)
-        mob = cfg.get("mobility")
-        self.mobility = (ring_mobility(self.n_regions, mob["ring"]) if mob
-                         else np.eye(self.n_regions).tolist())
+        mob = config_mobility(cfg)
+        self.mobility = np.eye(self.n_regions).tolist() if mob is None else mob
+        pops = cfg.get("populations")
+        if pops and not self.regional:
+            raise ValueError(f"{cfg['model']} is flat: per-region populations need regions")
+        #: [R] float32 populations, or None: population / R each
+        self.populations = config_array(pops, (self.n_regions,)) if pops else None
+        self.coupled_inputs = getattr(rows, "coupled_inputs", None)
+        self.region_constants = getattr(rows, "region_constants", None)
         self.seed_region = int(cfg.get("seed_region", 0))
         self.scalars = tuple(float(cfg[k]) for k in ("population", "a0", "r0", "d0"))
         self.days = int(cfg["days"])
-        self.lows = [0.0] * len(cfg["prior_highs"])
         self.highs = [float(h) for h in cfg["prior_highs"]]
+        self.lows = [float(x) for x in cfg.get("prior_lows", [0.0] * len(self.highs))]
+        if len(self.lows) != len(self.highs):
+            raise ValueError("prior_lows and prior_highs differ in length")
 
     @property
     def n_params(self) -> int:
@@ -141,6 +183,16 @@ class Consts:
     def __init__(self, model: Model, device: torch.device, dtype):
         self.m, self.device, self.dtype = model, device, dtype
         self.mob = torch.tensor(model.mobility, dtype=dtype, device=device)
+        self.pop = (None if model.populations is None
+                    else torch.tensor(model.populations, device=device).to(dtype))
+        self.constants = ()
+        if model.region_constants is not None:
+            mob32 = torch.tensor(model.mobility, dtype=torch.float32, device=device)
+            pop32 = (torch.tensor(model.populations, device=device)
+                     if model.populations is not None
+                     else torch.tensor(model.scalars[0], dtype=torch.float32,
+                                       device=device) / model.n_regions)
+            self.constants = tuple(r.to(dtype) for r in model.region_constants(mob32, pop32))
         self.lo = torch.tensor(model.lows, dtype=dtype, device=device)
         self.hi = torch.tensor(model.highs, dtype=dtype, device=device)
         self.obs_idx = torch.tensor(model.obs_idx, dtype=torch.int64, device=device)
@@ -148,6 +200,11 @@ class Consts:
 
     def scalar(self, x) -> torch.Tensor:
         return torch.full((), float(x), dtype=self.dtype, device=self.device)
+
+    def region_population(self, pop: torch.Tensor) -> torch.Tensor:
+        """The population row a regional model's rows see: the
+        configuration's [R] populations, or the scalar pop / R."""
+        return pop / self.m.n_regions if self.pop is None else self.pop
 
     def with_observed(self, observed: np.ndarray) -> "Consts":
         self.observed = torch.tensor(np.asarray(observed, np.float32),
@@ -173,7 +230,7 @@ def initial_state(c: Consts, theta: torch.Tensor) -> torch.Tensor:
     pc = tuple(theta[:, k:k + 1] for k in range(m.n_params))
     z = torch.zeros((m.n_regions,), dtype=c.dtype, device=c.device)
     z[m.seed_region] = 1.0
-    rows = m.rows.initial_rows(pc, pop / m.n_regions, a0 * z, r0 * z, d0 * z)
+    rows = m.rows.initial_rows(pc, c.region_population(pop), a0 * z, r0 * z, d0 * z)
     n = theta.shape[0]
     return torch.stack([torch.broadcast_to(r, (n, m.n_regions)) for r in rows], dim=-1)
 
@@ -187,13 +244,16 @@ def hazards(c: Consts, state: torch.Tensor, pc) -> torch.Tensor:
         return torch.clamp_min(torch.stack(list(m.rows.hazard_rows(sc, pc, pop)), dim=-1),
                                0.0)
     sc = tuple(state[..., k] for k in range(m.n_state))
+    popr = c.region_population(pop)
+    inputs = (m.coupled_inputs(sc, popr) if m.coupled_inputs is not None
+              else tuple(sc[j] for j in m.coupled_idx))
     coupled = []
-    for j in m.coupled_idx:
-        row = c.mob[:, 0] * state[:, 0:1, j]
+    for x in inputs:
+        row = c.mob[:, 0] * x[:, 0:1]
         for q in range(1, m.n_regions):
-            row = row + c.mob[:, q] * state[:, q:q + 1, j]
+            row = row + c.mob[:, q] * x[:, q:q + 1]
         coupled.append(row)
-    rows = m.rows.hazard_rows(sc + tuple(coupled), pc, pop / m.n_regions)
+    rows = m.rows.hazard_rows(sc + tuple(coupled) + c.constants, pc, popr)
     n = state.shape[0]
     h = torch.stack([torch.broadcast_to(r, (n, m.n_regions)) for r in rows], dim=-1)
     return torch.clamp_min(h, 0.0).reshape(n, m.n_regions * m.n_trans)
@@ -201,13 +261,17 @@ def hazards(c: Consts, state: torch.Tensor, pc) -> torch.Tensor:
 
 def apply_counts(c: Consts, state: torch.Tensor, n_raw: torch.Tensor) -> torch.Tensor:
     """Clamp each count to its source's remaining mass, in declaration
-    order, and apply the stoichiometry."""
+    order, and apply the stoichiometry in the same order. A row with no
+    source (an inflow) is clamped at zero alone."""
     m = c.m
     if m.regional:
         n_raw = n_raw.reshape(state.shape[0], m.n_regions, m.n_trans)
     sc = [state[..., k] for k in range(m.n_state)]
     remaining, counts = {}, []
     for k, src in enumerate(m.sources):
+        if src is None:
+            counts.append(torch.clamp_min(n_raw[..., k], 0.0))
+            continue
         avail = remaining.get(src, sc[src])
         n_k = torch.clamp(n_raw[..., k], min=torch.zeros_like(avail), max=avail)
         remaining[src] = avail - n_k

@@ -5,6 +5,7 @@ import json
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -128,3 +129,10 @@ def test_config_file(config):
     for k in ("ops_per_sample_day", "ops_per_sample", "theta", "prior_highs", "days",
               "target_accepted", "data_seed", "assumed"):
         assert k in data, k
+    regions = int(data["regions"])
+    for key, shape in (("mobility", (regions, regions)), ("populations", (regions,))):
+        if "file" in (data.get(key) or {}):
+            path = HERE / "configs" / data[key]["file"]
+            assert path.is_file(), (key, path)
+            arr = np.load(path, allow_pickle=False)
+            assert arr.shape == shape and arr.dtype == np.float32, (key, arr.shape, arr.dtype)

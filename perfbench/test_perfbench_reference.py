@@ -23,8 +23,20 @@ METAPOP_RING = {
     "theta": [0.6, 0.3, 0.2, 1.0], "prior_highs": [2.0, 1.0, 1.0, 2.0],
     "population": 1e6, "a0": 100.0, "r0": 0.0, "d0": 0.0, "days": 49, "data_seed": 7,
 }
+#: a prior box that is not the registered SIARD's, around siard_italy's theta
+SIARD_BOX = {"prior_lows": [0.1, 10.0, 0.2, 0.001, 0.1, 0.001, 0.1, 0.5],
+             "prior_highs": [0.8, 60.0, 1.5, 0.05, 0.7, 0.05, 0.9, 1.5]}
+#: a configuration's mobility file: `mobility_file` writes it
+MATRIX = "mobility_12.npy"
+#: test cases beside the files: (the configuration they change, the keys changed)
+VARIANTS = {
+    "metapop_seed3": ("metapop_ring", {"seed_region": 3}),
+    "metapop_matrix": ("metapop_ring", {"mobility": {"file": MATRIX}}),
+    "siard_box": ("siard_italy", SIARD_BOX),
+}
 #: (configuration, regions and days of the tiny case)
-CASES = [("siard_italy", 1, 49), ("metapop_ring", 12, 10)]
+CASES = [("siard_italy", 1, 49), ("metapop_ring", 12, 10), ("metapop_seed3", 12, 10),
+         ("metapop_matrix", 12, 10), ("siard_box", 1, 49)]
 
 
 @pytest.fixture(autouse=True)
@@ -37,9 +49,22 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+@pytest.fixture
+def mobility_file(tmp_path, monkeypatch):
+    """`MATRIX` among the configurations' files: a seeded row-stochastic
+    12 x 12 matrix, dense and not symmetric, so no ring."""
+    rng = np.random.default_rng(20200316)
+    m = rng.random((12, 12)) + 3.0 * np.eye(12)
+    np.save(tmp_path / MATRIX, (m / m.sum(axis=1, keepdims=True)).astype(np.float32))
+    monkeypatch.setattr(ref, "CONFIGS", tmp_path)
+
+
 def load(config: str) -> dict:
     if config == METAPOP_RING["name"]:
         return METAPOP_RING
+    if config in VARIANTS:
+        base, keys = VARIANTS[config]
+        return dict(load(base), name=config, **keys)
     return json.loads((HERE / "configs" / f"{config}.json").read_text())
 
 
@@ -61,7 +86,7 @@ def program(cfg: dict, observed: np.ndarray, batch: int):
 
 
 @pytest.mark.parametrize("config,regions,days", CASES)
-def test_series_and_wave_bitwise(config, regions, days):
+def test_series_and_wave_bitwise(config, regions, days, mobility_file):
     from repro_torch.core.priors import schedule_prior
     from repro_torch.epi.data import synthetic_dataset
 
@@ -82,7 +107,7 @@ def test_series_and_wave_bitwise(config, regions, days):
 
 
 @pytest.mark.parametrize("config,regions,days", CASES)
-def test_pilot_and_posterior_bitwise(config, regions, days):
+def test_pilot_and_posterior_bitwise(config, regions, days, mobility_file):
     from repro_torch.core import abc
     from repro_torch.core.priors import schedule_prior
 
