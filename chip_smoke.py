@@ -50,11 +50,11 @@ printing one JSON line:
              regionalized to R=3 (uncoupled); R=10 and R=100 at 1024 x 49;
              and a sweep of three mobility matrices through the loaded
              library, with no rebuild (each through the route that
-             `abc_sim.regional_route` picks); then both routes, each entry,
-             at R = 4, 10, 100 and 128 (1024 x 49), R=100 pooled, and R=100
-             at regions_path's 100,000 x 49
+             `abc_sim.regional_route` picks); then each route (thread, warp,
+             tile), each entry, at R = 4, 10, 100 and 128 (1024 x 49), R=100
+             pooled, and R=100 at regions_path's 100,000 x 49
   gate       every gated entry (the flat wave and theta-in entries of each
-             model, the regional ones of both routes at R=4 and R=100)
+             model, the regional ones of each route at R=4 and R=100)
              launched with a gate of 0 into buffers filled with a sentinel,
              which stay bitwise unchanged; with a gate of 1 bitwise the
              ungated launch; a gate on the CPU refused
@@ -371,6 +371,19 @@ printing one JSON line:
              2048 prefill through the bf16 flash kernel on each rank's 4
              query heads, 18 launches a rank, within lm_prefill's bar of
              the single-device dense route
+  li2020_path  Li et al. 2020's 375 cities at the benchmark cell
+             `li2020_china.b20k`'s shape (20,000 x 14 days a wave), made as
+             perfbench makes it (`harness.make_program`: the committed
+             traveller and population files, the pilot's tolerance): the
+             main path's simulator names the tile route's wave entry; one
+             wave of it bitwise prior.sample + the plain version on the card
+             (theta and distances); a run_abc on that runner with the
+             counters set to 0 just before: waves + gated launches of the
+             tile wave entry and nothing else, by entry and by route
+             (`ROUTE_LAUNCHES`); the 16 variants of li2020's tile kernel in
+             ptxas's report; the wave's ms by CUDA events in two turns, the
+             plain version's, and the bound of the configuration's frozen
+             count at 67 TFLOP/s
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
@@ -381,8 +394,10 @@ printing one JSON line:
              launches on metapop_path, regions_path, campaign_path and
              scaleout_path (j)'s single-device run, the R=100 times at both
              batches and the route chosen at each R and batch;
-             tuning_path's autotune of R=100 on the warp route) and on the
-             warp route, the wave loop's compaction kernel abc_compact
+             tuning_path's autotune of R=100 on the warp route), on the
+             warp route and on the tile route (li2020_path's launches, its
+             wave's ms, plain ms and bound), the wave loop's compaction
+             kernel abc_compact
              (its launches by path, which must reach it on main_path and
              smc_path, and profile's device us against its bound and the
              plain lines'), the bf16 flash route (its launches on lm_prefill,
@@ -390,8 +405,8 @@ printing one JSON line:
              encdec_prefill and mesh_path's two ranks, `launches_by_path`; its zamba2-2.7b cell and
              whisper's three) and the float32 one
 
-`python3 chip_smoke.py --only flash,encdec,train,mesh` runs the build and then
-only those groups of phases, with no kernels line.
+`python3 chip_smoke.py --only flash,encdec,train,mesh,li2020` runs the build and
+then only those groups of phases, with no kernels line.
 
 then the card's name and power limit as nvidia-smi gives them, and the last
 line `{"ok": true, "device": {...}}`. Any failing phase raises and the
@@ -433,6 +448,9 @@ REGIONAL_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional.cuh"
 REGIONAL_WARP_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional_warp.cuh"
 REGIONAL_TPU_KERNEL = "src/repro/kernels/abc_sim.py:195"
 REGIONAL_STRUCTS = ABC_MODELS + ("metapop_seir",)
+REGIONAL_TILE_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional_tile.cuh"
+#: the benchmark cell whose shape li2020_path runs (perfbench/workloads/)
+LI2020_CELL = "li2020_china.b20k"
 #: the (summary, distance) pairs of tests/test_metapop.py:235-239
 METAPOP_PAIRS = (("identity", "euclidean"), ("region_pooled", "euclidean"),
                  ("log_weekly", "mae"))
@@ -1803,7 +1821,7 @@ def scaleout_phase(dev, name: str, smi: str, main_post, smc_post, smc_cfg) -> tu
         j_kw = dict(batch_size=100_000, chunk_size=10_000, num_days=49, tolerance=j_eps,
                     target_accepted=50, max_runs=16, wave_loop="device")
         _, j_cfg = pjit_config(j_kw, PJIT_ROUTE_REGIONS)
-        thread, warp = (abc_sim.entry_name(j_cfg.model, "wave", r) for r in abc_sim.ROUTES)
+        thread, warp = (abc_sim.entry_name(j_cfg.model, "wave", r) for r in ("thread", "warp"))
         j_solo, j_counts = counted(lambda: tabc.run_abc(j_ds, j_cfg, seed=0, device=dev))
         add(j_counts)
         if set(j_counts["entries"]) != {thread} or not len(j_solo):
@@ -3780,10 +3798,92 @@ def tuning_phase(dev, name: str, smi: str, italy_argv, main_post, main_tolerance
 
 
 #: the phase groups `--only` can run after the build, in this order
-ONLY_GROUPS = ("flash", "encdec", "train", "mesh")
+ONLY_GROUPS = ("flash", "encdec", "train", "mesh", "li2020")
 
 
-def partial_run(dev, name: str, smi: str, only, t_start: float) -> int:
+def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
+    """Phase li2020_path (see the docstring): Li et al. 2020's cities on the
+    tile route at the benchmark cell's shape. Returns the tile route's
+    `kernels` line."""
+    import torch
+
+    from perfbench import harness
+    from repro_torch.core import abc as tabc
+    from repro_torch.kernels import abc_sim, ref
+
+    t0 = time.perf_counter()
+    _, entry, workload, config = harness.cell_files(LI2020_CELL)
+    cell = harness.make_cell(LI2020_CELL, entry, workload, config)
+    ds, cfg, runner, wave_entry = harness.make_program(cell, dev)
+    setup_s = time.perf_counter() - t0
+    sim, prior, spec, batch = runner.sim, runner.prior, cfg.model, cell.batch
+    if wave_entry != abc_sim.entry_name(spec, "wave", "tile") or spec.n_regions != 375:
+        raise AssertionError(f"li2020_path: the main path launches {wave_entry} at "
+                             f"R = {spec.n_regions}, not the tile route at 375 cities")
+    lib = info[abc_sim.library(spec)]
+    variants = {str(v): lib.kernels[k] for v in range(16) for k in lib.kernels
+                if abc_sim.variant_symbol(spec, v, "tile") in k}
+    if len(variants) != 16:
+        raise AssertionError(f"li2020_path: {len(variants)} tile variants of li2020 in "
+                             f"{abc_sim.library(spec)}'s ptxas report, want 16")
+
+    def plain(theta, seed):
+        """The plain version of the simulator's arguments on the card."""
+        return ref.abc_sim_distance_ref(theta, seed, sim.observed, model=spec, summary=sim.spec,
+                                        distance=sim.distance, schedule=sim.schedule,
+                                        mobility=sim.mobility, **sim.scalars)
+
+    # one wave of the main path's simulator against the plain version
+    theta, dist = sim.wave(prior, 21, 22, batch)
+    want = plain(theta, 22)
+    want = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
+    cases = [bitwise(f"li2020 R=375 {batch}x14 tile wave theta vs prior.sample", theta,
+                     prior.sample(21, batch, dev)),
+             bitwise(f"li2020 R=375 {batch}x14 tile wave vs plain", dist, want)]
+
+    # the main path's loop, the counters set to 0 just before
+    abc_sim.ROUTE_LAUNCHES.clear()
+    abc_sim.ROUTE_GATED.clear()
+    post, counts = counted(lambda: tabc.run_abc(ds, cfg, seed=3535, wave_runner=runner))
+    gated = counts["gated"].get(wave_entry, 0)
+    routes = (dict(abc_sim.ROUTE_LAUNCHES), dict(abc_sim.ROUTE_GATED))
+    if (counts["entries"] != {wave_entry: post.runs + gated}
+            or routes != ({"tile": post.runs + gated}, {"tile": gated} if gated else {})
+            or (counts["plain_calls"], counts["host_prior_draws"]) != (0, 0)
+            or len(post) < int(config["target_accepted"])):
+        raise AssertionError(f"li2020_path: launches {counts}, routes {routes}, "
+                             f"{len(post)} accepted in {post.runs} waves")
+
+    # the wave entry alone at the cell's batch, CUDA events, two turns
+    buf = (torch.empty((batch, spec.n_params), device=dev), torch.empty((batch,), device=dev))
+    turns = [cuda_ms(lambda: sim.wave(prior, 1, 2, batch, out=buf), 20) for _ in range(2)]
+    ms = float(np.mean(turns))
+    th_plain = prior.sample(3, batch, dev)
+    plain_ms = cuda_ms(lambda: plain(th_plain, 4), 1, warmup=1)
+    wave_ops = batch * (int(config["days"]) * config["ops_per_sample_day"]
+                        + config["ops_per_sample"])
+    bound_ms = wave_ops / F32_OPS_PER_S * 1e3
+    emit("li2020_path", cell=LI2020_CELL, regions=spec.n_regions, batch=batch,
+         days=int(config["days"]), entry=wave_entry, setup_s=setup_s,
+         tolerance=float(cfg.tolerance), comparisons=cases, accepted=len(post),
+         waves=post.runs, counts=counts, route_launches=routes[0], route_gated=routes[1],
+         ptxas_wave_variant=variants["8"], turns_ms=turns, ms=ms, plain_ms=plain_ms,
+         wave_ops=wave_ops, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
+         memory_peak_bytes=int(torch.cuda.max_memory_allocated(dev)), kind=name,
+         nvidia_smi=smi)
+    return {
+        "name": "abc_sim_regional_tile", "route": "cuda", "source": REGIONAL_TILE_SOURCE,
+        "replaces": None, "launches": post.runs + gated, "gated_launches": gated,
+        "entries": [{"entry": wave_entry, "source": "src/repro_torch/kernels/csrc/"
+                     f"{abc_sim.library(spec)}.cu", "launches": post.runs + gated,
+                     "gated_launches": gated}],
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations", "issue_floor_ms": None, "library_ms": None,
+        "shape": {"regions": spec.n_regions, "batch": batch, "days": int(config["days"])},
+    }
+
+
+def partial_run(dev, name: str, smi: str, only, t_start: float, info: dict) -> int:
     """`--only`: the named groups of phases after the build, for work on
     one part (no kernels line: that is the whole run's)."""
     import torch
@@ -3796,6 +3896,8 @@ def partial_run(dev, name: str, smi: str, only, t_start: float) -> int:
         train_phases(dev, name, smi)
     if "mesh" in only:
         mesh_phases(dev, name, smi)
+    if "li2020" in only:
+        li2020_phase(dev, name, smi, info)
     emit("total", wall_s=time.perf_counter() - t_start, only=sorted(only))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3936,7 +4038,7 @@ def main(argv=None) -> int:
          census_per_sample_day=census_per_day or "not measured: the toolkit has no cuobjdump")
 
     if only:
-        return partial_run(dev, name, smi, only, t_start)
+        return partial_run(dev, name, smi, only, t_start, info)
 
     # ---- rng: the kernel's hash bits and normals against the plain twin
     B, C, seed = 1_000_000, 10, 0x5EED1234
@@ -4148,10 +4250,11 @@ def main(argv=None) -> int:
             tag = f"{spec.name} {summary} {batch}x49 {route} route"
             d = abc_sim.abc_sim_regional_distance_kernel(
                 abc_sim.theta_to_soa(th), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-                model=spec, pool=sim.pool, route=route)
+                model=spec, pool=sim.pool, route=route, tile=sim.tile)
             th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
                 prior_seed, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
-                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route)
+                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route,
+                tile=sim.tile)
             if not torch.equal(th_w, th):
                 raise AssertionError(f"{tag}: the wave entry's theta differs from prior.sample")
             results.append(bitwise(f"{tag} theta-in entry vs plain", d, want))
@@ -4188,7 +4291,7 @@ def main(argv=None) -> int:
         soa = abc_sim.theta_to_soa(box.sample(3, batch, dev))
         for route in abc_sim.ROUTES if spec.is_regional else (None,):
             if spec.is_regional:
-                rkw = dict(model=spec, pool=sim.pool, route=route)
+                rkw = dict(model=spec, pool=sim.pool, route=route, tile=sim.tile)
 
                 def run_wave(gate=None, out=None):
                     return abc_sim.abc_sim_regional_wave_kernel(
@@ -5006,13 +5109,13 @@ def main(argv=None) -> int:
             regional_cells.append({
                 "model": spec.name, "regions": R, "batch": batch, "days": 49,
                 "route_chosen": route, "ms_wave": ms[route],
-                "ms": {r: ms[r] for r in abc_sim.ROUTES}, "turns_ms": turns,
+                "ms": {r: ms[r] for r in ("thread", "warp")}, "turns_ms": turns,
                 "siard_wave_ms": ms["siard"], "ratio_to_siard_wave": ms[route] / ms["siard"],
                 "plain_ms": plain_ms,
                 "ops_per_sample_day": abc_sim.ops_per_sample_day(spec, low),
                 "wave_ops": w_ops, "bytes": n_bytes, "bound_ms": bound,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-                "share_of_bound": {r: bound / ms[r] for r in abc_sim.ROUTES},
+                "share_of_bound": {r: bound / ms[r] for r in ("thread", "warp")},
                 "issue_floor_ms": {r: f["floor_ms"] if f else None for r, f in floors.items()},
                 "share_of_issue_floor": {r: f["floor_ms"] / ms[r] if f else None
                                          for r, f in floors.items()},
@@ -5028,6 +5131,9 @@ def main(argv=None) -> int:
          peak_bytes_per_s=HBM_BYTES_PER_S, library_ms=None, sms=n_sm,
          sm_clock_mhz=clock.summary(), default_block=abc_sim.DEFAULT_BLOCK, cells=timing,
          model_cells=model_cells, intervention=INTERVENTION, regional_cells=regional_cells)
+
+    # ---- li2020_path: Li et al. 2020's 375 cities on the tile route
+    tile_line = li2020_phase(dev, name, smi, info)
 
     main_cell = timing[0]
     # launches of each entry on the ABC paths, and its time at 100k x 49
@@ -5078,7 +5184,7 @@ def main(argv=None) -> int:
          "kernel": REGIONAL_SOURCE if r == "thread" else REGIONAL_WARP_SOURCE,
          "launches": launched.get(abc_sim.entry_name(metapop, e, r), 0),
          "gated_launches": gated_on_paths.get(abc_sim.entry_name(metapop, e, r), 0)}
-        for r in abc_sim.ROUTES for e in ("wave", "distance")]
+        for r in ("thread", "warp") for e in ("wave", "distance")]
 
     def route_launches(route):
         return sum(x["launches"] for x in regional_entries if x["kernel"] == (
@@ -5145,7 +5251,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"census: instructions a sample-day {census_per_day}, want "
                              f"{CENSUS_PER_DAY}")
     emit("total", wall_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [abc_line, regional_line, warp_line, compact_line,
+    print(json.dumps({"kernels": [abc_line, regional_line, warp_line, tile_line, compact_line,
                                   *flash_lines]}),
           flush=True)
     print(smi, flush=True)

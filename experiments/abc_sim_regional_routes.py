@@ -123,10 +123,11 @@ def main() -> int:
             tag = f"{spec.name} {summary} {batch}x49 {route}"
             d = abc_sim.abc_sim_regional_distance_kernel(
                 abc_sim.theta_to_soa(th), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-                model=spec, pool=sim.pool, route=route)
+                model=spec, pool=sim.pool, route=route, tile=sim.tile)
             th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
                 prior_seed, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights,
-                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route)
+                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route,
+                tile=sim.tile)
             if not torch.equal(th_w, th):
                 raise AssertionError(f"{tag}: the wave entry's theta differs from prior.sample")
             got.append(cs.bitwise(f"{tag} theta-in entry vs plain", d, want))

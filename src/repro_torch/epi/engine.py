@@ -14,11 +14,13 @@ draining, so no compartment goes negative and the total is conserved.
 A regional spec (`model.is_regional`) keeps its state region-major,
 [..., R * n_state], and works on rows [..., R] with the parameters as rows
 [..., 1]. Each region holds population / R, divided in float32 as the TPU
-kernel divides it (`repro`'s engine divides the Python float). A coupled
-row is `mob[r][0] * x_0 + mob[r][1] * x_1 + ...`, summed left to right from
-the first product as the TPU kernel body sums it, one [..., R] operation a
-source region q (`coupled_rows`); `repro`'s engine uses an einsum, whose
-order is not the kernel's.
+kernel divides it (`repro`'s engine divides the Python float), or its own
+of the spec's `populations`. A coupled row is `mob[r][0] * x_0 + mob[r][1]
+* x_1 + ...`, summed left to right from the first product as the TPU kernel
+body sums it, one [..., R] operation a source region q (`coupled_rows`);
+`repro`'s engine uses an einsum, whose order is not the kernel's. x is the
+coupled compartment, or the row the spec's `coupled_inputs` makes of the
+state; the rows of `region_constants` follow the coupled rows.
 
 `simulate_observed` draws its noise from the counter-hash RNG
 (`repro_torch.kernels.rng`), the same stream as the fused kernel: region r's
@@ -67,6 +69,13 @@ def _index(idx: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(idx, dtype=torch.int64, device=device)
 
 
+@functools.lru_cache(maxsize=16)
+def _populations(pops: tuple, device: torch.device) -> torch.Tensor:
+    """A spec's populations as a float32 tensor on `device`, copied there
+    once."""
+    return torch.tensor(pops, dtype=torch.float32, device=device)
+
+
 def mobility_matrix(model: CompartmentalModel, mobility=None,
                     device=None) -> torch.Tensor:
     """The [R, R] float32 coupling: an override, the spec's matrix, or the
@@ -85,8 +94,11 @@ def _region_rows(x, like: torch.Tensor) -> torch.Tensor:
 
 
 def region_population(model: CompartmentalModel, population, like: torch.Tensor):
-    """A region's population as a float32 tensor: population / R in float32
-    for R > 1, the population itself at R=1."""
+    """A region's population as a float32 tensor: the spec's `populations`
+    [R] where it has them, else population / R in float32 for R > 1 and the
+    population itself at R=1."""
+    if model.populations is not None:
+        return _populations(model.populations, like.device)
     pop = _region_rows(population, like)
     return pop / model.n_regions if model.n_regions > 1 else pop
 
@@ -202,17 +214,32 @@ def check_theta_width(model: CompartmentalModel, schedule, theta: torch.Tensor) 
                          f"{tuple(theta.shape)}")
 
 
-def coupled_rows(model: CompartmentalModel, st: torch.Tensor, mob: torch.Tensor):
+def coupled_rows(model: CompartmentalModel, st: torch.Tensor, mob: torch.Tensor,
+                 pop_r=None):
     """The coupled rows of region-major state rows `st` [..., R, C]: for
-    each coupled compartment j, [..., R] with row r = mob[r][0] * x_0[j] +
-    mob[r][1] * x_1[j] + ..., left to right from the first product."""
+    each coupled input x (the coupled compartment j, or the j-th row of
+    the spec's `coupled_inputs` of the state and the region populations
+    `pop_r`), [..., R] with row r = mob[r][0] * x_0 + mob[r][1] * x_1 + ...,
+    left to right from the first product."""
+    if model.coupled_inputs is None:
+        inputs = tuple(st[..., j] for j in model.coupled_idx)
+    else:
+        inputs = model.coupled_inputs(tuple(st[..., k] for k in range(model.n_state)), pop_r)
     out = []
-    for j in model.coupled_idx:
-        row = mob[:, 0] * st[..., 0:1, j]
+    for x in inputs:
+        row = mob[:, 0] * x[..., 0:1]
         for q in range(1, model.n_regions):
-            row = row + mob[:, q] * st[..., q:q + 1, j]
+            row = row + mob[:, q] * x[..., q:q + 1]
         out.append(row)
     return tuple(out)
+
+
+def region_constants(model: CompartmentalModel, mob: torch.Tensor, pop_r) -> tuple:
+    """The spec's `region_constants` rows of the float32 matrix and the
+    region populations, () without the hook."""
+    if model.region_constants is None:
+        return ()
+    return tuple(model.region_constants(mob, pop_r))
 
 
 def hazards(
@@ -237,8 +264,10 @@ def hazards(
     sc = tuple(st[..., k] for k in range(C))  # each [..., R]
     pc = tuple(theta[..., k:k + 1] for k in range(model.n_params))
     mob = mobility_matrix(model, mobility, state.device)
-    rows = model.hazard_rows(sc + coupled_rows(model, st, mob), pc,
-                             region_population(model, population, state))
+    pop_r = region_population(model, population, state)
+    rows = model.hazard_rows(
+        sc + coupled_rows(model, st, mob, pop_r) + region_constants(model, mob, pop_r),
+        pc, pop_r)
     h = torch.stack([torch.broadcast_to(r, batch + (R,)) for r in rows], dim=-1)
     return torch.clamp_min(h, 0.0).reshape(batch + (model.total_transitions,))
 
@@ -247,12 +276,16 @@ def drain_and_apply(model: CompartmentalModel, sc, raw_counts):
     """Clamp raw transition-count rows and apply the stoichiometry.
 
     Each clamp is bounded by what its source compartment still has after
-    earlier transitions out of the same source. Returns the next-state rows.
+    earlier transitions out of the same source; an inflow (no source) is
+    clamped at zero alone. Returns the next-state rows.
     """
     sc = list(sc)
     remaining = {}  # source compartment -> undrained budget
     counts = []
     for k, src in enumerate(model.transition_sources):
+        if src is None:
+            counts.append(torch.clamp_min(raw_counts[k], 0.0))
+            continue
         avail = remaining.get(src, sc[src])
         n_k = torch.clamp(raw_counts[k], min=torch.zeros_like(avail), max=avail)
         remaining[src] = avail - n_k

@@ -2,8 +2,9 @@
 
 The models of `repro.epi.models`, registered in its order: siard (the
 paper's default), sir, seir, seiard and the 4-region metapopulation
-metapop_seir. Each has a C++ struct beside it for the CUDA kernel
-(`kernels/csrc/<model>.cuh`).
+metapop_seir; then the port's own li2020 (Li et al., Science 2020: cities
+coupled by travellers), which `repro` does not have. Each has a C++ struct
+beside it for the CUDA kernel (`kernels/csrc/<model>.cuh`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from repro_torch.epi.models import sir as _sir  # noqa: E402, F401
 from repro_torch.epi.models import seir as _seir  # noqa: E402, F401
 from repro_torch.epi.models import seiard as _seiard  # noqa: E402, F401
 from repro_torch.epi.models import metapop_seir as _metapop_seir  # noqa: E402, F401
+from repro_torch.epi.models import li2020 as _li2020  # noqa: E402, F401
 
 DEFAULT_MODEL = _siard.MODEL
 

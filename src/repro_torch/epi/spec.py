@@ -16,14 +16,23 @@ kernel carries each model's rows as a C++ struct (`kernels/csrc/<kernel>.cuh`,
 `CompartmentalModel.kernel`).
 
 Spatial metapopulation models declare `n_regions` (R) copies of their
-compartments coupled through a row-stochastic `mobility` matrix. State,
+compartments coupled through a `mobility` matrix: row-stochastic weights by
+default, or daily traveller counts (`mobility_counts`; entry [r][q] the
+travellers from region q to region r, non-negative and finite). State,
 transitions and observed channels flatten region-major: channel
 `r * n_state + c` is compartment c of region r. For each compartment named
 in `coupled`, a hazard sees one extra row after its local ones, the
-mobility-weighted mass `sum_q mobility[r][q] * x_q`. Each region holds
-population / R people; the dataset's (a0, r0, d0) seed `seed_region` only.
-At R=1 with nothing coupled every total equals its per-region count, so a
-flat model is the R=1 case (`is_regional` is False).
+mobility-weighted mass `sum_q mobility[r][q] * x_q`, where x is the
+compartment itself or, with a `coupled_inputs` hook, the row the hook
+makes of it (a traveller model divides each compartment by the region's
+population less its documented cases). A `region_constants` hook adds
+rows worked out once from the matrix and the populations (a region's
+outbound travellers), after the coupled rows. Each region holds
+population / R people, or its own of `populations`; the dataset's (a0, r0,
+d0) seed `seed_region` only. A transition row with a +1 and no -1 is an
+inflow (travellers arriving), one with a -1 and no +1 an outflow; only a
+regional spec has them. At R=1 with nothing coupled every total equals its
+per-region count, so a flat model is the R=1 case (`is_regional` is False).
 
 An `InterventionSchedule` scales chosen parameters by a factor per window of
 days; the scales are extra columns of theta, shared by every region.
@@ -32,17 +41,23 @@ days; the scales are extra columns of theta, shared by every region.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Sequence, Tuple
 
 Rows = Sequence
 HazardFn = Callable[[Rows, Rows, object], Tuple]
 InitialFn = Callable[[Rows, object, object, object, object], Tuple]
+#: (state rows, population row) -> the rows the mobility matrix multiplies
+CoupledInputsFn = Callable[[Rows, object], Tuple]
+#: (mobility [R, R], population row) -> [R] rows worked out once
+RegionConstantsFn = Callable[[object, object], Tuple]
 
 #: hash-RNG counter slots per simulated day of a flat model (5 used by
 #: SIARD); a regional model's stride is `CompartmentalModel.ctr_slots`
 CTR_SLOTS = 8
-#: most transitions a model may have, per region
-MAX_TRANSITIONS = 8
+#: most transitions a model may have, per region (a flat model: `CTR_SLOTS`,
+#: its day's counter slots)
+MAX_TRANSITIONS = 16
 #: most windows a schedule may have (the kernel's breakpoint lanes)
 MAX_WINDOWS = 16
 #: tolerance of the row sums of a mobility matrix (float32 inputs)
@@ -57,10 +72,11 @@ def identity_mobility(n_regions: int) -> Tuple[Tuple[float, ...], ...]:
     )
 
 
-def validate_mobility(mobility, n_regions: int) -> Tuple[Tuple[float, ...], ...]:
+def validate_mobility(mobility, n_regions: int,
+                      counts: bool = False) -> Tuple[Tuple[float, ...], ...]:
     """A mobility matrix as nested float tuples, checked: [R][R], rows of
-    non-negative entries that sum to 1 (row-stochastic). Raises ValueError
-    otherwise."""
+    non-negative entries that sum to 1 (row-stochastic), or with `counts`
+    non-negative finite traveller counts. Raises ValueError otherwise."""
     rows = tuple(tuple(float(x) for x in row) for row in mobility)
     if len(rows) != n_regions or any(len(r) != n_regions for r in rows):
         raise ValueError(
@@ -68,6 +84,13 @@ def validate_mobility(mobility, n_regions: int) -> Tuple[Tuple[float, ...], ...]
             f"shape ({len(rows)}, {tuple(len(r) for r in rows)})"
         )
     for r, row in enumerate(rows):
+        if counts:
+            if not all(0.0 <= x < math.inf for x in row):
+                raise ValueError(
+                    f"mobility row {r} holds a negative or non-finite traveller "
+                    "count: counts must be finite and non-negative"
+                )
+            continue
         if any(x < 0.0 for x in row):
             raise ValueError(
                 f"mobility row {r} has negative entries: {row} — rows must "
@@ -135,7 +158,9 @@ class CompartmentalModel:
     #: uniform-box prior upper bounds, one per parameter (lows default to 0)
     prior_highs: Tuple[float, ...]
     #: [n_transitions][n_state]: each row moves one unit out of one source
-    #: (-1) into one destination (+1); row order is the clamp order
+    #: (-1) into one destination (+1), or, on a regional spec, into one
+    #: compartment from outside (an inflow, no -1) or out of one (an
+    #: outflow, no +1); row order is the clamp order
     stoichiometry: Tuple[Tuple[int, ...], ...]
     #: names of observed compartments, compared against data [n_observed, T]
     observed: Tuple[str, ...]
@@ -151,16 +176,28 @@ class CompartmentalModel:
     doc: str = ""
     #: metapopulation regions; R=1 is the flat single-population layout
     n_regions: int = 1
-    #: row-stochastic [R][R] coupling: mobility[r][q] weights region q's mass
-    #: in region r's coupled rows. None becomes the identity (no coupling)
+    #: [R][R] coupling: mobility[r][q] weights region q's mass in region r's
+    #: coupled rows, row-stochastic or, with `mobility_counts`, the daily
+    #: travellers from q to r. None becomes the identity (no coupling)
     #: whenever regions or coupled compartments are declared.
     mobility: Tuple[Tuple[float, ...], ...] | None = None
     #: compartments whose mobility-weighted mass rows are appended, in this
     #: order, to the state rows `hazard_rows` sees
     coupled: Tuple[str, ...] = ()
     #: the region seeded with the dataset's (a0, r0, d0); every other region
-    #: starts fully susceptible at population / n_regions
+    #: starts fully susceptible at its population
     seed_region: int = 0
+    #: `mobility` holds traveller counts (finite, non-negative) and not
+    #: row-stochastic weights
+    mobility_counts: bool = False
+    #: each region's population, [R]; None: population / R each
+    populations: Tuple[float, ...] | None = None
+    #: (state rows, population row) -> the rows that the matrix multiplies,
+    #: one a coupled compartment; None: the coupled compartments themselves
+    coupled_inputs: CoupledInputsFn | None = None
+    #: (mobility [R, R] float32, population row) -> [R] float32 rows that
+    #: `hazard_rows` sees after the coupled rows; None: no such row
+    region_constants: RegionConstantsFn | None = None
     #: the C++ struct (`kernels/csrc/<kernel>.cuh`) that carries these rows
     #: in the CUDA kernel; "" is `name`. `regionalize` keeps it, so a spec
     #: renamed `seir_r3` still runs on seir's struct.
@@ -174,21 +211,25 @@ class CompartmentalModel:
             raise ValueError(f"{self.name}: prior_lows must have {np_} entries")
         if len(self.default_theta) != np_:
             raise ValueError(f"{self.name}: default_theta must have {np_} entries")
+        regional = self.n_regions > 1 or bool(self.coupled)
+        moves = sorted((-1, 1) + (0,) * (ns - 2))
+        ends = (sorted((-1,) + (0,) * (ns - 1)), sorted((1,) + (0,) * (ns - 1)))
         for k, row in enumerate(self.stoichiometry):
-            if len(row) != ns or sorted(row) != sorted((-1, 1) + (0,) * (ns - 2)):
+            if len(row) != ns or (sorted(row) != moves
+                                  and not (regional and sorted(row) in ends)):
                 raise ValueError(
                     f"{self.name}: transition {k} must move one unit from one "
-                    f"source to one destination, got {row}"
+                    "source to one destination (or, on a regional spec, into or "
+                    f"out of one compartment alone), got {row}"
                 )
         for name in self.observed:
             if name not in self.compartments:
                 raise ValueError(f"{self.name}: observed {name!r} is not a compartment")
-        if nt > MAX_TRANSITIONS:
-            # per region: a regional model widens the day's counter stride
-            # (`ctr_slots`), not the transitions a region may have
-            raise ValueError(
-                f"{self.name}: at most {MAX_TRANSITIONS} transitions supported, got {nt}"
-            )
+        # per region: a regional model widens the day's counter stride
+        # (`ctr_slots`); a flat one has the day's CTR_SLOTS slots
+        most = MAX_TRANSITIONS if regional else CTR_SLOTS
+        if nt > most:
+            raise ValueError(f"{self.name}: at most {most} transitions supported, got {nt}")
         if not self.kernel:
             object.__setattr__(self, "kernel", self.name)
         # ---- the region axis
@@ -211,8 +252,17 @@ class CompartmentalModel:
                 object.__setattr__(self, "mobility", identity_mobility(self.n_regions))
         else:
             object.__setattr__(
-                self, "mobility", validate_mobility(self.mobility, self.n_regions)
+                self, "mobility",
+                validate_mobility(self.mobility, self.n_regions, self.mobility_counts),
             )
+        if self.populations is not None:
+            pops = tuple(float(x) for x in self.populations)
+            if len(pops) != self.n_regions or not all(0.0 < x < math.inf for x in pops):
+                raise ValueError(
+                    f"{self.name}: populations must be {self.n_regions} positive finite "
+                    f"numbers, one a region, got {len(pops)}"
+                )
+            object.__setattr__(self, "populations", pops)
 
     @property
     def n_state(self) -> int:
@@ -235,9 +285,16 @@ class CompartmentalModel:
         return tuple(self.compartments.index(c) for c in self.observed)
 
     @property
-    def transition_sources(self) -> Tuple[int, ...]:
-        """Source compartment index of each transition (the -1 entry)."""
-        return tuple(row.index(-1) for row in self.stoichiometry)
+    def transition_sources(self) -> Tuple[int | None, ...]:
+        """Source compartment index of each transition (the -1 entry); None
+        for an inflow."""
+        return tuple(row.index(-1) if -1 in row else None for row in self.stoichiometry)
+
+    @property
+    def transition_destinations(self) -> Tuple[int | None, ...]:
+        """Destination compartment index of each transition (the +1 entry);
+        None for an outflow."""
+        return tuple(row.index(1) if 1 in row else None for row in self.stoichiometry)
 
     # region-major totals: at R=1 each equals its per-region count
     @property
@@ -301,17 +358,20 @@ def regionalize(
     matrix, a `make_mobility` string ("ring:0.1") or None (identity). The
     rows are unchanged; only a model with coupled compartments exchanges
     mass, any other becomes R independent copies. The spec checks the
-    matrix. The name becomes `<name>_r<R>` when R changes; the struct of
-    the CUDA kernel (`kernel`) stays."""
+    matrix, as weights or, for a spec of `mobility_counts`, as traveller
+    counts. The name becomes `<name>_r<R>` when R changes, and the
+    populations are dropped (population / R each); the struct of the CUDA
+    kernel (`kernel`) stays."""
     if isinstance(mobility, str):
         mobility = make_mobility(mobility, n_regions)
+    same = n_regions == model.n_regions
     return dataclasses.replace(
         model,
-        name=name or (model.name if n_regions == model.n_regions
-                      else f"{model.name}_r{n_regions}"),
+        name=name or (model.name if same else f"{model.name}_r{n_regions}"),
         n_regions=n_regions,
         mobility=mobility,
         seed_region=seed_region,
+        populations=model.populations if same else None,
     )
 
 

@@ -1,6 +1,6 @@
 """ctypes wrapper of the fused ABC simulation kernel (`csrc/abc_sim.cuh`)
 and of its region axis (`csrc/abc_sim_regional.cuh`,
-`csrc/abc_sim_regional_warp.cuh`).
+`csrc/abc_sim_regional_warp.cuh`, `csrc/abc_sim_regional_tile.cuh`).
 
 Counterpart of `repro.kernels.abc_sim.abc_sim_distance_kernel`, which
 launched the TPU kernel. The CUDA kernel runs one thread per sample, on the
@@ -38,14 +38,24 @@ The regional entries (`abc_sim_regional_distance_kernel`,
 simulator, the mobility matrix [R, R] (coupled models) and the channel
 weights [n_chan]; R, the seeded region and the pooling are run-time
 arguments. obs is [n_chan, T] with n_chan = R * n_observed, region-major,
-or n_observed when pooled. R past `MAX_REGIONS` raises. The region axis has
-two routes in each struct's library, both bitwise the plain version:
-"thread" (one thread a sample, `csrc/abc_sim_regional.cuh`) and "warp" (one
-warp a sample, its regions over the lanes, `csrc/abc_sim_regional_warp.cuh`,
-entries named `..._warp_<struct>`). `regional_route` picks one from R and
-the launch's batch before the launch; the entries take `route=` so that a
-test can hold both at any R.
-There is no fallback: a launch error of the chosen route raises.
+or n_observed when pooled. The region axis has three routes in each
+struct's library, all bitwise the plain version: "thread" (one thread a
+sample, `csrc/abc_sim_regional.cuh`) and "warp" (one warp a sample, its
+regions over the lanes, `csrc/abc_sim_regional_warp.cuh`, entries named
+`..._warp_<struct>`), both up to `MAX_REGIONS`, and "tile" (a tile of
+`TILE_SAMPLES` samples a block, the matrix streamed through shared memory,
+`csrc/abc_sim_regional_tile.cuh`, entries `..._tile_<struct>`) up to
+`TILE_MAX_REGIONS`. The tile route also takes what the other two do not:
+inflow and outflow rows, a population a region, a spec's `coupled_inputs`
+and `region_constants` (li2020's library holds it alone). It reads the
+matrix transposed and padded, the populations and the region constants
+from device buffers (`tile_buffers`, made once a simulator and required
+on that route) and keeps its samples' state in scratch that the wrapper
+allocates a launch.
+`regional_route` picks a route from R, the struct and the launch's batch
+before the launch; the entries take `route=` so that a test can hold the
+routes against each other. There is no fallback: a launch error of the
+chosen route raises.
 
 Every entry takes a `gate`: None, or an int32 tensor of shape [1] on the
 launch's device. A launch whose gate reads 0 when the kernel runs writes
@@ -69,6 +79,8 @@ every block size.
 regional. Of those, `ENTRY_GATED` counts the launches whose gate read 0 (a
 loop records them once it has read its count, `record_gated`), so that
 `gated_launches(entry)` and `run_launches(entry)` split `launches(entry)`.
+`ROUTE_LAUNCHES` and `ROUTE_GATED` count the same launches by route
+("flat", "thread", "warp", "tile"; `entry_route`).
 `RNG_LAUNCHES` counts the launches of the two test entries:
 `rng_normals`, which writes the kernel's hash bits or normals for (seed,
 sample, counter), and `unit_math_mismatches`, which holds the kernel's
@@ -79,7 +91,8 @@ hash can give.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,8 +121,9 @@ N_ICONST = I_TV_SLOT + MAX_PARAMS
 #: the kernel's __launch_bounds__
 MAX_BLOCK = 256
 DEFAULT_BLOCK = 256
-#: the most regions the regional kernels take (the thread route's local
-#: arrays, the warp route's 4 regions a lane)
+#: the most regions the thread and warp routes take (the thread route's
+#: local arrays, the warp route's 4 regions a lane); the tile route takes up
+#: to TILE_MAX_REGIONS
 MAX_REGIONS = 128
 #: the warp route's __launch_bounds__ (128 registers a thread) and its block,
 #: in threads (block / 32 samples a block): the fastest of 128, 256, 384 and
@@ -124,7 +138,14 @@ WARP_DEFAULT_BLOCK = 512
 #: leave SMs idle), so the crossover rises with the batch
 #: (experiments/abc_sim_regional_routes.py, PERF.md).
 WARP_MIN_REGIONS = ((0, 12), (50_000, 18), (100_000, 24))
-ROUTES = ("thread", "warp")
+ROUTES = ("thread", "warp", "tile")
+#: the tile route: the most regions (its shared memory at 3 coupled
+#: compartments and 2 observed), samples a block, matrix rows (sources) a
+#: staged chunk, and the regions a warp's lanes cover (R is padded to it)
+TILE_MAX_REGIONS = 512
+TILE_SAMPLES = 16
+TILE_CHUNK = 16
+TILE_RBLOCK = 128
 #: shared memory a block may opt in to on compute capability 9.0
 SMEM_OPTIN_BYTES = 232_448
 
@@ -132,6 +153,10 @@ SMEM_OPTIN_BYTES = 232_448
 ENTRY_LAUNCHES: dict = {}
 #: of those, the launches whose gate read 0 (they wrote nothing)
 ENTRY_GATED: dict = {}
+#: launches and gated launches by route (`entry_route`): "flat", "thread",
+#: "warp" or "tile"
+ROUTE_LAUNCHES: dict = {}
+ROUTE_GATED: dict = {}
 #: launches of the two RNG test entries
 RNG_LAUNCHES = 0
 
@@ -166,25 +191,39 @@ def warp_min_regions(batch: int) -> int:
     return [r for b, r in WARP_MIN_REGIONS if batch >= b][-1]
 
 
+def tile_only(model) -> bool:
+    """Whether only the tile route takes `model`'s region axis: past
+    MAX_REGIONS, or with what the thread and warp routes lack (inflow or
+    outflow rows, a population a region, `coupled_inputs`,
+    `region_constants`)."""
+    spec = _spec(model)
+    ends = any(s is None for s in spec.transition_sources + spec.transition_destinations)
+    return (spec.n_regions > MAX_REGIONS or ends or spec.populations is not None
+            or spec.coupled_inputs is not None or spec.region_constants is not None)
+
+
 def regional_routes(model) -> tuple:
     """The routes `model`'s region axis takes at some batch, in `ROUTES`
     order."""
     spec = _spec(model)
     if not spec.is_regional:
         raise ValueError(f"{spec.name} is flat; it has no region axis")
+    if tile_only(spec):
+        return ("tile",)
     least = [r for _, r in WARP_MIN_REGIONS]
     return tuple(r for r, on in (("thread", spec.n_regions < max(least)),
                                  ("warp", spec.n_regions >= min(least))) if on)
 
 
 def regional_route(model, batch: Optional[int] = None) -> str:
-    """The route of `model`'s region axis at `batch` samples a launch: "warp"
-    (one warp a sample) from `warp_min_regions(batch)` regions on, else
-    "thread" (one thread a sample). With no batch, the one route that R
-    takes at every batch; a ValueError where the route depends on it."""
+    """The route of `model`'s region axis at `batch` samples a launch: "tile"
+    where only it takes the model (`tile_only`), else "warp" (one warp a
+    sample) from `warp_min_regions(batch)` regions on, else "thread" (one
+    thread a sample). With no batch, the one route that R takes at every
+    batch; a ValueError where the route depends on it."""
     spec = _spec(model)
     routes = regional_routes(spec)
-    if batch is not None:
+    if batch is not None and routes != ("tile",):
         return "warp" if spec.n_regions >= warp_min_regions(int(batch)) else "thread"
     if len(routes) > 1:
         raise ValueError(f"{spec.name} takes the thread or the warp route by batch "
@@ -205,7 +244,10 @@ def _route(model: CompartmentalModel, route: Optional[str],
 
 def route_block(route: str, block: Optional[int] = None) -> int:
     """`block`, checked against the route's launch bound, or the route's
-    default where it is None ("thread" also stands for the flat kernel)."""
+    default where it is None ("thread" also stands for the flat kernel).
+    The tile route launches its struct's own block (a warp a group of four
+    coupled columns, `csrc/abc_sim_regional_tile.cuh`) and leaves `block`
+    unused; it is checked as the thread route's."""
     limit = WARP_MAX_BLOCK if route == "warp" else MAX_BLOCK
     if block is None:
         return WARP_DEFAULT_BLOCK if route == "warp" else DEFAULT_BLOCK
@@ -229,8 +271,25 @@ def entry_name(model, entry: str, route: Optional[str] = None) -> str:
     spec = _spec(model)
     if not spec.is_regional:
         return f"abc_sim_{entry}_{spec.kernel}"
-    warp = "warp_" if _route(spec, route) == "warp" else ""
-    return f"abc_sim_regional_{entry}_{warp}{spec.kernel}"
+    route = _route(spec, route)
+    infix = "" if route == "thread" else f"{route}_"
+    return f"abc_sim_regional_{entry}_{infix}{spec.kernel}"
+
+
+def entry_route(name: str) -> str:
+    """The route of a C entry name: "tile", "warp", "thread" (regional) or
+    "flat"."""
+    if not name.startswith("abc_sim_regional_"):
+        return "flat"
+    for route in ("tile", "warp"):
+        if f"_{route}_" in name:
+            return route
+    return "thread"
+
+
+def tile_rpad(n_regions: int) -> int:
+    """R rounded up to `TILE_RBLOCK`: the tile route's padded region axis."""
+    return -(-int(n_regions) // TILE_RBLOCK) * TILE_RBLOCK
 
 
 #: the library that also holds the RNG test entries
@@ -253,17 +312,20 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
                 f"wrapper's {(N_FCONST, N_ICONST, MAX_CHAN, MAX_BLOCK)}"
             )
         if name.startswith("abc_sim_regional_"):
-            lib.abc_sim_max_regions.argtypes = []
-            lib.abc_sim_max_regions.restype = ctypes.c_int
-            if lib.abc_sim_max_regions() != MAX_REGIONS:
-                raise RuntimeError(f"{name} takes {lib.abc_sim_max_regions()} regions, the "
-                                   f"wrapper {MAX_REGIONS}")
-            lib.abc_sim_warp_max_block.argtypes = []
-            lib.abc_sim_warp_max_block.restype = ctypes.c_int
-            if lib.abc_sim_warp_max_block() != WARP_MAX_BLOCK:
-                raise RuntimeError(f"{name}'s warp route takes blocks of "
-                                   f"{lib.abc_sim_warp_max_block()}, the wrapper "
-                                   f"{WARP_MAX_BLOCK}")
+            # the warp route's symbols are missing where a library holds the
+            # tile route alone (li2020's)
+            checks = (("abc_sim_max_regions", MAX_REGIONS, True),
+                      ("abc_sim_warp_max_block", WARP_MAX_BLOCK, False),
+                      ("abc_sim_tile_max_regions", TILE_MAX_REGIONS, True),
+                      ("abc_sim_tile_samples", TILE_SAMPLES, True))
+            for fn, want, required in checks:
+                if not required and not hasattr(lib, fn):
+                    continue
+                getattr(lib, fn).argtypes = []
+                getattr(lib, fn).restype = ctypes.c_int
+                if getattr(lib, fn)() != want:
+                    raise RuntimeError(f"{name}'s {fn}() is {getattr(lib, fn)()}, the "
+                                       f"wrapper's {want}")
         if name == RNG_LIBRARY:
             lib.rng_normals.argtypes = [ctypes.c_uint, ctypes.c_int, ctypes.c_int,
                                         ctypes.c_int, _VP, ctypes.c_int, _VP]
@@ -287,6 +349,14 @@ _ARGTYPES = {
                           _INT, _VP, _VP],
     "regional_wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
                       _INT, _INT, _INT, _INT, _VP, _VP, ctypes.c_uint],
+    # the tile route: the matrix's transpose, the populations, the region
+    # constants and the scratch with its slots in place of the matrix and
+    # the block
+    "regional_distance_tile": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _INT,
+                               _INT, _INT, _INT, _INT, _VP, _VP],
+    "regional_wave_tile": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP,
+                           _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP, _VP,
+                           ctypes.c_uint],
 }
 
 
@@ -299,9 +369,10 @@ def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distan
         raise NotImplementedError(
             f"no CUDA kernel for model {model.name!r} (missing C symbol {name} in "
             f"csrc/{library(model)}.cu); the kernel carries the structs of siard, sir, "
-            "seir, seiard and metapop_seir"
+            "seir, seiard, metapop_seir and li2020"
         ) from None
-    fn.argtypes = _ARGTYPES[("regional_" if model.is_regional else "") + entry]
+    key = ("regional_" if model.is_regional else "") + entry
+    fn.argtypes = _ARGTYPES[key + ("_tile" if entry_route(name) == "tile" else "")]
     fn.restype = ctypes.c_int
     if model.is_regional:
         _check_struct(lib, model)
@@ -309,20 +380,36 @@ def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distan
 
 
 def _check_struct(lib: ctypes.CDLL, model: CompartmentalModel) -> None:
-    """Raise unless the struct in `lib` has the spec's sizes and coupled
-    compartments."""
-    shape_fn = getattr(lib, f"abc_sim_regional_shape_{model.kernel}")
-    shape_fn.argtypes = [_VP]
-    shape_fn.restype = _INT
-    out = np.zeros((16,), np.int32)
-    shape_fn(out.ctypes.data)
-    n_coupled = int(out[4])
-    got = (tuple(int(v) for v in out[:4]), tuple(int(v) for v in out[5:5 + n_coupled]))
+    """Raise unless the struct in `lib` has the spec's sizes, coupled
+    compartments, region constants (as many as the spec's hook makes),
+    coupled inputs of its own where the spec has them, and each
+    transition's source and destination."""
+    out = _struct_shape(lib, model.kernel)
+    n_coupled, n_trans = int(out[4]), int(out[1])
+    more = [int(v) for v in out[5 + n_coupled:7 + n_coupled + 2 * n_trans]]
+    got = (tuple(int(v) for v in out[:4]), tuple(int(v) for v in out[5:5 + n_coupled]),
+           bool(more[1]), tuple(v if v >= 0 else None for v in more[2::2]),
+           tuple(v if v >= 0 else None for v in more[3::2]))
     want = ((model.n_state, model.n_transitions, model.n_params, model.n_observed),
-            model.coupled_idx)
+            model.coupled_idx, model.coupled_inputs is not None, model.transition_sources,
+            model.transition_destinations)
     if got != want:
         raise ValueError(f"the struct of {library(model)} has (state, transitions, params, "
-                         f"observed), coupled {got}; {model.name} declares {want}")
+                         f"observed), coupled, own coupled inputs, sources, destinations "
+                         f"{got}; {model.name} declares {want}")
+
+
+def _struct_shape(lib: ctypes.CDLL, kernel: str) -> np.ndarray:
+    """What `abc_sim_regional_shape_<kernel>` reports of the struct: N_STATE,
+    N_TRANS, N_PARAMS, N_OBS, N_COUPLED, the coupled compartments,
+    N_RCONST, whether it makes its coupled inputs, then each transition's
+    source and destination (-1: none)."""
+    shape_fn = getattr(lib, f"abc_sim_regional_shape_{kernel}")
+    shape_fn.argtypes = [_VP]
+    shape_fn.restype = _INT
+    out = np.zeros((64,), np.int32)
+    shape_fn(out.ctypes.data)
+    return out
 
 
 def variant(flags, wave: bool) -> int:
@@ -339,14 +426,16 @@ def variant_symbol(model: CompartmentalModel, v: int, route: Optional[str] = Non
     `abc_sim_kernelI6SeiardLi8EE`, and for a regional model
     `abc_sim_regional_kernel<MetapopSeir, 8>`
     `abc_sim_regional_kernelI11MetapopSeirLi8EE` on the thread route,
-    `abc_sim_regional_warp_kernelI11MetapopSeirLi8EE` on the warp route
+    `abc_sim_regional_warp_kernelI11MetapopSeirLi8EE` on the warp route and
+    `abc_sim_regional_tile_kernelI11MetapopSeirLi8EE` on the tile route
     (`route`, or `regional_route` where it is None)."""
     struct = struct_name(model)
     if not model.is_regional:
         kernel = "abc_sim_kernel"
     else:
-        kernel = ("abc_sim_regional_warp_kernel" if _route(model, route) == "warp"
-                  else "abc_sim_regional_kernel")
+        route = _route(model, route)
+        kernel = ("abc_sim_regional_kernel" if route == "thread"
+                  else f"abc_sim_regional_{route}_kernel")
     return f"{kernel}I{len(struct)}{struct}Li{int(v)}EE"
 
 
@@ -452,9 +541,11 @@ def _check_2d_f32(name: str, t: torch.Tensor) -> None:
 
 
 def _launched(model: CompartmentalModel, entry: str, route: Optional[str] = None) -> None:
-    """Count one launch of `model`'s `entry` under its C name."""
+    """Count one launch of `model`'s `entry` under its C name and its route."""
     name = entry_name(model, entry, route)
     ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
+    key = entry_route(name)
+    ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def _entry_sum(counts: dict, entry: str) -> int:
@@ -479,9 +570,12 @@ def run_launches(entry: str) -> int:
 
 
 def record_gated(name: str, n: int) -> None:
-    """Record `n` launches of the C entry `name` whose gate read 0."""
+    """Record `n` launches of the C entry `name` whose gate read 0, by name
+    and by route."""
     if n:
         ENTRY_GATED[name] = ENTRY_GATED.get(name, 0) + int(n)
+        key = entry_route(name)
+        ROUTE_GATED[key] = ROUTE_GATED.get(key, 0) + int(n)
 
 
 def check_gate(gate: Optional[torch.Tensor], device: torch.device) -> None:
@@ -660,9 +754,16 @@ def regional_smem_bytes(model: CompartmentalModel, pool: int, num_days: int,
     weights, and for a coupled model the mobility matrix; on the warp route
     (`block` threads, block / 32 warps) the matrix in groups of four sources
     (ceil(R / 4) * 4 * R floats and 128 of padding) and each warp's vectors,
-    (N_COUPLED + N_OBS) * MAX_REGIONS floats."""
+    (N_COUPLED + N_OBS) * MAX_REGIONS floats. On the tile route: the coupled
+    inputs and rows [Rpad][N_COUPLED * TILE_SAMPLES] and two matrix chunks
+    [TILE_CHUNK][Rpad] (coupled models), the channel values [R * N_OBS]
+    [TILE_SAMPLES] and the tile's parameters, whatever the days."""
     n_chan = regional_channels(model, pool)
     route = _route(model, route)
+    if route == "tile":
+        rpad, nc = tile_rpad(model.n_regions), len(model.coupled)
+        coupled = rpad * nc * TILE_SAMPLES + 2 * TILE_CHUNK * rpad if nc else 0
+        return 4 * (coupled + (model.total_observed + model.n_params) * TILE_SAMPLES)
     if route == "thread":
         mob = model.n_regions ** 2 if model.coupled else 0
         return 4 * (n_chan * (num_days + 1) + mob)
@@ -677,15 +778,22 @@ def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weigh
                    pool: int, route: Optional[str] = None, block: Optional[int] = None) -> None:
     """Raise unless the region axis of `model` fits the kernel of `route`
     (each of `regional_routes` where it is None) at `block` and the device buffers
-    are what it reads: R at most MAX_REGIONS, obs [n_chan, T], weights
-    [n_chan], mobility [R, R] (coupled models), the block's shared memory
-    within the opt-in limit."""
+    are what it reads: R at most MAX_REGIONS (TILE_MAX_REGIONS on the tile
+    route), obs [n_chan, T], weights [n_chan], mobility [R, R] (coupled
+    models), the block's shared memory within the opt-in limit."""
     R = model.n_regions
     if not model.is_regional:
         raise ValueError(f"{model.name} is flat; it has no region axis")
-    if R > MAX_REGIONS:
-        raise ValueError(f"{model.name} has {R} regions; the regional kernel takes at most "
-                         f"MAX_REGIONS = {MAX_REGIONS}")
+    routes = regional_routes(model) if route is None else (_route(model, route),)
+    for name in routes:
+        label, most = (("TILE_MAX_REGIONS", TILE_MAX_REGIONS) if name == "tile"
+                       else ("MAX_REGIONS", MAX_REGIONS))
+        if R > most:
+            raise ValueError(f"{model.name} has {R} regions; the {name} route of the regional "
+                             f"kernel takes at most {label} = {most}")
+    if route is not None and route != "tile" and tile_only(model):
+        raise ValueError(f"{model.name} runs on the tile route alone (`tile_only`), not the "
+                         f"{route} route")
     n_chan = regional_channels(model, pool)
     if obs.shape[0] != n_chan or obs.shape[1] < 1:
         raise ValueError(f"obs must be [{n_chan}, T>=1] for {model.name} (pool {pool}), "
@@ -698,7 +806,7 @@ def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weigh
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 {list(shape)} tensor on "
                              f"{obs.device}")
-    for route in regional_routes(model) if route is None else (_route(model, route),):
+    for route in routes:
         smem = regional_smem_bytes(model, pool, obs.shape[1], route, block)
         if smem > SMEM_OPTIN_BYTES:
             raise ValueError(f"{model.name} at {obs.shape[1]} days needs {smem} bytes of "
@@ -709,6 +817,89 @@ def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weigh
 def _regional_args(model: CompartmentalModel, mobility, pool: int):
     mob = mobility.data_ptr() if model.coupled else None
     return mob, model.n_regions, model.seed_region, int(pool > 1)
+
+
+class TileBuffers(NamedTuple):
+    """What the tile route reads beside the other routes' buffers, made once
+    a simulator (`tile_buffers`): the matrix transposed and zero-padded,
+    mob_t [Rpad, Rpad] with mob_t[q][r] = mobility[r][q] (None for a model
+    with nothing coupled), the region populations [R] and the region
+    constants [N_RCONST, R] (None without them), float32 on one card, and
+    the floats of scratch a block takes (the library's
+    `abc_sim_regional_tile_slot_floats_<struct>(R)`)."""
+
+    mob_t: Optional[torch.Tensor]
+    pops: torch.Tensor
+    rconst: Optional[torch.Tensor]
+    slot_floats: int
+
+
+def tile_buffers(model: CompartmentalModel, mobility: Optional[torch.Tensor],
+                 population: float, device) -> TileBuffers:
+    """The tile route's buffers of `model` on `device`, from its [R, R]
+    float32 matrix there (None with nothing coupled): the populations as
+    the plain version forms them
+    (`engine.region_population`: the spec's own, or population / R in
+    float32) and the spec's `region_constants` of the float32 matrix and
+    those populations, as many rows as the struct reads."""
+    from repro_torch.epi import engine
+
+    R = model.n_regions
+    like = torch.empty((0,), device=device)
+    pops = engine.region_population(model, population, like)
+    pops = torch.broadcast_to(pops, (R,)).contiguous()
+    mob_t = None
+    if model.coupled:
+        rpad = tile_rpad(R)
+        mob_t = torch.zeros((rpad, rpad), dtype=torch.float32, device=device)
+        mob_t[:R, :R] = mobility.t()
+    rows = engine.region_constants(model, mobility, pops) if mobility is not None else ()
+    rconst = torch.stack([r.to(torch.float32) for r in rows]).contiguous() if rows else None
+    lib = _lib(library(model))
+    shape = _struct_shape(lib, model.kernel)
+    if len(rows) != int(shape[5 + shape[4]]):
+        raise ValueError(f"{model.name}'s region_constants make {len(rows)} rows; its struct "
+                         f"reads {int(shape[5 + shape[4]])}")
+    slot_floats = getattr(lib, f"abc_sim_regional_tile_slot_floats_{model.kernel}")
+    slot_floats.argtypes = [_INT]
+    slot_floats.restype = ctypes.c_longlong
+    return TileBuffers(mob_t, pops, rconst, int(slot_floats(R)))
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_tile(model: CompartmentalModel, entry: str, lib, obs: torch.Tensor,
+                 weights: torch.Tensor, tile: Optional[TileBuffers], fconst, iconst, batch: int,
+                 pool: int, head: tuple, outs: tuple, tail: tuple) -> None:
+    """One launch of the tile route's `entry`: its buffers `tile`, its
+    scratch (a slot a block in flight: min(tiles, the card's SMs), each of
+    `tile.slot_floats` floats) and the arguments `head` (the theta-in
+    entry's theta, or the wave entry's prior seed and box) and `outs`, then
+    the shared tail of the constants, the sizes, the stream, the gate (and
+    the offset: `tail`)."""
+    if tile is None:
+        raise ValueError(f"the tile route of {model.name} reads its buffers from "
+                         "`tile_buffers`; pass tile=")
+    for t in (tile.mob_t, tile.pops, tile.rconst):
+        if t is not None and (t.device != obs.device or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"the tile route's buffers must be contiguous float32 tensors on "
+                             f"{obs.device}")
+    fn = _kernel_fn(lib, model, entry, "tile")
+    slots = min(-(-batch // TILE_SAMPLES), _sm_count(obs.device))
+    scratch = torch.empty((slots * tile.slot_floats,), dtype=torch.float32, device=obs.device)
+    rconst = None if tile.rconst is None else tile.rconst.data_ptr()
+    mob, R, seed_region, pooled = _regional_args(model, tile.mob_t, pool)
+    with torch.cuda.device(obs.device):
+        rc = fn(*head, obs.data_ptr(), mob, tile.pops.data_ptr(), rconst,
+                weights.data_ptr(), scratch.data_ptr(), slots, *outs, fconst.ctypes.data,
+                iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled,
+                _stream_handle(obs.device), *tail)
+    _check_rc(lib, rc, entry_name(model, entry, "tile"))
+    _launched(model, entry, "tile")
 
 
 def abc_sim_regional_distance_kernel(
@@ -725,12 +916,14 @@ def abc_sim_regional_distance_kernel(
     route: Optional[str] = None,
     gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
     out: Optional[torch.Tensor] = None,  # dist [B] to write
+    tile: Optional[TileBuffers] = None,  # the tile route's buffers (required there)
 ) -> torch.Tensor:
     """Launch the theta-in entry of the region axis on the current stream;
     returns distances [B]. `pool` is the region-pooling factor
-    (`summaries.pool_factor`); `route` "thread" or "warp" (None:
+    (`summaries.pool_factor`); `route` "thread", "warp" or "tile" (None:
     `regional_route` at B), `block` in threads (None: the route's default),
-    `gate` and `out` as for `abc_sim_distance_kernel`."""
+    `gate` and `out` as for `abc_sim_distance_kernel`, `tile` the tile
+    route's `tile_buffers` (read on that route alone)."""
     if theta_soa.device.type != "cuda" or obs.device != theta_soa.device:
         raise ValueError(f"theta_soa ({theta_soa.device}) and obs ({obs.device}) must be "
                          "on one CUDA device")
@@ -749,8 +942,12 @@ def abc_sim_regional_distance_kernel(
     fconst = np.ascontiguousarray(fconst)
     iconst = np.ascontiguousarray(iconst)
     lib = _lib(library(model))
-    fn = _kernel_fn(lib, model, "distance", route)
     out = dist_out(out, batch, theta_soa.device)
+    if route == "tile":
+        _launch_tile(model, "distance", lib, obs, weights, tile, fconst, iconst, batch, pool,
+                     (theta_soa.data_ptr(),), (out.data_ptr(),), (_gate_ptr(gate),))
+        return out
+    fn = _kernel_fn(lib, model, "distance", route)
     mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
     with torch.cuda.device(theta_soa.device):
         rc = fn(theta_soa.data_ptr(), obs.data_ptr(), mob, weights.data_ptr(), out.data_ptr(),
@@ -779,12 +976,13 @@ def abc_sim_regional_wave_kernel(
     gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
     offset: int = 0,  # hash index of the wave's first sample
+    tile: Optional[TileBuffers] = None,  # the tile route's buffers (required there)
 ):
     """Launch the wave entry of the region axis: theta [batch, W] drawn as
     `UniformBoxPrior.sample(prior_seed, batch, offset=offset)` does, and its
-    distances [batch] with NaN turned to +inf. `route` and `block` as for
-    `abc_sim_regional_distance_kernel` (None: `regional_route` at `batch`),
-    `gate`, `out` and `offset` as for `abc_sim_wave_kernel`."""
+    distances [batch] with NaN turned to +inf. `route`, `block` and `tile`
+    as for `abc_sim_regional_distance_kernel` (None: `regional_route` at
+    `batch`), `gate`, `out` and `offset` as for `abc_sim_wave_kernel`."""
     route = _route(model, route, batch)
     block = route_block(route, block)
     if obs.device.type != "cuda":
@@ -800,12 +998,17 @@ def abc_sim_regional_wave_kernel(
         raise ValueError("a wave needs at least one sample")
     offset = check_offset(offset, batch)
     lib = _lib(library(model))
-    fn = _kernel_fn(lib, model, "wave", route)
     theta, dist = wave_out(out, batch, width, obs.device)
     if theta.data_ptr() % 16:
         raise RuntimeError("theta's storage is not 16-byte aligned")
     fconst = np.ascontiguousarray(fconst)
     iconst = np.ascontiguousarray(iconst)
+    if route == "tile":
+        _launch_tile(model, "wave", lib, obs, weights, tile, fconst, iconst, batch, pool,
+                     (int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data),
+                     (theta.data_ptr(), dist.data_ptr()), (_gate_ptr(gate), offset))
+        return theta, dist
+    fn = _kernel_fn(lib, model, "wave", route)
     mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
     with torch.cuda.device(obs.device):
         rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),

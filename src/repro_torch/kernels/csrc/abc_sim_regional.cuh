@@ -9,8 +9,9 @@
 // (:261-276), the per-region drain (:280) and the region pooling (:287-294).
 //
 // This is the route for small R (`abc_sim.regional_route`); the route for
-// large R, one warp a sample, is abc_sim_regional_warp.cuh, which shares the
-// checked launch arguments below (RegionalArgs, opt_in_smem).
+// large R, one warp a sample, is abc_sim_regional_warp.cuh, and the route
+// past MAX_REGIONS, a tile of samples a block, abc_sim_regional_tile.cuh;
+// both share the checked launch arguments below (RegionalArgs, opt_in_smem).
 //
 // One thread owns one sample, as in the flat kernel (abc_sim.cuh, whose
 // constants, parameter structs, theta draw and schedule windows this file
@@ -68,6 +69,28 @@ struct coupled_count {
 template <class M>
 struct coupled_count<M, std::void_t<decltype(M::N_COUPLED)>> {
   static constexpr int value = M::N_COUPLED;
+};
+
+// N_RCONST of a struct that declares it (rows worked out once from the
+// matrix and the populations, after the coupled rows), else 0
+template <class M, class = void>
+struct rconst_count {
+  static constexpr int value = 0;
+};
+template <class M>
+struct rconst_count<M, std::void_t<decltype(M::N_RCONST)>> {
+  static constexpr int value = M::N_RCONST;
+};
+
+// Whether a struct makes the rows the matrix multiplies itself
+// (M::coupled_inputs(x, pop, v)); else they are its coupled compartments.
+template <class M, class = void>
+struct has_coupled_inputs {
+  static constexpr bool value = false;
+};
+template <class M>
+struct has_coupled_inputs<M, std::void_t<decltype(&M::coupled_inputs)>> {
+  static constexpr bool value = true;
 };
 
 // The region geometry of a launch: regions, the seeded one, whether the
@@ -245,7 +268,9 @@ auto regional_kernel_table(std::integer_sequence<int, V...>) {
   return std::array<Fn, sizeof...(V)>{&abc_sim_regional_kernel<Model, V>...};
 }
 
-// N_STATE, N_TRANS, N_PARAMS, N_OBS, N_COUPLED and the coupled compartments
+// N_STATE, N_TRANS, N_PARAMS, N_OBS, N_COUPLED, the coupled compartments,
+// N_RCONST, whether the struct makes its coupled inputs, and each
+// transition's source and destination (-1: none)
 template <class Model>
 void regional_shape(int* out) {
   constexpr int NC = coupled_count<Model>::value;
@@ -256,6 +281,13 @@ void regional_shape(int* out) {
   out[4] = NC;
   if constexpr (NC > 0) {
     for (int k = 0; k < NC; ++k) out[5 + k] = Model::coupled(k);
+  }
+  int* more = out + 5 + NC;
+  more[0] = rconst_count<Model>::value;
+  more[1] = has_coupled_inputs<Model>::value ? 1 : 0;
+  for (int k = 0; k < Model::N_TRANS; ++k) {
+    more[2 + 2 * k] = Model::src(k);
+    more[3 + 2 * k] = Model::dst(k);
   }
 }
 
@@ -278,12 +310,12 @@ int read_regional_args(const void* obs, const void* mob, const void* weights,
                        const float* fconst, const int* iconst, const float* lows,
                        const float* highs, uint32_t prior_seed, bool wave, int B, int T, int R,
                        int seed_region, int pool, int block, int max_block, uint32_t offset,
-                       RegionalArgs<Model>& a) {
+                       RegionalArgs<Model>& a, int max_regions = MAX_REGIONS) {
   constexpr int NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value;
   if (B <= 0 || T <= 0 || block <= 0 || block > max_block) return cudaErrorInvalidValue;
   if (!index_range_ok(offset, B)) return cudaErrorInvalidValue;
-  if (R < 1 || R > MAX_REGIONS || seed_region < 0 || seed_region >= R) return cudaErrorInvalidValue;
+  if (R < 1 || R > max_regions || seed_region < 0 || seed_region >= R) return cudaErrorInvalidValue;
   if (pool != 0 && pool != 1) return cudaErrorInvalidValue;
   if (obs == nullptr || weights == nullptr || (NC > 0 && mob == nullptr))
     return cudaErrorInvalidValue;
@@ -382,15 +414,18 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
 // are device outputs; lows and highs [W] are host arrays; sample b hashes on
 // offset + b (cudaErrorInvalidValue where offset + B passes 2^32).
 // abc_sim_regional_shape_<name>(out): N_STATE, N_TRANS, N_PARAMS, N_OBS,
-// N_COUPLED and the coupled compartments (out holds 5 + N_COUPLED ints);
-// abc_sim_max_regions(): MAX_REGIONS.
+// N_COUPLED, the coupled compartments, N_RCONST, whether the struct makes its
+// coupled inputs, and each transition's source and destination (out holds
+// 7 + N_COUPLED + 2 * N_TRANS ints); abc_sim_max_regions(): MAX_REGIONS.
+// ABC_SIM_REGIONAL_LAYOUT_EXPORTS alone gives these and the layout sizes, for
+// a struct that only the tile route runs.
 // Both entries take a gate, as the flat ones do (abc_sim.cuh; the wave
 // entry's last argument but its offset): a device int that makes the launch
 // write nothing when it reads 0, or null.
 // Both entries return cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for arguments the kernel does not take, R past
 // MAX_REGIONS among them).
-#define ABC_SIM_REGIONAL_EXPORTS(name, Model)                                                   \
+#define ABC_SIM_REGIONAL_LAYOUT_EXPORTS(name, Model)                                            \
   extern "C" {                                                                                  \
   int abc_sim_n_fconst() { return N_FCONST; }                                                   \
   int abc_sim_n_iconst() { return N_ICONST; }                                                   \
@@ -401,6 +436,14 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
     regional_shape<Model>(out);                                                                 \
     return 0;                                                                                   \
   }                                                                                             \
+  const char* kernel_error_string(int code) {                                                   \
+    return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \
+  }                                                                                             \
+  }
+
+#define ABC_SIM_REGIONAL_EXPORTS(name, Model)                                                   \
+  ABC_SIM_REGIONAL_LAYOUT_EXPORTS(name, Model)                                                  \
+  extern "C" {                                                                                  \
   int abc_sim_regional_distance_##name(const void* theta, const void* obs, const void* mob,     \
                                        const void* weights, void* out, const void* fconst,      \
                                        const void* iconst, int B, int T, int R,                 \
@@ -422,8 +465,5 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
         stream, static_cast<const int*>(gate), offset);                                         \
-  }                                                                                             \
-  const char* kernel_error_string(int code) {                                                   \
-    return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \
   }                                                                                             \
   }

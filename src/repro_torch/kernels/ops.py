@@ -16,7 +16,11 @@ mobility matrix (the spec's, or a `mobility=` override, checked as the spec
 checks its own) and its channel weights go to device buffers once, when
 `make_abc_sim` makes the simulator, and no wave copies them again; the
 matrix is a run-time value of the kernel, so a mobility sweep reuses one
-build. `region_pooled` pools the regions' channels (`pool`).
+build. `region_pooled` pools the regions' channels (`pool`). Every
+regional simulator also gets the tile route's buffers once
+(`abc_sim.tile_buffers`: the matrix transposed and padded, the region
+populations, the spec's region constants), so that each route can launch
+from it.
 
 Dispatch is by device: a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
@@ -75,6 +79,7 @@ class AbcSim:
         self.mobility = mobility
         self.pool = pool_factor(spec, model.n_regions)
         self.device = observed.device
+        self.tile = None  # the tile route's buffers (`abc_sim.tile_buffers`)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"observed must be on the CPU or a CUDA device, got {self.device}")
         if observed.ndim != 2 or observed.shape[0] != model.total_observed:
@@ -92,6 +97,7 @@ class AbcSim:
                 self.mob = mob if model.coupled else None
                 abc_sim.check_regional(model, self.obs_summary, self.mob, self.weights,
                                        self.pool, None, block)
+                self.tile = abc_sim.tile_buffers(model, self.mob, population, self.device)
                 weights = torch.zeros((0,))
             self.fconst, self.iconst = abc_sim.pack_consts(
                 mean_scale=lowered.mean_scale, weights=weights.cpu().numpy(),
@@ -127,6 +133,7 @@ class AbcSim:
             return abc_sim.abc_sim_regional_distance_kernel(
                 abc_sim.theta_to_soa(theta), self.obs_summary, self.mob, self.weights,
                 self.fconst, iconst, model=model, pool=self.pool, block=self.block, gate=gate,
+                tile=self.tile,
             )
         return abc_sim.abc_sim_distance_kernel(
             abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst, iconst,
@@ -161,6 +168,7 @@ class AbcSim:
                     prior_seed, prior.lows, prior.highs, self.obs_summary, self.mob,
                     self.weights, self.fconst, iconst, model=self.model, batch=batch,
                     pool=self.pool, block=self.block, gate=gate, out=out, offset=offset,
+                    tile=self.tile,
                 )
             return abc_sim.abc_sim_wave_kernel(
                 prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
@@ -187,13 +195,14 @@ class AbcSim:
 
 def check_mobility(model: CompartmentalModel, mobility):
     """A mobility override as nested float tuples, checked against the
-    model: only a regional model takes one, [R][R] and row-stochastic. None
-    passes through (the spec's own matrix)."""
+    model: only a regional model takes one, [R][R] and row-stochastic (or
+    traveller counts, for a spec of `mobility_counts`). None passes through
+    (the spec's own matrix)."""
     if mobility is None:
         return None
     if not model.is_regional:
         raise ValueError(f"mobility set but model {model.name!r} has no region axis")
-    return validate_mobility(mobility, model.n_regions)
+    return validate_mobility(mobility, model.n_regions, model.mobility_counts)
 
 
 def make_abc_sim(

@@ -761,10 +761,11 @@ def _route_entries(sim, spec, theta, prior, seed, prior_seed, route, block=None)
     ic = abc_sim.with_seed(sim.iconst, seed)
     d = abc_sim.abc_sim_regional_distance_kernel(
         abc_sim.theta_to_soa(theta), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-        model=spec, pool=sim.pool, route=route, block=block)
+        model=spec, pool=sim.pool, route=route, block=block, tile=sim.tile)
     th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
         prior_seed, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-        ic, model=spec, batch=theta.shape[0], pool=sim.pool, route=route, block=block)
+        ic, model=spec, batch=theta.shape[0], pool=sim.pool, route=route, block=block,
+        tile=sim.tile)
     return d, th_w, d_w
 
 
@@ -882,12 +883,18 @@ def test_regional_schedule_and_mobility_sweep_reuse_one_build(cuda, regions):
 
 
 def test_regional_kernel_refuses_past_max_regions(cuda, monkeypatch):
-    """R past MAX_REGIONS: the wrapper raises a ValueError naming the limit;
-    past the wrapper, the C entry refuses to launch."""
+    """R past MAX_REGIONS on the thread or warp route: the wrapper raises a
+    ValueError naming the limit; past the wrapper, the C entry refuses to
+    launch. (The simulator takes such an R on the tile route,
+    `tests/test_torch_regional_tile.py`.)"""
     spec = _regional("metapop_seir", abc_sim.MAX_REGIONS + 1, "ring:0.1")
     obs = torch.zeros((spec.total_observed, 5), device=cuda)
-    with pytest.raises(ValueError, match=f"MAX_REGIONS = {abc_sim.MAX_REGIONS}"):
-        ops.make_abc_sim(obs, model=spec, population=1e6, a0=10.0)
+    assert ops.make_abc_sim(obs, model=spec, population=1e6, a0=10.0).entry(
+        "wave", 64) == "abc_sim_regional_wave_tile_metapop_seir"
+    for route in ("thread", "warp"):
+        with pytest.raises(ValueError, match=f"MAX_REGIONS = {abc_sim.MAX_REGIONS}"):
+            abc_sim.check_regional(spec, obs, torch.zeros((129, 129), device=cuda),
+                                   torch.zeros((spec.total_observed,), device=cuda), 1, route)
     monkeypatch.setattr(abc_sim, "check_regional", lambda *a: None)
     fconst, iconst = abc_sim.pack_consts(population=1e6, a0=10.0, r0=0.0, d0=0.0,
                                          mean_scale=1.0, weights=[], flags=(0, 0, 2, 1, 1),
@@ -896,9 +903,10 @@ def test_regional_kernel_refuses_past_max_regions(cuda, monkeypatch):
     weights = torch.ones((spec.total_observed,), device=cuda)
     theta = abc_sim.theta_to_soa(spec.prior().sample(1, 64, cuda))
     before = dict(abc_sim.ENTRY_LAUNCHES)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        abc_sim.abc_sim_regional_distance_kernel(theta, obs, mob, weights, fconst, iconst,
-                                                 model=spec)
+    for route in ("thread", "warp"):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            abc_sim.abc_sim_regional_distance_kernel(theta, obs, mob, weights, fconst, iconst,
+                                                     model=spec, route=route)
     assert abc_sim.ENTRY_LAUNCHES == before
 
 
@@ -1019,7 +1027,7 @@ def _gate_entries(cuda, spec, route, batch=2048):
     ic = abc_sim.with_seed(sim.iconst, 5)
     soa = abc_sim.theta_to_soa(box.sample(3, batch, cuda))
     if spec.is_regional:
-        rkw = dict(model=spec, pool=sim.pool, route=route)
+        rkw = dict(model=spec, pool=sim.pool, route=route, tile=sim.tile)
         return box, {
             "wave": lambda gate=None, out=None: abc_sim.abc_sim_regional_wave_kernel(
                 9, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,

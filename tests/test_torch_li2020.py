@@ -1,0 +1,175 @@
+"""Li et al. 2020's cities in the port's spec and plain path (`li2020`):
+what the spec now takes (inflow and outflow rows, populations a region,
+traveller counts, coupled-input and region-constant hooks) and still
+refuses, the route the region axis takes for it, and the existing models'
+plain paths bit for bit as before these were added. The plain path against
+the benchmark's reference is `perfbench/test_perfbench_li2020.py`; the
+tile route on the card `tests/test_torch_regional_tile.py`."""
+
+import dataclasses
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.priors import schedule_prior
+from repro_torch.epi import engine
+from repro_torch.epi.models import get_model
+from repro_torch.epi.spec import (
+    MAX_TRANSITIONS,
+    EpiModelConfig,
+    regionalize,
+    validate_mobility,
+)
+from repro_torch.kernels import abc_sim, ref
+
+torch.set_num_threads(1)
+
+LI = get_model("li2020")
+SIR = get_model("sir")
+#: a traveller matrix of 5 cities: counts, rows far from summing to 1
+COUNTS = tuple(tuple(0.0 if q == r else 100.0 * (r + 1) + q for q in range(5))
+               for r in range(5))
+
+
+def _flat_with(row):
+    """sir with one more transition row."""
+    return dataclasses.replace(SIR, stoichiometry=SIR.stoichiometry + (row,))
+
+
+#: (what, a spec build that must pass, or one that must raise with `match`)
+SPEC_CASES = {
+    "li2020 registered": (lambda: LI, None),
+    "traveller counts": (lambda: regionalize(LI, 5, COUNTS, seed_region=3), None),
+    "populations": (lambda: dataclasses.replace(regionalize(LI, 5, COUNTS),
+                                                populations=(1e5, 2e5, 3e5, 4e5, 5e5)), None),
+    "inflow and outflow on a regional spec": (
+        lambda: dataclasses.replace(regionalize(SIR, 2), stoichiometry=SIR.stoichiometry
+                                    + ((0, 1, 0), (0, -1, 0))), None),
+    "two sources": (lambda: _flat_with((-1, -1, 1)), "one source to one destination"),
+    "no move at all": (lambda: regionalize(_flat_with((0, 0, 0)), 2), "one source"),
+    "inflow on a flat spec": (lambda: _flat_with((0, 1, 0)), "one source"),
+    "populations of another length": (
+        lambda: dataclasses.replace(regionalize(LI, 5, COUNTS), populations=(1e5,) * 4),
+        "populations must be 5"),
+    "a population of zero": (
+        lambda: dataclasses.replace(regionalize(LI, 5, COUNTS), populations=(0.0,) * 5),
+        "positive finite"),
+    "negative counts": (lambda: regionalize(LI, 2, ((0.0, -1.0), (1.0, 0.0))),
+                        "non-negative"),
+    "infinite counts": (lambda: regionalize(LI, 2, ((0.0, float("inf")), (1.0, 0.0))),
+                        "finite"),
+    "counts where weights are wanted": (
+        lambda: regionalize(get_model("metapop_seir"), 5, COUNTS), "row-stochastic"),
+    "too many transitions a region": (
+        lambda: dataclasses.replace(LI, stoichiometry=LI.stoichiometry * 2),
+        f"at most {MAX_TRANSITIONS}"),
+    "a flat spec past its day's slots": (
+        lambda: dataclasses.replace(SIR, stoichiometry=SIR.stoichiometry * 5), "at most 8"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPEC_CASES))
+def test_spec_takes_what_li2020_needs_and_refuses_malformed_rows(case):
+    build, match = SPEC_CASES[case]
+    if match is None:
+        spec = build()
+        assert spec.is_regional
+        return
+    with pytest.raises(ValueError, match=match):
+        build()
+
+
+def test_li2020_declares_the_paper_and_keeps_its_populations():
+    assert LI.compartments == ("S", "E", "Ir", "Iu", "Rr", "Ru")
+    assert LI.observed == ("Ir", "Rr") and LI.coupled == ("S", "E", "Iu")
+    assert LI.prior().lows == (0.8, 0.2, 1.0, 2.0, 2.0, 0.02, 0.0, 0.0)
+    assert LI.prior().highs == (1.5, 1.0, 1.75, 5.0, 5.0, 1.0, 2000.0, 2000.0)
+    assert LI.transition_sources == (0, 1, 1, 2, 3, None, 0, None, 1, None, 3)
+    assert LI.transition_destinations == (1, 2, 3, 4, 5, 0, None, 1, None, 3, None)
+    assert validate_mobility(COUNTS, 5, counts=True) == COUNTS
+    spec = dataclasses.replace(regionalize(LI, 5, COUNTS), populations=(1e5,) * 5)
+    assert regionalize(spec, 5, COUNTS).populations == (1e5,) * 5
+    assert regionalize(spec, 6, None).populations is None
+    assert regionalize(LI, 375, None).ctr_slots == 4128
+
+
+def test_the_tile_route_alone_takes_li2020():
+    for R in (4, 12, 375):
+        spec = regionalize(LI, R, None)
+        assert abc_sim.tile_only(spec) and abc_sim.regional_routes(spec) == ("tile",)
+        assert abc_sim.regional_route(spec, 20_000) == "tile"
+        assert abc_sim.entry_name(spec, "wave") == "abc_sim_regional_wave_tile_li2020"
+    spec = regionalize(LI, 375, None)
+    assert abc_sim.library(spec) == "abc_sim_regional_li2020"
+    assert abc_sim.tile_rpad(375) == 384
+    # vt [384][48], two chunks [16][384], the channels [750][16], theta [16][8]
+    assert abc_sim.regional_smem_bytes(spec, 1, 14) == 4 * (384 * 48 + 2 * 16 * 384
+                                                              + 750 * 16 + 16 * 8)
+    assert abc_sim.regional_smem_bytes(spec, 1, 14) <= abc_sim.SMEM_OPTIN_BYTES
+    obs, mob, w = torch.zeros(750, 14), torch.zeros(375, 375), torch.zeros(750)
+    abc_sim.check_regional(spec, obs, mob, w, 1)
+    for route in ("thread", "warp"):
+        with pytest.raises(ValueError, match="MAX_REGIONS = 128"):
+            abc_sim.check_regional(spec, obs, mob, w, 1, route)
+    small = regionalize(LI, 12, None)
+    with pytest.raises(ValueError, match="tile route alone"):
+        abc_sim.check_regional(small, torch.zeros(24, 14), torch.zeros(12, 12),
+                               torch.zeros(24), 1, "warp")
+    metapop = regionalize(get_model("metapop_seir"), 200, "ring:0.1")
+    assert abc_sim.regional_routes(metapop) == ("tile",)
+    assert abc_sim.variant_symbol(metapop, 8) == \
+        "abc_sim_regional_tile_kernelI11MetapopSeirLi8EE"
+
+
+@pytest.mark.parametrize("name", ["abc_sim_wave_siard", "abc_sim_regional_wave_seir",
+                                  "abc_sim_regional_distance_warp_metapop_seir",
+                                  "abc_sim_regional_wave_tile_li2020"])
+def test_entry_route_names_each_route(name):
+    want = {"abc_sim_wave_siard": "flat", "abc_sim_regional_wave_seir": "thread",
+            "abc_sim_regional_distance_warp_metapop_seir": "warp",
+            "abc_sim_regional_wave_tile_li2020": "tile"}
+    assert abc_sim.entry_route(name) == want[name]
+
+
+def test_inflow_clamps_at_zero_alone_and_outflow_to_its_source():
+    """Rows applied in row order: an inflow's count is max(n, 0) however
+    little its compartment holds; an outflow drains what earlier rows left
+    of its source; what an inflow adds is no later row's budget."""
+    spec = LI
+    sc = [torch.tensor([10.0]), torch.tensor([3.0]), torch.tensor([0.0]), torch.tensor([1.0]),
+          torch.tensor([0.0]), torch.tensor([0.0])]
+    raw = [torch.tensor([v]) for v in (4.0, 1.0, 1.0, 0.0, 0.0, 50.0, 9.0, -2.0, 5.0,
+                                       7.0, 3.0)]
+    s, e, ir, iu, rr, ru = (float(x) for x in engine.drain_and_apply(spec, sc, raw))
+    # S: -4 (S->E), +50 (-> S), -min(9, 10 - 4) (S ->)
+    assert s == 10.0 - 4.0 + 50.0 - 6.0
+    # E: +4, -1, -1, +0 (the inflow of -2 clamps at zero), -min(5, 3 - 2)
+    assert e == 3.0 + 4.0 - 1.0 - 1.0 + 0.0 - 1.0
+    # Iu: +1 (E->Iu), +7 (-> Iu), -min(3, 1) (Iu ->): the inflow is no budget
+    assert (ir, iu, rr, ru) == (1.0, 1.0 + 1.0 + 7.0 - 1.0, 0.0, 0.0)
+
+
+#: (ctr_slots, sha256 of theta, the series and the distances) of the plain
+#: path, computed with the code from before the region axis took li2020
+GOLDEN = {"siard": (8, "6828033dac10bdcbc1dfa299e8229792"),
+          "metapop_ring12": (40, "8c14e67093628500950ca4ae8e7a98e3")}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_existing_plain_paths_are_bitwise_as_before(name):
+    """siard and metapop_seir on a ring of 12 (seed region 5): the prior's
+    draw, a simulated series and the plain version's distances hash as
+    they did before the spec took inflows, populations, counts and hooks."""
+    spec = (get_model("siard") if name == "siard"
+            else regionalize(get_model("metapop_seir"), 12, "ring:0.1", seed_region=5))
+    cfg = EpiModelConfig(population=1e6, num_days=12, a0=100.0, r0=2.0, d0=1.0)
+    theta = schedule_prior(spec).sample(3, 64, torch.device("cpu"))
+    obs = engine.simulate_observed(spec, theta, 9, cfg)
+    dist = ref.abc_sim_distance_ref(theta, 4, obs[0], population=1e6, a0=100.0, r0=2.0,
+                                    d0=1.0, model=spec, sample_offset=7)
+    h = hashlib.sha256()
+    for t in (theta, obs, dist):
+        h.update(np.ascontiguousarray(t.numpy()).tobytes())
+    assert (spec.ctr_slots, h.hexdigest()[:32]) == GOLDEN[name]

@@ -434,9 +434,18 @@ def test_region_axis_refuses_past_max_regions_before_any_launch():
     spec = regionalize(MP, abc_sim.MAX_REGIONS + 1, "ring:0.1")
     launches = dict(abc_sim.ENTRY_LAUNCHES)
     n = spec.total_observed
-    with pytest.raises(ValueError, match=f"MAX_REGIONS = {abc_sim.MAX_REGIONS}"):
-        abc_sim.check_regional(spec, torch.zeros(n, 5), torch.zeros(129, 129),
-                               torch.zeros(n), 1)
+    for route in ("thread", "warp"):
+        with pytest.raises(ValueError, match=f"MAX_REGIONS = {abc_sim.MAX_REGIONS}"):
+            abc_sim.check_regional(spec, torch.zeros(n, 5), torch.zeros(129, 129),
+                                   torch.zeros(n), 1, route)
+    # past MAX_REGIONS the tile route takes R, up to its own limit
+    abc_sim.check_regional(spec, torch.zeros(n, 5), torch.zeros(129, 129), torch.zeros(n), 1)
+    most = abc_sim.TILE_MAX_REGIONS
+    past = regionalize(MP, most + 1, "ring:0.1")
+    with pytest.raises(ValueError, match=f"TILE_MAX_REGIONS = {most}"):
+        abc_sim.check_regional(past, torch.zeros(past.total_observed, 5),
+                               torch.zeros(most + 1, most + 1),
+                               torch.zeros(past.total_observed), 1)
     big = regionalize(MP, abc_sim.MAX_REGIONS, "ring:0.1")
     with pytest.raises(ValueError, match="shared memory"):
         abc_sim.check_regional(big, torch.zeros(big.total_observed, 400),

@@ -131,7 +131,7 @@ def test_config_refuses_what_this_slice_lacks():
 FLAT = ("siard", "sir", "seir", "seiard")
 ABC_SOURCES = {abc_sim.library(m) for m in FLAT}
 REGIONAL_SOURCES = ({abc_sim.library(regionalize(get_model(m), 2)) for m in FLAT}
-                    | {abc_sim.library("metapop_seir")})
+                    | {abc_sim.library("metapop_seir"), abc_sim.library("li2020")})
 SOURCES = ABC_SOURCES | REGIONAL_SOURCES | {"flash_attention_tf32", "flash_attention_wgmma",
                                             "abc_compact"}
 
@@ -145,17 +145,18 @@ def test_each_cuda_source_hashes_only_its_own_headers_and_flags():
     by_name = {src.stem: src for src in build.sources()}
     assert set(by_name) == SOURCES
     assert ABC_SOURCES == {"abc_sim_siard", "abc_sim_sir", "abc_sim_seir", "abc_sim_seiard"}
-    assert REGIONAL_SOURCES == {f"abc_sim_regional_{m}" for m in FLAT + ("metapop_seir",)}
+    assert REGIONAL_SOURCES == {f"abc_sim_regional_{m}"
+                                for m in FLAT + ("metapop_seir", "li2020")}
     assert {abc_sim.library(m) for m in list_models()} == ABC_SOURCES | {
-        "abc_sim_regional_metapop_seir"}
+        "abc_sim_regional_metapop_seir", "abc_sim_regional_li2020"}
     for model in FLAT:
         assert [p.name for p in build.local_headers(by_name[abc_sim.library(model)])] == [
             "abc_sim.cuh", "rng.cuh", f"{model}.cuh"]
-    for model in FLAT + ("metapop_seir",):
+    for model in FLAT + ("metapop_seir", "li2020"):
         lib = f"abc_sim_regional_{model}"
         assert sorted(p.name for p in build.local_headers(by_name[lib])) == sorted([
-            "abc_sim.cuh", "abc_sim_regional.cuh", "abc_sim_regional_warp.cuh", "rng.cuh",
-            f"{model}.cuh"])
+            "abc_sim.cuh", "abc_sim_regional.cuh", "abc_sim_regional_warp.cuh",
+            "abc_sim_regional_tile.cuh", "rng.cuh", f"{model}.cuh"])
     assert abc_sim.RNG_LIBRARY == "abc_sim_siard"
     for flash in ("flash_attention_tf32", "flash_attention_wgmma"):
         assert [p.name for p in build.local_headers(by_name[flash])] == ["wgmma.cuh"]

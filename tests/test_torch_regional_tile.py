@@ -1,0 +1,201 @@
+"""The tile route of the region axis (`csrc/abc_sim_regional_tile.cuh`) on
+the card (marker `gpu`; skips without one).
+
+Li et al. 2020's cities (`li2020`) run on it alone, at every R; past
+`MAX_REGIONS` every struct does. Each case holds the route to the plain
+version on the card (`kernels.ref`, the arithmetic the benchmark's
+reference repeats), or to the warp route, bit for bit.
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_regional_tile.py
+"""
+
+import dataclasses
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.epi import engine
+from repro_torch.epi.models import get_model
+from repro_torch.epi.spec import EpiModelConfig, regionalize
+from repro_torch.kernels import abc_sim, ops, ref
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+DAYS = 14
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    if shutil.which("nvcc") is None and not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("needs nvcc to build the port's kernels")
+    return torch.device("cuda", 0)
+
+
+def li2020(regions: int):
+    """li2020 over `regions` cities: a seeded traveller matrix (zero
+    diagonal, 0-5,000 a day) and populations (0.2-3 million), Wuhan's part
+    played by city regions // 3."""
+    rng = np.random.default_rng(regions)
+    mob = (rng.random((regions, regions)) * 5e3 * (1 - np.eye(regions))).astype(np.float32)
+    pops = rng.uniform(2e5, 3e6, regions).astype(np.float32)
+    spec = regionalize(get_model("li2020"), regions, mob.tolist(), seed_region=regions // 3)
+    return dataclasses.replace(spec, populations=tuple(float(x) for x in pops))
+
+
+def _sim(cuda, spec, summary=None, a0=1.0):
+    """The simulator of a series that the plain version makes at the
+    model's default theta, and the keywords of the plain version."""
+    cfg = EpiModelConfig(population=5e7, num_days=DAYS, a0=a0)
+    theta = torch.tensor([spec.default_theta], dtype=torch.float32)
+    obs = engine.simulate_observed(spec, theta, 11, cfg)[0].to(cuda)
+    kw = dict(population=cfg.population, a0=cfg.a0, r0=0.0, d0=0.0, model=spec, summary=summary)
+    return obs, kw, ops.make_abc_sim(obs, **kw)
+
+
+def _wave_want(theta, seed, obs, kw, offset=0):
+    want = ref.abc_sim_distance_ref(theta, seed, obs, sample_offset=offset, **kw)
+    return torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().contiguous().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("regions,batch", [(12, 1000), (129, 300), (375, 200)])
+def test_tile_route_equals_the_plain_version_for_li2020(cuda, regions, batch):
+    """Both entries, through `AbcSim` (the route li2020 takes at every R),
+    bitwise the plain version: theta and distances, a tile left part-full."""
+    spec = li2020(regions)
+    assert abc_sim.regional_routes(spec) == ("tile",)
+    obs, kw, sim = _sim(cuda, spec)
+    assert sim.entry("wave", batch) == "abc_sim_regional_wave_tile_li2020"
+    prior = spec.prior()
+    theta, dist = sim.wave(prior, 5, 8, batch)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(theta), _bits(prior.sample(5, batch, cuda)))
+    assert np.array_equal(_bits(dist), _bits(_wave_want(theta, 8, obs, kw)))
+    assert torch.isfinite(dist).all() and (dist > 0).all()
+    got = sim(theta, 8)
+    assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 8, obs, **kw)))
+
+
+@pytest.mark.parametrize("slots,regions,batch", [(2, 375, 200), (3, 129, 1000),
+                                                 (None, 375, 2500)],
+                         ids=["2-blocks-375", "3-blocks-129", "card-375"])
+def test_tile_route_blocks_walk_several_tiles(cuda, monkeypatch, slots, regions, batch):
+    """A grid of fewer blocks than tiles: each block walks tiles blockIdx.x,
+    + gridDim.x, ... through one scratch slot, the last tile part-full.
+    `slots` blocks (the card's SM count where None: 2,500 samples are 157
+    tiles), the whole wave's theta and distances bitwise the plain version
+    and the theta-in entry's distances too."""
+    if slots is not None:
+        monkeypatch.setattr(abc_sim, "_sm_count", lambda device: slots)
+    blocks = slots or abc_sim._sm_count(cuda)
+    assert -(-batch // abc_sim.TILE_SAMPLES) > blocks
+    spec = li2020(regions)
+    obs, kw, sim = _sim(cuda, spec)
+    prior = spec.prior()
+    theta, dist = sim.wave(prior, 17, 19, batch)
+    got = sim(theta, 19)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(theta), _bits(prior.sample(17, batch, cuda)))
+    assert np.array_equal(_bits(dist), _bits(_wave_want(theta, 19, obs, kw)))
+    assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 19, obs, **kw)))
+
+
+@pytest.mark.parametrize("summary", [None, "region_pooled", "cumulative"])
+def test_tile_route_equals_the_warp_route_for_metapop_seir(cuda, summary):
+    """metapop_seir at R = 100 on a ring: both entries of the tile route
+    bitwise the warp route's (the route R = 100 takes) and the plain
+    version's."""
+    spec = regionalize(get_model("metapop_seir"), 100, "ring:0.1")
+    obs, kw, sim = _sim(cuda, spec, summary, a0=100.0)
+    prior = spec.prior()
+    theta = prior.sample(3, 1000, cuda)
+    ic = abc_sim.with_seed(sim.iconst, 9)
+    got = {}
+    for route in ("warp", "tile"):
+        d = abc_sim.abc_sim_regional_distance_kernel(
+            abc_sim.theta_to_soa(theta), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
+            model=spec, pool=sim.pool, route=route, tile=sim.tile)
+        th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
+            3, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
+            model=spec, batch=1000, pool=sim.pool, route=route, tile=sim.tile)
+        got[route] = [_bits(t) for t in (d, th_w, d_w)]
+    for a, b in zip(got["warp"], got["tile"]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(got["tile"][0], _bits(ref.abc_sim_distance_ref(theta, 9, obs, **kw)))
+
+
+def test_tile_gate_of_zero_writes_nothing(cuda):
+    spec = li2020(129)
+    _, _, sim = _sim(cuda, spec)
+    prior = spec.prior()
+    theta = torch.full((64, spec.n_params), -3.0, device=cuda)
+    dist = torch.full((64,), -5.0, device=cuda)
+    gate = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = abc_sim.ROUTE_LAUNCHES.get("tile", 0)
+    sim.wave(prior, 1, 2, 64, gate=gate, out=(theta, dist))
+    sim(prior.sample(1, 64, cuda), 2, gate=gate)
+    torch.cuda.synchronize()
+    assert (theta == -3.0).all() and (dist == -5.0).all()
+    assert abc_sim.ROUTE_LAUNCHES["tile"] == before + 2
+
+
+def test_tile_wave_at_an_offset_is_a_slice(cuda):
+    """A wave of B rows at offset o is rows [o, o + B) of the offset-0
+    wave of o + B rows."""
+    spec = li2020(129)
+    _, _, sim = _sim(cuda, spec)
+    prior = spec.prior()
+    th_all, d_all = sim.wave(prior, 7, 13, 333)
+    th_o, d_o = sim.wave(prior, 7, 13, 133, offset=200)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(th_o), _bits(th_all[200:]))
+    assert np.array_equal(_bits(d_o), _bits(d_all[200:]))
+
+
+def test_tile_route_refuses_past_its_limit(cuda, monkeypatch):
+    """R past TILE_MAX_REGIONS: the wrapper raises a ValueError naming the
+    limit; past the wrapper, the C entry refuses to launch."""
+    spec = regionalize(get_model("metapop_seir"), abc_sim.TILE_MAX_REGIONS + 1, "ring:0.1")
+    obs = torch.zeros((spec.total_observed, 5), device=cuda)
+    with pytest.raises(ValueError, match=f"TILE_MAX_REGIONS = {abc_sim.TILE_MAX_REGIONS}"):
+        ops.make_abc_sim(obs, model=spec, population=1e6, a0=10.0)
+    monkeypatch.setattr(abc_sim, "check_regional", lambda *a: None)
+    fconst, iconst = abc_sim.pack_consts(population=1e6, a0=10.0, r0=0.0, d0=0.0,
+                                         mean_scale=1.0, weights=[], flags=(0, 0, 2, 1, 1),
+                                         seed=1)
+    mob = torch.full((spec.n_regions, spec.n_regions), 1.0 / spec.n_regions, device=cuda)
+    weights = torch.ones((spec.total_observed,), device=cuda)
+    theta = abc_sim.theta_to_soa(spec.prior().sample(1, 64, cuda))
+    before = dict(abc_sim.ENTRY_LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        abc_sim.abc_sim_regional_distance_kernel(
+            theta, obs, mob, weights, fconst, iconst, model=spec,
+            tile=abc_sim.tile_buffers(spec, mob, 1e6, cuda))
+    assert abc_sim.ENTRY_LAUNCHES == before
+
+
+def test_route_launches_count_the_route_taken(cuda):
+    """ROUTE_LAUNCHES and ROUTE_GATED count by route where ENTRY_LAUNCHES
+    and ENTRY_GATED count by entry: a tile launch and a warp launch, and
+    gated launches recorded by name."""
+    li = li2020(12)
+    mp = regionalize(get_model("metapop_seir"), 100, "ring:0.1")
+    launches, gated = dict(abc_sim.ROUTE_LAUNCHES), dict(abc_sim.ROUTE_GATED)
+    for spec, a0 in ((li, 1.0), (mp, 100.0)):
+        _, _, sim = _sim(cuda, spec, a0=a0)
+        sim.wave(spec.prior(), 1, 2, 256)
+    torch.cuda.synchronize()
+    assert abc_sim.ROUTE_LAUNCHES["tile"] == launches.get("tile", 0) + 1
+    assert abc_sim.ROUTE_LAUNCHES["warp"] == launches.get("warp", 0) + 1
+    abc_sim.record_gated(abc_sim.entry_name(li, "wave"), 3)
+    assert abc_sim.ROUTE_GATED["tile"] == gated.get("tile", 0) + 3
