@@ -380,7 +380,10 @@ printing one JSON line:
              (theta and distances); a run_abc on that runner with the
              counters set to 0 just before: waves + gated launches of the
              tile wave entry and nothing else, by entry and by route
-             (`ROUTE_LAUNCHES`); the 16 variants of li2020's tile kernel in
+             (`ROUTE_LAUNCHES`), and of those the ones with two tiles or
+             more in flight an SM (`TILE_OVERLAPPED_LAUNCHES`: all of them
+             or none, as the occupancy query's blocks an SM, printed beside
+             it, say); the 16 variants of li2020's tile kernel in
              ptxas's report; the wave's ms by CUDA events in two turns, the
              plain version's, and the bound of the configuration's frozen
              count at 67 TFLOP/s
@@ -3844,14 +3847,22 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
     # the main path's loop, the counters set to 0 just before
     abc_sim.ROUTE_LAUNCHES.clear()
     abc_sim.ROUTE_GATED.clear()
+    abc_sim.TILE_OVERLAPPED_LAUNCHES = 0
     post, counts = counted(lambda: tabc.run_abc(ds, cfg, seed=3535, wave_runner=runner))
     gated = counts["gated"].get(wave_entry, 0)
     routes = (dict(abc_sim.ROUTE_LAUNCHES), dict(abc_sim.ROUTE_GATED))
+    overlapped = abc_sim.TILE_OVERLAPPED_LAUNCHES
+    resident = abc_sim._tile_resident(abc_sim._lib(abc_sim.library(spec)), spec.kernel,
+                                      spec.n_regions,
+                                      abc_sim.variant(sim.iconst[1:abc_sim.I_N_WINDOWS], True),
+                                      dev)
     if (counts["entries"] != {wave_entry: post.runs + gated}
             or routes != ({"tile": post.runs + gated}, {"tile": gated} if gated else {})
+            or overlapped != (post.runs + gated if resident >= 2 else 0)
             or (counts["plain_calls"], counts["host_prior_draws"]) != (0, 0)
             or len(post) < int(config["target_accepted"])):
         raise AssertionError(f"li2020_path: launches {counts}, routes {routes}, "
+                             f"{overlapped} with two tiles or more an SM, "
                              f"{len(post)} accepted in {post.runs} waves")
 
     # the wave entry alone at the cell's batch, CUDA events, two turns
@@ -3867,6 +3878,7 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
          days=int(config["days"]), entry=wave_entry, setup_s=setup_s,
          tolerance=float(cfg.tolerance), comparisons=cases, accepted=len(post),
          waves=post.runs, counts=counts, route_launches=routes[0], route_gated=routes[1],
+         tile_overlapped_launches=overlapped, resident_blocks_per_sm=resident,
          ptxas_wave_variant=variants["8"], turns_ms=turns, ms=ms, plain_ms=plain_ms,
          wave_ops=wave_ops, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
          memory_peak_bytes=int(torch.cuda.max_memory_allocated(dev)), kind=name,

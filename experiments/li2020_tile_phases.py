@@ -8,9 +8,14 @@ each with one step of the tile kernel's day cut out of its header (for
 timing only: their distances are wrong): `no_rows` (step 1, the coupled
 rows), `no_pass` (step 2, the region pass) and `no_chain` (step 3, the
 serial chain), beside the shipped text. Times each copy's wave entry by
-CUDA events in turns (shipped, cut, cut, shipped), and prints one JSON line
-with the times, what ptxas reported, and the card's nvidia-smi name and
-power limit.
+CUDA events in turns (shipped, cut, cut, shipped), twice: with the blocks
+the occupancy query finds resident on each SM (one for Li et al. at 375
+cities, where the two layouts are the same launch) and alone (the
+residency taken as 1, so the grid is one block an SM). Prints one JSON
+line with the times, what ptxas reported, each copy's blocks an SM, the
+region pass's SASS census a city-day (`sass.tile_region_census`,
+`cuobjdump -sass` of the shipped copy) and its issue floor, and the card's
+nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def main(argv=None) -> int:
         return 3
     from perfbench import harness
     from perfbench import reference as pref
-    from repro_torch.kernels import abc_sim, build, ops
+    from repro_torch.kernels import abc_sim, build, ops, sass
 
     csrc = build.CSRC
     header = (csrc / "abc_sim_regional_tile.cuh").read_text()
@@ -103,15 +108,38 @@ def main(argv=None) -> int:
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
     shipped = libs["li2020_shipped"][0]
-    result = {"batch": args.batch, "launches": args.launches, "ms": {}, "ptxas": {}}
-    for tag in CUTS:
-        cut = libs[f"li2020_{tag}"][0]
-        t = [time_ms(shipped), time_ms(cut), time_ms(cut), time_ms(shipped)]
-        result["ms"][tag] = {"shipped": [t[0], t[3]], "cut": [t[1], t[2]],
-                             "step_ms": float(np.mean([t[0], t[3]]) - np.mean(t[1:3]))}
-    for tag, (_, _, kernels) in libs.items():
-        wave = {k: v for k, v in kernels.items() if "Li2020Li8E" in k}
-        result["ptxas"][tag] = next(iter(wave.values()), None)
+    v = abc_sim.variant(sim.iconst[1:abc_sim.I_N_WINDOWS], True)
+    result = {"batch": args.batch, "launches": args.launches, "variant": v, "ms": {},
+              "ptxas": {}, "resident": {}}
+    queried = abc_sim._tile_resident
+    for layout, resident in (("in_flight", None), ("alone", 1)):
+        abc_sim._tile_resident = queried if resident is None else (lambda *a, n=resident: n)
+        try:
+            result["ms"][layout] = {}
+            for tag in CUTS:
+                cut = libs[f"li2020_{tag}"][0]
+                t = [time_ms(shipped), time_ms(cut), time_ms(cut), time_ms(shipped)]
+                result["ms"][layout][tag] = {
+                    "shipped": [t[0], t[3]], "cut": [t[1], t[2]],
+                    "step_ms": float(np.mean([t[0], t[3]]) - np.mean(t[1:3]))}
+        finally:
+            abc_sim._tile_resident = queried
+    symbol = abc_sim.variant_symbol(spec, v, "tile")
+    for tag, (lib, _, kernels) in libs.items():
+        result["ptxas"][tag] = next((k for n, k in kernels.items() if symbol in n), None)
+        result["resident"][tag] = abc_sim._tile_resident(lib, spec.kernel, spec.n_regions, v,
+                                                         dev)
+    text = libs["li2020_shipped"][1]
+    if text is not None:
+        body = next(b for n, b in sass.parse_functions(text).items() if symbol in n)
+        census = sass.tile_region_census(body)
+        props = torch.cuda.get_device_properties(dev)
+        clock = float(os.popen("nvidia-smi --query-gpu=clocks.max.sm --format=csv,noheader,"
+                               "nounits").read().split()[0])
+        result["region_pass_sass"] = census
+        result["region_pass_floor"] = sass.tile_region_floor_ms(
+            census, spec.n_regions, args.batch, int(config["days"]),
+            props.multi_processor_count, clock)
     result["card"] = os.popen("nvidia-smi --query-gpu=name,power.limit "
                               "--format=csv,noheader").read().strip()
     print(json.dumps(result))

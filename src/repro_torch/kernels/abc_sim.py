@@ -51,7 +51,10 @@ and `region_constants` (li2020's library holds it alone). It reads the
 matrix transposed and padded, the populations and the region constants
 from device buffers (`tile_buffers`, made once a simulator and required
 on that route) and keeps its samples' state in scratch that the wrapper
-allocates a launch.
+allocates a launch: a slot a block in flight, as many blocks as the
+occupancy query finds resident on each SM times the card's SMs
+(`tile_scratch`), so that two or more tiles share an SM where the kernel's
+registers and shared memory let them (not for li2020 at 375 cities: one).
 `regional_route` picks a route from R, the struct and the launch's batch
 before the launch; the entries take `route=` so that a test can hold the
 routes against each other. There is no fallback: a launch error of the
@@ -81,6 +84,8 @@ loop records them once it has read its count, `record_gated`), so that
 `gated_launches(entry)` and `run_launches(entry)` split `launches(entry)`.
 `ROUTE_LAUNCHES` and `ROUTE_GATED` count the same launches by route
 ("flat", "thread", "warp", "tile"; `entry_route`).
+`TILE_OVERLAPPED_LAUNCHES` counts the tile launches whose occupancy query
+found two or more blocks (tiles) resident on each SM.
 `RNG_LAUNCHES` counts the launches of the two test entries:
 `rng_normals`, which writes the kernel's hash bits or normals for (seed,
 sample, counter), and `unit_math_mismatches`, which holds the kernel's
@@ -157,6 +162,9 @@ ENTRY_GATED: dict = {}
 #: "warp" or "tile"
 ROUTE_LAUNCHES: dict = {}
 ROUTE_GATED: dict = {}
+#: tile launches whose occupancy query found two or more blocks resident on
+#: each SM (`tile_scratch`)
+TILE_OVERLAPPED_LAUNCHES = 0
 #: launches of the two RNG test entries
 RNG_LAUNCHES = 0
 
@@ -871,15 +879,47 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=64)
+def _tile_resident(lib: ctypes.CDLL, kernel: str, n_regions: int, v: int,
+                   device: torch.device) -> int:
+    """Blocks of variant `v` of the tile kernel of struct `kernel` in `lib`
+    resident on each SM of `device` at `n_regions` regions: the occupancy
+    query at the kernel's registers and shared memory
+    (`abc_sim_regional_tile_resident_<struct>`)."""
+    fn = getattr(lib, f"abc_sim_regional_tile_resident_{kernel}")
+    fn.argtypes = [_INT, _INT]
+    fn.restype = _INT
+    with torch.cuda.device(device):
+        blocks = fn(int(n_regions), int(v))
+    if blocks < 0:
+        _check_rc(lib, -blocks, f"the occupancy query of the tile kernel of {kernel}")
+    if blocks < 1:
+        raise RuntimeError(f"the tile kernel of {kernel} at {n_regions} regions fits no SM")
+    return blocks
+
+
+def tile_scratch(lib: ctypes.CDLL, model: CompartmentalModel, tile: TileBuffers, batch: int,
+                 v: int, device: torch.device) -> Tuple[torch.Tensor, int, int]:
+    """The scratch of one tile launch of `batch` samples in variant `v`:
+    one slot of `tile.slot_floats` floats a block in flight, min(tiles,
+    resident x SMs) slots, where resident is the blocks of the kernel the
+    occupancy query finds on each SM (`_tile_resident`). Returns (scratch,
+    slots, resident)."""
+    resident = _tile_resident(lib, model.kernel, model.n_regions, v, device)
+    slots = min(-(-batch // TILE_SAMPLES), resident * _sm_count(device))
+    scratch = torch.empty((slots * tile.slot_floats,), dtype=torch.float32, device=device)
+    return scratch, slots, resident
+
+
 def _launch_tile(model: CompartmentalModel, entry: str, lib, obs: torch.Tensor,
                  weights: torch.Tensor, tile: Optional[TileBuffers], fconst, iconst, batch: int,
                  pool: int, head: tuple, outs: tuple, tail: tuple) -> None:
     """One launch of the tile route's `entry`: its buffers `tile`, its
-    scratch (a slot a block in flight: min(tiles, the card's SMs), each of
-    `tile.slot_floats` floats) and the arguments `head` (the theta-in
+    scratch (`tile_scratch`) and the arguments `head` (the theta-in
     entry's theta, or the wave entry's prior seed and box) and `outs`, then
     the shared tail of the constants, the sizes, the stream, the gate (and
     the offset: `tail`)."""
+    global TILE_OVERLAPPED_LAUNCHES
     if tile is None:
         raise ValueError(f"the tile route of {model.name} reads its buffers from "
                          "`tile_buffers`; pass tile=")
@@ -889,8 +929,8 @@ def _launch_tile(model: CompartmentalModel, entry: str, lib, obs: torch.Tensor,
             raise ValueError(f"the tile route's buffers must be contiguous float32 tensors on "
                              f"{obs.device}")
     fn = _kernel_fn(lib, model, entry, "tile")
-    slots = min(-(-batch // TILE_SAMPLES), _sm_count(obs.device))
-    scratch = torch.empty((slots * tile.slot_floats,), dtype=torch.float32, device=obs.device)
+    v = variant(iconst[1:I_N_WINDOWS], entry == "wave")  # the flags follow the seed
+    scratch, slots, resident = tile_scratch(lib, model, tile, batch, v, obs.device)
     rconst = None if tile.rconst is None else tile.rconst.data_ptr()
     mob, R, seed_region, pooled = _regional_args(model, tile.mob_t, pool)
     with torch.cuda.device(obs.device):
@@ -900,6 +940,8 @@ def _launch_tile(model: CompartmentalModel, entry: str, lib, obs: torch.Tensor,
                 _stream_handle(obs.device), *tail)
     _check_rc(lib, rc, entry_name(model, entry, "tile"))
     _launched(model, entry, "tile")
+    if resident >= 2:
+        TILE_OVERLAPPED_LAUNCHES += 1
 
 
 def abc_sim_regional_distance_kernel(
@@ -1065,6 +1107,29 @@ def unit_math_mismatches(device="cuda") -> tuple:
     _check_rc(lib, rc, "unit_math_mismatches")
     RNG_LAUNCHES += 1
     return tuple(int(c) for c in counts.cpu())
+
+
+def tile_math_mismatches(device="cuda", pairs: int = 1 << 30) -> dict:
+    """The branch-free pieces of li2020's tile route against the CUDA math
+    they stand for, on the card (`abc_sim_li2020_math_mismatches`): the
+    tau-leap's square root (`root_checked`) over all 2^32 float bit patterns
+    and the struct's quotient (`div_checked`) over `pairs` hashed pairs,
+    each where it takes its fast path. {"root": mismatches, "root_fast":
+    patterns on the fast path, "div": mismatches, "div_fast": pairs on the
+    fast path}; 0 mismatches means both are sqrtf and `/` bit for bit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"tile_math_mismatches runs on a CUDA device, got {device}")
+    lib = _lib("abc_sim_regional_li2020")
+    fn = lib.abc_sim_li2020_math_mismatches
+    fn.argtypes = [ctypes.c_ulonglong, _VP, _VP]
+    fn.restype = _INT
+    counts = torch.zeros((4,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = fn(int(pairs), counts.data_ptr(), _stream_handle(device))
+    _check_rc(lib, rc, "abc_sim_li2020_math_mismatches")
+    root, div, div_fast, root_fast = (int(c) for c in counts.cpu())
+    return {"root": root, "root_fast": root_fast, "div": div, "div_fast": div_fast}
 
 
 #: operations per transition and sample-day: two hashes of 18 (the counter

@@ -76,6 +76,15 @@ takes the branch between the pooled sums and the chain that the launch
 takes; a pass a lane does not need (i >= ceil(R / 32)) is then taken out
 again, with its guard. `regional_warp_issue_floor_ms` counts a
 warp-instruction as one issue slot for one sample.
+
+The tile route of the region axis (`csrc/abc_sim_regional_tile.cuh`) runs
+a city of a sample a thread in its region pass (step 2), a loop over the
+thread's cities with the normals inside. `tile_region_census` finds it as
+the loop whose own code (less the loops inside it, such as cosf's
+Payne-Hanek reduction) holds the most quarter-rate instructions, and
+counts one trip of its path: the instructions a city-sample-day.
+`tile_region_floor_ms` gives the least time the card needs to issue the
+region passes of a launch.
 """
 
 from __future__ import annotations
@@ -548,4 +557,43 @@ def regional_warp_issue_floor_ms(result: dict, n_regions: int, n_chan: int, batc
     floor = issue_floor_ms({"per_day": lanes, "per_sample_outside_loop": outside},
                            batch, days, n_sm, clock_mhz)
     floor["warp_instructions_per_sample_day"] = floor.pop("instructions_per_sample_day") / 32
+    return floor
+
+
+def tile_region_census(body: List[Instr]) -> dict:
+    """One trip of the tile route's region pass: the instructions of one
+    city of one sample on one day, by class (`per_city_day`), along the
+    path `walk`'s rules choose (the slow paths of division, sqrtf and cosf
+    not taken). The pass is the loop whose own code holds the most
+    quarter-rate instructions; `shape_ok` is False where no one loop does."""
+    loops = _loops(body)
+
+    def own_quarter(lp):
+        inner = [(body[a].addr, body[b].addr) for a, b in _children(lp, loops)]
+        return sum(opcode_class(i.opcode) == "quarter" for i in body[lp[0]:lp[1] + 1]
+                   if not any(lo <= i.addr <= hi for lo, hi in inner))
+
+    quarter = {lp: own_quarter(lp) for lp in loops}
+    most = max(quarter.values(), default=0)
+    best = [lp for lp in loops if most and quarter[lp] == most]
+    if len(best) != 1:
+        return {"shape_ok": False, "loops": len(loops)}
+    head, back = best[0]
+    return {"shape_ok": True, "per_city_day": _own(body, best[0], _children(best[0], loops)),
+            "span": [f"{body[head].addr:04x}", f"{body[back].addr:04x}"]}
+
+
+def tile_region_floor_ms(result: dict, n_regions: int, batch: int, days: int, n_sm: int,
+                         clock_mhz: float) -> Optional[dict]:
+    """The least time the card needs to issue the region passes of one
+    tile launch (`n_regions` cities of `batch` samples over `days`, a trip
+    each), by `issue_floor_ms`'s limits; None where the census did not find
+    the pass."""
+    if not result["shape_ok"]:
+        return None
+    per_day = {c: n_regions * v for c, v in result["per_city_day"].items()}
+    floor = issue_floor_ms({"per_day": per_day,
+                            "per_sample_outside_loop": {c: 0 for c in per_day}},
+                           batch, days, n_sm, clock_mhz)
+    floor["instructions_per_city_day"] = result["per_city_day"]["total"]
     return floor

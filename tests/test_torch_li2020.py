@@ -6,6 +6,7 @@ plain paths bit for bit as before these were added. The plain path against
 the benchmark's reference is `perfbench/test_perfbench_li2020.py`; the
 tile route on the card `tests/test_torch_regional_tile.py`."""
 
+import contextlib
 import dataclasses
 import hashlib
 
@@ -22,7 +23,7 @@ from repro_torch.epi.spec import (
     regionalize,
     validate_mobility,
 )
-from repro_torch.kernels import abc_sim, ref
+from repro_torch.kernels import abc_sim, ref, sass
 
 torch.set_num_threads(1)
 
@@ -121,6 +122,94 @@ def test_the_tile_route_alone_takes_li2020():
     assert abc_sim.regional_routes(metapop) == ("tile",)
     assert abc_sim.variant_symbol(metapop, 8) == \
         "abc_sim_regional_tile_kernelI11MetapopSeirLi8EE"
+
+
+@pytest.mark.parametrize("resident,sms,batch,slots",
+                         [(1, 132, 20_000, 132), (2, 132, 20_000, 264), (3, 4, 20_000, 12),
+                          (2, 132, 2_000, 125), (2, 2, 9, 1)],
+                         ids=["one-an-sm", "two-an-sm", "three-an-sm", "fewer-tiles",
+                              "one-part-full-tile"])
+def test_tile_scratch_is_sized_from_the_residency(monkeypatch, resident, sms, batch, slots):
+    """The tile launcher's scratch and grid, with the occupancy query and the
+    SM count faked (no card here): min(tiles, resident x SMs) slots of
+    `slot_floats` each, handed to the entry as its slots; the query asked
+    for the launch's own variant; TILE_OVERLAPPED_LAUNCHES counts the launch
+    where two or more blocks are resident, ROUTE_LAUNCHES every launch."""
+    spec = regionalize(LI, 375, None)
+    R, rpad = 375, abc_sim.tile_rpad(375)
+    tile = abc_sim.TileBuffers(torch.zeros(rpad, rpad), torch.ones(R), torch.ones(1, R), 1000)
+    asked, got = [], []
+    monkeypatch.setattr(abc_sim, "_tile_resident",
+                        lambda lib, kernel, n, v, device: asked.append((kernel, n, v)) or resident)
+    monkeypatch.setattr(abc_sim, "_sm_count", lambda device: sms)
+    monkeypatch.setattr(abc_sim, "_kernel_fn",
+                        lambda lib, model, entry, route: lambda *args: got.append(args) or 0)
+    monkeypatch.setattr(abc_sim, "_stream_handle", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    flags = (1, 0, 2, 1, 1)
+    fconst, iconst = abc_sim.pack_consts(population=1e6, a0=1.0, r0=0.0, d0=0.0,
+                                         mean_scale=1.0, weights=[], flags=flags, seed=3)
+    scratch, n, res = abc_sim.tile_scratch(None, spec, tile, batch, 9, torch.device("cpu"))
+    assert (n, res, scratch.numel()) == (slots, resident, slots * 1000)
+    assert n == min(-(-batch // abc_sim.TILE_SAMPLES), resident * sms)
+    before = (abc_sim.TILE_OVERLAPPED_LAUNCHES, abc_sim.ROUTE_LAUNCHES.get("tile", 0))
+    head = (7, np.zeros(8, np.float32).ctypes.data, np.ones(8, np.float32).ctypes.data)
+    abc_sim._launch_tile(spec, "wave", None, torch.zeros(2 * R, 14), torch.ones(2 * R), tile,
+                         fconst, iconst, batch, 1, head, (0, 0), (None, 0))
+    assert asked[-1] == ("li2020", R, abc_sim.variant(flags, True))
+    assert got[-1][len(head) + 6] == slots  # after obs, the matrix, pops, rconst, weights, scratch
+    assert abc_sim.ROUTE_LAUNCHES["tile"] == before[1] + 1
+    assert abc_sim.TILE_OVERLAPPED_LAUNCHES == before[0] + (resident >= 2)
+
+
+#: a tile kernel's shape in SASS: the tile loop (0x10, a MUFU of its own),
+#: the day loop (0x20) holding the coupled rows (0x20), the region pass
+#: (0x60, with a cold call and a slow loop behind a branch) and the chain
+#: (0x110)
+TILE_SASS = """
+        Function : _ZN12_GLOBAL__N_128abc_sim_regional_tile_kernelI6Li2020Li8EEEvv
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   MUFU.RSQ R1, R1 ;
+        /*0020*/                   FMUL R2, R2, R2 ;
+        /*0030*/                   FADD R3, R3, R2 ;
+        /*0040*/               @P0 BRA 0x20 ;
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0060*/                   MUFU.LG2 R4, R4 ;
+        /*0070*/                   MUFU.COS R5, R5 ;
+        /*0080*/               @P1 BRA 0xd0 ;
+        /*0090*/                   CALL.REL.NOINC 0x200 ;
+        /*00a0*/                   LDL R6, [R1] ;
+        /*00b0*/               @P2 BRA 0xa0 ;
+        /*00c0*/                   MUFU.RCP R7, R7 ;
+        /*00d0*/                   FADD R8, R8, R8 ;
+        /*00e0*/                   MUFU.RCP R9, R9 ;
+        /*00f0*/                   STG.E [R10.64], R8 ;
+        /*0100*/               @P3 BRA 0x60 ;
+        /*0110*/                   FADD R11, R11, R11 ;
+        /*0120*/               @P4 BRA 0x110 ;
+        /*0130*/               @P5 BRA 0x20 ;
+        /*0140*/               @P6 BRA 0x10 ;
+        /*0150*/                   EXIT ;
+        /*0200*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+def test_tile_region_census_counts_one_city_day():
+    """The region pass is the loop whose own code holds the most MUFU; one
+    trip skips the cold call (and the slow loop behind it): 7 instructions,
+    3 of them quarter-rate, so the floor of 375 cities is quarter-bound."""
+    body = next(iter(sass.parse_functions(TILE_SASS).values()))
+    cen = sass.tile_region_census(body)
+    assert cen["shape_ok"] and cen["span"] == ["0060", "0100"]
+    per = cen["per_city_day"]
+    assert (per["total"], per["quarter"], per["fp32"], per["memory"], per["branch"]) == \
+        (7, 3, 1, 1, 2)
+    floor = sass.tile_region_floor_ms(cen, 375, 20_000, 14, 132, 1980.0)
+    assert floor["bound_by"] == "quarter" and floor["instructions_per_city_day"] == 7
+    assert floor["floor_ms"] == pytest.approx(375 * 3 / 16 * 20_000 * 14 / 132 / 1.98e9 * 1e3)
+    flat = sass.parse_functions(TILE_SASS.replace("MUFU", "FMUL"))
+    assert not sass.tile_region_census(next(iter(flat.values())))["shape_ok"]
+    assert sass.tile_region_floor_ms({"shape_ok": False}, 375, 1, 1, 1, 1.0) is None
 
 
 @pytest.mark.parametrize("name", ["abc_sim_wave_siard", "abc_sim_regional_wave_seir",

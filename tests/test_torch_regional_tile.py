@@ -86,28 +86,107 @@ def test_tile_route_equals_the_plain_version_for_li2020(cuda, regions, batch):
     assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 8, obs, **kw)))
 
 
-@pytest.mark.parametrize("slots,regions,batch", [(2, 375, 200), (3, 129, 1000),
-                                                 (None, 375, 2500)],
-                         ids=["2-blocks-375", "3-blocks-129", "card-375"])
-def test_tile_route_blocks_walk_several_tiles(cuda, monkeypatch, slots, regions, batch):
+def _spy_scratch(monkeypatch) -> list:
+    """(slots, resident) of every tile launch from here on, as
+    `abc_sim.tile_scratch` gives them to `_launch_tile`."""
+    seen, scratch = [], abc_sim.tile_scratch
+
+    def spy(*args):
+        out = scratch(*args)
+        seen.append(out[1:])
+        return out
+
+    monkeypatch.setattr(abc_sim, "tile_scratch", spy)
+    return seen
+
+
+@pytest.mark.parametrize("sms,resident,regions,batch",
+                         [(2, 1, 375, 200), (3, 1, 129, 1000), (2, 2, 375, 200),
+                          (None, None, 375, 2500)],
+                         ids=["2-blocks-375", "3-blocks-129", "2-sms-two-each-375", "card-375"])
+def test_tile_route_blocks_walk_several_tiles(cuda, monkeypatch, sms, resident, regions, batch):
     """A grid of fewer blocks than tiles: each block walks tiles blockIdx.x,
     + gridDim.x, ... through one scratch slot, the last tile part-full.
-    `slots` blocks (the card's SM count where None: 2,500 samples are 157
-    tiles), the whole wave's theta and distances bitwise the plain version
-    and the theta-in entry's distances too."""
-    if slots is not None:
-        monkeypatch.setattr(abc_sim, "_sm_count", lambda device: slots)
-    blocks = slots or abc_sim._sm_count(cuda)
-    assert -(-batch // abc_sim.TILE_SAMPLES) > blocks
+    `sms` x `resident` blocks: the SM count and the blocks resident on each
+    patched where given (2 SMs of two blocks: 4 blocks walk 13 tiles), else
+    the card's and the occupancy query's (one block an SM at R = 375: the
+    card's 2,500 samples are 157 tiles). The whole wave's theta and
+    distances bitwise the plain version and the theta-in entry's distances
+    too."""
+    if sms is not None:
+        monkeypatch.setattr(abc_sim, "_sm_count", lambda device: sms)
+    if resident is not None:
+        monkeypatch.setattr(abc_sim, "_tile_resident", lambda *args: resident)
+    seen = _spy_scratch(monkeypatch)
     spec = li2020(regions)
     obs, kw, sim = _sim(cuda, spec)
     prior = spec.prior()
     theta, dist = sim.wave(prior, 17, 19, batch)
     got = sim(theta, 19)
     torch.cuda.synchronize()
+    tiles = -(-batch // abc_sim.TILE_SAMPLES)
+    assert len(seen) == 2
+    for slots, res in seen:
+        assert res == (resident or 1)
+        assert slots == res * (sms or abc_sim._sm_count(cuda)) < tiles
     assert np.array_equal(_bits(theta), _bits(prior.sample(17, batch, cuda)))
     assert np.array_equal(_bits(dist), _bits(_wave_want(theta, 19, obs, kw)))
     assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 19, obs, **kw)))
+
+
+@pytest.mark.parametrize("regions,model,batches,resident",
+                         [(375, "li2020", (1000, 20_000), 1),
+                          (200, "metapop_seir", (1000, 20_000), 2)],
+                         ids=["li2020-375", "metapop_seir-200"])
+def test_tile_overlapped_launches_count_tiles_in_flight(cuda, monkeypatch, regions, model,
+                                                        batches, resident):
+    """The occupancy query's blocks an SM size each launch's scratch:
+    `_launch_tile` allocates min(tiles, resident x SMs) slots (fewer tiles
+    than that at 1,000 samples, more at 20,000), and
+    TILE_OVERLAPPED_LAUNCHES counts the launches with two tiles or more in
+    flight an SM: none of li2020's at 375 cities (one block of 171 KB an
+    SM), every one of metapop_seir's at 200 regions (one coupled input, a
+    4-warp block)."""
+    seen = _spy_scratch(monkeypatch)
+    if model == "li2020":
+        spec, a0 = li2020(regions), 1.0
+    else:
+        spec, a0 = regionalize(get_model("metapop_seir"), regions, "ring:0.1"), 100.0
+    _, _, sim = _sim(cuda, spec, a0=a0)
+    prior = spec.prior()
+    before = (abc_sim.TILE_OVERLAPPED_LAUNCHES, abc_sim.ROUTE_LAUNCHES.get("tile", 0))
+    for batch in batches:
+        theta, _ = sim.wave(prior, 5, 6, batch)
+        sim(theta, 6)
+    torch.cuda.synchronize()
+    launched = abc_sim.ROUTE_LAUNCHES["tile"] - before[1]
+    overlapped = abc_sim.TILE_OVERLAPPED_LAUNCHES - before[0]
+    assert launched == 4 and overlapped == (launched if resident >= 2 else 0)
+    sms = abc_sim._sm_count(cuda)
+    for (slots, res), batch in zip(seen, [b for b in batches for _ in range(2)]):
+        assert res == resident if resident == 1 else res >= resident
+        assert slots == min(-(-batch // abc_sim.TILE_SAMPLES), res * sms)
+
+
+@pytest.mark.parametrize("summary", [None, "region_pooled"])
+def test_tile_route_equals_the_plain_version_for_metapop_seir_past_128(cuda, monkeypatch,
+                                                                       summary):
+    """metapop_seir at R = 200 (one coupled input: a 4-warp block, two
+    tiles or more resident on each SM), the route it takes past
+    MAX_REGIONS: both entries bitwise the plain version, a tile left
+    part-full."""
+    seen = _spy_scratch(monkeypatch)
+    spec = regionalize(get_model("metapop_seir"), 200, "ring:0.1")
+    assert abc_sim.regional_routes(spec) == ("tile",)
+    obs, kw, sim = _sim(cuda, spec, summary, a0=100.0)
+    prior = spec.prior()
+    theta, dist = sim.wave(prior, 23, 24, 1003)
+    got = sim(theta, 24)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits(theta), _bits(prior.sample(23, 1003, cuda)))
+    assert np.array_equal(_bits(dist), _bits(_wave_want(theta, 24, obs, kw)))
+    assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 24, obs, **kw)))
+    assert len(seen) == 2 and all(res >= 2 for _, res in seen)
 
 
 @pytest.mark.parametrize("summary", [None, "region_pooled", "cumulative"])
@@ -132,6 +211,15 @@ def test_tile_route_equals_the_warp_route_for_metapop_seir(cuda, summary):
     for a, b in zip(got["warp"], got["tile"]):
         assert np.array_equal(a, b)
     assert np.array_equal(got["tile"][0], _bits(ref.abc_sim_distance_ref(theta, 9, obs, **kw)))
+
+
+def test_branch_free_root_and_quotient_are_sqrtf_and_division(cuda):
+    """The tau-leap's square root and li2020's quotients skip the IEEE
+    branches where their fast paths are sure: bit for bit sqrtf over every
+    float, and `/` over 2^30 hashed pairs, most of them on the fast path."""
+    got = abc_sim.tile_math_mismatches(cuda, 1 << 30)
+    assert got["root"] == 0 and got["div"] == 0
+    assert got["root_fast"] > 1 << 30 and got["div_fast"] > 1 << 28
 
 
 def test_tile_gate_of_zero_writes_nothing(cuda):
