@@ -380,10 +380,10 @@ printing one JSON line:
              (theta and distances); a run_abc on that runner with the
              counters set to 0 just before: waves + gated launches of the
              tile wave entry and nothing else, by entry and by route
-             (`ROUTE_LAUNCHES`), and of those the ones with two tiles or
-             more in flight an SM (`TILE_OVERLAPPED_LAUNCHES`: all of them
-             or none, as the occupancy query's blocks an SM, printed beside
-             it, say); the 16 variants of li2020's tile kernel in
+             (`abc_sim.route_counts`), and of those the ones with two tiles
+             or more in flight an SM (all of them or none, as the wave's
+             `Launch.resident`, the occupancy query's blocks an SM printed
+             beside it, says); the 16 variants of li2020's tile kernel in
              ptxas's report; the wave's ms by CUDA events in two turns, the
              plain version's, and the bound of the configuration's frozen
              count at 67 TFLOP/s
@@ -1582,12 +1582,9 @@ def offset_phase(dev) -> dict:
                                schedule=sched, **kw)
         box = schedule_prior(spec, sched)
 
-        def wave(offset, batch, sim=sim, box=box, spec=spec, route=route):
+        def wave(offset, batch, sim=sim, box=box, route=route):
             if route:
-                return abc_sim.abc_sim_regional_wave_kernel(
-                    7, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
-                    sim.fconst, abc_sim.with_seed(sim.iconst, 9), model=spec, batch=batch,
-                    pool=sim.pool, route=route, offset=offset)
+                return sim.launch("wave", batch, route)(9, 7, box.lows, box.highs, offset=offset)
             return sim.wave(box, 7, 9, batch, offset=offset)
 
         for offset in SCALEOUT_OFFSETS:
@@ -1609,12 +1606,11 @@ def offset_phase(dev) -> dict:
     siard = get_model("siard")
     sim = make_simulator(italy, ABCConfig(batch_size=100_000, chunk_size=10_000,
                                           num_days=49), dev)
-    prior, iconst = siard.prior(), abc_sim.with_seed(sim.iconst, 99)
+    prior, wave = siard.prior(), sim.launch("wave", 100_000)
     turns = {0: [], 50_000: []}
     for offset in (0, 50_000, 50_000, 0) * 2:
-        turns[offset].append(cuda_ms(lambda: abc_sim.abc_sim_wave_kernel(
-            12, prior.lows, prior.highs, sim.obs_summary, sim.fconst, iconst, model=siard,
-            batch=100_000, offset=offset), 50))
+        turns[offset].append(cuda_ms(lambda: wave(99, 12, prior.lows, prior.highs,
+                                                  offset=offset), 50))
     return {"bitwise_tail_and_plain": checked, "offsets": list(SCALEOUT_OFFSETS),
             "rows": b, "days": 49,
             "wave_entry_100000x49_ms": {str(o): float(np.mean(v)) for o, v in turns.items()},
@@ -3844,18 +3840,12 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
                      prior.sample(21, batch, dev)),
              bitwise(f"li2020 R=375 {batch}x14 tile wave vs plain", dist, want)]
 
-    # the main path's loop, the counters set to 0 just before
-    abc_sim.ROUTE_LAUNCHES.clear()
-    abc_sim.ROUTE_GATED.clear()
-    abc_sim.TILE_OVERLAPPED_LAUNCHES = 0
+    # the main path's loop, the counters set to 0 just before (`counted`)
     post, counts = counted(lambda: tabc.run_abc(ds, cfg, seed=3535, wave_runner=runner))
     gated = counts["gated"].get(wave_entry, 0)
-    routes = (dict(abc_sim.ROUTE_LAUNCHES), dict(abc_sim.ROUTE_GATED))
-    overlapped = abc_sim.TILE_OVERLAPPED_LAUNCHES
-    resident = abc_sim._tile_resident(abc_sim._lib(abc_sim.library(spec)), spec.kernel,
-                                      spec.n_regions,
-                                      abc_sim.variant(sim.iconst[1:abc_sim.I_N_WINDOWS], True),
-                                      dev)
+    routes = abc_sim.route_counts()
+    resident = sim.launch("wave", batch).resident
+    overlapped = post.runs + gated if resident >= 2 else 0
     if (counts["entries"] != {wave_entry: post.runs + gated}
             or routes != ({"tile": post.runs + gated}, {"tile": gated} if gated else {})
             or overlapped != (post.runs + gated if resident >= 2 else 0)
@@ -4257,16 +4247,10 @@ def main(argv=None) -> int:
         th = box.sample(prior_seed, batch, dev)
         want = ref.abc_sim_distance_ref(th, seed, ob, model=spec, summary=summary, **kw)
         want_w = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
-        ic = abc_sim.with_seed(sim.iconst, seed)
         for route in abc_sim.ROUTES:
             tag = f"{spec.name} {summary} {batch}x49 {route} route"
-            d = abc_sim.abc_sim_regional_distance_kernel(
-                abc_sim.theta_to_soa(th), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-                model=spec, pool=sim.pool, route=route, tile=sim.tile)
-            th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
-                prior_seed, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
-                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route,
-                tile=sim.tile)
+            d = sim.launch("distance", batch, route)(seed, abc_sim.theta_to_soa(th))
+            th_w, d_w = sim.launch("wave", batch, route)(seed, prior_seed, box.lows, box.highs)
             if not torch.equal(th_w, th):
                 raise AssertionError(f"{tag}: the wave entry's theta differs from prior.sample")
             results.append(bitwise(f"{tag} theta-in entry vs plain", d, want))
@@ -4299,30 +4283,15 @@ def main(argv=None) -> int:
         kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
         sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=dev), model=spec, **kw)
         box, batch = spec.prior(), 4096
-        ic = abc_sim.with_seed(sim.iconst, 5)
         soa = abc_sim.theta_to_soa(box.sample(3, batch, dev))
         for route in abc_sim.ROUTES if spec.is_regional else (None,):
-            if spec.is_regional:
-                rkw = dict(model=spec, pool=sim.pool, route=route, tile=sim.tile)
+            wave_ln, in_ln = (sim.launch(e, batch, route) for e in ("wave", "distance"))
 
-                def run_wave(gate=None, out=None):
-                    return abc_sim.abc_sim_regional_wave_kernel(
-                        9, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights,
-                        sim.fconst, ic, batch=batch, gate=gate, out=out, **rkw)
+            def run_wave(gate=None, out=None, ln=wave_ln):
+                return ln(5, 9, box.lows, box.highs, gate=gate, out=out)
 
-                def run_in(gate=None, out=None):
-                    return abc_sim.abc_sim_regional_distance_kernel(
-                        soa, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic, gate=gate,
-                        out=out, **rkw)
-            else:
-                def run_wave(gate=None, out=None):
-                    return abc_sim.abc_sim_wave_kernel(9, box.lows, box.highs, sim.obs_summary,
-                                                       sim.fconst, ic, model=spec, batch=batch,
-                                                       gate=gate, out=out)
-
-                def run_in(gate=None, out=None):
-                    return abc_sim.abc_sim_distance_kernel(soa, sim.obs_summary, sim.fconst, ic,
-                                                           model=spec, gate=gate, out=out)
+            def run_in(gate=None, out=None, ln=in_ln):
+                return ln(5, soa, gate=gate, out=out)
             for entry, fn, outs in (
                     ("wave", run_wave, lambda: (torch.full((batch, box.dim), 7.5, device=dev),
                                                 torch.full((batch,), -3.25, device=dev))),
@@ -4963,21 +4932,24 @@ def main(argv=None) -> int:
     ops_sd = abc_sim.ops_per_sample_day(siard, lowered)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     timing = []
+    def flat(spec, entry, batch, block=None, obs=obs, fconst=fconst, iconst=iconst):
+        return abc_sim.launch(spec, entry, batch, obs=obs, fconst=fconst, iconst=iconst,
+                              block=block)
+
     with SmClock() as clock:
-        clock.start_counting(lambda: abc_sim.abc_sim_wave_kernel(
-            13, prior.lows, prior.highs, obs, fconst, iconst, model=siard, batch=1_000_000))
+        load = flat(siard, "wave", 1_000_000)
+        clock.start_counting(lambda: load(99, 13, prior.lows, prior.highs))
         for batch, kernel_iters, plain_iters in ((100_000, 50, 2), (1_000_000, 20, 1)):
             th = th_it if batch == 100_000 else prior.sample(13, batch, dev)
             soa = abc_sim.theta_to_soa(th)
+            theta_in = flat(siard, "distance", batch)
+            waves = {b: flat(siard, "wave", batch, b) for b in (64, 128, 256)}
 
-            def run_theta_in(block=abc_sim.DEFAULT_BLOCK):
-                return abc_sim.abc_sim_distance_kernel(soa, obs, fconst, iconst,
-                                                       model=siard, block=block)
+            def run_theta_in():
+                return theta_in(99, soa)
 
             def run_wave(block=abc_sim.DEFAULT_BLOCK):
-                return abc_sim.abc_sim_wave_kernel(12, prior.lows, prior.highs, obs, fconst,
-                                                   iconst, model=siard, batch=batch,
-                                                   block=block)
+                return waves[block](99, 12, prior.lows, prior.highs)
 
             turns = {"theta_in": [], "wave": []}
             for entry in ("theta_in", "wave", "wave", "theta_in"):
@@ -5036,18 +5008,18 @@ def main(argv=None) -> int:
             turns = {c: {"wave": [], "theta_in": []} for c in cases}
             soas = {c: abc_sim.theta_to_soa(x["box"].sample(14, batch, dev))
                     for c, x in cases.items()}
+            lns = {c: {e: flat(x["spec"], e, batch, obs=x["obs"], fconst=x["fconst"],
+                               iconst=x["iconst"]) for e in ("wave", "distance")}
+                   for c, x in cases.items()}
             order = list(cases) + list(cases)[::-1]
             for c in order:
                 x = cases[c]
 
-                def run_wave(x=x):
-                    return abc_sim.abc_sim_wave_kernel(
-                        12, x["box"].lows, x["box"].highs, x["obs"], x["fconst"],
-                        x["iconst"], model=x["spec"], batch=batch)
+                def run_wave(x=x, ln=lns[c]["wave"]):
+                    return ln(99, 12, x["box"].lows, x["box"].highs)
 
-                def run_theta_in(x=x, soa=soas[c]):
-                    return abc_sim.abc_sim_distance_kernel(soa, x["obs"], x["fconst"],
-                                                           x["iconst"], model=x["spec"])
+                def run_theta_in(ln=lns[c]["distance"], soa=soas[c]):
+                    return ln(99, soa)
 
                 turns[c]["wave"].append(cuda_ms(run_wave, kernel_iters))
                 turns[c]["theta_in"].append(cuda_ms(run_theta_in, kernel_iters))
@@ -5084,18 +5056,15 @@ def main(argv=None) -> int:
             ob = torch.as_tensor(ds.observed, device=dev)
             sim = ops.make_abc_sim(ob, model=spec, **kw)
             box = spec.prior()
-            ic = abc_sim.with_seed(sim.iconst, 99)
             low = lower_summary(get_summary(None), "euclidean", ob, n_regions=R)
+            lns = {"siard": flat(siard, "wave", batch, obs=siard_x["obs"],
+                                 fconst=siard_x["fconst"], iconst=siard_x["iconst"]),
+                   **{r: sim.launch("wave", batch, r) for r in ("thread", "warp")}}
 
-            def run(which, sim=sim, box=box, ic=ic, spec=spec, batch=batch):
+            def run(which, box=box, lns=lns):
                 if which == "siard":
-                    x = siard_x
-                    return abc_sim.abc_sim_wave_kernel(
-                        12, x["box"].lows, x["box"].highs, x["obs"], x["fconst"],
-                        x["iconst"], model=siard, batch=batch)
-                return abc_sim.abc_sim_regional_wave_kernel(
-                    12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-                    ic, model=spec, batch=batch, route=which)
+                    box = siard_x["box"]
+                return lns[which](99, 12, box.lows, box.highs)
 
             turns = {"siard": [], "thread": [], "warp": []}
             for which in ("siard", "thread", "warp", "warp", "thread", "siard"):

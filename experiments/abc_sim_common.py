@@ -69,13 +69,23 @@ def takes_offset(csrc) -> bool:
     return os.path.isfile(head) and "uint32_t offset" in open(head).read()
 
 
-def argtypes(kind: str, takes_gate: bool, offset: bool = False):
-    """`abc_sim._ARGTYPES[kind]`, less the wave entries' trailing offset for
-    a checkout whose entries take none (`offset`), and less the trailing
-    gate for one whose entries take none."""
-    from repro_torch.kernels import abc_sim
+_VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+#: the C arguments of the flat entries and the thread and warp routes' wave
+#: entry: the theta-in entries end with the block, the stream and the gate,
+#: the wave entries with the block, the stream, the gate and the sample offset
+ARGTYPES = {
+    "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
+    "wave": [_U32, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _U32],
+    "regional_wave": [_U32, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                      _INT, _INT, _INT, _VP, _VP, _U32],
+}
 
-    types = list(abc_sim._ARGTYPES[kind])
+
+def argtypes(kind: str, takes_gate: bool, offset: bool = False):
+    """`ARGTYPES[kind]`, less the wave entries' trailing offset for a
+    checkout whose entries take none (`offset`), and less the trailing gate
+    for one whose entries take none."""
+    types = list(ARGTYPES[kind])
     if kind.endswith("wave") and not offset:
         types = types[:-1]
     return types if takes_gate else types[:-1]

@@ -29,7 +29,7 @@ import sys
 
 import numpy as np
 
-from abc_sim_common import build_copies, call_wave, entry, italy_inputs, turns
+from abc_sim_common import ARGTYPES, build_copies, call_wave, entry, italy_inputs, turns
 
 
 def differ(got, want) -> dict:
@@ -59,7 +59,7 @@ def main() -> int:
     src = (build.CSRC / "abc_sim_siard.cu").read_text()
     built = build_copies([("abc_sim_fmad", src, flags, [build.CSRC])])
     lib, fmad_sass, ptxas = built["abc_sim_fmad"]
-    fn = entry(lib, "abc_sim_wave_siard", abc_sim._ARGTYPES["wave"])
+    fn = entry(lib, "abc_sim_wave_siard", ARGTYPES["wave"])
 
     main_flags = lower_summary(get_summary(None), "euclidean", torch.ones(3, 49)).flags
     symbol = abc_sim.kernel_symbol(siard, main_flags, True)
@@ -76,11 +76,11 @@ def main() -> int:
     cells = []
     for batch, iters in ((100_000, 30), (1_000_000, 10)):
         x = italy_inputs(dev, batch)
+        wave = abc_sim.launch(siard, "wave", batch, obs=x["obs"], fconst=x["fconst"],
+                              iconst=x["iconst"])
 
         def shipped():
-            return abc_sim.abc_sim_wave_kernel(12, x["prior"].lows, x["prior"].highs, x["obs"],
-                                               x["fconst"], x["iconst"], model=siard,
-                                               batch=batch)
+            return wave(99, 12, x["prior"].lows, x["prior"].highs)
 
         def fmad():
             return call_wave(fn, x["prior"], 12, x["obs"], x["fconst"], x["iconst"], batch,

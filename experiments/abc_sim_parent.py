@@ -103,19 +103,18 @@ def main(argv) -> int:
         for batch, iters in ((100_000, 30), (1_000_000, 10)):
             x = italy_inputs(dev, batch)
             soa = abc_sim.theta_to_soa(x["theta"])
+            mine = {e: abc_sim.launch(siard, e, batch, obs=x["obs"], fconst=x["fconst"],
+                                      iconst=x["iconst"]) for e in ("distance", "wave")}
 
             def other():
                 return call_distance(fn, soa, x["obs"], x["fconst"], x["iconst"], other_block,
                                      other_gated)
 
             def theta_in():
-                return abc_sim.abc_sim_distance_kernel(soa, x["obs"], x["fconst"], x["iconst"],
-                                                       model=siard)
+                return mine["distance"](99, soa)
 
             def wave():
-                return abc_sim.abc_sim_wave_kernel(12, x["prior"].lows, x["prior"].highs,
-                                                   x["obs"], x["fconst"], x["iconst"],
-                                                   model=siard, batch=batch)
+                return mine["wave"](99, 12, x["prior"].lows, x["prior"].highs)
 
             d_other, d_in, (th_w, d_w) = other(), theta_in(), wave()
             equal = {"theta_in": bool(torch.equal(d_other, d_in)),
@@ -229,10 +228,8 @@ def other_models(dev, other_csrc: str) -> dict:
                     raise RuntimeError(f"launch failed: cudaError {rc}")
                 return theta, dist
 
-            def mine_fn(sim=sim, ic=ic, spec=spec, box=box, route=route):
-                return abc_sim.abc_sim_regional_wave_kernel(
-                    12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-                    ic, model=spec, batch=batch, route=route)
+            def mine_fn(ln=sim.launch("wave", batch, route), box=box):
+                return ln(99, 12, box.lows, box.highs)
         else:
             fn = entry(other_lib, abc_sim.entry_name(spec, "wave"),
                        argtypes("wave", other_gated, other_offset))
@@ -242,9 +239,8 @@ def other_models(dev, other_csrc: str) -> dict:
                                  abc_sim.DEFAULT_BLOCK, gated=other_gated,
                                  offset=0 if other_offset else None)
 
-            def mine_fn(sim=sim, ic=ic, spec=spec, box=box):
-                return abc_sim.abc_sim_wave_kernel(12, box.lows, box.highs, sim.obs_summary,
-                                                   sim.fconst, ic, model=spec, batch=batch)
+            def mine_fn(ln=sim.launch("wave", batch), box=box):
+                return ln(99, 12, box.lows, box.highs)
         a, b = theirs_fn(), mine_fn()
         if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
             raise AssertionError(f"{tag}: the two trees' wave entries differ")

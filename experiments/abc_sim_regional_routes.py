@@ -117,17 +117,12 @@ def main() -> int:
         want = ref.abc_sim_distance_ref(th, seed, ob, model=spec, summary=summary,
                                         distance=distance, **kw)
         want_w = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
-        ic = abc_sim.with_seed(sim.iconst, seed)
         got = []
         for route in abc_sim.ROUTES:
             tag = f"{spec.name} {summary} {batch}x49 {route}"
-            d = abc_sim.abc_sim_regional_distance_kernel(
-                abc_sim.theta_to_soa(th), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-                model=spec, pool=sim.pool, route=route, tile=sim.tile)
-            th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
-                prior_seed, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights,
-                sim.fconst, ic, model=spec, batch=batch, pool=sim.pool, route=route,
-                tile=sim.tile)
+            d = sim.launch("distance", batch, route)(seed, abc_sim.theta_to_soa(th))
+            th_w, d_w = sim.launch("wave", batch, route)(seed, prior_seed, prior.lows,
+                                                         prior.highs)
             if not torch.equal(th_w, th):
                 raise AssertionError(f"{tag}: the wave entry's theta differs from prior.sample")
             got.append(cs.bitwise(f"{tag} theta-in entry vs plain", d, want))
@@ -180,13 +175,18 @@ def timing(dev, cs, census) -> dict:
             sims[R] = (spec, ops.make_abc_sim(ob, model=spec, **kw),
                        lower_summary(get_summary(None), "euclidean", ob, n_regions=R))
 
+        launches = {}
+
         def run(R, batch, route, block=None):
             spec, sim, _ = sims[R]
+            key = (R, batch, route, block)
+            if key not in launches:
+                launches[key] = abc_sim.launch(
+                    spec, "wave", batch, obs=sim.obs_summary, fconst=sim.fconst,
+                    iconst=sim.iconst, weights=sim.weights, mobility=sim.mob, pool=sim.pool,
+                    block=block, route=route)
             box = spec.prior()
-            return abc_sim.abc_sim_regional_wave_kernel(
-                12, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-                abc_sim.with_seed(sim.iconst, 99), model=spec, batch=batch, route=route,
-                block=block)
+            return launches[key](99, 12, box.lows, box.highs)
 
         clock.start_counting(lambda: run(100, 20_000, "warp"))
         for R, batch in CELLS:

@@ -203,11 +203,11 @@ def main() -> int:
     cells, smi = [], nvidia_smi_line()
     for batch, iters in ((100_000, 30), (1_000_000, 10)):
         x = italy_inputs(dev, batch)
+        wave = abc_sim.launch(abc_sim_siard(), "wave", batch, obs=x["obs"], fconst=x["fconst"],
+                              iconst=x["iconst"])
 
         def one_role():
-            return abc_sim.abc_sim_wave_kernel(12, x["prior"].lows, x["prior"].highs, x["obs"],
-                                               x["fconst"], x["iconst"], model=abc_sim_siard(),
-                                               batch=batch)
+            return wave(99, 12, x["prior"].lows, x["prior"].highs)
 
         want = one_role()
         fns, checks = {"one_role": one_role}, {}

@@ -82,24 +82,33 @@ def main(argv=None) -> int:
     sim = ops.make_abc_sim(obs, population=config["population"], a0=config["a0"],
                            r0=config["r0"], d0=config["d0"], model=spec)
     prior = spec.prior()
-    lo, hi = abc_sim._box(prior.lows, prior.highs, spec.n_params, spec)
     theta = torch.empty((args.batch, spec.n_params), device=dev)
     dist = torch.empty((args.batch,), device=dev)
+    shipped_lib = abc_sim._lib
 
-    def launch(lib, i):
-        ic = abc_sim.with_seed(sim.iconst, 200 + i)
-        abc_sim._launch_tile(spec, "wave", lib, sim.obs_summary, sim.weights, sim.tile,
-                             sim.fconst, ic, args.batch, sim.pool,
-                             (100 + i, lo.ctypes.data, hi.ctypes.data),
-                             (theta.data_ptr(), dist.data_ptr()), (None, 0))
+    def wave_of(lib):
+        """The wave's `abc_sim.Launch` with `lib`, a copy's library, in the
+        shipped one's place (its occupancy query made now)."""
+        abc_sim._lib = lambda name: lib
+        try:
+            return abc_sim.launch(spec, "wave", args.batch, obs=sim.obs_summary,
+                                  fconst=sim.fconst, iconst=sim.iconst, weights=sim.weights,
+                                  mobility=sim.mob, tile=sim.tile, pool=sim.pool)
+        finally:
+            abc_sim._lib = shipped_lib
 
     def time_ms(lib) -> float:
-        launch(lib, 0)
+        wave = wave_of(lib)
+
+        def launch(i):
+            wave(200 + i, 100 + i, prior.lows, prior.highs, out=(theta, dist))
+
+        launch(0)
         torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for i in range(args.launches):
-            launch(lib, i)
+            launch(i)
         stop.record()
         stop.synchronize()
         return start.elapsed_time(stop) / args.launches

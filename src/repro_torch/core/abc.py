@@ -569,12 +569,10 @@ class WaveRunner:
         The valid rows are an int for one shard and a tuple of one count a
         segment for more, as `repro`'s carry holds them. On the card it
         records the gated launches beside the entry's launches
-        (`abc_sim.record_gated`)."""
+        (`AbcSim.record_gated`)."""
         waves, n, *fills = sync_counts(out.waves_done, out.n_accepted, out.fill_counts)
         for sim in self.sims:
-            if sim.device.type == "cuda":
-                abc_sim.record_gated(sim.entry("wave", self.cfg.batch_size // self.shards),
-                                     out.enqueued - waves)
+            sim.record_gated("wave", self.cfg.batch_size // self.shards, out.enqueued - waves)
         return waves, n, fills[0] if self.shards == 1 else tuple(fills)
 
     def harvest(self, out: WaveLoopOutput, state: "ABCState", fill) -> None:

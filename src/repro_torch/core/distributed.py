@@ -93,7 +93,6 @@ from repro_torch.core.priors import UniformBoxPrior, schedule_prior
 from repro_torch.device import resolve_device
 from repro_torch.epi.models import get_model
 from repro_torch.ioutils import atomic_write
-from repro_torch.kernels import abc_sim
 from repro_torch.runtime.trace import span
 
 STYLES = ("shard_map", "pjit")
@@ -319,9 +318,8 @@ class ShardedWaveRunner(WaveRunner):
         waves, n, *fills = sync_counts(out.waves_done, out.n_accepted,
                                        *(f.to(self.device) for f in
                                          gather(out.fill_counts, self.group)))
-        if self.device.type == "cuda":
-            abc_sim.record_gated(self.sim.entry("wave", self.cfg.batch_size // self.n_shards),
-                                 out.enqueued - waves)
+        self.sim.record_gated("wave", self.cfg.batch_size // self.n_shards,
+                              out.enqueued - waves)
         return waves, n, tuple(fills)
 
     def harvest(self, out: WaveLoopOutput, state, fill) -> None:
@@ -462,9 +460,8 @@ class PjitWaveRunner(WaveRunner):
         loc_th, loc_d, hist, fill0 = out.pending
         waves, n, fill, *local = sync_counts(out.waves_done, out.n_accepted, out.fill_counts,
                                              hist.sum(0))
-        if self.device.type == "cuda":
-            abc_sim.record_gated(self.sim.entry("wave", self.cfg.batch_size // self.n_shards),
-                                 out.enqueued - waves)
+        self.sim.record_gated("wave", self.cfg.batch_size // self.n_shards,
+                              out.enqueued - waves)
         top = min(max(local), self.capacity)
         if top:
             self._place(out, loc_th[:top], loc_d[:top], hist, fill0, local)

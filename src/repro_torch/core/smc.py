@@ -61,7 +61,6 @@ from repro_torch.core.priors import UniformBoxPrior, schedule_prior
 from repro_torch.device import resolve_device
 from repro_torch.epi.data import CountryData
 from repro_torch.epi.models import get_model
-from repro_torch.kernels import abc_sim
 from repro_torch.kernels import rng as krng
 
 #: hash streams of (round seed, wave): the prior and simulation seeds of
@@ -243,8 +242,7 @@ def make_smc_round_fn(simulator, prior: UniformBoxPrior, cfg: SMCConfig, group=N
                 fill = new_fill
                 waves += active
             ran, accepted = sync_counts(waves, total)  # the segment's one host sync
-            if dev.type == "cuda":
-                abc_sim.record_gated(simulator.entry("distance", B), seg - ran)
+            simulator.record_gated("distance", B, seg - ran)
             waves_done += ran
         if group is None:
             k = min(accepted, n_p)

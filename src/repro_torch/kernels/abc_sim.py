@@ -11,7 +11,7 @@ from the library of its struct, `csrc/abc_sim_regional_<kernel>.cu`, chosen
 by `model.kernel` and not by its name (`regionalize` renames a spec
 `seir_r3`). Two entries share each kernel's body:
 
-* `abc_sim_distance_kernel` (theta in) takes
+* "distance" (theta in, C name `abc_sim_distance_<struct>`) takes
 
     theta_soa  [W, B] f32, contiguous: parameters as structure of arrays
     obs        [n_chan, T] f32, contiguous: the lowered observed summary
@@ -23,7 +23,7 @@ by `model.kernel` and not by its name (`regionalize` renames a spec
                days, each parameter's place among the scaled ones or -1)
 
   and writes one distance per sample;
-* `abc_sim_wave_kernel` (the ABC wave) takes the uniform box (lows, highs)
+* "wave" (the ABC wave, `abc_sim_wave_<struct>`) takes the uniform box (lows, highs)
   and a prior seed in place of theta, draws theta inside the kernel as
   `UniformBoxPrior.sample` does, and returns theta [B, W] row-major and the
   distances with NaN turned to +inf. Its `offset` makes sample b hash on
@@ -32,8 +32,8 @@ by `model.kernel` and not by its name (`regionalize` renames a spec
   rows: a rank's slice of one logical wave (`core.distributed`'s pjit
   style). The theta-in entries take no offset.
 
-The regional entries (`abc_sim_regional_distance_kernel`,
-`abc_sim_regional_wave_kernel`) take the same theta, box and host constants
+The regional entries (`abc_sim_regional_<entry>_<struct>`) take the same
+theta, box and host constants
 (fconst's weight lanes unused) and, in device buffers made once per
 simulator, the mobility matrix [R, R] (coupled models) and the channel
 weights [n_chan]; R, the seeded region and the pooling are run-time
@@ -50,15 +50,20 @@ inflow and outflow rows, a population a region, a spec's `coupled_inputs`
 and `region_constants` (li2020's library holds it alone). It reads the
 matrix transposed and padded, the populations and the region constants
 from device buffers (`tile_buffers`, made once a simulator and required
-on that route) and keeps its samples' state in scratch that the wrapper
-allocates a launch: a slot a block in flight, as many blocks as the
-occupancy query finds resident on each SM times the card's SMs
-(`tile_scratch`), so that two or more tiles share an SM where the kernel's
-registers and shared memory let them (not for li2020 at 375 cities: one).
-`regional_route` picks a route from R, the struct and the launch's batch
-before the launch; the entries take `route=` so that a test can hold the
-routes against each other. There is no fallback: a launch error of the
-chosen route raises.
+on that route) and keeps its samples' state in scratch allocated a launch:
+a slot a block in flight, as many blocks as the occupancy query finds
+resident on each SM times the card's SMs (`Launch.slots`), so that two or
+more tiles share an SM where the kernel's registers and shared memory let
+them (not for li2020 at 375 cities: one). `regional_route` picks a route
+from R, the struct and the launch's batch. There is no fallback: a launch
+error of the chosen route raises.
+
+`launch(model, entry, batch, ...)` is the one way to the C entries: it
+checks the fixed inputs, picks the route (`route=` holds one against
+another), resolves and types the C function and, on the tile route, makes
+the occupancy query, once, and returns a `Launch` whose calls take only
+what changes from launch to launch (the seeds, theta or the box, the gate,
+the output buffers, the offset). `ops.AbcSim` keeps one a (entry, batch).
 
 Every entry takes a `gate`: None, or an int32 tensor of shape [1] on the
 launch's device. A launch whose gate reads 0 when the kernel runs writes
@@ -82,10 +87,8 @@ every block size.
 regional. Of those, `ENTRY_GATED` counts the launches whose gate read 0 (a
 loop records them once it has read its count, `record_gated`), so that
 `gated_launches(entry)` and `run_launches(entry)` split `launches(entry)`.
-`ROUTE_LAUNCHES` and `ROUTE_GATED` count the same launches by route
-("flat", "thread", "warp", "tile"; `entry_route`).
-`TILE_OVERLAPPED_LAUNCHES` counts the tile launches whose occupancy query
-found two or more blocks (tiles) resident on each SM.
+`route_counts()` sums both by route ("flat", "thread", "warp", "tile";
+`entry_route`).
 `RNG_LAUNCHES` counts the launches of the two test entries:
 `rng_normals`, which writes the kernel's hash bits or normals for (seed,
 sample, counter), and `unit_math_mismatches`, which holds the kernel's
@@ -158,17 +161,11 @@ SMEM_OPTIN_BYTES = 232_448
 ENTRY_LAUNCHES: dict = {}
 #: of those, the launches whose gate read 0 (they wrote nothing)
 ENTRY_GATED: dict = {}
-#: launches and gated launches by route (`entry_route`): "flat", "thread",
-#: "warp" or "tile"
-ROUTE_LAUNCHES: dict = {}
-ROUTE_GATED: dict = {}
-#: tile launches whose occupancy query found two or more blocks resident on
-#: each SM (`tile_scratch`)
-TILE_OVERLAPPED_LAUNCHES = 0
 #: launches of the two RNG test entries
 RNG_LAUNCHES = 0
 
 _VP = ctypes.c_void_p
+_INT = ctypes.c_int
 _typed: set = set()
 
 
@@ -346,47 +343,6 @@ def _lib(name: str = RNG_LIBRARY) -> ctypes.CDLL:
     return lib
 
 
-_INT = ctypes.c_int
-#: each entry's C arguments: the theta-in entries end with the stream and
-#: the gate, the wave entries with the stream, the gate and the sample offset
-_ARGTYPES = {
-    "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
-    "wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP,
-             ctypes.c_uint],
-    "regional_distance": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                          _INT, _VP, _VP],
-    "regional_wave": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
-                      _INT, _INT, _INT, _INT, _VP, _VP, ctypes.c_uint],
-    # the tile route: the matrix's transpose, the populations, the region
-    # constants and the scratch with its slots in place of the matrix and
-    # the block
-    "regional_distance_tile": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP, _VP, _VP, _INT,
-                               _INT, _INT, _INT, _INT, _VP, _VP],
-    "regional_wave_tile": [ctypes.c_uint, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _VP,
-                           _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _VP, _VP,
-                           ctypes.c_uint],
-}
-
-
-def _kernel_fn(lib: ctypes.CDLL, model: CompartmentalModel, entry: str = "distance",
-               route: Optional[str] = None):
-    name = entry_name(model, entry, route)
-    try:
-        fn = getattr(lib, name)
-    except AttributeError:
-        raise NotImplementedError(
-            f"no CUDA kernel for model {model.name!r} (missing C symbol {name} in "
-            f"csrc/{library(model)}.cu); the kernel carries the structs of siard, sir, "
-            "seir, seiard, metapop_seir and li2020"
-        ) from None
-    key = ("regional_" if model.is_regional else "") + entry
-    fn.argtypes = _ARGTYPES[key + ("_tile" if entry_route(name) == "tile" else "")]
-    fn.restype = ctypes.c_int
-    if model.is_regional:
-        _check_struct(lib, model)
-    return fn
-
-
 def _check_struct(lib: ctypes.CDLL, model: CompartmentalModel) -> None:
     """Raise unless the struct in `lib` has the spec's sizes, coupled
     compartments, region constants (as many as the spec's hook makes),
@@ -540,20 +496,18 @@ def _stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _check_cuda(name: str, t) -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got "
+                         f"{t.device if isinstance(t, torch.Tensor) else type(t).__name__}")
+
+
 def _check_2d_f32(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.float32 or t.ndim != 2 or not t.is_contiguous():
         raise ValueError(
             f"{name} must be a contiguous 2-D float32 tensor, got "
             f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
         )
-
-
-def _launched(model: CompartmentalModel, entry: str, route: Optional[str] = None) -> None:
-    """Count one launch of `model`'s `entry` under its C name and its route."""
-    name = entry_name(model, entry, route)
-    ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + 1
-    key = entry_route(name)
-    ROUTE_LAUNCHES[key] = ROUTE_LAUNCHES.get(key, 0) + 1
 
 
 def _entry_sum(counts: dict, entry: str) -> int:
@@ -578,12 +532,21 @@ def run_launches(entry: str) -> int:
 
 
 def record_gated(name: str, n: int) -> None:
-    """Record `n` launches of the C entry `name` whose gate read 0, by name
-    and by route."""
+    """Record `n` launches of the C entry `name` whose gate read 0."""
     if n:
         ENTRY_GATED[name] = ENTRY_GATED.get(name, 0) + int(n)
-        key = entry_route(name)
-        ROUTE_GATED[key] = ROUTE_GATED.get(key, 0) + int(n)
+
+
+def route_counts() -> Tuple[dict, dict]:
+    """(launches, gated launches) by route ("flat", "thread", "warp",
+    "tile"): `ENTRY_LAUNCHES` and `ENTRY_GATED` summed by `entry_route`."""
+    def by_route(counts: dict) -> dict:
+        out: dict = {}
+        for name, n in counts.items():
+            out[entry_route(name)] = out.get(entry_route(name), 0) + n
+        return out
+
+    return by_route(ENTRY_LAUNCHES), by_route(ENTRY_GATED)
 
 
 def check_gate(gate: Optional[torch.Tensor], device: torch.device) -> None:
@@ -596,10 +559,6 @@ def check_gate(gate: Optional[torch.Tensor], device: torch.device) -> None:
         what = (f"{gate.dtype} {tuple(gate.shape)} on {gate.device}"
                 if isinstance(gate, torch.Tensor) else type(gate).__name__)
         raise ValueError(f"gate must be an int32 tensor of shape [1] on {device}, got {what}")
-
-
-def _gate_ptr(gate: Optional[torch.Tensor]):
-    return None if gate is None else gate.data_ptr()
 
 
 def _out_tensor(name: str, t, shape: tuple, device: torch.device) -> torch.Tensor:
@@ -618,26 +577,6 @@ def wave_out(out, batch: int, width: int, device: torch.device):
     theta, dist = (None, None) if out is None else out
     return (_out_tensor("out's theta", theta, (batch, width), device),
             _out_tensor("out's dist", dist, (batch,), device))
-
-
-def dist_out(out, batch: int, device: torch.device) -> torch.Tensor:
-    """dist [batch] to write: `out`, checked, or a new tensor."""
-    return _out_tensor("out", out, (batch,), device)
-
-
-def _check_obs_and_consts(obs: torch.Tensor, fconst, iconst,
-                          model: CompartmentalModel) -> None:
-    if obs.device.type != "cuda":
-        raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
-    _check_2d_f32("obs", obs)
-    if model.is_regional:
-        raise ValueError(f"{model.name} is regional: its entries are "
-                         "abc_sim_regional_distance_kernel and abc_sim_regional_wave_kernel")
-    if obs.shape[0] != model.n_observed or obs.shape[1] < 1:
-        raise ValueError(
-            f"obs must be [{model.n_observed}, T>=1], got {tuple(obs.shape)}"
-        )
-    _check_consts(fconst, iconst, model)
 
 
 def _check_consts(fconst, iconst, model: CompartmentalModel) -> None:
@@ -660,94 +599,6 @@ def _box(lows, highs, width: int, model: CompartmentalModel):
             f"packed schedule has {width} columns"
         )
     return lo, hi
-
-
-def abc_sim_distance_kernel(
-    theta_soa: torch.Tensor,  # [W, B] f32 CUDA, contiguous
-    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
-    fconst: np.ndarray,  # [N_FCONST] f32 host
-    iconst: np.ndarray,  # [N_ICONST] i32 host
-    *,
-    model: CompartmentalModel,
-    block: Optional[int] = None,
-    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
-    out: Optional[torch.Tensor] = None,  # dist [B] to write
-) -> torch.Tensor:
-    """Launch the fused kernel on the current stream; returns distances [B],
-    in `out` or a new tensor (`block` in threads, None: `DEFAULT_BLOCK`;
-    unwritten where `gate` reads 0)."""
-    block = route_block("thread", block)
-    if theta_soa.device.type != "cuda":
-        raise ValueError(f"theta_soa must be a CUDA tensor, got {theta_soa.device}")
-    if obs.device != theta_soa.device:
-        raise ValueError(f"obs is on {obs.device}, theta_soa on {theta_soa.device}")
-    check_gate(gate, theta_soa.device)
-    _check_2d_f32("theta_soa", theta_soa)
-    _check_obs_and_consts(obs, fconst, iconst, model)
-    n_rows, batch = theta_soa.shape
-    width = theta_width(model, iconst)
-    if n_rows != width:
-        raise ValueError(f"theta_soa has {n_rows} rows; {model.name} with the packed "
-                         f"schedule has {width}")
-    if batch < 1:
-        raise ValueError("theta_soa holds no samples")
-    fconst = np.ascontiguousarray(fconst)
-    iconst = np.ascontiguousarray(iconst)
-    lib = _lib(library(model))
-    fn = _kernel_fn(lib, model)
-    out = dist_out(out, batch, theta_soa.device)
-    with torch.cuda.device(theta_soa.device):
-        rc = fn(theta_soa.data_ptr(), obs.data_ptr(), out.data_ptr(),
-                fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1],
-                block, _stream_handle(theta_soa.device), _gate_ptr(gate))
-    _check_rc(lib, rc, entry_name(model, "distance"))
-    _launched(model, "distance")
-    return out
-
-
-def abc_sim_wave_kernel(
-    prior_seed: int,  # uint32
-    lows,  # [W] host, float32 after rounding
-    highs,  # [W]
-    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
-    fconst: np.ndarray,  # [N_FCONST] f32 host
-    iconst: np.ndarray,  # [N_ICONST] i32 host; its seed word is the simulation seed
-    *,
-    model: CompartmentalModel,
-    batch: int,
-    block: Optional[int] = None,
-    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
-    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
-    offset: int = 0,  # hash index of the wave's first sample
-):
-    """Launch the wave entry on the current stream: theta [batch, W] drawn
-    from U(lows, highs) as `UniformBoxPrior.sample(prior_seed, batch,
-    offset=offset)` does, and its distances [batch] with NaN turned to +inf,
-    into `out` or two new tensors (unwritten where `gate` reads 0)."""
-    block = route_block("thread", block)
-    _check_obs_and_consts(obs, fconst, iconst, model)
-    check_gate(gate, obs.device)
-    width = theta_width(model, iconst)
-    lo, hi = _box(lows, highs, width, model)
-    batch = int(batch)
-    if batch < 1:
-        raise ValueError("a wave needs at least one sample")
-    offset = check_offset(offset, batch)
-    lib = _lib(library(model))
-    fn = _kernel_fn(lib, model, "wave")
-    theta, dist = wave_out(out, batch, width, obs.device)
-    if theta.data_ptr() % 16:
-        raise RuntimeError("theta's storage is not 16-byte aligned")
-    fconst = np.ascontiguousarray(fconst)
-    iconst = np.ascontiguousarray(iconst)
-    with torch.cuda.device(obs.device):
-        rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
-                theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data, iconst.ctypes.data,
-                batch, obs.shape[1], block, _stream_handle(obs.device), _gate_ptr(gate),
-                offset)
-    _check_rc(lib, rc, entry_name(model, "wave"))
-    _launched(model, "wave")
-    return theta, dist
 
 
 def regional_channels(model: CompartmentalModel, pool: int) -> int:
@@ -822,11 +673,6 @@ def check_regional(model: CompartmentalModel, obs: torch.Tensor, mobility, weigh
                              f"most {SMEM_OPTIN_BYTES}")
 
 
-def _regional_args(model: CompartmentalModel, mobility, pool: int):
-    mob = mobility.data_ptr() if model.coupled else None
-    return mob, model.n_regions, model.seed_region, int(pool > 1)
-
-
 class TileBuffers(NamedTuple):
     """What the tile route reads beside the other routes' buffers, made once
     a simulator (`tile_buffers`): the matrix transposed and zero-padded,
@@ -898,168 +744,152 @@ def _tile_resident(lib: ctypes.CDLL, kernel: str, n_regions: int, v: int,
     return blocks
 
 
-def tile_scratch(lib: ctypes.CDLL, model: CompartmentalModel, tile: TileBuffers, batch: int,
-                 v: int, device: torch.device) -> Tuple[torch.Tensor, int, int]:
-    """The scratch of one tile launch of `batch` samples in variant `v`:
-    one slot of `tile.slot_floats` floats a block in flight, min(tiles,
-    resident x SMs) slots, where resident is the blocks of the kernel the
-    occupancy query finds on each SM (`_tile_resident`). Returns (scratch,
-    slots, resident)."""
-    resident = _tile_resident(lib, model.kernel, model.n_regions, v, device)
-    slots = min(-(-batch // TILE_SAMPLES), resident * _sm_count(device))
-    scratch = torch.empty((slots * tile.slot_floats,), dtype=torch.float32, device=device)
-    return scratch, slots, resident
-
-
-def _launch_tile(model: CompartmentalModel, entry: str, lib, obs: torch.Tensor,
-                 weights: torch.Tensor, tile: Optional[TileBuffers], fconst, iconst, batch: int,
-                 pool: int, head: tuple, outs: tuple, tail: tuple) -> None:
-    """One launch of the tile route's `entry`: its buffers `tile`, its
-    scratch (`tile_scratch`) and the arguments `head` (the theta-in
-    entry's theta, or the wave entry's prior seed and box) and `outs`, then
-    the shared tail of the constants, the sizes, the stream, the gate (and
-    the offset: `tail`)."""
-    global TILE_OVERLAPPED_LAUNCHES
-    if tile is None:
-        raise ValueError(f"the tile route of {model.name} reads its buffers from "
-                         "`tile_buffers`; pass tile=")
-    for t in (tile.mob_t, tile.pops, tile.rconst):
-        if t is not None and (t.device != obs.device or t.dtype != torch.float32
-                              or not t.is_contiguous()):
-            raise ValueError(f"the tile route's buffers must be contiguous float32 tensors on "
-                             f"{obs.device}")
-    fn = _kernel_fn(lib, model, entry, "tile")
-    v = variant(iconst[1:I_N_WINDOWS], entry == "wave")  # the flags follow the seed
-    scratch, slots, resident = tile_scratch(lib, model, tile, batch, v, obs.device)
-    rconst = None if tile.rconst is None else tile.rconst.data_ptr()
-    mob, R, seed_region, pooled = _regional_args(model, tile.mob_t, pool)
-    with torch.cuda.device(obs.device):
-        rc = fn(*head, obs.data_ptr(), mob, tile.pops.data_ptr(), rconst,
-                weights.data_ptr(), scratch.data_ptr(), slots, *outs, fconst.ctypes.data,
-                iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled,
-                _stream_handle(obs.device), *tail)
-    _check_rc(lib, rc, entry_name(model, entry, "tile"))
-    _launched(model, entry, "tile")
-    if resident >= 2:
-        TILE_OVERLAPPED_LAUNCHES += 1
-
-
-def abc_sim_regional_distance_kernel(
-    theta_soa: torch.Tensor,  # [W, B] f32 CUDA, contiguous
-    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
-    mobility: Optional[torch.Tensor],  # [R, R] f32 CUDA (coupled models)
-    weights: torch.Tensor,  # [n_chan] f32 CUDA
-    fconst: np.ndarray,  # [N_FCONST] f32 host
-    iconst: np.ndarray,  # [N_ICONST] i32 host
-    *,
-    model: CompartmentalModel,
-    pool: int = 1,
-    block: Optional[int] = None,
-    route: Optional[str] = None,
-    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
-    out: Optional[torch.Tensor] = None,  # dist [B] to write
-    tile: Optional[TileBuffers] = None,  # the tile route's buffers (required there)
-) -> torch.Tensor:
-    """Launch the theta-in entry of the region axis on the current stream;
-    returns distances [B]. `pool` is the region-pooling factor
-    (`summaries.pool_factor`); `route` "thread", "warp" or "tile" (None:
-    `regional_route` at B), `block` in threads (None: the route's default),
-    `gate` and `out` as for `abc_sim_distance_kernel`, `tile` the tile
-    route's `tile_buffers` (read on that route alone)."""
-    if theta_soa.device.type != "cuda" or obs.device != theta_soa.device:
-        raise ValueError(f"theta_soa ({theta_soa.device}) and obs ({obs.device}) must be "
-                         "on one CUDA device")
-    check_gate(gate, theta_soa.device)
-    _check_2d_f32("theta_soa", theta_soa)
-    _check_2d_f32("obs", obs)
-    route = _route(model, route, theta_soa.shape[1])
-    block = route_block(route, block)
-    _check_consts(fconst, iconst, model)
-    check_regional(model, obs, mobility, weights, pool, route, block)
-    n_rows, batch = theta_soa.shape
-    width = theta_width(model, iconst)
-    if n_rows != width or batch < 1:
-        raise ValueError(f"theta_soa is {tuple(theta_soa.shape)}; {model.name} with the "
-                         f"packed schedule has {width} rows and needs a sample")
-    fconst = np.ascontiguousarray(fconst)
-    iconst = np.ascontiguousarray(iconst)
-    lib = _lib(library(model))
-    out = dist_out(out, batch, theta_soa.device)
-    if route == "tile":
-        _launch_tile(model, "distance", lib, obs, weights, tile, fconst, iconst, batch, pool,
-                     (theta_soa.data_ptr(),), (out.data_ptr(),), (_gate_ptr(gate),))
-        return out
-    fn = _kernel_fn(lib, model, "distance", route)
-    mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
-    with torch.cuda.device(theta_soa.device):
-        rc = fn(theta_soa.data_ptr(), obs.data_ptr(), mob, weights.data_ptr(), out.data_ptr(),
-                fconst.ctypes.data, iconst.ctypes.data, batch, obs.shape[1], R, seed_region,
-                pooled, block, _stream_handle(theta_soa.device), _gate_ptr(gate))
-    _check_rc(lib, rc, entry_name(model, "distance", route))
-    _launched(model, "distance", route)
-    return out
-
-
-def abc_sim_regional_wave_kernel(
-    prior_seed: int,  # uint32
-    lows,  # [W] host
-    highs,  # [W]
-    obs: torch.Tensor,  # [n_chan, T] f32 CUDA, contiguous
-    mobility: Optional[torch.Tensor],  # [R, R] f32 CUDA (coupled models)
-    weights: torch.Tensor,  # [n_chan] f32 CUDA
-    fconst: np.ndarray,  # [N_FCONST] f32 host
-    iconst: np.ndarray,  # [N_ICONST] i32 host; its seed word is the simulation seed
-    *,
-    model: CompartmentalModel,
-    batch: int,
-    pool: int = 1,
-    block: Optional[int] = None,
-    route: Optional[str] = None,
-    gate: Optional[torch.Tensor] = None,  # int32 [1] on the device; 0: write nothing
-    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (theta, dist) to write
-    offset: int = 0,  # hash index of the wave's first sample
-    tile: Optional[TileBuffers] = None,  # the tile route's buffers (required there)
-):
-    """Launch the wave entry of the region axis: theta [batch, W] drawn as
-    `UniformBoxPrior.sample(prior_seed, batch, offset=offset)` does, and its
-    distances [batch] with NaN turned to +inf. `route`, `block` and `tile`
-    as for `abc_sim_regional_distance_kernel` (None: `regional_route` at
-    `batch`), `gate`, `out` and `offset` as for `abc_sim_wave_kernel`."""
-    route = _route(model, route, batch)
-    block = route_block(route, block)
-    if obs.device.type != "cuda":
-        raise ValueError(f"obs must be a CUDA tensor, got {obs.device}")
-    check_gate(gate, obs.device)
-    _check_2d_f32("obs", obs)
-    _check_consts(fconst, iconst, model)
-    check_regional(model, obs, mobility, weights, pool, route, block)
-    width = theta_width(model, iconst)
-    lo, hi = _box(lows, highs, width, model)
+def launch(model: CompartmentalModel, entry: str, batch: int, *, obs: torch.Tensor,
+           fconst: np.ndarray, iconst: np.ndarray, weights: Optional[torch.Tensor] = None,
+           mobility: Optional[torch.Tensor] = None, tile: Optional[TileBuffers] = None,
+           pool: int = 1, block: Optional[int] = None, route: Optional[str] = None) -> "Launch":
+    """The launch of `model`'s `entry` ("distance", theta in, or "wave") at
+    `batch` samples against the lowered summary `obs` [n_chan, T] and the
+    host constants (`pack_consts`; iconst's seed word is set by each call),
+    checked and bound once. A regional model also takes its device buffers:
+    `weights` [n_chan], `mobility` [R, R] (coupled models), `tile`
+    (`tile_buffers`, read on the tile route alone), its `pool` factor
+    (`summaries.pool_factor`) and `route` (None: `regional_route` at
+    `batch`). `block` is in threads (None: the route's default). Raises on
+    what no call could launch; what a call changes (seeds, theta or the
+    box, gate, out, offset) is checked by the call."""
+    if entry not in ("distance", "wave"):
+        raise ValueError(f"entry must be 'distance' or 'wave', got {entry!r}")
     batch = int(batch)
     if batch < 1:
-        raise ValueError("a wave needs at least one sample")
-    offset = check_offset(offset, batch)
+        raise ValueError(f"a launch needs at least one sample, got batch={batch}")
+    _check_cuda("obs", obs)
+    _check_2d_f32("obs", obs)
+    _check_consts(fconst, iconst, model)
+    regional = model.is_regional
+    if regional:
+        route = _route(model, route, batch)
+        block = route_block(route, block)
+        check_regional(model, obs, mobility, weights, pool, route, block)
+    else:
+        route, block = "flat", route_block("thread", block)
+        if obs.shape[0] != model.n_observed or obs.shape[1] < 1:
+            raise ValueError(f"obs must be [{model.n_observed}, T>=1], got {tuple(obs.shape)}")
+    wave, dev = entry == "wave", obs.device
     lib = _lib(library(model))
-    theta, dist = wave_out(out, batch, width, obs.device)
-    if theta.data_ptr() % 16:
-        raise RuntimeError("theta's storage is not 16-byte aligned")
-    fconst = np.ascontiguousarray(fconst)
-    iconst = np.ascontiguousarray(iconst)
+    name = entry_name(model, entry, route if regional else None)
+    fn = getattr(lib, name, None)
+    if fn is None:
+        raise NotImplementedError(
+            f"no CUDA kernel for model {model.name!r} (missing C symbol {name} in "
+            f"csrc/{library(model)}.cu); the kernel carries the structs of siard, sir, "
+            "seir, seiard, metapop_seir and li2020")
+    resident = slots = slot_floats = None
     if route == "tile":
-        _launch_tile(model, "wave", lib, obs, weights, tile, fconst, iconst, batch, pool,
-                     (int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data),
-                     (theta.data_ptr(), dist.data_ptr()), (_gate_ptr(gate), offset))
-        return theta, dist
-    fn = _kernel_fn(lib, model, "wave", route)
-    mob, R, seed_region, pooled = _regional_args(model, mobility, pool)
-    with torch.cuda.device(obs.device):
-        rc = fn(int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data, obs.data_ptr(),
-                mob, weights.data_ptr(), theta.data_ptr(), dist.data_ptr(), fconst.ctypes.data,
-                iconst.ctypes.data, batch, obs.shape[1], R, seed_region, pooled, block,
-                _stream_handle(obs.device), _gate_ptr(gate), offset)
-    _check_rc(lib, rc, entry_name(model, "wave", route))
-    _launched(model, "wave", route)
-    return theta, dist
+        if tile is None:
+            raise ValueError(f"the tile route of {model.name} reads its buffers from "
+                             "`tile_buffers`; pass tile=")
+        for t in (tile.mob_t, tile.pops, tile.rconst):
+            if t is not None and (t.device != dev or t.dtype != torch.float32
+                                  or not t.is_contiguous()):
+                raise ValueError(f"the tile route's buffers must be contiguous float32 tensors "
+                                 f"on {dev}")
+        inputs = (obs, tile.mob_t, tile.pops, tile.rconst, weights)
+        # the occupancy query of the launch's own variant: the flags follow the seed
+        v = variant(iconst[1:I_N_WINDOWS], wave)
+        resident = _tile_resident(lib, model.kernel, model.n_regions, v, dev)
+        slots = min(-(-batch // TILE_SAMPLES), resident * _sm_count(dev))
+        slot_floats = tile.slot_floats
+    elif regional:
+        inputs = (obs, mobility if model.coupled else None, weights)
+    else:
+        inputs = (obs,)
+    sizes = (batch, obs.shape[1])
+    if regional:
+        sizes += (model.n_regions, model.seed_region, int(pool > 1))
+        _check_struct(lib, model)
+    if route != "tile":
+        sizes += (block,)
+    # the C arguments: theta, or the prior seed and the box; the device
+    # inputs (the tile route's scratch and its slots); theta and dist, or
+    # dist; the constants, the sizes, the stream, the gate (the offset)
+    fn.argtypes = ([ctypes.c_uint, _VP, _VP] if wave else [_VP]) + [_VP] * len(inputs) \
+        + ([_VP, _INT] if route == "tile" else []) + [_VP] * (1 + wave) + [_VP, _VP] \
+        + [_INT] * len(sizes) + [_VP, _VP] + ([ctypes.c_uint] if wave else [])
+    fn.restype = _INT
+    return Launch(model, entry, name, route, block, fn, lib, inputs, sizes,
+                  np.ascontiguousarray(fconst), np.ascontiguousarray(iconst),
+                  theta_width(model, iconst), resident, slots, slot_floats)
+
+
+class Launch:
+    """One entry of one simulator at one batch, made by `launch`: the C
+    function with its arguments typed, its fixed inputs and sizes bound.
+    `name` is the C entry (the `ENTRY_LAUNCHES` key), `route` "flat",
+    "thread", "warp" or "tile", `block` the threads a block (unused on the
+    tile route), and on the tile route `resident` (blocks of the kernel the
+    occupancy query finds on each SM) and `slots` (scratch slots a launch:
+    min(tiles, resident x SMs), so that two or more tiles share an SM where
+    the kernel's registers and shared memory let them).
+
+    `launch(seed, theta_soa)` (theta in) returns distances [B];
+    `launch(seed, prior_seed, lows, highs, offset=o)` (the wave) returns
+    theta [B, W] drawn from U(lows, highs) as `UniformBoxPrior.sample(
+    prior_seed, B, offset=o)` does and its distances with NaN turned to
+    +inf. `seed` is the simulation seed; `gate` and `out` as the module
+    says. Each call launches on the current stream (the tile route's
+    scratch allocated for it), raises where the launch fails and counts one
+    in `ENTRY_LAUNCHES[name]`."""
+
+    def __init__(self, model, entry, name, route, block, fn, lib, inputs, sizes, fconst, iconst,
+                 width, resident, slots, slot_floats):
+        self.model, self.entry, self.name, self.route, self.block = model, entry, name, route, block
+        self.fn, self._lib, self.width = fn, lib, width
+        self.resident, self.slots, self._slot_floats = resident, slots, slot_floats
+        self.batch, self.device = sizes[0], inputs[0].device
+        self._keep = (inputs, fconst)  # the buffers behind the pointers
+        self._inputs = tuple(None if t is None else t.data_ptr() for t in inputs)
+        self._sizes, self._fconst, self._iconst = sizes, fconst.ctypes.data, iconst
+
+    def __call__(self, seed: int, *head, gate: Optional[torch.Tensor] = None, out=None,
+                 offset: int = 0):
+        device, batch = self.device, self.batch
+        check_gate(gate, device)
+        if self.entry == "wave":
+            prior_seed, lows, highs = head
+            lo, hi = _box(lows, highs, self.width, self.model)
+            offset = check_offset(offset, batch)
+            result = theta, dist = wave_out(out, batch, self.width, device)
+            if theta.data_ptr() % 16:
+                raise RuntimeError("theta's storage is not 16-byte aligned")
+            first = (int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data)
+            outs, last = (theta.data_ptr(), dist.data_ptr()), (offset,)
+        else:
+            (theta_soa,) = head
+            if not isinstance(theta_soa, torch.Tensor) or theta_soa.device != device:
+                raise ValueError(f"theta_soa must be a CUDA tensor on {device}, got "
+                                 f"{getattr(theta_soa, 'device', type(theta_soa).__name__)}")
+            _check_2d_f32("theta_soa", theta_soa)
+            if tuple(theta_soa.shape) != (self.width, batch):
+                raise ValueError(f"theta_soa is {tuple(theta_soa.shape)}; this launch of "
+                                 f"{self.model.name} takes [{self.width}, {batch}]")
+            if offset:
+                raise ValueError("the theta-in entry takes no offset")
+            result = _out_tensor("out", out, (batch,), device)
+            first, outs, last = (theta_soa.data_ptr(),), (result.data_ptr(),), ()
+        iconst = with_seed(self._iconst, seed)
+        scratch = ()
+        if self.slots is not None:
+            buf = torch.empty((self.slots * self._slot_floats,), dtype=torch.float32,
+                              device=device)
+            scratch = (buf.data_ptr(), self.slots)
+        with torch.cuda.device(device):
+            rc = self.fn(*first, *self._inputs, *scratch, *outs, self._fconst,
+                         iconst.ctypes.data, *self._sizes, _stream_handle(device),
+                         None if gate is None else gate.data_ptr(), *last)
+        _check_rc(self._lib, rc, self.name)
+        ENTRY_LAUNCHES[self.name] = ENTRY_LAUNCHES.get(self.name, 0) + 1
+        return result
 
 
 def rng_normals(

@@ -22,6 +22,12 @@ regional simulator also gets the tile route's buffers once
 populations, the spec's region constants), so that each route can launch
 from it.
 
+On the card every call goes through an `abc_sim.Launch`, made by
+`abc_sim.launch` the first time the simulator calls an entry at a batch
+and kept: the route, the C function and the fixed buffers are decided and
+checked once, and each later call hands it only seeds, theta or the box,
+the gate, the output buffers and the offset.
+
 Dispatch is by device: a CPU tensor goes to the plain PyTorch version
 (`repro_torch.kernels.ref`); a CUDA tensor goes to the kernel, or raises.
 Nothing falls back from the card to the plain version.
@@ -79,7 +85,11 @@ class AbcSim:
         self.mobility = mobility
         self.pool = pool_factor(spec, model.n_regions)
         self.device = observed.device
-        self.tile = None  # the tile route's buffers (`abc_sim.tile_buffers`)
+        # the region axis's device buffers and the tile route's
+        # (`abc_sim.tile_buffers`); the launches made so far, by (entry,
+        # batch, route)
+        self.weights = self.mob = self.tile = None
+        self._launches: dict = {}
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"observed must be on the CPU or a CUDA device, got {self.device}")
         if observed.ndim != 2 or observed.shape[0] != model.total_observed:
@@ -111,11 +121,32 @@ class AbcSim:
         route = abc_sim.regional_route(self.model, batch) if self.model.is_regional else None
         return abc_sim.entry_name(self.model, entry, route)
 
+    def launch(self, entry: str, batch: int, route: Optional[str] = None) -> abc_sim.Launch:
+        """The `abc_sim.Launch` of `entry` at `batch` samples on the card,
+        made the first time it is asked for and kept; `route` holds one of
+        the region axis's routes against another (None: `regional_route`'s)."""
+        key = (entry, int(batch), route)
+        made = self._launches.get(key)
+        if made is None:
+            if self.device.type != "cuda":
+                raise ValueError(f"a kernel launch runs on a CUDA device; this simulator is on "
+                                 f"{self.device}")
+            made = self._launches[key] = abc_sim.launch(
+                self.model, entry, batch, obs=self.obs_summary, fconst=self.fconst,
+                iconst=self.iconst, weights=self.weights, mobility=self.mob, tile=self.tile,
+                pool=self.pool, block=self.block, route=route)
+        return made
+
+    def record_gated(self, entry: str, batch: int, n: int) -> None:
+        """Record `n` launches of `entry` at `batch` whose gate read 0
+        (`abc_sim.record_gated`); on the CPU nothing launched."""
+        if self.device.type == "cuda":
+            abc_sim.record_gated(self.entry(entry, batch), n)
+
     def _gated_off(self, gate: Optional[torch.Tensor]) -> bool:
-        """On the CPU: whether `gate` (checked) reads 0. On the card the
-        kernel reads it, so this only checks it and is False."""
+        """On the CPU: whether `gate` (checked) reads 0."""
         abc_sim.check_gate(gate, self.device)
-        return gate is not None and self.device.type == "cpu" and int(gate[0]) == 0
+        return gate is not None and int(gate[0]) == 0
 
     def __call__(self, theta: torch.Tensor, seed: int,
                  gate: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -124,21 +155,12 @@ class AbcSim:
         if theta.device != self.device:
             raise ValueError(f"theta is on {theta.device}, the observed series on "
                              f"{self.device}")
+        if self.device.type == "cuda":
+            return self.launch("distance", theta.shape[0])(seed, abc_sim.theta_to_soa(theta),
+                                                           gate=gate)
         if self._gated_off(gate):
             return torch.empty((theta.shape[0],), dtype=torch.float32)
-        if self.device.type == "cpu":
-            return self._plain(theta, seed)
-        iconst = abc_sim.with_seed(self.iconst, seed)
-        if model.is_regional:
-            return abc_sim.abc_sim_regional_distance_kernel(
-                abc_sim.theta_to_soa(theta), self.obs_summary, self.mob, self.weights,
-                self.fconst, iconst, model=model, pool=self.pool, block=self.block, gate=gate,
-                tile=self.tile,
-            )
-        return abc_sim.abc_sim_distance_kernel(
-            abc_sim.theta_to_soa(theta), self.obs_summary, self.fconst, iconst,
-            model=model, block=self.block, gate=gate,
-        )
+        return self._plain(theta, seed)
 
     def _plain(self, theta: torch.Tensor, seed: int, offset: int = 0) -> torch.Tensor:
         """The plain version's distances of a CPU theta, its samples hashed
@@ -161,24 +183,15 @@ class AbcSim:
             what = "" if self.schedule is None else " and scale columns"
             raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
                              f"{self.width} parameters{what}")
-        if self.device.type == "cuda" and isinstance(prior, UniformBoxPrior):
-            iconst = abc_sim.with_seed(self.iconst, sim_seed)
-            if self.model.is_regional:
-                return abc_sim.abc_sim_regional_wave_kernel(
-                    prior_seed, prior.lows, prior.highs, self.obs_summary, self.mob,
-                    self.weights, self.fconst, iconst, model=self.model, batch=batch,
-                    pool=self.pool, block=self.block, gate=gate, out=out, offset=offset,
-                    tile=self.tile,
-                )
-            return abc_sim.abc_sim_wave_kernel(
-                prior_seed, prior.lows, prior.highs, self.obs_summary, self.fconst,
-                iconst, model=self.model, batch=batch, block=self.block, gate=gate, out=out,
-                offset=offset,
-            )
-        if self.device.type == "cuda" and (gate is not None or offset):
-            raise ValueError("a gated or offset wave on the card draws theta in the kernel: "
-                             f"it needs a UniformBoxPrior, got {type(prior).__name__}")
-        if self._gated_off(gate):
+        if self.device.type == "cuda":
+            if isinstance(prior, UniformBoxPrior):
+                return self.launch("wave", batch)(sim_seed, prior_seed, prior.lows, prior.highs,
+                                                  gate=gate, out=out, offset=offset)
+            if gate is not None or offset:
+                raise ValueError("a gated or offset wave on the card draws theta in the "
+                                 f"kernel: it needs a UniformBoxPrior, got "
+                                 f"{type(prior).__name__}")
+        elif self._gated_off(gate):
             return abc_sim.wave_out(out, batch, self.width, self.device)
         theta = prior.sample(prior_seed, batch, self.device, offset=offset)
         dist = (self._plain(theta, sim_seed, offset) if self.device.type == "cpu"

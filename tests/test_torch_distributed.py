@@ -189,6 +189,9 @@ class _OnlyShardZeroAccepts:
         dist_.fill_(0.0 if self.shard == 0 else float("inf"))
         return out
 
+    def record_gated(self, entry, batch, n):
+        """Nothing launched on the CPU, as `AbcSim.record_gated` there."""
+
 
 def _overflow_rank(rank, world):
     prior = get_model("siard").prior()

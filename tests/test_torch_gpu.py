@@ -756,16 +756,22 @@ def _regional_sim(cuda, spec, summary=None, distance="euclidean", **extra):
     return obs, kw, ops.make_abc_sim(obs, **kw)
 
 
+def _launch(sim, entry, batch, route=None, block=None):
+    """`sim`'s launch of `entry` at `batch` on `route`, at `block` threads
+    where one is given (`abc_sim.launch` of the simulator's buffers)."""
+    if block is None:
+        return sim.launch(entry, batch, route)
+    return abc_sim.launch(sim.model, entry, batch, obs=sim.obs_summary, fconst=sim.fconst,
+                          iconst=sim.iconst, weights=sim.weights, mobility=sim.mob,
+                          tile=sim.tile, pool=sim.pool, block=block, route=route)
+
+
 def _route_entries(sim, spec, theta, prior, seed, prior_seed, route, block=None):
     """(theta-in distances, wave theta, wave distances) of one route."""
-    ic = abc_sim.with_seed(sim.iconst, seed)
-    d = abc_sim.abc_sim_regional_distance_kernel(
-        abc_sim.theta_to_soa(theta), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-        model=spec, pool=sim.pool, route=route, block=block, tile=sim.tile)
-    th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
-        prior_seed, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-        ic, model=spec, batch=theta.shape[0], pool=sim.pool, route=route, block=block,
-        tile=sim.tile)
+    batch = theta.shape[0]
+    d = _launch(sim, "distance", batch, route, block)(seed, abc_sim.theta_to_soa(theta))
+    th_w, d_w = _launch(sim, "wave", batch, route, block)(seed, prior_seed, prior.lows,
+                                                          prior.highs)
     return d, th_w, d_w
 
 
@@ -828,10 +834,7 @@ def test_regional_route_follows_the_batch_on_the_card(cuda):
         name = abc_sim.entry_name(spec, "wave", route)
         assert abc_sim.ENTRY_LAUNCHES[name] == before.get(name, 0) + 1
         assert abc_sim.ENTRY_LAUNCHES == {**before, name: before.get(name, 0) + 1}
-        th_o, d_o = abc_sim.abc_sim_regional_wave_kernel(
-            4, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-            abc_sim.with_seed(sim.iconst, 7), model=spec, batch=batch, pool=sim.pool,
-            route=other)
+        th_o, d_o = sim.launch("wave", batch, other)(7, 4, prior.lows, prior.highs)
         assert torch.equal(th_o, theta) and torch.equal(d_o, dist)
 
 
@@ -905,9 +908,31 @@ def test_regional_kernel_refuses_past_max_regions(cuda, monkeypatch):
     before = dict(abc_sim.ENTRY_LAUNCHES)
     for route in ("thread", "warp"):
         with pytest.raises(RuntimeError, match="launch failed"):
-            abc_sim.abc_sim_regional_distance_kernel(theta, obs, mob, weights, fconst, iconst,
-                                                     model=spec, route=route)
+            abc_sim.launch(spec, "distance", 64, obs=obs, fconst=fconst, iconst=iconst,
+                           weights=weights, mobility=mob, route=route)(1, theta)
     assert abc_sim.ENTRY_LAUNCHES == before
+
+
+def test_a_simulator_keeps_one_launch_a_batch(cuda, monkeypatch):
+    """Two waves of one simulator at one batch go through one `Launch`,
+    made once by `abc_sim.launch`, bitwise the same; a second batch gets
+    its own. Its name is the entry `AbcSim.entry` names."""
+    spec = get_model("siard")
+    ds = data.get_dataset("italy", num_days=20)
+    sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), model=spec,
+                           population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    made, real = [], abc_sim.launch
+    monkeypatch.setattr(abc_sim, "launch", lambda *a, **k: made.append(a[1:3]) or real(*a, **k))
+    prior = spec.prior()
+    first = sim.wave(prior, 1, 2, 1024)
+    ln = sim.launch("wave", 1024)
+    second = sim.wave(prior, 1, 2, 1024)
+    assert sim.launch("wave", 1024) is ln and made == [("wave", 1024)]
+    assert all(_bits_equal(a, b) for a, b in zip(first, second))
+    sim.wave(prior, 1, 2, 2048)
+    assert sim.launch("wave", 2048) is not ln
+    assert made == [("wave", 1024), ("wave", 2048)]
+    assert (ln.name, ln.route, ln.block) == (sim.entry("wave", 1024), "flat", 256)
 
 
 def test_run_abc_on_the_card_goes_through_the_regional_kernel(cuda):
@@ -1024,23 +1049,11 @@ def _gate_entries(cuda, spec, route, batch=2048):
     kw = dict(population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
     sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), model=spec, **kw)
     box = spec.prior()
-    ic = abc_sim.with_seed(sim.iconst, 5)
     soa = abc_sim.theta_to_soa(box.sample(3, batch, cuda))
-    if spec.is_regional:
-        rkw = dict(model=spec, pool=sim.pool, route=route, tile=sim.tile)
-        return box, {
-            "wave": lambda gate=None, out=None: abc_sim.abc_sim_regional_wave_kernel(
-                9, box.lows, box.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-                batch=batch, gate=gate, out=out, **rkw),
-            "distance": lambda gate=None, out=None: (abc_sim.abc_sim_regional_distance_kernel(
-                soa, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic, gate=gate, out=out,
-                **rkw),)}
+    wave, theta_in = (sim.launch(e, batch, route) for e in ("wave", "distance"))
     return box, {
-        "wave": lambda gate=None, out=None: abc_sim.abc_sim_wave_kernel(
-            9, box.lows, box.highs, sim.obs_summary, sim.fconst, ic, model=spec, batch=batch,
-            gate=gate, out=out),
-        "distance": lambda gate=None, out=None: (abc_sim.abc_sim_distance_kernel(
-            soa, sim.obs_summary, sim.fconst, ic, model=spec, gate=gate, out=out),)}
+        "wave": lambda gate=None, out=None: wave(5, 9, box.lows, box.highs, gate=gate, out=out),
+        "distance": lambda gate=None, out=None: (theta_in(5, soa, gate=gate, out=out),)}
 
 
 GATE_CASES = [(m, None, None) for m in ("siard", "sir", "seir", "seiard")] + [
@@ -1484,10 +1497,8 @@ def _offset_wave(cuda, case):
 
     def wave(offset, batch):
         if route:
-            return abc_sim.abc_sim_regional_wave_kernel(
-                7, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst,
-                abc_sim.with_seed(sim.iconst, 9), model=spec, batch=batch, pool=sim.pool,
-                route=route, offset=offset)
+            return sim.launch("wave", batch, route)(9, 7, prior.lows, prior.highs,
+                                                    offset=offset)
         return sim.wave(prior, 7, 9, batch, offset=offset)
 
     def plain(offset, batch):
@@ -1525,13 +1536,12 @@ def test_wave_entry_refuses_an_offset_past_the_32_bit_index(cuda, case):
     assert theta.shape[0] == 16 and not torch.isnan(d).any()
     name, _, route = case.partition("-")
     spec = get_model(name)
-    lib = abc_sim._lib(abc_sim.library(spec))
-    fn = abc_sim._kernel_fn(lib, spec, "wave", route or None)
-    args = list(fn.argtypes)
-    assert args[-1] is ctypes.c_uint and len(args) in (14, 19)
     ds = data.get_dataset("synthetic_small", num_days=49, model=spec)
     sim = ops.make_abc_sim(torch.as_tensor(ds.observed, device=cuda), model=spec,
                            population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
+    fn = sim.launch("wave", 16, route or None).fn
+    args = list(fn.argtypes)
+    assert args[-1] is ctypes.c_uint and len(args) in (14, 19)
     lo = np.ascontiguousarray(spec.prior().lows, np.float32)
     hi = np.ascontiguousarray(spec.prior().highs, np.float32)
     out = torch.empty((16, spec.n_params), device=cuda), torch.empty((16,), device=cuda)

@@ -9,6 +9,7 @@ tile route on the card `tests/test_torch_regional_tile.py`."""
 import contextlib
 import dataclasses
 import hashlib
+import types
 
 import numpy as np
 import pytest
@@ -130,36 +131,52 @@ def test_the_tile_route_alone_takes_li2020():
                          ids=["one-an-sm", "two-an-sm", "three-an-sm", "fewer-tiles",
                               "one-part-full-tile"])
 def test_tile_scratch_is_sized_from_the_residency(monkeypatch, resident, sms, batch, slots):
-    """The tile launcher's scratch and grid, with the occupancy query and the
-    SM count faked (no card here): min(tiles, resident x SMs) slots of
-    `slot_floats` each, handed to the entry as its slots; the query asked
-    for the launch's own variant; TILE_OVERLAPPED_LAUNCHES counts the launch
-    where two or more blocks are resident, ROUTE_LAUNCHES every launch."""
+    """The tile route's scratch and grid, with the library, the occupancy
+    query and the SM count faked (no card here): min(tiles, resident x SMs)
+    slots of `slot_floats` each, handed to the entry as its slots; the query
+    asked for the launch's own variant, once, when `abc_sim.launch` makes
+    the launch; `Launch.resident` keeps its blocks an SM, and
+    `route_counts` counts every launch on the tile route."""
     spec = regionalize(LI, 375, None)
     R, rpad = 375, abc_sim.tile_rpad(375)
     tile = abc_sim.TileBuffers(torch.zeros(rpad, rpad), torch.ones(R), torch.ones(1, R), 1000)
-    asked, got = [], []
+    asked, got, scratch = [], [], []
+
+    def entry(*args):
+        got.append(args)
+        return 0
+
+    empty = torch.empty
+    monkeypatch.setattr(abc_sim, "ENTRY_LAUNCHES", {})
+    monkeypatch.setattr(abc_sim, "_lib", lambda name: types.SimpleNamespace(
+        abc_sim_regional_wave_tile_li2020=entry))
+    monkeypatch.setattr(abc_sim, "_check_cuda", lambda name, t: None)
+    monkeypatch.setattr(abc_sim, "_check_struct", lambda lib, model: None)
     monkeypatch.setattr(abc_sim, "_tile_resident",
                         lambda lib, kernel, n, v, device: asked.append((kernel, n, v)) or resident)
     monkeypatch.setattr(abc_sim, "_sm_count", lambda device: sms)
-    monkeypatch.setattr(abc_sim, "_kernel_fn",
-                        lambda lib, model, entry, route: lambda *args: got.append(args) or 0)
     monkeypatch.setattr(abc_sim, "_stream_handle", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", lambda shape, **kw: scratch.append(shape) or
+                        empty(shape, **kw))
     flags = (1, 0, 2, 1, 1)
     fconst, iconst = abc_sim.pack_consts(population=1e6, a0=1.0, r0=0.0, d0=0.0,
                                          mean_scale=1.0, weights=[], flags=flags, seed=3)
-    scratch, n, res = abc_sim.tile_scratch(None, spec, tile, batch, 9, torch.device("cpu"))
-    assert (n, res, scratch.numel()) == (slots, resident, slots * 1000)
-    assert n == min(-(-batch // abc_sim.TILE_SAMPLES), resident * sms)
-    before = (abc_sim.TILE_OVERLAPPED_LAUNCHES, abc_sim.ROUTE_LAUNCHES.get("tile", 0))
-    head = (7, np.zeros(8, np.float32).ctypes.data, np.ones(8, np.float32).ctypes.data)
-    abc_sim._launch_tile(spec, "wave", None, torch.zeros(2 * R, 14), torch.ones(2 * R), tile,
-                         fconst, iconst, batch, 1, head, (0, 0), (None, 0))
-    assert asked[-1] == ("li2020", R, abc_sim.variant(flags, True))
-    assert got[-1][len(head) + 6] == slots  # after obs, the matrix, pops, rconst, weights, scratch
-    assert abc_sim.ROUTE_LAUNCHES["tile"] == before[1] + 1
-    assert abc_sim.TILE_OVERLAPPED_LAUNCHES == before[0] + (resident >= 2)
+    ln = abc_sim.launch(spec, "wave", batch, obs=torch.zeros(2 * R, 14), fconst=fconst,
+                        iconst=iconst, weights=torch.ones(2 * R), mobility=torch.zeros(R, R),
+                        tile=tile)
+    assert (ln.route, ln.name) == ("tile", "abc_sim_regional_wave_tile_li2020")
+    assert (ln.slots, ln.resident) == (slots, resident)
+    assert ln.slots == min(-(-batch // abc_sim.TILE_SAMPLES), resident * sms)
+    prior = spec.prior()
+    out = (torch.zeros(batch, spec.n_params), torch.zeros(batch))
+    for _ in range(2):
+        ln(3, 7, prior.lows, prior.highs, out=out)
+    assert asked == [("li2020", R, abc_sim.variant(flags, True))]
+    assert scratch == [(slots * 1000,)] * 2
+    head = 3  # the prior seed and the box
+    assert got[-1][head + 6] == slots  # after obs, the matrix, pops, rconst, weights, scratch
+    assert abc_sim.route_counts()[0] == {"tile": 2}
 
 
 #: a tile kernel's shape in SASS: the tile loop (0x10, a MUFU of its own),

@@ -86,18 +86,12 @@ def test_tile_route_equals_the_plain_version_for_li2020(cuda, regions, batch):
     assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 8, obs, **kw)))
 
 
-def _spy_scratch(monkeypatch) -> list:
-    """(slots, resident) of every tile launch from here on, as
-    `abc_sim.tile_scratch` gives them to `_launch_tile`."""
-    seen, scratch = [], abc_sim.tile_scratch
-
-    def spy(*args):
-        out = scratch(*args)
-        seen.append(out[1:])
-        return out
-
-    monkeypatch.setattr(abc_sim, "tile_scratch", spy)
-    return seen
+def _tile_slots(sim, batches) -> list:
+    """(slots, resident) of `sim`'s tile launches of the wave and the
+    theta-in entry at each of `batches`, as `abc_sim.launch` sized them
+    when the simulator first called each."""
+    return [(ln.slots, ln.resident) for ln in
+            (sim.launch(e, b) for b in batches for e in ("wave", "distance"))]
 
 
 @pytest.mark.parametrize("sms,resident,regions,batch",
@@ -117,7 +111,6 @@ def test_tile_route_blocks_walk_several_tiles(cuda, monkeypatch, sms, resident, 
         monkeypatch.setattr(abc_sim, "_sm_count", lambda device: sms)
     if resident is not None:
         monkeypatch.setattr(abc_sim, "_tile_resident", lambda *args: resident)
-    seen = _spy_scratch(monkeypatch)
     spec = li2020(regions)
     obs, kw, sim = _sim(cuda, spec)
     prior = spec.prior()
@@ -125,6 +118,7 @@ def test_tile_route_blocks_walk_several_tiles(cuda, monkeypatch, sms, resident, 
     got = sim(theta, 19)
     torch.cuda.synchronize()
     tiles = -(-batch // abc_sim.TILE_SAMPLES)
+    seen = _tile_slots(sim, (batch,))
     assert len(seen) == 2
     for slots, res in seen:
         assert res == (resident or 1)
@@ -138,29 +132,28 @@ def test_tile_route_blocks_walk_several_tiles(cuda, monkeypatch, sms, resident, 
                          [(375, "li2020", (1000, 20_000), 1),
                           (200, "metapop_seir", (1000, 20_000), 2)],
                          ids=["li2020-375", "metapop_seir-200"])
-def test_tile_overlapped_launches_count_tiles_in_flight(cuda, monkeypatch, regions, model,
-                                                        batches, resident):
-    """The occupancy query's blocks an SM size each launch's scratch:
-    `_launch_tile` allocates min(tiles, resident x SMs) slots (fewer tiles
-    than that at 1,000 samples, more at 20,000), and
-    TILE_OVERLAPPED_LAUNCHES counts the launches with two tiles or more in
-    flight an SM: none of li2020's at 375 cities (one block of 171 KB an
-    SM), every one of metapop_seir's at 200 regions (one coupled input, a
-    4-warp block)."""
-    seen = _spy_scratch(monkeypatch)
+def test_tile_overlapped_launches_count_tiles_in_flight(cuda, regions, model, batches,
+                                                        resident):
+    """The occupancy query's blocks an SM size each launch's scratch: a
+    tile launch allocates min(tiles, resident x SMs) slots (fewer tiles
+    than that at 1,000 samples, more at 20,000), and `Launch.resident`
+    says which launches have two tiles or more in flight an SM: none of
+    li2020's at 375 cities (one block of 171 KB an SM), every one of
+    metapop_seir's at 200 regions (one coupled input, a 4-warp block)."""
     if model == "li2020":
         spec, a0 = li2020(regions), 1.0
     else:
         spec, a0 = regionalize(get_model("metapop_seir"), regions, "ring:0.1"), 100.0
     _, _, sim = _sim(cuda, spec, a0=a0)
     prior = spec.prior()
-    before = (abc_sim.TILE_OVERLAPPED_LAUNCHES, abc_sim.ROUTE_LAUNCHES.get("tile", 0))
+    before = abc_sim.route_counts()[0].get("tile", 0)
     for batch in batches:
         theta, _ = sim.wave(prior, 5, 6, batch)
         sim(theta, 6)
     torch.cuda.synchronize()
-    launched = abc_sim.ROUTE_LAUNCHES["tile"] - before[1]
-    overlapped = abc_sim.TILE_OVERLAPPED_LAUNCHES - before[0]
+    seen = _tile_slots(sim, batches)
+    launched = abc_sim.route_counts()[0]["tile"] - before
+    overlapped = sum(res >= 2 for _, res in seen)
     assert launched == 4 and overlapped == (launched if resident >= 2 else 0)
     sms = abc_sim._sm_count(cuda)
     for (slots, res), batch in zip(seen, [b for b in batches for _ in range(2)]):
@@ -169,13 +162,11 @@ def test_tile_overlapped_launches_count_tiles_in_flight(cuda, monkeypatch, regio
 
 
 @pytest.mark.parametrize("summary", [None, "region_pooled"])
-def test_tile_route_equals_the_plain_version_for_metapop_seir_past_128(cuda, monkeypatch,
-                                                                       summary):
+def test_tile_route_equals_the_plain_version_for_metapop_seir_past_128(cuda, summary):
     """metapop_seir at R = 200 (one coupled input: a 4-warp block, two
     tiles or more resident on each SM), the route it takes past
     MAX_REGIONS: both entries bitwise the plain version, a tile left
     part-full."""
-    seen = _spy_scratch(monkeypatch)
     spec = regionalize(get_model("metapop_seir"), 200, "ring:0.1")
     assert abc_sim.regional_routes(spec) == ("tile",)
     obs, kw, sim = _sim(cuda, spec, summary, a0=100.0)
@@ -183,6 +174,7 @@ def test_tile_route_equals_the_plain_version_for_metapop_seir_past_128(cuda, mon
     theta, dist = sim.wave(prior, 23, 24, 1003)
     got = sim(theta, 24)
     torch.cuda.synchronize()
+    seen = _tile_slots(sim, (1003,))
     assert np.array_equal(_bits(theta), _bits(prior.sample(23, 1003, cuda)))
     assert np.array_equal(_bits(dist), _bits(_wave_want(theta, 24, obs, kw)))
     assert np.array_equal(_bits(got), _bits(ref.abc_sim_distance_ref(theta, 24, obs, **kw)))
@@ -198,15 +190,10 @@ def test_tile_route_equals_the_warp_route_for_metapop_seir(cuda, summary):
     obs, kw, sim = _sim(cuda, spec, summary, a0=100.0)
     prior = spec.prior()
     theta = prior.sample(3, 1000, cuda)
-    ic = abc_sim.with_seed(sim.iconst, 9)
     got = {}
     for route in ("warp", "tile"):
-        d = abc_sim.abc_sim_regional_distance_kernel(
-            abc_sim.theta_to_soa(theta), sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-            model=spec, pool=sim.pool, route=route, tile=sim.tile)
-        th_w, d_w = abc_sim.abc_sim_regional_wave_kernel(
-            3, prior.lows, prior.highs, sim.obs_summary, sim.mob, sim.weights, sim.fconst, ic,
-            model=spec, batch=1000, pool=sim.pool, route=route, tile=sim.tile)
+        d = sim.launch("distance", 1000, route)(9, abc_sim.theta_to_soa(theta))
+        th_w, d_w = sim.launch("wave", 1000, route)(9, 3, prior.lows, prior.highs)
         got[route] = [_bits(t) for t in (d, th_w, d_w)]
     for a, b in zip(got["warp"], got["tile"]):
         assert np.array_equal(a, b)
@@ -229,12 +216,12 @@ def test_tile_gate_of_zero_writes_nothing(cuda):
     theta = torch.full((64, spec.n_params), -3.0, device=cuda)
     dist = torch.full((64,), -5.0, device=cuda)
     gate = torch.zeros((1,), dtype=torch.int32, device=cuda)
-    before = abc_sim.ROUTE_LAUNCHES.get("tile", 0)
+    before = abc_sim.route_counts()[0].get("tile", 0)
     sim.wave(prior, 1, 2, 64, gate=gate, out=(theta, dist))
     sim(prior.sample(1, 64, cuda), 2, gate=gate)
     torch.cuda.synchronize()
     assert (theta == -3.0).all() and (dist == -5.0).all()
-    assert abc_sim.ROUTE_LAUNCHES["tile"] == before + 2
+    assert abc_sim.route_counts()[0]["tile"] == before + 2
 
 
 def test_tile_wave_at_an_offset_is_a_slice(cuda):
@@ -266,24 +253,24 @@ def test_tile_route_refuses_past_its_limit(cuda, monkeypatch):
     theta = abc_sim.theta_to_soa(spec.prior().sample(1, 64, cuda))
     before = dict(abc_sim.ENTRY_LAUNCHES)
     with pytest.raises(RuntimeError, match="launch failed"):
-        abc_sim.abc_sim_regional_distance_kernel(
-            theta, obs, mob, weights, fconst, iconst, model=spec,
-            tile=abc_sim.tile_buffers(spec, mob, 1e6, cuda))
+        abc_sim.launch(spec, "distance", 64, obs=obs, fconst=fconst, iconst=iconst,
+                       weights=weights, mobility=mob,
+                       tile=abc_sim.tile_buffers(spec, mob, 1e6, cuda))(1, theta)
     assert abc_sim.ENTRY_LAUNCHES == before
 
 
 def test_route_launches_count_the_route_taken(cuda):
-    """ROUTE_LAUNCHES and ROUTE_GATED count by route where ENTRY_LAUNCHES
-    and ENTRY_GATED count by entry: a tile launch and a warp launch, and
-    gated launches recorded by name."""
+    """`route_counts` sums ENTRY_LAUNCHES and ENTRY_GATED by route: a tile
+    launch and a warp launch, and gated launches recorded by name."""
     li = li2020(12)
     mp = regionalize(get_model("metapop_seir"), 100, "ring:0.1")
-    launches, gated = dict(abc_sim.ROUTE_LAUNCHES), dict(abc_sim.ROUTE_GATED)
+    launches, gated = abc_sim.route_counts()
     for spec, a0 in ((li, 1.0), (mp, 100.0)):
         _, _, sim = _sim(cuda, spec, a0=a0)
         sim.wave(spec.prior(), 1, 2, 256)
+        assert sim.launch("wave", 256).route == ("tile" if spec is li else "warp")
     torch.cuda.synchronize()
-    assert abc_sim.ROUTE_LAUNCHES["tile"] == launches.get("tile", 0) + 1
-    assert abc_sim.ROUTE_LAUNCHES["warp"] == launches.get("warp", 0) + 1
+    assert abc_sim.route_counts()[0]["tile"] == launches.get("tile", 0) + 1
+    assert abc_sim.route_counts()[0]["warp"] == launches.get("warp", 0) + 1
     abc_sim.record_gated(abc_sim.entry_name(li, "wave"), 3)
-    assert abc_sim.ROUTE_GATED["tile"] == gated.get("tile", 0) + 3
+    assert abc_sim.route_counts()[1]["tile"] == gated.get("tile", 0) + 3

@@ -15,7 +15,7 @@ from repro_torch.core import abc as tabc
 from repro_torch.epi import engine
 from repro_torch.epi.models import get_model
 from repro_torch.epi.spec import make_mobility, regionalize
-from repro_torch.kernels import abc_sim, sass
+from repro_torch.kernels import abc_sim, ops, sass
 
 torch.set_num_threads(1)
 
@@ -92,6 +92,24 @@ def test_routes_and_blocks_refuse_what_the_kernels_do_not_take():
         tabc.ABCConfig(batch_size=256, chunk_size=256, model=_mp(16), block=512)
 
 
+@pytest.mark.parametrize("model,regions,want", [
+    ("siard", None, "abc_sim_wave_siard"),
+    ("metapop_seir", 4, "abc_sim_regional_wave_metapop_seir"),
+    ("metapop_seir", 100, "abc_sim_regional_wave_warp_metapop_seir"),
+    ("li2020", None, "abc_sim_regional_wave_tile_li2020")],
+    ids=["flat", "thread", "warp", "tile"])
+def test_simulator_names_its_entry_without_the_library(model, regions, want):
+    """`AbcSim.entry("wave", 100,000)` on the CPU, where no library loads:
+    the C name the card's launch counts under (`perfbench` and the trace
+    audit read it), on each route."""
+    spec = get_model(model) if regions is None else _mp(regions)
+    sim = ops.make_abc_sim(torch.zeros(spec.total_observed, 10), population=1e6, a0=10.0,
+                           model=spec)
+    assert sim.entry("wave", 100_000) == want
+    assert abc_sim.entry_route(want) == ("flat" if model == "siard"
+                                         else abc_sim.regional_route(spec, 100_000))
+
+
 def test_wrappers_launch_only_on_the_card():
     """A CPU tensor never reaches the C entries: the wrappers refuse it
     before any launch (the plain version is `ops`' CPU path)."""
@@ -102,9 +120,8 @@ def test_wrappers_launch_only_on_the_card():
                                          mean_scale=1.0, weights=[], flags=(0, 0, 2, 1, 1),
                                          seed=1)
     with pytest.raises(ValueError, match="CUDA"):
-        abc_sim.abc_sim_regional_wave_kernel(
-            1, spec.prior().lows, spec.prior().highs, torch.zeros(n, 5), torch.zeros(40, 40),
-            torch.zeros(n), fconst, iconst, model=spec, batch=64, route="warp")
+        abc_sim.launch(spec, "wave", 64, obs=torch.zeros(n, 5), fconst=fconst, iconst=iconst,
+                       weights=torch.zeros(n), mobility=torch.zeros(40, 40), route="warp")
     assert abc_sim.ENTRY_LAUNCHES == launches
 
 
