@@ -386,7 +386,20 @@ printing one JSON line:
              beside it, says); the 16 variants of li2020's tile kernel in
              ptxas's report; the wave's ms by CUDA events in two turns, the
              plain version's, and the bound of the configuration's frozen
-             count at 67 TFLOP/s
+             count at 67 TFLOP/s; a wave with its seeds read from device
+             memory (`seeds=`), other seeds in its parameters, bitwise the
+             first; and the graph path (`replayed_posterior`): two
+             posteriors on the cell's runner, the second capturing its
+             segment as a CUDA graph, then one with the counters set to 0
+             that replays it in every segment (`core.abc.GRAPH_REPLAYS` as
+             the host syncs), counts waves + gated launches of the wave
+             entry and of the compaction, and is bitwise a run of the same
+             seed on a runner kept eager
+  siard_graph_path  the benchmark cell `siard_italy.b1m`'s shape
+             (1,000,000 x 49 a wave), made as perfbench makes it: one wave
+             of the flat SIARD entry bitwise the plain version, the same
+             wave with its seeds read from device memory bitwise it, and
+             the graph path's checks of li2020_path
   kernels    one line for each kernel: abc_sim (each of its eight flat
              entries, with its launches, gated ones included, on the three
              flat ABC paths, smc_path, campaign_path, forecast_path,
@@ -408,7 +421,7 @@ printing one JSON line:
              encdec_prefill and mesh_path's two ranks, `launches_by_path`; its zamba2-2.7b cell and
              whisper's three) and the float32 one
 
-`python3 chip_smoke.py --only flash,encdec,train,mesh,li2020` runs the build and
+`python3 chip_smoke.py --only flash,encdec,train,mesh,li2020,siard` runs the build and
 then only those groups of phases, with no kernels line.
 
 then the card's name and power limit as nvidia-smi gives them, and the last
@@ -452,8 +465,10 @@ REGIONAL_WARP_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional_warp.cuh"
 REGIONAL_TPU_KERNEL = "src/repro/kernels/abc_sim.py:195"
 REGIONAL_STRUCTS = ABC_MODELS + ("metapop_seir",)
 REGIONAL_TILE_SOURCE = "src/repro_torch/kernels/csrc/abc_sim_regional_tile.cuh"
-#: the benchmark cell whose shape li2020_path runs (perfbench/workloads/)
+#: the benchmark cells whose shapes li2020_path and siard_graph_path run
+#: (perfbench/workloads/)
 LI2020_CELL = "li2020_china.b20k"
+SIARD_CELL = "siard_italy.b1m"
 #: the (summary, distance) pairs of tests/test_metapop.py:235-239
 METAPOP_PAIRS = (("identity", "euclidean"), ("region_pooled", "euclidean"),
                  ("log_weekly", "mae"))
@@ -3797,7 +3812,57 @@ def tuning_phase(dev, name: str, smi: str, italy_argv, main_post, main_tolerance
 
 
 #: the phase groups `--only` can run after the build, in this order
-ONLY_GROUPS = ("flash", "encdec", "train", "mesh", "li2020")
+ONLY_GROUPS = ("flash", "encdec", "train", "mesh", "li2020", "siard")
+
+
+def device_seeded_wave(phase: str, sim, prior, batch: int, want_theta, want_dist,
+                       prior_seed: int, sim_seed: int) -> list:
+    """One wave of `sim` at `batch` whose (simulation, prior) seeds are read
+    from device memory, other seeds in its parameters: its theta and
+    distances bitwise `want_theta` and `want_dist` (a launch with those
+    seeds in its parameters, and the plain version)."""
+    import torch
+
+    seeds = torch.tensor(np.array([sim_seed, prior_seed], np.uint32).view(np.int32),
+                         device=sim.device)
+    theta, dist = sim.wave(prior, prior_seed ^ 0x5A5A, sim_seed ^ 0xA5A5, batch, seeds=seeds)
+    return [bitwise(f"{phase}: device-seeded wave theta at {batch}", theta, want_theta),
+            bitwise(f"{phase}: device-seeded wave vs plain at {batch}", dist, want_dist)]
+
+
+def replayed_posterior(phase: str, ds, cfg, runner, wave_entry: str, seed: int) -> dict:
+    """The main path's graph path at a cell's shape: two posteriors on the
+    cell's runner (the first's segment eager, the second's captured as a
+    CUDA graph), then one with the counters set to 0 just before
+    (`counted`), which must replay the graph in every segment and count
+    waves + gated launches of the wave entry and of the compaction, and
+    whose rows are bitwise a run of the same seed on a runner kept eager."""
+    from repro_torch.core import abc as tabc
+
+    for i in (1, 2):
+        tabc.run_abc(ds, cfg, seed=seed + i, wave_runner=runner)
+    captures, replays = tabc.GRAPH_CAPTURES, tabc.GRAPH_REPLAYS
+    post, counts = counted(lambda: tabc.run_abc(ds, cfg, seed=seed, wave_runner=runner))
+    replayed = tabc.GRAPH_REPLAYS - replays
+    gated = counts["gated"].get(wave_entry, 0)
+    eager_runner = tabc.make_wave_runner(runner.prior, runner.sim, cfg)
+    eager_runner.takes_graph = lambda max_waves: False
+    eager = tabc.run_abc(ds, cfg, seed=seed, wave_runner=eager_runner)
+    if (tabc.GRAPH_CAPTURES != captures or replayed < 1 or tabc.GRAPH_REPLAYS != replays + replayed
+            or replayed != counts["host_syncs"]
+            or counts["entries"] != {wave_entry: post.runs + gated}
+            or counts["compactions"] != post.runs + gated
+            or (post.runs, post.simulations) != (eager.runs, eager.simulations)):
+        raise AssertionError(f"{phase}: a warm posterior replayed {replayed} segments in "
+                             f"{counts['host_syncs']} syncs, {tabc.GRAPH_CAPTURES - captures} "
+                             f"new captures, launches {counts}, {post.runs} waves against the "
+                             f"eager run's {eager.runs}")
+    return {"seed": seed, "waves": post.runs, "gated": gated, "replays": replayed,
+            "counts": counts, "accepted": len(post),
+            "comparisons": [bitwise(f"{phase}: replayed posterior theta vs eager", post.theta,
+                                    eager.theta),
+                            bitwise(f"{phase}: replayed posterior distances vs eager",
+                                    post.distances, eager.distances)]}
 
 
 def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
@@ -3838,7 +3903,8 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
     want = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
     cases = [bitwise(f"li2020 R=375 {batch}x14 tile wave theta vs prior.sample", theta,
                      prior.sample(21, batch, dev)),
-             bitwise(f"li2020 R=375 {batch}x14 tile wave vs plain", dist, want)]
+             bitwise(f"li2020 R=375 {batch}x14 tile wave vs plain", dist, want),
+             *device_seeded_wave("li2020_path", sim, prior, batch, theta, want, 21, 22)]
 
     # the main path's loop, the counters set to 0 just before (`counted`)
     post, counts = counted(lambda: tabc.run_abc(ds, cfg, seed=3535, wave_runner=runner))
@@ -3854,6 +3920,7 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
         raise AssertionError(f"li2020_path: launches {counts}, routes {routes}, "
                              f"{overlapped} with two tiles or more an SM, "
                              f"{len(post)} accepted in {post.runs} waves")
+    graph = replayed_posterior("li2020_path", ds, cfg, runner, wave_entry, 3_838_003_535)
 
     # the wave entry alone at the cell's batch, CUDA events, two turns
     buf = (torch.empty((batch, spec.n_params), device=dev), torch.empty((batch,), device=dev))
@@ -3868,7 +3935,7 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
          days=int(config["days"]), entry=wave_entry, setup_s=setup_s,
          tolerance=float(cfg.tolerance), comparisons=cases, accepted=len(post),
          waves=post.runs, counts=counts, route_launches=routes[0], route_gated=routes[1],
-         tile_overlapped_launches=overlapped, resident_blocks_per_sm=resident,
+         tile_overlapped_launches=overlapped, resident_blocks_per_sm=resident, graph_path=graph,
          ptxas_wave_variant=variants["8"], turns_ms=turns, ms=ms, plain_ms=plain_ms,
          wave_ops=wave_ops, bound_ms=bound_ms, share_of_bound=bound_ms / ms,
          memory_peak_bytes=int(torch.cuda.max_memory_allocated(dev)), kind=name,
@@ -3883,6 +3950,35 @@ def li2020_phase(dev, name: str, smi: str, info: dict) -> dict:
         "bound_by": "operations", "issue_floor_ms": None, "library_ms": None,
         "shape": {"regions": spec.n_regions, "batch": batch, "days": int(config["days"])},
     }
+
+
+def siard_graph_phase(dev, name: str, smi: str) -> None:
+    """Phase siard_graph_path (see the docstring): the benchmark cell
+    `siard_italy.b1m`'s main path on the card, made as perfbench makes it."""
+    import torch
+
+    from perfbench import harness
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    _, entry, workload, config = harness.cell_files(SIARD_CELL)
+    cell = harness.make_cell(SIARD_CELL, entry, workload, config)
+    ds, cfg, runner, wave_entry = harness.make_program(cell, dev)
+    setup_s = time.perf_counter() - t0
+    sim, prior, batch = runner.sim, runner.prior, cell.batch
+    theta, dist = sim.wave(prior, 2**31 + 3, 2**32 - 7, batch)
+    want = ref.abc_sim_distance_ref(theta, 2**32 - 7, sim.observed, model=cfg.model,
+                                    summary=sim.spec, distance=sim.distance,
+                                    schedule=sim.schedule, mobility=sim.mobility, **sim.scalars)
+    want = torch.where(torch.isnan(want), torch.full_like(want, float("inf")), want)
+    cases = [bitwise(f"siard_graph_path: {batch}x49 wave vs plain", dist, want),
+             *device_seeded_wave("siard_graph_path", sim, prior, batch, theta, want,
+                                 2**31 + 3, 2**32 - 7)]
+    graph = replayed_posterior("siard_graph_path", ds, cfg, runner, wave_entry, 3_838_001_011)
+    emit("siard_graph_path", cell=SIARD_CELL, batch=batch, entry=wave_entry, setup_s=setup_s,
+         tolerance=float(cfg.tolerance), comparisons=cases, graph_path=graph,
+         memory_peak_bytes=int(torch.cuda.max_memory_allocated(dev)), kind=name,
+         nvidia_smi=smi)
 
 
 def partial_run(dev, name: str, smi: str, only, t_start: float, info: dict) -> int:
@@ -3900,6 +3996,8 @@ def partial_run(dev, name: str, smi: str, only, t_start: float, info: dict) -> i
         mesh_phases(dev, name, smi)
     if "li2020" in only:
         li2020_phase(dev, name, smi, info)
+    if "siard" in only:
+        siard_graph_phase(dev, name, smi)
     emit("total", wall_s=time.perf_counter() - t_start, only=sorted(only))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5115,6 +5213,8 @@ def main(argv=None) -> int:
 
     # ---- li2020_path: Li et al. 2020's 375 cities on the tile route
     tile_line = li2020_phase(dev, name, smi, info)
+    # ---- siard_graph_path: the flat cell's main path, its graph replayed
+    siard_graph_phase(dev, name, smi)
 
     main_cell = timing[0]
     # launches of each entry on the ABC paths, and its time at 100k x 49

@@ -69,25 +69,34 @@ def takes_offset(csrc) -> bool:
     return os.path.isfile(head) and "uint32_t offset" in open(head).read()
 
 
+def takes_seeds(csrc) -> bool:
+    """Whether the abc_sim wave entries of the checkout whose `csrc/`
+    directory this is take trailing device seeds after the offset."""
+    head = os.path.join(csrc, "abc_sim.cuh")
+    return os.path.isfile(head) and "uint32_t* seeds" in open(head).read()
+
+
 _VP, _INT, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 #: the C arguments of the flat entries and the thread and warp routes' wave
 #: entry: the theta-in entries end with the block, the stream and the gate,
-#: the wave entries with the block, the stream, the gate and the sample offset
+#: the wave entries with the block, the stream, the gate, the sample offset
+#: and the device seeds
 ARGTYPES = {
     "distance": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP],
-    "wave": [_U32, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _U32],
+    "wave": [_U32, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _U32, _VP],
     "regional_wave": [_U32, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
-                      _INT, _INT, _INT, _VP, _VP, _U32],
+                      _INT, _INT, _INT, _VP, _VP, _U32, _VP],
 }
 
 
-def argtypes(kind: str, takes_gate: bool, offset: bool = False):
-    """`ARGTYPES[kind]`, less the wave entries' trailing offset for a
-    checkout whose entries take none (`offset`), and less the trailing gate
-    for one whose entries take none."""
+def argtypes(kind: str, takes_gate: bool, offset: bool = False, seeds: bool = False):
+    """`ARGTYPES[kind]`, less the wave entries' trailing seeds for a
+    checkout whose entries take none (`seeds`), less their offset for one
+    whose entries take none (`offset`), and less the trailing gate for one
+    whose entries take none."""
     types = list(ARGTYPES[kind])
-    if kind.endswith("wave") and not offset:
-        types = types[:-1]
+    if kind.endswith("wave"):
+        types = types[:len(types) - (not seeds) - (not offset)]
     return types if takes_gate else types[:-1]
 
 
@@ -105,11 +114,12 @@ def stream():
 
 
 def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extra=(),
-              gated=False, offset=None):
+              gated=False, offset=None, seeds=False):
     """(theta [batch, P], dist [batch]) from an `abc_sim_wave_<model>`-shaped
     entry (`extra` goes before the arguments, e.g. a configuration index;
     `gated`: the entry takes a trailing gate, passed as null; `offset`: the
-    entry takes a sample offset after it, passed as given)."""
+    entry takes a sample offset after it, passed as given; `seeds`: it takes
+    device seeds after the offset, passed as null)."""
     import torch
 
     p = len(prior.lows)
@@ -123,7 +133,7 @@ def call_wave(fn, prior, prior_seed, obs, fconst, iconst, batch, block=128, extr
     if block is not None:
         args.append(block)
     rc = fn(*args, stream(), *([None] if gated else []),
-            *([] if offset is None else [offset]))
+            *([] if offset is None else [offset]), *([None] if seeds else []))
     if rc != 0:
         raise RuntimeError(f"launch failed: cudaError {rc}")
     return theta, dist

@@ -84,7 +84,7 @@ def main() -> int:
 
         def fmad():
             return call_wave(fn, x["prior"], 12, x["obs"], x["fconst"], x["iconst"], batch,
-                             gated=True, offset=0)
+                             gated=True, offset=0, seeds=True)
 
         want, got = shipped(), fmad()
         timed = turns({"shipped": shipped, "fmad": fmad},
@@ -102,7 +102,8 @@ def main() -> int:
                                a0=a0, r0=r0, d0=d0)
         want = sim.wave(x["prior"], 11, 77, 1024)
         got = call_wave(fn, x["prior"], 11, sim.obs_summary, sim.fconst,
-                        abc_sim.with_seed(sim.iconst, 77), 1024, gated=True, offset=0)
+                        abc_sim.with_seed(sim.iconst, 77), 1024, gated=True, offset=0,
+                        seeds=True)
         pairs[f"{s}/{d}"] = differ(got[1], want[1])
     smi = nvidia_smi_line()
     print(json.dumps({"experiment": "abc_sim_fmad", "nvcc_flags": flags, "ptxas": ptxas,

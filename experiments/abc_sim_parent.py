@@ -47,7 +47,7 @@ import sys
 import numpy as np
 
 from abc_sim_common import argtypes, build_copies, call_distance, call_wave, entry, gated, \
-    italy_inputs, stream, takes_offset, turns
+    italy_inputs, stream, takes_offset, takes_seeds, turns
 
 
 def main(argv) -> int:
@@ -185,6 +185,7 @@ def other_models(dev, other_csrc: str) -> dict:
     batch = 100_000
     other_gated = gated(other_csrc)
     other_offset = takes_offset(other_csrc)  # its wave entries take a sample offset
+    other_seeds = takes_seeds(other_csrc)  # and device seeds after it
     for tag, spec, route in cases:
         lib = abc_sim.library(spec)
         if lib not in libs:
@@ -210,7 +211,7 @@ def other_models(dev, other_csrc: str) -> dict:
         ic = abc_sim.with_seed(sim.iconst, 99)
         if spec.is_regional:
             fn = entry(other_lib, abc_sim.entry_name(spec, "wave", route),
-                       argtypes("regional_wave", other_gated, other_offset))
+                       argtypes("regional_wave", other_gated, other_offset, other_seeds))
             lo = np.ascontiguousarray(box.lows, np.float32)
             hi = np.ascontiguousarray(box.highs, np.float32)
             block = abc_sim.route_block(route)
@@ -223,7 +224,8 @@ def other_models(dev, other_csrc: str) -> dict:
                         sim.mob.data_ptr(), sim.weights.data_ptr(), theta.data_ptr(),
                         dist.data_ptr(), sim.fconst.ctypes.data, ic.ctypes.data, batch,
                         ob.shape[1], spec.n_regions, spec.seed_region, 0, block, stream(),
-                        *([None] if other_gated else []), *([0] if other_offset else []))
+                        *([None] if other_gated else []), *([0] if other_offset else []),
+                        *([None] if other_seeds else []))
                 if rc != 0:
                     raise RuntimeError(f"launch failed: cudaError {rc}")
                 return theta, dist
@@ -232,12 +234,12 @@ def other_models(dev, other_csrc: str) -> dict:
                 return ln(99, 12, box.lows, box.highs)
         else:
             fn = entry(other_lib, abc_sim.entry_name(spec, "wave"),
-                       argtypes("wave", other_gated, other_offset))
+                       argtypes("wave", other_gated, other_offset, other_seeds))
 
             def theirs_fn(fn=fn, sim=sim, ic=ic, box=box):
                 return call_wave(fn, box, 12, sim.obs_summary, sim.fconst, ic, batch,
                                  abc_sim.DEFAULT_BLOCK, gated=other_gated,
-                                 offset=0 if other_offset else None)
+                                 offset=0 if other_offset else None, seeds=other_seeds)
 
             def mine_fn(ln=sim.launch("wave", batch), box=box):
                 return ln(99, 12, box.lows, box.highs)

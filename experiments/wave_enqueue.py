@@ -1,6 +1,8 @@
 """The host time of one wave's enqueue in a perfbench cell's closed loop
 (`wave_enqueue_us`: the mean `abc.wave` span of the program's recorder,
-`repro_torch.runtime.trace`), on one CUDA card, without the profiler.
+`repro_torch.runtime.trace`), and of one segment's on either path of the
+device wave loop (the `abc.segment` span; the graph path's replay, the
+`abc.replay` span), on one CUDA card, without the profiler.
 
     python3 experiments/wave_enqueue.py --workload siard_italy.b1m \
         [--root build/parent] [--seconds 5] [--seed 7]
@@ -9,9 +11,13 @@ Makes the cell's program as `perfbench/harness.py` does, from the tree at
 `--root` (this checkout by default, or an unpacked other commit, so that
 two commits run the same script), runs the cell's warm-up posteriors, then
 posteriors back to back for `--seconds` with the recorder on. Prints one
-JSON line: the count, mean and median of the `abc.wave` and `abc.segment`
-spans in microseconds, the posteriors and waves, and the card's nvidia-smi
-name and power limit.
+JSON line: the count, mean and median in microseconds of each span of the
+posterior loop (`SPANS`: `abc.wave`, `abc.segment` and `abc.replay`, and
+the posterior, its `abc.init`, `abc.sync` and `abc.harvest`; a tree from
+before the graph path has no `abc.replay`: n 0), the posteriors and waves,
+the segments the window synced (`HOST_SYNCS`) and of them those replayed
+(`GRAPH_REPLAYS`, null in such a tree), and the card's nvidia-smi name and
+power limit.
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+#: the spans reported, each under its own name
+SPANS = ("abc.wave", "abc.segment", "abc.replay", "abc.posterior", "abc.init", "abc.sync",
+         "abc.harvest")
 
 
 def main(argv=None) -> int:
@@ -57,6 +66,7 @@ def main(argv=None) -> int:
         abc.run_abc(ds, cfg, seed=harness.run_seed(args.seed, i, harness.WARMUP_STREAM),
                     wave_runner=runner)
     torch.cuda.synchronize(dev)
+    syncs, replays = abc.HOST_SYNCS, getattr(abc, "GRAPH_REPLAYS", None)
     trace.clear()
     trace.enable()
     n, waves, t0 = 0, 0, time.perf_counter()
@@ -66,6 +76,9 @@ def main(argv=None) -> int:
         n, waves = n + 1, waves + int(post.runs)
     trace.disable()
     records = trace.records()
+    syncs = abc.HOST_SYNCS - syncs
+    if replays is not None:
+        replays = abc.GRAPH_REPLAYS - replays
 
     def spans(name: str) -> dict:
         us = [(r[2] - r[1]) / 1e3 for r in records if r[0] == name]
@@ -76,8 +89,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(json.dumps({"workload": args.workload, "root": str(root), "seed": args.seed,
                       "seconds": args.seconds, "posteriors": n, "waves_run": waves,
-                      "abc.wave": spans("abc.wave"), "abc.segment": spans("abc.segment"),
-                      "card": smi.strip()}))
+                      **{name: spans(name) for name in SPANS}, "host_syncs": syncs,
+                      "graph_replays": replays, "card": smi.strip()}))
     return 0
 
 

@@ -44,7 +44,13 @@ Two loops run the waves (`ABCConfig.wave_loop`):
     After the segment the host reads the counts once and copies the
     accepted rows. With the same seed it gives the host loop's accepted
     set: the same rows in the same order, the same runs and simulations.
-    "auto" picks it for outfeed runs, as `repro` does.
+    "auto" picks it for outfeed runs, as `repro` does. On a CUDA device
+    with one shard, a runner that has run one full segment eagerly
+    captures the next full segment as a CUDA graph on buffers of its own,
+    and from then on replays it once a full segment (the graph path,
+    `WaveRunner`), with the waves' seeds written to device memory before
+    each replay: the same accepted set, without the host's enqueue of
+    every launch.
 
 Sharded runs (`core.distributed`, one rank a shard, and the lockstep
 reference of `core.scaling`, every shard in one process) keep `repro`'s
@@ -77,7 +83,7 @@ from repro_torch.epi.models import get_model
 from repro_torch.epi.spec import active_schedule, validate_mobility
 from repro_torch.ioutils import atomic_write
 from repro_torch.kernels import abc_sim, compact, ops
-from repro_torch.kernels.rng import stream_seed
+from repro_torch.kernels.rng import MASK32, _hash, stream_seed
 from repro_torch.runtime.trace import span
 
 #: hash streams of (seed, index): the waves' prior and simulation seeds,
@@ -91,6 +97,11 @@ PRIOR_STREAM, SIM_STREAM, PILOT_PRIOR_STREAM, PILOT_SIM_STREAM, SHARD_STREAM = r
 SEGMENT_WAVES = 16
 #: host syncs of the device loops (ABC and SMC rounds): one a segment
 HOST_SYNCS = 0
+#: segments that `WaveRunner`'s graph path captured as a CUDA graph (one a
+#: runner) and replayed; GRAPH_REPLAYS over HOST_SYNCS is the share of the
+#: segments that took it
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
 #: compactions that took the kernel (`compact_accepted` on CUDA tensors)
 COMPACT_KERNEL_LAUNCHES = 0
 #: auto mode only picks the device loop when the accept buffer stays small
@@ -242,6 +253,14 @@ def wave_seeds(seed: int, index: int) -> Tuple[int, int]:
             stream_seed(seed, index, SIM_STREAM))
 
 
+def segment_seeds(seed: int, run_idx0: int, waves: int) -> np.ndarray:
+    """[waves, 2] uint32: the (simulation seed, prior seed) of waves
+    run_idx0 .. run_idx0 + waves - 1 under base `seed`: `wave_seeds`, in the
+    other order, by the same hash over numpy arrays of words."""
+    idx = np.arange(run_idx0, run_idx0 + waves, dtype=np.int64)[:, None] & MASK32
+    return _hash(int(seed) & MASK32, idx, np.array([SIM_STREAM, PRIOR_STREAM])).astype(np.uint32)
+
+
 def split_seeds(prior_seed: int, sim_seed: int, shard: int) -> Tuple[int, int]:
     """Shard `shard`'s (prior seed, simulation seed) of a wave whose own are
     (prior_seed, sim_seed): shard 0 keeps them, so that one shard is the
@@ -341,6 +360,9 @@ class WaveLoopOutput(NamedTuple):
     #: what `read` still has to place in the segments (the pjit loop's,
     #: `core.distributed.PjitWaveRunner`); None elsewhere
     pending: Optional[list] = None
+    #: the graph path's pinned host tensor that a replay fills with (waves
+    #: done, accepted, valid rows); None on the eager path
+    counts: Optional[torch.Tensor] = None
 
     @property
     def theta_buf(self) -> torch.Tensor:
@@ -378,7 +400,7 @@ def _auto_device_loop(cfg: ABCConfig) -> bool:
 
 def compact_accepted(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tensor,
                      theta: torch.Tensor, dist: torch.Tensor, accept: torch.Tensor,
-                     capacity: int):
+                     capacity: int, words: Optional[torch.Tensor] = None):
     """Copy the accepted rows of a wave into the buffers' next free rows, in
     stream order, and return (th_buf, d_buf, new_fill).
 
@@ -391,14 +413,16 @@ def compact_accepted(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tens
     `abc.compact`.
 
     CUDA tensors take one launch of the compaction kernel
-    (`kernels.compact`, counted by `COMPACT_KERNEL_LAUNCHES`), which writes
-    only the accepted rows; other tensors take `compact_plain`. Both give
-    the same rows [0, capacity) and the same new fill.
+    (`kernels.compact`, counted by `COMPACT_KERNEL_LAUNCHES`; `words`, its
+    status words where the caller keeps its own), which writes only the
+    accepted rows; other tensors take `compact_plain`. Both give the same
+    rows [0, capacity) and the same new fill.
     """
     global COMPACT_KERNEL_LAUNCHES
     with span("abc.compact"):
         if theta.device.type == "cuda":
-            new_fill = compact.compact_rows(th_buf, d_buf, fill, theta, dist, accept, capacity)
+            new_fill = compact.compact_rows(th_buf, d_buf, fill, theta, dist, accept, capacity,
+                                            words)
             COMPACT_KERNEL_LAUNCHES += 1
             return th_buf, d_buf, new_fill
         return compact_plain(th_buf, d_buf, fill, theta, dist, accept, capacity)
@@ -417,16 +441,22 @@ def compact_plain(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tensor,
     return th_buf, d_buf, fill + csum[-1:]
 
 
-def sync_counts(*counts: torch.Tensor) -> list:
+def sync_counts(*counts: torch.Tensor, done: Optional[torch.cuda.Event] = None) -> list:
     """The device loops' one host sync a segment: the int64 count tensors
-    as Python ints, in one copy (counted by `HOST_SYNCS`, the span
-    `abc.sync`)."""
+    as Python ints, in one copy; on the graph path (`done`, the event
+    recorded after a replay) the wait for that event and a read of the one
+    pinned host tensor that the replay copied its counts to. Counted by
+    `HOST_SYNCS`, the span `abc.sync`."""
     global HOST_SYNCS
     with span("abc.sync"):
         HOST_SYNCS += 1
-        # analysis: allow(host-sync-in-wave-loop) — the loops' one sanctioned
-        # sync a segment: one copy of the counts, then ints of host tensors
-        return [int(c) for c in torch.cat(counts).cpu()]
+        if done is None:
+            # analysis: allow(host-sync-in-wave-loop) — the loops' one sanctioned
+            # sync a segment: one copy of the counts, then ints of host tensors
+            return [int(c) for c in torch.cat(counts).cpu()]
+        done.synchronize()  # the graph path's sync: the replay copied its counts
+        # analysis: allow(host-sync-in-wave-loop) — ints of the pinned host tensor
+        return counts[0].tolist()
 
 
 def tolerance32(tolerance: float) -> float:
@@ -465,6 +495,45 @@ def segment_buffers(theta: np.ndarray, dist: np.ndarray, capacity: int, n_params
     return th_buf, d_buf, torch.full((1,), n, dtype=torch.int64, device=device)
 
 
+class _SegmentGraph:
+    """The graph path's state, one a runner (`WaveRunner`): the accept
+    buffers (`capacity + 1` rows), the fill, the seed table and the
+    compaction's status words that the segment's CUDA graph reads and
+    writes; the pinned host tensors of the seeds it copies in and of the
+    counts it copies out; and, once captured, the graph, its output, the C
+    name of its wave entry and the event recorded after its last replay."""
+
+    def __init__(self, capacity: int, n_params: int, batch: int, device: torch.device):
+        self.waves = SEGMENT_WAVES
+        self.th = torch.zeros((capacity + 1, n_params), dtype=torch.float32, device=device)
+        self.d = torch.full((capacity + 1,), float("inf"), dtype=torch.float32, device=device)
+        self.fill = torch.zeros((1,), dtype=torch.int64, device=device)
+        # wave i's (simulation seed, prior seed) as uint32 bits
+        self.seeds = torch.zeros((self.waves, 2), dtype=torch.int32, device=device)
+        self.seeds_host = torch.zeros((self.waves, 2), dtype=torch.int32, pin_memory=True)
+        self.seeds_view = self.seeds_host.numpy().view(np.uint32)  # written before a replay
+        self.counts_host = torch.zeros((3,), dtype=torch.int64, pin_memory=True)
+        # the graph's own, so that no other launch grows or frees them
+        self.words = compact.status_words(device, batch)
+        self.graph = self.out = self.entry = None
+        self.done = torch.cuda.Event()
+
+    def reset(self):
+        """The carry of an empty state: the buffers as `segment_buffers`
+        makes them (theta 0, distances +inf, fill 0), reset in place."""
+        self.th.zero_()
+        self.d.fill_(float("inf"))
+        self.fill.zero_()
+        return self.carry()
+
+    def carry(self):
+        return [self.th], [self.d], [self.fill], self.fill
+
+    def holds(self, carry) -> bool:
+        """Whether `carry` lies in these buffers."""
+        return carry[0][0] is self.th and carry[1][0] is self.d
+
+
 @dataclasses.dataclass
 class WaveRunner:
     """The device-resident wave loop and its buffer layout: one shard on
@@ -477,6 +546,19 @@ class WaveRunner:
     `max_waves` gated waves and returns without waiting; `carry_of(out)`
     is the carry for the next call; `read(out)` is its one host sync;
     `harvest(out, state, fill)` copies the accepted rows to the state.
+    Each call must be read before the next.
+
+    The graph path: on a CUDA device with one shard, `init` of an empty state
+    resets buffers of the runner's own in place, and a segment of
+    `SEGMENT_WAVES` waves on them (`takes_graph`) replays one CUDA graph once
+    the runner has run one such segment eagerly: the graph, captured at the
+    first, holds the segment's waves as the eager loop enqueues them, each
+    wave's entry reading its seeds from a device table that the graph's first
+    copy fills from pinned memory, and ends with the carried fill and a copy
+    of the counts to pinned memory, which `read` reads after waiting for the
+    replay. A resumed state, a shorter segment, CPU
+    tensors, several shards and a runner's first segments take the eager path,
+    as does a subclass with a loop of its own. Both paths give the same bits.
     """
 
     sim: SimulatorFn
@@ -486,6 +568,13 @@ class WaveRunner:
     n_params: int
     #: one simulator a shard (the lockstep reference); empty: one shard on `sim`
     shard_sims: Tuple[SimulatorFn, ...] = ()
+    #: the graph path's buffers and graph (`_SegmentGraph`), made by the
+    #: first `init` of an empty state that may take it
+    _graph: Optional[_SegmentGraph] = dataclasses.field(default=None, init=False, repr=False,
+                                                        compare=False)
+    #: segments of SEGMENT_WAVES waves on a CUDA device with one shard that
+    #: this runner enqueued eagerly
+    _eager_segments: int = dataclasses.field(default=0, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -499,11 +588,31 @@ class WaveRunner:
     def shards(self) -> int:
         return len(self.sims)
 
+    def _graph_capable(self) -> bool:
+        """One shard on a CUDA device, on this class's own loop: a subclass
+        with a loop of its own (`core.distributed`'s) keeps its buffers."""
+        return (self.shards == 1 and self.sims[0].device.type == "cuda"
+                and type(self).__call__ is WaveRunner.__call__)
+
+    def takes_graph(self, max_waves: int) -> bool:
+        """Whether a segment of `max_waves` waves on the runner's own buffers
+        replays the graph: a full segment of `SEGMENT_WAVES` waves on a CUDA
+        device with one shard, after one such segment run eagerly, so that
+        a runner made for a single call never captures one."""
+        return (max_waves == SEGMENT_WAVES and self._eager_segments >= 1
+                and self._graph_capable())
+
     def init(self, state: "ABCState"):
         """Device buffers seeded from the state's accepted rows, split over
         the segments as `repro`'s `WaveRunner.init` splits them (in order
         for one shard). The carry is (theta segments, dist segments, fills,
-        total accepted)."""
+        total accepted). An empty state on a CUDA device with one shard
+        resets the graph path's buffers in place."""
+        if not state.n_accepted and self._graph_capable():
+            if self._graph is None:
+                self._graph = _SegmentGraph(self.capacity, self.n_params, self.cfg.batch_size,
+                                            self.sims[0].device)
+            return self._graph.reset()
         segs = [segment_buffers(th, d, self.capacity, self.n_params, sim.device)
                 for (th, d), sim in zip(split_state(state, self.shards, self.capacity),
                                         self.sims)]
@@ -514,14 +623,28 @@ class WaveRunner:
         return th_segs, d_segs, fills, n
 
     def __call__(self, seed: int, run_idx0: int, carry, max_waves: int) -> WaveLoopOutput:
-        """Enqueue waves run_idx0 .. run_idx0 + max_waves - 1 of `seed`.
+        """Enqueue waves run_idx0 .. run_idx0 + max_waves - 1 of `seed`: a
+        replay of the segment's graph where the carry lies in the graph's
+        buffers and `takes_graph` holds (the span `abc.replay`), else the
+        waves one by one (`_enqueue`). Nothing here waits for the device."""
+        graph = self._graph
+        if graph is not None and graph.holds(carry) and self.takes_graph(max_waves):
+            return self._replay(seed, run_idx0, carry[2][0])
+        if max_waves == SEGMENT_WAVES and self._graph_capable():
+            self._eager_segments += 1
+        return self._enqueue(seed, run_idx0, carry, max_waves)
 
-        Each wave reads the gate `accepted < target` once, an int32 tensor
-        that the kernel reads when it runs; then each shard draws its
-        sub-batch with its own seeds (`shard_seeds`), compacts its rows with
-        dist <= tolerance (in float32) and an open gate into its segment,
-        and the shards' counts are summed into the total. Nothing here
-        waits for the device. Each wave is the span `abc.wave`."""
+    def _enqueue(self, seed: int, run_idx0: int, carry, max_waves: int,
+                 graph: Optional[_SegmentGraph] = None) -> WaveLoopOutput:
+        """Enqueue the waves one by one. Each wave reads the gate `accepted <
+        target` once, an int32 tensor that the kernel reads when it runs;
+        then each shard draws its sub-batch with its own seeds
+        (`shard_seeds`), compacts its rows with dist <= tolerance (in
+        float32) and an open gate into its segment, and the shards' counts
+        are summed into the total. Under capture (`graph`, one shard), wave
+        i's entry reads its seeds from row i of the graph's seed table and
+        the compaction takes the graph's status words. Each wave is the span
+        `abc.wave`."""
         th_segs, d_segs, fills, n = (list(carry[0]), list(carry[1]), list(carry[2]),
                                      carry[3])
         cfg, sims = self.cfg, self.sims
@@ -532,6 +655,7 @@ class WaveRunner:
                    for s in sims]
         waves = torch.zeros((1,), dtype=torch.int64, device=self.device)
         away = [sim.device != self.device for sim in sims]
+        words = None if graph is None else graph.words
         for i in range(max_waves):
             with span("abc.wave"):
                 active = n < cfg.target_accepted
@@ -540,10 +664,12 @@ class WaveRunner:
                     act = active.to(sim.device) if away[s] else active
                     theta, dist = scratch[s]
                     sim.wave(self.prior, *shard_seeds(seed, run_idx0 + i, s), batch,
-                             gate=act.to(torch.int32), out=(theta, dist))
+                             gate=act.to(torch.int32), out=(theta, dist),
+                             seeds=None if graph is None else graph.seeds[i])
                     accept = (dist <= tol) & act
                     th_segs[s], d_segs[s], new_fill = compact_accepted(
-                        th_segs[s], d_segs[s], fills[s], theta, dist, accept, self.capacity)
+                        th_segs[s], d_segs[s], fills[s], theta, dist, accept, self.capacity,
+                        words)
                     if len(sims) > 1:
                         total = total + (new_fill - fills[s]).to(self.device)
                     fills[s] = new_fill
@@ -553,6 +679,50 @@ class WaveRunner:
         clamped = [f.clamp(max=self.capacity) for f in fills]
         return WaveLoopOutput(tuple(th_segs), tuple(d_segs), n, waves,
                               _joined(clamped), max_waves)
+
+    def _capture(self) -> None:
+        """Capture a segment on the graph path's buffers as a CUDA graph,
+        on a stream of its own; nothing runs. The launches it records are
+        counted at each replay."""
+        global GRAPH_CAPTURES, COMPACT_KERNEL_LAUNCHES
+        g, device = self._graph, self.sims[0].device
+        stream = torch.cuda.Stream(device)
+        launches, compactions = dict(abc_sim.ENTRY_LAUNCHES), COMPACT_KERNEL_LAUNCHES
+        graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            g.seeds.copy_(g.seeds_host, non_blocking=True)
+            out = self._enqueue(0, 0, g.carry(), g.waves, graph=g)
+            g.fill.copy_(out.n_accepted)
+            g.counts_host.copy_(torch.cat((out.waves_done, out.n_accepted, out.fill_counts)),
+                                non_blocking=True)
+        abc_sim.ENTRY_LAUNCHES.clear()
+        abc_sim.ENTRY_LAUNCHES.update(launches)
+        COMPACT_KERNEL_LAUNCHES = compactions
+        g.graph, g.entry = graph, self.sims[0].entry("wave", self.cfg.batch_size)
+        g.out = WaveLoopOutput((g.th,), (g.d,), g.fill, out.waves_done, out.fill_counts,
+                               g.waves, counts=g.counts_host)
+        GRAPH_CAPTURES += 1
+
+    def _replay(self, seed: int, run_idx0: int, fill: torch.Tensor) -> WaveLoopOutput:
+        """One replay of the segment's graph (captured at the first) for
+        waves run_idx0 .. of `seed`, from the carried `fill`."""
+        global GRAPH_REPLAYS, COMPACT_KERNEL_LAUNCHES
+        g = self._graph
+        if g.graph is None:
+            self._capture()
+        # the last replay was read, so its copy of the seeds is done; shard
+        # 0's seeds are the wave's own (`shard_seeds`)
+        g.seeds_view[:] = segment_seeds(seed, run_idx0, g.waves)
+        if fill is not g.fill:  # an eager segment's fill
+            g.fill.copy_(fill)
+        with span("abc.replay"):
+            g.graph.replay()
+        g.done.record()
+        GRAPH_REPLAYS += 1
+        abc_sim.record_launches(g.entry, g.waves)
+        COMPACT_KERNEL_LAUNCHES += g.waves
+        return g.out
 
     def carry_of(self, out: WaveLoopOutput):
         """The next call's carry. A shard's fill is carried clamped, as
@@ -570,7 +740,10 @@ class WaveRunner:
         segment for more, as `repro`'s carry holds them. On the card it
         records the gated launches beside the entry's launches
         (`AbcSim.record_gated`)."""
-        waves, n, *fills = sync_counts(out.waves_done, out.n_accepted, out.fill_counts)
+        if out.counts is not None:  # a replay copied its counts to pinned memory
+            waves, n, *fills = sync_counts(out.counts, done=self._graph.done)
+        else:
+            waves, n, *fills = sync_counts(out.waves_done, out.n_accepted, out.fill_counts)
         for sim in self.sims:
             sim.record_gated("wave", self.cfg.batch_size // self.shards, out.enqueued - waves)
         return waves, n, fills[0] if self.shards == 1 else tuple(fills)

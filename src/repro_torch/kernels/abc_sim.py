@@ -70,16 +70,23 @@ launch's device. A launch whose gate reads 0 when the kernel runs writes
 nothing, so that a loop can enqueue waves past its target without waiting
 for the count (`core.abc`'s device wave loop). The wave entries also take
 `out=(theta, dist)`, and the theta-in entries `out=dist`: buffers that a
-loop reuses from wave to wave.
+loop reuses from wave to wave. The wave entries also take `seeds`: None, or
+an int32 tensor of shape [2] on the launch's device holding the wave's
+(simulation seed, prior seed) as uint32 bits, which the kernel reads when it
+runs in place of the two seeds in its parameters; so a CUDA graph, whose
+launches' parameters are frozen when it is captured, draws each replayed
+wave with the seeds written there before the replay (`core.abc`'s graph
+path). The same seeds give the same rows, whichever way they arrive.
 
 W is the model's P parameters plus a schedule's scale columns
 (`spec.InterventionSchedule`), P without one. The constants, the schedule,
-the box and the seeds travel in the kernel's parameters, not in device
-memory, so a new breakpoint day or schedule needs no new build. The summary
-flags pick one of the kernel's compiled variants on the host, so one build
-serves every flat (summary, distance) pair. The TPU rules of 128 lanes and 8 sublanes do not carry over: a block
-size in threads replaces the tile, and distances are bitwise the same for
-every block size.
+the box and (unless `seeds` is given) the seeds travel in the kernel's
+parameters, not in device memory, so a new breakpoint day or schedule needs
+no new build. The summary flags pick one of the kernel's compiled variants
+on the host, so one build serves every flat (summary, distance) pair. The
+TPU rules of 128 lanes and 8 sublanes do not carry over: a block size in
+threads replaces the tile, and distances are bitwise the same for every
+block size.
 
 `ENTRY_LAUNCHES` counts the launches of each exported entry by its C name
 (`abc_sim_wave_seiard`, `abc_sim_regional_wave_metapop_seir`, ...),
@@ -549,6 +556,27 @@ def route_counts() -> Tuple[dict, dict]:
     return by_route(ENTRY_LAUNCHES), by_route(ENTRY_GATED)
 
 
+def record_launches(name: str, n: int) -> None:
+    """Record `n` launches of the C entry `name` (a replayed CUDA graph's,
+    which made no call through `Launch`)."""
+    ENTRY_LAUNCHES[name] = ENTRY_LAUNCHES.get(name, 0) + int(n)
+
+
+def check_seeds(seeds: Optional[torch.Tensor], device: torch.device) -> None:
+    """Raise unless `seeds` is None or a contiguous int32 tensor of shape
+    [2] on `device`: the wave's (simulation seed, prior seed), read by the
+    kernel when it runs."""
+    if seeds is None:
+        return
+    if (not isinstance(seeds, torch.Tensor) or seeds.dtype != torch.int32
+            or tuple(seeds.shape) != (2,) or not seeds.is_contiguous()
+            or seeds.device != torch.device(device)):
+        what = (f"{seeds.dtype} {tuple(seeds.shape)} on {seeds.device}"
+                if isinstance(seeds, torch.Tensor) else type(seeds).__name__)
+        raise ValueError(f"seeds must be a contiguous int32 tensor of shape [2] on {device}, "
+                         f"got {what}")
+
+
 def check_gate(gate: Optional[torch.Tensor], device: torch.device) -> None:
     """Raise unless `gate` is None or an int32 tensor of shape [1] on
     `device`: a launch reads it on the card, and a loop never waits for it."""
@@ -812,10 +840,11 @@ def launch(model: CompartmentalModel, entry: str, batch: int, *, obs: torch.Tens
         sizes += (block,)
     # the C arguments: theta, or the prior seed and the box; the device
     # inputs (the tile route's scratch and its slots); theta and dist, or
-    # dist; the constants, the sizes, the stream, the gate (the offset)
+    # dist; the constants, the sizes, the stream, the gate (the offset, the
+    # device seeds)
     fn.argtypes = ([ctypes.c_uint, _VP, _VP] if wave else [_VP]) + [_VP] * len(inputs) \
         + ([_VP, _INT] if route == "tile" else []) + [_VP] * (1 + wave) + [_VP, _VP] \
-        + [_INT] * len(sizes) + [_VP, _VP] + ([ctypes.c_uint] if wave else [])
+        + [_INT] * len(sizes) + [_VP, _VP] + ([ctypes.c_uint, _VP] if wave else [])
     fn.restype = _INT
     return Launch(model, entry, name, route, block, fn, lib, inputs, sizes,
                   np.ascontiguousarray(fconst), np.ascontiguousarray(iconst),
@@ -836,10 +865,10 @@ class Launch:
     `launch(seed, prior_seed, lows, highs, offset=o)` (the wave) returns
     theta [B, W] drawn from U(lows, highs) as `UniformBoxPrior.sample(
     prior_seed, B, offset=o)` does and its distances with NaN turned to
-    +inf. `seed` is the simulation seed; `gate` and `out` as the module
-    says. Each call launches on the current stream (the tile route's
-    scratch allocated for it), raises where the launch fails and counts one
-    in `ENTRY_LAUNCHES[name]`."""
+    +inf. `seed` is the simulation seed; `gate`, `out` and (the wave only)
+    `seeds` as the module says. Each call launches on the current stream
+    (the tile route's scratch allocated for it), raises where the launch
+    fails and counts one in `ENTRY_LAUNCHES[name]`."""
 
     def __init__(self, model, entry, name, route, block, fn, lib, inputs, sizes, fconst, iconst,
                  width, resident, slots, slot_floats):
@@ -852,7 +881,7 @@ class Launch:
         self._sizes, self._fconst, self._iconst = sizes, fconst.ctypes.data, iconst
 
     def __call__(self, seed: int, *head, gate: Optional[torch.Tensor] = None, out=None,
-                 offset: int = 0):
+                 offset: int = 0, seeds: Optional[torch.Tensor] = None):
         device, batch = self.device, self.batch
         check_gate(gate, device)
         if self.entry == "wave":
@@ -862,8 +891,10 @@ class Launch:
             result = theta, dist = wave_out(out, batch, self.width, device)
             if theta.data_ptr() % 16:
                 raise RuntimeError("theta's storage is not 16-byte aligned")
+            check_seeds(seeds, device)
             first = (int(prior_seed) & 0xFFFFFFFF, lo.ctypes.data, hi.ctypes.data)
-            outs, last = (theta.data_ptr(), dist.data_ptr()), (offset,)
+            outs = (theta.data_ptr(), dist.data_ptr())
+            last = (offset, None if seeds is None else seeds.data_ptr())
         else:
             (theta_soa,) = head
             if not isinstance(theta_soa, torch.Tensor) or theta_soa.device != device:
@@ -873,8 +904,8 @@ class Launch:
             if tuple(theta_soa.shape) != (self.width, batch):
                 raise ValueError(f"theta_soa is {tuple(theta_soa.shape)}; this launch of "
                                  f"{self.model.name} takes [{self.width}, {batch}]")
-            if offset:
-                raise ValueError("the theta-in entry takes no offset")
+            if offset or seeds is not None:
+                raise ValueError("the theta-in entry takes no offset and no device seeds")
             result = _out_tensor("out", out, (batch,), device)
             first, outs, last = (theta_soa.data_ptr(),), (result.data_ptr(),), ()
         iconst = with_seed(self._iconst, seed)
@@ -888,7 +919,7 @@ class Launch:
                          iconst.ctypes.data, *self._sizes, _stream_handle(device),
                          None if gate is None else gate.data_ptr(), *last)
         _check_rc(self._lib, rc, self.name)
-        ENTRY_LAUNCHES[self.name] = ENTRY_LAUNCHES.get(self.name, 0) + 1
+        record_launches(self.name, 1)
         return result
 
 

@@ -15,13 +15,15 @@ The kernel's status words (a ticket, a count of finished tiles and a word
 a tile) are one zeroed int64 tensor a (device, stream), made here and grown
 when a batch needs more tiles. Every launch finds them zero and leaves
 them so (its last tile zeroes them), so launches keep no host state and a
-CUDA graph may replay one.
+CUDA graph may replay one. A caller that captures launches hands them words
+of its own (`status_words`, made outside the graph, and `words=`), which
+nothing else uses and which live as long as the graph does.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -62,13 +64,21 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         )
 
 
+def status_words(dev: torch.device, batch: int) -> torch.Tensor:
+    """New zeroed status words on `dev` for launches of up to `batch` rows."""
+    load()
+    return torch.zeros((2 + -(-batch // _TILE),), dtype=torch.int64, device=dev)
+
+
 def compact_rows(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tensor,
                  theta: torch.Tensor, dist: torch.Tensor, accept: torch.Tensor,
-                 capacity: int) -> torch.Tensor:
+                 capacity: int, words: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the compaction of one wave (module docstring) and return its
     new fill. theta [B, p] and dist [B] float32, accept [B] bool, fill [1]
     int64, th_buf [capacity + 1, p] and d_buf [capacity + 1] float32, all
-    contiguous on one CUDA device; anything else raises ValueError."""
+    contiguous on one CUDA device; anything else raises ValueError. `words`
+    are the caller's status words (`status_words`), None the (device,
+    stream)'s own."""
     dev = theta.device
     if theta.ndim != 2 or theta.shape[0] < 1 or theta.shape[1] < 1:
         raise ValueError(f"theta must be [B, p] with B, p >= 1, got {tuple(theta.shape)}")
@@ -86,13 +96,15 @@ def compact_rows(th_buf: torch.Tensor, d_buf: torch.Tensor, fill: torch.Tensor,
         raise ValueError(f"the compaction kernel takes CUDA tensors, got them on {dev}")
     lib = load()
     tiles = -(-batch // _TILE)
+    if words is not None:
+        _check("words", words, torch.int64, (max(words.numel(), 2 + tiles),), dev)
     new_fill = torch.empty((1,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        words = _WORDS.get((dev.index, stream))
-        if words is None or words.numel() < 2 + tiles:
-            words = _WORDS[(dev.index, stream)] = torch.zeros(
-                (2 + tiles,), dtype=torch.int64, device=dev)
+        if words is None:
+            words = _WORDS.get((dev.index, stream))
+            if words is None or words.numel() < 2 + tiles:
+                words = _WORDS[(dev.index, stream)] = status_words(dev, batch)
         rc = lib.abc_compact(theta.data_ptr(), dist.data_ptr(), accept.data_ptr(), batch, p,
                              fill.data_ptr(), capacity, th_buf.data_ptr(), d_buf.data_ptr(),
                              new_fill.data_ptr(), words.data_ptr(), stream)

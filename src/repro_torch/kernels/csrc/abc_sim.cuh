@@ -152,17 +152,17 @@ struct Sample {
   int next_flush;  // the day that closes the current bin: (day + 1) % bin_days == 0
 
   // theta from the box (wave entry; all W columns written once, row-major,
-  // to row b of theta_out, drawn on hash index idx) or read from theta_in
-  // [W, B]; p holds the P base values
+  // to row b of theta_out, drawn on hash index idx under prior_seed) or read
+  // from theta_in [W, B]; p holds the P base values
   __device__ __forceinline__ void load_theta(const float* __restrict__ theta_in,
                                              float* __restrict__ theta_out, int b,
                                              uint32_t idx, int B,
                                              const Box<Model::N_PARAMS>& box,
-                                             int W = Model::N_PARAMS) {
+                                             uint32_t prior_seed, int W = Model::N_PARAMS) {
     constexpr int P = Model::N_PARAMS;
     if constexpr ((V & WAVE) != 0) {
       float* row = theta_out + static_cast<size_t>(b) * W;
-      const uint32_t base = rng::sample_base(box.seed, idx);
+      const uint32_t base = rng::sample_base(prior_seed, idx);
 #pragma unroll
       for (int j = 0; j < P; ++j) {
         const float u = rng::unit_open(rng::hash_from(base, static_cast<uint32_t>(j) * rng::P2));
@@ -283,10 +283,13 @@ __global__ void __launch_bounds__(MAX_BLOCK)
                    float* __restrict__ out,             // [B]
                    int B, int T, Consts c, const __grid_constant__ Box<Model::N_PARAMS> box,
                    const __grid_constant__ Sched<Model::N_PARAMS> sched,
-                   const int* __restrict__ gate) {  // null, or 0: the block writes nothing
+                   const int* __restrict__ gate,        // null, or 0: the block writes nothing
+                   const uint32_t* __restrict__ seeds) {  // null, or the wave's seeds
   static_assert(Model::N_OBS <= MAX_CHAN, "too many summary channels");
   static_assert(Model::N_PARAMS <= MAX_PARAMS, "too many parameters");
   if (gate != nullptr && *gate == 0) return;  // the same in every thread
+  const uint32_t sim_seed = seeds != nullptr ? seeds[0] : c.seed;
+  const uint32_t prior_seed = seeds != nullptr ? seeds[1] : box.seed;
   extern __shared__ float obs_s[];
   for (int i = threadIdx.x; i < Model::N_OBS * T; i += blockDim.x) obs_s[i] = obs[i];
   __syncthreads();
@@ -296,13 +299,13 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const int W = sched.width();
   const uint32_t idx = c.offset + static_cast<uint32_t>(b);  // the sample's hash index
   Sample<Model, V> s;
-  s.load_theta(theta_in, theta_out, b, idx, B, box, W);
+  s.load_theta(theta_in, theta_out, b, idx, B, box, prior_seed, W);
   s.start(c);
   // this sample's theta: a column of theta_in, or the row just written
   const bool wave = (V & WAVE) != 0;
   const float* col = wave ? theta_out + static_cast<size_t>(b) * W : theta_in + b;
   const size_t stride = wave ? 1 : static_cast<size_t>(B);
-  const uint32_t base = rng::sample_base(c.seed, idx);
+  const uint32_t base = rng::sample_base(sim_seed, idx);
   uint32_t day_p2 = 0u;  // day * DAY_P2
   int day = 0;
   for (int w = 0;; ++w) {
@@ -322,7 +325,8 @@ __global__ void __launch_bounds__(MAX_BLOCK)
 template <class Model, int... V>
 auto kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, float*, float*, int, int, Consts,
-                      Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>, const int*);
+                      Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>, const int*,
+                      const uint32_t*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_kernel<Model, V>...};
 }
 
@@ -359,7 +363,8 @@ template <class Model>
 int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void* out,
                    const float* fconst, const int* iconst, const float* lows,
                    const float* highs, uint32_t prior_seed, bool wave, int B, int T, int block,
-                   void* stream, const int* gate, uint32_t offset = 0u) {
+                   void* stream, const int* gate, uint32_t offset = 0u,
+                   const uint32_t* seeds = nullptr) {
   constexpr int P = Model::N_PARAMS;
   if (B <= 0 || T <= 0 || block <= 0 || block > MAX_BLOCK) return cudaErrorInvalidValue;
   if (!index_range_ok(offset, B)) return cudaErrorInvalidValue;
@@ -407,7 +412,8 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
   const int grid = (B + block - 1) / block;
   kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
-      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, c, box, sched, gate);
+      static_cast<float*>(theta_out), static_cast<float*>(out), B, T, c, box, sched, gate,
+      seeds);
   return cudaGetLastError();
 }
 
@@ -424,7 +430,11 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
 // are device outputs; lows and highs [W] are host arrays and, with
 // prior_seed, go into the kernel's parameters; iconst's seed word is the
 // simulation seed; sample b hashes on offset + b (cudaErrorInvalidValue
-// where offset + B passes 2^32).
+// where offset + B passes 2^32). Its last argument, seeds, is null or a
+// device pointer to the wave's (simulation seed, prior seed), two uint32
+// words that the kernel reads when it runs in place of the two seeds in its
+// parameters: a replayed CUDA graph, whose parameters are frozen, draws
+// each wave with the seeds written there before the replay.
 // Both take a gate (the theta-in entry's last argument, the wave entry's
 // last but its offset), a device int or null: a launch whose gate reads 0
 // when it runs writes nothing (a wave enqueued past the ABC target), null
@@ -447,12 +457,13 @@ int launch_abc_sim(const void* theta_in, const void* obs, void* theta_out, void*
   int abc_sim_wave_##name(unsigned int prior_seed, const void* lows, const void* highs,         \
                           const void* obs, void* theta, void* dist, const void* fconst,         \
                           const void* iconst, int B, int T, int block, void* stream,            \
-                          const void* gate, unsigned int offset) {                              \
+                          const void* gate, unsigned int offset, const void* seeds) {           \
     return launch_abc_sim<Model>(nullptr, obs, theta, dist, static_cast<const float*>(fconst),  \
                                  static_cast<const int*>(iconst),                               \
                                  static_cast<const float*>(lows),                               \
                                  static_cast<const float*>(highs), prior_seed, true, B, T,      \
-                                 block, stream, static_cast<const int*>(gate), offset);         \
+                                 block, stream, static_cast<const int*>(gate), offset,          \
+                                 static_cast<const uint32_t*>(seeds));                          \
   }                                                                                             \
   const char* kernel_error_string(int code) {                                                   \
     return cudaGetErrorString(static_cast<cudaError_t>(code));                                  \

@@ -112,11 +112,14 @@ __global__ void __launch_bounds__(MAX_BLOCK)
                             int B, int T, Geo g, Consts c,
                             const __grid_constant__ Box<Model::N_PARAMS> box,
                             const __grid_constant__ Sched<Model::N_PARAMS> sched,
-                            const int* __restrict__ gate) {  // null, or 0: writes nothing
+                            const int* __restrict__ gate,        // null, or 0: writes nothing
+                            const uint32_t* __restrict__ seeds) {  // null, or the wave's seeds
   constexpr int C = Model::N_STATE, TR = Model::N_TRANS, NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value;
   static_assert(Model::N_PARAMS <= MAX_PARAMS, "too many parameters");
   if (gate != nullptr && *gate == 0) return;  // the same in every thread
+  const uint32_t sim_seed = seeds != nullptr ? seeds[0] : c.seed;
+  const uint32_t prior_seed = seeds != nullptr ? seeds[1] : box.seed;
   const int R = g.R, n_chan = g.n_chan;
   extern __shared__ float smem[];
   float* obs_s = smem;                         // [n_chan * T]
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const int W = sched.width();
   const uint32_t idx = c.offset + static_cast<uint32_t>(b);  // the sample's hash index
   Sample<Model, V> s;  // its parameters p, the theta draw and the windows
-  s.load_theta(theta_in, theta_out, b, idx, B, box, W);
+  s.load_theta(theta_in, theta_out, b, idx, B, box, prior_seed, W);
 
   float x[MAX_REGIONS * C];
   float cum[MAX_REGIONS * NO], bin[MAX_REGIONS * NO];
@@ -170,7 +173,7 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   const bool wave = (V & WAVE) != 0;
   const float* col = wave ? theta_out + static_cast<size_t>(b) * W : theta_in + b;
   const size_t stride = wave ? 1 : static_cast<size_t>(B);
-  const uint32_t base = rng::sample_base(c.seed, idx);
+  const uint32_t base = rng::sample_base(sim_seed, idx);
   uint32_t day_p2 = 0u;  // day * 2 * slots * P2
   int day = 0;
   for (int w = 0;; ++w) {
@@ -264,7 +267,7 @@ template <class Model, int... V>
 auto regional_kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, const float*, const float*, float*, float*,
                       int, int, Geo, Consts, Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>,
-                      const int*);
+                      const int*, const uint32_t*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_regional_kernel<Model, V>...};
 }
 
@@ -377,7 +380,8 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
                             const float* fconst, const int* iconst, const float* lows,
                             const float* highs, uint32_t prior_seed, bool wave, int B, int T,
                             int R, int seed_region, int pool, int block, void* stream,
-                            const int* gate, uint32_t offset = 0u) {
+                            const int* gate, uint32_t offset = 0u,
+                            const uint32_t* seeds = nullptr) {
   constexpr int NC = coupled_count<Model>::value;
   RegionalArgs<Model> a;
   int err = read_regional_args<Model>(obs, mob, weights, fconst, iconst, lows, highs, prior_seed,
@@ -396,7 +400,7 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
       static_cast<const float*>(mob), static_cast<const float*>(weights),
       static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched,
-      gate);
+      gate, seeds);
   return cudaGetLastError();
 }
 
@@ -412,7 +416,9 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
 // R * N_OBS.
 // abc_sim_regional_wave_<name>: theta [B, W] (16-byte aligned) and dist [B]
 // are device outputs; lows and highs [W] are host arrays; sample b hashes on
-// offset + b (cudaErrorInvalidValue where offset + B passes 2^32).
+// offset + b (cudaErrorInvalidValue where offset + B passes 2^32); seeds is
+// null or the wave's two device seeds, as the flat wave entry takes them
+// (abc_sim.cuh).
 // abc_sim_regional_shape_<name>(out): N_STATE, N_TRANS, N_PARAMS, N_OBS,
 // N_COUPLED, the coupled compartments, N_RCONST, whether the struct makes its
 // coupled inputs, and each transition's source and destination (out holds
@@ -459,11 +465,11 @@ int launch_abc_sim_regional(const void* theta_in, const void* obs, const void* m
                                    void* theta, void* dist, const void* fconst,                 \
                                    const void* iconst, int B, int T, int R, int seed_region,    \
                                    int pool, int block, void* stream, const void* gate,         \
-                                   unsigned int offset) {                                       \
+                                   unsigned int offset, const void* seeds) {                    \
     return launch_abc_sim_regional<Model>(                                                      \
         nullptr, obs, mob, weights, theta, dist, static_cast<const float*>(fconst),             \
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
-        stream, static_cast<const int*>(gate), offset);                                         \
+        stream, static_cast<const int*>(gate), offset, static_cast<const uint32_t*>(seeds));    \
   }                                                                                             \
   }

@@ -174,12 +174,15 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
                                  int B, int T, Geo g, Consts c,
                                  const __grid_constant__ Box<Model::N_PARAMS> box,
                                  const __grid_constant__ Sched<Model::N_PARAMS> sched,
-                                 const int* __restrict__ gate) {  // null, or 0: writes nothing
+                                 const int* __restrict__ gate,  // null, or 0: writes nothing
+                                 const uint32_t* __restrict__ seeds) {  // null, or the wave's
   constexpr int C = Model::N_STATE, TR = Model::N_TRANS, NO = Model::N_OBS;
   constexpr int NC = coupled_count<Model>::value, NCX = NC > 0 ? NC : 1;
   constexpr int S = WARP_SLOTS;
   static_assert(Model::N_PARAMS <= MAX_PARAMS, "too many parameters");
   if (gate != nullptr && *gate == 0) return;  // the same in every thread
+  const uint32_t sim_seed = seeds != nullptr ? seeds[0] : c.seed;
+  const uint32_t prior_seed = seeds != nullptr ? seeds[1] : box.seed;
   const int R = g.R, n_chan = g.n_chan;
   const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   extern __shared__ float4 smem4[];
@@ -208,7 +211,7 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
   const int W = sched.width();
   const uint32_t idx = c.offset + static_cast<uint32_t>(b);  // the sample's hash index
   Sample<Model, V> s;  // its parameters p, the theta draw and the windows
-  if (lane == 0) s.load_theta(theta_in, theta_out, b, idx, B, box, W);
+  if (lane == 0) s.load_theta(theta_in, theta_out, b, idx, B, box, prior_seed, W);
 #pragma unroll
   for (int j = 0; j < Model::N_PARAMS; ++j) s.p[j] = __shfl_sync(FULL_MASK, s.p[j], 0);
   __syncwarp();  // theta_out's row is read again where a window starts
@@ -242,7 +245,7 @@ __global__ void __launch_bounds__(WARP_MAX_BLOCK)
   const bool wave = (V & WAVE) != 0;
   const float* col = wave ? theta_out + static_cast<size_t>(b) * W : theta_in + b;
   const size_t stride = wave ? 1 : static_cast<size_t>(B);
-  const uint32_t base = rng::sample_base(c.seed, idx);
+  const uint32_t base = rng::sample_base(sim_seed, idx);
   uint32_t day_p2 = 0u;  // day * 2 * slots * P2
   int day = 0;
   for (int win = 0;; ++win) {
@@ -370,7 +373,7 @@ template <class Model, int... V>
 auto regional_warp_kernel_table(std::integer_sequence<int, V...>) {
   using Fn = void (*)(const float*, const float*, const float*, const float*, float*, float*,
                       int, int, Geo, Consts, Box<Model::N_PARAMS>, Sched<Model::N_PARAMS>,
-                      const int*);
+                      const int*, const uint32_t*);
   return std::array<Fn, sizeof...(V)>{&abc_sim_regional_warp_kernel<Model, V>...};
 }
 
@@ -380,7 +383,8 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
                                  const float* fconst, const int* iconst, const float* lows,
                                  const float* highs, uint32_t prior_seed, bool wave, int B,
                                  int T, int R, int seed_region, int pool, int block,
-                                 void* stream, const int* gate, uint32_t offset = 0u) {
+                                 void* stream, const int* gate, uint32_t offset = 0u,
+                                 const uint32_t* seeds = nullptr) {
   constexpr int NC = coupled_count<Model>::value;
   if (block % 32 != 0) return cudaErrorInvalidValue;
   RegionalArgs<Model> a;
@@ -403,7 +407,7 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
       static_cast<const float*>(theta_in), static_cast<const float*>(obs),
       static_cast<const float*>(mob), static_cast<const float*>(weights),
       static_cast<float*>(theta_out), static_cast<float*>(out), B, T, a.g, a.c, a.box, a.sched,
-      gate);
+      gate, seeds);
   return cudaGetLastError();
 }
 
@@ -411,8 +415,9 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
 
 // The C interface of one struct's warp-per-sample kernel: the thread route's
 // entries (ABC_SIM_REGIONAL_EXPORTS) with `_warp` in their names and the
-// same arguments, the gate and the wave entry's offset too, `block` in threads (block / 32
-// samples a block, at most abc_sim_warp_max_block()).
+// same arguments, the gate and the wave entry's offset and seeds too,
+// `block` in threads (block / 32 samples a block, at most
+// abc_sim_warp_max_block()).
 #define ABC_SIM_REGIONAL_WARP_EXPORTS(name, Model)                                               \
   extern "C" {                                                                                  \
   int abc_sim_warp_max_block() { return WARP_MAX_BLOCK; }                                       \
@@ -431,11 +436,12 @@ int launch_abc_sim_regional_warp(const void* theta_in, const void* obs, const vo
                                         const void* weights, void* theta, void* dist,           \
                                         const void* fconst, const void* iconst, int B, int T,   \
                                         int R, int seed_region, int pool, int block,            \
-                                        void* stream, const void* gate, unsigned int offset) {  \
+                                        void* stream, const void* gate, unsigned int offset,    \
+                                        const void* seeds) {                                    \
     return launch_abc_sim_regional_warp<Model>(                                                 \
         nullptr, obs, mob, weights, theta, dist, static_cast<const float*>(fconst),             \
         static_cast<const int*>(iconst), static_cast<const float*>(lows),                       \
         static_cast<const float*>(highs), prior_seed, true, B, T, R, seed_region, pool, block,  \
-        stream, static_cast<const int*>(gate), offset);                                         \
+        stream, static_cast<const int*>(gate), offset, static_cast<const uint32_t*>(seeds));    \
   }                                                                                             \
   }

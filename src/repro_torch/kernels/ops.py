@@ -174,11 +174,13 @@ class AbcSim:
     def wave(self, prior, prior_seed: int, sim_seed: int, batch: int,
              gate: Optional[torch.Tensor] = None,
              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-             offset: int = 0,
+             offset: int = 0, seeds: Optional[torch.Tensor] = None,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(theta [batch, W], distances [batch] with NaN as +inf) of the
         samples at hash indices offset .. offset + batch - 1, in `out` when
-        it is given."""
+        it is given. On the card `seeds` (`abc_sim.check_seeds`) hands the
+        kernel its (sim_seed, prior_seed) in device memory, in place of the
+        two given here."""
         if prior.dim != self.width:
             what = "" if self.schedule is None else " and scale columns"
             raise ValueError(f"the prior has {prior.dim} dimensions; {self.model.name} has "
@@ -186,11 +188,14 @@ class AbcSim:
         if self.device.type == "cuda":
             if isinstance(prior, UniformBoxPrior):
                 return self.launch("wave", batch)(sim_seed, prior_seed, prior.lows, prior.highs,
-                                                  gate=gate, out=out, offset=offset)
-            if gate is not None or offset:
-                raise ValueError("a gated or offset wave on the card draws theta in the "
-                                 f"kernel: it needs a UniformBoxPrior, got "
+                                                  gate=gate, out=out, offset=offset, seeds=seeds)
+            if gate is not None or offset or seeds is not None:
+                raise ValueError("a gated, offset or device-seeded wave on the card draws theta "
+                                 f"in the kernel: it needs a UniformBoxPrior, got "
                                  f"{type(prior).__name__}")
+        elif seeds is not None:
+            raise ValueError("device seeds are read by the kernel's wave entry on the card; "
+                             "on the CPU pass the seeds themselves")
         elif self._gated_off(gate):
             return abc_sim.wave_out(out, batch, self.width, self.device)
         theta = prior.sample(prior_seed, batch, self.device, offset=offset)

@@ -329,12 +329,13 @@ PJIT_COMBO = Combo("sir", None, "euclidean", 0, style="pjit")
 def test_audit_catches_a_fault_planted_in_the_wave_loop(monkeypatch, combo, fault, rule):
     real = tabc.compact_accepted
 
-    def planted(th_buf, d_buf, fill, theta, dist, accept, capacity):
+    def planted(th_buf, d_buf, fill, theta, dist, accept, capacity, words=None):
         if fault == "item":
             accept.sum().item()
         elif fault == "float64":
             accept.sum().double()
-        th_buf, d_buf, new_fill = real(th_buf, d_buf, fill, theta, dist, accept, capacity)
+        th_buf, d_buf, new_fill = real(th_buf, d_buf, fill, theta, dist, accept, capacity,
+                                       words)
         if fault == "copy":
             th_buf, d_buf = th_buf.clone(), d_buf.clone()
         return th_buf, d_buf, new_fill

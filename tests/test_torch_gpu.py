@@ -1541,7 +1541,7 @@ def test_wave_entry_refuses_an_offset_past_the_32_bit_index(cuda, case):
                            population=ds.population, a0=ds.a0, r0=ds.r0, d0=ds.d0)
     fn = sim.launch("wave", 16, route or None).fn
     args = list(fn.argtypes)
-    assert args[-1] is ctypes.c_uint and len(args) in (14, 19)
+    assert args[-2] is ctypes.c_uint and len(args) in (15, 20)
     lo = np.ascontiguousarray(spec.prior().lows, np.float32)
     hi = np.ascontiguousarray(spec.prior().highs, np.float32)
     out = torch.empty((16, spec.n_params), device=cuda), torch.empty((16,), device=cuda)
@@ -1554,8 +1554,8 @@ def test_wave_entry_refuses_an_offset_past_the_32_bit_index(cuda, case):
     if route:
         head += [spec.n_regions, spec.seed_region, 0]
     head += [abc_sim.route_block(route or "thread"), stream, None]
-    assert fn(*head, 2**32 - 8) == 1  # cudaErrorInvalidValue
-    assert fn(*head, 2**32 - 16) == 0
+    assert fn(*head, 2**32 - 8, None) == 1  # cudaErrorInvalidValue
+    assert fn(*head, 2**32 - 16, None) == 0
 
 
 def test_pjit_world_of_one_over_nccl_is_the_unsharded_run(cuda):

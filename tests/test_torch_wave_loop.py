@@ -385,6 +385,98 @@ def test_compaction_wrapper_refuses_what_the_kernel_does_not_take(case):
 # The gate of the simulator on the CPU, and the CLI
 # ------------------------------------------------------------------------
 
+class _FakeSim:
+    """A simulator that only reports its device: the graph path's choice
+    reads nothing else (as tests/test_torch_distributed.py fakes one)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+
+class _OwnLoop(tabc.WaveRunner):
+    """A subclass with a wave loop of its own, as the sharded runners."""
+
+    def __call__(self, seed, run_idx0, carry, max_waves):
+        raise AssertionError("not called")
+
+
+def _chooser(device="cuda", shards=1, eager_segments=1, cls=tabc.WaveRunner):
+    cfg = tabc.ABCConfig(batch_size=1024, chunk_size=1024, num_days=DAYS, wave_loop="device")
+    sims = tuple(_FakeSim(device) for _ in range(shards))
+    runner = cls(sim=sims[0], prior=get_model("siard").prior(), cfg=cfg,
+                 capacity=tabc.wave_capacity(cfg), n_params=8,
+                 shard_sims=sims if shards > 1 else ())
+    runner._eager_segments = eager_segments
+    return runner
+
+
+#: the graph path's choice: (runner, segment's waves less SEGMENT_WAVES, replays)
+GRAPH_CHOICES = {
+    "one_card_full_segment": (dict(), 0, True),
+    "cpu_tensors": (dict(device="cpu"), 0, False),
+    "several_shards": (dict(shards=2), 0, False),
+    "short_segment": (dict(), -1, False),
+    "first_segment": (dict(eager_segments=0), 0, False),
+    "subclass_with_its_own_loop": (dict(cls=_OwnLoop), 0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CHOICES))
+def test_graph_path_choice(case):
+    """A segment replays the graph only on a CUDA device, with one shard,
+    at SEGMENT_WAVES waves, after one such segment ran eagerly, on the
+    runner's own loop; everything else keeps the eager path."""
+    kw, less, replays = GRAPH_CHOICES[case]
+    assert _chooser(**kw).takes_graph(tabc.SEGMENT_WAVES + less) is replays
+
+
+def test_a_reused_runner_on_the_cpu_never_captures():
+    """On the CPU a runner reused over posteriors stays on the eager path:
+    no graph state, fresh buffers from every `init`, no capture or replay."""
+    spec = get_model("siard")
+    ds = get_dataset("synthetic_small", num_days=DAYS)
+    cfg = _cfg(spec, _model_tolerance(spec, quantile=0.005), target_accepted=60,
+               wave_loop="device")
+    runner = tabc.make_wave_runner(spec.prior(), tabc.make_simulator(ds, cfg, "cpu"), cfg)
+    counts = tabc.GRAPH_CAPTURES, tabc.GRAPH_REPLAYS
+    posts = [tabc.run_abc(ds, cfg, seed=s, wave_runner=runner) for s in (3, 3, 4)]
+    assert (tabc.GRAPH_CAPTURES, tabc.GRAPH_REPLAYS) == counts
+    assert runner._graph is None and runner._eager_segments == 0
+    _assert_identical(posts[0], posts[1])
+    empty = tabc.ABCState(n_params=spec.n_params)
+    assert runner.init(empty)[0][0] is not runner.init(empty)[0][0]
+
+
+@pytest.mark.parametrize("seed,run_idx0", [(0, 0), (2**40 + 3, 2**32 - 5), (3_000_000_019, 17),
+                                           (5, 2**40 + 9)])
+def test_segment_seeds_are_the_waves_own(seed, run_idx0):
+    """The graph path's seed table, hashed over arrays, holds each wave's
+    (simulation seed, prior seed) of `wave_seeds`."""
+    got = tabc.segment_seeds(seed, run_idx0, tabc.SEGMENT_WAVES)
+    want = [tabc.wave_seeds(seed, run_idx0 + i)[::-1] for i in range(tabc.SEGMENT_WAVES)]
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, np.array(want, np.uint32))
+
+
+def test_device_seeds_are_refused_where_no_kernel_reads_them():
+    """Seeds in device memory are the card's wave entry's: the CPU's wave
+    refuses them, and the check refuses a table of another shape, type or
+    device."""
+    from repro_torch.kernels import abc_sim
+
+    spec = get_model("siard")
+    ds = get_dataset("synthetic_small", num_days=DAYS)
+    sim = tabc.make_simulator(ds, _cfg(spec, 1.0), "cpu")
+    with pytest.raises(ValueError, match="device seeds"):
+        sim.wave(spec.prior(), 1, 2, 16, seeds=torch.zeros((2,), dtype=torch.int32))
+    abc_sim.check_seeds(None, torch.device("cpu"))
+    abc_sim.check_seeds(torch.zeros((2,), dtype=torch.int32), torch.device("cpu"))
+    for bad in (torch.zeros((3,), dtype=torch.int32), torch.zeros((2,), dtype=torch.int64),
+                torch.zeros((2, 2), dtype=torch.int32)[:, 0], (1, 2)):
+        with pytest.raises(ValueError, match="seeds must be"):
+            abc_sim.check_seeds(bad, torch.device("cpu"))
+
+
 def test_a_gate_of_zero_skips_the_plain_version():
     spec = get_model("siard")
     ds = get_dataset("synthetic_small", num_days=DAYS)
